@@ -1,0 +1,6 @@
+"""Arch configs. ``get_config(name)`` loads CONFIG from the module."""
+from repro_torch.configs.base import (ModelConfig, OVSFConfig, get_config,
+                                      get_smoke_config, smoke_variant)
+
+__all__ = ["ModelConfig", "OVSFConfig", "get_config", "get_smoke_config",
+           "smoke_variant"]

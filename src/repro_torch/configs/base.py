@@ -1,0 +1,108 @@
+"""Config dataclasses and the arch registry (port of ``repro.configs.base``).
+
+Only the dense-family fields the ported serving path reads are carried;
+``ShapeConfig``/``input_specs`` (JAX-lowering helpers) and the MoE / SSM /
+encoder-decoder / VLM fields wait for the slices that port those families.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+import torch
+
+from repro_torch.core.ovsf import validate_alpha_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class OVSFConfig:
+    enable: bool = False
+    rho: float = 0.5                      # default OVSF ratio
+    # per weight-type overrides, e.g. (("mlp_down", 0.25), ("attn_o", 1.0))
+    rho_overrides: tuple[tuple[str, float], ...] = ()
+    strategy: str = "iterative"           # sequential | iterative
+    exec_path: str = "materialize"        # materialize | fused | spectral
+    # Code segment length L0 (16 = the paper's per-channel-pair codes);
+    # 0 = monolithic next_pow2(d_in) codes.
+    seg_len: int = 16
+    min_dim: int = 512                    # skip matrices smaller than this
+    targets: tuple[str, ...] = ("attn", "mlp", "expert")
+    alpha_dtype: str = ""                 # "" | "int8" | "int4"
+
+    def __post_init__(self):
+        validate_alpha_dtype(self.alpha_dtype)
+        if self.exec_path not in ("materialize", "fused", "spectral"):
+            raise ValueError(
+                f"unknown exec_path {self.exec_path!r}; expected "
+                "materialize | fused | spectral")
+
+    def rho_for(self, name: str) -> float:
+        for pat, r in self.rho_overrides:
+            if pat in name:
+                return r
+        return self.rho
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # only "dense" is ported so far
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    mlp_gated: bool = True      # SwiGLU; False -> 2-matrix GELU MLP
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def get_config(name: str) -> ModelConfig:
+    """Load ``repro_torch.configs.<name>.CONFIG`` (dashes normalised)."""
+    mod_name = name.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    mod_name = name.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    if hasattr(mod, "SMOKE_CONFIG"):
+        return mod.SMOKE_CONFIG
+    return smoke_variant(mod.CONFIG)
+
+
+def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Reduced same-family config: small widths/layers/vocab."""
+    kw: dict[str, Any] = dict(
+        name=cfg.name + "_smoke",
+        n_layers=min(cfg.n_layers, 2),
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=min(max(cfg.n_kv_heads, 1), 2) if cfg.n_heads else 0,
+        head_dim=32,
+        d_ff=256,
+        vocab=512,
+        dtype="float32",
+    )
+    if cfg.ovsf.enable:
+        kw["ovsf"] = dataclasses.replace(cfg.ovsf, min_dim=32)
+    kw.update(overrides)
+    return cfg.replace(**kw)

@@ -1,0 +1,69 @@
+"""Carry parameters between the reference's pytree and the port.
+
+The reference's params arrive as nested dicts of numpy arrays (e.g.
+``jax.tree_util.tree_map(np.asarray, params)``) with ``blocks`` stacked
+along a leading layer axis; the port keeps the same key names (``alphas`` /
+``alphas_q8`` / ``alphas_q4`` + ``alpha_scale``, ``idx``, ``w``, ``b``,
+``scale``, ``table``) and holds ``blocks`` as a list of per-layer dicts.
+Nothing here imports JAX: numpy is the interchange format.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind in "iub":
+        return torch.tensor(a, device=device)
+    # bfloat16 numpy arrays (ml_dtypes) have no torch counterpart to view
+    # as; widening to float32 is exact for every float type here
+    return torch.tensor(a.astype(np.float32), device=device, dtype=dtype)
+
+
+def _convert(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+    return _tensor(tree, dtype, device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """Reference param tree (numpy leaves, stacked ``blocks``) -> the port's
+    params on ``device``: float leaves in ``cfg.act_dtype``, integer leaves
+    (code ids, quantised alphas) as they are."""
+    out = {k: _convert(v, cfg.act_dtype, device) for k, v in tree.items()
+           if k != "blocks"}
+    stacked = _convert(tree["blocks"], cfg.act_dtype, device)
+
+    def layer(sub, i):
+        if isinstance(sub, dict):
+            return {k: layer(v, i) for k, v in sub.items()}
+        return sub[i]
+
+    out["blocks"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    return out
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's params -> the reference's layout (numpy leaves, ``blocks``
+    stacked along a leading layer axis; bfloat16 widened to float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return leaf(tree)
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
+        return np.stack([leaf(t) for t in layers])
+
+    out = {k: conv(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = stack(params["blocks"])
+    return out

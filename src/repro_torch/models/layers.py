@@ -1,0 +1,93 @@
+"""Base layers: linear (dense or OVSF), RMSNorm, embedding, RoPE (port of
+``repro.models.layers``).
+
+Params are plain nested dicts of tensors with the reference's key names, so
+the bridge from the JAX pytree is a one-to-one copy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import ovsf
+from repro_torch.kernels import ops as kops
+
+
+def ovsf_eligible(cfg: ModelConfig, name: str, d_in: int, d_out: int) -> bool:
+    oc = cfg.ovsf
+    if not oc.enable or min(d_in, d_out) < oc.min_dim:
+        return False
+    group = name.split("_")[0]          # attn_q -> attn, mlp_up -> mlp
+    return group in oc.targets and oc.rho_for(name) < 1.0 + 1e-9
+
+
+def linear_init(gen: torch.Generator, cfg: ModelConfig, name: str, d_in: int,
+                d_out: int, device, bias: bool = False,
+                scale: float = 1.0) -> dict:
+    """Same shapes, key names and init statistics as the reference."""
+    dtype = cfg.act_dtype
+    p: dict = {}
+    if ovsf_eligible(cfg, name, d_in, d_out):
+        if cfg.ovsf.alpha_dtype:
+            raise NotImplementedError(
+                "quantised alpha init (the converter) is not ported yet")
+        seg = cfg.ovsf.seg_len if (cfg.ovsf.seg_len
+                                   and d_in % cfg.ovsf.seg_len == 0) else 0
+        spec = ovsf.OVSFSpec(d_in, d_out, rho=cfg.ovsf.rho_for(name),
+                             strategy=cfg.ovsf.strategy, seg=seg)
+        p.update(ovsf.init_ovsf(gen, spec, scale=scale, dtype=dtype,
+                                device=device))
+    else:
+        std = float(np.sqrt(scale / d_in))
+        p["w"] = torch.randn((d_in, d_out), generator=gen, dtype=dtype,
+                             device=device) * std
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def linear_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense layers are one ``torch.matmul``; OVSF layers dispatch by
+    ``cfg.ovsf.exec_path`` (the mapper's per-layer plans wait)."""
+    if "alphas" in p or "alphas_q8" in p or "alphas_q4" in p:
+        al, scale, adt = ovsf.alpha_params(p)
+        y = kops.ovsf_matmul(x, al, p["idx"], path=cfg.ovsf.exec_path,
+                             alpha_scale=scale, alpha_dtype=adt)
+    else:
+        y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,). Split-half convention:
+    the first and second halves of each head are the rotated pairs."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs    # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return y.to(x.dtype)

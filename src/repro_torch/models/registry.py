@@ -1,0 +1,78 @@
+"""Entry points over the model stack (port of ``repro.models.registry``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, H, Hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.d_ff)
+
+    def lin(name, d_in, d_out, bias=False):
+        return L.linear_init(gen, cfg, name, d_in, d_out, device, bias=bias)
+
+    def norm():
+        return {"scale": torch.ones((d,), dtype=cfg.act_dtype, device=device)}
+
+    mlp = {"up": lin("mlp_up", d, f), "down": lin("mlp_down", f, d)}
+    if cfg.mlp_gated:
+        mlp["gate"] = lin("mlp_gate", d, f)
+    return {
+        "norm1": norm(),
+        "attn": {"q": lin("attn_q", d, H * hd, cfg.qkv_bias),
+                 "k": lin("attn_k", d, Hkv * hd, cfg.qkv_bias),
+                 "v": lin("attn_v", d, Hkv * hd, cfg.qkv_bias),
+                 "o": lin("attn_o", H * hd, d)},
+        "norm2": norm(),
+        "mlp": mlp,
+    }
+
+
+def model_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters of the same shapes, key names and init statistics
+    as ``repro.models.registry.model_init``, drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the numbers differ from the
+    reference's ``jax.random`` ones; ``models.bridge`` carries those over).
+    ``blocks`` is a list of per-layer dicts."""
+    T._check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = cfg.act_dtype
+    p: dict = {
+        "embed": {"table": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                                       dtype=dtype, device=dev) * 0.02},
+        "blocks": [_block_init(gen, cfg, dev) for _ in range(cfg.n_layers)],
+        "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                           device=dev)},
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": torch.randn((cfg.d_model, cfg.vocab),
+                                         generator=gen, dtype=dtype,
+                                         device=dev) * 0.02}
+    return p
+
+
+def param_count(params) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(param_count(v) for v in items)
+
+
+def params_to(params, device):
+    """A copy of the param tree on ``device``."""
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return [params_to(v, device) for v in params]
+
+
+serve_step_paged = T.serve_step_paged
+serve_step_window_paged = T.serve_step_window_paged
+init_paged_cache = T.init_paged_cache

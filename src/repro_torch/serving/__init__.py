@@ -1,0 +1,25 @@
+"""Request-level serving stack of the port: ``LLMEngine`` over the paged +
+packed path (see ``repro_torch.serving.engine``)."""
+from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
+                                     FINISH_ERROR, FINISH_EVICTED,
+                                     FINISH_LENGTH, FINISH_PREEMPTED,
+                                     FINISH_REJECTED, FINISH_SHED,
+                                     FINISH_TIMEOUT, Request, RequestOutput,
+                                     SamplingParams)
+from repro_torch.serving.core import EngineCore, StepOutput
+from repro_torch.serving.engine import EngineStats, LLMEngine
+from repro_torch.serving.kvcache import PagedKVCache, pages_for
+from repro_torch.serving.scheduler import (ChunkTask, FCFSScheduler,
+                                           PackedStep, SchedulerOutput,
+                                           pack_bucket, pack_step)
+
+__all__ = [
+    "SamplingParams", "Request", "RequestOutput",
+    "FINISH_LENGTH", "FINISH_EOS", "FINISH_REJECTED",
+    "FINISH_TIMEOUT", "FINISH_SHED", "FINISH_ERROR", "FINISH_PREEMPTED",
+    "FINISH_EVICTED", "FINISH_CANCELLED",
+    "FCFSScheduler", "ChunkTask", "SchedulerOutput", "StepOutput",
+    "PackedStep", "pack_bucket", "pack_step",
+    "EngineCore", "LLMEngine", "EngineStats",
+    "PagedKVCache", "pages_for",
+]
