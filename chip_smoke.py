@@ -7,22 +7,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. card:   require CUDA; print ``nvidia-smi`` name and power limit.
   2. build:  compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, in parallel) and print the build time.
-  3. kernels: hold ``ovsf_gemm`` (segmented at the TinyLlama-1.1B layer
-             shapes for M in {4, 128}, plus monolithic and ragged cases) and
+  3. kernels: hold ``ovsf_gemm`` with bf16/fp32, int8 and nibble-packed
+             int4 alphas (segmented at the TinyLlama-1.1B layer shapes for M
+             in {4, 128}, plus monolithic and ragged cases) and
              ``paged_flash_decode`` (T in {4, 128}, H 32, Hkv 4, hd 64,
              page 16, padding tokens and sentinel pages) against their plain
              versions on the card, in bf16 and fp32; print each error against
-             its tolerance, the kernel's CUDA-event time, its bound, the plain
-             version's time and one library call's (the port never calls it).
+             its tolerance, the kernel's device time (CUDA-graph replay), its
+             bound, the plain version's time and one library call's (the
+             port never calls it). Then the quantised wrapper must refuse
+             what it does not take (bf16 or CPU scales, CPU alphas, float
+             alphas, scales that do not tile J).
   4. serve:  full-width TinyLlama-1.1B (22 layers, d 2048, bf16, random
              weights from --seed) through ``LLMEngine(paged=True,
-             packed=True, chunk_size=64, batch_slots=4, buffer_len=256)``: 8
-             requests (6 greedy, 2 sampled) must all finish, and the kernel
-             launch counters, zeroed just before, must read 5 * 22
-             ``ovsf_gemm`` and 22 ``paged_flash_decode`` launches per step.
+             packed=True, chunk_size=64, batch_slots=4, buffer_len=256)``,
+             once with bf16 alphas and once each with int8 and int4 alphas:
+             the engine's mapper plan (target ``h100``) must be ``fused``
+             for every OVSF weight type, 8 requests (6 greedy, 2 sampled)
+             must all finish, and the kernel launch counters, zeroed just
+             before, must read 5 * 22 ``ovsf_gemm`` launches of that alpha
+             storage and 22 ``paged_flash_decode`` launches per step.
   5. parity: one full-width packed step in fp32 on the card vs the same step
-             with the same parameters on the CPU (plain versions); relative
-             L2 error of the logits <= 1e-3.
+             with the same parameters on the CPU (plain versions), with fp32
+             and with int8 alphas; relative L2 error of the logits <= 1e-3.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -46,6 +53,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}   # rtol = atol
 L2_BYTES = 50e6
+ALPHA_DTYPES = ("", "int8", "int4")         # bf16/fp32, int8, packed int4
 
 
 def card_line() -> str:
@@ -146,7 +154,12 @@ def gemm_case(rng, seg: int, M: int, K: int, N: int, dtype, dev):
             torch.from_numpy(idx.astype(np.int32)).to(dev), nk)
 
 
-def run_gemm_checks(rng, dev):
+def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
+    """``ovsf_gemm`` with alphas in x's type (``alpha_dtype=""``) or stored
+    as int8 / packed int4 with per-segment fp32 scales. The byte bound
+    counts the stored alpha bytes (J*N for int8, J*N/2 for int4) plus the
+    scales, x, y and idx."""
+    from repro_torch.core.ovsf import quantize_alphas
     from repro_torch.kernels.ovsf_gemm import ovsf_gemm, ovsf_gemm_plain
     from repro_torch.kernels.ref import ovsf_decompress_ref
     layer = {"q": (2048, 2048), "o": (2048, 2048), "gate": (2048, 5632),
@@ -156,53 +169,101 @@ def run_gemm_checks(rng, dev):
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(16, 13, 128, 64, dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [(0, 5, 1000, 1000, dt) for dt in (torch.bfloat16, torch.float32)]
+    name = "ovsf_gemm" + (f"_{alpha_dtype}" if alpha_dtype else "")
     rows = []
     for seg, M, K, N, dt in cases:
         x, al, idx, nk = gemm_case(rng, seg, M, K, N, dt, dev)
-        label = (f"ovsf_gemm {'seg' if seg else 'mono'} M={M} {K}->{N} "
+        scale = None
+        if alpha_dtype:
+            al, scale = quantize_alphas(al.float(), idx.shape[0] if seg else 1,
+                                        alpha_dtype)
+        kw = dict(alpha_scale=scale, alpha_dtype=alpha_dtype)
+        label = (f"{name} {'seg' if seg else 'mono'} M={M} {K}->{N} "
                  f"{str(dt).split('.')[-1]}")
-        err = check(label, ovsf_gemm(x, al, idx), ovsf_gemm_plain(x, al, idx),
-                    dt)
+        err = check(label, ovsf_gemm(x, al, idx, **kw),
+                    ovsf_gemm_plain(x, al, idx, **kw), dt)
         es = x.element_size()
-        bytes_ = (x.numel() + al.numel() + M * N) * es + idx.numel() * 4
+        bytes_ = ((x.numel() + M * N) * es + al.numel() * al.element_size()
+                  + idx.numel() * 4 + (scale.numel() * 4 if alpha_dtype
+                                       else 0))
         gen_macs = K * N * (nk if seg else al.shape[0])
         flops = 2 * M * K * N + 2 * gen_macs
         t_bound, by = bound(bytes_, flops, dt)
         copies = [(torch.randn_like(x), al.clone()) for _ in
                   range(n_copies(bytes_))]
-        ms, call_ms = timings([lambda a=a, b=b: ovsf_gemm(a, b, idx)
+        ms, call_ms = timings([lambda a=a, b=b: ovsf_gemm(a, b, idx, **kw)
                                for a, b in copies], 40)
-        plain_ms, _ = timings([lambda a=a, b=b: ovsf_gemm_plain(a, b, idx)
+        plain_ms, _ = timings([lambda a=a, b=b: ovsf_gemm_plain(a, b, idx,
+                                                                **kw)
                                for a, b in copies[:2]], 4)
-        W = ovsf_decompress_ref(al.float(), idx, K).to(dt)
+        W = ovsf_decompress_ref(al if alpha_dtype else al.float(), idx, K,
+                                **kw).to(dt)
         lib_err = float((torch.matmul(x, W).float()
-                         - ovsf_gemm_plain(x, al, idx).float()).abs().max())
+                         - ovsf_gemm_plain(x, al, idx, **kw).float())
+                        .abs().max())
         wcopies = [(a, W.clone()) for a, _ in
                    copies[:n_copies(W.numel() * es)]]
         lib_ms, _ = timings([lambda a=a, w=w: torch.matmul(a, w)
                              for a, w in wcopies], 40)
         del copies, wcopies, W
         row = dict(case=label, seg=seg, M=M, K=K, N=N, dtype=str(dt),
-                   max_abs_err=err, tol=TOL[dt], ms=ms, call_ms=call_ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
-                   bound_ms=t_bound, bound_by=by)
+                   alpha_dtype=alpha_dtype or "fp", max_abs_err=err,
+                   tol=TOL[dt], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_err=lib_err, bound_ms=t_bound,
+                   bound_by=by)
         rows.append(row)
         print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
               f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
               f"bound={t_bound:.4f}ms ({by}) "
               f"plain={plain_ms:.4f}ms library(matmul, dense W)="
               f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
-    # one decode layer's five projections at M = 4 in bf16: the summary row
-    pick = {(r["K"], r["N"]): r for r in rows if r["seg"] and r["M"] == 4
-            and r["dtype"] == "torch.bfloat16"}
-    summary = {key: sum(pick[kn][key] for kn in layer.values())
-               for key in ("ms", "call_ms", "plain_ms", "library_ms",
-                           "bound_ms")}
-    summary["bound_by"] = ("bytes" if all(pick[kn]["bound_by"] == "bytes"
-                                          for kn in layer.values())
-                           else "operations")
+    # one decode layer's five projections at M = 4 in bf16 (the summary row
+    # of the kernels line), and the same at M = 128
+    summary = {}
+    for M in (4, 128):
+        pick = {(r["K"], r["N"]): r for r in rows if r["seg"] and r["M"] == M
+                and r["dtype"] == "torch.bfloat16"}
+        s = {key: sum(pick[kn][key] for kn in layer.values())
+             for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
+        s["bound_by"] = ("bytes" if all(pick[kn]["bound_by"] == "bytes"
+                                        for kn in layer.values())
+                         else "operations")
+        summary[M] = s
+    summary = dict(summary[4], layer_M128=summary[128])
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return rows, summary
+
+
+def check_quant_contract(dev) -> list:
+    """The quantised wrapper refuses, before any launch, what the kernel does
+    not take; a refusal must not count as a launch."""
+    from repro_torch.core.ovsf import quantize_alphas
+    from repro_torch.kernels.ovsf_gemm import ovsf_gemm
+    x = torch.randn((4, 128), device=dev, dtype=torch.bfloat16)
+    idx = torch.arange(8, dtype=torch.int32, device=dev).repeat(8, 1)
+    q, s = quantize_alphas(torch.randn((64, 64), device=dev), 8, "int4")
+    before = ovsf_gemm.launches
+    bad = {"bf16 scales": dict(alpha_scale=s.bfloat16()),
+           "scales on the CPU": dict(alpha_scale=s.cpu()),
+           "alphas on the CPU": dict(alpha_scale=s, alphas=q.cpu()),
+           "float alphas": dict(alpha_scale=s, alphas=q.float()),
+           "scales that do not tile J": dict(alpha_scale=s[:3].contiguous()),
+           "no scales": dict(alpha_scale=None)}
+    refused = []
+    for what, kw in bad.items():
+        alphas = kw.pop("alphas", q)
+        try:
+            ovsf_gemm(x, alphas, idx, alpha_dtype="int4", **kw)
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+            continue
+        raise RuntimeError(f"ovsf_gemm took {what} without raising")
+    if ovsf_gemm.launches != before:
+        raise RuntimeError("a refused ovsf_gemm call counted a launch")
+    print(f"[kernel] ovsf_gemm int4 wrapper refuses: "
+          + "; ".join(r.split(":")[0] for r in refused), flush=True)
+    return refused
 
 
 def paged_case(rng, T: int, dtype, dev, H=32, Hkv=4, hd=64, ps=16,
@@ -308,22 +369,43 @@ def run_paged_checks(rng, dev):
 
 # -- phase 4: serve ----------------------------------------------------------
 
-def serve_phase(seed: int, card: str, dev):
+def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
+    """Serve 8 requests at full width with alphas in bf16 (``""``), int8 or
+    int4; the engine plans its OVSF layers with the mapper (target h100)."""
     from repro_torch.configs import get_config
+    from repro_torch.core.ovsf import alpha_params
+    from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.kernels.decode_attn import paged_flash_decode
-    from repro_torch.kernels.ovsf_gemm import ovsf_gemm
     from repro_torch.models import registry as R
     from repro_torch.serving import LLMEngine, Request, SamplingParams
+    adt = alpha_dtype or "fp"
+    tag = f"[serve {alpha_dtype or 'bf16'}]"
     cfg = get_config("tinyllama_1_1b")
-    cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf, exec_path="fused"))
+    cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,
+                                               alpha_dtype=alpha_dtype))
     t0 = time.perf_counter()
     params = R.model_init(cfg, seed, dev)
     torch.cuda.synchronize()
-    print(f"[serve] {cfg.name} bf16: {R.param_count(params)/1e9:.3f}B params "
-          f"initialised on the card in {time.perf_counter() - t0:.2f}s",
-          flush=True)
+    print(f"{tag} {cfg.name} bf16, alphas {alpha_dtype or 'bf16'}: "
+          f"{R.param_count(params)/1e9:.3f}B stored values initialised on "
+          f"the card in {time.perf_counter() - t0:.2f}s", flush=True)
     eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
-                    chunk_size=64, packed=True, paged=True, device=dev)
+                    chunk_size=64, packed=True, paged=True, hw="h100",
+                    device=dev)
+    plan = {n: p.path for n, p in eng.cfg.exec_plan.entries}
+    print(f"{tag} mapper plan (hw {eng.hw_label}, decode at 4 slots): "
+          + ", ".join(f"{n}={p}" for n, p in plan.items()), flush=True)
+    # full width: q, o, gate, up, down are OVSF (k/v, 256 wide, are dense)
+    block = params["blocks"][0]
+    ovsf_layers = {f"{grp}_{k}": p for grp in ("attn", "mlp")
+                   for k, p in block[grp].items() if "idx" in p}
+    if sorted(plan) != sorted(ovsf_layers) or set(plan.values()) != {"fused"}:
+        raise RuntimeError(f"serve: the plan {plan} is not 'fused' on every "
+                           f"OVSF weight type {sorted(ovsf_layers)}")
+    stored = {alpha_params(p)[2] for p in ovsf_layers.values()}
+    if stored != {alpha_dtype}:
+        raise RuntimeError(f"serve: OVSF layers store {stored} alphas, "
+                           f"expected {adt}")
     rng = np.random.default_rng(seed)
     reqs = []
     for rid in range(8):
@@ -332,7 +414,7 @@ def serve_phase(seed: int, card: str, dev):
         prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 150)),
                               dtype=np.int32)
         reqs.append(Request(rid, prompt, max_new_tokens=16, sampling=sp))
-    ovsf_gemm.launches = 0
+    G.reset_launches()
     paged_flash_decode.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
@@ -341,8 +423,12 @@ def serve_phase(seed: int, card: str, dev):
     stats = eng.run_until_drained(max_steps=1000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ovsf_gemm": ovsf_gemm.launches,
+    launches = {"ovsf_gemm": G.ovsf_gemm.launches_by_alpha[adt],
                 "paged_flash_decode": paged_flash_decode.launches}
+    if G.ovsf_gemm.launches != launches["ovsf_gemm"]:
+        raise RuntimeError(f"serve: ovsf_gemm launched with other alpha "
+                           f"storage than {adt}: "
+                           f"{G.ovsf_gemm.launches_by_alpha}")
     outs = eng.outputs()
     bad = [(o.rid, o.finish_reason) for o in outs
            if o.finish_reason not in ("eos", "length")]
@@ -351,11 +437,7 @@ def serve_phase(seed: int, card: str, dev):
     for o in outs:
         if not o.tokens or not all(0 <= t < cfg.vocab for t in o.tokens):
             raise RuntimeError(f"serve: request {o.rid} tokens {o.tokens}")
-    # full width: q, o, gate, up, down are OVSF (k/v, 256 wide, are dense)
-    block = params["blocks"][0]
-    n_ovsf = sum("alphas" in p for p in (*block["attn"].values(),
-                                         *block["mlp"].values()))
-    per_step = {"ovsf_gemm": n_ovsf * cfg.n_layers,
+    per_step = {"ovsf_gemm": len(ovsf_layers) * cfg.n_layers,
                 "paged_flash_decode": cfg.n_layers}
     for name, n in per_step.items():
         if launches[name] != n * stats.steps or launches[name] == 0:
@@ -363,23 +445,24 @@ def serve_phase(seed: int, card: str, dev):
                                f"times in {stats.steps} steps, expected "
                                f"{n} per step")
     tok_s = stats.tokens_out / wall
-    print(f"[serve] 8/8 finished: steps={stats.steps} "
+    print(f"{tag} 8/8 finished: steps={stats.steps} "
           f"tokens={stats.tokens_out} wall={wall:.3f}s "
           f"({tok_s:.1f} tok/s on {card}) decode_s={stats.decode_s:.3f} "
           f"mixed_s={stats.mixed_s:.3f} launches={launches} "
           f"padding_efficiency={stats.padding_efficiency:.3f}", flush=True)
-    result = dict(steps=stats.steps, tokens_out=stats.tokens_out, wall_s=wall,
-                  tok_s=tok_s, decode_s=stats.decode_s, mixed_s=stats.mixed_s,
+    result = dict(alpha_dtype=adt, plan=plan, steps=stats.steps,
+                  tokens_out=stats.tokens_out, wall_s=wall, tok_s=tok_s,
+                  decode_s=stats.decode_s, mixed_s=stats.mixed_s,
                   launches=launches,
                   padding_efficiency=stats.padding_efficiency,
                   tokens={o.rid: list(o.tokens) for o in outs})
-    result["decode_profile"] = profile_decode(eng, cfg, rng)
+    result["decode_profile"] = profile_decode(eng, cfg, rng, tag)
     del eng, params
     torch.cuda.empty_cache()
     return result, launches
 
 
-def profile_decode(eng, cfg, rng) -> dict:
+def profile_decode(eng, cfg, rng, tag: str) -> dict:
     """Where a pure-decode step's time goes: 8 steps timed on the host
     clock, then 8 more under ``torch.profiler`` for the device time by
     kernel; idle share = 1 - device busy time / unprofiled step wall."""
@@ -409,15 +492,14 @@ def profile_decode(eng, cfg, rng) -> dict:
     top = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
                   for e in kern), reverse=True)[:10]
     if not kern or busy_ms <= 0:
-        print("[profile] torch.profiler recorded no device time: device "
+        print(f"{tag} torch.profiler recorded no device time: device "
               "busy share not measured", flush=True)
         return dict(step_ms=step_ms, busy_ms=None, idle_share=None, top=[])
     idle = 1.0 - busy_ms / step_ms
-    print(f"[profile] pure-decode step (T=4 bucket): wall {step_ms:.3f}ms, "
+    print(f"{tag} pure-decode step (T=4 bucket): wall {step_ms:.3f}ms, "
           f"device busy {busy_ms:.3f}ms, idle share {idle:.3f}", flush=True)
     for ms, cnt, key in top:
-        print(f"[profile]   {ms:.4f}ms/step x{cnt}/step  {key[:90]}",
-              flush=True)
+        print(f"{tag}   {ms:.4f}ms/step x{cnt}/step  {key[:90]}", flush=True)
     return dict(step_ms=step_ms, busy_ms=busy_ms, idle_share=idle,
                 top=[dict(ms_per_step=ms, launches_per_step=cnt, kernel=key)
                      for ms, cnt, key in top])
@@ -425,12 +507,21 @@ def profile_decode(eng, cfg, rng) -> dict:
 
 # -- phase 5: card vs CPU parity ---------------------------------------------
 
-def parity_phase(seed: int, dev):
-    from repro_torch.configs import get_config
+def parity_phase(seed: int, dev, alpha_dtype: str = ""):
+    """One full-width fp32 packed step (alphas fp32 or ``alpha_dtype``),
+    planned by the mapper as the engine plans it, on the card and on the
+    CPU with the same parameters."""
+    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.models import registry as R
+    from repro_torch.runtime import mapper
     cfg = get_config("tinyllama_1_1b")
-    cfg = cfg.replace(dtype="float32",
-                      ovsf=dataclasses.replace(cfg.ovsf, exec_path="fused"))
+    cfg = cfg.replace(dtype="float32", ovsf=dataclasses.replace(
+        cfg.ovsf, alpha_dtype=alpha_dtype))
+    cfg = mapper.plan_and_apply(cfg, ShapeConfig("serve_decode", 1, 4,
+                                                 "decode"),
+                                hw="h100", weight_reuse=1)
+    if {p.path for _n, p in cfg.exec_plan.entries} != {"fused"}:
+        raise RuntimeError(f"parity: plan {cfg.exec_plan} is not fused")
     params = R.model_init(cfg, seed + 1, dev)
     n_slots, ps, npg = 4, 16, 16
     P = n_slots * npg
@@ -471,12 +562,14 @@ def parity_phase(seed: int, dev):
     if gpu.shape != (n_slots, cfg.vocab) or not torch.isfinite(gpu).all():
         raise RuntimeError(f"parity: logits {tuple(gpu.shape)} not finite")
     rel = float((gpu - cpu).norm() / cpu.norm())
-    print(f"[parity] full-width fp32 packed step (T={T}, 61 valid): card vs "
-          f"CPU logits rel L2 err={rel:.3e} (limit 1e-3); card step "
-          f"{t_gpu:.3f}s, CPU step {t_cpu:.3f}s", flush=True)
+    print(f"[parity] full-width fp32 packed step, alphas "
+          f"{alpha_dtype or 'fp32'} (T={T}, 61 valid): card vs CPU logits "
+          f"rel L2 err={rel:.3e} (limit 1e-3); card step {t_gpu:.3f}s, CPU "
+          f"step {t_cpu:.3f}s", flush=True)
     if not rel <= 1e-3:
         raise RuntimeError(f"parity: relative error {rel:.3e} > 1e-3")
-    return dict(rel_err=rel, gpu_step_s=t_gpu, cpu_step_s=t_cpu)
+    return dict(alpha_dtype=alpha_dtype or "fp", rel_err=rel,
+                gpu_step_s=t_gpu, cpu_step_s=t_cpu)
 
 
 def main(argv=None) -> int:
@@ -504,24 +597,36 @@ def main(argv=None) -> int:
           + ", ".join(p.name for p in libs.values()), flush=True)
 
     rng = np.random.default_rng(args.seed)
-    gemm_rows, gemm_sum = run_gemm_checks(rng, dev)
+    gemm = {adt: run_gemm_checks(rng, dev, adt) for adt in ALPHA_DTYPES}
     attn_rows, attn_sum = run_paged_checks(rng, dev)
-    print("[kernels] checked against their plain versions: ovsf_gemm "
-          f"({len(gemm_rows)} cases), paged_flash_decode ({len(attn_rows)} "
-          "cases)", flush=True)
+    refused = check_quant_contract(dev)
+    print("[kernels] checked against their plain versions: ovsf_gemm ("
+          + ", ".join(f"{len(rows)} {adt or 'bf16/fp32-alpha'}"
+                      for adt, (rows, _s) in gemm.items())
+          + f" cases), paged_flash_decode ({len(attn_rows)} cases)",
+          flush=True)
 
-    serve, launches = serve_phase(args.seed, card, dev)
-    parity = parity_phase(args.seed, dev)
+    serve, launches = {}, {}
+    for adt in ALPHA_DTYPES:
+        serve[adt or "fp"], launches[adt] = serve_phase(args.seed, card, dev,
+                                                        adt)
+    parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
 
+    gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
-    for name, source, replaces, s in (
-            ("ovsf_gemm", "src/repro_torch/kernels/csrc/ovsf_gemm.cu",
-             "src/repro/kernels/ovsf_gemm.py:158", gemm_sum),
+    for name, source, replaces, s, n in (
+            ("ovsf_gemm", gemm_src, "src/repro/kernels/ovsf_gemm.py:158",
+             gemm[""][1], launches[""]["ovsf_gemm"]),
+            ("ovsf_gemm_int8", gemm_src, "src/repro/kernels/ovsf_gemm.py:64",
+             gemm["int8"][1], launches["int8"]["ovsf_gemm"]),
+            ("ovsf_gemm_int4", gemm_src, "src/repro/kernels/ovsf_gemm.py:110",
+             gemm["int4"][1], launches["int4"]["ovsf_gemm"]),
             ("paged_flash_decode",
              "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
-             "src/repro/kernels/decode_attn.py:160", attn_sum)):
+             "src/repro/kernels/decode_attn.py:160", attn_sum,
+             launches[""]["paged_flash_decode"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
@@ -531,11 +636,17 @@ def main(argv=None) -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "kernels": kernels,
-                   "ovsf_gemm_cases": gemm_rows,
+                   "ovsf_gemm_cases": {adt or "fp": rows for adt, (rows, _s)
+                                       in gemm.items()},
+                   "ovsf_gemm_layer_M128": {
+                       adt or "fp": s["layer_M128"]
+                       for adt, (_r, s) in gemm.items()},
                    "paged_flash_decode_cases": attn_rows,
                    "summary_rows": {
-                       "ovsf_gemm": "sum of q, o, gate, up, down at M=4 bf16",
+                       "ovsf_gemm*": "sum of q, o, gate, up, down at M=4 "
+                                     "bf16 x",
                        "paged_flash_decode": "T=4 decode bf16"},
+                   "quant_wrapper_refuses": refused,
                    "serve": serve, "parity": parity}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

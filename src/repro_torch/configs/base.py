@@ -1,14 +1,16 @@
 """Config dataclasses and the arch registry (port of ``repro.configs.base``).
 
-Only the dense-family fields the ported serving path reads are carried;
-``ShapeConfig``/``input_specs`` (JAX-lowering helpers) and the MoE / SSM /
-encoder-decoder / VLM fields wait for the slices that port those families.
+Only the dense-family fields the ported serving path reads are carried,
+plus ``ShapeConfig`` (the workload shape the mapper plans for) and
+``ModelConfig.exec_plan`` (the mapper's per-layer plan). ``input_specs``
+(a JAX-lowering helper) and the MoE / SSM / encoder-decoder / VLM fields
+wait for the slices that port those families.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -62,6 +64,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
+    # Per-layer execution plan (``runtime.mapper.ExecutionPlan``, frozen and
+    # hashable like the config). None -> uniform dispatch by ovsf.exec_path.
+    exec_plan: Optional[Any] = None
 
     @property
     def hd(self) -> int:
@@ -73,6 +78,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
 
 
 def get_config(name: str) -> ModelConfig:

@@ -5,7 +5,8 @@ H_L, H[i, j] = (-1)^popcount(i & j). A weight matrix is stored as alpha
 coefficients over a kept subset of codes and regenerated on the fly.
 
 Carried here: code construction, the WHT, the int8/int4 alpha storage
-helpers, ``OVSFSpec`` and the from-scratch ``init_ovsf``. The converter
+(``quantize_alphas``/``quantize_params`` and their inverses), ``OVSFSpec``
+and the from-scratch ``init_ovsf``. The converter
 (``select_basis``/``compress_matrix``) waits for a later slice.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 ALPHA_DTYPES = ("", "int8", "int4")
+_ALPHA_KEY = {"": "alphas", "int8": "alphas_q8", "int4": "alphas_q4"}
 _ALPHA_QMAX = {"int8": 127.0, "int4": 7.0}
 
 
@@ -71,6 +73,53 @@ def validate_alpha_dtype(dtype: str) -> str:
             f"unknown alpha_dtype {dtype!r}; expected one of "
             f"{ALPHA_DTYPES} ('' = unquantised, stored in model dtype)")
     return dtype
+
+
+def quantize_alphas(alphas: torch.Tensor, n_seg: int, dtype: str
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(J, d_out) alphas -> (q, scale) with per-segment symmetric scaling.
+
+    Rows fall into ``n_seg`` contiguous segments of J // n_seg rows (1 for
+    monolithic codes). scale: (n_seg, 1) fp32, max|alpha_seg| / qmax (1.0
+    for an all-zero segment). q: int8 (J, d_out) for int8, or (J, d_out // 2)
+    with two nibbles per byte (low nibble = even column) for int4."""
+    validate_alpha_dtype(dtype)
+    if dtype not in _ALPHA_QMAX:
+        raise ValueError("quantize_alphas needs dtype 'int8' or 'int4'")
+    J, d_out = alphas.shape
+    if n_seg <= 0 or J % n_seg:
+        raise ValueError(f"J {J} not divisible into {n_seg} segments")
+    if dtype == "int4" and d_out % 2:
+        raise ValueError(
+            f"int4 alpha packing needs an even d_out, got {d_out}; "
+            "use int8 for odd output widths")
+    qmax = _ALPHA_QMAX[dtype]
+    a = alphas.to(torch.float32).reshape(n_seg, J // n_seg, d_out)
+    amax = a.abs().amax(dim=(1, 2))                             # (n_seg,)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.clamp(torch.round(a / scale[:, None, None]), -qmax, qmax)
+    q = q.reshape(J, d_out).to(torch.int8)
+    if dtype == "int4":
+        lo = q[:, 0::2].to(torch.int32)
+        hi = q[:, 1::2].to(torch.int32)
+        q = ((hi << 4) | (lo & 0xF)).to(torch.int8)
+    return q, scale.reshape(n_seg, 1)
+
+
+def quantize_params(params: dict, alpha_dtype: str) -> dict:
+    """OVSF param dict {"alphas", "idx", ...} -> quantised-storage form: the
+    ``alphas`` leaf becomes ``alphas_q8``/``alphas_q4`` plus the fp32
+    ``alpha_scale`` (n_seg, 1); every other key passes through."""
+    validate_alpha_dtype(alpha_dtype)
+    if not alpha_dtype:
+        return dict(params)
+    idx = params["idx"]
+    n_seg = idx.shape[0] if idx.dim() == 2 else 1
+    q, scale = quantize_alphas(params["alphas"], n_seg, alpha_dtype)
+    out = {k: v for k, v in params.items() if k != "alphas"}
+    out[_ALPHA_KEY[alpha_dtype]] = q
+    out["alpha_scale"] = scale
+    return out
 
 
 def unpack_int4(q: torch.Tensor) -> torch.Tensor:

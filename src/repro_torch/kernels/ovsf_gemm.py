@@ -2,11 +2,14 @@
 
 ``ovsf_gemm(x, alphas, idx)`` computes y = x @ W with
 W[k, n] = sum_j (-1)^popcount(idx[j] & k') * alphas[j, n] (see
-``kernels.ref.ovsf_matmul_ref``). On a CUDA tensor it launches
-``csrc/ovsf_gemm.cu`` (the port of the Pallas ``repro.kernels.ovsf_gemm:
-ovsf_gemm``; design and bound in the source's header note) or raises; on a
-CPU tensor it runs the plain version. ``ovsf_gemm.launches`` counts kernel
-launches.
+``kernels.ref.ovsf_matmul_ref``); alphas are stored in x's type, or as int8
+/ nibble-packed int4 with per-segment fp32 scales (``alpha_dtype``). On a
+CUDA tensor it launches ``csrc/ovsf_gemm.cu`` (the port of the Pallas
+``repro.kernels.ovsf_gemm:ovsf_gemm`` and its dequant epilogue; design and
+bound in the source's header note) or raises; on a CPU tensor it runs the
+plain version. ``ovsf_gemm.launches`` counts kernel launches, and
+``ovsf_gemm.launches_by_alpha`` splits them by alpha storage ("fp", "int8",
+"int4").
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ ovsf_gemm_plain = ovsf_matmul_ref
 _BK = 64                      # k rows per k-block, as in the CUDA source
 _BN = 64                      # output columns per block
 _BLOCKS_PER_SM = 2            # split-K target occupancy
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_QUANT = {"": 0, "int8": 1, "int4": 2}
 
 
 def _lib():
@@ -47,31 +51,60 @@ def tiling(M: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
     return bm, kb_per_split, -(-nkb // kb_per_split)
 
 
+def _check_scale(alpha_scale, J: int, device) -> torch.Tensor:
+    """The per-segment scales as the kernel reads them: float32, contiguous,
+    on the card beside x, one per J // n_seg alpha rows."""
+    if not isinstance(alpha_scale, torch.Tensor):
+        raise ValueError("ovsf_gemm: quantised alphas need an alpha_scale "
+                         "tensor")
+    if alpha_scale.dtype != torch.float32 or not alpha_scale.is_contiguous():
+        raise ValueError(f"ovsf_gemm: alpha_scale must be contiguous float32, "
+                         f"got {alpha_scale.dtype}")
+    if alpha_scale.device != device:
+        raise ValueError(f"ovsf_gemm: alpha_scale on {alpha_scale.device}, x "
+                         f"on {device}")
+    n_seg = alpha_scale.numel()
+    if n_seg <= 0 or J % n_seg:
+        raise ValueError(f"ovsf_gemm: J={J} alpha rows not divisible into "
+                         f"{n_seg} scale segments")
+    return alpha_scale
+
+
 def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
               alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
-    """y = x @ W(alphas, idx). x: (M, d_in); alphas: (J, d_out); idx: (J,)
-    monolithic or (n_seg, n_keep) segmented int32 code ids -> (M, d_out) in
-    x.dtype, accumulated in fp32."""
+    """y = x @ W(alphas, idx). x: (M, d_in) float32 or bfloat16; alphas:
+    (J, d_out) in x's type, int8 (J, d_out) with ``alpha_dtype="int8"`` or
+    packed int8 (J, d_out // 2) with ``"int4"`` (then ``alpha_scale`` holds
+    the (n_seg, 1) float32 scales); idx: (J,) monolithic or (n_seg, n_keep)
+    segmented int32 code ids -> (M, d_out) in x.dtype, accumulated in
+    fp32."""
     if x.device.type == "cpu":
         return ovsf_gemm_plain(x, alphas, idx, alpha_scale=alpha_scale,
                                alpha_dtype=alpha_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ovsf_gemm: unsupported device {x.device}")
-    if alpha_dtype:
-        raise NotImplementedError("int8/int4 epilogue of ovsf_gemm: "
-                                  "next slice")
+    if alpha_dtype not in _QUANT:
+        raise ValueError(f"ovsf_gemm: unknown alpha_dtype {alpha_dtype!r}")
     if x.dim() != 2 or alphas.dim() != 2:
         raise ValueError(f"ovsf_gemm: x {tuple(x.shape)} and alphas "
                          f"{tuple(alphas.shape)} must be 2-D")
-    if x.dtype not in (torch.float32, torch.bfloat16) or alphas.dtype != x.dtype:
-        raise ValueError(f"ovsf_gemm: x {x.dtype} and alphas {alphas.dtype} "
-                         "must share one type, float32 or bfloat16")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ovsf_gemm: x {x.dtype} must be float32 or "
+                         "bfloat16")
+    want = torch.int8 if alpha_dtype else x.dtype
+    if alphas.dtype != want:
+        raise ValueError(f"ovsf_gemm: alphas {alphas.dtype}, expected {want} "
+                         f"for alpha_dtype {alpha_dtype!r} and x {x.dtype}")
     for name, t in (("alphas", alphas), ("idx", idx)):
         if t.device != x.device:
             raise ValueError(f"ovsf_gemm: {name} on {t.device}, x on "
                              f"{x.device}")
     M, K = x.shape
     J, N = alphas.shape
+    if alpha_dtype == "int4":
+        N *= 2                          # two nibbles per stored byte
+    scale = (_check_scale(alpha_scale, J, x.device) if alpha_dtype
+             else alphas)               # unread for unquantised alphas
     seg = n_keep = 0
     if idx.dim() == 2:
         ns, n_keep = idx.shape
@@ -87,17 +120,26 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     x = x.contiguous()
     alphas = alphas.contiguous()
     idx = idx.to(torch.int32).contiguous()
+    rows_per_scale = J // scale.numel() if alpha_dtype else J
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     bm, kb_per_split, splits = tiling(M, K, N, n_sms)
     partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-    err = _lib()(x.data_ptr(), alphas.data_ptr(), idx.data_ptr(),
-                 out.data_ptr(), partial.data_ptr(), M, K, N, J, seg, n_keep,
-                 bm, splits, kb_per_split, int(x.dtype == torch.bfloat16),
+    err = _lib()(x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), partial.data_ptr(), M, K, N,
+                 J, seg, n_keep, rows_per_scale, bm, splits, kb_per_split,
+                 int(x.dtype == torch.bfloat16), _QUANT[alpha_dtype],
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ovsf_gemm: CUDA launch failed (cudaError {err})")
     ovsf_gemm.launches += 1
+    ovsf_gemm.launches_by_alpha[alpha_dtype or "fp"] += 1
     return out
 
 
-ovsf_gemm.launches = 0
+def reset_launches() -> None:
+    """Zero the launch counters (total and per alpha storage)."""
+    ovsf_gemm.launches = 0
+    ovsf_gemm.launches_by_alpha = dict.fromkeys(("fp", "int8", "int4"), 0)
+
+
+reset_launches()

@@ -1,12 +1,15 @@
 """Serving launcher for the port: batched requests through ``LLMEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
-      --paged --packed --chunk-size 64 [--smoke] [--device cpu]
+      --paged --packed --chunk-size 64 [--smoke] [--device cpu] \
+      [--alpha-dtype int8|int4] [--hw h100|v5e|v5p|v6e|cpu]
 
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
-present). Parameters are initialised natively from ``--seed``; OVSF layers
-run the ``fused`` path, which is what the reference's mapper picks for this
-model on every target. Only the paged + packed path is ported, so
+present). Parameters are initialised natively from ``--seed``;
+``--alpha-dtype`` stores the OVSF alphas as int8 or nibble-packed int4 with
+per-segment fp32 scales. The engine's mapper plans each OVSF weight type
+against ``--hw`` (default ``h100``, the card the port runs on), as the
+reference engine does. Only the paged + packed path is ported, so
 ``--paged --packed --chunk-size N`` are required. Exit contract: every
 request must end as ``eos``, ``length`` or ``rejected``, else the launcher
 exits non-zero.
@@ -22,7 +25,7 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry as R
-from repro_torch.serving import LLMEngine, Request, SamplingParams
+from repro_torch.serving import LLMEngine, Request, SamplingParams, hw_names
 
 
 def main(argv=None) -> None:
@@ -35,6 +38,12 @@ def main(argv=None) -> None:
     ap.add_argument("--buffer", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hw", default="h100", choices=list(hw_names()),
+                    help="hardware target for the mapper's execution plans")
+    ap.add_argument("--alpha-dtype", default="", choices=["", "int8", "int4"],
+                    help="quantised alpha storage: int8 halves / int4 "
+                         "quarters the streamed alpha bytes (dequantised "
+                         "in-kernel by the fused generator)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples with per-request seeds")
     ap.add_argument("--top-k", type=int, default=0)
@@ -52,14 +61,20 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf, exec_path="fused"))
+    cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,
+                                               alpha_dtype=args.alpha_dtype))
     params = R.model_init(cfg, args.seed, device)
     print(f"[serve] {cfg.name}: {R.param_count(params)/1e6:.1f}M params "
-          f"on {device}")
+          f"on {device} (hw={args.hw}"
+          + (f", alphas={args.alpha_dtype}" if args.alpha_dtype else "")
+          + ")")
     eng = LLMEngine(params, cfg, batch_slots=args.slots,
                     buffer_len=args.buffer, chunk_size=args.chunk_size,
                     packed=True, paged=True, page_size=args.page_size,
-                    kv_pages=args.kv_pages, device=device)
+                    kv_pages=args.kv_pages, hw=args.hw, device=device)
+    if eng.cfg.exec_plan is not None:
+        print("[serve] plan: " + ", ".join(
+            f"{n}={p.path}" for n, p in eng.cfg.exec_plan.entries))
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         plen = int(rng.integers(4, args.buffer // 4))
@@ -82,6 +97,10 @@ def main(argv=None) -> None:
     print(f"[serve] kv_pages: total={stats.kv_pages_total} "
           f"peak_used={stats.kv_pages_used} peak_bytes={stats.kv_bytes_used} "
           f"utilization={stats.kv_utilization:.2f}")
+    print(f"[serve] weight_cache: hits={stats.weight_cache_hits} "
+          f"misses={stats.weight_cache_misses} "
+          f"entries={stats.weight_cache_entries} "
+          f"bytes={stats.weight_cache_bytes}")
 
     outs = {o.rid: o for o in eng.outputs()}
     allowed = {"eos", "length", "rejected"}

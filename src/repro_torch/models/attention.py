@@ -35,9 +35,9 @@ def attn_apply_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     P, ps = k_pool.shape[0], k_pool.shape[1]
     n_slots = page_table.shape[0] - 1
     npg = page_table.shape[1]
-    q = L.linear_apply(p["q"], x, cfg).reshape(1, T, H, hd)
-    k = L.linear_apply(p["k"], x, cfg).reshape(1, T, Hkv, hd)
-    v = L.linear_apply(p["v"], x, cfg).reshape(1, T, Hkv, hd)
+    q = L.linear_apply(p["q"], x, cfg, "attn_q").reshape(1, T, H, hd)
+    k = L.linear_apply(p["k"], x, cfg, "attn_k").reshape(1, T, Hkv, hd)
+    v = L.linear_apply(p["v"], x, cfg, "attn_v").reshape(1, T, Hkv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -53,5 +53,6 @@ def attn_apply_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     sid = slot_ids.clamp(0, n_slots - 1)
     out = paged_flash_decode(q[0], k_pool, v_pool, page_table, sid,
                              positions)                      # (T, H, hd)
-    y = L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg)
+    y = L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg,
+                       "attn_o")
     return y, {"k": k_pool, "v": v_pool}

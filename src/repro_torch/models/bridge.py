@@ -6,6 +6,10 @@ along a leading layer axis; the port keeps the same key names (``alphas`` /
 ``alphas_q8`` / ``alphas_q4`` + ``alpha_scale``, ``idx``, ``w``, ``b``,
 ``scale``, ``table``) and holds ``blocks`` as a list of per-layer dicts.
 Nothing here imports JAX: numpy is the interchange format.
+
+Float leaves take the model dtype, except those the reference holds in
+float32 whatever the model dtype is (``_FLOAT32_KEYS``: the per-segment
+``alpha_scale`` of quantised alphas, ``core.ovsf.quantize_alphas``).
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+
+_FLOAT32_KEYS = frozenset({"alpha_scale"})
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -26,14 +32,15 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def _convert(tree, dtype, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, torch.float32 if k in _FLOAT32_KEYS else dtype,
+                            device) for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """Reference param tree (numpy leaves, stacked ``blocks``) -> the port's
-    params on ``device``: float leaves in ``cfg.act_dtype``, integer leaves
-    (code ids, quantised alphas) as they are."""
+    params on ``device``: float leaves in ``cfg.act_dtype`` (``alpha_scale``
+    in float32), integer leaves (code ids, quantised alphas) as they are."""
     out = {k: _convert(v, cfg.act_dtype, device) for k, v in tree.items()
            if k != "blocks"}
     stacked = _convert(tree["blocks"], cfg.act_dtype, device)

@@ -29,15 +29,14 @@ def linear_init(gen: torch.Generator, cfg: ModelConfig, name: str, d_in: int,
     dtype = cfg.act_dtype
     p: dict = {}
     if ovsf_eligible(cfg, name, d_in, d_out):
-        if cfg.ovsf.alpha_dtype:
-            raise NotImplementedError(
-                "quantised alpha init (the converter) is not ported yet")
         seg = cfg.ovsf.seg_len if (cfg.ovsf.seg_len
                                    and d_in % cfg.ovsf.seg_len == 0) else 0
         spec = ovsf.OVSFSpec(d_in, d_out, rho=cfg.ovsf.rho_for(name),
                              strategy=cfg.ovsf.strategy, seg=seg)
         p.update(ovsf.init_ovsf(gen, spec, scale=scale, dtype=dtype,
                                 device=device))
+        if cfg.ovsf.alpha_dtype:
+            p = ovsf.quantize_params(p, cfg.ovsf.alpha_dtype)
     else:
         std = float(np.sqrt(scale / d_in))
         p["w"] = torch.randn((d_in, d_out), generator=gen, dtype=dtype,
@@ -47,13 +46,23 @@ def linear_init(gen: torch.Generator, cfg: ModelConfig, name: str, d_in: int,
     return p
 
 
-def linear_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Dense layers are one ``torch.matmul``; OVSF layers dispatch by
-    ``cfg.ovsf.exec_path`` (the mapper's per-layer plans wait)."""
+def layer_plan(cfg: ModelConfig, name: str):
+    """The mapper's LayerPlan for a weight-type name, or None."""
+    if cfg.exec_plan is None or not name:
+        return None
+    return cfg.exec_plan.plan_for(name)
+
+
+def linear_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 name: str = "") -> torch.Tensor:
+    """Dense layers are one ``torch.matmul``. OVSF layers dispatch by the
+    mapper's plan for weight type ``name`` (e.g. "mlp_up") when
+    ``cfg.exec_plan`` holds one, else by ``cfg.ovsf.exec_path``."""
     if "alphas" in p or "alphas_q8" in p or "alphas_q4" in p:
         al, scale, adt = ovsf.alpha_params(p)
         y = kops.ovsf_matmul(x, al, p["idx"], path=cfg.ovsf.exec_path,
-                             alpha_scale=scale, alpha_dtype=adt)
+                             plan=layer_plan(cfg, name), alpha_scale=scale,
+                             alpha_dtype=adt)
     else:
         y = x @ p["w"].to(x.dtype)
     if "b" in p:

@@ -24,14 +24,14 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    u = L.linear_apply(p["up"], x, cfg)
+    u = L.linear_apply(p["up"], x, cfg, "mlp_up")
     if cfg.mlp_gated:
-        g = L.linear_apply(p["gate"], x, cfg)
+        g = L.linear_apply(p["gate"], x, cfg, "mlp_gate")
         h = (torch.nn.functional.silu(g.to(torch.float32))
              * u.to(torch.float32)).to(x.dtype)
     else:
         h = torch.nn.functional.gelu(u.to(torch.float32)).to(x.dtype)
-    return L.linear_apply(p["down"], h, cfg)
+    return L.linear_apply(p["down"], h, cfg, "mlp_down")
 
 
 def _paged_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,

@@ -1,5 +1,6 @@
 """Request-level serving stack of the port: ``LLMEngine`` over the paged +
 packed path (see ``repro_torch.serving.engine``)."""
+from repro_torch.hwmodel.perf_model import hw_names
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_ERROR, FINISH_EVICTED,
                                      FINISH_LENGTH, FINISH_PREEMPTED,
@@ -18,6 +19,7 @@ __all__ = [
     "FINISH_LENGTH", "FINISH_EOS", "FINISH_REJECTED",
     "FINISH_TIMEOUT", "FINISH_SHED", "FINISH_ERROR", "FINISH_PREEMPTED",
     "FINISH_EVICTED", "FINISH_CANCELLED",
+    "hw_names",
     "FCFSScheduler", "ChunkTask", "SchedulerOutput", "StepOutput",
     "PackedStep", "pack_bucket", "pack_step",
     "EngineCore", "LLMEngine", "EngineStats",

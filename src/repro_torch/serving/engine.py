@@ -8,12 +8,18 @@ prompt chunks), ``_page_gate`` grants the KV pages it needs, and the
 with fused sampling; this module tracks slots, prefill progress, finish
 reasons, streaming callbacks and the ``EngineStats`` counters.
 
+When the model has OVSF layers and its config carries no plan, the engine
+asks the layer mapper (``runtime.mapper``) for a decode-shaped
+``ExecutionPlan`` against its ``hw`` target (``"h100"`` by default, the
+card the port runs on), as the reference engine does. Each step runs inside
+``kernels.ops.weight_cache_scope(model_label)``, and ``EngineStats`` reports
+that label's decompress-cache counters.
+
 Only ``paged=True, packed=True`` is ported; the window, legacy and
-contiguous-cache paths, the mapper (the engine dispatches OVSF layers by
-``cfg.ovsf.exec_path``), preemption, deadlines, load shedding, fault
-injection and the journal wait for later slices. A page-pool shortfall for
-running work raises ``RuntimeError``: the default pool
-(``slots * buffer_len / page_size`` pages) never runs short.
+contiguous-cache paths, the calibration loop, preemption, deadlines, load
+shedding, fault injection and the journal wait for later slices. A
+page-pool shortfall for running work raises ``RuntimeError``: the default
+pool (``slots * buffer_len / page_size`` pages) never runs short.
 """
 from __future__ import annotations
 
@@ -24,7 +30,10 @@ from typing import Optional
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.hwmodel.perf_model import resolve_hw
+from repro_torch.kernels import ops as kops
+from repro_torch.runtime import mapper
 from repro_torch.serving.api import (FINISH_EOS, FINISH_ERROR,
                                      FINISH_LENGTH, FINISH_REJECTED, Request,
                                      RequestOutput, SamplingParams)
@@ -52,6 +61,12 @@ class EngineStats:
     kv_pages_total: int = 0       # page pool size
     kv_pages_used: int = 0        # peak pages simultaneously granted
     kv_bytes_used: int = 0        # peak device bytes those pages pin
+    # decompress weight cache (kernels.ops) of this engine's model label:
+    # hits/misses since the engine was built, entries/bytes resident now
+    weight_cache_hits: int = 0
+    weight_cache_misses: int = 0
+    weight_cache_entries: int = 0
+    weight_cache_bytes: int = 0
 
     @property
     def padding_efficiency(self) -> float:
@@ -79,7 +94,8 @@ class LLMEngine:
                  max_step_tokens: Optional[int] = None,
                  packed: bool = False, paged: bool = False,
                  page_size: int = 16, kv_pages: Optional[int] = None,
-                 device="cuda"):
+                 use_mapper: bool = True, hw="h100",
+                 model_label: Optional[str] = None, device="cuda"):
         self.device = resolve_device(device)
         if not (packed and paged):
             raise NotImplementedError(
@@ -95,7 +111,9 @@ class LLMEngine:
         if table.device != self.device:
             raise ValueError(f"params live on {table.device}, the engine "
                              f"runs on {self.device}")
-        self.cfg = cfg
+        self.hw_label = resolve_hw(hw).name
+        self.cfg = self._plan_cfg(cfg, batch_slots, use_mapper, hw)
+        self.model_label = cfg.name if model_label is None else model_label
         self.params = params
         self.B = batch_slots
         self.eos = eos_id
@@ -103,7 +121,7 @@ class LLMEngine:
             # the mixed-step bucket: chunk-bearing steps fill their shape
             max_step_tokens = pack_bucket(0, batch_slots, chunk_size, True)
         self.max_step_tokens = max_step_tokens
-        self.core = EngineCore(params, cfg, batch_slots=batch_slots,
+        self.core = EngineCore(params, self.cfg, batch_slots=batch_slots,
                                buffer_len=buffer_len, window=chunk_size,
                                page_size=page_size, kv_pages=kv_pages,
                                device=self.device)
@@ -115,6 +133,18 @@ class LLMEngine:
         self._prefill_done = np.zeros(batch_slots, np.int64)
         self.stats = EngineStats(kv_pages_total=self.core.pager.P)
         self._finished: list[RequestOutput] = []
+        self._wc_base = kops.weight_cache_stats(self.model_label)
+
+    @staticmethod
+    def _plan_cfg(cfg: ModelConfig, batch_slots: int, use_mapper: bool,
+                  hw) -> ModelConfig:
+        if not use_mapper or not cfg.ovsf.enable or cfg.exec_plan is not None:
+            return cfg
+        shape = ShapeConfig("serve_decode", 1, batch_slots, "decode")
+        # weight_reuse=1, as the reference plans (its jit'd step cannot
+        # reuse the eager decompress cache across steps)
+        return mapper.apply_plan(
+            cfg, mapper.plan_model(cfg, shape, hw=hw, weight_reuse=1))
 
     # -- request intake ----------------------------------------------------
 
@@ -200,7 +230,8 @@ class LLMEngine:
             if c.start == 0:
                 self.slots[c.slot] = c.req
                 self._prefill_done[c.slot] = 0
-        out = self.core.step(so, last)
+        with kops.weight_cache_scope(self.model_label):
+            out = self.core.step(so, last)
         self._commit(so, out)
         return self._remaining()
 
@@ -267,6 +298,11 @@ class LLMEngine:
         st.padded_tokens += out.n_batch_tokens
         if so.decode_slots or so.chunks:
             st.steps += 1
+        wc = kops.weight_cache_stats(self.model_label)
+        st.weight_cache_hits = wc["hits"] - self._wc_base["hits"]
+        st.weight_cache_misses = wc["misses"] - self._wc_base["misses"]
+        st.weight_cache_entries = wc["entries"]
+        st.weight_cache_bytes = wc["bytes"]
 
     def run_until_drained(self, max_steps: int = 10_000) -> EngineStats:
         for _ in range(max_steps):

@@ -245,7 +245,9 @@ def test_launcher_serves_on_cpu(capsys):
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.launch.serve, repro_torch.models.bridge, "
-            "repro_torch.kernels.ops, repro_torch.kernels.build; "
+            "repro_torch.kernels.ops, repro_torch.kernels.build, "
+            "repro_torch.runtime.mapper, repro_torch.hwmodel.perf_model, "
+            "repro_torch.hwmodel.tile_balance; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
