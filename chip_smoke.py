@@ -17,19 +17,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bound, the plain version's time and one library call's (the
              port never calls it). Then the quantised wrapper must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
-             alphas, scales that do not tile J).
+             alphas, scales that do not tile J), and ``ovsf_matmul`` must
+             refuse the ``materialize`` and ``spectral`` paths on the card
+             (they have no kernel; no plain fallback runs there).
   4. serve:  full-width TinyLlama-1.1B (22 layers, d 2048, bf16, random
              weights from --seed) through ``LLMEngine(paged=True,
              packed=True, chunk_size=64, batch_slots=4, buffer_len=256)``,
              once with bf16 alphas and once each with int8 and int4 alphas:
-             the engine's mapper plan (target ``h100``) must be ``fused``
-             for every OVSF weight type, 8 requests (6 greedy, 2 sampled)
+             the engine's mapper plan (target ``h100``, candidates the
+             paths with a kernel on the card) must be ``fused`` for every
+             OVSF weight type, 8 requests (6 greedy, 2 sampled)
              must all finish, and the kernel launch counters, zeroed just
              before, must read 5 * 22 ``ovsf_gemm`` launches of that alpha
              storage and 22 ``paged_flash_decode`` launches per step.
   5. parity: one full-width packed step in fp32 on the card vs the same step
              with the same parameters on the CPU (plain versions), with fp32
-             and with int8 alphas; relative L2 error of the logits <= 1e-3.
+             and with int8 alphas, planned as the engine plans on the card;
+             relative L2 error of the logits <= 1e-3.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -237,8 +241,10 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
 
 def check_quant_contract(dev) -> list:
     """The quantised wrapper refuses, before any launch, what the kernel does
-    not take; a refusal must not count as a launch."""
+    not take; a refusal must not count as a launch. The paths without a
+    kernel refuse to run on the card."""
     from repro_torch.core.ovsf import quantize_alphas
+    from repro_torch.kernels.ops import ovsf_matmul
     from repro_torch.kernels.ovsf_gemm import ovsf_gemm
     x = torch.randn((4, 128), device=dev, dtype=torch.bfloat16)
     idx = torch.arange(8, dtype=torch.int32, device=dev).repeat(8, 1)
@@ -259,9 +265,17 @@ def check_quant_contract(dev) -> list:
             refused.append(f"{what}: {e}")
             continue
         raise RuntimeError(f"ovsf_gemm took {what} without raising")
+    for path in ("materialize", "spectral"):
+        try:
+            ovsf_matmul(x, q, idx, path=path, alpha_scale=s,
+                        alpha_dtype="int4")
+        except NotImplementedError as e:
+            refused.append(f"{path} on the card: {e}")
+            continue
+        raise RuntimeError(f"ovsf_matmul ran the {path} path on the card")
     if ovsf_gemm.launches != before:
         raise RuntimeError("a refused ovsf_gemm call counted a launch")
-    print(f"[kernel] ovsf_gemm int4 wrapper refuses: "
+    print(f"[kernel] ovsf_gemm int4 wrapper and ovsf_matmul refuse: "
           + "; ".join(r.split(":")[0] for r in refused), flush=True)
     return refused
 
@@ -390,10 +404,10 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
           f"{R.param_count(params)/1e9:.3f}B stored values initialised on "
           f"the card in {time.perf_counter() - t0:.2f}s", flush=True)
     eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
-                    chunk_size=64, packed=True, paged=True, hw="h100",
-                    device=dev)
+                    chunk_size=64, packed=True, paged=True, device=dev)
     plan = {n: p.path for n, p in eng.cfg.exec_plan.entries}
-    print(f"{tag} mapper plan (hw {eng.hw_label}, decode at 4 slots): "
+    print(f"{tag} mapper plan (hw {eng.cfg.exec_plan.hw_label}, decode at "
+          "4 slots): "
           + ", ".join(f"{n}={p}" for n, p in plan.items()), flush=True)
     # full width: q, o, gate, up, down are OVSF (k/v, 256 wide, are dense)
     block = params["blocks"][0]
@@ -509,17 +523,15 @@ def profile_decode(eng, cfg, rng, tag: str) -> dict:
 
 def parity_phase(seed: int, dev, alpha_dtype: str = ""):
     """One full-width fp32 packed step (alphas fp32 or ``alpha_dtype``),
-    planned by the mapper as the engine plans it, on the card and on the
-    CPU with the same parameters."""
-    from repro_torch.configs import ShapeConfig, get_config
+    planned by the mapper as the engine plans it on the card, run on the
+    card and on the CPU with the same parameters."""
+    from repro_torch.configs import get_config
     from repro_torch.models import registry as R
-    from repro_torch.runtime import mapper
+    from repro_torch.serving import plan_cfg
     cfg = get_config("tinyllama_1_1b")
     cfg = cfg.replace(dtype="float32", ovsf=dataclasses.replace(
         cfg.ovsf, alpha_dtype=alpha_dtype))
-    cfg = mapper.plan_and_apply(cfg, ShapeConfig("serve_decode", 1, 4,
-                                                 "decode"),
-                                hw="h100", weight_reuse=1)
+    cfg = plan_cfg(cfg, 4, dev)
     if {p.path for _n, p in cfg.exec_plan.entries} != {"fused"}:
         raise RuntimeError(f"parity: plan {cfg.exec_plan} is not fused")
     params = R.model_init(cfg, seed + 1, dev)

@@ -11,8 +11,9 @@ interval is the max of its stages (paper Eq. 5-8):
 and the bound class {IFM, OFM, W, C} is the largest stage. The arithmetic
 is the reference's, unchanged: the same (shape, rho, target) gives the same
 plan in both packages. Registered targets: the reference's four (v5e, v5p,
-v6e, cpu) and ``h100``, the card the port runs on. ``model_layers`` covers
-the dense family only, the one family the port serves.
+v6e, cpu) and ``h100``, the card the port runs on (data-sheet peaks, not
+calibrated against the port's kernels). ``model_layers`` covers the dense
+family only, the one family the port serves.
 """
 from __future__ import annotations
 

@@ -8,21 +8,21 @@
 ``spectral``     y = WHT(x)[:, idx] @ alphas (exact), per segment for the
                  segmented layout.
 
-For the segmented layout (the one every OVSF layer of the served configs
-uses) ``materialize`` and ``spectral`` are plain tensor code, as the
-reference computes them in jnp, and dequantise int8/int4 alphas up front.
-For monolithic codes on CUDA they need the not-yet-ported
-``ovsf_decompress`` / ``fwht_pallas`` kernels and raise.
+``materialize`` and ``spectral`` are plain tensor code, as the reference
+computes them in jnp for the segmented layout, and dequantise int8/int4
+alphas up front. They have no hand-written kernel yet (monolithic codes need
+the not-yet-ported ``ovsf_decompress`` / ``fwht_pallas``), so they run on
+the CPU only and raise on any other device: on the card only ``fused`` runs,
+and the engine plans with that path alone there.
 
-``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan``: its path and its
-cache policy (a ``materialize`` plan with ``cache_weights`` generates dense
-W once per parameter version through the decompress cache below). The plan's
-block sizes are recorded, not used: the CUDA ``ovsf_gemm`` keeps its own
-tiling. ``ovsf_matmul_multi`` waits for the gateway slice.
+``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan`` and runs its
+path. The plan's block sizes and cache policy are recorded, not used: the
+CUDA ``ovsf_gemm`` keeps its own tiling, and the decompress cache waits until
+a plan on the card can reuse a dense W. ``ovsf_matmul_multi`` waits for the
+gateway slice.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Optional
 
 import torch
@@ -49,27 +49,29 @@ def _segmented_decompress(alphas: torch.Tensor, idx: torch.Tensor,
     return w.transpose(1, 2).reshape(d_in, d_out)
 
 
-def _needs_kernel(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cpu":
+def _plain_only(t: torch.Tensor, path: str) -> None:
+    """No plain-version fallback off the CPU: the path has no kernel."""
+    if t.device.type != "cpu":
         raise NotImplementedError(
-            f"monolithic OVSF codes on {x.device.type} need the {name} "
-            "kernel, which is not ported yet")
+            f"the {path} path has no hand-written kernel, so it runs on the "
+            f"CPU only; on {t.device.type} plan OVSF layers with the fused "
+            "path")
 
 
 def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
     """Dense (d_in, d_out) W from OVSF params (quantised alphas are
     dequantised to fp32 first)."""
-    if idx.dim() == 2:
-        alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
-        return _segmented_decompress(alphas, idx, d_in)
-    _needs_kernel(alphas, "ovsf_decompress")
+    _plain_only(alphas, "materialize")
     alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
+    if idx.dim() == 2:
+        return _segmented_decompress(alphas, idx, d_in)
     return kref.fwht_decompress_ref(alphas, idx, d_in)
 
 
 def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(..., d_in) activations -> (..., J) kept-code coefficients."""
+    _plain_only(x, "spectral")
     d_in = x.shape[-1]
     if idx.dim() == 2:
         ns, nk = idx.shape
@@ -77,7 +79,6 @@ def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         xh = ovsf.fwht(xs, dim=-1)                     # tiny per-seg WHT
         xk = torch.gather(xh, -1, idx.long().expand(xh.shape[:-1] + (nk,)))
         return xk.reshape(x.shape[:-1] + (ns * nk,))
-    _needs_kernel(x, "fwht_pallas")
     L = ovsf.next_pow2(d_in)
     if L != d_in:
         x = torch.nn.functional.pad(x, (0, L - d_in))
@@ -88,111 +89,19 @@ def spectral_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
                     *, alpha_scale=None, alpha_dtype: str = ""
                     ) -> torch.Tensor:
     """y = x @ W via the activation-transform identity (exact)."""
+    _plain_only(x, "spectral")
     alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
     xk = spectral_transform(x, idx)
     return (xk @ alphas.to(xk.dtype)).to(x.dtype)
-
-
-# ---------------------------------------------------------------------------
-# Decompressed-weight cache (mapper policy: weight-stationary layers)
-# ---------------------------------------------------------------------------
-# A ``materialize`` plan with ``cache_weights`` generates dense W once per
-# parameter version and reuses it. Entries hold strong references to the
-# source alphas and idx, so the ``is`` identity check can never alias a
-# recycled object; new params overwrite their slot, so the cache holds at
-# most one (alphas, idx, W) triple per cache key. Entries and counters are
-# kept per model label (the active ``weight_cache_scope``); "" is the
-# single-model default.
-
-_WEIGHT_CACHE: dict[str, dict[str, tuple[Any, Any, torch.Tensor]]] = {}
-_WEIGHT_CACHE_HITS: dict[str, int] = {}
-_WEIGHT_CACHE_MISSES: dict[str, int] = {}
-_CACHE_LABEL = ""
-
-
-@contextlib.contextmanager
-def weight_cache_scope(label: str):
-    """Attribute decompress-cache entries and counters to a model label
-    (engines wrap each step in their own). Scopes nest."""
-    global _CACHE_LABEL
-    prev = _CACHE_LABEL
-    _CACHE_LABEL = label or ""
-    try:
-        yield
-    finally:
-        _CACHE_LABEL = prev
-
-
-def clear_weight_cache(label: Optional[str] = None) -> None:
-    """Drop cached weights and counters: one label's, or everything."""
-    if label is None:
-        _WEIGHT_CACHE.clear()
-        _WEIGHT_CACHE_HITS.clear()
-        _WEIGHT_CACHE_MISSES.clear()
-    else:
-        _WEIGHT_CACHE.pop(label, None)
-        _WEIGHT_CACHE_HITS.pop(label, None)
-        _WEIGHT_CACHE_MISSES.pop(label, None)
-
-
-def weight_cache_stats(label: Optional[str] = None) -> dict:
-    """Decompress-cache counters (hits, misses, entries, bytes) of one
-    label, or of every label with ``None``; cumulative since the last
-    ``clear_weight_cache``."""
-    if label is None:
-        caches = list(_WEIGHT_CACHE.values())
-        hits = sum(_WEIGHT_CACHE_HITS.values())
-        misses = sum(_WEIGHT_CACHE_MISSES.values())
-    else:
-        caches = [_WEIGHT_CACHE.get(label, {})]
-        hits = _WEIGHT_CACHE_HITS.get(label, 0)
-        misses = _WEIGHT_CACHE_MISSES.get(label, 0)
-    return {"entries": sum(len(c) for c in caches),
-            "hits": hits,
-            "misses": misses,
-            "bytes": sum(w.numel() * w.element_size()
-                         for c in caches for *_s, w in c.values())}
-
-
-def cached_generate(cache_key: str, alphas: torch.Tensor, idx: torch.Tensor,
-                    gen_fn) -> torch.Tensor:
-    """Memoise ``gen_fn()`` per (label, cache_key, parameter identity)."""
-    label = _CACHE_LABEL
-    bucket = _WEIGHT_CACHE.setdefault(label, {})
-    ent = bucket.get(cache_key)
-    if ent is not None and ent[0] is alphas and ent[1] is idx:
-        _WEIGHT_CACHE_HITS[label] = _WEIGHT_CACHE_HITS.get(label, 0) + 1
-        return ent[2]
-    _WEIGHT_CACHE_MISSES[label] = _WEIGHT_CACHE_MISSES.get(label, 0) + 1
-    W = gen_fn()
-    bucket[cache_key] = (alphas, idx, W)
-    return W
-
-
-def cached_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
-                      cache_key: str, alpha_scale=None,
-                      alpha_dtype: str = "") -> torch.Tensor:
-    """``decompress`` memoised once per parameter version. The key must
-    already carry the alpha dtype (``ovsf_matmul`` appends it), so a dtype
-    switch never serves a stale W."""
-    return cached_generate(cache_key, alphas, idx, lambda: decompress(
-        alphas, idx, d_in, alpha_scale=alpha_scale, alpha_dtype=alpha_dtype))
 
 
 def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
                 path: str = "materialize", plan: Optional[Any] = None,
                 alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
     """y = x @ W(alphas, idx) over (..., d_in) activations, by ``path``, or
-    by ``plan`` (a ``runtime.mapper.LayerPlan``: path and cache policy)."""
-    cache_key = ""
+    by ``plan`` (a ``runtime.mapper.LayerPlan``, whose path it runs)."""
     if plan is not None:
         path = plan.path
-        if plan.cache_weights:
-            cache_key = plan.cache_key or f"ovsf:{id(alphas)}"
-    if cache_key:
-        # the alpha dtype is part of the key: a dtype switch re-keys the
-        # slot instead of serving a stale fp32 (or stale int8) W
-        cache_key = f"{cache_key}|{alpha_dtype or 'fp'}"
     lead = x.shape[:-1]
     d_in = x.shape[-1]
     d_out = alphas.shape[-1] * (2 if alpha_dtype == "int4" else 1)
@@ -201,13 +110,8 @@ def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
         y = ovsf_gemm(x2, alphas, idx, alpha_scale=alpha_scale,
                       alpha_dtype=alpha_dtype)
     elif path == "materialize":
-        if cache_key:
-            W = cached_decompress(alphas, idx, d_in, cache_key=cache_key,
-                                  alpha_scale=alpha_scale,
-                                  alpha_dtype=alpha_dtype)
-        else:
-            W = decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
-                           alpha_dtype=alpha_dtype)
+        W = decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
+                       alpha_dtype=alpha_dtype)
         y = (x2 @ W.to(x2.dtype)).to(x.dtype)
     elif path == "spectral":
         y = spectral_matmul(x2, alphas, idx, alpha_scale=alpha_scale,

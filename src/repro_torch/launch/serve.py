@@ -2,14 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
       --paged --packed --chunk-size 64 [--smoke] [--device cpu] \
-      [--alpha-dtype int8|int4] [--hw h100|v5e|v5p|v6e|cpu]
+      [--alpha-dtype int8|int4]
 
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
 present). Parameters are initialised natively from ``--seed``;
 ``--alpha-dtype`` stores the OVSF alphas as int8 or nibble-packed int4 with
-per-segment fp32 scales. The engine's mapper plans each OVSF weight type
-against ``--hw`` (default ``h100``, the card the port runs on), as the
-reference engine does. Only the paged + packed path is ported, so
+per-segment fp32 scales. The engine's mapper plans each OVSF weight type,
+as the reference engine does, against the device's target (``h100`` on the
+GPU, ``cpu`` on the CPU); the plan is printed. Only the paged + packed path is ported, so
 ``--paged --packed --chunk-size N`` are required. Exit contract: every
 request must end as ``eos``, ``length`` or ``rejected``, else the launcher
 exits non-zero.
@@ -25,7 +25,7 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry as R
-from repro_torch.serving import LLMEngine, Request, SamplingParams, hw_names
+from repro_torch.serving import LLMEngine, Request, SamplingParams
 
 
 def main(argv=None) -> None:
@@ -38,8 +38,6 @@ def main(argv=None) -> None:
     ap.add_argument("--buffer", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--hw", default="h100", choices=list(hw_names()),
-                    help="hardware target for the mapper's execution plans")
     ap.add_argument("--alpha-dtype", default="", choices=["", "int8", "int4"],
                     help="quantised alpha storage: int8 halves / int4 "
                          "quarters the streamed alpha bytes (dequantised "
@@ -65,15 +63,14 @@ def main(argv=None) -> None:
                                                alpha_dtype=args.alpha_dtype))
     params = R.model_init(cfg, args.seed, device)
     print(f"[serve] {cfg.name}: {R.param_count(params)/1e6:.1f}M params "
-          f"on {device} (hw={args.hw}"
-          + (f", alphas={args.alpha_dtype}" if args.alpha_dtype else "")
-          + ")")
+          f"on {device}"
+          + (f" (alphas={args.alpha_dtype})" if args.alpha_dtype else ""))
     eng = LLMEngine(params, cfg, batch_slots=args.slots,
                     buffer_len=args.buffer, chunk_size=args.chunk_size,
                     packed=True, paged=True, page_size=args.page_size,
-                    kv_pages=args.kv_pages, hw=args.hw, device=device)
+                    kv_pages=args.kv_pages, device=device)
     if eng.cfg.exec_plan is not None:
-        print("[serve] plan: " + ", ".join(
+        print(f"[serve] plan ({eng.cfg.exec_plan.hw_label}): " + ", ".join(
             f"{n}={p.path}" for n, p in eng.cfg.exec_plan.entries))
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
@@ -97,10 +94,6 @@ def main(argv=None) -> None:
     print(f"[serve] kv_pages: total={stats.kv_pages_total} "
           f"peak_used={stats.kv_pages_used} peak_bytes={stats.kv_bytes_used} "
           f"utilization={stats.kv_utilization:.2f}")
-    print(f"[serve] weight_cache: hits={stats.weight_cache_hits} "
-          f"misses={stats.weight_cache_misses} "
-          f"entries={stats.weight_cache_entries} "
-          f"bytes={stats.weight_cache_bytes}")
 
     outs = {o.rid: o for o in eng.outputs()}
     allowed = {"eos", "length", "rejected"}

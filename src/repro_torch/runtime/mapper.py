@@ -6,17 +6,21 @@ how the weights-generation mechanism runs for that layer:
 
   ``fused``        generate each weight tile inside the GEMM (the CUDA
                    ``ovsf_gemm`` on the card);
-  ``materialize``  generate dense W once, then one GEMM (with the decompress
-                   cache of ``kernels.ops`` when the plan says
-                   ``cache_weights``);
-  ``spectral``     the activation-transform identity (opt-in via ``paths``).
+  ``materialize``  generate dense W, then one GEMM (plain tensor code, CPU
+                   only in the port);
+  ``spectral``     the activation-transform identity (opt-in via ``paths``;
+                   CPU only in the port).
 
 Decisions are pure functions of (layer shape, rho, HW): the same inputs give
 the same plan as the reference, so plans are frozen dataclasses of tuples
-and ride inside a hashable ``ModelConfig``. Block sizes are recorded as the
-reference computes them; the CUDA ``ovsf_gemm`` keeps its own tiling. The
-calibration loop (``calibration=``), ``suggest_rhos`` and ``plan_cnn`` wait
-for the slices that port them.
+and ride inside a hashable ``ModelConfig``. Block sizes and the cache policy
+are recorded as the reference computes them; the CUDA ``ovsf_gemm`` keeps
+its own tiling and the port has no decompress cache yet. The ``h100``
+target's costs are data-sheet peaks fed to the reference's TPU pipeline
+model, not calibrated against the port's measured kernels; the engine plans
+on the card with ``paths=("fused",)``. The calibration loop
+(``calibration=``), ``suggest_rhos`` and ``plan_cnn`` wait for the slices
+that port them.
 """
 from __future__ import annotations
 

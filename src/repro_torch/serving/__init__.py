@@ -1,6 +1,5 @@
 """Request-level serving stack of the port: ``LLMEngine`` over the paged +
 packed path (see ``repro_torch.serving.engine``)."""
-from repro_torch.hwmodel.perf_model import hw_names
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_ERROR, FINISH_EVICTED,
                                      FINISH_LENGTH, FINISH_PREEMPTED,
@@ -8,7 +7,7 @@ from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_TIMEOUT, Request, RequestOutput,
                                      SamplingParams)
 from repro_torch.serving.core import EngineCore, StepOutput
-from repro_torch.serving.engine import EngineStats, LLMEngine
+from repro_torch.serving.engine import EngineStats, LLMEngine, plan_cfg
 from repro_torch.serving.kvcache import PagedKVCache, pages_for
 from repro_torch.serving.scheduler import (ChunkTask, FCFSScheduler,
                                            PackedStep, SchedulerOutput,
@@ -19,9 +18,8 @@ __all__ = [
     "FINISH_LENGTH", "FINISH_EOS", "FINISH_REJECTED",
     "FINISH_TIMEOUT", "FINISH_SHED", "FINISH_ERROR", "FINISH_PREEMPTED",
     "FINISH_EVICTED", "FINISH_CANCELLED",
-    "hw_names",
     "FCFSScheduler", "ChunkTask", "SchedulerOutput", "StepOutput",
     "PackedStep", "pack_bucket", "pack_step",
-    "EngineCore", "LLMEngine", "EngineStats",
+    "EngineCore", "LLMEngine", "EngineStats", "plan_cfg",
     "PagedKVCache", "pages_for",
 ]

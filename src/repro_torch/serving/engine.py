@@ -10,10 +10,10 @@ reasons, streaming callbacks and the ``EngineStats`` counters.
 
 When the model has OVSF layers and its config carries no plan, the engine
 asks the layer mapper (``runtime.mapper``) for a decode-shaped
-``ExecutionPlan`` against its ``hw`` target (``"h100"`` by default, the
-card the port runs on), as the reference engine does. Each step runs inside
-``kernels.ops.weight_cache_scope(model_label)``, and ``EngineStats`` reports
-that label's decompress-cache counters.
+``ExecutionPlan``, as the reference engine does (``plan_cfg``). The target
+follows the device: ``h100`` on the card, where ``fused`` is the one path
+with a hand-written kernel and so the one candidate, and ``cpu`` with the
+reference's default candidates on the CPU.
 
 Only ``paged=True, packed=True`` is ported; the window, legacy and
 contiguous-cache paths, the calibration loop, preemption, deadlines, load
@@ -28,11 +28,10 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.hwmodel.perf_model import resolve_hw
-from repro_torch.kernels import ops as kops
 from repro_torch.runtime import mapper
 from repro_torch.serving.api import (FINISH_EOS, FINISH_ERROR,
                                      FINISH_LENGTH, FINISH_REJECTED, Request,
@@ -42,7 +41,26 @@ from repro_torch.serving.scheduler import (FCFSScheduler, SchedulerOutput,
                                            pack_bucket)
 
 __all__ = ["LLMEngine", "EngineStats", "Request", "SamplingParams",
-           "RequestOutput"]
+           "RequestOutput", "plan_cfg"]
+
+# device type -> (mapper target, candidate paths): on the card
+# ``materialize`` and ``spectral`` are plain tensor code, so the mapper may
+# pick only the path the CUDA ``ovsf_gemm`` runs
+_PLAN_TARGETS = {"cuda": ("h100", ("fused",)),
+                 "cpu": ("cpu", mapper.DEFAULT_PATHS)}
+
+
+def plan_cfg(cfg: ModelConfig, batch_slots: int, device) -> ModelConfig:
+    """``cfg`` carrying the mapper's decode plan for ``device`` (a config
+    without OVSF layers, or with a plan already, is returned as it is)."""
+    if not cfg.ovsf.enable or cfg.exec_plan is not None:
+        return cfg
+    hw, paths = _PLAN_TARGETS[torch.device(device).type]
+    shape = ShapeConfig("serve_decode", 1, batch_slots, "decode")
+    # weight_reuse=1, as the reference plans (its jit'd step cannot reuse
+    # the eager decompress cache across steps)
+    return mapper.apply_plan(cfg, mapper.plan_model(
+        cfg, shape, hw=hw, paths=paths, weight_reuse=1))
 
 
 @dataclasses.dataclass
@@ -61,12 +79,6 @@ class EngineStats:
     kv_pages_total: int = 0       # page pool size
     kv_pages_used: int = 0        # peak pages simultaneously granted
     kv_bytes_used: int = 0        # peak device bytes those pages pin
-    # decompress weight cache (kernels.ops) of this engine's model label:
-    # hits/misses since the engine was built, entries/bytes resident now
-    weight_cache_hits: int = 0
-    weight_cache_misses: int = 0
-    weight_cache_entries: int = 0
-    weight_cache_bytes: int = 0
 
     @property
     def padding_efficiency(self) -> float:
@@ -94,8 +106,7 @@ class LLMEngine:
                  max_step_tokens: Optional[int] = None,
                  packed: bool = False, paged: bool = False,
                  page_size: int = 16, kv_pages: Optional[int] = None,
-                 use_mapper: bool = True, hw="h100",
-                 model_label: Optional[str] = None, device="cuda"):
+                 device="cuda"):
         self.device = resolve_device(device)
         if not (packed and paged):
             raise NotImplementedError(
@@ -111,9 +122,7 @@ class LLMEngine:
         if table.device != self.device:
             raise ValueError(f"params live on {table.device}, the engine "
                              f"runs on {self.device}")
-        self.hw_label = resolve_hw(hw).name
-        self.cfg = self._plan_cfg(cfg, batch_slots, use_mapper, hw)
-        self.model_label = cfg.name if model_label is None else model_label
+        self.cfg = plan_cfg(cfg, batch_slots, self.device)
         self.params = params
         self.B = batch_slots
         self.eos = eos_id
@@ -133,18 +142,6 @@ class LLMEngine:
         self._prefill_done = np.zeros(batch_slots, np.int64)
         self.stats = EngineStats(kv_pages_total=self.core.pager.P)
         self._finished: list[RequestOutput] = []
-        self._wc_base = kops.weight_cache_stats(self.model_label)
-
-    @staticmethod
-    def _plan_cfg(cfg: ModelConfig, batch_slots: int, use_mapper: bool,
-                  hw) -> ModelConfig:
-        if not use_mapper or not cfg.ovsf.enable or cfg.exec_plan is not None:
-            return cfg
-        shape = ShapeConfig("serve_decode", 1, batch_slots, "decode")
-        # weight_reuse=1, as the reference plans (its jit'd step cannot
-        # reuse the eager decompress cache across steps)
-        return mapper.apply_plan(
-            cfg, mapper.plan_model(cfg, shape, hw=hw, weight_reuse=1))
 
     # -- request intake ----------------------------------------------------
 
@@ -230,8 +227,7 @@ class LLMEngine:
             if c.start == 0:
                 self.slots[c.slot] = c.req
                 self._prefill_done[c.slot] = 0
-        with kops.weight_cache_scope(self.model_label):
-            out = self.core.step(so, last)
+        out = self.core.step(so, last)
         self._commit(so, out)
         return self._remaining()
 
@@ -298,11 +294,6 @@ class LLMEngine:
         st.padded_tokens += out.n_batch_tokens
         if so.decode_slots or so.chunks:
             st.steps += 1
-        wc = kops.weight_cache_stats(self.model_label)
-        st.weight_cache_hits = wc["hits"] - self._wc_base["hits"]
-        st.weight_cache_misses = wc["misses"] - self._wc_base["misses"]
-        st.weight_cache_entries = wc["entries"]
-        st.weight_cache_bytes = wc["bytes"]
 
     def run_until_drained(self, max_steps: int = 10_000) -> EngineStats:
         for _ in range(max_steps):

@@ -1,7 +1,8 @@
-"""The port's perf model, tile balancer, mapper and decompress cache vs the
-JAX package: the same (shape, rho, alpha dtype, target) must give the same
-plan (path, blocks, cache policy, bound, alpha dtype; modeled II within
-1e-12 relative), and the port's engine must plan as the reference's does.
+"""The port's perf model, tile balancer and mapper vs the JAX package: the
+same (shape, rho, alpha dtype, target) must give the same plan (path, blocks,
+cache policy, bound, alpha dtype; modeled II within 1e-12 relative), the
+port's engine must plan on the CPU as the reference's does, and on the card
+it must plan only the path that has a kernel there.
 """
 import dataclasses
 import subprocess
@@ -31,7 +32,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import bridge
 from repro_torch.runtime import mapper as tmapper
 from repro_torch.serving import LLMEngine as TEngine
-from repro_torch.serving import hw_names
+from repro_torch.serving import plan_cfg
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_TARGETS = ["v5e", "v5p", "v6e", "cpu"]
@@ -69,7 +70,7 @@ def test_h100_target():
     h = tpm.hw_by_name("h100")
     assert (h.peak_flops, h.hbm_bw, h.hbm_bytes, h.vmem_bytes,
             h.vpu_flops) == (989e12, 3.35e12, 80e9, 232_448, 67e12)
-    assert hw_names() == ("v5e", "v5p", "v6e", "cpu", "h100")
+    assert tpm.hw_names() == ("v5e", "v5p", "v6e", "cpu", "h100")
     with pytest.raises(KeyError, match="unknown HW target"):
         tpm.hw_by_name("tpu9")
 
@@ -137,110 +138,68 @@ def test_h100_plans_fused_for_full_tinyllama_decode(alpha_dtype):
 
 
 @pytest.mark.parametrize("alpha_dtype", ADTS)
-@pytest.mark.parametrize("hw", ["v5e", "cpu"])
-def test_engine_plan_matches_reference_engine(hw, alpha_dtype):
+@pytest.mark.parametrize("batch_slots", [1, 4])
+def test_engine_plan_matches_reference_engine(batch_slots, alpha_dtype):
+    """On the CPU the port's engine plans against the ``cpu`` target with
+    the reference's default candidates, as the JAX engine does with
+    ``hw="cpu"``."""
     jcfg = _with_alphas(j_smoke("tinyllama_1_1b"), alpha_dtype)
     tcfg = _with_alphas(t_smoke("tinyllama_1_1b"), alpha_dtype)
     jparams = jR.model_init(jax.random.PRNGKey(0), jcfg)
     tparams = bridge.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jparams), tcfg, "cpu")
-    kw = dict(batch_slots=4, buffer_len=64, chunk_size=8, packed=True,
-              paged=True, page_size=8, hw=hw)
-    jeng = JEngine(jparams, jcfg, **kw)
+    kw = dict(batch_slots=batch_slots, buffer_len=64, chunk_size=8,
+              packed=True, paged=True, page_size=8)
+    jeng = JEngine(jparams, jcfg, hw="cpu", **kw)
     teng = TEngine(tparams, tcfg, device="cpu", **kw)
     _same_exec_plan(teng.cfg.exec_plan, jeng.cfg.exec_plan)
-    assert teng.hw_label == jeng.hw_label == hw
-    off = TEngine(tparams, tcfg, device="cpu", use_mapper=False, **kw)
-    assert off.cfg.exec_plan is None
+    assert teng.cfg.exec_plan.hw_label == "cpu"
 
 
-def _cache_case(seed=2):
-    rng = np.random.default_rng(seed)
+@pytest.mark.parametrize("alpha_dtype", ADTS)
+@pytest.mark.parametrize("batch_slots", [4, 1024])
+def test_card_plan_has_fused_only(batch_slots, alpha_dtype):
+    """On the card the engine's plan names only ``fused``, the one path
+    with a hand-written kernel there, even where the h100 model prefers
+    ``materialize`` (full-width TinyLlama decode at 1024 slots)."""
+    cfg = _with_alphas(t_full("tinyllama_1_1b"), alpha_dtype)
+    planned = plan_cfg(cfg, batch_slots, "cuda")
+    plan = planned.exec_plan
+    assert plan.hw_label == "h100"
+    assert {n: p.path for n, p in plan.entries} == dict.fromkeys(
+        ("attn_q", "attn_o", "mlp_gate", "mlp_up", "mlp_down"), "fused")
+    free = tmapper.plan_model(cfg, TShape("d", 1, batch_slots, "decode"),
+                              hw="h100", weight_reuse=1)
+    assert ({p.path for _n, p in free.entries} == {"fused"}) == (
+        batch_slots == 4)
+    assert plan_cfg(planned, batch_slots, "cpu") is planned  # a plan stays
+    assert plan_cfg(cfg, batch_slots, "cpu").exec_plan.hw_label == "cpu"
+
+
+@pytest.mark.parametrize("alpha_dtype", ADTS)
+@pytest.mark.parametrize("path", ["materialize", "spectral"])
+def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
+    """``materialize`` and ``spectral`` have no kernel: on any device but
+    the CPU (here ``meta``, standing in for the card) a plan naming them
+    raises instead of running plain tensor code."""
+    rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
     al = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
     idx = torch.from_numpy(np.stack([np.sort(rng.choice(16, 8, replace=False))
                                      for _ in range(16)]).astype(np.int32))
-    return x, al, idx
-
-
-def test_weight_cache_hits_and_invalidates():
-    tops.clear_weight_cache()
-    x, alphas, idx = _cache_case()
-    plan = tmapper.LayerPlan("materialize", cache_weights=True,
-                             cache_key="test_layer")
-    y1 = tops.ovsf_matmul(x, alphas, idx, plan=plan)
-    assert tops.weight_cache_stats()["entries"] == 1
-    w_cached = tops._WEIGHT_CACHE[""]["test_layer|fp"][2]
-    y2 = tops.ovsf_matmul(x, alphas, idx, plan=plan)
-    assert tops._WEIGHT_CACHE[""]["test_layer|fp"][2] is w_cached
-    np.testing.assert_array_equal(y1.numpy(), y2.numpy())
-    stats = tops.weight_cache_stats()
-    assert (stats["hits"], stats["misses"]) == (1, 1)
-    assert stats["bytes"] == 256 * 64 * 4
-    tops.ovsf_matmul(x, alphas + 1.0, idx, plan=plan)   # new params
-    assert tops._WEIGHT_CACHE[""]["test_layer|fp"][2] is not w_cached
-    assert tops.weight_cache_stats()["misses"] == 2
-    tops.clear_weight_cache()
-
-
-def test_weight_cache_keys_on_alpha_dtype():
-    tops.clear_weight_cache()
-    x, alphas, idx = _cache_case(3)
-    q, s = tovsf.quantize_alphas(alphas, 16, "int8")
-    plan = tmapper.LayerPlan("materialize", cache_weights=True,
-                             cache_key="layer0")
-    y_fp = tops.ovsf_matmul(x, alphas, idx, plan=plan)
-    s1 = tops.weight_cache_stats()
-    assert s1["misses"] == 1 and s1["entries"] == 1 and s1["bytes"] > 0
-    tops.ovsf_matmul(x, alphas, idx, plan=plan)
-    assert tops.weight_cache_stats()["hits"] == 1
-    # the same plan and cache key with int8 alphas: a new slot, never the
-    # stale fp32 W
-    y_q = tops.ovsf_matmul(x, q, idx, plan=plan, alpha_scale=s,
-                           alpha_dtype="int8")
-    s2 = tops.weight_cache_stats()
-    assert s2["misses"] == 2 and s2["entries"] == 2, s2
-    assert not torch.equal(y_q, y_fp)
-    tops.ovsf_matmul(x, alphas, idx, plan=plan)
-    assert tops.weight_cache_stats()["hits"] == 2
-    tops.clear_weight_cache()
-
-
-def test_weight_cache_scope_labels_and_engine_stats():
-    """Counters land in the active label's ledger; an engine reports its
-    own label's hits and misses since it was built."""
-    tops.clear_weight_cache()
-    x, alphas, idx = _cache_case(4)
-    plan = tmapper.LayerPlan("materialize", cache_weights=True,
-                             cache_key="k")
-    with tops.weight_cache_scope("model-a"):
-        tops.ovsf_matmul(x, alphas, idx, plan=plan)
-        tops.ovsf_matmul(x, alphas, idx, plan=plan)
-    assert tops.weight_cache_stats("model-a")["hits"] == 1
-    assert tops.weight_cache_stats("")["entries"] == 0
-    tops.clear_weight_cache("model-a")
-    assert tops.weight_cache_stats() == dict(entries=0, hits=0, misses=0,
-                                             bytes=0)
-
-    tcfg = t_smoke("tinyllama_1_1b")
-    tcfg = tcfg.replace(exec_plan=tmapper.plan_model(
-        tcfg, TShape("d", 1, 4, "decode"), hw="cpu",
-        paths=("materialize",)))
-    from repro_torch.models import registry as tR
-    from repro_torch.serving import Request
-    eng = TEngine(tR.model_init(tcfg, 0, "cpu"), tcfg, batch_slots=2,
-                  buffer_len=32, chunk_size=8, packed=True, paged=True,
-                  page_size=8, model_label="m", device="cpu")
-    assert eng.cfg.exec_plan is tcfg.exec_plan       # an explicit plan stays
-    eng.submit(Request(0, np.arange(1, 6, dtype=np.int32), max_new_tokens=3))
-    st = eng.run_until_drained(max_steps=20)
-    # one cache slot per weight type: the layers share it, as the
-    # reference's per-weight-type cache keys do
-    assert st.weight_cache_entries == 7
-    assert st.weight_cache_misses == 7 * tcfg.n_layers * st.steps
-    assert st.weight_cache_bytes > 0
-    assert tops.weight_cache_stats("m")["misses"] == st.weight_cache_misses
-    tops.clear_weight_cache()
+    s = None
+    if alpha_dtype:
+        al, s = tovsf.quantize_alphas(al, 16, alpha_dtype)
+    kw = dict(plan=tmapper.LayerPlan(path), alpha_scale=s,
+              alpha_dtype=alpha_dtype)
+    want = tops.ovsf_matmul(x, al, idx, path="fused", alpha_scale=s,
+                            alpha_dtype=alpha_dtype)
+    torch.testing.assert_close(tops.ovsf_matmul(x, al, idx, **kw), want,
+                               rtol=2e-3, atol=2e-3)      # runs on the CPU
+    meta = [t.to("meta") for t in (x, al, idx)]
+    kw["alpha_scale"] = None if s is None else s.to("meta")
+    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+        tops.ovsf_matmul(*meta, **kw)
 
 
 def test_import_of_new_modules_leaves_jax_and_reference_out():
