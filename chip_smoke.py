@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              int4 alphas (segmented at the TinyLlama-1.1B layer shapes for M
              in {4, 128}, plus monolithic and ragged cases) and
              ``paged_flash_decode`` (T in {4, 128}, H 32, Hkv 4, hd 64,
-             page 16, padding tokens and sentinel pages) against their plain
+             page 16, padding tokens and sentinel pages) and
+             ``ovsf_decompress`` (the ResNet-50 and SqueezeNet-1.1 shapes, a
+             ragged shape, repeated code ids) against their plain
              versions on the card, in bf16 and fp32; print each error against
              its tolerance, the kernel's device time (CUDA-graph replay), its
              bound, the plain version's time and one library call's (the
@@ -34,6 +36,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              with the same parameters on the CPU (plain versions), with fp32
              and with int8 alphas, planned as the engine plans on the card;
              relative L2 error of the logits <= 1e-3.
+  6. cnn:    full-width ResNet-50 and SqueezeNet-1.1 in matrix mode
+             (fp32, 224x224, batch 8, 1000 classes, random weights from
+             --seed) through ``cnn_apply``: the launch counters, zeroed just
+             before one forward, must read 13 and 6 ``ovsf_decompress``
+             launches and nothing else; then the registered ResNet-50
+             config (spatial mode, no kernel). Each: card vs CPU logits (TF32
+             off for cuDNN and matmul, here and in every phase) within 1e-3
+             relative L2 error; images/s, device ms per forward,
+             ``ovsf_decompress`` ms per forward and the idle share.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -584,6 +595,183 @@ def parity_phase(seed: int, dev, alpha_dtype: str = ""):
                 gpu_step_s=t_gpu, cpu_step_s=t_cpu)
 
 
+# -- phase 6: CNNs ------------------------------------------------------------
+
+# (d_in, d_out, calls per forward) of ResNet-50's OVSF convs in matrix mode
+RESNET50_DECOMPRESS = ((1152, 128, 4), (2304, 256, 6), (4608, 512, 3))
+
+
+def decompress_case(rng, d_in: int, N: int, dtype, dev, repeat=False):
+    """Unit-scale W from J = L/2 sorted code ids (drawn with replacement
+    when ``repeat``: the kernel must sum repeated ids)."""
+    L = 1 << (d_in - 1).bit_length()
+    J = L // 2
+    idx = np.sort(rng.choice(L, J, replace=repeat)).astype(np.int32)
+    al = torch.from_numpy(rng.standard_normal((J, N), np.float32))
+    return (al.div_(math.sqrt(J)).to(dev, dtype),
+            torch.from_numpy(idx).to(dev), L)
+
+
+def run_decompress_checks(rng, dev):
+    """``ovsf_decompress`` vs its plain version. Bound: the alphas read and
+    W written once (plus the ids), or the transform's N * L * log2 L fp32
+    additions; library: ``torch.matmul(S.T, alphas)``, S = H_L[idx, :d_in]
+    built outside the timed region (the port never calls it)."""
+    from repro_torch.core.ovsf import hadamard_matrix
+    from repro_torch.kernels.ovsf_gemm import (ovsf_decompress,
+                                               ovsf_decompress_plain)
+    shapes = [(d, n, False) for d, n, _c in RESNET50_DECOMPRESS]
+    shapes += [(288, 128, False), (1000, 40, False), (200, 24, True)]
+    rows = []
+    for d_in, N, repeat in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            al, idx, L = decompress_case(rng, d_in, N, dt, dev, repeat)
+            label = (f"ovsf_decompress d_in={d_in} L={L} J={L // 2} N={N}"
+                     f"{' repeated ids' if repeat else ''} "
+                     f"{str(dt).split('.')[-1]}")
+            err = check(label, ovsf_decompress(al, idx, d_in),
+                        ovsf_decompress_plain(al, idx, d_in), dt)
+            es = al.element_size()
+            bytes_ = al.numel() * es + idx.numel() * 4 + d_in * N * es
+            t_bound, by = bound(bytes_, N * L * math.log2(L), torch.float32)
+            copies = [al.clone() for _ in range(n_copies(bytes_))]
+            ms, call_ms = timings([lambda a=a: ovsf_decompress(a, idx, d_in)
+                                   for a in copies], 40)
+            plain_ms, _ = timings([lambda a=a: ovsf_decompress_plain(
+                a, idx, d_in) for a in copies[:2]], 4)
+            S = hadamard_matrix(L, dt, dev)[idx.long(), :d_in]
+            lib_err = float((torch.matmul(S.t(), al).float()
+                             - ovsf_decompress_plain(al, idx, d_in).float())
+                            .abs().max())
+            lib_ms, _ = timings([lambda a=a: torch.matmul(S.t(), a)
+                                 for a in copies], 20)
+            del copies, S
+            rows.append(dict(case=label, d_in=d_in, L=L, J=L // 2, N=N,
+                             repeated_ids=repeat, dtype=str(dt),
+                             max_abs_err=err, tol=TOL[dt], ms=ms,
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library_err=lib_err,
+                             bound_ms=t_bound, bound_by=by))
+            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+                  f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
+                  f"bound={t_bound:.5f}ms ({by}) plain={plain_ms:.4f}ms "
+                  f"library(matmul S^T alphas)={lib_ms:.4f}ms (its err "
+                  f"{lib_err:.1e})", flush=True)
+    # one ResNet-50 forward's 13 calls in fp32 (the kernels line)
+    pick = {r["d_in"]: r for r in rows if r["dtype"] == "torch.float32"}
+    summary = {key: sum(c * pick[d][key] for d, _n, c in RESNET50_DECOMPRESS)
+               for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                           "bound_ms")}
+    summary["bound_by"] = ("bytes" if all(pick[d]["bound_by"] == "bytes" for
+                                          d, _n, _c in RESNET50_DECOMPRESS)
+                           else "operations")
+    summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return rows, summary
+
+
+def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
+              launches_per_forward: int) -> dict:
+    """One full-width CNN (fp32, 224x224, batch 8, weights from ``seed``)
+    through ``cnn_apply`` on the card (``mode`` "" keeps the registered
+    config's): launch counts of one forward, logits against the same
+    forward on the CPU, then images/s on the host clock and device time by
+    kernel from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.kernels.decode_attn import paged_flash_decode
+    from repro_torch.models import cnn
+    from repro_torch.models.registry import params_to
+    cfg = get_config(arch)
+    if mode:
+        cfg = cfg.replace(ovsf_mode=mode)
+    tag = f"[cnn {arch} {cfg.ovsf_mode}]"
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(f"{tag} TF32 must be off for the parity check")
+    B = 8
+    params, state = cnn.cnn_init(cfg, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    x = torch.randn((B, cfg.in_hw, cfg.in_hw, 3), generator=gen, device=dev)
+
+    def forward(p, s, images):
+        with torch.no_grad():
+            return cnn.cnn_apply(p, s, cfg, images)[0]
+
+    G.reset_launches()
+    paged_flash_decode.launches = 0
+    logits = forward(params, state, x)
+    torch.cuda.synchronize()
+    launches = {"ovsf_decompress": G.ovsf_decompress.launches,
+                "ovsf_gemm": G.ovsf_gemm.launches,
+                "paged_flash_decode": paged_flash_decode.launches}
+    if launches != {"ovsf_decompress": launches_per_forward, "ovsf_gemm": 0,
+                    "paged_flash_decode": 0}:
+        raise RuntimeError(f"{tag} one forward launched {launches}, expected "
+                           f"{launches_per_forward} ovsf_decompress and "
+                           "nothing else")
+    if logits.shape != (B, cfg.num_classes) or not torch.isfinite(
+            logits).all():
+        raise RuntimeError(f"{tag} logits {tuple(logits.shape)} not finite")
+    t0 = time.perf_counter()
+    cpu = forward(params_to(params, "cpu"), params_to(state, "cpu"), x.cpu())
+    t_cpu = time.perf_counter() - t0
+    rel = float((logits.float().cpu() - cpu).norm() / cpu.norm())
+    print(f"{tag} launches per forward {launches}; card vs CPU logits rel "
+          f"L2 err={rel:.3e} (limit 1e-3, TF32 off); CPU forward "
+          f"{t_cpu:.2f}s", flush=True)
+    if not rel <= 1e-3:
+        raise RuntimeError(f"{tag} relative error {rel:.3e} > 1e-3")
+
+    n = 10
+    for _ in range(2):
+        forward(params, state, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        forward(params, state, x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            forward(params, state, x)
+        torch.cuda.synchronize()
+    del params, state, x
+    torch.cuda.empty_cache()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / n / 1e3
+    dec_ms = sum(e.self_device_time_total for e in kern
+                 if "ovsf_decompress" in e.key) / n / 1e3
+    top = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
+                  for e in kern), reverse=True)[:8]
+    images_s = B / wall_ms * 1e3
+    result = dict(arch=arch, ovsf_mode=cfg.ovsf_mode, batch=B,
+                  in_hw=cfg.in_hw, tf32=False, launches=launches,
+                  rel_err=rel, cpu_forward_s=t_cpu, wall_ms=wall_ms,
+                  images_s=images_s)
+    if not kern or busy_ms <= 0:
+        print(f"{tag} {images_s:.1f} images/s on {card} (wall "
+              f"{wall_ms:.3f}ms per forward); torch.profiler recorded no "
+              "device time: device ms and idle share not measured",
+              flush=True)
+        return dict(result, busy_ms=None, decompress_ms=None,
+                    idle_share=None, top=[])
+    idle = 1.0 - busy_ms / wall_ms
+    print(f"{tag} {images_s:.1f} images/s on {card} (TF32 off): wall "
+          f"{wall_ms:.3f}ms per forward, device busy {busy_ms:.3f}ms, "
+          f"ovsf_decompress {dec_ms:.4f}ms, idle share {idle:.3f}",
+          flush=True)
+    for ms, cnt, key in top:
+        print(f"{tag}   {ms:.4f}ms/forward x{cnt}/forward  {key[:90]}",
+              flush=True)
+    return dict(result, busy_ms=busy_ms, decompress_ms=dec_ms,
+                idle_share=idle,
+                top=[dict(ms_per_forward=ms, launches_per_forward=cnt,
+                          kernel=key) for ms, cnt, key in top])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -611,18 +799,23 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     gemm = {adt: run_gemm_checks(rng, dev, adt) for adt in ALPHA_DTYPES}
     attn_rows, attn_sum = run_paged_checks(rng, dev)
+    dec_rows, dec_sum = run_decompress_checks(rng, dev)
     refused = check_quant_contract(dev)
     print("[kernels] checked against their plain versions: ovsf_gemm ("
           + ", ".join(f"{len(rows)} {adt or 'bf16/fp32-alpha'}"
                       for adt, (rows, _s) in gemm.items())
-          + f" cases), paged_flash_decode ({len(attn_rows)} cases)",
-          flush=True)
+          + f" cases), paged_flash_decode ({len(attn_rows)} cases), "
+          f"ovsf_decompress ({len(dec_rows)} cases)", flush=True)
 
     serve, launches = {}, {}
     for adt in ALPHA_DTYPES:
         serve[adt or "fp"], launches[adt] = serve_phase(args.seed, card, dev,
                                                         adt)
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
+    cnns = [cnn_phase(args.seed, card, dev, arch, mode, n)
+            for arch, mode, n in (("resnet50", "matrix", 13),
+                                  ("squeezenet1_1", "matrix", 6),
+                                  ("resnet50", "", 0))]
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -636,7 +829,11 @@ def main(argv=None) -> int:
             ("paged_flash_decode",
              "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:160", attn_sum,
-             launches[""]["paged_flash_decode"])):
+             launches[""]["paged_flash_decode"]),
+            ("ovsf_decompress",
+             "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
+             "src/repro/kernels/ovsf_gemm.py:256", dec_sum,
+             cnns[0]["launches"]["ovsf_decompress"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -654,12 +851,16 @@ def main(argv=None) -> int:
                        adt or "fp": s["layer_M128"]
                        for adt, (_r, s) in gemm.items()},
                    "paged_flash_decode_cases": attn_rows,
+                   "ovsf_decompress_cases": dec_rows,
                    "summary_rows": {
                        "ovsf_gemm*": "sum of q, o, gate, up, down at M=4 "
                                      "bf16 x",
-                       "paged_flash_decode": "T=4 decode bf16"},
+                       "paged_flash_decode": "T=4 decode bf16",
+                       "ovsf_decompress": "one ResNet-50 forward's 13 calls "
+                                          "(4 x s1, 6 x s2, 3 x s3), fp32"},
                    "quant_wrapper_refuses": refused,
-                   "serve": serve, "parity": parity}, f, indent=1)
+                   "serve": serve, "parity": parity, "cnn": cnns}, f,
+                  indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

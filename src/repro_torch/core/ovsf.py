@@ -4,7 +4,8 @@ OVSF codes of length L = 2^k are the rows of the Sylvester-Hadamard matrix
 H_L, H[i, j] = (-1)^popcount(i & j). A weight matrix is stored as alpha
 coefficients over a kept subset of codes and regenerated on the fly.
 
-Carried here: code construction, the WHT, the int8/int4 alpha storage
+Carried here: code construction, the WHT, ``reconstruct`` and the CNN
+filters' ``extract_kxk``, the int8/int4 alpha storage
 (``quantize_alphas``/``quantize_params`` and their inverses), ``OVSFSpec``
 and the from-scratch ``init_ovsf``. The converter
 (``select_basis``/``compress_matrix``) waits for a later slice.
@@ -61,6 +62,36 @@ def fwht(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         y = torch.stack([a + b, a - b], dim=-2)
         h *= 2
     return y.reshape(shape + (L,)).movedim(-1, dim)
+
+
+def reconstruct(kept: torch.Tensor, idx: torch.Tensor, d: int,
+                L: Optional[int] = None) -> torch.Tensor:
+    """Rebuild (..., d) weight vectors from (..., n_keep) kept coefficients:
+    scatter them into the length-L spectrum, transform, crop to d (the
+    paper's "crop" extraction); == kept @ H[idx, :][:, :d]."""
+    L = L or next_pow2(d)
+    full = torch.zeros(kept.shape[:-1] + (L,), dtype=kept.dtype,
+                       device=kept.device)
+    full[..., idx.long()] = kept
+    return fwht(full, dim=-1)[..., :d]
+
+
+def extract_kxk(w4: torch.Tensor, k: int, method: str = "crop"
+                ) -> torch.Tensor:
+    """A k x k spatial filter from a K0 x K0 (power-of-two) OVSF filter
+    (..., K0, K0): "crop" takes the top-left window, "adaptive" average-pools
+    K0 -> k (``torch.nn.AdaptiveAvgPool2d`` windows; paper Table 3)."""
+    K0 = w4.shape[-1]
+    if method == "crop":
+        return w4[..., :k, :k]
+    if method == "adaptive":
+        def pool_axis(x, dim):
+            return torch.stack(
+                [x.narrow(dim, (i * K0) // k,
+                          ((i + 1) * K0 + k - 1) // k - (i * K0) // k)
+                 .mean(dim=dim) for i in range(k)], dim=dim)
+        return pool_axis(pool_axis(w4, -1), -2)
+    raise ValueError(f"unknown extraction method: {method}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,23 @@
 """Execution-path dispatch for an OVSF linear layer (port of
 ``repro.kernels.ops``).
 
-``materialize``  regenerate dense W, then one GEMM.
+``materialize``  regenerate dense W, then one GEMM (``torch.matmul``, as the
+                 reference leaves it to XLA). Monolithic codes with fp32/bf16
+                 alphas generate W through the hand-written
+                 ``kernels.ovsf_gemm.ovsf_decompress`` on CUDA (its plain
+                 version on the CPU): the CNNs' im2col GEMMs in matrix mode.
 ``fused``        generation fused into the GEMM tiles: the hand-written
                  ``kernels.ovsf_gemm`` kernel on CUDA, its plain version on
                  the CPU.
 ``spectral``     y = WHT(x)[:, idx] @ alphas (exact), per segment for the
                  segmented layout.
 
-``materialize`` and ``spectral`` are plain tensor code, as the reference
-computes them in jnp for the segmented layout, and dequantise int8/int4
-alphas up front. They have no hand-written kernel yet (monolithic codes need
-the not-yet-ported ``ovsf_decompress`` / ``fwht_pallas``), so they run on
-the CPU only and raise on any other device: on the card only ``fused`` runs,
-and the engine plans with that path alone there.
+What has no hand-written kernel yet runs on the CPU only and raises on any
+other device: ``materialize`` of segmented codes or quantised alphas (plain
+per-segment WHT or dequantisation, as the reference computes them in jnp;
+nothing sends them to ``ovsf_decompress``) and ``spectral`` (monolithic codes
+need the not-yet-ported ``fwht_pallas``). So on the card the LM layers, all
+segmented, run ``fused`` only, and the engine plans with that path alone.
 
 ``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan`` and runs its
 path. The plan's block sizes and cache policy are recorded, not used: the
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.core import ovsf
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.ovsf_gemm import ovsf_gemm
+from repro_torch.kernels.ovsf_gemm import ovsf_decompress, ovsf_gemm
 
 EXEC_PATHS = ("materialize", "fused", "spectral")
 
@@ -49,29 +53,33 @@ def _segmented_decompress(alphas: torch.Tensor, idx: torch.Tensor,
     return w.transpose(1, 2).reshape(d_in, d_out)
 
 
-def _plain_only(t: torch.Tensor, path: str) -> None:
-    """No plain-version fallback off the CPU: the path has no kernel."""
+def _plain_only(t: torch.Tensor, what: str) -> None:
+    """No plain-version fallback off the CPU: ``what`` has no kernel."""
     if t.device.type != "cpu":
         raise NotImplementedError(
-            f"the {path} path has no hand-written kernel, so it runs on the "
+            f"the {what} has no hand-written kernel, so it runs on the "
             f"CPU only; on {t.device.type} plan OVSF layers with the fused "
             "path")
 
 
 def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
-    """Dense (d_in, d_out) W from OVSF params (quantised alphas are
-    dequantised to fp32 first)."""
-    _plain_only(alphas, "materialize")
-    alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
-    if idx.dim() == 2:
-        return _segmented_decompress(alphas, idx, d_in)
-    return kref.fwht_decompress_ref(alphas, idx, d_in)
+    """Dense (d_in, d_out) W from OVSF params. Monolithic codes with
+    fp32/bf16 alphas go to ``ovsf_decompress`` (the kernel on CUDA);
+    segmented codes and quantised alphas (dequantised to fp32 first) run
+    plain tensor code on the CPU only."""
+    if idx.dim() == 2 or alpha_dtype:
+        _plain_only(alphas, "materialize path for segmented codes or "
+                    "quantised alphas")
+        alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
+        if idx.dim() == 2:
+            return _segmented_decompress(alphas, idx, d_in)
+    return ovsf_decompress(alphas, idx, d_in)
 
 
 def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(..., d_in) activations -> (..., J) kept-code coefficients."""
-    _plain_only(x, "spectral")
+    _plain_only(x, "spectral path")
     d_in = x.shape[-1]
     if idx.dim() == 2:
         ns, nk = idx.shape
@@ -89,7 +97,7 @@ def spectral_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
                     *, alpha_scale=None, alpha_dtype: str = ""
                     ) -> torch.Tensor:
     """y = x @ W via the activation-transform identity (exact)."""
-    _plain_only(x, "spectral")
+    _plain_only(x, "spectral path")
     alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
     xk = spectral_transform(x, idx)
     return (xk @ alphas.to(xk.dtype)).to(x.dtype)

@@ -1,4 +1,5 @@
-"""Fused on-the-fly OVSF GEMM: the Hopper kernel and its plain version.
+"""On-the-fly OVSF weight generation: the Hopper kernels and their plain
+versions (port of ``repro.kernels.ovsf_gemm``, which holds both TPU kernels).
 
 ``ovsf_gemm(x, alphas, idx)`` computes y = x @ W with
 W[k, n] = sum_j (-1)^popcount(idx[j] & k') * alphas[j, n] (see
@@ -10,6 +11,13 @@ bound in the source's header note) or raises; on a CPU tensor it runs the
 plain version. ``ovsf_gemm.launches`` counts kernel launches, and
 ``ovsf_gemm.launches_by_alpha`` splits them by alpha storage ("fp", "int8",
 "int4").
+
+``ovsf_decompress(alphas, idx, d_in)`` materialises the dense W (d_in,
+d_out) from fp32/bf16 alphas over monolithic codes: ``csrc/ovsf_decompress.cu``
+(the port of the Pallas ``ovsf_decompress``) on a CUDA tensor, its plain
+version on a CPU tensor; ``ovsf_decompress.launches`` counts launches. Its
+int8/int4 epilogue and the segmented layout are not ported: no path sends
+them to it.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.ovsf import fwht, next_pow2
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ovsf_matmul_ref
 
@@ -30,11 +39,16 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _QUANT = {"": 0, "int8": 1, "int4": 2}
 
 
-def _lib():
-    lib = build.load("ovsf_gemm")
-    fn = lib.ovsf_gemm_launch
+_DEC_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
+
+
+def _fn(source: str, argtypes):
+    """The C launch function of one CUDA source, built and typed at first
+    use."""
+    fn = getattr(build.load(source), f"{source}_launch")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -124,7 +138,7 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     bm, kb_per_split, splits = tiling(M, K, N, n_sms)
     partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-    err = _lib()(x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
+    err = _fn("ovsf_gemm", _ARGTYPES)(x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
                  idx.data_ptr(), out.data_ptr(), partial.data_ptr(), M, K, N,
                  J, seg, n_keep, rows_per_scale, bm, splits, kb_per_split,
                  int(x.dtype == torch.bfloat16), _QUANT[alpha_dtype],
@@ -136,10 +150,73 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     return out
 
 
+def ovsf_decompress_plain(alphas: torch.Tensor, idx: torch.Tensor,
+                          d_in: int) -> torch.Tensor:
+    """The plain version of ``ovsf_decompress``: scatter-add each column's
+    alphas into its length-L spectrum (repeated ids sum, as the Pallas
+    kernel's sum over j does), WHT, crop; fp32 arithmetic, output in the
+    alphas' type, as the (d_in, d_out) view of a (d_out, d_in) array."""
+    L = next_pow2(d_in)
+    spec = torch.zeros((alphas.shape[1], L), dtype=torch.float32,
+                       device=alphas.device)
+    spec.index_add_(1, idx.long(), alphas.float().t())
+    return fwht(spec, dim=-1)[:, :d_in].to(alphas.dtype).t()
+
+
+def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
+                    d_in: int) -> torch.Tensor:
+    """Dense W (d_in, d_out) = S^T @ alphas, S = H_L[idx, :d_in], from
+    (J, d_out) float32 or bfloat16 alphas and (J,) monolithic code ids in
+    [0, next_pow2(d_in)); returned in the alphas' type as the transposed
+    view of a contiguous (d_out, d_in) array."""
+    if alphas.device.type == "cpu":
+        return ovsf_decompress_plain(alphas, idx, d_in)
+    if alphas.device.type != "cuda":
+        raise ValueError(f"ovsf_decompress: unsupported device "
+                         f"{alphas.device}")
+    if alphas.dim() != 2 or alphas.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+        raise ValueError(f"ovsf_decompress: alphas {tuple(alphas.shape)} "
+                         f"{alphas.dtype} must be 2-D float32 or bfloat16")
+    J, N = alphas.shape
+    if (idx.dim() != 1 or idx.shape[0] != J or idx.dtype.is_floating_point
+            or idx.device != alphas.device):
+        raise ValueError(f"ovsf_decompress: idx {tuple(idx.shape)} "
+                         f"{idx.dtype} on {idx.device} must be ({J},) "
+                         f"integer code ids beside the alphas (monolithic "
+                         "codes only)")
+    L = next_pow2(d_in)
+    if d_in < 1 or L > _DEC_MAX_L:
+        raise ValueError(f"ovsf_decompress: d_in={d_in} outside "
+                         f"1..{_DEC_MAX_L}")
+    # the range check reads the ids on the host, which a stream being
+    # captured into a CUDA graph may not do; the kernel traps on an id out of
+    # range in any case
+    if not torch.cuda.is_current_stream_capturing():
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < 0 or hi >= L:
+            raise ValueError(f"ovsf_decompress: code ids span [{lo}, {hi}], "
+                             f"outside [0, {L})")
+    alphas = alphas.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    wt = torch.empty((N, d_in), dtype=alphas.dtype, device=alphas.device)
+    err = _fn("ovsf_decompress", _DEC_ARGTYPES)(
+        alphas.data_ptr(), idx.data_ptr(), wt.data_ptr(), J, N, d_in, L,
+        int(alphas.dtype == torch.bfloat16),
+        torch.cuda.current_stream(alphas.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ovsf_decompress: CUDA launch failed (cudaError "
+                           f"{err})")
+    ovsf_decompress.launches += 1
+    return wt.t()
+
+
 def reset_launches() -> None:
-    """Zero the launch counters (total and per alpha storage)."""
+    """Zero the launch counters (``ovsf_gemm``: total and per alpha storage;
+    ``ovsf_decompress``)."""
     ovsf_gemm.launches = 0
     ovsf_gemm.launches_by_alpha = dict.fromkeys(("fp", "int8", "int4"), 0)
+    ovsf_decompress.launches = 0
 
 
 reset_launches()

@@ -58,17 +58,6 @@ def ovsf_matmul_ref(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
     return (x.to(torch.float32) @ W).to(x.dtype)
 
 
-def fwht_decompress_ref(alphas: torch.Tensor, idx: torch.Tensor, d_in: int
-                        ) -> torch.Tensor:
-    """Monolithic decompression through the WHT (scatter -> transform ->
-    crop): no L x L temporary."""
-    L = ovsf.next_pow2(d_in)
-    n_keep, d_out = alphas.shape
-    full = torch.zeros((d_out, L), dtype=alphas.dtype, device=alphas.device)
-    full[:, idx.long()] = alphas.T
-    return ovsf.fwht(full, dim=-1)[:, :d_in].T
-
-
 def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pos) -> torch.Tensor:
     """Single-token GQA attention over a contiguous cache.

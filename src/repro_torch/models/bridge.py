@@ -5,7 +5,10 @@ The reference's params arrive as nested dicts of numpy arrays (e.g.
 along a leading layer axis; the port keeps the same key names (``alphas`` /
 ``alphas_q8`` / ``alphas_q4`` + ``alpha_scale``, ``idx``, ``w``, ``b``,
 ``scale``, ``table``) and holds ``blocks`` as a list of per-layer dicts.
-Nothing here imports JAX: numpy is the interchange format.
+The CNNs' ``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
+``cnn_params_to_numpy``) are flat dicts of layer dicts; only their conv
+filters change layout (HWIO in the reference, OIHW in the port). Nothing
+here imports JAX: numpy is the interchange format.
 
 Float leaves take the model dtype, except those the reference holds in
 float32 whatever the model dtype is (``_FLOAT32_KEYS``: the per-segment
@@ -74,3 +77,42 @@ def params_to_numpy(params: dict) -> dict:
     out = {k: conv(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = stack(params["blocks"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# CNNs (``models.cnn``): (params, bn_state) trees of flat layer dicts
+# ---------------------------------------------------------------------------
+
+def _conv_leaf(key: str, a, dtype, device) -> torch.Tensor:
+    t = _tensor(a, dtype, device)
+    if key == "w" and t.dim() == 4:        # HWIO (k, k, Cin, Cout) -> OIHW
+        t = t.permute(3, 2, 0, 1).contiguous()
+    return t
+
+
+def cnn_params_from_numpy(params: dict, state: dict, cfg, device
+                          ) -> tuple[dict, dict]:
+    """The reference's CNN ``(params, bn_state)`` (numpy leaves) -> the
+    port's on ``device``: conv filters ``w`` from HWIO (k, k, Cin, Cout) to
+    (Cout, Cin, k, k), float leaves in ``cfg.act_dtype``, the BN running
+    statistics in float32; ``alphas``, ``idx`` and ``meta`` keep their
+    layout (the alphas index the (k, k, Cin) flattening)."""
+    out = {name: {k: _conv_leaf(k, v, cfg.act_dtype, device)
+                  for k, v in layer.items()} for name, layer in params.items()}
+    return out, _convert(state, torch.float32, device)
+
+
+def cnn_params_to_numpy(params: dict, state: dict) -> tuple[dict, dict]:
+    """The port's CNN ``(params, bn_state)`` -> the reference's layout
+    (numpy leaves, conv filters HWIO; bfloat16 widened to float32)."""
+    def leaf(key, t):
+        t = t.detach().cpu()
+        if key == "w" and t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def conv(tree):
+        return {name: {k: leaf(k, v) for k, v in layer.items()}
+                for name, layer in tree.items()}
+
+    return conv(params), conv(state)
