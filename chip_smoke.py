@@ -13,15 +13,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ``paged_flash_decode`` (T in {4, 128}, H 32, Hkv 4, hd 64,
              page 16, padding tokens and sentinel pages) and
              ``ovsf_decompress`` (the ResNet-50 and SqueezeNet-1.1 shapes, a
-             ragged shape, repeated code ids) against their plain
-             versions on the card, in bf16 and fp32; print each error against
-             its tolerance, the kernel's device time (CUDA-graph replay), its
-             bound, the plain version's time and one library call's (the
-             port never calls it). Then the quantised wrapper must refuse
+             ragged shape, repeated code ids) and ``fwht`` (the (M, L) of
+             the planned ResNet-50 and SqueezeNet-1.1 forwards at batch 8,
+             ragged (37, 1024), (5, 2) and the limit (3, 32768)) against
+             their plain versions on the card, in bf16 and fp32; print each
+             error against its tolerance, the kernel's device time
+             (CUDA-graph replay), its bound, the plain version's time and
+             one library call's (the port never calls it). ``fwht`` must
+             refuse a length that is not a power of two and L = 65536
+             before any launch. Then the quantised wrapper must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
              alphas, scales that do not tile J), and ``ovsf_matmul`` must
-             refuse the ``materialize`` and ``spectral`` paths on the card
-             (they have no kernel; no plain fallback runs there).
+             refuse ``materialize`` of quantised alphas and ``spectral`` of
+             segmented codes on the card (they have no kernel; no plain
+             fallback runs there). Last, one ResNet-50 s2 conv's GEMM (M
+             1568, 2304 -> 256, rho 0.5, integer-valued inputs) under
+             ``materialize``, ``fused`` and ``spectral`` plans: the three
+             outputs must be equal, each through its own kernel.
   4. serve:  full-width TinyLlama-1.1B (22 layers, d 2048, bf16, random
              weights from --seed) through ``LLMEngine(paged=True,
              packed=True, chunk_size=64, batch_slots=4, buffer_len=256)``,
@@ -38,13 +46,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
              relative L2 error of the logits <= 1e-3.
   6. cnn:    full-width ResNet-50 and SqueezeNet-1.1 in matrix mode
              (fp32, 224x224, batch 8, 1000 classes, random weights from
-             --seed) through ``cnn_apply``: the launch counters, zeroed just
-             before one forward, must read 13 and 6 ``ovsf_decompress``
-             launches and nothing else; then the registered ResNet-50
-             config (spatial mode, no kernel). Each: card vs CPU logits (TF32
-             off for cuDNN and matmul, here and in every phase) within 1e-3
+             --seed) through ``cnn_apply``: with no plan (13 and 6
+             ``ovsf_decompress`` launches per forward and nothing else),
+             then the registered ResNet-50 config (spatial mode, no
+             kernel), then planned by ``plan_cnn(cfg, batch=8, hw="h100",
+             paths=ALL_PATHS)`` (ResNet-50 and SqueezeNet-1.1) and by the
+             default paths (ResNet-50). A planned phase prints the plan's
+             path counts, and the launch counters, zeroed just before one
+             forward, must equal them: ``fwht`` the ``spectral`` entries,
+             ``ovsf_decompress`` the ``materialize`` ones, ``ovsf_gemm``
+             the ``fused`` ones. Each phase: card vs CPU logits (TF32 off
+             for cuDNN and matmul, here and in every phase) within 1e-3
              relative L2 error; images/s, device ms per forward,
-             ``ovsf_decompress`` ms per forward and the idle share.
+             ``ovsf_decompress`` and ``fwht`` ms per forward and the idle
+             share.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -252,8 +267,10 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
 
 def check_quant_contract(dev) -> list:
     """The quantised wrapper refuses, before any launch, what the kernel does
-    not take; a refusal must not count as a launch. The paths without a
-    kernel refuse to run on the card."""
+    not take; a refusal must not count as a launch. What has no kernel
+    refuses to run on the card: ``materialize`` of quantised alphas and
+    ``spectral`` of segmented codes (monolithic ``spectral`` runs the
+    ``fwht`` kernel: ``run_three_paths``)."""
     from repro_torch.core.ovsf import quantize_alphas
     from repro_torch.kernels.ops import ovsf_matmul
     from repro_torch.kernels.ovsf_gemm import ovsf_gemm
@@ -669,28 +686,183 @@ def run_decompress_checks(rng, dev):
     return rows, summary
 
 
+# (M, L, calls per forward) of the fwht calls of a forward at batch 8 under
+# the h100 ALL_PATHS plan: ResNet-50's s1, s2, s3 convs and SqueezeNet-1.1's
+# fires 2-3, 4-5, 6-7
+RESNET50_FWHT = ((6272, 2048, 4), (1568, 4096, 6), (392, 8192, 3))
+SQUEEZENET_FWHT = ((6272, 512, 2), (1568, 512, 2), (1568, 1024, 2))
+
+
+def hadamard(L: int, dtype, dev) -> torch.Tensor:
+    """H_L by Sylvester doubling on the card (the library yardstick's
+    operand, built outside its timed region; ``core.ovsf.hadamard_matrix``
+    would hold L x L int64 temporaries, 8.6 GB at L = 32768)."""
+    H = torch.ones((1, 1), dtype=dtype, device=dev)
+    while H.shape[0] < L:
+        H = torch.cat([torch.cat([H, H], 1), torch.cat([H, -H], 1)], 0)
+    return H
+
+
+def run_fwht_checks(rng, dev):
+    """``fwht`` vs ``fwht_plain`` on rows of unit-scale outputs (x ~ N(0,
+    1/L)). Bound: each row read once and written once, or the M L log2 L
+    fp32 additions; library: ``torch.matmul(x, H_L)``, H prebuilt (TF32
+    off; the port never calls it). Then the wrapper's refusals."""
+    from repro_torch.kernels.fwht import MAX_L, fwht, fwht_plain
+    shapes = [(m, L) for m, L, _c in RESNET50_FWHT + SQUEEZENET_FWHT]
+    shapes += [(37, 1024), (5, 2), (3, MAX_L)]
+    rows = []
+    for M, L in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.standard_normal((M, L), np.float32))
+            x = x.div_(math.sqrt(L)).to(dev, dt)
+            label = f"fwht M={M} L={L} {str(dt).split('.')[-1]}"
+            err = check(label, fwht(x), fwht_plain(x), dt)
+            bytes_ = 2 * x.numel() * x.element_size()
+            t_bound, by = bound(bytes_, M * L * math.log2(L), torch.float32)
+            copies = [x.clone() for _ in range(n_copies(bytes_))]
+            ms, call_ms = timings([lambda a=a: fwht(a) for a in copies], 40)
+            plain_ms, _ = timings([lambda a=a: fwht_plain(a)
+                                   for a in copies[:2]], 4)
+            H = hadamard(L, dt, dev)
+            lib_err = float((torch.matmul(x, H).float()
+                             - fwht_plain(x).float()).abs().max())
+            lib_ms, _ = timings([lambda a=a: torch.matmul(a, H)
+                                 for a in copies], 20)
+            del copies, H
+            rows.append(dict(case=label, M=M, L=L, dtype=str(dt),
+                             max_abs_err=err, tol=TOL[dt], ms=ms,
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library_err=lib_err,
+                             bound_ms=t_bound, bound_by=by))
+            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+                  f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
+                  f"bound={t_bound:.5f}ms ({by}) plain={plain_ms:.4f}ms "
+                  f"library(matmul x H_L)={lib_ms:.4f}ms (its err "
+                  f"{lib_err:.1e})", flush=True)
+        torch.cuda.empty_cache()
+    before = fwht.launches
+    refused = []
+    for L in (12, 2 * MAX_L):
+        try:
+            fwht(torch.zeros((4, L), device=dev))
+        except ValueError as e:
+            refused.append(f"L={L}: {e}")
+            continue
+        raise RuntimeError(f"fwht took L={L} without raising")
+    if fwht.launches != before:
+        raise RuntimeError("a refused fwht call counted a launch")
+    print("[kernel] fwht refuses: " + "; ".join(refused), flush=True)
+    # one ResNet-50 forward's 13 calls in fp32 (the kernels line)
+    pick = {(r["M"], r["L"]): r for r in rows
+            if r["dtype"] == "torch.float32"}
+    summary = {key: sum(c * pick[(m, L)][key] for m, L, c in RESNET50_FWHT)
+               for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                           "bound_ms")}
+    summary["bound_by"] = ("bytes" if all(pick[(m, L)]["bound_by"] == "bytes"
+                                          for m, L, _c in RESNET50_FWHT)
+                           else "operations")
+    summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return rows, summary, refused
+
+
+def run_three_paths(seed: int, dev) -> dict:
+    """One ResNet-50 s2 conv's GEMM (M 1568, 2304 -> 256, rho 0.5, the
+    conv's code ids from the init schedule) on integer-valued alphas and
+    patches in {-1, 0, 1}: every sum is an integer below 2**24, exact in
+    fp32, so ``materialize``, ``fused`` and ``spectral`` plans must give
+    equal outputs, each through its own kernel."""
+    from repro_torch.core import ovsf
+    from repro_torch.kernels import ops, ovsf_gemm as G
+    from repro_torch.kernels.fwht import fwht
+    from repro_torch.runtime import mapper
+    M, d_in, d_out = 1568, 2304, 256
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    p = ovsf.init_ovsf(gen, ovsf.OVSFSpec(d_in, d_out, rho=0.5,
+                                          strategy="iterative"),
+                       scale=2.0, device=dev)
+    al = torch.randint(-1, 2, tuple(p["alphas"].shape), generator=gen,
+                       device=dev).float()
+    x = torch.randint(-1, 2, (M, d_in), generator=gen, device=dev).float()
+    base = mapper.classify_gemm(M, d_in, d_out, 0.5, seg=0, hw="h100",
+                                name="s2b1c2", paths=mapper.ALL_PATHS)
+    kernel = {"materialize": "ovsf_decompress", "fused": "ovsf_gemm",
+              "spectral": "fwht"}
+    outs = {}
+    for path in ops.EXEC_PATHS:
+        G.reset_launches()
+        fwht.launches = 0
+        outs[path] = ops.ovsf_matmul(
+            x, al, p["idx"], plan=dataclasses.replace(base, path=path))
+        torch.cuda.synchronize()
+        got = {"ovsf_decompress": G.ovsf_decompress.launches,
+               "ovsf_gemm": G.ovsf_gemm.launches, "fwht": fwht.launches}
+        if got != {k: int(k == kernel[path]) for k in got}:
+            raise RuntimeError(f"three paths: the {path} plan launched "
+                               f"{got}")
+    diff = {p: float((outs[p] - outs["materialize"]).abs().max())
+            for p in outs}
+    print(f"[three paths] ResNet-50 s2 conv GEMM M={M} {d_in}->{d_out} "
+          f"rho 0.5, integer inputs: max |y - y_materialize| {diff} "
+          f"(must be 0); the h100 plan itself picks {base.path}", flush=True)
+    if any(diff.values()) or not torch.isfinite(outs["fused"]).all():
+        raise RuntimeError(f"three paths disagree: {diff}")
+    return dict(M=M, d_in=d_in, d_out=d_out, max_abs_diff=diff,
+                planned_path=base.path)
+
+
 def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
-              launches_per_forward: int) -> dict:
+              launches_per_forward: int = 0, plan_paths=None) -> dict:
     """One full-width CNN (fp32, 224x224, batch 8, weights from ``seed``)
     through ``cnn_apply`` on the card (``mode`` "" keeps the registered
-    config's): launch counts of one forward, logits against the same
+    config's), with no plan or planned by ``plan_cnn(cfg, batch=8,
+    hw="h100", paths=plan_paths)``: launch counts of one forward (without a
+    plan ``launches_per_forward`` ``ovsf_decompress``; with one, each
+    kernel as many as the plan names its path), logits against the same
     forward on the CPU, then images/s on the host clock and device time by
     kernel from ``torch.profiler``."""
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.kernels.decode_attn import paged_flash_decode
+    from repro_torch.kernels.fwht import fwht
     from repro_torch.models import cnn
     from repro_torch.models.registry import params_to
+    from repro_torch.runtime import mapper
+    B = 8
     cfg = get_config(arch)
     if mode:
         cfg = cfg.replace(ovsf_mode=mode)
     tag = f"[cnn {arch} {cfg.ovsf_mode}]"
+    want = {"ovsf_decompress": launches_per_forward, "ovsf_gemm": 0,
+            "fwht": 0, "paged_flash_decode": 0}
+    plan_paths_count = None
+    if plan_paths is not None:
+        cfg = cfg.replace(exec_plan=mapper.plan_cnn(
+            cfg, batch=B, hw="h100", paths=plan_paths))
+        plan_label = ("ALL_PATHS" if tuple(plan_paths) == mapper.ALL_PATHS
+                      else "+".join(plan_paths))
+        tag = f"[cnn {arch} {cfg.ovsf_mode} plan h100 {plan_label}]"
+        plan_paths_count = dict(Counter(
+            lp.path for _n, lp in cfg.exec_plan.entries))
+        want.update(ovsf_decompress=plan_paths_count.get("materialize", 0),
+                    ovsf_gemm=plan_paths_count.get("fused", 0),
+                    fwht=plan_paths_count.get("spectral", 0))
+        print(f"{tag} plan path counts {plan_paths_count}: "
+              + ", ".join(f"{n}={lp.path}"
+                          for n, lp in cfg.exec_plan.entries), flush=True)
     if (torch.backends.cudnn.allow_tf32
             or torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError(f"{tag} TF32 must be off for the parity check")
-    B = 8
     params, state = cnn.cnn_init(cfg, seed, dev)
+    if plan_paths is not None:
+        ovsf_convs = sorted(n for n, p in params.items()
+                            if "alphas" in p and "meta" not in p)
+        if ovsf_convs != sorted(cfg.exec_plan.names()):
+            raise RuntimeError(f"{tag} the plan names "
+                               f"{cfg.exec_plan.names()}, the OVSF convs are "
+                               f"{ovsf_convs}")
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     x = torch.randn((B, cfg.in_hw, cfg.in_hw, 3), generator=gen, device=dev)
 
@@ -700,16 +872,15 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
 
     G.reset_launches()
     paged_flash_decode.launches = 0
+    fwht.launches = 0
     logits = forward(params, state, x)
     torch.cuda.synchronize()
     launches = {"ovsf_decompress": G.ovsf_decompress.launches,
-                "ovsf_gemm": G.ovsf_gemm.launches,
+                "ovsf_gemm": G.ovsf_gemm.launches, "fwht": fwht.launches,
                 "paged_flash_decode": paged_flash_decode.launches}
-    if launches != {"ovsf_decompress": launches_per_forward, "ovsf_gemm": 0,
-                    "paged_flash_decode": 0}:
+    if launches != want:
         raise RuntimeError(f"{tag} one forward launched {launches}, expected "
-                           f"{launches_per_forward} ovsf_decompress and "
-                           "nothing else")
+                           f"{want}")
     if logits.shape != (B, cfg.num_classes) or not torch.isfinite(
             logits).all():
         raise RuntimeError(f"{tag} logits {tuple(logits.shape)} not finite")
@@ -742,13 +913,16 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / n / 1e3
-    dec_ms = sum(e.self_device_time_total for e in kern
-                 if "ovsf_decompress" in e.key) / n / 1e3
+    by_kernel = {name: sum(e.self_device_time_total for e in kern
+                           if f"{name}_kernel" in e.key) / n / 1e3
+                 for name in ("ovsf_decompress", "ovsf_gemm", "fwht")}
     top = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
                   for e in kern), reverse=True)[:8]
     images_s = B / wall_ms * 1e3
     result = dict(arch=arch, ovsf_mode=cfg.ovsf_mode, batch=B,
-                  in_hw=cfg.in_hw, tf32=False, launches=launches,
+                  in_hw=cfg.in_hw, tf32=False,
+                  plan_paths=list(plan_paths) if plan_paths else None,
+                  plan_path_counts=plan_paths_count, launches=launches,
                   rel_err=rel, cpu_forward_s=t_cpu, wall_ms=wall_ms,
                   images_s=images_s)
     if not kern or busy_ms <= 0:
@@ -756,17 +930,17 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
               f"{wall_ms:.3f}ms per forward); torch.profiler recorded no "
               "device time: device ms and idle share not measured",
               flush=True)
-        return dict(result, busy_ms=None, decompress_ms=None,
-                    idle_share=None, top=[])
+        return dict(result, busy_ms=None, kernel_ms=None, idle_share=None,
+                    top=[])
     idle = 1.0 - busy_ms / wall_ms
     print(f"{tag} {images_s:.1f} images/s on {card} (TF32 off): wall "
           f"{wall_ms:.3f}ms per forward, device busy {busy_ms:.3f}ms, "
-          f"ovsf_decompress {dec_ms:.4f}ms, idle share {idle:.3f}",
-          flush=True)
+          + ", ".join(f"{k} {v:.4f}ms" for k, v in by_kernel.items())
+          + f", idle share {idle:.3f}", flush=True)
     for ms, cnt, key in top:
         print(f"{tag}   {ms:.4f}ms/forward x{cnt}/forward  {key[:90]}",
               flush=True)
-    return dict(result, busy_ms=busy_ms, decompress_ms=dec_ms,
+    return dict(result, busy_ms=busy_ms, kernel_ms=by_kernel,
                 idle_share=idle,
                 top=[dict(ms_per_forward=ms, launches_per_forward=cnt,
                           kernel=key) for ms, cnt, key in top])
@@ -800,22 +974,36 @@ def main(argv=None) -> int:
     gemm = {adt: run_gemm_checks(rng, dev, adt) for adt in ALPHA_DTYPES}
     attn_rows, attn_sum = run_paged_checks(rng, dev)
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
+    fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
     refused = check_quant_contract(dev)
+    three_paths = run_three_paths(args.seed, dev)
     print("[kernels] checked against their plain versions: ovsf_gemm ("
           + ", ".join(f"{len(rows)} {adt or 'bf16/fp32-alpha'}"
                       for adt, (rows, _s) in gemm.items())
           + f" cases), paged_flash_decode ({len(attn_rows)} cases), "
-          f"ovsf_decompress ({len(dec_rows)} cases)", flush=True)
+          f"ovsf_decompress ({len(dec_rows)} cases), fwht "
+          f"({len(fwht_rows)} cases)", flush=True)
 
     serve, launches = {}, {}
     for adt in ALPHA_DTYPES:
         serve[adt or "fp"], launches[adt] = serve_phase(args.seed, card, dev,
                                                         adt)
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
-    cnns = [cnn_phase(args.seed, card, dev, arch, mode, n)
-            for arch, mode, n in (("resnet50", "matrix", 13),
-                                  ("squeezenet1_1", "matrix", 6),
-                                  ("resnet50", "", 0))]
+    from repro_torch.runtime.mapper import ALL_PATHS, DEFAULT_PATHS
+    cnns = [cnn_phase(args.seed, card, dev, arch, mode, n, paths)
+            for arch, mode, n, paths in (
+                ("resnet50", "matrix", 13, None),
+                ("squeezenet1_1", "matrix", 6, None),
+                ("resnet50", "", 0, None),
+                ("resnet50", "matrix", 0, ALL_PATHS),
+                ("squeezenet1_1", "matrix", 0, ALL_PATHS),
+                ("resnet50", "matrix", 0, DEFAULT_PATHS))]
+    r50 = {("none" if c["plan_paths"] is None else "+".join(c["plan_paths"])):
+           c["busy_ms"] for c in cnns
+           if c["arch"] == "resnet50" and c["ovsf_mode"] == "matrix"}
+    print("[cnn] ResNet-50 matrix mode, device ms per forward by plan (h100 "
+          "target): " + ", ".join(f"{k} {v}" for k, v in r50.items()),
+          flush=True)
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -833,7 +1021,10 @@ def main(argv=None) -> int:
             ("ovsf_decompress",
              "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
              "src/repro/kernels/ovsf_gemm.py:256", dec_sum,
-             cnns[0]["launches"]["ovsf_decompress"])):
+             cnns[0]["launches"]["ovsf_decompress"]),
+            ("fwht", "src/repro_torch/kernels/csrc/fwht.cu",
+             "src/repro/kernels/fwht.py:57", fwht_sum,
+             cnns[3]["launches"]["fwht"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -852,12 +1043,18 @@ def main(argv=None) -> int:
                        for adt, (_r, s) in gemm.items()},
                    "paged_flash_decode_cases": attn_rows,
                    "ovsf_decompress_cases": dec_rows,
+                   "fwht_cases": fwht_rows,
+                   "fwht_refuses": fwht_refused,
+                   "three_paths": three_paths,
                    "summary_rows": {
                        "ovsf_gemm*": "sum of q, o, gate, up, down at M=4 "
                                      "bf16 x",
                        "paged_flash_decode": "T=4 decode bf16",
                        "ovsf_decompress": "one ResNet-50 forward's 13 calls "
-                                          "(4 x s1, 6 x s2, 3 x s3), fp32"},
+                                          "(4 x s1, 6 x s2, 3 x s3), fp32",
+                       "fwht": "one planned ResNet-50 forward's 13 calls "
+                               "(4 x (6272, 2048), 6 x (1568, 4096), 3 x "
+                               "(392, 8192)), fp32"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "parity": parity, "cnn": cnns}, f,
                   indent=1)

@@ -7,7 +7,8 @@ seconds. Libraries land in ``kernels/_build/`` (listed in ``.gitignore``)
 under a name that carries a hash of the source, so an edited source is never
 served by a stale library. Nothing is built when the module is imported:
 ``load`` builds at first use, ``build_all`` builds every source at once with
-one ``nvcc`` per source running in parallel.
+one ``nvcc`` per source running in parallel, and ``launcher`` returns a
+source's typed C launch function.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ovsf_gemm", "ovsf_decompress", "paged_decode_attn")
+SOURCES = ("ovsf_gemm", "ovsf_decompress", "paged_decode_attn", "fwht")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -85,3 +86,13 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all((name,))[name]
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launcher(name: str, argtypes):
+    """The C function ``<name>_launch`` of one source, typed at first use;
+    it returns the launch's ``cudaError_t``."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

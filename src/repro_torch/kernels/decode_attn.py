@@ -25,15 +25,6 @@ paged_flash_decode_plain = paged_decode_attn_ref
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
-def _lib():
-    lib = build.load("paged_decode_attn")
-    fn = lib.paged_decode_attn_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, page_table: torch.Tensor,
                        slot_ids: torch.Tensor, positions: torch.Tensor
@@ -82,11 +73,11 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     pt = page_table.to(torch.int32).contiguous()
     sid = slot_ids.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
-    err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 pt.data_ptr(), sid.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), T, H, Hkv, hd, P, ps, pt.shape[1],
-                 pt.shape[0], int(q.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = build.launcher("paged_decode_attn", _ARGTYPES)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+        sid.data_ptr(), pos.data_ptr(), out.data_ptr(), T, H, Hkv, hd, P, ps,
+        pt.shape[1], pt.shape[0], int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_flash_decode: CUDA launch failed "
                            f"(cudaError {err})")

@@ -9,15 +9,23 @@
 ``fused``        generation fused into the GEMM tiles: the hand-written
                  ``kernels.ovsf_gemm`` kernel on CUDA, its plain version on
                  the CPU.
-``spectral``     y = WHT(x)[:, idx] @ alphas (exact), per segment for the
-                 segmented layout.
+``spectral``     y = WHT(pad(x))[:, idx] @ alphas (exact), per segment for
+                 the segmented layout. Monolithic codes transform the padded
+                 activations through the hand-written ``kernels.fwht.fwht``
+                 on CUDA (its plain version on the CPU): the CNNs' im2col
+                 GEMMs under a plan that names ``spectral``. The product
+                 with the alphas is ``torch.matmul``, outside any kernel in
+                 the reference too.
 
 What has no hand-written kernel yet runs on the CPU only and raises on any
 other device: ``materialize`` of segmented codes or quantised alphas (plain
 per-segment WHT or dequantisation, as the reference computes them in jnp;
-nothing sends them to ``ovsf_decompress``) and ``spectral`` (monolithic codes
-need the not-yet-ported ``fwht_pallas``). So on the card the LM layers, all
-segmented, run ``fused`` only, and the engine plans with that path alone.
+nothing sends them to ``ovsf_decompress``) and ``spectral`` of segmented
+codes (the reference's per-segment WHT is plain jnp, not ``fwht_pallas``).
+So on the card the LM layers, all segmented, run ``fused`` only, and the
+engine plans with that path alone. Quantised alphas under ``spectral`` are
+dequantised with plain tensor code on any device, as the reference does in
+jnp before its GEMM.
 
 ``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan`` and runs its
 path. The plan's block sizes and cache policy are recorded, not used: the
@@ -33,6 +41,7 @@ import torch
 
 from repro_torch.core import ovsf
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.fwht import fwht
 from repro_torch.kernels.ovsf_gemm import ovsf_decompress, ovsf_gemm
 
 EXEC_PATHS = ("materialize", "fused", "spectral")
@@ -78,10 +87,13 @@ def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
 
 
 def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(..., d_in) activations -> (..., J) kept-code coefficients."""
-    _plain_only(x, "spectral path")
+    """(..., d_in) activations -> (..., J) kept-code coefficients: monolithic
+    (J,) ids pad to L = next_pow2(d_in) on the right, transform with
+    ``fwht`` and keep the ids' columns; segmented (n_seg, n_keep) ids run
+    the plain per-segment WHT on the CPU only."""
     d_in = x.shape[-1]
     if idx.dim() == 2:
+        _plain_only(x, "spectral path for segmented codes")
         ns, nk = idx.shape
         xs = x.reshape(x.shape[:-1] + (ns, d_in // ns))
         xh = ovsf.fwht(xs, dim=-1)                     # tiny per-seg WHT
@@ -90,14 +102,14 @@ def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     L = ovsf.next_pow2(d_in)
     if L != d_in:
         x = torch.nn.functional.pad(x, (0, L - d_in))
-    return ovsf.fwht(x, dim=-1)[..., idx.long()]
+    return torch.index_select(fwht(x), -1, idx)
 
 
 def spectral_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
                     *, alpha_scale=None, alpha_dtype: str = ""
                     ) -> torch.Tensor:
-    """y = x @ W via the activation-transform identity (exact)."""
-    _plain_only(x, "spectral path")
+    """y = x @ W via the activation-transform identity (exact); quantised
+    alphas are dequantised with plain tensor code first."""
     alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
     xk = spectral_transform(x, idx)
     return (xk @ alphas.to(xk.dtype)).to(x.dtype)

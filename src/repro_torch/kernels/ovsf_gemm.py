@@ -43,16 +43,6 @@ _DEC_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
 
 
-def _fn(source: str, argtypes):
-    """The C launch function of one CUDA source, built and typed at first
-    use."""
-    fn = getattr(build.load(source), f"{source}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def tiling(M: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
     """(rows per block, k-blocks per split, splits): row tiles of 4/16/64,
     and the K range split until about two blocks per SM are in flight —
@@ -138,11 +128,12 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     bm, kb_per_split, splits = tiling(M, K, N, n_sms)
     partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-    err = _fn("ovsf_gemm", _ARGTYPES)(x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
-                 idx.data_ptr(), out.data_ptr(), partial.data_ptr(), M, K, N,
-                 J, seg, n_keep, rows_per_scale, bm, splits, kb_per_split,
-                 int(x.dtype == torch.bfloat16), _QUANT[alpha_dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = build.launcher("ovsf_gemm", _ARGTYPES)(
+        x.data_ptr(), alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), M, K, N, J, seg, n_keep,
+        rows_per_scale, bm, splits, kb_per_split,
+        int(x.dtype == torch.bfloat16), _QUANT[alpha_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ovsf_gemm: CUDA launch failed (cudaError {err})")
     ovsf_gemm.launches += 1
@@ -200,7 +191,7 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
     alphas = alphas.contiguous()
     idx = idx.to(torch.int32).contiguous()
     wt = torch.empty((N, d_in), dtype=alphas.dtype, device=alphas.device)
-    err = _fn("ovsf_decompress", _DEC_ARGTYPES)(
+    err = build.launcher("ovsf_decompress", _DEC_ARGTYPES)(
         alphas.data_ptr(), idx.data_ptr(), wt.data_ptr(), J, N, d_in, L,
         int(alphas.dtype == torch.bfloat16),
         torch.cuda.current_stream(alphas.device).cuda_stream)

@@ -17,13 +17,17 @@ filters are held as (Cout, Cin, K, K), PyTorch's layout
 (``models.bridge.cnn_params_from_numpy`` maps the reference's HWIO ones);
 ``alphas`` and ``idx`` are the reference's, indexing the (K, K, Cin)
 flattening. Layers run in NCHW; ``cnn_apply`` takes the reference's NHWC
-images. No execution plan is applied: every OVSF conv in matrix mode takes
-``materialize``, the reference's dispatch when no plan is set. Training
+images. ``CNNConfig.exec_plan`` carries the mapper's per-conv plan
+(``runtime.mapper.plan_cnn``): an OVSF conv in matrix mode runs the path its
+plan names (``spectral`` transforms the patches through the hand-written
+``fwht``), and ``materialize`` where the plan has none or no plan is set, as
+the reference dispatches. Spatial mode ignores the plan. Training
 (``train=True``, ``cnn_loss``) waits for the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +53,9 @@ class CNNConfig:
     strategy: str = "iterative"      # iterative | sequential (Table 3)
     width_mult: float = 1.0          # reduced smoke variants
     dtype: str = "float32"
+    # Hardware-aware per-conv plan (runtime.mapper.ExecutionPlan); None ->
+    # uniform materialize dispatch for the im2col GEMMs.
+    exec_plan: Optional[object] = None
 
     @property
     def act_dtype(self) -> torch.dtype:
@@ -104,10 +111,11 @@ def conv_weights(p: dict, cfg: CNNConfig, c_in: int, c_out: int, k: int
 
 
 def conv_apply(p: dict, cfg: CNNConfig, x: torch.Tensor, c_out: int, k: int,
-               stride: int = 1) -> torch.Tensor:
+               stride: int = 1, name: str = "") -> torch.Tensor:
     """NCHW conv with symmetric padding k // 2. OVSF layers in matrix mode
-    run im2col + a GEMM against weights generated on the fly; the others
-    convolve with their (reconstructed) filters."""
+    run im2col + an OVSF GEMM by the path of ``cfg.exec_plan``'s plan for
+    ``name`` (``materialize`` without one); the others convolve with their
+    (reconstructed) filters."""
     c_in = x.shape[1]
     pad = k // 2
     if "alphas" in p and "meta" not in p:
@@ -119,7 +127,10 @@ def conv_apply(p: dict, cfg: CNNConfig, x: torch.Tensor, c_out: int, k: int,
         # built over the (k, k, Cin) flattening, so the patches follow it
         pt = (cols.reshape(B, c_in, k * k, R).permute(0, 3, 2, 1)
               .reshape(B * R, k * k * c_in))
-        y = kops.ovsf_matmul(pt, p["alphas"], p["idx"], path="materialize")
+        plan = (cfg.exec_plan.plan_for(name)
+                if cfg.exec_plan is not None and name else None)
+        y = kops.ovsf_matmul(pt, p["alphas"], p["idx"], path="materialize",
+                             plan=plan)
         return y.reshape(B, Ho, R // Ho, c_out).permute(0, 3, 1, 2)
     w = conv_weights(p, cfg, c_in, c_out, k)
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=pad)
@@ -237,7 +248,8 @@ def resnet_apply(params: dict, state: dict, cfg: CNNConfig, x: torch.Tensor,
 
     def conv_bn(name, h, relu=True):
         d = plan[name]
-        y = conv_apply(params[name], cfg, h, d["c_out"], d["k"], d["stride"])
+        y = conv_apply(params[name], cfg, h, d["c_out"], d["k"], d["stride"],
+                       name=name)
         y, new_state[name + "_bn"] = bn_apply(params[name + "_bn"],
                                               state[name + "_bn"], y)
         return F.relu(y) if relu else y
@@ -309,7 +321,8 @@ def squeezenet_apply(params: dict, state: dict, cfg: CNNConfig,
     for i, (sq, e1, e3, _stage) in enumerate(_fire_widths(cfg)):
         s = F.relu(conv_apply(params[f"f{i}s"], cfg, y, sq, 1))
         a = F.relu(conv_apply(params[f"f{i}e1"], cfg, s, e1, 1))
-        b = F.relu(conv_apply(params[f"f{i}e3"], cfg, s, e3, 3))
+        b = F.relu(conv_apply(params[f"f{i}e3"], cfg, s, e3, 3,
+                              name=f"f{i}e3"))
         y = torch.cat([a, b], dim=1)
         if i in _POOL_AFTER:
             y = max_pool_same(y)

@@ -1,15 +1,17 @@
 """Hardware-aware layer mapper: per-layer OVSF execution-path dispatch (port
-of ``repro.runtime.mapper``, trimmed to the LM planner).
+of ``repro.runtime.mapper``, trimmed to the LM and CNN planners).
 
 Given a layer shape, its OVSF ratio and a hardware target, the mapper picks
 how the weights-generation mechanism runs for that layer:
 
   ``fused``        generate each weight tile inside the GEMM (the CUDA
                    ``ovsf_gemm`` on the card);
-  ``materialize``  generate dense W, then one GEMM (plain tensor code, CPU
-                   only in the port);
+  ``materialize``  generate dense W, then one GEMM (the CUDA
+                   ``ovsf_decompress`` for monolithic codes; segmented codes
+                   and quantised alphas run on the CPU only);
   ``spectral``     the activation-transform identity (opt-in via ``paths``;
-                   CPU only in the port).
+                   the CUDA ``fwht`` for monolithic codes; segmented codes
+                   run on the CPU only).
 
 Decisions are pure functions of (layer shape, rho, HW): the same inputs give
 the same plan as the reference, so plans are frozen dataclasses of tuples
@@ -18,9 +20,10 @@ are recorded as the reference computes them; the CUDA ``ovsf_gemm`` keeps
 its own tiling and the port has no decompress cache yet. The ``h100``
 target's costs are data-sheet peaks fed to the reference's TPU pipeline
 model, not calibrated against the port's measured kernels; the engine plans
-on the card with ``paths=("fused",)``. The calibration loop
-(``calibration=``), ``suggest_rhos`` and ``plan_cnn`` wait for the slices
-that port them.
+the LM layers (all segmented) on the card with ``paths=("fused",)``.
+``plan_cnn`` plans the CNNs' im2col GEMMs (monolithic codes), every path of
+which has a kernel on the card. The calibration loop (``calibration=``) and
+``suggest_rhos`` wait for the slices that port them.
 """
 from __future__ import annotations
 
@@ -190,3 +193,63 @@ def apply_plan(cfg, plan: ExecutionPlan):
 
 def plan_and_apply(cfg, shape, **kw):
     return apply_plan(cfg, plan_model(cfg, shape, **kw))
+
+
+# ---------------------------------------------------------------------------
+# CNN planning (im2col GEMMs through the same engine, paper §4.1)
+# ---------------------------------------------------------------------------
+
+def plan_cnn(cfg, *, batch: int = 1, hw=pm.V5E,
+             paths: Sequence[str] = DEFAULT_PATHS,
+             weight_reuse: int = 256) -> ExecutionPlan:
+    """Plans for a ``models.cnn.CNNConfig``: each OVSF conv is an im2col GEMM
+    with R = B*H'*W' rows and P = Cin*K*K contraction over monolithic codes
+    (§4.1 mapping), keyed by the conv's name. Apply with
+    ``cfg.replace(exec_plan=plan_cnn(cfg, ...))``."""
+    hw = pm.resolve_hw(hw)
+    entries: list[tuple[str, LayerPlan]] = []
+    if cfg.depth == "squeezenet":
+        specs = _squeezenet_convs(cfg)
+    else:
+        specs = _resnet_convs(cfg)
+    for name, c_in, c_out, k, stride, rho, hw_cur in specs:
+        if rho >= 1.0 or k < 3:
+            continue
+        M = batch * hw_cur * hw_cur
+        fan_in = c_in * k * k
+        entries.append((name, classify_gemm(
+            M, fan_in, c_out, rho, seg=0, hw=hw, name=name,
+            weight_reuse=weight_reuse, paths=paths)))
+    return ExecutionPlan(tuple(entries), hw_label=hw.name)
+
+
+def _resnet_convs(cfg):
+    """(name, c_in, c_out, k, stride, rho, output side) per ResNet conv, as
+    the reference reckons them: the side halves at every stride-2 conv,
+    ``proj`` included, so each conv after a stage's first block is planned
+    at half its real side (ROADMAP C; copied for equal plans)."""
+    from repro_torch.models.cnn import _resnet_layers
+    hw_cur = cfg.in_hw
+    out = []
+    for d in _resnet_layers(cfg):
+        if d["name"] == "head":
+            continue
+        hw_cur = max(hw_cur // max(d["stride"], 1), 1)
+        if d["name"] == "stem":
+            hw_cur = max(hw_cur // 2, 1)          # stem maxpool
+        out.append((d["name"], d["c_in"], d["c_out"], d["k"], d["stride"],
+                    d["rho"], hw_cur))
+    return out
+
+
+def _squeezenet_convs(cfg):
+    """(name, c_in, c_out, k, stride, rho, output side) of each fire's 3x3
+    expand conv."""
+    from repro_torch.models.cnn import _POOL_AFTER, _fire_widths
+    hw_cur = max(cfg.in_hw // 4, 1)               # stem stride-2 + maxpool
+    out = []
+    for i, (sq, _e1, e3, stage) in enumerate(_fire_widths(cfg)):
+        out.append((f"f{i}e3", sq, e3, 3, 1, cfg.block_rhos[stage], hw_cur))
+        if i in _POOL_AFTER:
+            hw_cur = max(hw_cur // 2, 1)
+    return out

@@ -44,8 +44,9 @@ __all__ = ["LLMEngine", "EngineStats", "Request", "SamplingParams",
            "RequestOutput", "plan_cfg"]
 
 # device type -> (mapper target, candidate paths): on the card
-# ``materialize`` and ``spectral`` are plain tensor code, so the mapper may
-# pick only the path the CUDA ``ovsf_gemm`` runs
+# ``materialize`` and ``spectral`` of the LM layers' segmented codes are
+# plain tensor code, so the mapper may pick only the path the CUDA
+# ``ovsf_gemm`` runs
 _PLAN_TARGETS = {"cuda": ("h100", ("fused",)),
                  "cpu": ("cpu", mapper.DEFAULT_PATHS)}
 

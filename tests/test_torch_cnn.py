@@ -92,9 +92,8 @@ def _rel(got, want):
 def test_configs_match_reference(name):
     for smoke in (False, True):
         jcfg, tcfg = _cfgs(name, smoke=smoke)
-        want = {k: v for k, v in jcfg.__dict__.items() if k != "exec_plan"}
         assert isinstance(tcfg, tcnn.CNNConfig)
-        assert tcfg.__dict__ == want
+        assert tcfg.__dict__ == jcfg.__dict__
     assert tget_config(name).ovsf_mode == "spatial"
 
 

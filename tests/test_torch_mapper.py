@@ -179,9 +179,9 @@ def test_card_plan_has_fused_only(batch_slots, alpha_dtype):
 @pytest.mark.parametrize("alpha_dtype", ADTS)
 @pytest.mark.parametrize("path", ["materialize", "spectral"])
 def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
-    """``materialize`` and ``spectral`` have no kernel: on any device but
-    the CPU (here ``meta``, standing in for the card) a plan naming them
-    raises instead of running plain tensor code."""
+    """``materialize`` and ``spectral`` of segmented codes have no kernel:
+    on any device but the CPU (here ``meta``, standing in for the card) a
+    plan naming them raises instead of running plain tensor code."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
     al = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
