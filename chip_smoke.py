@@ -12,6 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              in {4, 128}, plus monolithic and ragged cases) and
              ``paged_flash_decode`` (T in {4, 128}, H 32, Hkv 4, hd 64,
              page 16, padding tokens and sentinel pages) and
+             ``flash_decode_attn`` (B 4, H 32, Hkv 4, hd 64, T 320 with
+             per-row positions (1, 77, 256, 320), the same with one row at
+             0, the packed gather shape B 128, T 256, and a ragged hd 80,
+             T 33; the library yardstick is SDPA with a boolean mask; the
+             packed path's (T, Tbuf) row gather is timed beside it) and
              ``ovsf_decompress`` (the ResNet-50 and SqueezeNet-1.1 shapes, a
              ragged shape, repeated code ids) and ``fwht`` (the (M, L) of
              the planned ResNet-50 and SqueezeNet-1.1 forwards at batch 8,
@@ -39,11 +44,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
              OVSF weight type, 8 requests (6 greedy, 2 sampled)
              must all finish, and the kernel launch counters, zeroed just
              before, must read 5 * 22 ``ovsf_gemm`` launches of that alpha
-             storage and 22 ``paged_flash_decode`` launches per step.
-  5. parity: one full-width packed step in fp32 on the card vs the same step
-             with the same parameters on the CPU (plain versions), with fp32
-             and with int8 alphas, planned as the engine plans on the card;
-             relative L2 error of the logits <= 1e-3.
+             storage and 22 ``paged_flash_decode`` launches per step. Then,
+             bf16 alphas, the same 8 requests in the other engine styles
+             (``chunk_size=64``): contiguous window (22
+             ``flash_decode_attn`` launches per chunk-free step, counted
+             here, none on steps that carry chunks), contiguous packed (22
+             ``flash_decode_attn`` per step) and paged window (22
+             ``paged_flash_decode`` per step, no ``flash_decode_attn``);
+             110 ``ovsf_gemm`` launches per step in every style.
+  5. parity: one full-width packed paged step in fp32 on the card vs the
+             same step with the same parameters on the CPU (plain versions),
+             with fp32 and with int8 alphas, planned as the engine plans on
+             the card; then one fp32 ``serve_step`` (the contiguous window
+             engine's decode, a row at pos 0 and an idle row past the
+             buffer) and one fp32 ``serve_step_packed`` (chunks and decodes
+             mixed) over random caches; relative L2 error of the logits
+             <= 1e-3.
   6. cnn:    full-width ResNet-50 and SqueezeNet-1.1 in matrix mode
              (fp32, 224x224, batch 8, 1000 classes, random weights from
              --seed) through ``cnn_apply``: with no plan (13 and 6
@@ -409,19 +425,136 @@ def run_paged_checks(rng, dev):
     return rows, summary
 
 
+# (label, B, H, Hkv, hd, T, per-row positions; None: drawn in [1, T])
+FLASH_CASES = (
+    ("window decode", 4, 32, 4, 64, 320, (1, 77, 256, 320)),
+    ("window decode, a row at pos 0", 4, 32, 4, 64, 320, (0, 77, 256, 320)),
+    ("packed gather", 128, 32, 4, 64, 256, None),
+    ("ragged hd 80", 4, 32, 4, 80, 33, (5, 33, 17, 40)))
+
+
+def flash_case(rng, B, H, Hkv, hd, T, pos, dtype, dev):
+    """Inputs of one ``flash_decode_attn`` call, and the bytes and
+    operations this call's data needs: q and out once, and for each row
+    the K/V rows below its position (all T rows at pos <= 0)."""
+    if pos is None:
+        pos = rng.integers(1, T + 1, B)
+    pos = torch.tensor(np.asarray(pos), dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, hd), device=dev).to(dtype)
+    k = torch.randn((B, T, Hkv, hd), device=dev).to(dtype)
+    v = torch.randn((B, T, Hkv, hd), device=dev).to(dtype)
+    rows = sum(T if p <= 0 else min(p, T) for p in pos.tolist())
+    es = q.element_size()
+    bytes_ = 2 * q.numel() * es + 2 * rows * Hkv * hd * es + 4 * B
+    return (q, k, v, pos), bytes_, 4 * rows * H * hd
+
+
+def flash_sdpa_inputs(q, k, v, pos):
+    """GQA heads repeated and the exclusive mask as a boolean: the library
+    yardstick's inputs, prepared outside its timed region. A row at pos <= 0
+    attends every column (the kernel weighs them all alike; a boolean mask
+    cannot say that), so the yardstick's error is taken over rows with
+    pos > 0 only."""
+    B, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kk = k.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
+    vv = v.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
+    p = pos.long()[:, None]
+    mask = (torch.arange(T, device=q.device)[None, :] < p) | (p <= 0)
+    return q[:, :, None, :], kk, vv, mask[:, None, None, :]
+
+
+def run_flash_checks(rng, dev):
+    """``flash_decode_attn`` vs its plain version; the packed path's row
+    gather (``cache[slot_ids]`` of K and V, T 128 from B 4, Tbuf 256) timed
+    at the mixed bucket."""
+    from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                                 flash_decode_attn_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for label0, B, H, Hkv, hd, T, pos in FLASH_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            args, bytes_, flops = flash_case(rng, B, H, Hkv, hd, T, pos, dt,
+                                             dev)
+            label = (f"flash_decode_attn {label0} B={B} H={H} Hkv={Hkv} "
+                     f"hd={hd} T={T} {str(dt).split('.')[-1]}")
+            err = check(label, flash_decode_attn(*args),
+                        flash_decode_attn_plain(*args), dt)
+            t_bound, by = bound(bytes_, flops, dt)
+            kv_bytes = 2 * args[1].numel() * args[1].element_size()
+            copies = [(args[0], args[1].clone(), args[2].clone(), args[3])
+                      for _ in range(n_copies(kv_bytes))]
+            ms, call_ms = timings([lambda a=a: flash_decode_attn(*a)
+                                   for a in copies], 50)
+            plain_ms, _ = timings([lambda a=a: flash_decode_attn_plain(*a)
+                                   for a in copies[:2]], 4)
+            lib_in = [flash_sdpa_inputs(*a) for a in copies[:2]]
+            live = args[3] > 0      # see flash_sdpa_inputs
+            lib_err = float((sdpa(*lib_in[0][:3], attn_mask=lib_in[0][3])
+                             [:, :, 0].float()
+                             - flash_decode_attn_plain(*args).float())
+                            [live].abs().max())
+            lib_ms, _ = timings([lambda a=a: sdpa(a[0], a[1], a[2],
+                                                  attn_mask=a[3])
+                                 for a in lib_in], 50)
+            del copies, lib_in
+            rows.append(dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, T=T,
+                             pos=args[3].tolist(), dtype=str(dt),
+                             max_abs_err=err, tol=TOL[dt], ms=ms,
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library_err=lib_err,
+                             bound_ms=t_bound, bound_by=by))
+            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+                  f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
+                  f"bound={t_bound:.5f}ms ({by}) "
+                  f"plain={plain_ms:.4f}ms library(SDPA, boolean mask)="
+                  f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
+        torch.cuda.empty_cache()
+    gathers = []
+    for dt in (torch.bfloat16, torch.float32):
+        ck = torch.randn((4, 256, 4, 64), device=dev).to(dt)
+        cv = torch.randn((4, 256, 4, 64), device=dev).to(dt)
+        sid = torch.from_numpy(rng.integers(0, 4, 128)).to(dev)
+        g_ms, _ = timings([lambda: (ck[sid], cv[sid])], 50)
+        # the 4 slots' rows read once, the (128, 256) copy written once
+        g_bytes = 2 * (4 + 128) * 256 * 4 * 64 * ck.element_size()
+        gathers.append(dict(T=128, Tbuf=256, Hkv=4, hd=64, dtype=str(dt),
+                            ms=g_ms, bytes=g_bytes,
+                            bound_ms=g_bytes / HBM_BYTES_PER_S * 1e3))
+        print(f"[kernel] packed path's K/V row gather T=128 Tbuf=256 "
+              f"{str(dt).split('.')[-1]}: {g_ms:.4f}ms per layer "
+              f"({g_bytes / 1e6:.1f} MB read once and written, bound "
+              f"{g_bytes / HBM_BYTES_PER_S * 1e3:.4f}ms)", flush=True)
+    summary = dict(next(r for r in rows if r["case"].startswith(
+        "flash_decode_attn window decode B") and "bfloat16" in r["dtype"]))
+    summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return rows, summary, gathers
+
+
 # -- phase 4: serve ----------------------------------------------------------
 
-def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
+# engine style -> LLMEngine arguments besides chunk_size
+STYLES = {"paged packed": dict(paged=True, packed=True),
+          "contiguous window": dict(),
+          "contiguous packed": dict(packed=True),
+          "paged window": dict(paged=True)}
+
+def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
+                style: str = "paged packed"):
     """Serve 8 requests at full width with alphas in bf16 (``""``), int8 or
-    int4; the engine plans its OVSF layers with the mapper (target h100)."""
+    int4, in one engine style (``STYLES``); the engine plans its OVSF
+    layers with the mapper (target h100)."""
     from repro_torch.configs import get_config
     from repro_torch.core.ovsf import alpha_params
     from repro_torch.kernels import ovsf_gemm as G
-    from repro_torch.kernels.decode_attn import paged_flash_decode
+    from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                                 paged_flash_decode)
     from repro_torch.models import registry as R
     from repro_torch.serving import LLMEngine, Request, SamplingParams
     adt = alpha_dtype or "fp"
-    tag = f"[serve {alpha_dtype or 'bf16'}]"
+    kw = STYLES[style]
+    tag = (f"[serve {alpha_dtype or 'bf16'}"
+           + ("]" if style == "paged packed" else f" {style}]"))
     cfg = get_config("tinyllama_1_1b")
     cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,
                                                alpha_dtype=alpha_dtype))
@@ -432,7 +565,7 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
           f"{R.param_count(params)/1e9:.3f}B stored values initialised on "
           f"the card in {time.perf_counter() - t0:.2f}s", flush=True)
     eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
-                    chunk_size=64, packed=True, paged=True, device=dev)
+                    chunk_size=64, device=dev, **kw)
     plan = {n: p.path for n, p in eng.cfg.exec_plan.entries}
     print(f"{tag} mapper plan (hw {eng.cfg.exec_plan.hw_label}, decode at "
           "4 slots): "
@@ -456,8 +589,17 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
         prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 150)),
                               dtype=np.int32)
         reqs.append(Request(rid, prompt, max_new_tokens=16, sampling=sp))
+    chunk_free = [0]
+    core_step = eng.core.step
+
+    def counting_step(so, last=None):
+        chunk_free[0] += bool(so.decode_slots and not so.chunks)
+        return core_step(so, last)
+
+    eng.core.step = counting_step
     G.reset_launches()
     paged_flash_decode.launches = 0
+    flash_decode_attn.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         if not eng.submit(r):
@@ -465,8 +607,10 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
     stats = eng.run_until_drained(max_steps=1000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    eng.core.step = core_step
     launches = {"ovsf_gemm": G.ovsf_gemm.launches_by_alpha[adt],
-                "paged_flash_decode": paged_flash_decode.launches}
+                "paged_flash_decode": paged_flash_decode.launches,
+                "flash_decode_attn": flash_decode_attn.launches}
     if G.ovsf_gemm.launches != launches["ovsf_gemm"]:
         raise RuntimeError(f"serve: ovsf_gemm launched with other alpha "
                            f"storage than {adt}: "
@@ -479,20 +623,30 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
     for o in outs:
         if not o.tokens or not all(0 <= t < cfg.vocab for t in o.tokens):
             raise RuntimeError(f"serve: request {o.rid} tokens {o.tokens}")
-    per_step = {"ovsf_gemm": len(ovsf_layers) * cfg.n_layers,
-                "paged_flash_decode": cfg.n_layers}
-    for name, n in per_step.items():
-        if launches[name] != n * stats.steps or launches[name] == 0:
-            raise RuntimeError(f"serve: {name} launched {launches[name]} "
-                               f"times in {stats.steps} steps, expected "
-                               f"{n} per step")
+    # the attention kernel of the style: paged steps run the paged kernel
+    # at every step; the contiguous packed step runs flash_decode_attn at
+    # every step; the contiguous window runs it on chunk-free steps only
+    # (steps with chunks attend through the plain S > 1 product)
+    n_layers, steps = cfg.n_layers, stats.steps
+    attn = ("paged_flash_decode" if kw.get("paged")
+            else "flash_decode_attn")
+    attn_steps = (steps if kw.get("paged") or kw.get("packed")
+                  else chunk_free[0])
+    want = {"ovsf_gemm": len(ovsf_layers) * n_layers * steps,
+            "paged_flash_decode": 0, "flash_decode_attn": 0}
+    want[attn] = n_layers * attn_steps
+    if launches != want or not want["ovsf_gemm"] or not want[attn]:
+        raise RuntimeError(f"serve: launched {launches} in {steps} steps "
+                           f"({chunk_free[0]} chunk-free), expected {want}")
     tok_s = stats.tokens_out / wall
-    print(f"{tag} 8/8 finished: steps={stats.steps} "
-          f"tokens={stats.tokens_out} wall={wall:.3f}s "
+    print(f"{tag} 8/8 finished: steps={steps} chunk_free_steps="
+          f"{chunk_free[0]} tokens={stats.tokens_out} wall={wall:.3f}s "
           f"({tok_s:.1f} tok/s on {card}) decode_s={stats.decode_s:.3f} "
           f"mixed_s={stats.mixed_s:.3f} launches={launches} "
-          f"padding_efficiency={stats.padding_efficiency:.3f}", flush=True)
-    result = dict(alpha_dtype=adt, plan=plan, steps=stats.steps,
+          f"padding_efficiency={stats.padding_efficiency:.3f} "
+          f"T_alloc={eng.core.T_alloc}", flush=True)
+    result = dict(alpha_dtype=adt, style=style, plan=plan, steps=steps,
+                  chunk_free_steps=chunk_free[0], T_alloc=eng.core.T_alloc,
                   tokens_out=stats.tokens_out, wall_s=wall, tok_s=tok_s,
                   decode_s=stats.decode_s, mixed_s=stats.mixed_s,
                   launches=launches,
@@ -505,7 +659,7 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = ""):
 
 
 def profile_decode(eng, cfg, rng, tag: str) -> dict:
-    """Where a pure-decode step's time goes: 8 steps timed on the host
+    """Where a chunk-free step's time goes: 8 steps timed on the host
     clock, then 8 more under ``torch.profiler`` for the device time by
     kernel; idle share = 1 - device busy time / unprofiled step wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -516,6 +670,7 @@ def profile_decode(eng, cfg, rng, tag: str) -> dict:
     for _ in range(3):                  # prompts in; every slot decodes after
         eng.step()
     torch.cuda.synchronize()
+    eng.core.step_shapes = set()
     n = 8
     t0 = time.perf_counter()
     for _ in range(n):
@@ -538,11 +693,13 @@ def profile_decode(eng, cfg, rng, tag: str) -> dict:
               "busy share not measured", flush=True)
         return dict(step_ms=step_ms, busy_ms=None, idle_share=None, top=[])
     idle = 1.0 - busy_ms / step_ms
-    print(f"{tag} pure-decode step (T=4 bucket): wall {step_ms:.3f}ms, "
+    shape = ", ".join(f"{k} {n}" for k, n in sorted(eng.core.step_shapes))
+    print(f"{tag} chunk-free step ({shape}): wall {step_ms:.3f}ms, "
           f"device busy {busy_ms:.3f}ms, idle share {idle:.3f}", flush=True)
     for ms, cnt, key in top:
         print(f"{tag}   {ms:.4f}ms/step x{cnt}/step  {key[:90]}", flush=True)
     return dict(step_ms=step_ms, busy_ms=busy_ms, idle_share=idle,
+                step_shapes=sorted(eng.core.step_shapes),
                 top=[dict(ms_per_step=ms, launches_per_step=cnt, kernel=key)
                      for ms, cnt, key in top])
 
@@ -610,6 +767,91 @@ def parity_phase(seed: int, dev, alpha_dtype: str = ""):
         raise RuntimeError(f"parity: relative error {rel:.3e} > 1e-3")
     return dict(alpha_dtype=alpha_dtype or "fp", rel_err=rel,
                 gpu_step_s=t_gpu, cpu_step_s=t_cpu)
+
+
+def parity_contiguous_phase(seed: int, dev):
+    """One full-width fp32 ``serve_step`` (the contiguous window engine's
+    decode: T_alloc 256 + 64; rows at pos 0, 77, 256 and an idle row at 330,
+    past the buffer, whose write clamps) and one ``serve_step_packed``
+    (T_alloc 256: a 40-token chunk at 0, a decode at 100, a 20-token chunk
+    at 50, a decode at 255, two padding tokens) over random K/V, planned as
+    the engine plans on the card, on the card and on the CPU with the same
+    parameters and caches. On the card each step must launch
+    ``flash_decode_attn`` once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import flash_decode_attn
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    cfg = plan_cfg(get_config("tinyllama_1_1b").replace(dtype="float32"), 4,
+                   dev)
+    params = R.model_init(cfg, seed + 2, dev)
+    rng = np.random.default_rng(seed + 2)
+    B, nl, Hkv, hd = 4, cfg.n_layers, cfg.n_kv_heads, cfg.hd
+
+    def kv(T):
+        return [rng.standard_normal((nl, B, T, Hkv, hd), np.float32)
+                for _ in range(2)]
+
+    dec_kv = kv(256 + 64)
+    dec = dict(pos=np.array([0, 77, 256, 330], np.int32),
+               tokens=rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32))
+    pk_kv = kv(256)
+    n_valid, T = 62, 64
+    sids = [0] * 40 + [1] + [2] * 20 + [3] + [B] * (T - n_valid)
+    poss = list(range(40)) + [100] + list(range(50, 70)) + [255] + [0] * 2
+    packed = dict(tokens=rng.integers(0, cfg.vocab, T).astype(np.int32),
+                  slot_ids=np.array(sids, np.int32),
+                  positions=np.array(poss, np.int32),
+                  new_pos=np.array([40, 101, 70, 256], np.int32),
+                  emit_idx=np.array([39, 40, 60, 61], np.int32))
+    pk_pos = np.array([0, 100, 50, 255], np.int32)
+
+    def run(p, device):
+        put = lambda a: torch.from_numpy(np.array(a)).to(device)
+        with torch.no_grad():
+            flash_decode_attn.launches = 0
+            cache = {"k": put(dec_kv[0]), "v": put(dec_kv[1]),
+                     "pos": put(dec["pos"])}
+            l_dec, _ = R.serve_step(p, cfg, cache, put(dec["tokens"]))
+            n_dec = flash_decode_attn.launches
+            cache = {"k": put(pk_kv[0]), "v": put(pk_kv[1]),
+                     "pos": put(pk_pos)}
+            l_pk, _ = R.serve_step_packed(p, cfg, cache,
+                                          *(put(packed[k]) for k in (
+                                              "tokens", "slot_ids",
+                                              "positions", "new_pos",
+                                              "emit_idx")))
+            n_pk = flash_decode_attn.launches - n_dec
+        return l_dec.float().cpu(), l_pk.float().cpu(), (n_dec, n_pk)
+
+    t0 = time.perf_counter()
+    gpu_dec, gpu_pk, n = run(params, dev)
+    t_gpu = time.perf_counter() - t0
+    if n != (nl, nl):
+        raise RuntimeError(f"parity: flash_decode_attn launched {n} times in "
+                           f"the two steps, expected {nl} each")
+    cpu_params = R.params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_dec, cpu_pk, _ = run(cpu_params, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    out = {}
+    for name, g, c in (("serve_step", gpu_dec, cpu_dec),
+                       ("serve_step_packed", gpu_pk, cpu_pk)):
+        if g.shape != (B, cfg.vocab) or not torch.isfinite(g).all():
+            raise RuntimeError(f"parity: {name} logits {tuple(g.shape)} not "
+                               "finite")
+        out[name] = float((g - c).norm() / c.norm())
+    print(f"[parity] full-width fp32 contiguous cache: card vs CPU logits "
+          f"rel L2 err serve_step={out['serve_step']:.3e}, "
+          f"serve_step_packed={out['serve_step_packed']:.3e} (limit 1e-3); "
+          f"flash_decode_attn launches on the card {n}; card steps "
+          f"{t_gpu:.3f}s, CPU steps {t_cpu:.3f}s", flush=True)
+    if not max(out.values()) <= 1e-3:
+        raise RuntimeError(f"parity: relative error {out} > 1e-3")
+    return dict(rel_err=out, launches=n, gpu_steps_s=t_gpu,
+                cpu_steps_s=t_cpu)
 
 
 # -- phase 6: CNNs ------------------------------------------------------------
@@ -825,7 +1067,8 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import ovsf_gemm as G
-    from repro_torch.kernels.decode_attn import paged_flash_decode
+    from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                                 paged_flash_decode)
     from repro_torch.kernels.fwht import fwht
     from repro_torch.models import cnn
     from repro_torch.models.registry import params_to
@@ -836,7 +1079,7 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
         cfg = cfg.replace(ovsf_mode=mode)
     tag = f"[cnn {arch} {cfg.ovsf_mode}]"
     want = {"ovsf_decompress": launches_per_forward, "ovsf_gemm": 0,
-            "fwht": 0, "paged_flash_decode": 0}
+            "fwht": 0, "paged_flash_decode": 0, "flash_decode_attn": 0}
     plan_paths_count = None
     if plan_paths is not None:
         cfg = cfg.replace(exec_plan=mapper.plan_cnn(
@@ -872,12 +1115,14 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
 
     G.reset_launches()
     paged_flash_decode.launches = 0
+    flash_decode_attn.launches = 0
     fwht.launches = 0
     logits = forward(params, state, x)
     torch.cuda.synchronize()
     launches = {"ovsf_decompress": G.ovsf_decompress.launches,
                 "ovsf_gemm": G.ovsf_gemm.launches, "fwht": fwht.launches,
-                "paged_flash_decode": paged_flash_decode.launches}
+                "paged_flash_decode": paged_flash_decode.launches,
+                "flash_decode_attn": flash_decode_attn.launches}
     if launches != want:
         raise RuntimeError(f"{tag} one forward launched {launches}, expected "
                            f"{want}")
@@ -973,6 +1218,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     gemm = {adt: run_gemm_checks(rng, dev, adt) for adt in ALPHA_DTYPES}
     attn_rows, attn_sum = run_paged_checks(rng, dev)
+    flash_rows, flash_sum, flash_gathers = run_flash_checks(rng, dev)
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
     fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
     refused = check_quant_contract(dev)
@@ -981,6 +1227,7 @@ def main(argv=None) -> int:
           + ", ".join(f"{len(rows)} {adt or 'bf16/fp32-alpha'}"
                       for adt, (rows, _s) in gemm.items())
           + f" cases), paged_flash_decode ({len(attn_rows)} cases), "
+          f"flash_decode_attn ({len(flash_rows)} cases), "
           f"ovsf_decompress ({len(dec_rows)} cases), fwht "
           f"({len(fwht_rows)} cases)", flush=True)
 
@@ -988,7 +1235,12 @@ def main(argv=None) -> int:
     for adt in ALPHA_DTYPES:
         serve[adt or "fp"], launches[adt] = serve_phase(args.seed, card, dev,
                                                         adt)
+    styles = {}
+    for style in ("contiguous window", "contiguous packed", "paged window"):
+        styles[style], launches[style] = serve_phase(args.seed, card, dev,
+                                                     "", style)
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
+    parity_contiguous = parity_contiguous_phase(args.seed, dev)
     from repro_torch.runtime.mapper import ALL_PATHS, DEFAULT_PATHS
     cnns = [cnn_phase(args.seed, card, dev, arch, mode, n, paths)
             for arch, mode, n, paths in (
@@ -1018,6 +1270,10 @@ def main(argv=None) -> int:
              "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:160", attn_sum,
              launches[""]["paged_flash_decode"]),
+            ("flash_decode_attn",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64", flash_sum,
+             launches["contiguous window"]["flash_decode_attn"]),
             ("ovsf_decompress",
              "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
              "src/repro/kernels/ovsf_gemm.py:256", dec_sum,
@@ -1042,6 +1298,8 @@ def main(argv=None) -> int:
                        adt or "fp": s["layer_M128"]
                        for adt, (_r, s) in gemm.items()},
                    "paged_flash_decode_cases": attn_rows,
+                   "flash_decode_attn_cases": flash_rows,
+                   "packed_gather": flash_gathers,
                    "ovsf_decompress_cases": dec_rows,
                    "fwht_cases": fwht_rows,
                    "fwht_refuses": fwht_refused,
@@ -1050,13 +1308,18 @@ def main(argv=None) -> int:
                        "ovsf_gemm*": "sum of q, o, gate, up, down at M=4 "
                                      "bf16 x",
                        "paged_flash_decode": "T=4 decode bf16",
+                       "flash_decode_attn": "window decode B=4 T=320 bf16; "
+                                            "launches: the contiguous window "
+                                            "serve phase",
                        "ovsf_decompress": "one ResNet-50 forward's 13 calls "
                                           "(4 x s1, 6 x s2, 3 x s3), fp32",
                        "fwht": "one planned ResNet-50 forward's 13 calls "
                                "(4 x (6272, 2048), 6 x (1568, 4096), 3 x "
                                "(392, 8192)), fp32"},
                    "quant_wrapper_refuses": refused,
-                   "serve": serve, "parity": parity, "cnn": cnns}, f,
+                   "serve": serve, "serve_styles": styles,
+                   "parity": parity, "parity_contiguous": parity_contiguous,
+                   "cnn": cnns}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ovsf_gemm", "ovsf_decompress", "paged_decode_attn", "fwht")
+SOURCES = ("ovsf_gemm", "ovsf_decompress", "paged_decode_attn", "fwht",
+           "flash_decode_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

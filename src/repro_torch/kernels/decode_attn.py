@@ -1,14 +1,18 @@
-"""Paged flash-decode attention: the Hopper kernel and its plain version.
+"""Flash-decode attention: the Hopper kernels and their plain versions.
 
+``flash_decode_attn`` is single-token GQA attention over a contiguous
+(B, T, Hkv, hd) cache under the exclusive mask ``col < pos[b]`` (see
+``kernels.ref.decode_attn_ref``); it launches ``csrc/flash_decode_attn.cu``,
+the port of the Pallas ``repro.kernels.decode_attn:flash_decode_attn``.
 ``paged_flash_decode`` is packed-token GQA attention over paged K/V pools
-(see ``kernels.ref.paged_decode_attn_ref``). On a CUDA tensor it launches
-``csrc/paged_decode_attn.cu`` (the port of the Pallas
-``repro.kernels.decode_attn:paged_flash_decode``; design and bound in the
-source's header note) or raises; on a CPU tensor it runs the plain version.
-``paged_flash_decode.launches`` counts kernel launches.
+under the inclusive mask ``col <= positions[t]`` (see
+``kernels.ref.paged_decode_attn_ref``); it launches
+``csrc/paged_decode_attn.cu``, the port of the Pallas
+``paged_flash_decode``. Design and bound are in each source's header note.
 
-The contiguous-cache ``flash_decode_attn`` is not ported yet; its plain
-version is ``kernels.ref.decode_attn_ref``.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain version; any other device raises. ``<wrapper>.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -17,12 +21,89 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import paged_decode_attn_ref
+from repro_torch.kernels.ref import decode_attn_ref, paged_decode_attn_ref
 
-# The plain PyTorch version of this kernel (CPU path and on-card reference).
+# The plain PyTorch versions of the kernels (CPU path and on-card reference).
+flash_decode_attn_plain = decode_attn_ref
 paged_flash_decode_plain = paged_decode_attn_ref
 
+MAX_HD = 256                  # largest head dim the contiguous kernel takes
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+
+
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> None:
+    """What the kernel takes, checked on every device, so that a path that
+    passes on the CPU does not meet a refusal on the card."""
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_decode_attn: q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
+    B, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"flash_decode_attn: q {tuple(q.shape)} vs k/v "
+                         f"{tuple(k.shape)}")
+    if hd > MAX_HD:
+        raise ValueError(f"flash_decode_attn: head dim {hd} above the "
+                         f"kernel's limit {MAX_HD}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_decode_attn: q {q.dtype}, k/v {k.dtype}/"
+                         f"{v.dtype} must share one type, float32 or "
+                         "bfloat16")
+
+
+def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos) -> torch.Tensor:
+    """Single-token GQA attention over a contiguous cache.
+
+    q: (B, H, hd), hd <= ``MAX_HD``; k/v: (B, T, Hkv, hd); q, k and v of
+    one type (float32 or bfloat16); pos: the fill level per row, a (B,) or
+    0-dim int tensor on q's device, or an int. Columns ``>= pos[b]`` are
+    masked; ``pos >= T`` reads all T rows, ``pos <= 0`` gives the mean of
+    V. Returns (B, H, hd) in q's type.
+    """
+    _check_flash(q, k, v)
+    if q.device.type == "cpu":
+        return flash_decode_attn_plain(q, k, v, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_attn: unsupported device {q.device}")
+    B, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_decode_attn: {name} on {t.device}, q "
+                             f"on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_decode_attn: {name} must be contiguous")
+    if isinstance(pos, torch.Tensor):
+        if pos.device != q.device or pos.dim() > 1 or \
+                pos.dim() == 1 and pos.shape[0] != B or \
+                pos.dtype.is_floating_point:
+            raise ValueError(f"flash_decode_attn: pos must be an int tensor "
+                             f"of shape (B,) or () on {q.device}, got "
+                             f"{pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+        pos = pos.to(torch.int32).expand(B).contiguous()
+    else:
+        pos = torch.full((B,), int(pos), dtype=torch.int32, device=q.device)
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    q = q.contiguous()
+    err = build.launcher("flash_decode_attn", _FLASH_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, T, H, Hkv, hd, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_decode_attn: CUDA launch failed "
+                           f"(cudaError {err})")
+    flash_decode_attn.launches += 1
+    return out
+
+
+flash_decode_attn.launches = 0
 
 
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,

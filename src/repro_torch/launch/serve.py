@@ -1,7 +1,7 @@
 """Serving launcher for the port: batched requests through ``LLMEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
-      --paged --packed --chunk-size 64 [--smoke] [--device cpu] \
+      --chunk-size 64 [--packed] [--paged] [--smoke] [--device cpu] \
       [--alpha-dtype int8|int4]
 
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
@@ -9,10 +9,11 @@ present). Parameters are initialised natively from ``--seed``;
 ``--alpha-dtype`` stores the OVSF alphas as int8 or nibble-packed int4 with
 per-segment fp32 scales. The engine's mapper plans each OVSF weight type,
 as the reference engine does, against the device's target (``h100`` on the
-GPU, ``cpu`` on the CPU); the plan is printed. Only the paged + packed path is ported, so
-``--paged --packed --chunk-size N`` are required. Exit contract: every
-request must end as ``eos``, ``length`` or ``rejected``, else the launcher
-exits non-zero.
+GPU, ``cpu`` on the CPU); the plan is printed. ``--chunk-size N`` is
+required (the legacy phase-based path is not ported); ``--packed`` picks the
+packed step over the (B, W) window, ``--paged`` the paged KV cache over the
+contiguous one. Exit contract: every request must end as ``eos``,
+``length`` or ``rejected``, else the launcher exits non-zero.
 """
 from __future__ import annotations
 
@@ -53,9 +54,10 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default slots*buffer/page_size)")
     args = ap.parse_args(argv)
-    if not (args.paged and args.packed) or args.chunk_size is None:
-        raise SystemExit("the port serves the paged + packed path only: pass "
-                         "--paged --packed --chunk-size N")
+    if args.chunk_size is None:
+        raise SystemExit("the port serves prompts via chunks only: pass "
+                         "--chunk-size N; the legacy phase-based path waits "
+                         "for a later slice (ROADMAP A.3)")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -67,7 +69,8 @@ def main(argv=None) -> None:
           + (f" (alphas={args.alpha_dtype})" if args.alpha_dtype else ""))
     eng = LLMEngine(params, cfg, batch_slots=args.slots,
                     buffer_len=args.buffer, chunk_size=args.chunk_size,
-                    packed=True, paged=True, page_size=args.page_size,
+                    packed=args.packed, paged=args.paged,
+                    page_size=args.page_size,
                     kv_pages=args.kv_pages, device=device)
     if eng.cfg.exec_plan is not None:
         print(f"[serve] plan ({eng.cfg.exec_plan.hw_label}): " + ", ".join(
@@ -91,9 +94,11 @@ def main(argv=None) -> None:
     print(f"[serve] decode={stats.decode_s:.2f}s mixed={stats.mixed_s:.2f}s "
           f"padding: valid={stats.packed_tokens} batch={stats.padded_tokens} "
           f"efficiency={stats.padding_efficiency:.2f}")
-    print(f"[serve] kv_pages: total={stats.kv_pages_total} "
-          f"peak_used={stats.kv_pages_used} peak_bytes={stats.kv_bytes_used} "
-          f"utilization={stats.kv_utilization:.2f}")
+    if args.paged:
+        print(f"[serve] kv_pages: total={stats.kv_pages_total} "
+              f"peak_used={stats.kv_pages_used} "
+              f"peak_bytes={stats.kv_bytes_used} "
+              f"utilization={stats.kv_utilization:.2f}")
 
     outs = {o.rid: o for o in eng.outputs()}
     allowed = {"eos", "length", "rejected"}

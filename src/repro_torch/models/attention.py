@@ -1,12 +1,129 @@
-"""Packed-query attention over the paged KV cache (port of
-``repro.models.attention.attn_apply_paged``)."""
+"""GQA attention over the serving KV caches (port of the cache paths of
+``repro.models.attention``): ``attn_apply`` over the contiguous per-slot
+cache, ``attn_apply_packed`` over the same cache with a packed token stream,
+``attn_apply_paged`` over the paged pools.
+
+The caches are written IN PLACE (the reference returns new arrays; the
+returned dicts hold the same, updated, tensors). Single-token attention runs
+through the Hopper kernels on CUDA (``flash_decode_attn``,
+``paged_flash_decode``) and their plain versions on the CPU; the reference
+leaves it to an XLA einsum.
+"""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attn import paged_flash_decode
+from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                             paged_flash_decode)
 from repro_torch.models import layers as L
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped scaled-dot-product attention, plain torch ops. q: (B, S, H,
+    hd), k/v: (B, T, Hkv, hd), mask (B, S, T) or (S, T), True = attend.
+    As the reference: q * scale rounded to q's type, fp32 scores and
+    softmax, probabilities in v's type, fp32 sums, output in q's type."""
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / float(hd) ** 0.5
+    qs = (q.to(torch.float32) * scale).to(q.dtype)
+    logits = torch.einsum("bsngd,btnd->bnsgt",
+                          qs.reshape(B, S, Hkv, G, hd).to(torch.float32),
+                          k.to(torch.float32))
+    if mask is not None:
+        m = (mask[:, None, :, None, :] if mask.dim() == 3
+             else mask[None, None, :, None, :])
+        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bnsgt,btnd->bsngd", probs.to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """q, k, v of (B, S, d) x, RoPE on q and k at ``positions`` ((B, S) or
+    (S,))."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = L.linear_apply(p["q"], x, cfg, "attn_q").reshape(B, S, H, hd)
+    k = L.linear_apply(p["k"], x, cfg, "attn_k").reshape(B, S, Hkv, hd)
+    v = L.linear_apply(p["v"], x, cfg, "attn_v").reshape(B, S, Hkv, hd)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+               positions: torch.Tensor, cache: dict,
+               cache_pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Causal attention of S new tokens per row over the contiguous cache.
+
+    ``x`` is (B, S, d); ``positions`` (B, S) their RoPE positions;
+    ``cache`` this layer's ``{"k", "v"}`` (B, T, Hkv, hd) buffers;
+    ``cache_pos`` (B,) each row's fill level (the reference vmaps one slot
+    at a time with a scalar). The S new K/V rows land at ``cache_pos[b]``,
+    the start clamped to ``[0, T - S]`` as ``dynamic_update_slice`` clamps
+    it; query s of row b then attends columns ``<= cache_pos[b] + s``.
+    S == 1 runs ``flash_decode_attn`` with pos ``cache_pos + 1``; S > 1 the
+    plain ``sdpa``, as the reference leaves it to XLA.
+    """
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    ck, cv = cache["k"], cache["v"]
+    T = ck.shape[1]
+    q, k, v = _qkv(p, cfg, x, positions)
+    cache_pos = cache_pos.long()
+    start = cache_pos.clamp(0, max(T - S, 0))
+    rows = torch.arange(B, device=x.device)[:, None]
+    cols = start[:, None] + torch.arange(S, device=x.device)[None, :]
+    ck[rows, cols] = k.to(ck.dtype)
+    cv[rows, cols] = v.to(cv.dtype)
+    if S == 1:
+        out = flash_decode_attn(q[:, 0], ck, cv, cache_pos + 1)[:, None]
+    else:
+        idx = cache_pos[:, None] + torch.arange(S, device=x.device)[None, :]
+        mask = (torch.arange(T, device=x.device)[None, None, :]
+                <= idx[:, :, None])                         # (B, S, T)
+        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask)
+    y = L.linear_apply(p["o"], out.reshape(B, S, H * hd), cfg, "attn_o")
+    return y, {"k": ck, "v": cv}
+
+
+def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                      positions: torch.Tensor, slot_ids: torch.Tensor,
+                      cache: dict) -> tuple[torch.Tensor, dict]:
+    """Packed-query attention over the contiguous per-slot cache.
+
+    ``x`` is (1, T, d): T tokens of different slots; ``slot_ids`` /
+    ``positions`` (T,) give each token's cache row and position in it;
+    ``cache`` is this layer's ``{"k", "v"}`` (B, Tbuf, Hkv, hd). Padding
+    tokens carry ``slot_id == B``: their writes are dropped, as are writes
+    past Tbuf (the reference's ``mode="drop"``), and their gather is clipped
+    to slot B - 1 (outputs discarded by the caller). Each token then attends
+    its slot's gathered row under ``col <= positions[t]`` through
+    ``flash_decode_attn`` with pos ``positions + 1``; the gather copies
+    (T, Tbuf, Hkv, hd) per layer, as the reference's ``jnp.take`` does.
+    """
+    H, hd = cfg.n_heads, cfg.hd
+    T = x.shape[1]
+    ck, cv = cache["k"], cache["v"]
+    B, Tbuf = ck.shape[0], ck.shape[1]
+    q, k, v = _qkv(p, cfg, x, positions)
+    slot_ids = slot_ids.long()
+    positions = positions.long()
+    keep = (slot_ids >= 0) & (slot_ids < B) & (positions >= 0) & \
+        (positions < Tbuf)
+    ck[slot_ids[keep], positions[keep]] = k[0][keep].to(ck.dtype)
+    cv[slot_ids[keep], positions[keep]] = v[0][keep].to(cv.dtype)
+    sid = slot_ids.clamp(0, B - 1)
+    out = flash_decode_attn(q[0], ck[sid].to(q.dtype), cv[sid].to(q.dtype),
+                            positions + 1)                  # (T, H, hd)
+    y = L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg, "attn_o")
+    return y, {"k": ck, "v": cv}
 
 
 def attn_apply_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -29,17 +146,13 @@ def attn_apply_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     read slot ``n_slots - 1``'s pages, as the reference's clipped gather
     does; their outputs are discarded by the caller.
     """
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, hd = cfg.n_heads, cfg.hd
     T = x.shape[1]
     k_pool, v_pool = cache["k"], cache["v"]
     P, ps = k_pool.shape[0], k_pool.shape[1]
     n_slots = page_table.shape[0] - 1
     npg = page_table.shape[1]
-    q = L.linear_apply(p["q"], x, cfg, "attn_q").reshape(1, T, H, hd)
-    k = L.linear_apply(p["k"], x, cfg, "attn_k").reshape(1, T, Hkv, hd)
-    v = L.linear_apply(p["v"], x, cfg, "attn_v").reshape(1, T, Hkv, hd)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(p, cfg, x, positions)
 
     slot_ids = slot_ids.long()
     positions = positions.long()

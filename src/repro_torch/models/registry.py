@@ -73,6 +73,11 @@ def params_to(params, device):
     return [params_to(v, device) for v in params]
 
 
+serve_step = T.serve_step
+serve_step_window = T.serve_step_window
+serve_step_packed = T.serve_step_packed
+init_cache = T.init_cache
+cache_shapes = T.cache_shapes
 serve_step_paged = T.serve_step_paged
 serve_step_window_paged = T.serve_step_window_paged
 init_paged_cache = T.init_paged_cache

@@ -1,9 +1,12 @@
-"""Dense decoder trunk over the paged KV cache (port of the dense family of
-``repro.models.transformer``).
+"""Dense decoder trunk over the serving KV caches (port of the dense family
+of ``repro.models.transformer``).
 
 The reference's ``lax.scan`` over stacked ``blocks`` becomes a Python loop
-over a list of per-layer param dicts; the paged K/V pools stay stacked
-``(n_layers, P, page_size, Hkv, hd)`` tensors, written in place.
+over a list of per-layer param dicts. The caches stay stacked over layers
+and are written in place: the contiguous cache's K/V are ``(n_layers, B, T,
+Hkv, hd)`` with a per-slot ``pos`` (B,) (the reference's natural layout;
+its engine vmaps single-slot caches where the port batches the slots), the
+paged pools ``(n_layers, P, page_size, Hkv, hd)``.
 """
 from __future__ import annotations
 
@@ -34,13 +37,13 @@ def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.linear_apply(p["down"], h, cfg, "mlp_down")
 
 
-def _paged_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                 slot_ids: torch.Tensor, positions: torch.Tensor,
-                 page_table: torch.Tensor, cache: dict) -> torch.Tensor:
+def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, **kw
+           ) -> torch.Tensor:
+    """Pre-norm attention + MLP block; ``attn`` is one of the attention
+    functions of ``models.attention`` over the layer's cache, called with
+    ``kw``."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    y, _ = A.attn_apply_paged(p["attn"], cfg, h, positions=positions,
-                              slot_ids=slot_ids, page_table=page_table,
-                              cache=cache)
+    y, _ = attn(p["attn"], cfg, h, **kw)
     x = x + y
     h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     return x + _mlp_apply(p["mlp"], cfg, h)
@@ -51,6 +54,102 @@ def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T.to(x.dtype)
     return x @ params["lm_head"]["w"].to(x.dtype)
+
+
+def cache_shapes(cfg: ModelConfig, B: int, T: int) -> dict[str, tuple]:
+    """Shapes of the contiguous serving cache: per-slot K/V buffers of
+    length T, stacked over layers, and each slot's fill level."""
+    _check_family(cfg)
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd)
+    return {"k": shape, "v": shape, "pos": (B,)}
+
+
+def init_cache(cfg: ModelConfig, B: int, T: int, device
+               ) -> dict[str, torch.Tensor]:
+    """Zero contiguous cache: K/V in the model dtype, ``pos`` int32."""
+    return {name: torch.zeros(shape, device=device,
+                              dtype=torch.int32 if name == "pos"
+                              else cfg.act_dtype)
+            for name, shape in cache_shapes(cfg, B, T).items()}
+
+
+def _trunk(params: dict, cfg: ModelConfig, cache: dict,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) tokens appended at each row's ``cache["pos"]``: features
+    (B, S, d), K/V written into the cache in place."""
+    _check_family(cfg)
+    S = tokens.shape[1]
+    pos0 = cache["pos"].long()
+    positions = pos0[:, None] + torch.arange(S, device=tokens.device)[None]
+    x = L.embed_apply(params["embed"], tokens)                  # (B, S, d)
+    for li, p in enumerate(params["blocks"]):
+        x = _block(p, cfg, x, A.attn_apply, positions=positions,
+                   cache={"k": cache["k"][li], "v": cache["v"][li]},
+                   cache_pos=pos0)
+    return x
+
+
+def serve_step(params: dict, cfg: ModelConfig, cache: dict,
+               tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One decode step: tokens (B, 1) -> ((B, vocab) logits, the cache with
+    every row's ``pos`` advanced by one)."""
+    x = _trunk(params, cfg, cache, tokens)
+    logits = _unembed(params, cfg, x[:, -1:])[:, 0]
+    new_cache = dict(cache)
+    new_cache["pos"] = cache["pos"] + 1
+    return logits, new_cache
+
+
+def serve_step_window(params: dict, cfg: ModelConfig, cache: dict,
+                      tokens: torch.Tensor, n_valid: torch.Tensor
+                      ) -> tuple[torch.Tensor, dict]:
+    """Ragged window: row b advances by ``n_valid[b]`` of its W supplied
+    tokens ((B, W), real tokens in columns [0, n_valid[b])). Returns the
+    (B, vocab) logits at column ``n_valid[b] - 1`` (clamped into [0, W)),
+    unembedding only those B rows, and the cache with ``pos += n_valid``.
+    The padded K/V written past a row's true tokens sit beyond every query
+    position until real tokens overwrite them; the engine over-allocates
+    the buffer by W so that the writes never clamp for a live slot."""
+    W = tokens.shape[1]
+    x = _trunk(params, cfg, cache, tokens)
+    col = (n_valid.long() - 1).clamp(0, W - 1)
+    feats = x[torch.arange(x.shape[0], device=x.device), col]   # (B, d)
+    logits = _unembed(params, cfg, feats[None])[0]
+    new_cache = dict(cache)
+    new_cache["pos"] = cache["pos"] + n_valid.to(cache["pos"].dtype)
+    return logits, new_cache
+
+
+def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
+                  tokens: torch.Tensor, new_pos: torch.Tensor,
+                  emit_idx: torch.Tensor, attn, **kw
+                  ) -> tuple[torch.Tensor, dict]:
+    """One dense pass over a packed (T,) token stream, ``attn`` reading and
+    writing each layer's cache; the unembed runs on the B rows at
+    ``emit_idx`` only."""
+    _check_family(cfg)
+    x = L.embed_apply(params["embed"], tokens[None])           # (1, T, d)
+    for li, p in enumerate(params["blocks"]):
+        x = _block(p, cfg, x, attn,
+                   cache={"k": cache["k"][li], "v": cache["v"][li]}, **kw)
+    feats = x[0][emit_idx.long()]                               # (B, d)
+    logits = _unembed(params, cfg, feats[None])[0]              # (B, vocab)
+    new_cache = dict(cache)
+    new_cache["pos"] = new_pos
+    return logits, new_cache
+
+
+def serve_step_packed(params: dict, cfg: ModelConfig, cache: dict,
+                      tokens: torch.Tensor, slot_ids: torch.Tensor,
+                      positions: torch.Tensor, new_pos: torch.Tensor,
+                      emit_idx: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Token-packed step against the contiguous cache: the contract of
+    ``serve_step_paged`` without the page table (padding tokens carry
+    ``slot_id == B``). Returns ((B, vocab) logits gathered at ``emit_idx``
+    before the unembed, the cache with ``pos`` set to ``new_pos``)."""
+    return _packed_trunk(params, cfg, cache, tokens, new_pos, emit_idx,
+                         A.attn_apply_packed, slot_ids=slot_ids,
+                         positions=positions)
 
 
 def paged_cache_shapes(cfg: ModelConfig, page_size: int, n_pages: int
@@ -83,17 +182,9 @@ def serve_step_paged(params: dict, cfg: ModelConfig, cache: dict,
     Returns ((B, vocab) logits at ``emit_idx``, the cache with its K/V pools
     updated in place and ``pos`` set to ``new_pos``).
     """
-    _check_family(cfg)
-    x = L.embed_apply(params["embed"], tokens[None])           # (1, T, d)
-    for li, p in enumerate(params["blocks"]):
-        x = _paged_block(p, cfg, x, slot_ids=slot_ids, positions=positions,
-                         page_table=page_table,
-                         cache={"k": cache["k"][li], "v": cache["v"][li]})
-    feats = x[0][emit_idx.long()]                               # (B, d)
-    logits = _unembed(params, cfg, feats[None])[0]              # (B, vocab)
-    new_cache = dict(cache)
-    new_cache["pos"] = new_pos
-    return logits, new_cache
+    return _packed_trunk(params, cfg, cache, tokens, new_pos, emit_idx,
+                         A.attn_apply_paged, slot_ids=slot_ids,
+                         positions=positions, page_table=page_table)
 
 
 def serve_step_window_paged(params: dict, cfg: ModelConfig, cache: dict,

@@ -1,20 +1,33 @@
-"""EngineCore: the paged KV pools, the packed step and the fused sampling
-tail (port of the paged packed path of ``repro.serving.core``).
+"""EngineCore: the KV cache, the step styles and the fused sampling tail
+(port of the chunked paths of ``repro.serving.core``).
 
-``step(SchedulerOutput) -> StepOutput`` flattens the scheduler's decode
-slots and prompt chunks into one dense pow-2-bucketed token stream
-(``scheduler.pack_step``), runs ``serve_step_paged`` against the shared
-per-layer page pools, then samples on the device: argmax for greedy slots,
-top-k / temperature draws for sampled ones, plus a per-slot
-``ok = all(isfinite(logits))`` row. The engine grants pages before calling
-``step`` (``LLMEngine._page_gate``).
+``step(SchedulerOutput) -> StepOutput`` runs one scheduler iteration as ONE
+model call in the engine's style, then samples on the device: argmax for
+greedy slots, top-k / temperature draws for sampled ones, plus a per-slot
+``ok = all(isfinite(logits))`` row. The styles, as the reference's:
+
+* **contiguous window** (``packed=False, paged=False``): per-slot K/V
+  buffers of ``buffer_len + window`` (the slack keeps a W-wide write at a
+  live slot's position from clamping). A step that carries chunks runs
+  ``serve_step_window`` on a (B, W) window, W the chunk size; a chunk-free
+  step runs ``serve_step`` and advances EVERY slot one token, idle ones
+  too, as the reference's vmapped decode does (their writes clamp in
+  bounds; a fresh slot's pos is reset to 0 when its first chunk arrives).
+* **contiguous packed** (``packed=True``): the same cache without slack;
+  the scheduler's tokens flattened into one pow-2-bucketed stream
+  (``scheduler.pack_step``) through ``serve_step_packed``.
+* **paged packed / paged window** (``paged=True``): K/V in shared page
+  pools; the packed stream through ``serve_step_paged``, or the (B, W)
+  window through ``serve_step_window_paged`` at W = the chunk size on every
+  step. The engine grants pages before calling ``step``
+  (``LLMEngine._page_gate``).
 
 Sampling state: each sampled slot owns a ``torch.Generator`` on the device,
 seeded from ``SamplingParams.seed`` at admission and advanced only when the
 slot emits a token, so a sampled stream does not depend on batch
-composition, slot placement or chunking. The numbers differ from the
-reference's threefry keys: greedy streams match the reference, sampled
-streams match only within the port.
+composition, slot placement, chunking or step style. The numbers differ
+from the reference's threefry keys: greedy streams match the reference,
+sampled streams match only within the port.
 """
 from __future__ import annotations
 
@@ -63,33 +76,45 @@ class StepOutput:
 
 
 class EngineCore:
-    """Device-side half of the engine: paged caches, packed step, sampling."""
+    """Device-side half of the engine: caches, the step styles, sampling."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int,
-                 buffer_len: int, window: int, page_size: int,
-                 kv_pages: Optional[int], device: torch.device):
+                 buffer_len: int, window: int, packed: bool, paged: bool,
+                 page_size: int, kv_pages: Optional[int],
+                 device: torch.device):
         if window <= 0:
-            raise ValueError("paged serving consumes prompts via chunks; "
-                             "pass a chunk size")
-        if buffer_len % page_size:
-            raise ValueError(f"buffer_len={buffer_len} must be a multiple of "
-                             f"page_size={page_size} (pages tile the virtual "
-                             f"slot buffer exactly)")
+            raise ValueError("step-based serving consumes prompts via "
+                             "chunks; pass a chunk size")
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
         self.window = window
+        self.packed = packed
+        self.paged = paged
         self.device = device
-        max_pages = buffer_len // page_size
-        n_pages = (int(kv_pages) if kv_pages is not None
-                   else batch_slots * max_pages)
-        page_bytes = (2 * cfg.n_layers * page_size * cfg.n_kv_heads * cfg.hd
-                      * cfg.act_dtype.itemsize)
-        self.pager = PagedKVCache(batch_slots, page_size, n_pages, max_pages,
-                                  page_bytes)
-        self.caches = R.init_paged_cache(cfg, page_size, n_pages, device)
-        self.caches["pos"] = torch.zeros((batch_slots,), dtype=torch.int32,
-                                         device=device)
+        # the window's slack: a W-wide write at pos <= buffer_len - 1 never
+        # clamps; packed and paged steps scatter at exact positions
+        self.T_alloc = buffer_len if (packed or paged) else buffer_len + window
+        self.step_shapes: set = set()   # distinct step shapes run
+        self.pager: Optional[PagedKVCache] = None
+        if paged:
+            if buffer_len % page_size:
+                raise ValueError(f"buffer_len={buffer_len} must be a multiple "
+                                 f"of page_size={page_size} (pages tile the "
+                                 f"virtual slot buffer exactly)")
+            max_pages = buffer_len // page_size
+            n_pages = (int(kv_pages) if kv_pages is not None
+                       else batch_slots * max_pages)
+            page_bytes = (2 * cfg.n_layers * page_size * cfg.n_kv_heads
+                          * cfg.hd * cfg.act_dtype.itemsize)
+            self.pager = PagedKVCache(batch_slots, page_size, n_pages,
+                                      max_pages, page_bytes)
+            self.caches = R.init_paged_cache(cfg, page_size, n_pages, device)
+            self.caches["pos"] = torch.zeros((batch_slots,),
+                                             dtype=torch.int32, device=device)
+        else:
+            self.caches = R.init_cache(cfg, batch_slots, self.T_alloc, device)
+        # host mirror of the per-slot fill levels (``pos`` on the device)
         self._host_pos = np.zeros(batch_slots, np.int64)
         self.temps = np.zeros(batch_slots, np.float32)
         self.topks = np.zeros(batch_slots, np.int32)
@@ -130,12 +155,15 @@ class EngineCore:
                                        int(self.topks[i]), self.gens[i])
         return toks.cpu().numpy(), ok_host
 
+    def _put(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
     @torch.no_grad()
     def step(self, so: SchedulerOutput,
              last_tokens: Optional[np.ndarray] = None) -> StepOutput:
-        """Execute one scheduler iteration as ONE packed paged step.
-        ``last_tokens`` carries each decode slot's previous token at its
-        slot index."""
+        """Execute one scheduler iteration as ONE model call in the engine's
+        style. ``last_tokens`` carries each decode slot's previous token at
+        its slot index."""
         out = StepOutput()
         if not (so.chunks or so.decode_slots):
             return out
@@ -143,18 +171,16 @@ class EngineCore:
         for c in so.chunks:
             if c.start == 0:            # new request: seed sampling state
                 self._set_sampling(c.slot, c.req.sampling)
-        ps = pack_step(so, last_tokens, self._host_pos, self.B, self.window)
-        dev = self.device
-
-        def put(a):
-            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-
-        logits, self.caches = R.serve_step_paged(
-            self.params, self.cfg, self.caches, put(self.pager.page_table),
-            put(ps.tokens), put(ps.slot_ids), put(ps.positions),
-            put(ps.new_pos), put(ps.emit_idx))
-        toks, ok = self._health_and_sample(logits, ps.emit_slots)
-        self._host_pos[:] = ps.new_pos
+        if self.packed:
+            logits, emit, n_valid, n_batch = self._packed_step(so,
+                                                               last_tokens)
+        elif self.paged or so.chunks:
+            logits, emit, n_valid, n_batch = self._window_step(so,
+                                                               last_tokens)
+        else:
+            logits, emit, n_valid, n_batch = self._decode_step(so,
+                                                               last_tokens)
+        toks, ok = self._health_and_sample(logits, emit)
         bad: list = []
         for i in so.decode_slots:
             if ok[i]:
@@ -168,11 +194,72 @@ class EngineCore:
                 else:
                     bad.append(c.slot)
         out.bad_slots = tuple(bad)
-        out.n_valid_tokens = ps.n_valid
-        out.n_batch_tokens = ps.n_batch
+        out.n_valid_tokens = n_valid
+        out.n_batch_tokens = n_batch
         dt = time.perf_counter() - t0
         if so.chunks:
             out.mixed_s = dt
         else:
             out.decode_s = dt
         return out
+
+    def _packed_step(self, so: SchedulerOutput, last_tokens):
+        """Every valid token in one pow-2-bucketed stream, against the page
+        pools (paged) or the contiguous cache."""
+        ps = pack_step(so, last_tokens, self._host_pos, self.B, self.window)
+        self.step_shapes.add(("packed", ps.n_batch))
+        args = [self._put(a) for a in (ps.tokens, ps.slot_ids, ps.positions,
+                                       ps.new_pos, ps.emit_idx)]
+        if self.paged:
+            logits, self.caches = R.serve_step_paged(
+                self.params, self.cfg, self.caches,
+                self._put(self.pager.page_table), *args)
+        else:
+            logits, self.caches = R.serve_step_packed(
+                self.params, self.cfg, self.caches, *args)
+        self._host_pos[:] = ps.new_pos
+        return logits, ps.emit_slots, ps.n_valid, ps.n_batch
+
+    def _window_step(self, so: SchedulerOutput, last_tokens):
+        """One (B, W) ragged window, W the chunk size: decode slots ride at
+        width 1, chunk slots at their slice length, idle slots at 0."""
+        W = self.window
+        tokens = np.zeros((self.B, W), np.int32)
+        n_tok = np.zeros(self.B, np.int32)
+        for i in so.decode_slots:
+            tokens[i, 0] = last_tokens[i]
+            n_tok[i] = 1
+        fresh = []
+        for c in so.chunks:
+            tokens[c.slot, :c.length] = c.req.prompt[c.start:c.start
+                                                     + c.length]
+            n_tok[c.slot] = c.length
+            if c.start == 0:            # new request: its pos starts at 0
+                fresh.append(c.slot)
+        if fresh:
+            self.caches["pos"][fresh] = 0
+            self._host_pos[fresh] = 0
+        self.step_shapes.add(("window", W))
+        step = (R.serve_step_window_paged if self.paged
+                else R.serve_step_window)
+        extra = (self._put(self.pager.page_table),) if self.paged else ()
+        logits, self.caches = step(self.params, self.cfg, self.caches,
+                                   *extra, self._put(tokens),
+                                   self._put(n_tok))
+        self._host_pos += n_tok
+        emit = tuple(so.decode_slots) + tuple(c.slot for c in so.chunks
+                                              if c.last)
+        return logits, emit, int(n_tok.sum()), self.B * W
+
+    def _decode_step(self, so: SchedulerOutput, last_tokens):
+        """A chunk-free step of the contiguous window style: every slot
+        advances one token (idle ones too, as the reference's vmap does)."""
+        last = np.zeros(self.B, np.int32)
+        for i in so.decode_slots:
+            last[i] = last_tokens[i]
+        self.step_shapes.add(("decode", 1))
+        logits, self.caches = R.serve_step(self.params, self.cfg,
+                                           self.caches,
+                                           self._put(last)[:, None])
+        self._host_pos += 1
+        return logits, tuple(so.decode_slots), len(so.decode_slots), self.B

@@ -1,12 +1,14 @@
-"""LLMEngine: step-based serving over the paged + packed path (port of
+"""LLMEngine: step-based serving over chunked prompts (port of
 ``repro.serving.engine``).
 
 Each ``step()``: the :class:`~repro_torch.serving.scheduler.FCFSScheduler`
 emits one :class:`SchedulerOutput` (running decode slots plus fixed-size
-prompt chunks), ``_page_gate`` grants the KV pages it needs, and the
-:class:`~repro_torch.serving.core.EngineCore` runs it as ONE packed step
-with fused sampling; this module tracks slots, prefill progress, finish
-reasons, streaming callbacks and the ``EngineStats`` counters.
+prompt chunks), ``_page_gate`` grants the KV pages it needs when the cache
+is paged, and the :class:`~repro_torch.serving.core.EngineCore` runs it as
+ONE step in the engine's style (contiguous or paged cache, window or
+packed step) with fused sampling; this module tracks slots, prefill
+progress, finish reasons, streaming callbacks and the ``EngineStats``
+counters.
 
 When the model has OVSF layers and its config carries no plan, the engine
 asks the layer mapper (``runtime.mapper``) for a decode-shaped
@@ -15,11 +17,12 @@ follows the device: ``h100`` on the card, where ``fused`` is the one path
 with a hand-written kernel and so the one candidate, and ``cpu`` with the
 reference's default candidates on the CPU.
 
-Only ``paged=True, packed=True`` is ported; the window, legacy and
-contiguous-cache paths, the calibration loop, preemption, deadlines, load
-shedding, fault injection and the journal wait for later slices. A
-page-pool shortfall for running work raises ``RuntimeError``: the default
-pool (``slots * buffer_len / page_size`` pages) never runs short.
+``chunk_size`` is required: the legacy phase-based path (whole-prompt
+prefill groups), the int8 KV cache, the calibration loop, preemption,
+deadlines, load shedding, fault injection and the journal wait for later
+slices (ROADMAP A.3, A.4). A page-pool shortfall for running work raises
+``RuntimeError``: the default pool (``slots * buffer_len / page_size``
+pages) never runs short.
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ def plan_cfg(cfg: ModelConfig, batch_slots: int, device) -> ModelConfig:
 
 @dataclasses.dataclass
 class EngineStats:
-    steps: int = 0                # packed step calls
+    steps: int = 0                # step calls
     tokens_out: int = 0
     prefills: int = 0             # requests whose prompt completed
     chunk_tokens: int = 0         # prompt tokens consumed via chunks
@@ -77,7 +80,7 @@ class EngineStats:
     errors: int = 0               # quarantined non-finite-logits requests
     decode_s: float = 0.0         # chunk-free step wall time
     mixed_s: float = 0.0          # chunk-bearing step wall time
-    kv_pages_total: int = 0       # page pool size
+    kv_pages_total: int = 0       # page pool size (0 unless paged)
     kv_pages_used: int = 0        # peak pages simultaneously granted
     kv_bytes_used: int = 0        # peak device bytes those pages pin
 
@@ -109,14 +112,11 @@ class LLMEngine:
                  page_size: int = 16, kv_pages: Optional[int] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        if not (packed and paged):
-            raise NotImplementedError(
-                "the port serves the paged + packed path only so far "
-                "(pass paged=True, packed=True); the window, legacy and "
-                "contiguous-cache paths wait for later slices")
         if chunk_size is None:
-            raise ValueError("paged/packed serving requires chunk_size (the "
-                             "packed step serves prompts via chunk tasks)")
+            raise NotImplementedError(
+                "the port serves prompts via chunks only: pass chunk_size; "
+                "the legacy phase-based path (chunk_size=None) waits for a "
+                "later slice (ROADMAP A.3)")
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
         table = params["embed"]["table"]
@@ -127,21 +127,24 @@ class LLMEngine:
         self.params = params
         self.B = batch_slots
         self.eos = eos_id
-        if max_step_tokens is None:
+        self.paged = paged
+        if packed and max_step_tokens is None:
             # the mixed-step bucket: chunk-bearing steps fill their shape
             max_step_tokens = pack_bucket(0, batch_slots, chunk_size, True)
         self.max_step_tokens = max_step_tokens
         self.core = EngineCore(params, self.cfg, batch_slots=batch_slots,
                                buffer_len=buffer_len, window=chunk_size,
+                               packed=packed, paged=paged,
                                page_size=page_size, kv_pages=kv_pages,
                                device=self.device)
+        pages = self.core.pager.P if paged else 0
         self.scheduler = FCFSScheduler(buffer_len, chunk_size=chunk_size,
-                                       page_size=page_size,
-                                       total_pages=self.core.pager.P)
+                                       page_size=page_size if paged else None,
+                                       total_pages=pages or None)
         self.slots: list[Optional[Request]] = [None] * batch_slots
         self.slot_remaining = np.zeros(batch_slots, np.int32)
         self._prefill_done = np.zeros(batch_slots, np.int64)
-        self.stats = EngineStats(kv_pages_total=self.core.pager.P)
+        self.stats = EngineStats(kv_pages_total=pages)
         self._finished: list[RequestOutput] = []
 
     # -- request intake ----------------------------------------------------
@@ -189,7 +192,8 @@ class LLMEngine:
         req = self.slots[i]
         req.finish_reason = reason
         self.slots[i] = None
-        self.core.pager.release(i)
+        if self.paged:
+            self.core.pager.release(i)
         self.core.clear_sampling(i)
         self._finalize(req)
 
@@ -213,12 +217,13 @@ class LLMEngine:
     # -- the step loop -----------------------------------------------------
 
     def step(self) -> int:
-        """One scheduler iteration: schedule, grant pages, run one packed
+        """One scheduler iteration: schedule, grant pages (paged), run one
         step, commit. Returns the remaining work (occupied slots plus
         queued requests; 0 = idle)."""
         so = self.scheduler.schedule(self._running_view(), self._free_slots(),
                                      token_budget=self.max_step_tokens)
-        so = self._page_gate(so)
+        if self.paged:
+            so = self._page_gate(so)
         if so.empty:
             return self._remaining()
         last = np.zeros(self.B, np.int32)

@@ -213,7 +213,7 @@ def test_engine_sampled_streams_are_seed_deterministic():
     assert run(1) == run(4)
 
 
-def test_engine_rejects_overflow_and_requires_paged_packed():
+def test_engine_rejects_overflow_and_requires_chunk_size():
     _jcfg, tcfg, _jp, tree = _smoke()
     params = bridge.params_from_numpy(tree, tcfg, "cpu")
     eng = TEngine(params, tcfg, batch_slots=2, buffer_len=16, chunk_size=8,
@@ -221,8 +221,8 @@ def test_engine_rejects_overflow_and_requires_paged_packed():
     assert not eng.submit(TRequest(0, np.ones(10, np.int32),
                                    max_new_tokens=10))
     assert eng.outputs()[0].finish_reason == "rejected"
-    with pytest.raises(NotImplementedError):
-        TEngine(params, tcfg, chunk_size=8, packed=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
+        TEngine(params, tcfg, packed=True, paged=True, device="cpu")
 
 
 def test_engine_needs_gpu_unless_cpu_is_asked(monkeypatch):
