@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (one nvcc per source, in parallel) and print the build time.
   3. kernels: hold ``ovsf_gemm`` with bf16/fp32, int8 and nibble-packed
              int4 alphas (segmented at the TinyLlama-1.1B layer shapes for M
-             in {4, 128}, plus monolithic and ragged cases) and
+             in {4, 128} and, bf16 x, 256, plus monolithic and ragged cases;
+             each case prints the kernel it ran, tensor-core or CUDA-core,
+             and each M a layer summary against matmul on the dense W) and
              ``paged_flash_decode`` (T in {4, 128}, H 32, Hkv 4, hd 64,
              page 16, padding tokens and sentinel pages) and
              ``flash_decode_attn`` (B 4, H 32, Hkv 4, hd 64, T 320 with
@@ -51,7 +53,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              here, none on steps that carry chunks), contiguous packed (22
              ``flash_decode_attn`` per step) and paged window (22
              ``paged_flash_decode`` per step, no ``flash_decode_attn``);
-             110 ``ovsf_gemm`` launches per step in every style.
+             110 ``ovsf_gemm`` launches per step in every style, every
+             one of them on the tensor-core kernel (bf16 x).
   5. parity: one full-width packed paged step in fp32 on the card vs the
              same step with the same parameters on the CPU (plain versions),
              with fp32 and with int8 alphas, planned as the engine plans on
@@ -213,6 +216,9 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
     cases = [(16, M, K, N, dt) for M in (4, 128)
              for (K, N) in ((2048, 2048), (2048, 5632), (5632, 2048))
              for dt in (torch.bfloat16, torch.float32)]
+    # the paged window's step: 4 slots x 64 tokens through every projection
+    cases += [(16, 256, K, N, torch.bfloat16)
+              for (K, N) in ((2048, 2048), (2048, 5632), (5632, 2048))]
     cases += [(16, 13, 128, 64, dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [(0, 5, 1000, 1000, dt) for dt in (torch.bfloat16, torch.float32)]
     name = "ovsf_gemm" + (f"_{alpha_dtype}" if alpha_dtype else "")
@@ -226,8 +232,11 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
         kw = dict(alpha_scale=scale, alpha_dtype=alpha_dtype)
         label = (f"{name} {'seg' if seg else 'mono'} M={M} {K}->{N} "
                  f"{str(dt).split('.')[-1]}")
-        err = check(label, ovsf_gemm(x, al, idx, **kw),
-                    ovsf_gemm_plain(x, al, idx, **kw), dt)
+        before = dict(ovsf_gemm.launches_by_kernel)
+        got = ovsf_gemm(x, al, idx, **kw)
+        kernel = next(k for k, n in ovsf_gemm.launches_by_kernel.items()
+                      if n != before[k])
+        err = check(label, got, ovsf_gemm_plain(x, al, idx, **kw), dt)
         es = x.element_size()
         bytes_ = ((x.numel() + M * N) * es + al.numel() * al.element_size()
                   + idx.numel() * 4 + (scale.numel() * 4 if alpha_dtype
@@ -253,20 +262,22 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
                              for a, w in wcopies], 40)
         del copies, wcopies, W
         row = dict(case=label, seg=seg, M=M, K=K, N=N, dtype=str(dt),
-                   alpha_dtype=alpha_dtype or "fp", max_abs_err=err,
+                   alpha_dtype=alpha_dtype or "fp", kernel=kernel,
+                   max_abs_err=err,
                    tol=TOL[dt], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library_err=lib_err, bound_ms=t_bound,
                    bound_by=by)
         rows.append(row)
-        print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+        print(f"[kernel] {label} ({kernel}): max_abs_err={err:.3e} "
+              f"(tol {TOL[dt]}) "
               f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
               f"bound={t_bound:.4f}ms ({by}) "
               f"plain={plain_ms:.4f}ms library(matmul, dense W)="
               f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
     # one decode layer's five projections at M = 4 in bf16 (the summary row
-    # of the kernels line), and the same at M = 128
+    # of the kernels line), and the same at M = 128 and 256
     summary = {}
-    for M in (4, 128):
+    for M in (4, 128, 256):
         pick = {(r["K"], r["N"]): r for r in rows if r["seg"] and r["M"] == M
                 and r["dtype"] == "torch.bfloat16"}
         s = {key: sum(pick[kn][key] for kn in layer.values())
@@ -275,8 +286,14 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
         s["bound_by"] = ("bytes" if all(pick[kn]["bound_by"] == "bytes"
                                         for kn in layer.values())
                          else "operations")
+        s["vs_library"] = s["ms"] / s["library_ms"]
         summary[M] = s
-    summary = dict(summary[4], layer_M128=summary[128])
+        print(f"[kernel] {name} layer (q, o, gate, up, down) M={M} bf16 x: "
+              f"{s['ms']:.4f}ms, matmul on dense W {s['library_ms']:.4f}ms "
+              f"(x{s['vs_library']:.2f}), bound {s['bound_ms']:.4f}ms",
+              flush=True)
+    summary = dict(summary[4], layer_M128=summary[128],
+                   layer_M256=summary[256])
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return rows, summary
 
@@ -611,10 +628,16 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
     launches = {"ovsf_gemm": G.ovsf_gemm.launches_by_alpha[adt],
                 "paged_flash_decode": paged_flash_decode.launches,
                 "flash_decode_attn": flash_decode_attn.launches}
+    by_kernel = dict(G.ovsf_gemm.launches_by_kernel)
     if G.ovsf_gemm.launches != launches["ovsf_gemm"]:
         raise RuntimeError(f"serve: ovsf_gemm launched with other alpha "
                            f"storage than {adt}: "
                            f"{G.ovsf_gemm.launches_by_alpha}")
+    # bf16 x: every ovsf_gemm launch goes to the tensor-core kernel
+    if by_kernel["tensor_core"] != launches["ovsf_gemm"]:
+        raise RuntimeError(f"serve: ovsf_gemm launches by kernel "
+                           f"{by_kernel}, expected all "
+                           f"{launches['ovsf_gemm']} on tensor_core")
     outs = eng.outputs()
     bad = [(o.rid, o.finish_reason) for o in outs
            if o.finish_reason not in ("eos", "length")]
@@ -643,13 +666,14 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
           f"{chunk_free[0]} tokens={stats.tokens_out} wall={wall:.3f}s "
           f"({tok_s:.1f} tok/s on {card}) decode_s={stats.decode_s:.3f} "
           f"mixed_s={stats.mixed_s:.3f} launches={launches} "
+          f"ovsf_gemm by kernel {by_kernel} "
           f"padding_efficiency={stats.padding_efficiency:.3f} "
           f"T_alloc={eng.core.T_alloc}", flush=True)
     result = dict(alpha_dtype=adt, style=style, plan=plan, steps=steps,
                   chunk_free_steps=chunk_free[0], T_alloc=eng.core.T_alloc,
                   tokens_out=stats.tokens_out, wall_s=wall, tok_s=tok_s,
                   decode_s=stats.decode_s, mixed_s=stats.mixed_s,
-                  launches=launches,
+                  launches=launches, ovsf_gemm_by_kernel=by_kernel,
                   padding_efficiency=stats.padding_efficiency,
                   tokens={o.rid: list(o.tokens) for o in outs})
     result["decode_profile"] = profile_decode(eng, cfg, rng, tag)
@@ -1296,6 +1320,9 @@ def main(argv=None) -> int:
                                        in gemm.items()},
                    "ovsf_gemm_layer_M128": {
                        adt or "fp": s["layer_M128"]
+                       for adt, (_r, s) in gemm.items()},
+                   "ovsf_gemm_layer_M256": {
+                       adt or "fp": s["layer_M256"]
                        for adt, (_r, s) in gemm.items()},
                    "paged_flash_decode_cases": attn_rows,
                    "flash_decode_attn_cases": flash_rows,

@@ -2,7 +2,8 @@
 ``balance_blocks``): pick the GEMM block shape that wastes the least of each
 dimension to ceil-padding, utilisation(dim, block) = dim / (ceil(dim/block)
 * block), under an on-chip footprint limit. The mapper records the chosen
-blocks in its plans; the CUDA ``ovsf_gemm`` keeps its own tiling.
+blocks in its plans; the CUDA ``ovsf_gemm`` tiles by its own kernels' plans
+(``kernels.ovsf_gemm.tc_plan`` and ``tiling``).
 """
 from __future__ import annotations
 

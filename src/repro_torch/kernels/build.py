@@ -89,10 +89,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, argtypes):
-    """The C function ``<name>_launch`` of one source, typed at first use;
-    it returns the launch's ``cudaError_t``."""
-    fn = getattr(load(name), f"{name}_launch")
+def launcher(name: str, argtypes, kernel: str = ""):
+    """The C function ``<kernel>_launch`` (``kernel`` defaults to the
+    source's name) of one source, typed at first use; it returns the
+    launch's ``cudaError_t``."""
+    fn = getattr(load(name), f"{kernel or name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

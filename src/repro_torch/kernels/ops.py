@@ -29,8 +29,10 @@ jnp before its GEMM.
 
 ``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan`` and runs its
 path. The plan's block sizes and cache policy are recorded, not used: the
-CUDA ``ovsf_gemm`` keeps its own tiling, and the decompress cache waits until
-a plan on the card can reuse a dense W. ``ovsf_matmul_multi`` waits for the
+CUDA ``ovsf_gemm`` tiles by its own kernel's plan (the tensor-core kernel's
+``tc_plan``: 64-column tiles, 128-row k-blocks split over up to 16 blocks;
+the CUDA-core kernel's ``tiling``), and the decompress cache waits until a
+plan on the card can reuse a dense W. ``ovsf_matmul_multi`` waits for the
 gateway slice.
 """
 from __future__ import annotations

@@ -8,9 +8,12 @@ W[k, n] = sum_j (-1)^popcount(idx[j] & k') * alphas[j, n] (see
 CUDA tensor it launches ``csrc/ovsf_gemm.cu`` (the port of the Pallas
 ``repro.kernels.ovsf_gemm:ovsf_gemm`` and its dequant epilogue; design and
 bound in the source's header note) or raises; on a CPU tensor it runs the
-plain version. ``ovsf_gemm.launches`` counts kernel launches, and
+plain version. The source holds two kernels, and ``route`` picks one per
+call: "tensor_core" (bf16 x over segmented codes of length 16, every alpha
+storage: the serving path) or "cuda_core" (fp32 x, monolithic codes and the
+rest). ``ovsf_gemm.launches`` counts kernel launches,
 ``ovsf_gemm.launches_by_alpha`` splits them by alpha storage ("fp", "int8",
-"int4").
+"int4") and ``ovsf_gemm.launches_by_kernel`` by kernel.
 
 ``ovsf_decompress(alphas, idx, d_in)`` materialises the dense W (d_in,
 d_out) from fp32/bf16 alphas over monolithic codes: ``csrc/ovsf_decompress.cu``
@@ -32,11 +35,29 @@ from repro_torch.kernels.ref import ovsf_matmul_ref
 # The plain PyTorch version of this kernel (CPU path and on-card reference).
 ovsf_gemm_plain = ovsf_matmul_ref
 
-_BK = 64                      # k rows per k-block, as in the CUDA source
+# the CUDA-core kernel, as in the CUDA source
+_BK = 64                      # k rows per k-block
 _BN = 64                      # output columns per block
 _BLOCKS_PER_SM = 2            # split-K target occupancy
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _QUANT = {"": 0, "int8": 1, "int4": 2}
+
+# the tensor-core kernel, as in the CUDA source (namespace tc)
+KERNELS = ("tensor_core", "cuda_core")
+TC_SEG = 16                   # the code segment length it takes
+TC_BK = 128                   # k rows per k-block: 8 code segments
+TC_BN = 64                    # output columns per block
+TC_MMAX = 256                 # rows of M per block; more go to M chunks
+TC_MAX_NKEEP = 16
+TC_MAX_SPLITS = 16
+# columns in one 16-byte word of a stored alpha row, per storage
+_TC_COLS = {"": 8, "int8": 16, "int4": 32}
+# the split-K partials (fp32, written once and read once: 8 * M * N bytes a
+# split) may move at most this share of the stored alpha bytes
+TC_PARTIAL_SHARE = 4.0
+_TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                + [ctypes.c_void_p])
+_TC_TICKETS: dict = {}        # device -> zeroed uint32 tickets, one a tile
 
 
 _DEC_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -44,15 +65,75 @@ _DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
 
 
 def tiling(M: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
-    """(rows per block, k-blocks per split, splits): row tiles of 4/16/64,
-    and the K range split until about two blocks per SM are in flight —
-    decode (M = 4) has only N/64 column tiles to spread over the SMs."""
+    """The CUDA-core kernel's (rows per block, k-blocks per split, splits):
+    row tiles of 4/16/64, and the K range split until about two blocks per
+    SM are in flight — decode (M = 4) has only N/64 column tiles to spread
+    over the SMs."""
     bm = 4 if M <= 4 else 16 if M <= 16 else 64
     tiles = -(-M // bm) * -(-N // _BN)
     nkb = -(-K // _BK)
     want = max(1, min(nkb, -(-_BLOCKS_PER_SM * n_sms // tiles)))
     kb_per_split = -(-nkb // want)
     return bm, kb_per_split, -(-nkb // kb_per_split)
+
+
+def route(x_dtype, seg: int, n_keep: int, alpha_dtype: str, N: int,
+          rows_per_scale: int) -> str:
+    """The kernel of one call: "tensor_core" for bf16 x over segmented codes
+    of length 16 with at most 16 kept codes a segment, where a stored alpha
+    row of the tile is whole 16-byte words (N a multiple of 8 / 16 / 32 for
+    bf16 / int8 / int4) and a scale segment holds whole code segments;
+    "cuda_core" otherwise (fp32 x, monolithic codes and the rest). ``seg``
+    is 0 for monolithic codes; ``rows_per_scale`` is read for quantised
+    alphas only."""
+    if (x_dtype == torch.bfloat16 and seg == TC_SEG
+            and 1 <= n_keep <= TC_MAX_NKEEP
+            and N % _TC_COLS[alpha_dtype] == 0
+            and (not alpha_dtype or rows_per_scale % n_keep == 0)):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def tc_blocks_per_sm(M: int) -> int:
+    """Blocks of the tensor-core kernel one SM holds, as its ring's shared
+    memory allows: 3 up to 64 rows of M, 2 up to 128, 1 above."""
+    rows = min(M, TC_MMAX)
+    return 3 if rows <= 64 else 2 if rows <= 128 else 1
+
+
+def tc_plan(M: int, K: int, N: int, n_sms: int,
+            alpha_bytes: int) -> tuple[int, int, int]:
+    """(k-blocks per split, splits, M chunks) of the tensor-core kernel: one
+    block per (M chunk of up to 256 rows, 64-column tile, split), each split
+    a run of 128-row k-blocks. The K range is split as far as one wave of
+    the card holds the blocks, and no further than keeps the partials
+    (fp32, written and read once: 8 * M * N bytes a split) within
+    ``TC_PARTIAL_SHARE`` of the stored alpha bytes, so large M splits
+    little."""
+    m_chunks = -(-M // TC_MMAX)
+    tiles = m_chunks * -(-N // TC_BN)
+    nkb = -(-K // TC_BK)
+    wave = tc_blocks_per_sm(M) * n_sms // tiles
+    cap = int(TC_PARTIAL_SHARE * alpha_bytes // (8 * M * N))
+    splits = max(1, min(nkb, TC_MAX_SPLITS, wave, cap))
+    per = -(-nkb // splits)
+    return per, -(-nkb // per), m_chunks
+
+
+def _tc_tickets(device, n: int) -> torch.Tensor:
+    """At least n zeroed uint32 tickets on the device; the kernel leaves
+    them zero, so one buffer serves every launch on the stream."""
+    buf = _TC_TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _TC_TICKETS[device] = torch.zeros(max(n, 4096),
+                                                dtype=torch.int32,
+                                                device=device)
+    return buf
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its storage offset breaks 16-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_scale(alpha_scale, J: int, device) -> torch.Tensor:
@@ -126,18 +207,38 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     idx = idx.to(torch.int32).contiguous()
     rows_per_scale = J // scale.numel() if alpha_dtype else J
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bm, kb_per_split, splits = tiling(M, K, N, n_sms)
-    partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-    err = build.launcher("ovsf_gemm", _ARGTYPES)(
-        x.data_ptr(), alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), M, K, N, J, seg, n_keep,
-        rows_per_scale, bm, splits, kb_per_split,
-        int(x.dtype == torch.bfloat16), _QUANT[alpha_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    kernel = route(x.dtype, seg, n_keep, alpha_dtype, N, rows_per_scale)
+    if kernel == "tensor_core":
+        x, alphas, idx = _aligned(x), _aligned(alphas), _aligned(idx)
+        per, splits, m_chunks = tc_plan(
+            M, K, N, n_sms, alphas.numel() * alphas.element_size())
+        partial = tickets = out        # unread with one split
+        if splits > 1:
+            partial = torch.empty((splits, M, N), dtype=torch.float32,
+                                  device=x.device)
+            tickets = _tc_tickets(x.device, m_chunks * -(-N // TC_BN))
+        err = build.launcher("ovsf_gemm", _TC_ARGTYPES, "ovsf_gemm_tc")(
+            x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            tickets.data_ptr(), M, K, N, J, n_keep,
+            rows_per_scale // n_keep, per, splits, _QUANT[alpha_dtype],
+            stream)
+    else:
+        bm, kb_per_split, splits = tiling(M, K, N, n_sms)
+        partial = torch.empty((splits, M, N), dtype=torch.float32,
+                              device=x.device)
+        err = build.launcher("ovsf_gemm", _ARGTYPES)(
+            x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), partial.data_ptr(), M, K, N, J,
+            seg, n_keep, rows_per_scale, bm, splits, kb_per_split,
+            int(x.dtype == torch.bfloat16), _QUANT[alpha_dtype], stream)
     if err:
-        raise RuntimeError(f"ovsf_gemm: CUDA launch failed (cudaError {err})")
+        raise RuntimeError(f"ovsf_gemm: CUDA launch of the {kernel} kernel "
+                           f"failed (cudaError {err})")
     ovsf_gemm.launches += 1
     ovsf_gemm.launches_by_alpha[alpha_dtype or "fp"] += 1
+    ovsf_gemm.launches_by_kernel[kernel] += 1
     return out
 
 
@@ -203,10 +304,11 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
 
 
 def reset_launches() -> None:
-    """Zero the launch counters (``ovsf_gemm``: total and per alpha storage;
-    ``ovsf_decompress``)."""
+    """Zero the launch counters (``ovsf_gemm``: total, per alpha storage and
+    per kernel; ``ovsf_decompress``)."""
     ovsf_gemm.launches = 0
     ovsf_gemm.launches_by_alpha = dict.fromkeys(("fp", "int8", "int4"), 0)
+    ovsf_gemm.launches_by_kernel = dict.fromkeys(KERNELS, 0)
     ovsf_decompress.launches = 0
 
 

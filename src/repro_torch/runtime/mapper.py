@@ -16,8 +16,10 @@ how the weights-generation mechanism runs for that layer:
 Decisions are pure functions of (layer shape, rho, HW): the same inputs give
 the same plan as the reference, so plans are frozen dataclasses of tuples
 and ride inside a hashable ``ModelConfig``. Block sizes and the cache policy
-are recorded as the reference computes them; the CUDA ``ovsf_gemm`` keeps
-its own tiling and the port has no decompress cache yet. The ``h100``
+are recorded as the reference computes them; the CUDA ``ovsf_gemm`` tiles by
+its own kernels' plans (``kernels.ovsf_gemm.tc_plan`` for bf16 activations
+over segmented codes, ``tiling`` otherwise) and the port has no decompress
+cache yet. The ``h100``
 target's costs are data-sheet peaks fed to the reference's TPU pipeline
 model, not calibrated against the port's measured kernels; the engine plans
 the LM layers (all segmented) on the card with ``paths=("fused",)``.
