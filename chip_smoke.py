@@ -18,7 +18,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              per-row positions (1, 77, 256, 320), the same with one row at
              0, the packed gather shape B 128, T 256, and a ragged hd 80,
              T 33; the library yardstick is SDPA with a boolean mask; the
-             packed path's (T, Tbuf) row gather is timed beside it) and
+             packed path's (T, Tbuf) row gather is timed beside it; each
+             attention case prints the split count and block count it ran
+             with, and both attention kernels are also checked, untimed,
+             at shapes that take their other code paths, each launched
+             twice with outputs equal bit for bit) and
              ``ovsf_decompress`` (the ResNet-50 and SqueezeNet-1.1 shapes, a
              ragged shape, repeated code ids) and ``fwht`` (the (M, L) of
              the planned ResNet-50 and SqueezeNet-1.1 forwards at batch 8,
@@ -399,13 +403,18 @@ def sdpa_inputs(q, kp, vp, table, sids, poss):
 
 def run_paged_checks(rng, dev):
     from repro_torch.kernels.decode_attn import (paged_flash_decode,
-                                                 paged_flash_decode_plain)
+                                                 paged_flash_decode_plain,
+                                                 paged_plan, sm_count)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for T in (4, 128):
         for dt in (torch.bfloat16, torch.float32):
             args, bytes_, flops = paged_case(rng, T, dt, dev)
             label = f"paged_flash_decode T={T} {str(dt).split('.')[-1]}"
+            _P, ps, Hkv, _hd = args[1].shape
+            _c, splits, blocks = paged_plan(T, args[0].shape[1], Hkv,
+                                            args[3].shape[1], ps,
+                                            sm_count(dev))
             err = check(label, paged_flash_decode(*args),
                         paged_flash_decode_plain(*args), dt)
             t_bound, by = bound(bytes_, flops, dt)
@@ -426,12 +435,14 @@ def run_paged_checks(rng, dev):
                                  for a in lib_in], 50)
             del copies, lib_in
             rows.append(dict(case=label, T=T, dtype=str(dt),
+                             splits=splits, blocks=blocks,
                              max_abs_err=err, tol=TOL[dt], ms=ms,
                              call_ms=call_ms, plain_ms=plain_ms,
                              library_ms=lib_ms,
                              library_err=lib_err, bound_ms=t_bound,
                              bound_by=by))
-            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+            print(f"[kernel] {label}: {splits} splits, {blocks} blocks: "
+                  f"max_abs_err={err:.3e} (tol {TOL[dt]}) "
                   f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
                   f"bound={t_bound:.4f}ms ({by}) "
                   f"plain={plain_ms:.4f}ms library(SDPA, gathered pages)="
@@ -486,7 +497,8 @@ def run_flash_checks(rng, dev):
     gather (``cache[slot_ids]`` of K and V, T 128 from B 4, Tbuf 256) timed
     at the mixed bucket."""
     from repro_torch.kernels.decode_attn import (flash_decode_attn,
-                                                 flash_decode_attn_plain)
+                                                 flash_decode_attn_plain,
+                                                 flash_plan, sm_count)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for label0, B, H, Hkv, hd, T, pos in FLASH_CASES:
@@ -495,6 +507,7 @@ def run_flash_checks(rng, dev):
                                              dev)
             label = (f"flash_decode_attn {label0} B={B} H={H} Hkv={Hkv} "
                      f"hd={hd} T={T} {str(dt).split('.')[-1]}")
+            _r, splits, blocks = flash_plan(B, H, Hkv, T, sm_count(dev))
             err = check(label, flash_decode_attn(*args),
                         flash_decode_attn_plain(*args), dt)
             t_bound, by = bound(bytes_, flops, dt)
@@ -517,11 +530,13 @@ def run_flash_checks(rng, dev):
             del copies, lib_in
             rows.append(dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, T=T,
                              pos=args[3].tolist(), dtype=str(dt),
+                             splits=splits, blocks=blocks,
                              max_abs_err=err, tol=TOL[dt], ms=ms,
                              call_ms=call_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, library_err=lib_err,
                              bound_ms=t_bound, bound_by=by))
-            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+            print(f"[kernel] {label}: {splits} splits, {blocks} blocks: "
+                  f"max_abs_err={err:.3e} (tol {TOL[dt]}) "
                   f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
                   f"bound={t_bound:.5f}ms ({by}) "
                   f"plain={plain_ms:.4f}ms library(SDPA, boolean mask)="
@@ -546,6 +561,76 @@ def run_flash_checks(rng, dev):
         "flash_decode_attn window decode B") and "bfloat16" in r["dtype"]))
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return rows, summary, gathers
+
+
+# shapes that take the attention kernels' other code paths, checked only:
+# (T, H, Hkv, hd, page size, pages a slot) paged and (label, B, H, Hkv, hd,
+# T, positions) contiguous: G = 3 and G = 1 (idle lanes), G = 18 (three head
+# chunks), hd 36 / 20 (rows not whole 16-byte words in bf16: the scalar
+# copy), hd 256 (fp32: 128 KB of shared memory), 34-40 splits of one pair
+PAGED_SHAPE_CHECKS = ((5, 12, 4, 36, 8, 7), (3, 36, 2, 128, 16, 9),
+                      (2, 8, 1, 256, 16, 40), (3, 8, 8, 80, 4, 33),
+                      (2, 4, 1, 20, 2, 200))
+FLASH_SHAPE_CHECKS = (("every row at pos 0", 4, 32, 4, 64, 320, (0, 0, 0, 0)),
+                      ("G 12 hd 20", 3, 48, 4, 20, 100, (100, 3, 0)),
+                      ("T 1", 2, 8, 2, 64, 1, (1, 5)),
+                      ("one pair, hd 256", 1, 8, 1, 256, 4000, (3999,)),
+                      ("hd 36", 2, 16, 2, 36, 50, (50, 9)))
+
+
+def paged_shape_case(rng, T, H, Hkv, hd, ps, npg, dtype, dev, n_slots=3):
+    """Slots own every page of their list; tokens of random slots (padding
+    included, at position 0) at random positions."""
+    P = n_slots * npg
+    table = np.full((n_slots + 1, npg), P, np.int32)
+    table[:n_slots] = rng.permutation(P).reshape(n_slots, npg)
+    sids = rng.integers(0, n_slots + 1, T).astype(np.int32)
+    poss = np.where(sids < n_slots, rng.integers(0, npg * ps, T),
+                    0).astype(np.int32)
+    q = torch.randn((T, H, hd), device=dev).to(dtype)
+    kp = torch.randn((P, ps, Hkv, hd), device=dev).to(dtype)
+    vp = torch.randn((P, ps, Hkv, hd), device=dev).to(dtype)
+    return (q, kp, vp, *[torch.tensor(a, dtype=torch.int32, device=dev)
+                         for a in (table, sids, poss)])
+
+
+def run_attn_shape_checks(rng, dev) -> list:
+    """Both attention kernels against their plain versions at
+    ``PAGED_SHAPE_CHECKS`` / ``FLASH_SHAPE_CHECKS``, bf16 and fp32, each
+    run twice: the two outputs must be equal bit for bit (the splits merge
+    in a fixed order)."""
+    from repro_torch.kernels import decode_attn as da
+    rows = []
+    cases = [("paged_flash_decode", f"T={c[0]} H={c[1]} Hkv={c[2]} hd={c[3]} "
+              f"ps={c[4]} npg={c[5]}", c, da.paged_flash_decode,
+              da.paged_flash_decode_plain) for c in PAGED_SHAPE_CHECKS]
+    cases += [("flash_decode_attn", f"{c[0]} B={c[1]} H={c[2]} Hkv={c[3]} "
+               f"hd={c[4]} T={c[5]}", c, da.flash_decode_attn,
+               da.flash_decode_attn_plain) for c in FLASH_SHAPE_CHECKS]
+    for name, shape, c, fn, plain in cases:
+        if name == "paged_flash_decode":
+            T, H, Hkv, hd, ps, npg = c
+            _c, splits, blocks = da.paged_plan(T, H, Hkv, npg, ps,
+                                               da.sm_count(dev))
+        else:
+            _l, B, H, Hkv, hd, T, pos = c
+            _r, splits, blocks = da.flash_plan(B, H, Hkv, T,
+                                               da.sm_count(dev))
+        for dt in (torch.bfloat16, torch.float32):
+            args = (paged_shape_case(rng, *c, dt, dev)
+                    if name == "paged_flash_decode"
+                    else flash_case(rng, *c[1:], dt, dev)[0])
+            label = f"{name} {shape} {str(dt).split('.')[-1]}"
+            got = fn(*args)
+            err = check(label, got, plain(*args), dt)
+            if not torch.equal(got, fn(*args)):
+                raise RuntimeError(f"{label}: a second launch differs")
+            rows.append(dict(case=label, splits=splits, blocks=blocks,
+                             max_abs_err=err, tol=TOL[dt]))
+            print(f"[kernel] {label}: {splits} splits, {blocks} blocks: "
+                  f"max_abs_err={err:.3e} (tol {TOL[dt]}), a second launch "
+                  "equal bit for bit", flush=True)
+    return rows
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -1243,6 +1328,7 @@ def main(argv=None) -> int:
     gemm = {adt: run_gemm_checks(rng, dev, adt) for adt in ALPHA_DTYPES}
     attn_rows, attn_sum = run_paged_checks(rng, dev)
     flash_rows, flash_sum, flash_gathers = run_flash_checks(rng, dev)
+    attn_shapes = run_attn_shape_checks(rng, dev)
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
     fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
     refused = check_quant_contract(dev)
@@ -1251,7 +1337,8 @@ def main(argv=None) -> int:
           + ", ".join(f"{len(rows)} {adt or 'bf16/fp32-alpha'}"
                       for adt, (rows, _s) in gemm.items())
           + f" cases), paged_flash_decode ({len(attn_rows)} cases), "
-          f"flash_decode_attn ({len(flash_rows)} cases), "
+          f"flash_decode_attn ({len(flash_rows)} cases), the two attention "
+          f"kernels at other shapes ({len(attn_shapes)} cases), "
           f"ovsf_decompress ({len(dec_rows)} cases), fwht "
           f"({len(fwht_rows)} cases)", flush=True)
 
@@ -1326,6 +1413,7 @@ def main(argv=None) -> int:
                        for adt, (_r, s) in gemm.items()},
                    "paged_flash_decode_cases": attn_rows,
                    "flash_decode_attn_cases": flash_rows,
+                   "attention_shape_checks": attn_shapes,
                    "packed_gather": flash_gathers,
                    "ovsf_decompress_cases": dec_rows,
                    "fwht_cases": fwht_rows,

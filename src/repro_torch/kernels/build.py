@@ -4,8 +4,9 @@ Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` into its own shared library with a plain C
 interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds. Libraries land in ``kernels/_build/`` (listed in ``.gitignore``)
-under a name that carries a hash of the source, so an edited source is never
-served by a stale library. Nothing is built when the module is imported:
+under a name that carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is never served by a stale
+library. Nothing is built when the module is imported:
 ``load`` builds at first use, ``build_all`` builds every source at once with
 one ``nvcc`` per source running in parallel, and ``launcher`` returns a
 source's typed C launch function.
@@ -44,8 +45,13 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library of one source, named by a hash of the source, every
+    shared header in ``csrc`` (a source may include any of them) and the
+    flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
 

@@ -57,7 +57,7 @@ _TC_COLS = {"": 8, "int8": 16, "int4": 32}
 TC_PARTIAL_SHARE = 4.0
 _TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                 + [ctypes.c_void_p])
-_TC_TICKETS: dict = {}        # device -> zeroed uint32 tickets, one a tile
+_TICKETS: dict = {}           # device -> zeroed uint32 tickets
 
 
 _DEC_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -120,12 +120,14 @@ def tc_plan(M: int, K: int, N: int, n_sms: int,
     return per, -(-nkb // per), m_chunks
 
 
-def _tc_tickets(device, n: int) -> torch.Tensor:
-    """At least n zeroed uint32 tickets on the device; the kernel leaves
-    them zero, so one buffer serves every launch on the stream."""
-    buf = _TC_TICKETS.get(device)
+def ticket_buffer(device, n: int) -> torch.Tensor:
+    """At least n zeroed uint32 tickets on the device. Every kernel that
+    merges its splits by ticket (the tensor-core ``ovsf_gemm``, both
+    attention kernels) leaves them zero, so one buffer serves every launch
+    on the stream."""
+    buf = _TICKETS.get(device)
     if buf is None or buf.numel() < n:
-        buf = _TC_TICKETS[device] = torch.zeros(max(n, 4096),
+        buf = _TICKETS[device] = torch.zeros(max(n, 4096),
                                                 dtype=torch.int32,
                                                 device=device)
     return buf
@@ -217,7 +219,7 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
         if splits > 1:
             partial = torch.empty((splits, M, N), dtype=torch.float32,
                                   device=x.device)
-            tickets = _tc_tickets(x.device, m_chunks * -(-N // TC_BN))
+            tickets = ticket_buffer(x.device, m_chunks * -(-N // TC_BN))
         err = build.launcher("ovsf_gemm", _TC_ARGTYPES, "ovsf_gemm_tc")(
             x.data_ptr(), alphas.data_ptr(), scale.data_ptr(),
             idx.data_ptr(), out.data_ptr(), partial.data_ptr(),
