@@ -30,7 +30,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              their plain versions on the card, in bf16 and fp32; print each
              error against its tolerance, the kernel's device time
              (CUDA-graph replay), its bound, the plain version's time and
-             one library call's (the port never calls it). ``fwht`` must
+             one library call's (the port never calls it). The two WHT
+             kernels must equal their plain versions bit for bit (fp32;
+             bf16 one rounding of the same fp32 value; repeated ids keep the
+             tolerance: atomics sum them in any order), a second launch must
+             equal the first, and each case prints its share of the bound
+             and its ratio to the library call. ``fwht`` must
              refuse a length that is not a power of two and L = 65536
              before any launch. Then the quantised wrapper must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
@@ -183,6 +188,19 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
         raise RuntimeError(f"{name}: max abs err {float(err.max()):.3e} "
                            f"beyond rtol = atol = {tol}")
     return float(err.max())
+
+
+def exact_and_repeatable(name: str, got: torch.Tensor, err: float,
+                         again: torch.Tensor) -> None:
+    """The WHT kernels take the plain version's fp32 adds in its order, so
+    they must equal it (bf16: one rounding of the same fp32 value), and a
+    second launch must equal the first, bit for bit."""
+    torch.cuda.synchronize()
+    if err != 0.0:
+        raise RuntimeError(f"{name}: max abs err {err:.3e}, not 0 (the "
+                           "kernel must equal its plain version)")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{name}: a second launch differs from the first")
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -997,8 +1015,11 @@ def run_decompress_checks(rng, dev):
             label = (f"ovsf_decompress d_in={d_in} L={L} J={L // 2} N={N}"
                      f"{' repeated ids' if repeat else ''} "
                      f"{str(dt).split('.')[-1]}")
-            err = check(label, ovsf_decompress(al, idx, d_in),
-                        ovsf_decompress_plain(al, idx, d_in), dt)
+            got = ovsf_decompress(al, idx, d_in)
+            err = check(label, got, ovsf_decompress_plain(al, idx, d_in), dt)
+            if not repeat:       # repeated ids sum by atomics, in any order
+                exact_and_repeatable(label, got, err,
+                                     ovsf_decompress(al, idx, d_in))
             es = al.element_size()
             bytes_ = al.numel() * es + idx.numel() * 4 + d_in * N * es
             t_bound, by = bound(bytes_, N * L * math.log2(L), torch.float32)
@@ -1016,15 +1037,19 @@ def run_decompress_checks(rng, dev):
             del copies, S
             rows.append(dict(case=label, d_in=d_in, L=L, J=L // 2, N=N,
                              repeated_ids=repeat, dtype=str(dt),
-                             max_abs_err=err, tol=TOL[dt], ms=ms,
+                             max_abs_err=err, tol=0.0 if not repeat
+                             else TOL[dt], ms=ms,
                              call_ms=call_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, library_err=lib_err,
-                             bound_ms=t_bound, bound_by=by))
-            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+                             bound_ms=t_bound, bound_by=by,
+                             bound_share=t_bound / ms, vs_library=ms / lib_ms))
+            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol "
+                  f"{TOL[dt] if repeat else 0.0}) "
                   f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
-                  f"bound={t_bound:.5f}ms ({by}) plain={plain_ms:.4f}ms "
-                  f"library(matmul S^T alphas)={lib_ms:.4f}ms (its err "
-                  f"{lib_err:.1e})", flush=True)
+                  f"bound={t_bound:.5f}ms ({by}; {t_bound / ms:.0%} of it) "
+                  f"plain={plain_ms:.4f}ms "
+                  f"library(matmul S^T alphas)={lib_ms:.4f}ms (kernel/library "
+                  f"{ms / lib_ms:.2f}; its err {lib_err:.1e})", flush=True)
     # one ResNet-50 forward's 13 calls in fp32 (the kernels line)
     pick = {r["d_in"]: r for r in rows if r["dtype"] == "torch.float32"}
     summary = {key: sum(c * pick[d][key] for d, _n, c in RESNET50_DECOMPRESS)
@@ -1068,7 +1093,9 @@ def run_fwht_checks(rng, dev):
             x = torch.from_numpy(rng.standard_normal((M, L), np.float32))
             x = x.div_(math.sqrt(L)).to(dev, dt)
             label = f"fwht M={M} L={L} {str(dt).split('.')[-1]}"
-            err = check(label, fwht(x), fwht_plain(x), dt)
+            got = fwht(x)
+            err = check(label, got, fwht_plain(x), dt)
+            exact_and_repeatable(label, got, err, fwht(x))
             bytes_ = 2 * x.numel() * x.element_size()
             t_bound, by = bound(bytes_, M * L * math.log2(L), torch.float32)
             copies = [x.clone() for _ in range(n_copies(bytes_))]
@@ -1082,15 +1109,17 @@ def run_fwht_checks(rng, dev):
                                  for a in copies], 20)
             del copies, H
             rows.append(dict(case=label, M=M, L=L, dtype=str(dt),
-                             max_abs_err=err, tol=TOL[dt], ms=ms,
+                             max_abs_err=err, tol=0.0, ms=ms,
                              call_ms=call_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, library_err=lib_err,
-                             bound_ms=t_bound, bound_by=by))
-            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}) "
+                             bound_ms=t_bound, bound_by=by,
+                             bound_share=t_bound / ms, vs_library=ms / lib_ms))
+            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol 0.0) "
                   f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
-                  f"bound={t_bound:.5f}ms ({by}) plain={plain_ms:.4f}ms "
-                  f"library(matmul x H_L)={lib_ms:.4f}ms (its err "
-                  f"{lib_err:.1e})", flush=True)
+                  f"bound={t_bound:.5f}ms ({by}; {t_bound / ms:.0%} of it) "
+                  f"plain={plain_ms:.4f}ms "
+                  f"library(matmul x H_L)={lib_ms:.4f}ms (kernel/library "
+                  f"{ms / lib_ms:.2f}; its err {lib_err:.1e})", flush=True)
         torch.cuda.empty_cache()
     before = fwht.launches
     refused = []

@@ -10,110 +10,203 @@
 // The TPU kernel forms each W tile as S^T @ alphas on the MXU, J * d_in
 // sign-MACs per column. Here a column is a length-L spectrum that holds
 // alphas[j, n] at position idx[j], and W[:, n] is its unnormalised
-// Walsh-Hadamard transform cropped to d_in: L log2 L additions per column.
-//
-// One block per output column n:
-//   1. zero the spectrum in shared memory (L floats: 32 KB at L = 8192);
-//   2. scatter-ADD alphas[:, n] into it (shared-memory atomics: repeated ids
-//      sum, as the Pallas kernel's sum over j does);
-//   3. log2 L butterfly passes in shared memory, one barrier each;
-//   4. write the first d_in entries as row n of W^T (d_out, d_in): the
-//      writes of a block are contiguous. The wrapper returns the transposed
-//      view, which torch.matmul takes without a copy.
-// Arithmetic is fp32 and the output takes the alphas' type.
+// Walsh-Hadamard transform cropped to d_in: L log2 L additions per column,
+// the same transform as fwht.cu on another input.
 //
 // What bounds it on the H100: the bytes, alphas read once and W written once
-// (J * d_out + d_in * d_out values): at the ResNet-50 shapes 1.1 to 17.8 MB,
-// 0.33 to 5.3 us at 3.35 TB/s; the transform is d_out * L * log2 L fp32
-// additions, under 1 us at 67 TFLOP/s. This first kernel is the simple form:
-// a block reads its alpha column with a stride of d_out (neighbouring blocks
-// read the neighbouring columns of the same rows, which L2 serves), and the
-// butterflies run one pass per barrier. Register-resident early passes,
-// several columns per block and vectorised loads belong to later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// (J * d_out + d_in * d_out values): at the ResNet-50 shapes in fp32 1.1,
+// 4.5 and 17.8 MB (d_in 1152 / 2304 / 4608), 0.33, 1.33 and 5.33 us at
+// 3.35 TB/s; the transform is d_out * L * log2 L fp32 additions, under 1 us
+// at 67 TFLOP/s. The first, radix-2 kernel was bound by shared memory
+// instead: log2 L radix-2 passes over the spectrum in shared memory, one
+// block barrier each (13 passes x 8192 x 16 B for each of 512 columns at
+// d_in 4608: 870 MB, about 29 us of its 45 us), a block per column (128
+// blocks at d_in 1152, under one wave), and one 4-byte alpha word read per
+// N-stride row.
+//
+// This kernel takes a tile of `rows` >= 4 adjacent columns per block
+// (kernels/fwht.py:wht_plan with tile = ovsf_gemm.DEC_TILE) and runs the
+// shared register-radix body of wht.cuh on their spectra:
+//   1. issue the first alpha loads: work item (j, column group) reads one id
+//      and one vector of adjacent columns of row j, 16 bytes (8 where a
+//      tile is 4 bf16 columns), all of a thread's items in flight at once;
+//   2. meanwhile zero the tile's spectra in shared memory (rows * L fp32,
+//      swizzled as wht.cuh's exchange buffer), then scatter the alphas:
+//      shared-memory atomic adds, so repeated ids sum, as the Pallas
+//      kernel's sum over j does, or plain stores of 0 + alpha where the
+//      wrapper has checked that no id repeats (fp32 atomicAdd to shared
+//      memory is a compare-and-swap loop on sm_90a); an id out of [0, L)
+//      traps;
+//   3. stage 1 reads each thread's 32 contiguous elements with 16-byte reads,
+//      then the same stages as fwht (one warp-local exchange up to L = 1024,
+//      a second one with a block barrier above);
+//   4. the last stage writes W^T (d_out, d_in) row by row, only k < d_in,
+//      32 lanes on neighbouring k; the wrapper returns the transposed view,
+//      which torch.matmul takes without a copy.
+// With distinct ids each spectrum entry is 0 + alpha, exactly the plain
+// version's index_add, so W equals the plain version bit for bit.
+#include "wht.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using wht::from_f;
+using wht::to_f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16(v);
-}
+constexpr int U = 4;                         // work items in flight a thread
+constexpr int MAX_W = 8;                     // columns of a 16-byte bf16 load
 
+// `w` adjacent alphas from p (w * sizeof(T) bytes, aligned to that size when
+// `vec`) into out.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ovsf_decompress_kernel(const T* __restrict__ alphas,
-                       const int* __restrict__ idx, T* __restrict__ wt,
-                       int J, int N, int d_in, int L) {
-  extern __shared__ float spec[];            // [L]
-  const int n = blockIdx.x;
-  for (int i = threadIdx.x; i < L; i += THREADS) spec[i] = 0.f;
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < J; j += THREADS) {
-    const int code = idx[j];
-    if (code < 0 || code >= L) __trap();     // the wrapper checks the range
-    atomicAdd(&spec[code], to_f(alphas[(size_t)j * N + n]));
+__device__ __forceinline__ void load_cols(const T* p, int w, bool vec,
+                                          float* out) {
+  const int bytes = w * (int)sizeof(T);
+  if (vec && bytes == 16) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i) out[i] = to_f(e[i]);
+  } else if (vec && bytes == 8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+    for (int i = 0; i < 8 / (int)sizeof(T); ++i) out[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MAX_W; ++i)
+      if (i < w) out[i] = to_f(p[i]);
   }
-  __syncthreads();
+}
 
-  // Butterfly pass h pairs i and i + h, where i has bit h clear: pair q of
-  // the L / 2 pairs sits at ((q & ~(h - 1)) << 1) | (q & (h - 1)).
-  const int half = L >> 1;
-  for (int h = 1; h < L; h <<= 1) {
-    for (int q = threadIdx.x; q < half; q += THREADS) {
-      const int i = ((q & ~(h - 1)) << 1) | (q & (h - 1));
-      const float a = spec[i];
-      const float b = spec[i + h];
-      spec[i] = a + b;
-      spec[i + h] = a - b;
+// alphas (J, N), idx (J,), wt (N, d_in); L = 2^LOG_L; rows as in wht_plan.
+// Block b takes columns [b * rows, b * rows + rows).
+template <typename T, int LOG_L>
+__global__ void __launch_bounds__(LOG_L == 6 ? 256 : 1024)
+ovsf_decompress_kernel(const T* alphas, const int* idx, T* wt, int J, int N,
+                       int d_in, int rows, int distinct) {
+  extern __shared__ __align__(16) float buf[];    // [rows * L], swizzled
+  using S = wht::Stages<LOG_L>;
+  constexpr int B = S::B, R = S::R, L = 1 << LOG_L;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int c0 = blockIdx.x * rows;
+  const int cols = min(rows, N - c0);
+
+  // Columns per load: 16 bytes (or the whole tile), when every row's tile
+  // starts on such a boundary; else one column at a time.
+  int w = min(rows, 16 / (int)sizeof(T));
+  const bool vec = N % w == 0;
+  if (!vec) w = 1;
+  const int groups = (cols + w - 1) / w;
+  const int items = J * groups;
+  int code[U];
+  float a[U][MAX_W];
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int item = i0 + u * nt;
+      if (item >= items) break;
+      const int j = item / groups;
+      const int c = (item - j * groups) * w;
+      code[u] = idx[j];
+      load_cols(alphas + (size_t)j * N + c0 + c, min(w, cols - c), vec,
+                a[u]);
     }
-    __syncthreads();
+  };
+  // the first U items are in flight while the spectra are zeroed
+  load(t);
+  for (int e = 4 * t; e < rows * L; e += 4 * nt)
+    *reinterpret_cast<float4*>(buf + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  for (int i0 = t; i0 < items; i0 += U * nt) {
+    if (i0 != t) load(i0);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int item = i0 + u * nt;
+      if (item >= items) break;
+      if (code[u] < 0 || code[u] >= L) __trap();   // the wrapper checks too
+      const int c = (item - (item / groups) * groups) * w;
+#pragma unroll
+      for (int i = 0; i < MAX_W; ++i) {
+        if (i >= min(w, cols - c)) break;
+        float* slot = buf + wht::swz(((c + i) << LOG_L) | code[u]);
+        if (distinct)
+          *slot = 0.f + a[u][i];    // the one add the plain version makes
+        else
+          atomicAdd(slot, a[u][i]);
+      }
+    }
   }
+  __syncthreads();
 
-  T* row = wt + (size_t)n * d_in;
-  for (int k = threadIdx.x; k < d_in; k += THREADS) from_f(spec[k], row + k);
+  float v[R];
+  wht::read_first<B>(v, buf, t);
+  wht::transform<LOG_L>(v, buf, t);
+
+  const int f0 = wht::flat0<B, S::LAST>(t);
+  if constexpr (LOG_L < B) {
+    // short columns: a thread's registers span R / L whole columns
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int c = (f0 + j) >> LOG_L, k = (f0 + j) & (L - 1);
+      if (c < cols && k < d_in)
+        from_f(v[j], wt + (size_t)(c0 + c) * d_in + k);
+    }
+  } else {
+    // register j holds element k0 + (j << LAST) of column c
+    const int c = f0 >> LOG_L, k0 = f0 & (L - 1);
+    if (c < cols) {
+      T* row = wt + (size_t)(c0 + c) * d_in + k0;
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (k0 + (j << S::LAST) < d_in) from_f(v[j], row + (j << S::LAST));
+    }
+  }
 }
 
-template <typename T>
+template <typename T, int LOG_L>
 cudaError_t launch(const void* alphas, const void* idx, void* wt, int J,
-                   int N, int d_in, int L, cudaStream_t stream) {
-  // Above 48 KB a block's dynamic shared memory needs an opt-in; raise it
-  // once per size (never while a CUDA graph is being captured: every size is
-  // first launched eagerly).
+                   int N, int d_in, int rows, int threads, int smem,
+                   int distinct, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
-  const size_t smem = (size_t)L * sizeof(float);
-  if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ovsf_decompress_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    opted_in = smem;
-  }
-  ovsf_decompress_kernel<T><<<N, THREADS, smem, stream>>>(
+  cudaError_t e =
+      wht::opt_in(ovsf_decompress_kernel<T, LOG_L>, smem, opted_in);
+  if (e != cudaSuccess) return e;
+  ovsf_decompress_kernel<T, LOG_L><<<(N + rows - 1) / rows, threads, smem,
+                                     stream>>>(
       static_cast<const T*>(alphas), static_cast<const int*>(idx),
-      static_cast<T*>(wt), J, N, d_in, L);
+      static_cast<T*>(wt), J, N, d_in, rows, distinct);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// alphas (J, N) float32 or bfloat16 (bf16 != 0), idx (J,) int32 in [0, L),
-// L = next_pow2(d_in) a power of two; writes W^T as wt (N, d_in) in the
-// alphas' type. Returns the cudaError_t of the launch.
+// alphas (J, N) float32 or bfloat16 (bf16 != 0), 16-byte aligned; idx (J,)
+// int32 in [0, L), L = next_pow2(d_in) <= 32768; writes W^T as wt (N, d_in)
+// in the alphas' type. The block shape (log2 regs, rows, threads, shared
+// bytes, p2, p3) is kernels/fwht.py:wht_plan(L, elem bytes, tile)'s.
+// distinct != 0: the caller has checked that no id repeats, so the scatter
+// stores instead of adding atomically (the same sums: one add to zero).
+// Returns the cudaError_t of the launch.
 extern "C" int ovsf_decompress_launch(const void* alphas, const void* idx,
                                       void* wt, int J, int N, int d_in,
-                                      int L, int bf16, void* stream) {
+                                      int L, int bf16, int log2_regs,
+                                      int rows, int threads, int smem,
+                                      int p2, int p3, int distinct,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L <= 0 || (L & (L - 1)) || d_in > L || N <= 0)
+  if (L <= 0 || (L & (L - 1)) || L > (1 << 15) || d_in > L || N <= 0 ||
+      rows <= 0 || threads <= 0 || threads % 32 || smem < 4 * rows * L)
     return cudaErrorInvalidValue;
-  if (bf16)
-    return launch<__nv_bfloat16>(alphas, idx, wt, J, N, d_in, L, s);
-  return launch<float>(alphas, idx, wt, J, N, d_in, L, s);
+  return wht::dispatch(__builtin_ctz(L), [&](auto nc) -> cudaError_t {
+    constexpr int LOG_L = decltype(nc)::value;
+    if (!wht::plan_matches<LOG_L>(log2_regs, p2, p3) ||
+        threads > (LOG_L == 6 ? 256 : 1024))
+      return cudaErrorInvalidValue;
+    if (bf16)
+      return launch<__nv_bfloat16, LOG_L>(alphas, idx, wt, J, N, d_in, rows,
+                                          threads, smem, distinct, s);
+    return launch<float, LOG_L>(alphas, idx, wt, J, N, d_in, rows, threads,
+                                smem, distinct, s);
+  });
 }

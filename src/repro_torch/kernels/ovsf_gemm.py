@@ -27,9 +27,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.ovsf import fwht, next_pow2
 from repro_torch.kernels import build
+from repro_torch.kernels.fwht import plan_args, wht_plan
 from repro_torch.kernels.ref import ovsf_matmul_ref
 
 # The plain PyTorch version of this kernel (CPU path and on-card reference).
@@ -60,8 +62,15 @@ _TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
 _TICKETS: dict = {}           # device -> zeroed uint32 tickets
 
 
-_DEC_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DEC_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                 + [ctypes.c_void_p])
 _DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
+# adjacent columns a block takes at least: one 16-byte fp32 (8-byte bf16)
+# alpha load per id (8 bf16 columns, 16 bytes, were slower at d_in 1152 and
+# 2304 on the H100: half the blocks)
+DEC_TILE = 4
+# id tensors whose range was checked: tensor -> ((its _version, L), distinct)
+_CHECKED_IDS = WeakIdKeyDictionary()
 
 
 def tiling(M: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
@@ -257,6 +266,40 @@ def ovsf_decompress_plain(alphas: torch.Tensor, idx: torch.Tensor,
     return fwht(spec, dim=-1)[:, :d_in].to(alphas.dtype).t()
 
 
+def _checked(idx: torch.Tensor, L: int):
+    """``check_ids``' answer for this id tensor, version and L, or None
+    (always for an inference tensor, which has no version counter)."""
+    if idx.is_inference():
+        return None
+    hit = _CHECKED_IDS.get(idx)
+    return hit[1] if hit is not None and hit[0] == (idx._version, L) else None
+
+
+def check_ids(idx: torch.Tensor, L: int) -> bool:
+    """Raise unless every code id lies in [0, L); return whether no id
+    repeats. Reads the ids (one host sync) once per id tensor, its
+    ``_version`` (an in-place edit bumps it) and L; the CNN convs pass the
+    same id tensor every forward. An inference tensor (made under
+    ``torch.inference_mode``) has no version, so its ids are read on every
+    call. A write that bypasses the version counter (through ``.data``, or
+    from outside PyTorch) is not seen: the kernel still traps on an id out
+    of range, but a repeat it brings would be stored, not summed."""
+    known = _checked(idx, L)
+    if known is not None:
+        return known
+    if idx.numel() == 0:
+        return True
+    s = torch.sort(idx.flatten()).values
+    lo, hi, repeats = (int(v) for v in torch.stack(
+        [s[0], s[-1], (s[1:] == s[:-1]).sum()]).tolist())
+    if lo < 0 or hi >= L:
+        raise ValueError(f"ovsf_decompress: code ids span [{lo}, {hi}], "
+                         f"outside [0, {L})")
+    if not idx.is_inference():
+        _CHECKED_IDS[idx] = ((idx._version, L), repeats == 0)
+    return repeats == 0
+
+
 def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
                     d_in: int) -> torch.Tensor:
     """Dense W (d_in, d_out) = S^T @ alphas, S = H_L[idx, :d_in], from
@@ -283,20 +326,20 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
     if d_in < 1 or L > _DEC_MAX_L:
         raise ValueError(f"ovsf_decompress: d_in={d_in} outside "
                          f"1..{_DEC_MAX_L}")
-    # the range check reads the ids on the host, which a stream being
-    # captured into a CUDA graph may not do; the kernel traps on an id out of
-    # range in any case
-    if not torch.cuda.is_current_stream_capturing():
-        lo, hi = (int(v) for v in torch.aminmax(idx))
-        if lo < 0 or hi >= L:
-            raise ValueError(f"ovsf_decompress: code ids span [{lo}, {hi}], "
-                             f"outside [0, {L})")
-    alphas = alphas.contiguous()
+    # the check reads the ids on the host, which a stream being captured into
+    # a CUDA graph may not do: there an unchecked id tensor takes the atomic
+    # scatter, and the kernel traps on an id out of range in any case
+    if torch.cuda.is_current_stream_capturing():
+        distinct = bool(_checked(idx, L))
+    else:
+        distinct = check_ids(idx, L)
+    alphas = _aligned(alphas.contiguous())
     idx = idx.to(torch.int32).contiguous()
     wt = torch.empty((N, d_in), dtype=alphas.dtype, device=alphas.device)
+    plan = wht_plan(L, alphas.element_size(), tile=DEC_TILE)
     err = build.launcher("ovsf_decompress", _DEC_ARGTYPES)(
         alphas.data_ptr(), idx.data_ptr(), wt.data_ptr(), J, N, d_in, L,
-        int(alphas.dtype == torch.bfloat16),
+        int(alphas.dtype == torch.bfloat16), *plan_args(plan), int(distinct),
         torch.cuda.current_stream(alphas.device).cuda_stream)
     if err:
         raise RuntimeError(f"ovsf_decompress: CUDA launch failed (cudaError "
