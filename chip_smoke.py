@@ -63,7 +63,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ``flash_decode_attn`` per step) and paged window (22
              ``paged_flash_decode`` per step, no ``flash_decode_attn``);
              110 ``ovsf_gemm`` launches per step in every style, every
-             one of them on the tensor-core kernel (bf16 x).
+             one of them on the tensor-core kernel (bf16 x). The bf16
+             paged packed run calibrates (``calibrate=True``): its table
+             must hold plan entries x chunk-free steps samples, every
+             relative factor 1.0 within 1e-9 (a step's wall is split in
+             proportion to the modeled II), and ``replan()`` must equal the
+             engine's plan; ``suggest_rhos`` at the decode shape on h100
+             prints its raises.
   5. parity: one full-width packed paged step in fp32 on the card vs the
              same step with the same parameters on the CPU (plain versions),
              with fp32 and with int8 alphas, planned as the engine plans on
@@ -88,6 +94,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              relative L2 error; images/s, device ms per forward,
              ``ovsf_decompress`` and ``fwht`` ms per forward and the idle
              share.
+  7. calibrate: every OVSF conv of full-width ResNet-50 (13) and
+             SqueezeNet-1.1 (6), matrix mode, fp32, batch 8, at its real
+             im2col shape (``hwmodel.cnn_workload``), through
+             ``ops.ovsf_matmul`` under its ``plan_cnn`` entry with the path
+             replaced by each of ``materialize`` (``ovsf_decompress`` +
+             GEMM), ``fused`` (the CUDA-core ``ovsf_gemm``) and
+             ``spectral`` (pad, ``fwht``, ``index_select``, GEMM): one
+             launch of the path's kernel a call, the output within the fp32
+             tolerance of the plain version, device ms from CUDA-graph
+             replay recorded into an h100 ``CalibrationTable`` against
+             ``classify_gemm``'s modeled II for that path (saved to
+             ``chiprun_out/calibration_h100.json``). The ``fused`` rows also
+             time the plain version and matmul on the dense W. Then both
+             CNNs run as in phase 6 under their calibrated ``ALL_PATHS``
+             plans (``classify_gemm(..., calibration=table)`` per conv),
+             with the paths per conv and device ms per forward printed
+             beside the plans phase 6 ran; the calibrated ResNet-50 plan
+             must take at most 1.01x the default plan's device ms and less
+             than the uncalibrated ``ALL_PATHS`` plan's.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -684,8 +709,10 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
     print(f"{tag} {cfg.name} bf16, alphas {alpha_dtype or 'bf16'}: "
           f"{R.param_count(params)/1e9:.3f}B stored values initialised on "
           f"the card in {time.perf_counter() - t0:.2f}s", flush=True)
+    # the calibration loop rides the bf16 paged packed run
+    calibrate = style == "paged packed" and not alpha_dtype
     eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
-                    chunk_size=64, device=dev, **kw)
+                    chunk_size=64, calibrate=calibrate, device=dev, **kw)
     plan = {n: p.path for n, p in eng.cfg.exec_plan.entries}
     print(f"{tag} mapper plan (hw {eng.cfg.exec_plan.hw_label}, decode at "
           "4 slots): "
@@ -779,10 +806,66 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
                   launches=launches, ovsf_gemm_by_kernel=by_kernel,
                   padding_efficiency=stats.padding_efficiency,
                   tokens={o.rid: list(o.tokens) for o in outs})
+    if calibrate:
+        result["calibration"] = serve_calibration(eng, cfg, chunk_free[0],
+                                                  tag)
     result["decode_profile"] = profile_decode(eng, cfg, rng, tag)
     del eng, params
     torch.cuda.empty_cache()
     return result, launches
+
+
+def same_plan(got, want) -> bool:
+    """Two ExecutionPlans name the same entries with equal fields, the
+    modeled II within 1e-9 relative."""
+    return (got.hw_label == want.hw_label and got.names() == want.names()
+            and all(dataclasses.replace(g, ii_s=w.ii_s) == w
+                    and abs(g.ii_s - w.ii_s) <= 1e-9 * w.ii_s
+                    for (_n, g), (_m, w) in zip(got.entries, want.entries)))
+
+
+def serve_calibration(eng, cfg, chunk_free: int, tag: str) -> dict:
+    """The engine's calibration loop over the serve run just ended: one
+    sample per plan entry per chunk-free step (each step's host wall split
+    in proportion to the modeled II, so every relative factor is 1.0),
+    ``replan()`` equal to the engine's plan, and the rho autotuner
+    (``mapper.suggest_rhos``) at the engine's decode shape on h100."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime import mapper
+    plan, table = eng.cfg.exec_plan, eng.calibration
+    samples = sum(v["n"] for v in table.to_json().values())
+    want = len(plan.entries) * chunk_free
+    factors = table.factors(eng.hw_label)
+    worst = max(abs(f - 1.0) for f in factors.values()) if factors else None
+    new = eng.replan()
+    tune = mapper.suggest_rhos(cfg, ShapeConfig("serve_decode", 1, eng.B,
+                                                "decode"), hw="h100")
+    tuned = sorted({(n.split("/")[-1], r) for n, r in tune.rhos.items()})
+    print(f"{tag} calibration (hw {eng.hw_label}): {samples} samples "
+          f"({len(plan.entries)} plan entries x {chunk_free} chunk-free "
+          f"steps), {len(table)} keys; relative factors "
+          + ", ".join(f"{k}={v:.12f}" for k, v in sorted(factors.items()))
+          + f" (max |f - 1| {worst}); replan(): "
+          + ", ".join(f"{n}={lp.path}" for n, lp in new.entries)
+          + f" ({'equal to' if same_plan(new, plan) else 'NOT'} the "
+          f"engine's plan); suggest_rhos(h100, decode at {eng.B} slots): "
+          f"{len(tune.steps)} raises, rhos {tuned}", flush=True)
+    if not chunk_free or samples != want:
+        raise RuntimeError(f"serve calibration: {samples} samples, expected "
+                           f"{want}")
+    if len(factors) != len(plan.entries) or worst > 1e-9:
+        raise RuntimeError(f"serve calibration: factors {factors} not all "
+                           "1.0 within 1e-9")
+    if not same_plan(new, plan):
+        raise RuntimeError(f"serve calibration: replan() {new} differs from "
+                           f"the engine's plan {plan}")
+    return dict(hw=eng.hw_label, samples=samples, keys=len(table),
+                factors=factors, max_factor_dev=worst,
+                replan={n: lp.path for n, lp in new.entries},
+                suggest_rhos=dict(raises=len(tune.steps),
+                                  rhos=[list(t) for t in tuned],
+                                  baseline_total_s=tune.baseline_total_s,
+                                  tuned_total_s=tune.tuned_total_s))
 
 
 def profile_decode(eng, cfg, rng, tag: str) -> dict:
@@ -1146,6 +1229,29 @@ def run_fwht_checks(rng, dev):
     return rows, summary, refused
 
 
+# the kernel each path of an OVSF conv's GEMM launches, once a call
+PATH_KERNEL = {"materialize": "ovsf_decompress", "fused": "ovsf_gemm",
+               "spectral": "fwht"}
+
+
+def path_launches(fn):
+    """(fn's result, launches of the three CNN-path kernels in that call),
+    the counters zeroed just before it."""
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.kernels.fwht import fwht
+    G.reset_launches()
+    fwht.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"ovsf_decompress": G.ovsf_decompress.launches,
+                 "ovsf_gemm": G.ovsf_gemm.launches, "fwht": fwht.launches}
+
+
+def check_path_launches(label: str, path: str, got: dict) -> None:
+    if got != {k: int(k == PATH_KERNEL[path]) for k in got}:
+        raise RuntimeError(f"{label}: the {path} plan launched {got}")
+
+
 def run_three_paths(seed: int, dev) -> dict:
     """One ResNet-50 s2 conv's GEMM (M 1568, 2304 -> 256, rho 0.5, the
     conv's code ids from the init schedule) on integer-valued alphas and
@@ -1153,8 +1259,7 @@ def run_three_paths(seed: int, dev) -> dict:
     fp32, so ``materialize``, ``fused`` and ``spectral`` plans must give
     equal outputs, each through its own kernel."""
     from repro_torch.core import ovsf
-    from repro_torch.kernels import ops, ovsf_gemm as G
-    from repro_torch.kernels.fwht import fwht
+    from repro_torch.kernels import ops
     from repro_torch.runtime import mapper
     M, d_in, d_out = 1568, 2304, 256
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -1166,20 +1271,11 @@ def run_three_paths(seed: int, dev) -> dict:
     x = torch.randint(-1, 2, (M, d_in), generator=gen, device=dev).float()
     base = mapper.classify_gemm(M, d_in, d_out, 0.5, seg=0, hw="h100",
                                 name="s2b1c2", paths=mapper.ALL_PATHS)
-    kernel = {"materialize": "ovsf_decompress", "fused": "ovsf_gemm",
-              "spectral": "fwht"}
     outs = {}
     for path in ops.EXEC_PATHS:
-        G.reset_launches()
-        fwht.launches = 0
-        outs[path] = ops.ovsf_matmul(
-            x, al, p["idx"], plan=dataclasses.replace(base, path=path))
-        torch.cuda.synchronize()
-        got = {"ovsf_decompress": G.ovsf_decompress.launches,
-               "ovsf_gemm": G.ovsf_gemm.launches, "fwht": fwht.launches}
-        if got != {k: int(k == kernel[path]) for k in got}:
-            raise RuntimeError(f"three paths: the {path} plan launched "
-                               f"{got}")
+        outs[path], got = path_launches(lambda: ops.ovsf_matmul(
+            x, al, p["idx"], plan=dataclasses.replace(base, path=path)))
+        check_path_launches("three paths", path, got)
     diff = {p: float((outs[p] - outs["materialize"]).abs().max())
             for p in outs}
     print(f"[three paths] ResNet-50 s2 conv GEMM M={M} {d_in}->{d_out} "
@@ -1191,16 +1287,154 @@ def run_three_paths(seed: int, dev) -> dict:
                 planned_path=base.path)
 
 
+def conv_gemms(cfg, batch: int) -> list:
+    """(name, M as ``plan_cnn`` reckons it, fan-in, c_out, rho, M of the
+    forward's im2col) per OVSF conv, in ``plan_cnn``'s order: its specs
+    (``mapper._resnet_convs`` / ``_squeezenet_convs``, whose side halves at
+    ``proj`` too: ROADMAP C) beside ``hwmodel.cnn_workload``'s layers,
+    which track the real side."""
+    from repro_torch.hwmodel.cnn_workload import cnn_gemm_layers
+    from repro_torch.runtime import mapper
+    specs = (mapper._squeezenet_convs(cfg) if cfg.depth == "squeezenet"
+             else mapper._resnet_convs(cfg))
+    real = {l.name: l for l in cnn_gemm_layers(cfg, batch) if l.ovsf}
+    out = []
+    for name, c_in, c_out, k, _stride, rho, side in specs:
+        if rho >= 1.0 or k < 3:                 # as plan_cnn skips
+            continue
+        l = real[name]
+        if (l.d_in, l.d_out) != (c_in * k * k, c_out):
+            raise RuntimeError(f"{name}: workload {l} vs spec {c_in}x{k}x{k}"
+                               f" -> {c_out}")
+        out.append((name, batch * side * side, c_in * k * k, c_out, rho,
+                    l.M))
+    if sorted(n for n, *_ in out) != sorted(real):
+        raise RuntimeError(f"planned convs {[n for n, *_ in out]} vs OVSF "
+                           f"layers {sorted(real)}")
+    return out
+
+
+def classify_conv(name, M_plan, K, N, rho, paths, calibration=None):
+    """``classify_gemm`` on exactly the arguments ``plan_cnn`` passes for
+    the conv (batch 8, h100)."""
+    from repro_torch.runtime import mapper
+    return mapper.classify_gemm(M_plan, K, N, rho, seg=0, hw="h100",
+                                name=name, weight_reuse=256, paths=paths,
+                                calibration=calibration)
+
+
+def cnn_path_times(seed: int, dev, arch: str, table) -> list:
+    """Every OVSF conv of a full-width CNN (matrix mode, fp32, batch 8, TF32
+    off) at its real im2col shape, under each of ``materialize``, ``fused``
+    and ``spectral``: the conv's ``plan_cnn`` entry with its path replaced,
+    through ``ops.ovsf_matmul`` as the forward calls it, on the conv's own
+    alphas and code ids and random patches. Each call must launch its
+    path's kernel once and nothing else, and equal the plain version
+    within the fp32 tolerance. Device ms from CUDA-graph replay go into
+    ``table`` as ``(conv, path, "h100")`` against ``classify_gemm``'s
+    modeled II for that path alone. The ``fused`` rows also give the
+    CUDA-core ``ovsf_gemm`` (fp32 x, monolithic codes) its bound, its plain
+    version's time and ``torch.matmul`` on the dense W."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ovsf_gemm import ovsf_gemm_plain
+    from repro_torch.models import cnn
+    from repro_torch.runtime import mapper
+    B = 8
+    cfg = get_config(arch).replace(ovsf_mode="matrix")
+    params, _state = cnn.cnn_init(cfg, seed, dev)
+    uncal = mapper.plan_cnn(cfg, batch=B, hw="h100", paths=mapper.ALL_PATHS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    rows = []
+    for name, M_plan, K, N, rho, M in conv_gemms(cfg, B):
+        entry = uncal.plan_for(name)
+        if classify_conv(name, M_plan, K, N, rho, mapper.ALL_PATHS) != entry:
+            raise RuntimeError(f"{name}: classify_gemm's arguments are not "
+                               "plan_cnn's")
+        al, idx = params[name]["alphas"], params[name]["idx"]
+        J = al.shape[0]
+        x = torch.randn((M, K), generator=gen, device=dev)
+        want = ovsf_gemm_plain(x, al, idx)
+        copies = [x] + [torch.randn_like(x)
+                        for _ in range(n_copies(M * K * 4) - 1)]
+        label = f"[cnn paths {arch}] {name} M={M} {K}->{N} J={J}"
+        row = dict(arch=arch, conv=name, M=M, M_plan=M_plan, d_in=K, d_out=N,
+                   rho=rho, J=J, plan_path=entry.path)
+        for path in mapper.ALL_PATHS:
+            lp = dataclasses.replace(entry, path=path)
+            y, got = path_launches(lambda: ops.ovsf_matmul(x, al, idx,
+                                                           plan=lp))
+            check_path_launches(label, path, got)
+            err = check(f"{label} {path}", y, want, torch.float32)
+            calls = [lambda a=a: ops.ovsf_matmul(a, al, idx, plan=lp)
+                     for a in copies]
+            est = time_ms(calls, 2)
+            iters = max(3, min(40, int(30.0 / max(est, 1e-3))))
+            ms, call_ms = timings(calls, iters)
+            modeled = classify_conv(name, M_plan, K, N, rho, (path,)).ii_s
+            table.record(name, path, "h100", ms * 1e-3, modeled)
+            row[path] = dict(ms=ms, call_ms=call_ms, iters=iters,
+                             modeled_ms=modeled * 1e3, max_abs_err=err,
+                             launches=got)
+        W = ops.decompress(al, idx, K)
+        lib_ms, _ = timings([lambda a=a: torch.matmul(a, W) for a in copies],
+                            20)
+        plain_ms, _ = timings([lambda: ovsf_gemm_plain(x, al, idx)], 3)
+        # generation at its cheapest: one L-point WHT per output column (N L
+        # log2 L adds, as ovsf_decompress's bound), then the GEMM
+        L = 1 << (K - 1).bit_length()
+        bytes_ = (M * K + M * N + J * N) * 4 + J * 4
+        t_bound, by = bound(bytes_, 2 * M * K * N + N * L * math.log2(L),
+                            torch.float32)
+        row["fused"].update(bound_ms=t_bound, bound_by=by, plain_ms=plain_ms,
+                            library_ms=lib_ms)
+        del copies, W
+        rows.append(row)
+        print(f"{label} (plan M={M_plan}): device ms "
+              + ", ".join(f"{p} {row[p]['ms']:.4f} (modeled "
+                          f"{row[p]['modeled_ms']:.5f}, err "
+                          f"{row[p]['max_abs_err']:.1e})"
+                          for p in mapper.ALL_PATHS)
+              + f"; ovsf_gemm (CUDA-core, fp32 x) bound {t_bound:.4f}ms "
+              f"({by}), plain {plain_ms:.4f}ms, matmul on dense W "
+              f"{lib_ms:.4f}ms", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def calibrated_cnn_plan(arch: str, table):
+    """The ``ALL_PATHS`` plan of a CNN (matrix mode, batch 8, h100) with
+    ``table``'s factors: ``classify_gemm(..., calibration=table)`` per conv
+    on ``plan_cnn``'s arguments (``plan_cnn`` takes no table, as the
+    reference's). Every (conv, path) must have a sample: an unmeasured one
+    keeps factor 1.0 and would look cheaper by the whole model's skew."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import mapper
+    cfg = get_config(arch).replace(ovsf_mode="matrix")
+    missing = [(n, p) for n, *_ in conv_gemms(cfg, 8)
+               for p in mapper.ALL_PATHS
+               if table.raw_ratio(n, p, "h100") is None]
+    if missing:
+        raise RuntimeError(f"calibration: no sample for {missing}")
+    return mapper.ExecutionPlan(tuple(
+        (name, classify_conv(name, M_plan, K, N, rho, mapper.ALL_PATHS,
+                             table))
+        for name, M_plan, K, N, rho, _M in conv_gemms(cfg, 8)),
+        hw_label="h100")
+
+
 def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
-              launches_per_forward: int = 0, plan_paths=None) -> dict:
+              launches_per_forward: int = 0, plan=None,
+              label: str = "none") -> dict:
     """One full-width CNN (fp32, 224x224, batch 8, weights from ``seed``)
     through ``cnn_apply`` on the card (``mode`` "" keeps the registered
-    config's), with no plan or planned by ``plan_cnn(cfg, batch=8,
-    hw="h100", paths=plan_paths)``: launch counts of one forward (without a
-    plan ``launches_per_forward`` ``ovsf_decompress``; with one, each
-    kernel as many as the plan names its path), logits against the same
-    forward on the CPU, then images/s on the host clock and device time by
-    kernel from ``torch.profiler``."""
+    config's), with no plan or under the ``ExecutionPlan`` ``plan`` named
+    ``label``: launch counts of one forward (without a plan
+    ``launches_per_forward`` ``ovsf_decompress``; with one, each kernel as
+    many as the plan names its path), logits against the same forward on
+    the CPU, then images/s on the host clock and device time by kernel from
+    ``torch.profiler``."""
     from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -1210,7 +1444,6 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     from repro_torch.kernels.fwht import fwht
     from repro_torch.models import cnn
     from repro_torch.models.registry import params_to
-    from repro_torch.runtime import mapper
     B = 8
     cfg = get_config(arch)
     if mode:
@@ -1219,12 +1452,9 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     want = {"ovsf_decompress": launches_per_forward, "ovsf_gemm": 0,
             "fwht": 0, "paged_flash_decode": 0, "flash_decode_attn": 0}
     plan_paths_count = None
-    if plan_paths is not None:
-        cfg = cfg.replace(exec_plan=mapper.plan_cnn(
-            cfg, batch=B, hw="h100", paths=plan_paths))
-        plan_label = ("ALL_PATHS" if tuple(plan_paths) == mapper.ALL_PATHS
-                      else "+".join(plan_paths))
-        tag = f"[cnn {arch} {cfg.ovsf_mode} plan h100 {plan_label}]"
+    if plan is not None:
+        cfg = cfg.replace(exec_plan=plan)
+        tag = f"[cnn {arch} {cfg.ovsf_mode} plan h100 {label}]"
         plan_paths_count = dict(Counter(
             lp.path for _n, lp in cfg.exec_plan.entries))
         want.update(ovsf_decompress=plan_paths_count.get("materialize", 0),
@@ -1237,7 +1467,7 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
             or torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError(f"{tag} TF32 must be off for the parity check")
     params, state = cnn.cnn_init(cfg, seed, dev)
-    if plan_paths is not None:
+    if plan is not None:
         ovsf_convs = sorted(n for n, p in params.items()
                             if "alphas" in p and "meta" not in p)
         if ovsf_convs != sorted(cfg.exec_plan.names()):
@@ -1303,8 +1533,7 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
                   for e in kern), reverse=True)[:8]
     images_s = B / wall_ms * 1e3
     result = dict(arch=arch, ovsf_mode=cfg.ovsf_mode, batch=B,
-                  in_hw=cfg.in_hw, tf32=False,
-                  plan_paths=list(plan_paths) if plan_paths else None,
+                  in_hw=cfg.in_hw, tf32=False, plan=label,
                   plan_path_counts=plan_paths_count, launches=launches,
                   rel_err=rel, cpu_forward_s=t_cpu, wall_ms=wall_ms,
                   images_s=images_s)
@@ -1327,6 +1556,73 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
                 idle_share=idle,
                 top=[dict(ms_per_forward=ms, launches_per_forward=cnt,
                           kernel=key) for ms, cnt, key in top])
+
+
+def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
+                    ) -> dict:
+    """Per-conv path times of full-width ResNet-50 and SqueezeNet-1.1 into
+    an h100 ``CalibrationTable`` (saved to ``out_dir``), then each CNN under
+    its calibrated ``ALL_PATHS`` plan through ``cnn_phase``, its device ms
+    per forward beside the plans ``cnns`` ran in this run. The calibrated
+    ResNet-50 plan must take at most 1.01x the default plan's device time
+    and less than the uncalibrated ``ALL_PATHS`` plan's."""
+    from repro_torch.runtime import mapper
+    from repro_torch.runtime.calibrate import CalibrationTable
+    table = CalibrationTable()
+    archs = ("resnet50", "squeezenet1_1")
+    rows = {a: cnn_path_times(seed, dev, a, table) for a in archs}
+    n_times = sum(len(r) for r in rows.values()) * len(mapper.ALL_PATHS)
+    table_path = os.path.join(out_dir, "calibration_h100.json")
+    table.save(table_path)
+    factors = table.factors("h100")
+    print(f"[calibrate] {n_times} (conv, path) device times in the h100 "
+          f"table ({len(table)} keys) -> {table_path}", flush=True)
+    plans, runs = {}, {}
+    for arch in archs:
+        plans[arch] = calibrated_cnn_plan(arch, table)
+        for r in rows[arch]:
+            n = r["conv"]
+            print(f"[calibrate {arch}] {n}: uncalibrated {r['plan_path']}, "
+                  f"calibrated {plans[arch].plan_for(n).path} (factors "
+                  + ", ".join(f"{p} {factors[f'{n}|{p}']:.4f}"
+                              for p in mapper.ALL_PATHS) + ")", flush=True)
+        runs[arch] = cnn_phase(seed, card, dev, arch, "matrix",
+                               plan=plans[arch], label="calibrated ALL_PATHS")
+    by_plan = {}
+    for arch in archs:
+        ran = {c["plan"]: c["busy_ms"] for c in cnns
+               if c["arch"] == arch and c["ovsf_mode"] == "matrix"}
+        ran["calibrated ALL_PATHS"] = runs[arch]["busy_ms"]
+        by_plan[arch] = ran
+        print(f"[cnn] {arch} matrix mode, device ms per forward by plan (h100 "
+              "target): " + ", ".join(f"{k} {v}" for k, v in ran.items()),
+              flush=True)
+    r50 = by_plan["resnet50"]
+    cal, dflt, uncal = (r50["calibrated ALL_PATHS"], r50["materialize+fused"],
+                        r50["ALL_PATHS"])
+    if None in (cal, dflt, uncal):
+        raise RuntimeError("calibrate: torch.profiler recorded no device time"
+                           f" for a ResNet-50 plan (calibrated {cal}, default "
+                           f"{dflt}, uncalibrated ALL_PATHS {uncal}): the "
+                           "plan comparison cannot be made")
+    if not (cal <= 1.01 * dflt and cal < uncal):
+        raise RuntimeError(f"calibrated ResNet-50 plan {cal:.3f} ms, default "
+                           f"{dflt:.3f}, uncalibrated ALL_PATHS {uncal:.3f}")
+    r50f = [r["fused"] for r in rows["resnet50"]]
+    summary = {k: sum(f[k] for f in r50f)
+               for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
+    summary.update(
+        bound_by=("bytes" if all(f["bound_by"] == "bytes" for f in r50f)
+                  else "operations"),
+        max_abs_err=max(f["max_abs_err"] for f in r50f),
+        launches=sum(f["launches"]["ovsf_gemm"] for f in r50f))
+    return dict(table_file=os.path.relpath(table_path, ROOT),
+                table=table.to_json(), factors=factors, path_times=rows,
+                plans={a: {n: lp.path for n, lp in p.entries}
+                       for a, p in plans.items()},
+                runs=runs, device_ms_by_plan=by_plan,
+                fused_summary=summary)
 
 
 def main(argv=None) -> int:
@@ -1381,21 +1677,26 @@ def main(argv=None) -> int:
                                                      "", style)
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
     parity_contiguous = parity_contiguous_phase(args.seed, dev)
-    from repro_torch.runtime.mapper import ALL_PATHS, DEFAULT_PATHS
-    cnns = [cnn_phase(args.seed, card, dev, arch, mode, n, paths)
-            for arch, mode, n, paths in (
-                ("resnet50", "matrix", 13, None),
-                ("squeezenet1_1", "matrix", 6, None),
-                ("resnet50", "", 0, None),
-                ("resnet50", "matrix", 0, ALL_PATHS),
-                ("squeezenet1_1", "matrix", 0, ALL_PATHS),
-                ("resnet50", "matrix", 0, DEFAULT_PATHS))]
-    r50 = {("none" if c["plan_paths"] is None else "+".join(c["plan_paths"])):
-           c["busy_ms"] for c in cnns
-           if c["arch"] == "resnet50" and c["ovsf_mode"] == "matrix"}
-    print("[cnn] ResNet-50 matrix mode, device ms per forward by plan (h100 "
-          "target): " + ", ".join(f"{k} {v}" for k, v in r50.items()),
-          flush=True)
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.mapper import ALL_PATHS, DEFAULT_PATHS, plan_cnn
+
+    def planned(arch, paths):
+        cfg = get_config(arch).replace(ovsf_mode="matrix")
+        return plan_cnn(cfg, batch=8, hw="h100", paths=paths)
+    cnns = [cnn_phase(args.seed, card, dev, arch, mode, n, plan, label)
+            for arch, mode, n, plan, label in (
+                ("resnet50", "matrix", 13, None, "none"),
+                ("squeezenet1_1", "matrix", 6, None, "none"),
+                ("resnet50", "", 0, None, "none"),
+                ("resnet50", "matrix", 0, planned("resnet50", ALL_PATHS),
+                 "ALL_PATHS"),
+                ("squeezenet1_1", "matrix", 0,
+                 planned("squeezenet1_1", ALL_PATHS), "ALL_PATHS"),
+                ("resnet50", "matrix", 0, planned("resnet50", DEFAULT_PATHS),
+                 "+".join(DEFAULT_PATHS)))]
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    calib = calibrate_phase(args.seed, card, dev, cnns, out_dir)
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -1420,15 +1721,16 @@ def main(argv=None) -> int:
              cnns[0]["launches"]["ovsf_decompress"]),
             ("fwht", "src/repro_torch/kernels/csrc/fwht.cu",
              "src/repro/kernels/fwht.py:57", fwht_sum,
-             cnns[3]["launches"]["fwht"])):
+             cnns[3]["launches"]["fwht"]),
+            ("ovsf_gemm_fp32_mono", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", calib["fused_summary"],
+             calib["fused_summary"]["launches"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "kernels": kernels,
@@ -1459,11 +1761,21 @@ def main(argv=None) -> int:
                                           "(4 x s1, 6 x s2, 3 x s3), fp32",
                        "fwht": "one planned ResNet-50 forward's 13 calls "
                                "(4 x (6272, 2048), 6 x (1568, 4096), 3 x "
-                               "(392, 8192)), fp32"},
+                               "(392, 8192)), fp32",
+                       "ovsf_gemm_fp32_mono": "the CUDA-core kernel (fp32 "
+                                              "x, monolithic codes) at "
+                                              "ResNet-50's 13 OVSF convs' "
+                                              "im2col GEMMs, batch 8, "
+                                              "summed over the 13; "
+                                              "launches and max_abs_err: "
+                                              "the calibrate phase's fused "
+                                              "call at each of those 13 "
+                                              "convs (no planned forward "
+                                              "launches this kernel)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "parity": parity, "parity_contiguous": parity_contiguous,
-                   "cnn": cnns}, f,
+                   "cnn": cnns, "calibration": calib}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,8 @@
 """Config dataclasses and the arch registry (port of ``repro.configs.base``).
 
 Only the dense-family fields the ported serving path reads are carried,
-plus ``ShapeConfig`` (the workload shape the mapper plans for) and
+plus ``ShapeConfig`` and the reference's four ``SHAPES`` (the workload
+shapes the mapper, the autotuner and the DSE model) and
 ``ModelConfig.exec_plan`` (the mapper's per-layer plan). ``input_specs``
 (a JAX-lowering helper) and the MoE / SSM / encoder-decoder / VLM fields
 wait for the slices that port those families.
@@ -86,6 +87,14 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                   # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,5 +1,5 @@
 """The paper's analytical performance model (port of
-``repro.hwmodel.perf_model``, trimmed to what the mapper reads).
+``repro.hwmodel.perf_model``).
 
 Each GEMM y[M, d_out] = x[M, d_in] @ W is a pipeline whose initiation
 interval is the max of its stages (paper Eq. 5-8):
@@ -12,8 +12,11 @@ and the bound class {IFM, OFM, W, C} is the largest stage. The arithmetic
 is the reference's, unchanged: the same (shape, rho, target) gives the same
 plan in both packages. Registered targets: the reference's four (v5e, v5p,
 v6e, cpu) and ``h100``, the card the port runs on (data-sheet peaks, not
-calibrated against the port's kernels). ``model_layers`` covers the dense
-family only, the one family the port serves.
+calibrated against the port's kernels; ``runtime.calibrate`` corrects
+them from measured times). ``model_layers`` covers the dense family only,
+the one family the port serves; ``model_timing``, ``serve_step_timing``
+and ``throughput`` sum its layers' IIs for the autotuner, the DSE and the
+serving model.
 """
 from __future__ import annotations
 
@@ -38,6 +41,9 @@ class HW:
     # > 0 -> a dedicated pipelined generator at that peak (paper Eq. 8).
     wgen_flops: float = 0.0
     name: str = "v5e"
+
+    def scaled_bw(self, factor: float) -> "HW":
+        return dataclasses.replace(self, hbm_bw=self.hbm_bw * factor)
 
 
 V5E = HW()
@@ -100,6 +106,12 @@ def resolve_hw(hw) -> HW:
 
 
 BoundClass = Literal["IFM", "OFM", "W", "C"]
+
+
+def padding_efficiency(valid_tokens: float, batch_tokens: float) -> float:
+    """Valid tokens / batch tokens (1.0 when the batch carried no padding
+    or nothing ran)."""
+    return valid_tokens / batch_tokens if batch_tokens else 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,3 +290,51 @@ def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
             layers += [mk(f"L{i}/mlp_up", d, f, "mlp"),
                        mk(f"L{i}/mlp_down", f, d, "mlp")]
     return layers
+
+
+@dataclasses.dataclass
+class ModelTiming:
+    layers: list
+    timings: list
+    total_s: float
+    bounds: dict
+    wasted_s: float = 0.0        # II seconds attributable to padding rows
+
+    @property
+    def step_efficiency(self) -> float:
+        """1 - wasted/total in (0, 1]: how much of the modeled step was real
+        work."""
+        return 1.0 - (self.wasted_s / self.total_s if self.total_s else 0.0)
+
+    def bound_of(self, name: str) -> BoundClass:
+        for l, t in zip(self.layers, self.timings):
+            if l.name == name:
+                return t.bound
+        raise KeyError(name)
+
+
+def model_timing(layers: list[GemmLayer], hw: HW = V5E) -> ModelTiming:
+    ts = [layer_timing(l, hw) for l in layers]
+    bounds = {l.name: t.bound for l, t in zip(layers, ts)}
+    return ModelTiming(layers, ts, sum(t.ii for t in ts), bounds,
+                       wasted_s=sum(t.t_wasted for t in ts))
+
+
+def serve_step_timing(cfg, *, valid_tokens: int, batch_tokens: int,
+                      hw: HW = V5E, n_devices: int = 1, tp: int = 1,
+                      kv_len: int = 0) -> ModelTiming:
+    """Model one serving step of ``batch_tokens`` rows of which
+    ``valid_tokens`` are real work (a decode-kind shape with the batch-token
+    count as its rows); ``kv_len`` adds the KV-cache read bytes."""
+    from repro_torch.configs.base import ShapeConfig
+    shape = ShapeConfig("serve_step", 1, batch_tokens, "decode")
+    layers = model_layers(cfg, shape, n_devices=n_devices, tp=tp,
+                          m_valid=valid_tokens, kv_len=kv_len)
+    return model_timing(layers, hw)
+
+
+def throughput(layers: list[GemmLayer], hw: HW = V5E,
+               tokens_per_step: float = 1.0) -> float:
+    """Steps (or inferences) per second under the II pipeline model."""
+    mt = model_timing(layers, hw)
+    return tokens_per_step / mt.total_s if mt.total_s > 0 else float("inf")

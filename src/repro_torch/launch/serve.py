@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
       --chunk-size 64 [--packed] [--paged] [--smoke] [--device cpu] \
-      [--alpha-dtype int8|int4]
+      [--alpha-dtype int8|int4] [--calibrate [--calibration-out F]]
 
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
 present). Parameters are initialised natively from ``--seed``;
@@ -12,7 +12,10 @@ as the reference engine does, against the device's target (``h100`` on the
 GPU, ``cpu`` on the CPU); the plan is printed. ``--chunk-size N`` is
 required (the legacy phase-based path is not ported); ``--packed`` picks the
 packed step over the (B, W) window, ``--paged`` the paged KV cache over the
-contiguous one. Exit contract: every request must end as ``eos``,
+contiguous one. ``--calibrate`` records measured-vs-modeled step times
+(``runtime.calibrate``) and prints the table's keys and relative factors
+and the layers the calibrated re-plan would re-map, saving the table to
+``--calibration-out`` when given. Exit contract: every request must end as ``eos``,
 ``length`` or ``rejected``, else the launcher exits non-zero.
 """
 from __future__ import annotations
@@ -53,6 +56,11 @@ def main(argv=None) -> None:
                     help="tokens per KV page (must divide --buffer)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default slots*buffer/page_size)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="record measured-vs-modeled step times and report "
+                         "the calibrated re-plan")
+    ap.add_argument("--calibration-out", default="",
+                    help="write the calibration table JSON here")
     args = ap.parse_args(argv)
     if args.chunk_size is None:
         raise SystemExit("the port serves prompts via chunks only: pass "
@@ -71,7 +79,8 @@ def main(argv=None) -> None:
                     buffer_len=args.buffer, chunk_size=args.chunk_size,
                     packed=args.packed, paged=args.paged,
                     page_size=args.page_size,
-                    kv_pages=args.kv_pages, device=device)
+                    kv_pages=args.kv_pages, calibrate=args.calibrate,
+                    device=device)
     if eng.cfg.exec_plan is not None:
         print(f"[serve] plan ({eng.cfg.exec_plan.hw_label}): " + ", ".join(
             f"{n}={p.path}" for n, p in eng.cfg.exec_plan.entries))
@@ -99,6 +108,30 @@ def main(argv=None) -> None:
               f"peak_used={stats.kv_pages_used} "
               f"peak_bytes={stats.kv_bytes_used} "
               f"utilization={stats.kv_utilization:.2f}")
+
+    if args.calibrate:
+        old = eng.cfg.exec_plan
+        new = eng.replan()
+        if old is None or not len(eng.calibration):
+            print("[serve] calibrate: no OVSF plan / no decode samples "
+                  "recorded — nothing to correct")
+        else:
+            changed = [(n, a.path, b.path)
+                       for (n, a), (_n, b) in zip(old.entries, new.entries)
+                       if a.path != b.path]
+            facs = eng.calibration.factors(eng.hw_label)
+            print(f"[serve] calibrate: {len(eng.calibration)} keys, "
+                  f"relative factors: "
+                  + ", ".join(f"{k}={v:.2f}" for k, v in sorted(facs.items())))
+            if changed:
+                for n, a, b in changed:
+                    print(f"[serve] calibrate: {n}: {a} -> {b}")
+            else:
+                print("[serve] calibrate: measured factors keep every "
+                      "layer on its modeled path")
+        if args.calibration_out:
+            eng.calibration.save(args.calibration_out)
+            print(f"[serve] calibrate: table -> {args.calibration_out}")
 
     outs = {o.rid: o for o in eng.outputs()}
     allowed = {"eos", "length", "rejected"}

@@ -33,15 +33,7 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
-def model_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random parameters of the same shapes, key names and init statistics
-    as ``repro.models.registry.model_init``, drawn from a ``torch.Generator``
-    seeded with ``seed`` on ``device`` (the numbers differ from the
-    reference's ``jax.random`` ones; ``models.bridge`` carries those over).
-    ``blocks`` is a list of per-layer dicts."""
-    T._check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+def _model_init(cfg: ModelConfig, gen, dev) -> dict:
     dtype = cfg.act_dtype
     p: dict = {
         "embed": {"table": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
@@ -57,11 +49,35 @@ def model_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return p
 
 
-def param_count(params) -> int:
+def model_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters of the same shapes, key names and init statistics
+    as ``repro.models.registry.model_init``, drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the numbers differ from the
+    reference's ``jax.random`` ones; ``models.bridge`` carries those over).
+    ``blocks`` is a list of per-layer dicts."""
+    T._check_family(cfg)
+    dev = resolve_device(device)
+    return _model_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev)
+
+
+def model_init_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``model_init`` as ``meta`` tensors: shapes and
+    dtypes, nothing allocated (the reference's ``jax.eval_shape``)."""
+    T._check_family(cfg)
+    return _model_init(cfg, None, torch.device("meta"))
+
+
+def leaves(params) -> list:
+    """The tensors of a parameter tree, in order."""
     if isinstance(params, torch.Tensor):
-        return params.numel()
+        return [params]
     items = params.values() if isinstance(params, dict) else params
-    return sum(param_count(v) for v in items)
+    return [t for v in items for t in leaves(v)]
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in leaves(params))
 
 
 def params_to(params, device):

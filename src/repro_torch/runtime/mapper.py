@@ -21,11 +21,16 @@ its own kernels' plans (``kernels.ovsf_gemm.tc_plan`` for bf16 activations
 over segmented codes, ``tiling`` otherwise) and the port has no decompress
 cache yet. The ``h100``
 target's costs are data-sheet peaks fed to the reference's TPU pipeline
-model, not calibrated against the port's measured kernels; the engine plans
-the LM layers (all segmented) on the card with ``paths=("fused",)``.
-``plan_cnn`` plans the CNNs' im2col GEMMs (monolithic codes), every path of
-which has a kernel on the card. The calibration loop (``calibration=``) and
-``suggest_rhos`` wait for the slices that port them.
+model; ``calibration=`` (a ``runtime.calibrate.CalibrationTable``) corrects
+them with measured times, as the reference does: each candidate's modeled
+II is multiplied by the table's relative factor before the minimum is
+taken. The engine plans the LM layers (all segmented) on the card with
+``paths=("fused",)``. ``plan_cnn`` plans the CNNs' im2col GEMMs (monolithic
+codes), every path of which has a kernel on the card; like the reference's
+it takes no table: a calibrated CNN plan is built from ``classify_gemm``
+per conv (``chip_smoke.py`` does so from per-conv times on the card).
+``suggest_rhos`` runs the rho autotuner (``hwmodel.autotune``) on the
+workload the mapper plans.
 """
 from __future__ import annotations
 
@@ -105,12 +110,17 @@ def classify_gemm(M: int, d_in: int, d_out: int, rho: float, *,
                   weight_reuse: int = 1,
                   paths: Sequence[str] = DEFAULT_PATHS,
                   alphas_resident: bool = False,
-                  alpha_dtype: str = "") -> LayerPlan:
+                  alpha_dtype: str = "",
+                  calibration=None) -> LayerPlan:
     """Map one OVSF GEMM y[M, d_out] = x[M, d_in] @ W(alphas) to a plan:
     the candidate path of least modeled II (first listed wins ties), then
     the block search over the chosen path's consumer GEMM. ``hw`` is an
     ``pm.HW`` or a registered target name; ``alpha_dtype`` models the
-    quantised alpha stream."""
+    quantised alpha stream. ``calibration`` (a
+    ``runtime.calibrate.CalibrationTable``) multiplies each candidate's
+    modeled II by its relative factor for ``(name, path, hw.name)`` before
+    the minimum (1.0 for an unmeasured candidate); the plan's ``ii_s`` is
+    the corrected one."""
     hw = pm.resolve_hw(hw)
     if seg and d_in % seg:
         seg = 0
@@ -130,13 +140,16 @@ def classify_gemm(M: int, d_in: int, d_out: int, rho: float, *,
     for path in paths:
         ii, bound = _candidate_ii(layer, path, hw, weight_reuse=weight_reuse,
                                   block_m=128)
+        if calibration is not None:
+            ii *= calibration.factor(name, path, hw.name)
         if ii < best_ii:
             best_path, best_ii, best_bound = path, ii, bound
     if best_path is None:
         raise RuntimeError(
             f"mapper: no viable execution path for layer {name!r} "
             f"(candidates considered: {list(paths)}) — every candidate "
-            f"produced a non-finite modeled II for hw={hw.name!r}")
+            f"produced a non-finite modeled II; check the perf model / "
+            f"calibration factors for hw={hw.name!r}")
 
     # the spectral path contracts over J (= rho * d_in) instead of d_in
     k_eff = layer.j_total if best_path == "spectral" else d_in
@@ -162,11 +175,13 @@ _LAYER_PREFIX = re.compile(r"^L\d+/")
 
 def plan_model(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
                tp: int = 1, paths: Sequence[str] = DEFAULT_PATHS,
-               weight_reuse: Optional[int] = None) -> ExecutionPlan:
+               weight_reuse: Optional[int] = None,
+               calibration=None) -> ExecutionPlan:
     """An ExecutionPlan for a dense-family ModelConfig under a workload
     shape: the config's GEMMs (``pm.model_layers``) collapse to one plan per
-    weight type, each from ``classify_gemm``. ``weight_reuse`` defaults to 1
-    for training and 256 otherwise (frozen serving params); the plan is
+    weight type, each from ``classify_gemm`` (``calibration`` threads a
+    measured-vs-modeled table into every one). ``weight_reuse`` defaults to
+    1 for training and 256 otherwise (frozen serving params); the plan is
     stamped with the target's name."""
     hw = pm.resolve_hw(hw)
     if weight_reuse is None:
@@ -184,7 +199,7 @@ def plan_model(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
         entries.append((wtype, classify_gemm(
             l.M, l.d_in, l.d_out, l.rho, seg=l.seg, hw=hw, name=wtype,
             weight_reuse=weight_reuse, paths=paths,
-            alpha_dtype=l.alpha_dtype)))
+            alpha_dtype=l.alpha_dtype, calibration=calibration)))
     return ExecutionPlan(tuple(entries), hw_label=hw.name)
 
 
@@ -195,6 +210,17 @@ def apply_plan(cfg, plan: ExecutionPlan):
 
 def plan_and_apply(cfg, shape, **kw):
     return apply_plan(cfg, plan_model(cfg, shape, **kw))
+
+
+def suggest_rhos(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
+                 tp: int = 1, slack: float = 1.0):
+    """Hardware-aware rho autotuning (paper §6.2) for the workload the
+    mapper plans: raise each layer's OVSF ratio while generation stays off
+    the critical path. Returns ``hwmodel.autotune.TuneResult``; feed its
+    per-layer rhos back into ``OVSFConfig.rho_overrides`` and re-plan."""
+    from repro_torch.hwmodel.autotune import autotune_rhos
+    layers = pm.model_layers(cfg, shape, n_devices=n_devices, tp=tp)
+    return autotune_rhos(layers, pm.resolve_hw(hw), slack=slack)
 
 
 # ---------------------------------------------------------------------------

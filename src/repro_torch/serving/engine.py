@@ -15,14 +15,18 @@ asks the layer mapper (``runtime.mapper``) for a decode-shaped
 ``ExecutionPlan``, as the reference engine does (``plan_cfg``). The target
 follows the device: ``h100`` on the card, where ``fused`` is the one path
 with a hand-written kernel and so the one candidate, and ``cpu`` with the
-reference's default candidates on the CPU.
+reference's default candidates on the CPU. With ``calibrate=True`` every
+chunk-free step's wall time is attributed to the plan's entries
+(``runtime.calibrate.update_from_step``, host arithmetic, no device sync)
+into ``self.calibration``, keyed by ``self.hw_label``; ``replan()`` plans
+again under that table with the engine's own target and candidates, and
+returns the plan without swapping it in, as the reference does.
 
 ``chunk_size`` is required: the legacy phase-based path (whole-prompt
-prefill groups), the int8 KV cache, the calibration loop, preemption,
-deadlines, load shedding, fault injection and the journal wait for later
-slices (ROADMAP A.3, A.4). A page-pool shortfall for running work raises
-``RuntimeError``: the default pool (``slots * buffer_len / page_size``
-pages) never runs short.
+prefill groups), the int8 KV cache, preemption, deadlines, load shedding,
+fault injection and the journal wait for later slices (ROADMAP A.3, A.4).
+A page-pool shortfall for running work raises ``RuntimeError``: the
+default pool (``slots * buffer_len / page_size`` pages) never runs short.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.runtime import mapper
+from repro_torch.runtime.calibrate import CalibrationTable, update_from_step
 from repro_torch.serving.api import (FINISH_EOS, FINISH_ERROR,
                                      FINISH_LENGTH, FINISH_REJECTED, Request,
                                      RequestOutput, SamplingParams)
@@ -54,17 +59,23 @@ _PLAN_TARGETS = {"cuda": ("h100", ("fused",)),
                  "cpu": ("cpu", mapper.DEFAULT_PATHS)}
 
 
+def _decode_plan(cfg: ModelConfig, batch_slots: int, device,
+                 calibration=None):
+    """The mapper's decode plan for ``device``'s target and candidates."""
+    hw, paths = _PLAN_TARGETS[torch.device(device).type]
+    shape = ShapeConfig("serve_decode", 1, batch_slots, "decode")
+    # weight_reuse=1, as the reference plans (its jit'd step cannot reuse
+    # the eager decompress cache across steps)
+    return mapper.plan_model(cfg, shape, hw=hw, paths=paths, weight_reuse=1,
+                             calibration=calibration)
+
+
 def plan_cfg(cfg: ModelConfig, batch_slots: int, device) -> ModelConfig:
     """``cfg`` carrying the mapper's decode plan for ``device`` (a config
     without OVSF layers, or with a plan already, is returned as it is)."""
     if not cfg.ovsf.enable or cfg.exec_plan is not None:
         return cfg
-    hw, paths = _PLAN_TARGETS[torch.device(device).type]
-    shape = ShapeConfig("serve_decode", 1, batch_slots, "decode")
-    # weight_reuse=1, as the reference plans (its jit'd step cannot reuse
-    # the eager decompress cache across steps)
-    return mapper.apply_plan(cfg, mapper.plan_model(
-        cfg, shape, hw=hw, paths=paths, weight_reuse=1))
+    return mapper.apply_plan(cfg, _decode_plan(cfg, batch_slots, device))
 
 
 @dataclasses.dataclass
@@ -110,7 +121,7 @@ class LLMEngine:
                  max_step_tokens: Optional[int] = None,
                  packed: bool = False, paged: bool = False,
                  page_size: int = 16, kv_pages: Optional[int] = None,
-                 device="cuda"):
+                 calibrate: bool = False, device="cuda"):
         self.device = resolve_device(device)
         if chunk_size is None:
             raise NotImplementedError(
@@ -123,6 +134,8 @@ class LLMEngine:
         if table.device != self.device:
             raise ValueError(f"params live on {table.device}, the engine "
                              f"runs on {self.device}")
+        self._base_cfg = cfg
+        self.hw_label = _PLAN_TARGETS[self.device.type][0]
         self.cfg = plan_cfg(cfg, batch_slots, self.device)
         self.params = params
         self.B = batch_slots
@@ -146,6 +159,8 @@ class LLMEngine:
         self._prefill_done = np.zeros(batch_slots, np.int64)
         self.stats = EngineStats(kv_pages_total=pages)
         self._finished: list[RequestOutput] = []
+        self.calibrate = calibrate
+        self.calibration = CalibrationTable()
 
     # -- request intake ----------------------------------------------------
 
@@ -300,9 +315,24 @@ class LLMEngine:
         st.padded_tokens += out.n_batch_tokens
         if so.decode_slots or so.chunks:
             st.steps += 1
+        if (self.calibrate and out.decode_s > 0.0 and not so.chunks
+                and self.cfg.exec_plan is not None):
+            update_from_step(self.calibration, self.cfg.exec_plan,
+                             out.decode_s, self.hw_label)
 
     def run_until_drained(self, max_steps: int = 10_000) -> EngineStats:
         for _ in range(max_steps):
             if self.step() == 0:
                 break
         return self.stats
+
+    # -- measured-vs-modeled calibration -----------------------------------
+
+    def replan(self):
+        """The decode plan the mapper gives under the accumulated
+        calibration table, with the engine's own target and candidate paths
+        (so on the card a plan the card can run). Compare it with
+        ``self.cfg.exec_plan`` to see what the loop re-maps; the engine
+        keeps its plan (build a new engine to adopt this one)."""
+        return _decode_plan(self._base_cfg, self.B, self.device,
+                            self.calibration)

@@ -205,7 +205,12 @@ def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
 def test_import_of_new_modules_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch.runtime.mapper, "
             "repro_torch.hwmodel.perf_model, repro_torch.hwmodel.tile_balance"
-            ", repro_torch.kernels.ops; "
+            ", repro_torch.kernels.ops, repro_torch.runtime.calibrate, "
+            "repro_torch.hwmodel.autotune, repro_torch.hwmodel.cnn_workload, "
+            "repro_torch.hwmodel.dse, repro_torch.checkpoint.ckpt, "
+            "repro_torch.models.registry, repro_torch.serving.engine, "
+            "repro_torch.launch.serve, repro_torch.configs.qwen2_5_14b, "
+            "repro_torch.configs.qwen1_5_32b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
