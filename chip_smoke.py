@@ -37,7 +37,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              equal the first, and each case prints its share of the bound
              and its ratio to the library call. ``fwht`` must
              refuse a length that is not a power of two and L = 65536
-             before any launch. Then the quantised wrapper must refuse
+             before any launch. The monolithic tensor-core ``ovsf_gemm``
+             (fp32 x and alphas over monolithic codes) is also checked at
+             ragged shapes and with repeated code ids (a second launch equal
+             to the first where no id repeats). Then the quantised wrapper
+             must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
              alphas, scales that do not tile J), and ``ovsf_matmul`` must
              refuse ``materialize`` of quantised alphas and ``spectral`` of
@@ -45,7 +49,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              fallback runs there). Last, one ResNet-50 s2 conv's GEMM (M
              1568, 2304 -> 256, rho 0.5, integer-valued inputs) under
              ``materialize``, ``fused`` and ``spectral`` plans: the three
-             outputs must be equal, each through its own kernel.
+             outputs must be equal, each through its own kernel (``fused``
+             on the monolithic tensor-core ``ovsf_gemm``).
   4. serve:  full-width TinyLlama-1.1B (22 layers, d 2048, bf16, random
              weights from --seed) through ``LLMEngine(paged=True,
              packed=True, chunk_size=64, batch_slots=4, buffer_len=256)``,
@@ -84,12 +89,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ``ovsf_decompress`` launches per forward and nothing else),
              then the registered ResNet-50 config (spatial mode, no
              kernel), then planned by ``plan_cnn(cfg, batch=8, hw="h100",
-             paths=ALL_PATHS)`` (ResNet-50 and SqueezeNet-1.1) and by the
+             paths=ALL_PATHS)`` (ResNet-50 and SqueezeNet-1.1), by
+             ``paths=("fused",)`` (both: every OVSF conv ``fused``) and by the
              default paths (ResNet-50). A planned phase prints the plan's
              path counts, and the launch counters, zeroed just before one
              forward, must equal them: ``fwht`` the ``spectral`` entries,
              ``ovsf_decompress`` the ``materialize`` ones, ``ovsf_gemm``
-             the ``fused`` ones. Each phase: card vs CPU logits (TF32 off
+             the ``fused`` ones, and every ``ovsf_gemm`` launch of a CNN
+             phase must be on the monolithic tensor-core kernel
+             (``launches_by_kernel``). Each phase: card vs CPU logits (TF32 off
              for cuDNN and matmul, here and in every phase) within 1e-3
              relative L2 error; images/s, device ms per forward,
              ``ovsf_decompress`` and ``fwht`` ms per forward and the idle
@@ -99,14 +107,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
              im2col shape (``hwmodel.cnn_workload``), through
              ``ops.ovsf_matmul`` under its ``plan_cnn`` entry with the path
              replaced by each of ``materialize`` (``ovsf_decompress`` +
-             GEMM), ``fused`` (the CUDA-core ``ovsf_gemm``) and
+             GEMM), ``fused`` (the monolithic tensor-core ``ovsf_gemm``, a
+             second launch equal to the first) and
              ``spectral`` (pad, ``fwht``, ``index_select``, GEMM): one
              launch of the path's kernel a call, the output within the fp32
              tolerance of the plain version, device ms from CUDA-graph
              replay recorded into an h100 ``CalibrationTable`` against
              ``classify_gemm``'s modeled II for that path (saved to
              ``chiprun_out/calibration_h100.json``). The ``fused`` rows also
-             time the plain version and matmul on the dense W. Then both
+             time the plain version and matmul on the dense W, and print the
+             kernel's share of two bounds: the work as the card does it at
+             best (three bf16 products on the tensor cores and one WHT a
+             column on the fp32 cores, or the bytes) and the old count (one
+             fp32 product on the CUDA cores). Then both
              CNNs run as in phase 6 under their calibrated ``ALL_PATHS``
              plans (``classify_gemm(..., calibration=table)`` per conv),
              with the paths per conv and device ms per forward printed
@@ -135,6 +148,7 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}   # rtol = atol
+FP32_CUDA_CORE_FLOPS = 67e12                     # the WHT's adds
 L2_BYTES = 50e6
 ALPHA_DTYPES = ("", "int8", "int4")         # bf16/fp32, int8, packed int4
 
@@ -1229,6 +1243,43 @@ def run_fwht_checks(rng, dev):
     return rows, summary, refused
 
 
+def run_mono_checks(rng, dev) -> list:
+    """The monolithic tensor-core ``ovsf_gemm`` (fp32 x and alphas over
+    monolithic codes) at shapes the CNN convs do not take: ragged M, K and N,
+    K below one k16 step, and repeated code ids (summed by the atomic
+    scatter, in any order: the tolerance holds, not equality). Where no id
+    repeats, a second launch must equal the first bit for bit."""
+    from repro_torch.kernels import ovsf_gemm as G
+    rows = []
+    for M, K, N, repeat in ((37, 1000, 44, False), (5, 13, 9, False),
+                            (300, 700, 40, True), (70, 60, 24, False)):
+        L = 1 << (K - 1).bit_length()
+        J = L // 2
+        idx = torch.from_numpy(np.sort(rng.choice(L, J, replace=repeat))
+                               .astype(np.int32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(dev)
+        al = torch.from_numpy(rng.standard_normal((J, N), np.float32)
+                              / math.sqrt(J)).to(dev)
+        label = (f"ovsf_gemm mono M={M} {K}->{N} J={J}"
+                 f"{' repeated ids' if repeat else ''} float32")
+        G.reset_launches()
+        got = G.ovsf_gemm(x, al, idx)
+        if G.ovsf_gemm.launches_by_kernel["mono_tc"] != 1:
+            raise RuntimeError(f"{label}: ran "
+                               f"{G.ovsf_gemm.launches_by_kernel}")
+        err = check(label, got, G.ovsf_gemm_plain(x, al, idx), torch.float32)
+        if not repeat and not torch.equal(got, G.ovsf_gemm(x, al, idx)):
+            raise RuntimeError(f"{label}: a second launch differs")
+        plan = G.mono_plan(M, K, N, J, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        rows.append(dict(case=label, M=M, K=K, N=N, J=J, repeated_ids=repeat,
+                         max_abs_err=err, tol=TOL[torch.float32], plan=plan))
+        print(f"[kernel] {label} (mono_tc, bn {plan['bn']}, {plan['blocks']} "
+              f"blocks): max_abs_err={err:.3e} (tol {TOL[torch.float32]})"
+              f"{'' if repeat else ', second launch equal'}", flush=True)
+    return rows
+
+
 # the kernel each path of an OVSF conv's GEMM launches, once a call
 PATH_KERNEL = {"materialize": "ovsf_decompress", "fused": "ovsf_gemm",
                "spectral": "fwht"}
@@ -1271,11 +1322,16 @@ def run_three_paths(seed: int, dev) -> dict:
     x = torch.randint(-1, 2, (M, d_in), generator=gen, device=dev).float()
     base = mapper.classify_gemm(M, d_in, d_out, 0.5, seg=0, hw="h100",
                                 name="s2b1c2", paths=mapper.ALL_PATHS)
+    from repro_torch.kernels.ovsf_gemm import ovsf_gemm
     outs = {}
     for path in ops.EXEC_PATHS:
         outs[path], got = path_launches(lambda: ops.ovsf_matmul(
             x, al, p["idx"], plan=dataclasses.replace(base, path=path)))
         check_path_launches("three paths", path, got)
+        if (path == "fused"
+                and ovsf_gemm.launches_by_kernel["mono_tc"] != 1):
+            raise RuntimeError("three paths: fused ran "
+                               f"{ovsf_gemm.launches_by_kernel}")
     diff = {p: float((outs[p] - outs["materialize"]).abs().max())
             for p in outs}
     print(f"[three paths] ResNet-50 s2 conv GEMM M={M} {d_in}->{d_out} "
@@ -1333,8 +1389,15 @@ def cnn_path_times(seed: int, dev, arch: str, table) -> list:
     within the fp32 tolerance. Device ms from CUDA-graph replay go into
     ``table`` as ``(conv, path, "h100")`` against ``classify_gemm``'s
     modeled II for that path alone. The ``fused`` rows also give the
-    CUDA-core ``ovsf_gemm`` (fp32 x, monolithic codes) its bound, its plain
-    version's time and ``torch.matmul`` on the dense W."""
+    monolithic tensor-core ``ovsf_gemm`` (fp32 x, monolithic codes; its
+    second launch must equal the first) its bound, its plain version's time
+    and ``torch.matmul`` on the dense W. The bound is the larger of the bytes
+    (x, y, alphas and ids once) over the memory rate and the work as the
+    card does it at best: three bf16 products (6 M K N) on the tensor cores
+    plus one L-point WHT a column (N L log2 L adds) on the fp32 cores; the
+    old bound (2 M K N at the fp32 CUDA-core rate, which a bf16x3 kernel
+    may beat) is printed beside it."""
+    from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ovsf_gemm import ovsf_gemm_plain
@@ -1366,6 +1429,13 @@ def cnn_path_times(seed: int, dev, arch: str, table) -> list:
                                                            plan=lp))
             check_path_launches(label, path, got)
             err = check(f"{label} {path}", y, want, torch.float32)
+            if path == "fused":
+                if G.ovsf_gemm.launches_by_kernel["mono_tc"] != 1:
+                    raise RuntimeError(f"{label} fused ran "
+                                       f"{G.ovsf_gemm.launches_by_kernel}")
+                if not torch.equal(y, ops.ovsf_matmul(x, al, idx, plan=lp)):
+                    raise RuntimeError(f"{label} fused: a second launch "
+                                       "differs from the first")
             calls = [lambda a=a: ops.ovsf_matmul(a, al, idx, plan=lp)
                      for a in copies]
             est = time_ms(calls, 2)
@@ -1384,10 +1454,21 @@ def cnn_path_times(seed: int, dev, arch: str, table) -> list:
         # log2 L adds, as ovsf_decompress's bound), then the GEMM
         L = 1 << (K - 1).bit_length()
         bytes_ = (M * K + M * N + J * N) * 4 + J * 4
-        t_bound, by = bound(bytes_, 2 * M * K * N + N * L * math.log2(L),
-                            torch.float32)
-        row["fused"].update(bound_ms=t_bound, bound_by=by, plain_ms=plain_ms,
-                            library_ms=lib_ms)
+        wht_adds = N * L * math.log2(L)
+        old_bound, old_by = bound(bytes_, 2 * M * K * N + wht_adds,
+                                  torch.float32)
+        t_mem = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = (6 * M * K * N / PEAK_FLOPS[torch.bfloat16]
+                 + wht_adds / FP32_CUDA_CORE_FLOPS) * 1e3
+        t_bound, by = ((t_mem, "bytes") if t_mem >= t_ops
+                       else (t_ops, "operations"))
+        f_ms = row["fused"]["ms"]
+        row["fused"].update(bound_ms=t_bound, bound_by=by,
+                            bound_share=t_bound / f_ms,
+                            old_bound_ms=old_bound, old_bound_by=old_by,
+                            old_bound_share=old_bound / f_ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            vs_library=f_ms / lib_ms)
         del copies, W
         rows.append(row)
         print(f"{label} (plan M={M_plan}): device ms "
@@ -1395,9 +1476,11 @@ def cnn_path_times(seed: int, dev, arch: str, table) -> list:
                           f"{row[p]['modeled_ms']:.5f}, err "
                           f"{row[p]['max_abs_err']:.1e})"
                           for p in mapper.ALL_PATHS)
-              + f"; ovsf_gemm (CUDA-core, fp32 x) bound {t_bound:.4f}ms "
-              f"({by}), plain {plain_ms:.4f}ms, matmul on dense W "
-              f"{lib_ms:.4f}ms", flush=True)
+              + f"; ovsf_gemm (monolithic tensor-core, fp32 x) bound "
+              f"{t_bound:.4f}ms ({by}; {t_bound / f_ms:.0%} of it), old "
+              f"bound {old_bound:.4f}ms ({old_by}; {old_bound / f_ms:.0%}), "
+              f"plain {plain_ms:.4f}ms, matmul on dense W {lib_ms:.4f}ms "
+              f"(fused/matmul {f_ms / lib_ms:.2f})", flush=True)
     del params
     torch.cuda.empty_cache()
     return rows
@@ -1494,6 +1577,11 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     if launches != want:
         raise RuntimeError(f"{tag} one forward launched {launches}, expected "
                            f"{want}")
+    by_kernel_launches = dict(G.ovsf_gemm.launches_by_kernel)
+    if by_kernel_launches["mono_tc"] != launches["ovsf_gemm"]:
+        raise RuntimeError(f"{tag} ovsf_gemm ran {by_kernel_launches}: every "
+                           "CNN launch must be on the monolithic tensor-core "
+                           "kernel")
     if logits.shape != (B, cfg.num_classes) or not torch.isfinite(
             logits).all():
         raise RuntimeError(f"{tag} logits {tuple(logits.shape)} not finite")
@@ -1526,15 +1614,22 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / n / 1e3
+    # ovsf_gemm's three kernels are ovsf_gemm_kernel, ovsf_gemm_tc_kernel
+    # and ovsf_gemm_mono_kernel
+    pats = {"ovsf_decompress": ("ovsf_decompress_kernel",),
+            "ovsf_gemm": ("ovsf_gemm_kernel", "ovsf_gemm_tc_kernel",
+                          "ovsf_gemm_mono_kernel"),
+            "fwht": ("fwht_kernel",)}
     by_kernel = {name: sum(e.self_device_time_total for e in kern
-                           if f"{name}_kernel" in e.key) / n / 1e3
-                 for name in ("ovsf_decompress", "ovsf_gemm", "fwht")}
+                           if any(q in e.key for q in pats[name])) / n / 1e3
+                 for name in pats}
     top = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
                   for e in kern), reverse=True)[:8]
     images_s = B / wall_ms * 1e3
     result = dict(arch=arch, ovsf_mode=cfg.ovsf_mode, batch=B,
                   in_hw=cfg.in_hw, tf32=False, plan=label,
                   plan_path_counts=plan_paths_count, launches=launches,
+                  ovsf_gemm_launches_by_kernel=by_kernel_launches,
                   rel_err=rel, cpu_forward_s=t_cpu, wall_ms=wall_ms,
                   images_s=images_s)
     if not kern or busy_ms <= 0:
@@ -1608,10 +1703,18 @@ def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
     if not (cal <= 1.01 * dflt and cal < uncal):
         raise RuntimeError(f"calibrated ResNet-50 plan {cal:.3f} ms, default "
                            f"{dflt:.3f}, uncalibrated ALL_PATHS {uncal:.3f}")
+    ratios = {f"{a} {r['conv']}": r["fused"]["vs_library"]
+              for a in archs for r in rows[a]}
+    print("[calibrate] fused (monolithic tensor-core ovsf_gemm) / matmul on "
+          f"the dense W: max {max(ratios.values()):.2f}, "
+          f"{sum(v <= 1.0 for v in ratios.values())} of {len(ratios)} convs "
+          f"at most 1x, {sum(v <= 2.0 for v in ratios.values())} at most "
+          "2x: " + ", ".join(f"{k} {v:.2f}" for k, v in ratios.items()),
+          flush=True)
     r50f = [r["fused"] for r in rows["resnet50"]]
     summary = {k: sum(f[k] for f in r50f)
                for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                         "bound_ms")}
+                         "bound_ms", "old_bound_ms")}
     summary.update(
         bound_by=("bytes" if all(f["bound_by"] == "bytes" for f in r50f)
                   else "operations"),
@@ -1656,6 +1759,7 @@ def main(argv=None) -> int:
     attn_shapes = run_attn_shape_checks(rng, dev)
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
     fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
+    mono_rows = run_mono_checks(rng, dev)
     refused = check_quant_contract(dev)
     three_paths = run_three_paths(args.seed, dev)
     print("[kernels] checked against their plain versions: ovsf_gemm ("
@@ -1665,7 +1769,9 @@ def main(argv=None) -> int:
           f"flash_decode_attn ({len(flash_rows)} cases), the two attention "
           f"kernels at other shapes ({len(attn_shapes)} cases), "
           f"ovsf_decompress ({len(dec_rows)} cases), fwht "
-          f"({len(fwht_rows)} cases)", flush=True)
+          f"({len(fwht_rows)} cases), the monolithic tensor-core ovsf_gemm "
+          f"({len(mono_rows)} cases here, the 19 CNN convs in the calibrate "
+          "phase)", flush=True)
 
     serve, launches = {}, {}
     for adt in ALPHA_DTYPES:
@@ -1692,8 +1798,14 @@ def main(argv=None) -> int:
                  "ALL_PATHS"),
                 ("squeezenet1_1", "matrix", 0,
                  planned("squeezenet1_1", ALL_PATHS), "ALL_PATHS"),
+                ("resnet50", "matrix", 0, planned("resnet50", ("fused",)),
+                 "fused"),
+                ("squeezenet1_1", "matrix", 0,
+                 planned("squeezenet1_1", ("fused",)), "fused"),
                 ("resnet50", "matrix", 0, planned("resnet50", DEFAULT_PATHS),
                  "+".join(DEFAULT_PATHS)))]
+    fused_r50 = next(c for c in cnns if c["arch"] == "resnet50"
+                     and c["plan"] == "fused")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     calib = calibrate_phase(args.seed, card, dev, cnns, out_dir)
@@ -1724,7 +1836,7 @@ def main(argv=None) -> int:
              cnns[3]["launches"]["fwht"]),
             ("ovsf_gemm_fp32_mono", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", calib["fused_summary"],
-             calib["fused_summary"]["launches"])):
+             fused_r50["launches"]["ovsf_gemm"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -1749,6 +1861,7 @@ def main(argv=None) -> int:
                    "ovsf_decompress_cases": dec_rows,
                    "fwht_cases": fwht_rows,
                    "fwht_refuses": fwht_refused,
+                   "ovsf_gemm_mono_cases": mono_rows,
                    "three_paths": three_paths,
                    "summary_rows": {
                        "ovsf_gemm*": "sum of q, o, gate, up, down at M=4 "
@@ -1762,16 +1875,17 @@ def main(argv=None) -> int:
                        "fwht": "one planned ResNet-50 forward's 13 calls "
                                "(4 x (6272, 2048), 6 x (1568, 4096), 3 x "
                                "(392, 8192)), fp32",
-                       "ovsf_gemm_fp32_mono": "the CUDA-core kernel (fp32 "
-                                              "x, monolithic codes) at "
-                                              "ResNet-50's 13 OVSF convs' "
-                                              "im2col GEMMs, batch 8, "
-                                              "summed over the 13; "
-                                              "launches and max_abs_err: "
-                                              "the calibrate phase's fused "
-                                              "call at each of those 13 "
-                                              "convs (no planned forward "
-                                              "launches this kernel)"},
+                       "ovsf_gemm_fp32_mono": "the monolithic tensor-core "
+                                              "kernel (fp32 x, monolithic "
+                                              "codes) at ResNet-50's 13 "
+                                              "OVSF convs' im2col GEMMs, "
+                                              "batch 8, summed over the 13 "
+                                              "(calibrate phase); bound: "
+                                              "three bf16 products on the "
+                                              "tensor cores + one WHT a "
+                                              "column, or the bytes; "
+                                              "launches: one all-fused "
+                                              "ResNet-50 forward"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "parity": parity, "parity_contiguous": parity_contiguous,

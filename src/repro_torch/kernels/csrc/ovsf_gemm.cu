@@ -2,16 +2,16 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/ovsf_gemm.py:ovsf_gemm
 // (_ovsf_gemm_kernel, _gen_w_tile, _sign_tile) and its quantised-alpha
-// epilogue (_dequant_tile, _row_scales). W is never stored: a block
-// regenerates each weight tile it is about to consume,
+// epilogue (_dequant_tile, _row_scales). W is never stored in device memory:
+// a block regenerates the weights it is about to consume,
 //   W[k, n] = sum_j (-1)^popcount(idx[j] & k') * alphas[j, n],
 // with k' = k (monolithic codes, idx (J,)) or k' = k mod L0 restricted to
 // the j of k's own segment (segmented codes, idx (n_seg, n_keep)). Alpha
 // storage (QUANT): 0 = the type of x; 1 = int8 (J, N); 2 = int4, two
 // nibbles per byte (J, N/2), the low nibble the even column, both
 // sign-extended; quantised alphas carry one fp32 scale per rows_per_scale
-// rows. Two kernels live here; the wrapper (kernels/ovsf_gemm.py, route)
-// picks one per call from (x dtype, code layout, alpha storage).
+// rows. Three kernels live here; the wrapper (kernels/ovsf_gemm.py, route)
+// picks one per call from (x dtype, code layout, alpha storage, K, J).
 //
 // 1. ovsf_gemm_tc_kernel, on the tensor cores: bf16 x, segmented codes
 //    with L0 = 16 and n_keep <= 16, all three storages (N a multiple of
@@ -79,18 +79,98 @@
 //      columns' above. One split writes y directly.
 //
 // 2. ovsf_gemm_kernel, the first kernel, on the CUDA cores, kept as it was
-//    for every other case: fp32 x (held to 2e-3 against the plain version,
-//    which bf16 or TF32 operands would not meet), monolithic codes (a conv
-//    planned fused; no plan does so at batch 8), L0 != 16, n_keep > 16,
-//    N off the word multiple, and quantised alphas whose scale segments
-//    cut through a code segment. Alphas stage through shared memory in
-//    BJ-row chunks (quantised ones dequantised while staged), the W tile is
-//    built in shared memory with fp32 sign-MACs, x @ W runs on the fp32
-//    CUDA cores, and split-K partials are summed in a fixed order by a
-//    second small kernel.
+//    for every case the other two do not take: fp32 x over segmented codes
+//    (the parity phases), bf16 x over monolithic codes, quantised alphas
+//    over monolithic codes, fp32 monolithic GEMMs whose stripe does not
+//    fit (max(K, J) above about 4600), L0 != 16, n_keep > 16, N off the
+//    word multiple, and quantised alphas whose scale segments cut through
+//    a code segment. Alphas stage through shared memory in BJ-row chunks
+//    (quantised ones dequantised while staged), the W tile is built in
+//    shared memory with fp32 sign-MACs, x @ W runs on the fp32 CUDA cores,
+//    and split-K partials are summed in a fixed order by a second small
+//    kernel.
+//
+// 3. ovsf_gemm_mono_kernel, on the tensor cores: fp32 x and fp32 alphas
+//    over monolithic codes, the CNN `fused` path (every OVSF conv of
+//    ResNet-18/34/50 and SqueezeNet-1.1 in matrix mode), where a stripe of
+//    8 columns fits a block (kernels/ovsf_gemm.py, mono_fits: K = 4608
+//    does; max(K, J) above about 4600 does not). It replaced, for that
+//    case, the CUDA-core kernel, which rebuilt every 64-row W tile as a
+//    J-term sum for every 64-row M tile (K * N * J * M / 64 sign-adds:
+//    14.8 G, 30.2 G and 67.6 G at ResNet-50's s1, s2 and s3 convs; 7.0,
+//    17.9 and 40.3 ms) and ran the product on the fp32 CUDA cores.
+//
+//    What bounds it on the H100 (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s
+//    fp32 on the CUDA cores): x read once, y written once, the alphas and
+//    ids read once, against three bf16 products (6 M K N) on the tensor
+//    cores plus one L-point WHT a column (N L log2 L fp32 adds). At
+//    ResNet-50's s1 / s2 / s3 convs (M, K -> N: 6272, 1152 -> 128; 1568,
+//    2304 -> 256; 392, 4608 -> 512) that is 9.7 / 5.8 / 6.4 us, bound by
+//    the bytes at s1 and by the operations at s2 and s3. What binds it in
+//    fact is L2: every stripe reads all its rows of x, so x leaves L2 N / bn
+//    times, 115.6 / 231.2 / 462.4 MB at s1 / s2 / s3 and 14.5 / 8.1 / 14.5 MB
+//    at SqueezeNet-1.1's fires 2-3 / 4-5 / 6-7 (x itself, 7.2-28.9 MB, fits
+//    the 50 MB L2, and the stripes of one M range run in the same wave). The
+//    product phase moves it at 3.6 TB/s at s1 and 5.6 TB/s at s3 (PERF.md).
+//    A cluster whose blocks share each x tile (TMA multicast) is the route
+//    to cut it (ROADMAP A0.4). The design:
+//
+//    * Each W stripe generated once a cluster, at its cheapest. A cluster
+//      of two blocks (kernels/ovsf_gemm.py, mono_plan) owns a stripe of bn
+//      (8-64) output columns over all K; each block takes its own run of M
+//      rows. Each block generates half the stripe's columns: it stashes
+//      their J alphas in shared memory (16-byte loads, column c's at the
+//      head of the stripe's row c, rotated by c so a warp's stores hit
+//      distinct banks), then, a batch of THREADS * 32 / L columns at a time
+//      (two at L = 8192), scatters each column's alphas into a length-L
+//      spectrum (plain stores of 0 + alpha where the wrapper has checked
+//      that no id repeats, shared-memory atomic adds otherwise; an id out
+//      of [0, L) traps) and runs the register-radix WHT body of
+//      ovsf_decompress (wht.cuh) on the batch: the plain version's passes
+//      in its order, so W equals ovsf_decompress's bit for bit. Each W
+//      value of k < K goes back into the stripe row, over the stash the
+//      batch has consumed, as a pair of bf16, hi = bf16(w) and lo =
+//      bf16(w - hi), four k to a 16-byte word [hi x 4 | lo x 4]; a row's
+//      pitch is 64 mod 128 bytes, so a quarter-warp's 16-byte fragment loads
+//      (two rows, 64 bytes each) meet no bank conflict. Then each block
+//      copies its peer's half of the stripe through distributed shared
+//      memory (16-byte loads, four in flight), between two cluster
+//      barriers: W never leaves the chip. The stripe takes bn * max(K, J)
+//      * 4 bytes: bn is 32 at s1, 16 at s2, 8 at s3 and 64 at SqueezeNet's
+//      fires, beside a 64 KB spectrum and the ids. Clusters of two: the
+//      card holds 66 of them at these sizes (30 of four, 15 of eight).
+//    * The product on the tensor cores in split bf16 ("bf16x3"). A warp
+//      takes a 16-row group of M over all of K; where a block has fewer
+//      groups than its 16 warps, the warps of a group split K among them
+//      and add their accumulators through shared memory afterwards, in part
+//      order. x reaches registers through a four-stage ring in the spectrum
+//      buffer (idle by then): each thread copies (cp.async, 16 bytes a row)
+//      exactly the values it reads, so the ring needs no barrier and holds
+//      no registers (register prefetch was sunk to its use by the compiler
+//      at 127 registers, and every k16 step waited on L2). The k order
+//      within a 16-step is permuted the same way in x and in W, so that a
+//      thread's four x values and four W values of a step are neighbours.
+//      Each x pair is split into hi and lo in registers, and hi.hi + hi.lo
+//      + lo.hi accumulate in fp32 by mma.sync m16n8k16 against the stripe's
+//      fragments (one 16-byte shared load gives both halves); for a stripe
+//      of at most 16 columns the three products go to their own
+//      accumulators, so no two mma of a step wait on each other. The
+//      dropped lo.lo term and the two splits leave about 2^-16 relative a
+//      term, far inside the fp32 tolerance (2e-3); plain TF32 (2^-11)
+//      would not be. Integers below 2^16 split exactly (hi + lo), so
+//      integer inputs give exact sums.
+//    * One launch, one wave, deterministic: 132 blocks (66 clusters) at
+//      every CNN conv, one an SM. K is not split across blocks, so each
+//      block writes its own y tile: no partials in device memory, no atomics
+//      on the output. With distinct ids a second launch equals the first
+//      bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+
+#include <cooperative_groups.h>
+
+#include "wht.cuh"
 
 // ---------------------------------------------------------------------------
 // 1. The tensor-core kernel (bf16 x, segmented codes with L0 = 16).
@@ -969,3 +1049,464 @@ extern "C" int ovsf_gemm_launch(const void* x, const void* alphas,
                          N, J, seg, n_keep, rows_per_scale, splits,
                          kb_per_split, s);
 }
+
+// ---------------------------------------------------------------------------
+// 3. The monolithic tensor-core kernel (fp32 x and alphas, monolithic codes).
+// ---------------------------------------------------------------------------
+namespace {
+namespace mono {
+
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int GROUP = 16;         // rows of M a warp takes at a time
+constexpr int MAX_NT = 8;         // n8 tiles a stripe: bn <= 64
+constexpr int PF = 4;             // k16 steps of x in flight a thread
+// the x ring (PF stages of two 16-byte rows a thread) in the spectrum buffer
+static_assert(PF * 2 * 16 <= 32 * 4, "the x ring outgrows the spectra");
+static_assert(MAX_NT >= 6, "a narrow stripe takes 3 accumulators a tile");
+constexpr int MAX_LOG_L = 13;     // a batch is THREADS * 32 elements
+
+// One stripe element w = W[k, column]: the bf16 pair hi = bf16(w), lo =
+// bf16(w - hi) at the quad word of k, [hi x 4 | lo x 4].
+__device__ __forceinline__ void store_pair(char* row, int k, float w) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(w);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(w - __bfloat162float(hi));
+  __nv_bfloat16* q =
+      reinterpret_cast<__nv_bfloat16*>(row + (k >> 2) * 16) + (k & 3);
+  q[0] = hi;
+  q[4] = lo;
+}
+
+// The word of alpha j in column c's stash: j rotated by c mod 32 (J >= 32).
+__device__ __forceinline__ int stash_at(int j, int c, int J) {
+  const int w = J >= 32 ? j + (c & 31) : j;
+  return w >= J ? w - J : w;
+}
+
+// The thread-block cluster's barrier, in two halves: arrive releases this
+// thread's shared-memory writes to the cluster, wait acquires the others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Two fp32 values as the bf16 pairs hi and lo (the low half the first).
+__device__ __forceinline__ void split2(float a, float b, unsigned& hi,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// p[0 .. 3] of a row of x whose column k the pointer is at into dst,
+// asynchronously: zeros past K, and zeros where ok is false (then nothing
+// is read; `base` is a valid address to name).
+__device__ __forceinline__ void copy_x(float4* dst, const float* p,
+                                       const float* base, bool ok, int k,
+                                       int K, bool vec) {
+  if (vec) {
+    ok = ok && k < K;
+    tc::cp_async16(dst, ok ? p : base, ok ? 16 : 0);
+  } else {
+    float* d = reinterpret_cast<float*>(dst);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = ok && k + e < K;
+      tc::cp_async4(d + e, in ? p + e : base, in ? 4 : 0);
+    }
+  }
+}
+
+// grid (blocks), THREADS threads, clusters of `cluster` blocks, dynamic
+// shared memory smem >= bn * pitch (the stripe) + THREADS * R * 4 (the
+// spectra of a batch) + J * 4 (the ids). Cluster q takes stripe q %
+// stripes, columns [n0, n0 + bn); its block of rank r generates the r-th
+// share of the stripe's columns and copies the others from its peers; each
+// block takes an even share of the stripe's 16-row groups
+// (kernels/ovsf_gemm.py, mono_block_rows).
+template <int LOG_L>
+__global__ void __launch_bounds__(THREADS, 1)
+ovsf_gemm_mono_kernel(const float* __restrict__ x,
+                      const float* __restrict__ alphas,
+                      const int* __restrict__ idx, float* __restrict__ out,
+                      int M, int K, int N, int J, int bn, int pitch,
+                      int cluster, int distinct) {
+  using S = wht::Stages<LOG_L>;
+  constexpr int B = S::B, R = S::R, L = 1 << LOG_L;
+  constexpr int BATCH = (THREADS * R) >> LOG_L;   // columns a batch
+  extern __shared__ __align__(16) char smem[];
+  char* stripe = smem;
+  float* buf = reinterpret_cast<float*>(smem + bn * pitch);
+  int* ids = reinterpret_cast<int*>(buf + THREADS * R);
+  const int t = threadIdx.x;
+  const int stripes = (N + bn - 1) / bn;
+  const int q = blockIdx.x / cluster, rank = blockIdx.x % cluster;
+  const int sid = q % stripes;
+  const int n0 = sid * bn;
+  const int cols = min(bn, N - n0);
+  const int Kp = (K + 15) & ~15;
+  // the columns this block generates: its rank's share of the stripe
+  const int share = (cols + cluster - 1) / cluster;
+  const int c_lo = min(cols, rank * share), c_hi = min(cols, c_lo + share);
+  const int gc = c_hi - c_lo;
+
+  // 1. The ids, and the stash: column c's J alphas at the head of stripe
+  // row c, rotated by c mod 32 (the word of alpha j is stash_at(j, c)), so
+  // that a warp's copies of one row's columns land in distinct banks.
+  // 16-byte loads where the columns allow, else asynchronous 4-byte
+  // copies.
+  for (int j = t; j < J; j += THREADS) tc::cp_async4(ids + j, idx + j, 4);
+  tc::cp_async_commit();
+  auto zero_spectra = [&]() {
+    for (int e = 4 * t; e < THREADS * R; e += 4 * THREADS)
+      *reinterpret_cast<float4*>(buf + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  zero_spectra();             // while the ids are in flight
+  if (N % 4 == 0 && gc % 4 == 0 && c_lo % 4 == 0) {
+    // 16 bytes (four columns of a row) a load, four loads in flight
+    const int cq = gc / 4;
+    for (int e0 = t; e0 < J * cq; e0 += 4 * THREADS) {
+      float4 a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * THREADS, j = e / cq;
+        if (e < J * cq)
+          a[u] = __ldg(reinterpret_cast<const float4*>(
+              alphas + (size_t)j * N + n0 + c_lo + 4 * (e - j * cq)));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * THREADS, j = e / cq;
+        if (e >= J * cq) break;
+        const int c = c_lo + 4 * (e - j * cq);
+        const float v[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          reinterpret_cast<float*>(stripe + (c + i) * pitch)[stash_at(
+              j, c + i, J)] = v[i];
+      }
+    }
+  } else {
+    for (int e = t; e < J * gc; e += THREADS) {
+      const int j = e / gc, c = c_lo + e - j * gc;
+      tc::cp_async4(
+          reinterpret_cast<float*>(stripe + c * pitch) + stash_at(j, c, J),
+          alphas + (size_t)j * N + n0 + c, 4);
+    }
+  }
+  tc::cp_async_commit();
+  tc::cp_async_wait(0);
+
+  // 2. The stripe, BATCH columns at a time: scatter, WHT, bf16 pairs.
+  for (int cb = c_lo; cb < c_hi; cb += BATCH) {
+    const int nb = min(BATCH, c_hi - cb);
+    if (cb != c_lo) {
+      __syncthreads();        // the last batch's transform is done with buf
+      zero_spectra();
+    }
+    __syncthreads();          // the stash and the zeros are in
+    const float* stash = reinterpret_cast<const float*>(stripe + cb * pitch);
+    for (int j = t; j < J; j += THREADS) {
+      const int code = ids[j];
+      if (code < 0 || code >= L) __trap();     // the wrapper checks too
+#pragma unroll 4
+      for (int c = 0; c < nb; ++c) {
+        const float a = stash[c * (pitch / 4) + stash_at(j, cb + c, J)];
+        float* slot = buf + wht::swz((c << LOG_L) | code);
+        if (distinct)
+          *slot = 0.f + a;           // the one add the plain version makes
+        else
+          atomicAdd(slot, a);
+      }
+    }
+    __syncthreads();          // the batch's stash rows are free from here
+    float v[R];
+    wht::read_first<B>(v, buf, t);
+    wht::transform<LOG_L>(v, buf, t);
+    const int f0 = wht::flat0<B, S::LAST>(t);
+    if constexpr (LOG_L < B) {
+      // short columns: a thread's registers span R / L whole columns
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int c = (f0 + j) >> LOG_L, k = (f0 + j) & (L - 1);
+        if (c < nb && k < K) store_pair(stripe + (cb + c) * pitch, k, v[j]);
+      }
+    } else {
+      // register j holds element k0 + (j << LAST) of one column c
+      const int c = f0 >> LOG_L, k0 = f0 & (L - 1);
+      if (c < nb) {
+        char* row = stripe + (cb + c) * pitch;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int k = k0 + (j << S::LAST);
+          if (k < K) store_pair(row, k, v[j]);
+        }
+      }
+    }
+  }
+  // rows K..Kp of the stripe are zero (x is zero there too: 0 * 0)
+  for (int e = t; e < gc * (Kp - K); e += THREADS) {
+    const int c = e / (Kp - K);
+    store_pair(stripe + (c_lo + c) * pitch, K + e - c * (Kp - K), 0.f);
+  }
+  // the peers' columns, 16 bytes at a time through distributed shared memory
+  if (cluster > 1) {
+    cluster_arrive();
+    cluster_wait();           // every block of the cluster has its share
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    const int quads = Kp / 4;
+    for (int r = 0; r < cluster; ++r) {
+      if (r == rank) continue;
+      const int lo = min(cols, r * share), hi = min(cols, lo + share);
+      const char* peer = cl.map_shared_rank(stripe, r);
+      const int total = (hi - lo) * quads;
+      for (int e0 = t; e0 < total; e0 += 4 * THREADS) {
+        uint4 v[4];                // four remote loads in flight
+        int off[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * THREADS, c = e / quads;
+          off[u] = (lo + c) * pitch + (e - c * quads) * 16;
+          if (e < total) v[u] = *reinterpret_cast<const uint4*>(peer + off[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (e0 + u * THREADS < total)
+            *reinterpret_cast<uint4*>(stripe + off[u]) = v[u];
+      }
+    }
+    cluster_arrive();         // done reading the peers' shared memory
+  }
+  __syncthreads();
+
+  // 3. The product: a warp takes a 16-row group over all of K (or a part).
+  const int groups = (M + GROUP - 1) / GROUP;
+  const int clusters = gridDim.x / cluster;
+  const int mine = cluster * ((clusters - 1 - sid) / stripes + 1);
+  const int chunk = q / stripes * cluster + rank;
+  const int g_lo = (int)((long long)chunk * groups / mine);
+  const int g_hi = (int)((long long)(chunk + 1) * groups / mine);
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int nt_n = (cols + 7) / 8;
+  const int nsteps = Kp / 16;
+  const bool vec = K % 4 == 0;
+  const char* wq = stripe + g * pitch + tq * 16;
+  // x reaches registers through a ring in the spectrum buffer, idle from
+  // here: slot (stage p, row half h) of thread t is ring[(2 p + h) THREADS
+  // + t]. Each thread copies (cp.async, 16 bytes a row) exactly what it
+  // reads, so the ring needs no barrier, and the copies hold no registers.
+  float4* ring = reinterpret_cast<float4*>(buf);
+  // A block with fewer row groups than warps splits K among the warps of a
+  // group (kparts of them, one unit a warp) and sums their accumulators
+  // through shared memory afterwards, in part order.
+  const int gb = g_hi - g_lo;
+  const int kparts = gb >= WARPS ? 1 : WARPS / max(gb, 1);
+  float acc[MAX_NT][4];
+  auto store = [&](int grp) {
+    // acc[n]: (row g, columns 2tq, 2tq+1), (row g + 8, the same)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = grp * GROUP + g + 8 * h;
+      if (r >= M) continue;
+      float* yr = out + (size_t)r * N;
+#pragma unroll
+      for (int n = 0; n < MAX_NT; ++n) {
+        if (n >= nt_n) break;
+        const int col = n0 + n * 8 + 2 * tq;
+        const float a = acc[n][2 * h], b2 = acc[n][2 * h + 1];
+        if (col + 1 < n0 + cols && N % 2 == 0) {
+          *reinterpret_cast<float2*>(yr + col) = make_float2(a, b2);
+        } else {
+          if (col < n0 + cols) yr[col] = a;
+          if (col + 1 < n0 + cols) yr[col + 1] = b2;
+        }
+      }
+    }
+  };
+  for (int u = warp; u < gb * kparts; u += WARPS) {
+    const int grp = g_lo + u / kparts, part = u % kparts;
+    const int s_lo = part * nsteps / kparts;
+    const int s_hi = (part + 1) * nsteps / kparts;
+    const int r0 = grp * GROUP + g, r1 = r0 + 8;
+    const bool v0 = r0 < M, v1 = r1 < M;
+    const float* x0 = x + (size_t)(v0 ? r0 : 0) * K + 4 * tq;
+    const float* x1 = x + (size_t)(v1 ? r1 : 0) * K + 4 * tq;
+#pragma unroll
+    for (int n = 0; n < MAX_NT; ++n)
+      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    auto fetch = [&](int s, int slot) {
+      const bool in = s < s_hi;
+      copy_x(ring + (2 * slot) * THREADS + t, x0 + s * 16, x, v0 && in,
+             s * 16 + 4 * tq, K, vec);
+      copy_x(ring + (2 * slot + 1) * THREADS + t, x1 + s * 16, x, v1 && in,
+             s * 16 + 4 * tq, K, vec);
+      tc::cp_async_commit();
+    };
+#pragma unroll
+    for (int p = 0; p < PF - 1; ++p) fetch(s_lo + p, p);
+    for (int s0 = s_lo; s0 < s_hi; s0 += PF) {
+#pragma unroll
+      for (int p = 0; p < PF; ++p) {
+        const int s = s0 + p;
+        if (s >= s_hi) break;
+        tc::cp_async_wait(PF - 2);           // this thread's step s is in
+        const float4 xa = ring[(2 * p) * THREADS + t];
+        const float4 xb = ring[(2 * p + 1) * THREADS + t];
+        fetch(s + PF - 1, (p + PF - 1) % PF);  // the slot read at step s - 1
+        // A fragments: logical k (2tq, 2tq+1 | 2tq+8, 2tq+9) are the
+        // thread's k 16 s + 4 tq + (0, 1 | 2, 3), as in the stripe's words
+        unsigned ah[4], al[4];
+        split2(xa.x, xa.y, ah[0], al[0]);
+        split2(xb.x, xb.y, ah[1], al[1]);
+        split2(xa.z, xa.w, ah[2], al[2]);
+        split2(xb.z, xb.w, ah[3], al[3]);
+        const char* ws = wq + s * 64;
+        if (nt_n <= 2) {
+          // a narrow stripe: the three products into their own
+          // accumulators, so that no two mma of a step wait on each other
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            if (n >= nt_n) break;
+            const uint4 b =
+                *reinterpret_cast<const uint4*>(ws + n * 8 * pitch);
+            tc::mma_k16(acc[n], ah, b.x, b.y);        // hi . hi
+            tc::mma_k16(acc[n + 2], ah, b.z, b.w);    // hi . lo
+            tc::mma_k16(acc[n + 4], al, b.x, b.y);    // lo . hi
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < MAX_NT; ++n) {
+            if (n >= nt_n) break;
+            const uint4 b =
+                *reinterpret_cast<const uint4*>(ws + n * 8 * pitch);
+            tc::mma_k16(acc[n], ah, b.x, b.y);
+            tc::mma_k16(acc[n], ah, b.z, b.w);
+            tc::mma_k16(acc[n], al, b.x, b.y);
+          }
+        }
+      }
+    }
+    tc::cp_async_wait(0);     // the tail's copies, before the ring is reused
+    if (nt_n <= 2) {          // (hi . hi + hi . lo) + lo . hi
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = (acc[n][e] + acc[n + 2][e]) + acc[n + 4][e];
+    }
+    if (kparts == 1) store(grp);
+  }
+  if (kparts > 1) {
+    // one unit a warp: parts 1.. leave their sums in the (idle) ring, part
+    // 0 adds them in part order and writes y
+    float* red = buf;
+    const bool has = warp < gb * kparts;
+    const int part = warp % kparts;
+    __syncthreads();          // every warp is done with the ring
+    if (has && part > 0)
+#pragma unroll
+      for (int n = 0; n < MAX_NT; ++n) {
+        if (n >= nt_n) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(4 * n + e) * THREADS + t] = acc[n][e];
+      }
+    __syncthreads();
+    if (has && part == 0) {
+      for (int q = 1; q < kparts; ++q)
+#pragma unroll
+        for (int n = 0; n < MAX_NT; ++n) {
+          if (n >= nt_n) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n][e] += red[(4 * n + e) * THREADS + t + 32 * q];
+        }
+      store(g_lo + warp / kparts);
+    }
+  }
+  if (cluster > 1) cluster_wait();   // no block leaves while a peer reads it
+}
+
+inline cudaLaunchConfig_t config(int blocks, int smem, int cluster,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int LOG_L>
+cudaError_t launch(const void* x, const void* alphas, const void* idx,
+                   void* out, int M, int K, int N, int J, int bn, int pitch,
+                   int blocks, int smem, int cluster, int distinct,
+                   cudaStream_t stream) {
+  static size_t opted_in = 48 * 1024;
+  auto kern = ovsf_gemm_mono_kernel<LOG_L>;
+  cudaError_t e = wht::opt_in(kern, smem, opted_in);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(blocks, smem, cluster, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(x),
+                         static_cast<const float*>(alphas),
+                         static_cast<const int*>(idx),
+                         static_cast<float*>(out), M, K, N, J, bn, pitch,
+                         cluster, distinct);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace mono
+}  // namespace
+
+// x (M, K) float32, 16-byte aligned; alphas (J, N) float32, 16-byte aligned;
+// idx (J,) int32 in [0, L), L = next_pow2(K) <= 8192; out (M, N) float32.
+// The plan (kernels/ovsf_gemm.py, mono_plan): bn output columns a stripe (a
+// multiple of 8, at most 64), the stripe row pitch in bytes (64 mod 128, at
+// least max(K rounded up to 16, J) * 4), `blocks` blocks, `smem` bytes of
+// dynamic shared memory (bn * pitch + the batch's spectra + the ids), and
+// the WHT
+// body's stages (log2 regs, p2, p3) from kernels/fwht.py:wht_plan(L, 4),
+// checked against wht.cuh's. distinct != 0: the caller has checked that no
+// id repeats, so the scatter stores instead of adding atomically. Returns
+// the cudaError_t of the launch.
+extern "C" int ovsf_gemm_mono_launch(const void* x, const void* alphas,
+                                     const void* idx, void* out, int M, int K,
+                                     int N, int J, int L, int bn, int pitch,
+                                     int blocks, int smem, int cluster,
+                                     int log2_regs, int p2, int p3,
+                                     int distinct, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int Kp = (K + 15) & ~15;
+  if (M < 1 || K < 1 || N < 1 || J < 1 || L <= 0 || (L & (L - 1)) ||
+      L > (1 << mono::MAX_LOG_L) || K > L || bn < 8 || bn % 8 ||
+      bn > 8 * mono::MAX_NT || pitch % 128 != 64 ||
+      pitch < 4 * (Kp > J ? Kp : J) || cluster < 1 || cluster > 8 ||
+      blocks % cluster || blocks / cluster < (N + bn - 1) / bn)
+    return cudaErrorInvalidValue;
+  return wht::dispatch(__builtin_ctz(L), [&](auto nc) -> cudaError_t {
+    constexpr int LOG_L = decltype(nc)::value;
+    if constexpr (LOG_L > mono::MAX_LOG_L) {
+      return cudaErrorInvalidValue;
+    } else {
+      if (!wht::plan_matches<LOG_L>(log2_regs, p2, p3) ||
+          smem < bn * pitch + mono::THREADS * wht::Stages<LOG_L>::R * 4 +
+                     4 * J)
+        return cudaErrorInvalidValue;
+      return mono::launch<LOG_L>(x, alphas, idx, out, M, K, N, J, bn, pitch,
+                                 blocks, smem, cluster, distinct, s);
+    }
+  });
+}
+

@@ -7,8 +7,10 @@
                  ``kernels.ovsf_gemm.ovsf_decompress`` on CUDA (its plain
                  version on the CPU): the CNNs' im2col GEMMs in matrix mode.
 ``fused``        generation fused into the GEMM tiles: the hand-written
-                 ``kernels.ovsf_gemm`` kernel on CUDA, its plain version on
-                 the CPU.
+                 ``kernels.ovsf_gemm`` kernels on CUDA (monolithic codes with
+                 fp32 x: each W stripe generated once on chip, the product
+                 on the tensor cores; the CNNs' im2col GEMMs under a plan
+                 that names ``fused``), its plain version on the CPU.
 ``spectral``     y = WHT(pad(x))[:, idx] @ alphas (exact), per segment for
                  the segmented layout. Monolithic codes transform the padded
                  activations through the hand-written ``kernels.fwht.fwht``
@@ -31,9 +33,10 @@ jnp before its GEMM.
 path. The plan's block sizes and cache policy are recorded, not used: the
 CUDA ``ovsf_gemm`` tiles by its own kernel's plan (the tensor-core kernel's
 ``tc_plan``: 64-column tiles, 128-row k-blocks split over up to 16 blocks;
-the CUDA-core kernel's ``tiling``), and the decompress cache waits until a
-plan on the card can reuse a dense W. ``ovsf_matmul_multi`` waits for the
-gateway slice.
+the monolithic kernel's ``mono_plan``: W stripes of 8-64 columns, one a
+two-block cluster; the CUDA-core kernel's ``tiling``), and the decompress
+cache waits until a plan on the card can reuse a dense W.
+``ovsf_matmul_multi`` waits for the gateway slice.
 """
 from __future__ import annotations
 

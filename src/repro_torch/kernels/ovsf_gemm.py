@@ -8,12 +8,15 @@ W[k, n] = sum_j (-1)^popcount(idx[j] & k') * alphas[j, n] (see
 CUDA tensor it launches ``csrc/ovsf_gemm.cu`` (the port of the Pallas
 ``repro.kernels.ovsf_gemm:ovsf_gemm`` and its dequant epilogue; design and
 bound in the source's header note) or raises; on a CPU tensor it runs the
-plain version. The source holds two kernels, and ``route`` picks one per
+plain version. The source holds three kernels, and ``route`` picks one per
 call: "tensor_core" (bf16 x over segmented codes of length 16, every alpha
-storage: the serving path) or "cuda_core" (fp32 x, monolithic codes and the
-rest). ``ovsf_gemm.launches`` counts kernel launches,
-``ovsf_gemm.launches_by_alpha`` splits them by alpha storage ("fp", "int8",
-"int4") and ``ovsf_gemm.launches_by_kernel`` by kernel.
+storage: the serving path), "mono_tc" (fp32 x and fp32 alphas over
+monolithic codes whose stripe fits, ``mono_fits``: the CNN ``fused`` path;
+its plan is ``mono_plan``) or "cuda_core" (the rest: fp32 x over segmented
+codes, bf16 x or quantised alphas over monolithic codes, and the layouts the
+tensor-core kernel does not take). ``ovsf_gemm.launches`` counts kernel
+launches, ``ovsf_gemm.launches_by_alpha`` splits them by alpha storage
+("fp", "int8", "int4") and ``ovsf_gemm.launches_by_kernel`` by kernel.
 
 ``ovsf_decompress(alphas, idx, d_in)`` materialises the dense W (d_in,
 d_out) from fp32/bf16 alphas over monolithic codes: ``csrc/ovsf_decompress.cu``
@@ -45,7 +48,7 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _QUANT = {"": 0, "int8": 1, "int4": 2}
 
 # the tensor-core kernel, as in the CUDA source (namespace tc)
-KERNELS = ("tensor_core", "cuda_core")
+KERNELS = ("tensor_core", "cuda_core", "mono_tc")
 TC_SEG = 16                   # the code segment length it takes
 TC_BK = 128                   # k rows per k-block: 8 code segments
 TC_BN = 64                    # output columns per block
@@ -72,6 +75,16 @@ DEC_TILE = 4
 # id tensors whose range was checked: tensor -> ((its _version, L), distinct)
 _CHECKED_IDS = WeakIdKeyDictionary()
 
+# the monolithic tensor-core kernel, as in the CUDA source (namespace mono)
+MONO_THREADS = 512
+MONO_GROUP = 16               # rows of M a warp takes at a time
+MONO_MAX_BN = 64              # output columns a stripe: 8 n8 tiles
+MONO_MAX_L = 1 << 13          # a generation batch is THREADS * 32 elements
+MONO_SMEM = 227 * 1024        # dynamic shared memory a block may opt in to
+MONO_CLUSTER = 2              # blocks sharing a stripe's generation
+_MONO_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+                  + [ctypes.c_void_p])
+
 
 def tiling(M: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
     """The CUDA-core kernel's (rows per block, k-blocks per split, splits):
@@ -87,14 +100,20 @@ def tiling(M: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
 
 
 def route(x_dtype, seg: int, n_keep: int, alpha_dtype: str, N: int,
-          rows_per_scale: int) -> str:
-    """The kernel of one call: "tensor_core" for bf16 x over segmented codes
-    of length 16 with at most 16 kept codes a segment, where a stored alpha
-    row of the tile is whole 16-byte words (N a multiple of 8 / 16 / 32 for
-    bf16 / int8 / int4) and a scale segment holds whole code segments;
-    "cuda_core" otherwise (fp32 x, monolithic codes and the rest). ``seg``
-    is 0 for monolithic codes; ``rows_per_scale`` is read for quantised
-    alphas only."""
+          rows_per_scale: int, K: int, J: int) -> str:
+    """The kernel of one call, of three: "tensor_core" for bf16 x over
+    segmented codes of length 16 with at most 16 kept codes a segment, where
+    a stored alpha row of the tile is whole 16-byte words (N a multiple of
+    8 / 16 / 32 for bf16 / int8 / int4) and a scale segment holds whole code
+    segments; "mono_tc" for fp32 x with fp32 alphas over monolithic codes
+    where a stripe of 8 columns fits a block (``mono_fits``; K = 4608, the
+    CNNs' largest, does); "cuda_core" otherwise (fp32 x over segmented
+    codes, bf16 x or quantised alphas over monolithic codes, and the rest).
+    ``seg`` is 0 for monolithic codes; ``rows_per_scale`` is read for
+    quantised alphas only."""
+    if (x_dtype == torch.float32 and seg == 0 and not alpha_dtype
+            and mono_fits(K, J)):
+        return "mono_tc"
     if (x_dtype == torch.bfloat16 and seg == TC_SEG
             and 1 <= n_keep <= TC_MAX_NKEEP
             and N % _TC_COLS[alpha_dtype] == 0
@@ -127,6 +146,76 @@ def tc_plan(M: int, K: int, N: int, n_sms: int,
     splits = max(1, min(nkb, TC_MAX_SPLITS, wave, cap))
     per = -(-nkb // splits)
     return per, -(-nkb // per), m_chunks
+
+
+def mono_pitch(K: int, J: int) -> int:
+    """Bytes of one stripe row of the monolithic kernel: the column's J
+    alphas (the stash) or its K (rounded up to 16) bf16 pairs, whichever is
+    more, rounded to 64 mod 128 bytes so that a quarter-warp's two 64-byte
+    row pieces fall in different bank halves."""
+    row = -(-max(-(-K // 16) * 16, J) * 4 // 64) * 64
+    return row + 64 if row % 128 == 0 else row
+
+
+def mono_work_bytes(L: int, J: int) -> int:
+    """Shared memory beside the stripe: the generation batch's spectra,
+    THREADS * regs fp32 (64 regs at L = 64, 32 otherwise, as wht.cuh's
+    stages), and the J code ids."""
+    return MONO_THREADS * (64 if L == 64 else 32) * 4 + -(-J // 4) * 16
+
+
+def mono_fits(K: int, J: int) -> bool:
+    """Whether the monolithic kernel takes (K, J): L = next_pow2(K) within
+    one generation batch, and a stripe of 8 columns beside the spectra and
+    the ids in a block's shared memory (K = J = 4624 does, 4640 does not)."""
+    L = next_pow2(K)
+    return (1 <= K and 1 <= J and L <= MONO_MAX_L
+            and 8 * mono_pitch(K, J) + mono_work_bytes(L, J) <= MONO_SMEM)
+
+
+def mono_plan(M: int, K: int, N: int, J: int, n_sms: int) -> dict:
+    """The monolithic kernel's plan: ``bn`` output columns a stripe (a
+    multiple of 8, at most 64: the widest the stripe's shared memory allows,
+    then narrowed to the least that keeps the stripe count), ``stripes``,
+    ``cluster`` (``MONO_CLUSTER`` blocks on one stripe share its generation,
+    where every stripe gets a cluster and a cluster has a 16-row group a
+    block; else 1), ``blocks`` (one an SM: as many clusters as n_sms holds,
+    no more than the stripes' row groups fill, at least one a stripe), the
+    stripe row ``pitch`` and ``smem`` bytes. K is not split, so there are no
+    partials; ``mono_block_rows`` gives each block's rows."""
+    if not mono_fits(K, J):
+        raise ValueError(f"ovsf_gemm: K={K}, J={J} outside the monolithic "
+                         "kernel's stripe")
+    L = next_pow2(K)
+    pitch = mono_pitch(K, J)
+    work = mono_work_bytes(L, J)
+    bn_max = min(MONO_MAX_BN, (MONO_SMEM - work) // pitch // 8 * 8)
+    stripes = -(-N // bn_max)
+    bn = -(-(-(-N // stripes)) // 8) * 8
+    groups = -(-M // MONO_GROUP)
+    cluster = (MONO_CLUSTER if stripes * MONO_CLUSTER <= n_sms
+               and groups >= MONO_CLUSTER else 1)
+    clusters = max(stripes, min(n_sms // cluster,
+                                stripes * (groups // cluster)))
+    return dict(bn=bn, stripes=stripes, cluster=cluster,
+                blocks=cluster * clusters, pitch=pitch,
+                smem=bn * pitch + work, L=L)
+
+
+def mono_block_rows(plan: dict, M: int, b: int) -> tuple[int, int, int]:
+    """(stripe, first row, end row) of block b, as the kernel computes them:
+    block b is rank r = b % cluster of cluster q = b // cluster, which takes
+    stripe q % stripes; its chunk c = (q // stripes) * cluster + r takes an
+    even share [c G / n, (c + 1) G / n) of the G 16-row groups, n the
+    stripe's block count."""
+    stripes, blocks, cluster = plan["stripes"], plan["blocks"], plan["cluster"]
+    q, rank = divmod(b, cluster)
+    sid = q % stripes
+    chunk = q // stripes * cluster + rank
+    mine = cluster * ((blocks // cluster - 1 - sid) // stripes + 1)
+    groups = -(-M // MONO_GROUP)
+    lo, hi = chunk * groups // mine, (chunk + 1) * groups // mine
+    return sid, min(M, lo * MONO_GROUP), min(M, hi * MONO_GROUP)
 
 
 def ticket_buffer(device, n: int) -> torch.Tensor:
@@ -213,14 +302,26 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
+    rows_per_scale = J // scale.numel() if alpha_dtype else J
+    kernel = route(x.dtype, seg, n_keep, alpha_dtype, N, rows_per_scale, K,
+                   J)
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if kernel == "mono_tc":
+        plan = mono_plan(M, K, N, J, n_sms)
+        # on the caller's id tensor, whose version the check remembers
+        distinct = _distinct_ids(idx, plan["L"], "ovsf_gemm")
     x = x.contiguous()
     alphas = alphas.contiguous()
     idx = idx.to(torch.int32).contiguous()
-    rows_per_scale = J // scale.numel() if alpha_dtype else J
-    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    kernel = route(x.dtype, seg, n_keep, alpha_dtype, N, rows_per_scale)
-    if kernel == "tensor_core":
+    if kernel == "mono_tc":
+        x, alphas = _aligned(x), _aligned(alphas)
+        err = build.launcher("ovsf_gemm", _MONO_ARGTYPES, "ovsf_gemm_mono")(
+            x.data_ptr(), alphas.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            M, K, N, J, plan["L"], plan["bn"], plan["pitch"], plan["blocks"],
+            plan["smem"], plan["cluster"], *_stages(plan["L"]), int(distinct),
+            stream)
+    elif kernel == "tensor_core":
         x, alphas, idx = _aligned(x), _aligned(alphas), _aligned(idx)
         per, splits, m_chunks = tc_plan(
             M, K, N, n_sms, alphas.numel() * alphas.element_size())
@@ -275,7 +376,26 @@ def _checked(idx: torch.Tensor, L: int):
     return hit[1] if hit is not None and hit[0] == (idx._version, L) else None
 
 
-def check_ids(idx: torch.Tensor, L: int) -> bool:
+def _distinct_ids(idx: torch.Tensor, L: int, who: str) -> bool:
+    """Whether no id repeats, after ``check_ids`` (raises on an id outside
+    [0, L) before any launch). The check reads the ids on the host, which a
+    stream being captured into a CUDA graph may not do: there an unchecked
+    id tensor counts as repeating (the kernels' atomic scatter), and the
+    kernels trap on an id out of range in any case."""
+    if torch.cuda.is_current_stream_capturing():
+        return bool(_checked(idx, L))
+    return check_ids(idx, L, who)
+
+
+def _stages(L: int) -> tuple:
+    """(log2 regs, p2, p3) of the WHT body for rows of length L, as
+    ``plan_args`` gives them, for the kernels' check against wht.cuh."""
+    log2_regs, _rows, _threads, _smem, p2, p3 = plan_args(wht_plan(L, 4))
+    return log2_regs, p2, p3
+
+
+def check_ids(idx: torch.Tensor, L: int, who: str = "ovsf_decompress"
+              ) -> bool:
     """Raise unless every code id lies in [0, L); return whether no id
     repeats. Reads the ids (one host sync) once per id tensor, its
     ``_version`` (an in-place edit bumps it) and L; the CNN convs pass the
@@ -293,8 +413,8 @@ def check_ids(idx: torch.Tensor, L: int) -> bool:
     lo, hi, repeats = (int(v) for v in torch.stack(
         [s[0], s[-1], (s[1:] == s[:-1]).sum()]).tolist())
     if lo < 0 or hi >= L:
-        raise ValueError(f"ovsf_decompress: code ids span [{lo}, {hi}], "
-                         f"outside [0, {L})")
+        raise ValueError(f"{who}: code ids span [{lo}, {hi}], outside "
+                         f"[0, {L})")
     if not idx.is_inference():
         _CHECKED_IDS[idx] = ((idx._version, L), repeats == 0)
     return repeats == 0
@@ -326,13 +446,7 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
     if d_in < 1 or L > _DEC_MAX_L:
         raise ValueError(f"ovsf_decompress: d_in={d_in} outside "
                          f"1..{_DEC_MAX_L}")
-    # the check reads the ids on the host, which a stream being captured into
-    # a CUDA graph may not do: there an unchecked id tensor takes the atomic
-    # scatter, and the kernel traps on an id out of range in any case
-    if torch.cuda.is_current_stream_capturing():
-        distinct = bool(_checked(idx, L))
-    else:
-        distinct = check_ids(idx, L)
+    distinct = _distinct_ids(idx, L, "ovsf_decompress")
     alphas = _aligned(alphas.contiguous())
     idx = idx.to(torch.int32).contiguous()
     wt = torch.empty((N, d_in), dtype=alphas.dtype, device=alphas.device)
@@ -350,7 +464,7 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
 
 def reset_launches() -> None:
     """Zero the launch counters (``ovsf_gemm``: total, per alpha storage and
-    per kernel; ``ovsf_decompress``)."""
+    per kernel of ``KERNELS``; ``ovsf_decompress``)."""
     ovsf_gemm.launches = 0
     ovsf_gemm.launches_by_alpha = dict.fromkeys(("fp", "int8", "int4"), 0)
     ovsf_gemm.launches_by_kernel = dict.fromkeys(KERNELS, 0)

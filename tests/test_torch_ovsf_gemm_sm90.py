@@ -12,8 +12,10 @@ against the plain version). Here:
   partials within ``TC_PARTIAL_SHARE`` (4x) of the stored alpha bytes; at
   decode within half of them.
 * ``route`` sends bf16 x over segmented codes to the tensor-core kernel in
-  every alpha storage, and fp32 x, monolithic codes and what the kernel's
-  layout does not take to the CUDA-core kernel.
+  every alpha storage, and fp32 x over segmented codes, bf16 x over
+  monolithic codes and what the kernel's layout does not take to the
+  CUDA-core kernel (fp32 x over monolithic codes:
+  ``test_torch_ovsf_gemm_mono_sm90.py``).
 * ``_emulate`` follows the kernel's rounding order: each segment's W rows
   are the exact +-1 contraction of the stored alphas in fp32, the segment's
   scale is applied after it, W is rounded to bf16, x @ W accumulates in
@@ -100,14 +102,18 @@ def test_tc_plan_partial_bytes(proj, M, alpha_dtype):
     (torch.bfloat16, 16, 8, "int8", 2048, 4, "cuda_core"),    # scale cuts
 ])
 def test_route(x_dtype, seg, n_keep, alpha_dtype, N, rps, want):
-    assert tgemm.route(x_dtype, seg, n_keep, alpha_dtype, N, rps) == want
+    K = 2048 if seg else 1000
+    J = K // seg * n_keep if seg else n_keep
+    assert tgemm.route(x_dtype, seg, n_keep, alpha_dtype, N, rps, K,
+                       J) == want
 
 
 def test_launch_counters_by_kernel():
     tgemm.ovsf_gemm.launches_by_kernel["tensor_core"] = 3
     tgemm.reset_launches()
     assert tgemm.ovsf_gemm.launches_by_kernel == {"tensor_core": 0,
-                                                  "cuda_core": 0}
+                                                  "cuda_core": 0,
+                                                  "mono_tc": 0}
     assert tuple(tgemm.ovsf_gemm.launches_by_kernel) == tgemm.KERNELS
 
 
