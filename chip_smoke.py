@@ -74,7 +74,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
              relative factor 1.0 within 1e-9 (a step's wall is split in
              proportion to the modeled II), and ``replan()`` must equal the
              engine's plan; ``suggest_rhos`` at the decode shape on h100
-             prints its raises.
+             prints its raises. Every serve run above, and the same four
+             styles again in fp32 (fp32 alphas; ``ovsf_gemm`` on its CUDA-core
+             kernel), runs twice on the same params and requests: eagerly
+             (``LLMEngine(capture=False)``) and replaying the engine's CUDA
+             graphs (its default, one graph per step shape). The two must
+             give the same token streams (greedy and sampled), every
+             chunk-free step's logits bit for bit (mixed steps counted), the
+             same launch counters; over 8 profiled chunk-free steps (the
+             most that any window recorded, eager and graph in turn until
+             their counts agree, 2 to 6 windows each: ``agreed_windows``)
+             the profiler's launches of each hand-written kernel, by name,
+             must be equal in the two and equal to the wrappers' counters,
+             and all kernels per step equal (the names that differ are
+             printed);
+             the graph run holds at most 3 packed and 2 window graphs, keyed
+             as ``step_shapes``, and its chunk-free step wall (host clock)
+             must be below eager's; both print wall, device busy and idle
+             share.
   5. parity: one full-width packed paged step in fp32 on the card vs the
              same step with the same parameters on the CPU (plain versions),
              with fp32 and with int8 alphas, planned as the engine plans on
@@ -101,7 +118,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
              for cuDNN and matmul, here and in every phase) within 1e-3
              relative L2 error; images/s, device ms per forward,
              ``ovsf_decompress`` and ``fwht`` ms per forward and the idle
-             share.
+             share. SqueezeNet-1.1 also runs under the default paths. Every
+             phase then replays the same forward from a CUDA graph
+             (``cnn.CapturedForward``, one per (arch, batch, plan)): its
+             logits must equal the eager forward's bit for bit and its
+             launch counters the plan's; over the profiled forwards the
+             hand-written kernels' launches by name must equal eager's and
+             the wrappers' counters, and all kernels per forward eager's; a
+             second batch's graph (one image) must
+             give its eager logits and leave the first batch's intact, and
+             the reverse; it prints its wall, device busy, idle share and
+             kernels per forward beside eager's.
   7. calibrate: every OVSF conv of full-width ResNet-50 (13) and
              SqueezeNet-1.1 (6), matrix mode, fp32, batch 8, at its real
              im2col shape (``hwmodel.cnn_workload``), through
@@ -136,6 +163,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -698,135 +726,321 @@ STYLES = {"paged packed": dict(paged=True, packed=True),
           "contiguous packed": dict(packed=True),
           "paged window": dict(paged=True)}
 
-def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
-                style: str = "paged packed"):
-    """Serve 8 requests at full width with alphas in bf16 (``""``), int8 or
-    int4, in one engine style (``STYLES``); the engine plans its OVSF
-    layers with the mapper (target h100)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.ovsf import alpha_params
+def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
+              capture: bool, calibrate: bool) -> tuple:
+    """One engine in ``style`` over ``reqs``, replaying its step graphs
+    (``capture``) or eager: (engine, dict of stats, launch counters zeroed
+    just before, chunk-free step count, token streams, each step's
+    (chunk-free, fp32 logits on the host) and the peak memory the run
+    reserved above what was reserved at its start (the params, another
+    engine))."""
     from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.kernels.decode_attn import (flash_decode_attn,
                                                  paged_flash_decode)
+    from repro_torch.serving import LLMEngine
+    eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
+                    chunk_size=64, calibrate=calibrate, device=dev,
+                    capture=capture, **STYLES[style])
+    steps = []
+    core_step = eng.core.step
+
+    def recording_step(so, last=None):
+        out = core_step(so, last)
+        if so.decode_slots or so.chunks:
+            steps.append((bool(not so.chunks),
+                          eng.core.logits.to("cpu", copy=True)))
+        return out
+
+    eng.core.step = recording_step
+    G.reset_launches()
+    paged_flash_decode.launches = 0
+    flash_decode_attn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_reserved(dev)     # params, the other engine
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not eng.submit(r):
+            raise RuntimeError(f"{tag} request {r.rid} was rejected")
+    stats = eng.run_until_drained(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.core.step = core_step
+    launches = {"ovsf_gemm": G.ovsf_gemm.launches,
+                "paged_flash_decode": paged_flash_decode.launches,
+                "flash_decode_attn": flash_decode_attn.launches}
+    outs = eng.outputs()
+    bad = [(o.rid, o.finish_reason) for o in outs
+           if o.finish_reason not in ("eos", "length")]
+    if len(outs) != len(reqs) or bad:
+        raise RuntimeError(f"{tag} {len(outs)} of {len(reqs)} finished; "
+                           f"bad={bad}")
+    for o in outs:
+        if not o.tokens or not all(0 <= t < cfg.vocab for t in o.tokens):
+            raise RuntimeError(f"{tag} request {o.rid} tokens {o.tokens}")
+    return eng, dict(
+        stats=dataclasses.replace(stats), wall=wall, launches=launches,
+        by_alpha=dict(G.ovsf_gemm.launches_by_alpha),
+        by_kernel=dict(G.ovsf_gemm.launches_by_kernel),
+        chunk_free=sum(cf for cf, _l in steps), steps=steps,
+        tokens={o.rid: list(o.tokens) for o in outs},
+        step_shapes=sorted(eng.core.step_shapes),
+        graphs=sorted(eng.core.graphs.keys()),
+        peak_mib=(torch.cuda.max_memory_reserved(dev) - base) / 2**20)
+
+
+def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
+                style: str = "paged packed", dtype: str = "bfloat16"):
+    """Serve 8 requests at full width (model ``dtype``) with alphas in the
+    model's type (``""``), int8 or int4, in one engine style (``STYLES``);
+    the engine plans its OVSF layers with the mapper (target h100). The
+    same params and requests run twice: eagerly (``capture=False``) and
+    replaying the step graphs (the engine's default). Both must give the
+    same token streams, every chunk-free step's logits bit for bit, the
+    same launch counts (counters over the run, profiler kernels per
+    chunk-free step); the graph run holds at most 3 packed and 2 window
+    graphs, keyed as ``step_shapes``, and its chunk-free step wall must be
+    below eager's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ovsf import alpha_params
     from repro_torch.models import registry as R
-    from repro_torch.serving import LLMEngine, Request, SamplingParams
+    from repro_torch.serving import Request, SamplingParams
     adt = alpha_dtype or "fp"
     kw = STYLES[style]
-    tag = (f"[serve {alpha_dtype or 'bf16'}"
-           + ("]" if style == "paged packed" else f" {style}]"))
-    cfg = get_config("tinyllama_1_1b")
+    x_name = "bf16" if dtype == "bfloat16" else "fp32"
+    tag = (f"[serve {alpha_dtype or x_name}"
+           + ("]" if style == "paged packed" and dtype == "bfloat16"
+              else f" {style}]"))
+    cfg = get_config("tinyllama_1_1b").replace(dtype=dtype)
     cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,
                                                alpha_dtype=alpha_dtype))
     t0 = time.perf_counter()
     params = R.model_init(cfg, seed, dev)
     torch.cuda.synchronize()
-    print(f"{tag} {cfg.name} bf16, alphas {alpha_dtype or 'bf16'}: "
+    print(f"{tag} {cfg.name} {x_name}, alphas {alpha_dtype or x_name}: "
           f"{R.param_count(params)/1e9:.3f}B stored values initialised on "
           f"the card in {time.perf_counter() - t0:.2f}s", flush=True)
-    # the calibration loop rides the bf16 paged packed run
-    calibrate = style == "paged packed" and not alpha_dtype
-    eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
-                    chunk_size=64, calibrate=calibrate, device=dev, **kw)
-    plan = {n: p.path for n, p in eng.cfg.exec_plan.entries}
-    print(f"{tag} mapper plan (hw {eng.cfg.exec_plan.hw_label}, decode at "
-          "4 slots): "
-          + ", ".join(f"{n}={p}" for n, p in plan.items()), flush=True)
     # full width: q, o, gate, up, down are OVSF (k/v, 256 wide, are dense)
     block = params["blocks"][0]
     ovsf_layers = {f"{grp}_{k}": p for grp in ("attn", "mlp")
                    for k, p in block[grp].items() if "idx" in p}
-    if sorted(plan) != sorted(ovsf_layers) or set(plan.values()) != {"fused"}:
-        raise RuntimeError(f"serve: the plan {plan} is not 'fused' on every "
-                           f"OVSF weight type {sorted(ovsf_layers)}")
     stored = {alpha_params(p)[2] for p in ovsf_layers.values()}
     if stored != {alpha_dtype}:
         raise RuntimeError(f"serve: OVSF layers store {stored} alphas, "
                            f"expected {adt}")
     rng = np.random.default_rng(seed)
-    reqs = []
+    specs = []
     for rid in range(8):
-        sp = (SamplingParams(temperature=0.8, top_k=40, seed=rid)
-              if rid in (2, 5) else SamplingParams())
+        sp = (dict(temperature=0.8, top_k=40, seed=rid) if rid in (2, 5)
+              else {})
         prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 150)),
                               dtype=np.int32)
-        reqs.append(Request(rid, prompt, max_new_tokens=16, sampling=sp))
-    chunk_free = [0]
-    core_step = eng.core.step
-
-    def counting_step(so, last=None):
-        chunk_free[0] += bool(so.decode_slots and not so.chunks)
-        return core_step(so, last)
-
-    eng.core.step = counting_step
-    G.reset_launches()
-    paged_flash_decode.launches = 0
-    flash_decode_attn.launches = 0
-    t0 = time.perf_counter()
-    for r in reqs:
-        if not eng.submit(r):
-            raise RuntimeError(f"request {r.rid} was rejected")
-    stats = eng.run_until_drained(max_steps=1000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    eng.core.step = core_step
-    launches = {"ovsf_gemm": G.ovsf_gemm.launches_by_alpha[adt],
-                "paged_flash_decode": paged_flash_decode.launches,
-                "flash_decode_attn": flash_decode_attn.launches}
-    by_kernel = dict(G.ovsf_gemm.launches_by_kernel)
-    if G.ovsf_gemm.launches != launches["ovsf_gemm"]:
+        specs.append((rid, prompt, sp))
+    # the calibration loop rides the bf16 paged packed run
+    calibrate = style == "paged packed" and not alpha_dtype and \
+        dtype == "bfloat16"
+    # both engines stay alive until their profiled windows agree
+    runs, engines, walls = {}, {}, {}
+    for mode in ("eager", "graph"):
+        reqs = [Request(rid, prompt, max_new_tokens=16,
+                        sampling=SamplingParams(**sp))
+                for rid, prompt, sp in specs]
+        eng, run = serve_run(params, cfg, dev, style, reqs, f"{tag} {mode}",
+                             mode == "graph", calibrate and mode == "graph")
+        if mode == "graph":
+            plan = {n: p.path for n, p in eng.cfg.exec_plan.entries}
+            print(f"{tag} mapper plan (hw {eng.cfg.exec_plan.hw_label}, "
+                  "decode at 4 slots): "
+                  + ", ".join(f"{n}={p}" for n, p in plan.items()),
+                  flush=True)
+            if sorted(plan) != sorted(ovsf_layers) or \
+                    set(plan.values()) != {"fused"}:
+                raise RuntimeError(f"serve: the plan {plan} is not 'fused' "
+                                   f"on every OVSF weight type "
+                                   f"{sorted(ovsf_layers)}")
+            if calibrate:
+                calibration = serve_calibration(eng, cfg, run["chunk_free"],
+                                                tag)
+        runs[mode], engines[mode] = run, eng
+        walls[mode] = decode_ready(eng, cfg, np.random.default_rng(seed + 1))
+    windows = agreed_windows({m: e.step for m, e in engines.items()},
+                             DECODE_STEPS, tag)
+    profiles = {m: decode_profile(e, f"{tag} {m}", walls[m], windows[m])
+                for m, e in engines.items()}
+    graph_eng = engines["graph"]
+    profiles["graph"]["replay_ms"] = replay_span(
+        graph_eng, tuple(profiles["graph"]["step_shapes"][0]))
+    del eng, engines, graph_eng
+    eager, graph = runs["eager"], runs["graph"]
+    launches, by_kernel = graph["launches"], graph["by_kernel"]
+    steps = graph["stats"].steps
+    if graph["by_alpha"][adt] != launches["ovsf_gemm"]:
         raise RuntimeError(f"serve: ovsf_gemm launched with other alpha "
-                           f"storage than {adt}: "
-                           f"{G.ovsf_gemm.launches_by_alpha}")
-    # bf16 x: every ovsf_gemm launch goes to the tensor-core kernel
-    if by_kernel["tensor_core"] != launches["ovsf_gemm"]:
+                           f"storage than {adt}: {graph['by_alpha']}")
+    # bf16 x: every ovsf_gemm launch on the tensor-core kernel; fp32 x
+    # (segmented codes) on the CUDA-core one
+    kernel = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    if by_kernel[kernel] != launches["ovsf_gemm"]:
         raise RuntimeError(f"serve: ovsf_gemm launches by kernel "
                            f"{by_kernel}, expected all "
-                           f"{launches['ovsf_gemm']} on tensor_core")
-    outs = eng.outputs()
-    bad = [(o.rid, o.finish_reason) for o in outs
-           if o.finish_reason not in ("eos", "length")]
-    if len(outs) != 8 or bad:
-        raise RuntimeError(f"serve: {len(outs)} of 8 finished; bad={bad}")
-    for o in outs:
-        if not o.tokens or not all(0 <= t < cfg.vocab for t in o.tokens):
-            raise RuntimeError(f"serve: request {o.rid} tokens {o.tokens}")
+                           f"{launches['ovsf_gemm']} on {kernel}")
     # the attention kernel of the style: paged steps run the paged kernel
     # at every step; the contiguous packed step runs flash_decode_attn at
     # every step; the contiguous window runs it on chunk-free steps only
     # (steps with chunks attend through the plain S > 1 product)
-    n_layers, steps = cfg.n_layers, stats.steps
+    n_layers = cfg.n_layers
     attn = ("paged_flash_decode" if kw.get("paged")
             else "flash_decode_attn")
     attn_steps = (steps if kw.get("paged") or kw.get("packed")
-                  else chunk_free[0])
+                  else graph["chunk_free"])
     want = {"ovsf_gemm": len(ovsf_layers) * n_layers * steps,
             "paged_flash_decode": 0, "flash_decode_attn": 0}
     want[attn] = n_layers * attn_steps
     if launches != want or not want["ovsf_gemm"] or not want[attn]:
         raise RuntimeError(f"serve: launched {launches} in {steps} steps "
-                           f"({chunk_free[0]} chunk-free), expected {want}")
+                           f"({graph['chunk_free']} chunk-free), expected "
+                           f"{want}")
+    compare = graph_vs_eager(tag, eager, graph, profiles)
+    stats = graph["stats"]
+    wall = graph["wall"]
     tok_s = stats.tokens_out / wall
     print(f"{tag} 8/8 finished: steps={steps} chunk_free_steps="
-          f"{chunk_free[0]} tokens={stats.tokens_out} wall={wall:.3f}s "
-          f"({tok_s:.1f} tok/s on {card}) decode_s={stats.decode_s:.3f} "
-          f"mixed_s={stats.mixed_s:.3f} launches={launches} "
+          f"{graph['chunk_free']} tokens={stats.tokens_out} wall={wall:.3f}s "
+          f"({tok_s:.1f} tok/s on {card}; eager {eager['wall']:.3f}s) "
+          f"decode_s={stats.decode_s:.3f} (eager "
+          f"{eager['stats'].decode_s:.3f}) mixed_s={stats.mixed_s:.3f} "
+          f"(eager {eager['stats'].mixed_s:.3f}) launches={launches} "
           f"ovsf_gemm by kernel {by_kernel} "
-          f"padding_efficiency={stats.padding_efficiency:.3f} "
-          f"T_alloc={eng.core.T_alloc}", flush=True)
-    result = dict(alpha_dtype=adt, style=style, plan=plan, steps=steps,
-                  chunk_free_steps=chunk_free[0], T_alloc=eng.core.T_alloc,
+          f"padding_efficiency={stats.padding_efficiency:.3f}", flush=True)
+    result = dict(alpha_dtype=adt, dtype=dtype, style=style, plan=plan,
+                  steps=steps, chunk_free_steps=graph["chunk_free"],
                   tokens_out=stats.tokens_out, wall_s=wall, tok_s=tok_s,
-                  decode_s=stats.decode_s, mixed_s=stats.mixed_s,
+                  eager_wall_s=eager["wall"], decode_s=stats.decode_s,
+                  eager_decode_s=eager["stats"].decode_s,
+                  mixed_s=stats.mixed_s,
+                  eager_mixed_s=eager["stats"].mixed_s,
                   launches=launches, ovsf_gemm_by_kernel=by_kernel,
                   padding_efficiency=stats.padding_efficiency,
-                  tokens={o.rid: list(o.tokens) for o in outs})
+                  tokens=graph["tokens"], graph_vs_eager=compare,
+                  decode_profile=profiles["graph"],
+                  eager_decode_profile=profiles["eager"])
     if calibrate:
-        result["calibration"] = serve_calibration(eng, cfg, chunk_free[0],
-                                                  tag)
-    result["decode_profile"] = profile_decode(eng, cfg, rng, tag)
-    del eng, params
+        result["calibration"] = calibration
+    del params
     torch.cuda.empty_cache()
     return result, launches
+
+
+def replay_span(eng, key: tuple, n: int = 10) -> float:
+    """Device ms of one replay of the chunk-free step's graph ``key``,
+    between CUDA events over n back-to-back replays: its kernels and the
+    gaps between them, without the step's host work. The replays rerun the
+    last step (a window step advances ``pos`` by its n_tok each time, well
+    inside the buffer) on an engine about to be discarded."""
+    g = eng.core.graphs._entries[key].graph
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_vs_eager(tag: str, eager: dict, graph: dict, profiles: dict
+                   ) -> dict:
+    """The graph run against the eager one: token streams equal (greedy
+    and sampled), every chunk-free step's logits bit for bit (mixed steps
+    counted), launch counters equal, at most 3 packed and 2 window graphs
+    keyed as ``step_shapes``, profiler launches of each hand-written kernel
+    over the profiled chunk-free steps equal (and equal to the wrappers'
+    counters), all kernels per step equal, and the chunk-free step wall
+    below eager's."""
+    if graph["tokens"] != eager["tokens"]:
+        diff = [r for r in eager["tokens"]
+                if graph["tokens"].get(r) != eager["tokens"][r]]
+        raise RuntimeError(f"{tag} graph streams differ from eager for "
+                           f"requests {diff}")
+    flags = [cf for cf, _l in graph["steps"]]
+    if flags != [cf for cf, _l in eager["steps"]]:
+        raise RuntimeError(f"{tag} graph and eager runs took other steps")
+    equal = [torch.equal(g, e) for (_c, g), (_d, e)
+             in zip(graph["steps"], eager["steps"])]
+    free = [eq for cf, eq in zip(flags, equal) if cf]
+    mixed = [eq for cf, eq in zip(flags, equal) if not cf]
+    if not free or not all(free):
+        raise RuntimeError(f"{tag} chunk-free step logits bit-equal to "
+                           f"eager in {sum(free)} of {len(free)} steps")
+    if graph["launches"] != eager["launches"] or \
+            graph["by_kernel"] != eager["by_kernel"]:
+        raise RuntimeError(f"{tag} launches: graph {graph['launches']} "
+                           f"{graph['by_kernel']}, eager {eager['launches']} "
+                           f"{eager['by_kernel']}")
+    keys, shapes = graph["graphs"], graph["step_shapes"]
+    n_packed = sum(k == "packed" for k, _n in keys)
+    if keys != shapes or n_packed > 3 or len(keys) - n_packed > 2:
+        raise RuntimeError(f"{tag} graphs {keys}, step_shapes {shapes}: "
+                           "at most 3 packed and 2 window graphs, one a "
+                           "step shape")
+    pg, pe = profiles["graph"], profiles["eager"]
+    # the hand-written kernels, by name over the profiled window (each
+    # mode's also equal to its wrappers' counters: ``check_own``), and all
+    # kernels per step, exactly; the names whose counts differ are printed
+    if (pg["own"] is None) != (pe["own"] is None) or pg["own"] != pe["own"] \
+            or pg["wrappers"] != pe["wrappers"]:
+        raise RuntimeError(f"{tag} profiler launches of the hand-written "
+                           f"kernels: graph {pg['own']}, eager {pe['own']};"
+                           f" wrappers graph {pg['wrappers']}, eager "
+                           f"{pe['wrappers']}")
+    diff = ("not measured" if pg["by_name"] is None
+            else count_diff(pg["by_name"], pe["by_name"]))
+    if pg["kernels_per_step"] != pe["kernels_per_step"]:
+        raise RuntimeError(f"{tag} profiler kernels per chunk-free step: "
+                           f"graph {pg['kernels_per_step']}, eager "
+                           f"{pe['kernels_per_step']}; differing: {diff}")
+    if not pg["step_ms"] < pe["step_ms"]:
+        raise RuntimeError(f"{tag} chunk-free step wall {pg['step_ms']:.3f}"
+                           f" ms replayed, not below eager's "
+                           f"{pe['step_ms']:.3f}")
+    idle = {m: ("not measured" if p["idle_share"] is None
+                else f"{p['idle_share']:.3f}") for m, p in profiles.items()}
+    # the replayed step's idle time by cause: gaps inside the graph (its
+    # span less the kernels' busy time) and host work (wall less span)
+    span = pg["replay_ms"]
+    gaps = ("not measured" if pg["busy_ms"] is None
+            else f"{span - pg['busy_ms']:.3f} ms")
+    print(f"{tag} graph vs eager: token streams equal ({len(eager['tokens'])}"
+          f" requests, 2 sampled); logits bit-equal in {sum(free)} of "
+          f"{len(free)} chunk-free steps and {sum(mixed)} of {len(mixed)} "
+          f"mixed steps; launches equal {graph['launches']}; "
+          f"{len(keys)} graphs captured {keys} (step_shapes {shapes}); "
+          f"chunk-free step wall {pg['step_ms']:.3f} ms (eager "
+          f"{pe['step_ms']:.3f}), idle share {idle['graph']} (eager "
+          f"{idle['eager']}), kernels per step {pg['kernels_per_step']} "
+          f"(eager {pe['kernels_per_step']}) over {pg['windows']} profiled "
+          f"windows each; in {DECODE_STEPS} profiled steps the "
+          f"hand-written kernels by name {pg['own']} (eager equal), the "
+          f"wrappers' counters {pg['wrappers']} (eager equal), kernels whose "
+          f"counts differ: {diff}; peak reserved above the run's start "
+          f"{graph['peak_mib']:.0f} MiB (eager {eager['peak_mib']:.0f}); "
+          f"a replay spans {span:.3f} ms "
+          f"on the device (gaps between kernels {gaps}), host work "
+          f"{pg['step_ms'] - span:.3f} ms a step", flush=True)
+    return dict(streams_equal=True, chunk_free_bit_equal=sum(free),
+                chunk_free_steps=len(free), mixed_bit_equal=sum(mixed),
+                mixed_steps=len(mixed), graphs=[list(k) for k in keys],
+                step_shapes=[list(k) for k in shapes],
+                step_ms=pg["step_ms"], eager_step_ms=pe["step_ms"],
+                idle_share=pg["idle_share"],
+                eager_idle_share=pe["idle_share"], replay_ms=span,
+                kernels_per_step=pg["kernels_per_step"],
+                eager_kernels_per_step=pe["kernels_per_step"],
+                own_kernels=pg["own"], wrappers=pg["wrappers"],
+                kernels_differing=diff, peak_mib=graph["peak_mib"],
+                eager_peak_mib=eager["peak_mib"], windows=pg["windows"])
 
 
 def same_plan(got, want) -> bool:
@@ -882,47 +1096,215 @@ def serve_calibration(eng, cfg, chunk_free: int, tag: str) -> dict:
                                   tuned_total_s=tune.tuned_total_s))
 
 
-def profile_decode(eng, cfg, rng, tag: str) -> dict:
-    """Where a chunk-free step's time goes: 8 steps timed on the host
-    clock, then 8 more under ``torch.profiler`` for the device time by
-    kernel; idle share = 1 - device busy time / unprofiled step wall."""
+# the hand-written kernels by their names in kernels/csrc: ovsf_gemm's
+# three kernels and its split-K sum, the two WHT kernels, the two attention
+# kernels; each wrapper launch is one of them (``ovsf_gemm``'s split-K
+# calls add one ``sum_splits_kernel``)
+OWN_KERNELS = ("ovsf_gemm_kernel", "ovsf_gemm_tc_kernel",
+               "ovsf_gemm_mono_kernel", "sum_splits_kernel",
+               "ovsf_decompress_kernel", "fwht_kernel", "paged_decode_kernel",
+               "flash_decode_kernel")
+OWN_OF_WRAPPER = {"ovsf_gemm": ("ovsf_gemm_kernel", "ovsf_gemm_tc_kernel",
+                                "ovsf_gemm_mono_kernel"),
+                  "ovsf_decompress": ("ovsf_decompress_kernel",),
+                  "fwht": ("fwht_kernel",),
+                  "paged_flash_decode": ("paged_decode_kernel",),
+                  "flash_decode_attn": ("flash_decode_kernel",)}
+
+
+def warm_schedule():
+    """A ``torch.profiler`` schedule that traces its first step unrecorded
+    and records the second (the profiler's warm-up)."""
+    from torch.profiler import schedule
+    return schedule(wait=0, warmup=1, active=1, repeat=1)
+
+
+def device_events(prof) -> list:
+    """The device's events in a ``warm_schedule`` profile: kernels, copies
+    and memsets, without the ``ProfilerStep#`` range that the schedule
+    marks on the device's timeline (it spans the window)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+MOST_WINDOWS = 6         # profiled windows per route at most (see below)
+
+
+def agreed_windows(calls: dict, n: int, tag: str, least: int = 2,
+                   most: int = MOST_WINDOWS) -> dict:
+    """Each route's call (``calls``: route -> call) n times under
+    ``torch.profiler``, in windows of the same work, each after one
+    unrecorded warm-up call, the routes in turn, window after window: per
+    route the first window's device events, each kernel's launches by name
+    (the most that any of its windows recorded) and the wrappers' counters
+    over a window (equal in every window). The profiler drops a device
+    record now and then and never adds one (up to about twenty of ~16000 in
+    a window, library and hand-written kernels alike, in both routes), so a
+    count is a lower bound that one complete window makes exact. Windows go
+    on, ``least`` at the fewest and ``most`` at the most, until the routes'
+    counts agree by name and each route's hand-written kernels agree with
+    its wrappers' counters (``check_own``). More windows cannot hide a real
+    difference: a route that truly launches fewer of a kernel never records
+    more of it than it launches. Only the device is traced: host events are
+    not read, and parsing them took most of a window's time."""
     from torch.profiler import ProfilerActivity, profile
+    got = {r: dict(first=None, counts={}, wrappers=None) for r in calls}
+    for w in range(1, most + 1):
+        for route, call in calls.items():
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=warm_schedule()) as prof:
+                call()
+                torch.cuda.synchronize()
+                prof.step()
+                reset_wrapper_counts()
+                for _ in range(n):
+                    call()
+                torch.cuda.synchronize()
+                prof.step()
+            g = got[route]
+            wrappers = wrapper_counts()
+            if g["wrappers"] not in (None, wrappers):
+                raise RuntimeError(f"{tag} {route} profiled windows launched "
+                                   f"{g['wrappers']} and {wrappers}: not "
+                                   "the same work")
+            g["wrappers"] = wrappers
+            kern = device_events(prof)
+            g["first"] = kern if g["first"] is None else g["first"]
+            for k, c in kernel_counts(kern).items():
+                g["counts"][k] = max(g["counts"].get(k, 0), c)
+        counts = [g["counts"] for g in got.values()]
+        if w >= least and all(c == counts[0] for c in counts) and all(
+                not g["counts"] or own_seen(own_counts(g["counts"]))
+                == g["wrappers"] for g in got.values()):
+            break
+    for g in got.values():
+        g["windows"] = w
+    return got
+
+
+def kernel_counts(events) -> dict:
+    """Launches by kernel name among the profiler's device events. Copies
+    and memsets are not kernels: neither the ``Memcpy``/``Memset`` records
+    nor the driver's own kernels that carry out a graph's copy node now and
+    then (``memcpy32_post``: one D2D copy a replayed step, recorded so in
+    some windows and as ``Memcpy DtoD`` in others, NVIDIA H100 80GB HBM3)."""
+    return {e.key: e.count for e in events
+            if not e.key.lower().startswith(("memcpy", "memset"))}
+
+
+def own_counts(counts: dict) -> dict:
+    """Launches of each of ``OWN_KERNELS`` in ``kernel_counts``."""
+    return {k: sum(c for key, c in counts.items()
+                   if re.search(rf"\b{k}\b", key)) for k in OWN_KERNELS}
+
+
+def reset_wrapper_counts() -> None:
+    """Zero every kernel wrapper's launch counter."""
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                                 paged_flash_decode)
+    from repro_torch.kernels.fwht import fwht
+    G.reset_launches()
+    paged_flash_decode.launches = flash_decode_attn.launches = 0
+    fwht.launches = 0
+
+
+def wrapper_counts() -> dict:
+    """Each kernel wrapper's launch counter (a replay adds its graph's)."""
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                                 paged_flash_decode)
+    from repro_torch.kernels.fwht import fwht
+    return {"ovsf_gemm": G.ovsf_gemm.launches,
+            "ovsf_decompress": G.ovsf_decompress.launches,
+            "fwht": fwht.launches,
+            "paged_flash_decode": paged_flash_decode.launches,
+            "flash_decode_attn": flash_decode_attn.launches}
+
+
+def own_seen(own: dict) -> dict:
+    """``own_counts`` summed per kernel wrapper (``OWN_OF_WRAPPER``)."""
+    return {w: sum(own[k] for k in ks) for w, ks in OWN_OF_WRAPPER.items()}
+
+
+def check_own(tag: str, own: dict, wrappers: dict) -> None:
+    """The wrappers' counters over a profiled window against the profiler's
+    launches of their kernels, by name, in the same window: equal."""
+    seen = own_seen(own)
+    if seen != wrappers:
+        raise RuntimeError(f"{tag} the profiler saw {seen} launches of the "
+                           f"hand-written kernels ({own}), the wrappers "
+                           f"counted {wrappers}")
+
+
+def count_diff(graph: dict, eager: dict) -> str:
+    """The kernels whose profiler counts differ between two routes."""
+    names = sorted(set(graph) | set(eager))
+    out = [f"{k[:70]} {graph.get(k, 0)} vs {eager.get(k, 0)}" for k in names
+           if graph.get(k, 0) != eager.get(k, 0)]
+    return "; ".join(out) if out else "none"
+
+
+DECODE_STEPS = 8         # chunk-free steps a timing or a profiled window
+
+
+def decode_ready(eng, cfg, rng) -> float:
+    """Four requests of 48 prompt tokens into ``eng``, stepped until every
+    slot decodes; then the chunk-free step wall (ms, host clock) over
+    ``DECODE_STEPS`` steps. Each request asks for enough tokens that
+    ``agreed_windows`` can take ``MOST_WINDOWS`` windows of chunk-free steps
+    after it."""
     from repro_torch.serving import Request
     for rid in range(100, 104):
         eng.submit(Request(rid, rng.integers(0, cfg.vocab, 48, dtype=np.int32),
-                           max_new_tokens=24))
+                           max_new_tokens=2 * DECODE_STEPS
+                           + (DECODE_STEPS + 1) * MOST_WINDOWS))
     for _ in range(3):                  # prompts in; every slot decodes after
         eng.step()
     torch.cuda.synchronize()
     eng.core.step_shapes = set()
-    n = 8
     t0 = time.perf_counter()
-    for _ in range(n):
+    for _ in range(DECODE_STEPS):
         eng.step()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng.step()
-        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+
+
+def decode_profile(eng, tag: str, step_ms: float, windows: dict) -> dict:
+    """Where a chunk-free step's time goes, from ``eng``'s profiled windows
+    (``agreed_windows``, ``DECODE_STEPS`` steps each): the device time by
+    kernel (the first window) and the kernels launched per step (copies
+    and memsets not counted); idle share = 1 - device busy time /
+    unprofiled step wall (``decode_ready``). Drains ``eng``."""
+    n = DECODE_STEPS
+    kern, by_name, wrappers = (windows["first"], windows["counts"],
+                               windows["wrappers"])
     eng.run_until_drained()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / n / 1e3
     top = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
                   for e in kern), reverse=True)[:10]
     if not kern or busy_ms <= 0:
         print(f"{tag} torch.profiler recorded no device time: device "
               "busy share not measured", flush=True)
-        return dict(step_ms=step_ms, busy_ms=None, idle_share=None, top=[])
+        return dict(step_ms=step_ms, busy_ms=None, idle_share=None,
+                    kernels_per_step=None, by_name=None, own=None,
+                    wrappers=wrappers, windows=windows["windows"],
+                    step_shapes=sorted(eng.core.step_shapes), top=[])
+    kernels = sum(by_name.values()) / n
+    own = own_counts(by_name)
+    check_own(tag, own, wrappers)
     idle = 1.0 - busy_ms / step_ms
     shape = ", ".join(f"{k} {n}" for k, n in sorted(eng.core.step_shapes))
     print(f"{tag} chunk-free step ({shape}): wall {step_ms:.3f}ms, "
-          f"device busy {busy_ms:.3f}ms, idle share {idle:.3f}", flush=True)
+          f"device busy {busy_ms:.3f}ms, idle share {idle:.3f}, "
+          f"{kernels:g} kernels a step ({windows['windows']} profiled "
+          "windows)", flush=True)
     for ms, cnt, key in top:
         print(f"{tag}   {ms:.4f}ms/step x{cnt}/step  {key[:90]}", flush=True)
     return dict(step_ms=step_ms, busy_ms=busy_ms, idle_share=idle,
+                kernels_per_step=kernels, by_name=by_name, own=own,
+                wrappers=wrappers, windows=windows["windows"],
                 step_shapes=sorted(eng.core.step_shapes),
                 top=[dict(ms_per_step=ms, launches_per_step=cnt, kernel=key)
                      for ms, cnt, key in top])
@@ -1519,7 +1901,6 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
     the CPU, then images/s on the host clock and device time by kernel from
     ``torch.profiler``."""
     from collections import Counter
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.kernels.decode_attn import (flash_decode_attn,
@@ -1596,24 +1977,86 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
         raise RuntimeError(f"{tag} relative error {rel:.3e} > 1e-3")
 
     n = 10
+
+    def eager_call():
+        return forward(params, state, x)
+    graph, eager = cnn_graph_phase(tag, params, state, cfg, x, logits, want,
+                                   n, eager_call, forward_wall(eager_call, n))
+    del params, state, x
+    torch.cuda.empty_cache()
+    images_s = B / eager["wall_ms"] * 1e3
+    result = dict(arch=arch, ovsf_mode=cfg.ovsf_mode, batch=B,
+                  in_hw=cfg.in_hw, tf32=False, plan=label,
+                  plan_path_counts=plan_paths_count, launches=launches,
+                  ovsf_gemm_launches_by_kernel=by_kernel_launches,
+                  rel_err=rel, cpu_forward_s=t_cpu,
+                  wall_ms=eager["wall_ms"], images_s=images_s, graph=graph)
+    graph_line = (f"{tag} graph replay ({graph['graphs']} graph): logits "
+                  f"bit-equal to eager; wall {graph['wall_ms']:.3f}ms "
+                  f"(eager {eager['wall_ms']:.3f}), "
+                  f"{B / graph['wall_ms'] * 1e3:.1f} images/s")
+    if eager["busy_ms"] is None:
+        print(f"{tag} {images_s:.1f} images/s on {card} (wall "
+              f"{eager['wall_ms']:.3f}ms per forward); torch.profiler "
+              "recorded no device time: device ms and idle share not "
+              "measured", flush=True)
+        print(graph_line, flush=True)
+        return dict(result, busy_ms=None, kernel_ms=None, idle_share=None,
+                    top=[])
+    print(f"{tag} {images_s:.1f} images/s on {card} (TF32 off): wall "
+          f"{eager['wall_ms']:.3f}ms per forward, device busy "
+          f"{eager['busy_ms']:.3f}ms, "
+          + ", ".join(f"{k} {v:.4f}ms" for k, v in eager["by_kernel"].items())
+          + f", idle share {eager['idle_share']:.3f}, "
+          f"{eager['kernels']:g} kernels", flush=True)
+    for ms, cnt, key in eager["top"]:
+        print(f"{tag}   {ms:.4f}ms/forward x{cnt}/forward  {key[:90]}",
+              flush=True)
+    if graph["busy_ms"] is None:
+        print(f"{graph_line}; torch.profiler recorded no device time for "
+              "the replays: device ms and idle share not measured",
+              flush=True)
+    else:
+        print(f"{graph_line}; device busy {graph['busy_ms']:.3f}ms (eager "
+              f"{eager['busy_ms']:.3f}), idle share "
+              f"{graph['idle_share']:.3f} (eager {eager['idle_share']:.3f}),"
+              f" {graph['kernels']:g} kernels (eager {eager['kernels']:g}) "
+              f"over {graph['windows']} profiled windows each;"
+              f" over {n} forwards the hand-written kernels by name "
+              f"{graph['own']} (eager equal), the wrappers' counters "
+              f"{graph['wrappers']} (eager equal), kernels whose counts "
+              f"differ: {graph['kernels_differing']}; a second batch's "
+              "graph leaves both batches' logits intact", flush=True)
+    return dict(result, busy_ms=eager["busy_ms"],
+                kernel_ms=eager["by_kernel"], idle_share=eager["idle_share"],
+                top=[dict(ms_per_forward=ms, launches_per_forward=cnt,
+                          kernel=key) for ms, cnt, key in eager["top"]])
+
+
+def forward_wall(call, n: int) -> float:
+    """A CNN forward's wall (ms, host clock over n forwards, after two)."""
     for _ in range(2):
-        forward(params, state, x)
+        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        forward(params, state, x)
+        call()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            forward(params, state, x)
-        torch.cuda.synchronize()
-    del params, state, x
-    torch.cuda.empty_cache()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def forward_profile(windows: dict, wall_ms: float, n: int) -> dict:
+    """From a route's profiled windows of n forwards (``agreed_windows``)
+    and its wall (``forward_wall``): device busy ms (None when the profiler
+    records none), the OVSF kernels' ms, kernels launched and idle share,
+    per forward."""
+    kern, by_name, wrappers = (windows["first"], windows["counts"],
+                               windows["wrappers"])
     busy_ms = sum(e.self_device_time_total for e in kern) / n / 1e3
+    if not kern or busy_ms <= 0:
+        return dict(wall_ms=wall_ms, busy_ms=None, by_kernel=None,
+                    idle_share=None, kernels=None, top=[], by_name=None,
+                    own=None, wrappers=wrappers, windows=windows["windows"])
     # ovsf_gemm's three kernels are ovsf_gemm_kernel, ovsf_gemm_tc_kernel
     # and ovsf_gemm_mono_kernel
     pats = {"ovsf_decompress": ("ovsf_decompress_kernel",),
@@ -1625,32 +2068,88 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
                  for name in pats}
     top = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
                   for e in kern), reverse=True)[:8]
-    images_s = B / wall_ms * 1e3
-    result = dict(arch=arch, ovsf_mode=cfg.ovsf_mode, batch=B,
-                  in_hw=cfg.in_hw, tf32=False, plan=label,
-                  plan_path_counts=plan_paths_count, launches=launches,
-                  ovsf_gemm_launches_by_kernel=by_kernel_launches,
-                  rel_err=rel, cpu_forward_s=t_cpu, wall_ms=wall_ms,
-                  images_s=images_s)
-    if not kern or busy_ms <= 0:
-        print(f"{tag} {images_s:.1f} images/s on {card} (wall "
-              f"{wall_ms:.3f}ms per forward); torch.profiler recorded no "
-              "device time: device ms and idle share not measured",
-              flush=True)
-        return dict(result, busy_ms=None, kernel_ms=None, idle_share=None,
-                    top=[])
-    idle = 1.0 - busy_ms / wall_ms
-    print(f"{tag} {images_s:.1f} images/s on {card} (TF32 off): wall "
-          f"{wall_ms:.3f}ms per forward, device busy {busy_ms:.3f}ms, "
-          + ", ".join(f"{k} {v:.4f}ms" for k, v in by_kernel.items())
-          + f", idle share {idle:.3f}", flush=True)
-    for ms, cnt, key in top:
-        print(f"{tag}   {ms:.4f}ms/forward x{cnt}/forward  {key[:90]}",
-              flush=True)
-    return dict(result, busy_ms=busy_ms, kernel_ms=by_kernel,
-                idle_share=idle,
-                top=[dict(ms_per_forward=ms, launches_per_forward=cnt,
-                          kernel=key) for ms, cnt, key in top])
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_kernel=by_kernel,
+                idle_share=1.0 - busy_ms / wall_ms,
+                kernels=sum(by_name.values()) / n, top=top, by_name=by_name,
+                own=own_counts(by_name), wrappers=wrappers,
+                windows=windows["windows"])
+
+
+def cnn_graph_phase(tag: str, params, state, cfg, x, logits, want: dict,
+                    n: int, eager_call, eager_wall: float) -> tuple:
+    """The same forward through ``cnn.CapturedForward``: the first call
+    captures (its eager warm-up and every replay must equal ``logits``, the
+    eager forward's, bit for bit), the launch counters zeroed before one
+    replay must read ``want``, then its wall, device busy and idle share
+    beside ``eager_call``'s (wall ``eager_wall``), both profiled in turn
+    (``agreed_windows``); over the profiled forwards, the profiler's
+    launches of each hand-written kernel must equal eager's and, in both,
+    the wrappers' counters, and all kernels per forward eager's. Returns
+    (the graph's results, eager's profile). Last, a second batch
+    (one image) is captured and replayed:
+    its logits must equal its eager forward's, and the first batch's
+    static logits must survive its replays and it those of the first."""
+    from repro_torch.models import cnn
+    fwd = cnn.CapturedForward(params, state, cfg)
+    first = fwd(x).clone()
+    reset_wrapper_counts()
+    replayed = fwd(x)
+    torch.cuda.synchronize()
+    launches = wrapper_counts()
+    keys = fwd.graphs.keys()
+    if keys != [fwd.key(x.shape[0])]:
+        raise RuntimeError(f"{tag} graphs {keys}, expected one for "
+                           f"{fwd.key(x.shape[0])[:3]}")
+    if launches != want:
+        raise RuntimeError(f"{tag} one replayed forward launched {launches}"
+                           f", expected {want}")
+    if not (torch.equal(first, logits) and torch.equal(replayed, logits)):
+        raise RuntimeError(f"{tag} graph logits differ from eager: max abs "
+                           f"{float((replayed - logits).abs().max()):.3e} "
+                           "(must be bit-equal)")
+    got_wall = forward_wall(lambda: fwd(x), n)
+    windows = agreed_windows({"eager": eager_call, "graph": lambda: fwd(x)},
+                             n, f"{tag} forward")
+    eager = forward_profile(windows["eager"], eager_wall, n)
+    got = forward_profile(windows["graph"], got_wall, n)
+    if got["own"] is not None:
+        check_own(f"{tag} graph", got["own"], got["wrappers"])
+    if eager["own"] is not None:
+        check_own(f"{tag} eager", eager["own"], eager["wrappers"])
+    if got["own"] != eager["own"] or got["wrappers"] != eager["wrappers"]:
+        raise RuntimeError(f"{tag} profiler launches of the hand-written "
+                           f"kernels over {n} forwards: graph {got['own']}, "
+                           f"eager {eager['own']}; wrappers graph "
+                           f"{got['wrappers']}, eager {eager['wrappers']}")
+    diff = ("not measured" if got["by_name"] is None
+            else count_diff(got["by_name"], eager["by_name"]))
+    if got["kernels"] != eager["kernels"]:
+        raise RuntimeError(f"{tag} profiler kernels per forward: graph "
+                           f"{got['kernels']}, eager {eager['kernels']}; "
+                           f"differing: {diff}")
+    big = fwd(x)
+    one = x[:1].clone()
+    fwd(one)                            # captures the second batch
+    small = fwd(one)
+    small_kept = small.clone()
+    with torch.no_grad():
+        small_eager = cnn.cnn_apply(params, state, cfg, one)[0]
+    if not (torch.equal(big, logits) and torch.equal(small, small_eager)):
+        raise RuntimeError(f"{tag} batch {x.shape[0]} logits overwritten by "
+                           "the batch-1 graph, or batch-1 logits differ from "
+                           "eager")
+    fwd(x)
+    if not torch.equal(small, small_kept) or len(fwd.graphs.keys()) != 2:
+        raise RuntimeError(f"{tag} batch-1 logits overwritten by a batch "
+                           f"{x.shape[0]} replay (graphs "
+                           f"{len(fwd.graphs.keys())})")
+    del fwd
+    return dict(graphs=1, bit_equal=True, launches=launches,
+                kernels_differing=diff, own=got["own"],
+                wrappers=got["wrappers"],
+                **{k: got[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                       "kernels", "by_kernel", "windows")}
+                ), eager
 
 
 def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
@@ -1781,6 +2280,8 @@ def main(argv=None) -> int:
     for style in ("contiguous window", "contiguous packed", "paged window"):
         styles[style], launches[style] = serve_phase(args.seed, card, dev,
                                                      "", style)
+    serve_fp32 = {style: serve_phase(args.seed, card, dev, "", style,
+                                     "float32")[0] for style in STYLES}
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
     parity_contiguous = parity_contiguous_phase(args.seed, dev)
     from repro_torch.configs import get_config
@@ -1803,6 +2304,9 @@ def main(argv=None) -> int:
                 ("squeezenet1_1", "matrix", 0,
                  planned("squeezenet1_1", ("fused",)), "fused"),
                 ("resnet50", "matrix", 0, planned("resnet50", DEFAULT_PATHS),
+                 "+".join(DEFAULT_PATHS)),
+                ("squeezenet1_1", "matrix", 0,
+                 planned("squeezenet1_1", DEFAULT_PATHS),
                  "+".join(DEFAULT_PATHS)))]
     fused_r50 = next(c for c in cnns if c["arch"] == "resnet50"
                      and c["plan"] == "fused")
@@ -1888,6 +2392,7 @@ def main(argv=None) -> int:
                                               "ResNet-50 forward"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
+                   "serve_fp32": serve_fp32,
                    "parity": parity, "parity_contiguous": parity_contiguous,
                    "cnn": cnns, "calibration": calib}, f,
                   indent=1)

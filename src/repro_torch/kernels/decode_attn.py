@@ -84,7 +84,8 @@ def sm_count(device) -> int:
 def _scratch(out: torch.Tensor, splits: int):
     """The splits' fp32 partials for out (T, H, hd): (acc (T * H, splits,
     hd rounded up to 4), (m, l) (T * H, splits, 2)); with one split they
-    are unread and out stands in."""
+    are unread and out stands in. Under CUDA-graph capture they come from
+    the graph's memory pool, which lives as long as the graph."""
     if splits == 1:
         return out, out
     rows, hdp = out.shape[0] * out.shape[1], -(-out.shape[2] // 4) * 4

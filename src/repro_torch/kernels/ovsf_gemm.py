@@ -62,7 +62,7 @@ _TC_COLS = {"": 8, "int8": 16, "int4": 32}
 TC_PARTIAL_SHARE = 4.0
 _TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                 + [ctypes.c_void_p])
-_TICKETS: dict = {}           # device -> zeroed uint32 tickets
+_TICKETS: dict = {}           # device -> every ticket buffer, newest last
 
 
 _DEC_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
@@ -222,17 +222,27 @@ def ticket_buffer(device, n: int) -> torch.Tensor:
     """At least n zeroed uint32 tickets on the device. Every kernel that
     merges its splits by ticket (the tensor-core ``ovsf_gemm``, both
     attention kernels) leaves them zero, so one buffer serves every launch
-    on the stream."""
-    buf = _TICKETS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = _TICKETS[device] = torch.zeros(max(n, 4096),
-                                                dtype=torch.int32,
-                                                device=device)
-    return buf
+    on the stream. A CUDA graph replays the raw address it was captured
+    with, so no buffer handed out is ever freed: a larger one is added
+    beside the others. It cannot be added while a stream is being captured
+    (its zeros would be written at the first replay, not now): an eager run
+    of the largest shape sizes it first, as the step graphs' warm-up does."""
+    bufs = _TICKETS.setdefault(device, [])
+    if bufs and bufs[-1].numel() >= n:
+        return bufs[-1]
+    if (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(f"ticket_buffer: {n} tickets asked for under "
+                           "CUDA-graph capture, more than the buffer holds; "
+                           "run the shape eagerly before capturing it")
+    bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it where its storage offset breaks 16-byte words."""
+    """t, or a copy of it where its storage offset breaks 16-byte words
+    (under CUDA-graph capture the copy lives in the graph's pool, as long
+    as the graph)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

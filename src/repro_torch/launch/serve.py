@@ -15,7 +15,10 @@ packed step over the (B, W) window, ``--paged`` the paged KV cache over the
 contiguous one. ``--calibrate`` records measured-vs-modeled step times
 (``runtime.calibrate``) and prints the table's keys and relative factors
 and the layers the calibrated re-plan would re-map, saving the table to
-``--calibration-out`` when given. Exit contract: every request must end as ``eos``,
+``--calibration-out`` when given. On the GPU every step replays a CUDA graph,
+one per step shape; the launcher prints the step shapes run and the graphs
+captured (none on the CPU, where steps run eagerly). Exit contract: every
+request must end as ``eos``,
 ``length`` or ``rejected``, else the launcher exits non-zero.
 """
 from __future__ import annotations
@@ -103,6 +106,9 @@ def main(argv=None) -> None:
     print(f"[serve] decode={stats.decode_s:.2f}s mixed={stats.mixed_s:.2f}s "
           f"padding: valid={stats.packed_tokens} batch={stats.padded_tokens} "
           f"efficiency={stats.padding_efficiency:.2f}")
+    graphs = sorted(eng.core.graphs.keys())
+    print(f"[serve] step shapes {sorted(eng.core.step_shapes)}; "
+          f"{len(graphs)} CUDA graphs captured {graphs}")
     if args.paged:
         print(f"[serve] kv_pages: total={stats.kv_pages_total} "
               f"peak_used={stats.kv_pages_used} "

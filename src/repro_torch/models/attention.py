@@ -4,7 +4,10 @@ cache, ``attn_apply_packed`` over the same cache with a packed token stream,
 ``attn_apply_paged`` over the paged pools.
 
 The caches are written IN PLACE (the reference returns new arrays; the
-returned dicts hold the same, updated, tensors). Single-token attention runs
+returned dicts hold the same, updated, tensors), and with no host sync, so
+that a step can be captured as a CUDA graph: the packed and paged writes
+send a dropped row to the layer's scratch row (``drop_write``) instead of
+compacting the kept rows with a boolean mask. Single-token attention runs
 through the Hopper kernels on CUDA (``flash_decode_attn``,
 ``paged_flash_decode``) and their plain versions on the CPU; the reference
 leaves it to an XLA einsum.
@@ -43,6 +46,31 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bnsgt,btnd->bsngd", probs.to(torch.float32),
                        v.to(torch.float32))
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def drop_write(cache: dict, rows: torch.Tensor, keep: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor) -> None:
+    """K/V row t into flat row ``rows[t]`` of this layer's cache where
+    ``keep[t]``, indices computed on the device and never compacted. A
+    dropped row (the reference's ``mode="drop"``) goes to the scratch row
+    after the layer's R rows (``cache["k_rows"]`` / ``"v_rows"``, (R + 1,
+    Hkv, hd), allocated with the cache by ``init_cache`` /
+    ``init_paged_cache``; no read addresses it), so it never races a kept
+    row for a real cell. A cache allocated without that row (a caller's
+    own tensors) is written through a padded copy of itself, copied back.
+    Kept rows with one target leave one of their values, as the
+    reference's scatter does."""
+    for name, src in (("k", k), ("v", v)):
+        dst = cache[name]
+        flat = cache.get(name + "_rows")
+        pad = flat is None
+        if pad:
+            flat = torch.cat([dst.reshape((-1,) + dst.shape[-2:]),
+                              dst.new_zeros((1,) + dst.shape[-2:])])
+        idx = torch.where(keep, rows, flat.shape[0] - 1)
+        flat.index_copy_(0, idx, src.to(flat.dtype))
+        if pad:
+            dst.copy_(flat[:-1].view(dst.shape))
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -102,11 +130,12 @@ def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``positions`` (T,) give each token's cache row and position in it;
     ``cache`` is this layer's ``{"k", "v"}`` (B, Tbuf, Hkv, hd). Padding
     tokens carry ``slot_id == B``: their writes are dropped, as are writes
-    past Tbuf (the reference's ``mode="drop"``), and their gather is clipped
-    to slot B - 1 (outputs discarded by the caller). Each token then attends
-    its slot's gathered row under ``col <= positions[t]`` through
-    ``flash_decode_attn`` with pos ``positions + 1``; the gather copies
-    (T, Tbuf, Hkv, hd) per layer, as the reference's ``jnp.take`` does.
+    past Tbuf (the reference's ``mode="drop"``; ``drop_write``), and their
+    gather is clipped to slot B - 1 (outputs discarded by the caller). Each
+    token then attends its slot's gathered row under ``col <= positions[t]``
+    through ``flash_decode_attn`` with pos ``positions + 1``; the gather
+    copies (T, Tbuf, Hkv, hd) per layer, as the reference's ``jnp.take``
+    does.
     """
     H, hd = cfg.n_heads, cfg.hd
     T = x.shape[1]
@@ -117,8 +146,7 @@ def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     positions = positions.long()
     keep = (slot_ids >= 0) & (slot_ids < B) & (positions >= 0) & \
         (positions < Tbuf)
-    ck[slot_ids[keep], positions[keep]] = k[0][keep].to(ck.dtype)
-    cv[slot_ids[keep], positions[keep]] = v[0][keep].to(cv.dtype)
+    drop_write(cache, slot_ids * Tbuf + positions, keep, k[0], v[0])
     sid = slot_ids.clamp(0, B - 1)
     out = flash_decode_attn(q[0], ck[sid].to(q.dtype), cv[sid].to(q.dtype),
                             positions + 1)                  # (T, H, hd)
@@ -140,11 +168,12 @@ def attn_apply_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     arrays; the returned dict holds the same, updated, tensors). Rows whose
     page is the sentinel P — ungranted pages and the padding row
     ``n_slots`` — are dropped, as the reference's ``mode="drop"`` scatter
-    drops them. Then attention runs through ``paged_flash_decode``: the
-    Hopper kernel on CUDA (the reference gathers the pages densely and never
-    calls its Pallas kernel), the plain version on the CPU. Padding tokens
-    read slot ``n_slots - 1``'s pages, as the reference's clipped gather
-    does; their outputs are discarded by the caller.
+    drops them (``drop_write``). Then attention runs through
+    ``paged_flash_decode``: the Hopper kernel on CUDA (the reference gathers
+    the pages densely and never calls its Pallas kernel), the plain version
+    on the CPU. Padding tokens read slot ``n_slots - 1``'s pages, as the
+    reference's clipped gather does; their outputs are discarded by the
+    caller.
     """
     H, hd = cfg.n_heads, cfg.hd
     T = x.shape[1]
@@ -159,9 +188,7 @@ def attn_apply_paged(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     page_of = page_table.long()[slot_ids.clamp(0, n_slots),
                                 (positions // ps).clamp(0, npg - 1)]
     keep = (page_of >= 0) & (page_of < P)
-    page_of, off = page_of[keep], (positions % ps)[keep]
-    k_pool[page_of, off] = k[0][keep].to(k_pool.dtype)
-    v_pool[page_of, off] = v[0][keep].to(v_pool.dtype)
+    drop_write(cache, page_of * ps + positions % ps, keep, k[0], v[0])
 
     sid = slot_ids.clamp(0, n_slots - 1)
     out = paged_flash_decode(q[0], k_pool, v_pool, page_table, sid,

@@ -23,6 +23,11 @@ plan names (``spectral`` transforms the patches through the hand-written
 ``fwht``), and ``materialize`` where the plan has none or no plan is set, as
 the reference dispatches. Spatial mode ignores the plan. Training
 (``train=True``, ``cnn_loss``) waits for the training slice.
+
+``CapturedForward`` is the eval-mode ``cnn_apply`` the reference runs
+compiled: on the card it replays one CUDA graph per (arch, batch, plan)
+over a static image buffer, the same convs, BN/ReLU, im2col and OVSF
+kernels the eager forward launches.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.core import ovsf
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime.graphs import StepGraphs
 
 _K0 = 4                 # spatial mode: 4x4 power-of-two filters
 
@@ -349,6 +355,38 @@ def cnn_apply(params: dict, state: dict, cfg: CNNConfig, x: torch.Tensor,
     if cfg.depth == "squeezenet":
         return squeezenet_apply(params, state, cfg, x, train)
     return resnet_apply(params, state, cfg, x, train)
+
+
+class CapturedForward:
+    """Eval-mode ``cnn_apply(params, state, cfg, images)[0]`` as one CUDA
+    graph per (arch, batch, plan): ``images`` (B, H, W, 3) is copied into
+    the batch's static buffer and the graph replayed (the first call of a
+    batch runs eagerly and captures it, ``runtime.graphs``). Returns the
+    static (B, num_classes) logits, which only the next call of that batch
+    overwrites (each batch's graph has a memory pool of its own). On the
+    CPU the forward runs eagerly through the same buffer. A graph holds the
+    params' addresses: build a new object for new params or another plan."""
+
+    def __init__(self, params: dict, state: dict, cfg: CNNConfig):
+        self.params, self.state, self.cfg = params, state, cfg
+        device = next(t.device for p in params.values() for t in p.values())
+        self.graphs = StepGraphs(device)
+        plan = cfg.exec_plan
+        self._plan = (None if plan is None
+                      else tuple((n, lp.path) for n, lp in plan.entries))
+
+    def key(self, batch: int) -> tuple:
+        return (self.cfg.name, self.cfg.ovsf_mode, batch, self._plan)
+
+    @torch.no_grad()
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        (logits,) = self.graphs.run(self.key(images.shape[0]),
+                                    {"images": images}, self._body)
+        return logits
+
+    def _body(self, bufs: dict) -> tuple:
+        return (cnn_apply(self.params, self.state, self.cfg,
+                          bufs["images"])[0],)
 
 
 def cnn_loss(params, state, cfg: CNNConfig, x, labels, train=True):

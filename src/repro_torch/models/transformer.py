@@ -6,9 +6,17 @@ over a list of per-layer param dicts. The caches stay stacked over layers
 and are written in place: the contiguous cache's K/V are ``(n_layers, B, T,
 Hkv, hd)`` with a per-slot ``pos`` (B,) (the reference's natural layout;
 its engine vmaps single-slot caches where the port batches the slots), the
-paged pools ``(n_layers, P, page_size, Hkv, hd)``.
+paged pools ``(n_layers, P, page_size, Hkv, hd)``. ``init_cache`` and
+``init_paged_cache`` allocate each as the view of a buffer with one more
+row a layer (``"k_rows"`` / ``"v_rows"``): the scratch row that dropped
+writes go to (``attention.drop_write``), which no read addresses.
+
+The steps return ``pos`` as a new tensor, as the reference does; a caller
+that replays a step as a CUDA graph copies it into its own (the engine).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,6 +43,11 @@ def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(u.to(torch.float32)).to(x.dtype)
     return L.linear_apply(p["down"], h, cfg, "mlp_down")
+
+
+def _layer(cache: dict, li: int) -> dict:
+    """Layer ``li``'s K/V (and their scratch-row buffers, where allocated)."""
+    return {name: t[li] for name, t in cache.items() if name != "pos"}
 
 
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, **kw
@@ -64,13 +77,28 @@ def cache_shapes(cfg: ModelConfig, B: int, T: int) -> dict[str, tuple]:
     return {"k": shape, "v": shape, "pos": (B,)}
 
 
+def _kv(shapes: dict, dtype, device) -> dict[str, torch.Tensor]:
+    """Zero K and V of ``shapes`` ((n_layers, ..., Hkv, hd)), each the view
+    of an (n_layers, R + 1, Hkv, hd) buffer (``"k_rows"`` / ``"v_rows"``)
+    whose last row a layer is the scratch row of ``drop_write``."""
+    out = {}
+    for name in ("k", "v"):
+        nl, *lead, Hkv, hd = shapes[name]
+        R = math.prod(lead)
+        rows = torch.zeros((nl, R + 1, Hkv, hd), dtype=dtype, device=device)
+        out[name] = rows[:, :R].view(shapes[name])
+        out[name + "_rows"] = rows
+    return out
+
+
 def init_cache(cfg: ModelConfig, B: int, T: int, device
                ) -> dict[str, torch.Tensor]:
-    """Zero contiguous cache: K/V in the model dtype, ``pos`` int32."""
-    return {name: torch.zeros(shape, device=device,
-                              dtype=torch.int32 if name == "pos"
-                              else cfg.act_dtype)
-            for name, shape in cache_shapes(cfg, B, T).items()}
+    """Zero contiguous cache: K/V in the model dtype (with their scratch
+    rows), ``pos`` int32."""
+    shapes = cache_shapes(cfg, B, T)
+    return {**_kv(shapes, cfg.act_dtype, device),
+            "pos": torch.zeros(shapes["pos"], dtype=torch.int32,
+                               device=device)}
 
 
 def _trunk(params: dict, cfg: ModelConfig, cache: dict,
@@ -84,8 +112,7 @@ def _trunk(params: dict, cfg: ModelConfig, cache: dict,
     x = L.embed_apply(params["embed"], tokens)                  # (B, S, d)
     for li, p in enumerate(params["blocks"]):
         x = _block(p, cfg, x, A.attn_apply, positions=positions,
-                   cache={"k": cache["k"][li], "v": cache["v"][li]},
-                   cache_pos=pos0)
+                   cache=_layer(cache, li), cache_pos=pos0)
     return x
 
 
@@ -130,8 +157,7 @@ def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
     _check_family(cfg)
     x = L.embed_apply(params["embed"], tokens[None])           # (1, T, d)
     for li, p in enumerate(params["blocks"]):
-        x = _block(p, cfg, x, attn,
-                   cache={"k": cache["k"][li], "v": cache["v"][li]}, **kw)
+        x = _block(p, cfg, x, attn, cache=_layer(cache, li), **kw)
     feats = x[0][emit_idx.long()]                               # (B, d)
     logits = _unembed(params, cfg, feats[None])[0]              # (B, vocab)
     new_cache = dict(cache)
@@ -163,9 +189,9 @@ def paged_cache_shapes(cfg: ModelConfig, page_size: int, n_pages: int
 
 def init_paged_cache(cfg: ModelConfig, page_size: int, n_pages: int,
                      device) -> dict[str, torch.Tensor]:
-    return {name: torch.zeros(shape, dtype=cfg.act_dtype, device=device)
-            for name, shape in paged_cache_shapes(cfg, page_size,
-                                                  n_pages).items()}
+    """Zero page pools in the model dtype, with their scratch rows."""
+    return _kv(paged_cache_shapes(cfg, page_size, n_pages), cfg.act_dtype,
+               device)
 
 
 def serve_step_paged(params: dict, cfg: ModelConfig, cache: dict,

@@ -22,6 +22,18 @@ greedy slots, top-k / temperature draws for sampled ones, plus a per-slot
   step. The engine grants pages before calling ``step``
   (``LLMEngine._page_gate``).
 
+On the card every step replays a CUDA graph, one per step shape, under the
+keys ``step_shapes`` records (``("packed", T)``, ``("window", W)``,
+``("decode", 1)``), as the reference traces one ``jax.jit`` per shape
+(``runtime.graphs.StepGraphs``; the first step of a shape runs eagerly and
+captures it). The step's inputs reach the key's static buffers from pinned
+host staging; the caches stay at their addresses (K/V written in place,
+``pos`` by ``copy_``). The graph ends with the fp32 logits, their finite-row
+flags and argmax; after the replay one device-to-host copy reads flags and
+argmax, and the sampled slots draw eagerly. ``capture=False`` runs the same
+step bodies eagerly through the same buffers (for comparison; the launcher
+does not expose it), as does every step on the CPU.
+
 Sampling state: each sampled slot owns a ``torch.Generator`` on the device,
 seeded from ``SamplingParams.seed`` at admission and advanced only when the
 slot emits a token, so a sampled stream does not depend on batch
@@ -40,6 +52,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as R
+from repro_torch.runtime.graphs import StepGraphs
 from repro_torch.serving.api import SamplingParams
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.scheduler import SchedulerOutput, pack_step
@@ -81,10 +94,11 @@ class EngineCore:
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int,
                  buffer_len: int, window: int, packed: bool, paged: bool,
                  page_size: int, kv_pages: Optional[int],
-                 device: torch.device):
+                 device: torch.device, capture: bool = True):
         if window <= 0:
             raise ValueError("step-based serving consumes prompts via "
                              "chunks; pass a chunk size")
+        self.graphs = StepGraphs(device, capture)
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
@@ -120,6 +134,27 @@ class EngineCore:
         self.topks = np.zeros(batch_slots, np.int32)
         self.greedy = np.ones(batch_slots, bool)
         self.gens: list = [None] * batch_slots
+        self.logits: Optional[torch.Tensor] = None   # last step's, fp32
+
+    # a graph holds the addresses of the params and of the plan's choices:
+    # replacing either drops every graph
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        self.graphs.clear()
+        self._params = params
+
+    @property
+    def cfg(self) -> ModelConfig:
+        return self._cfg
+
+    @cfg.setter
+    def cfg(self, cfg: ModelConfig) -> None:
+        self.graphs.clear()
+        self._cfg = cfg
 
     def _set_sampling(self, i: int, sp: SamplingParams) -> None:
         self.temps[i] = max(sp.temperature, 0.0)
@@ -136,27 +171,32 @@ class EngineCore:
         self.greedy[i] = True
         self.gens[i] = None
 
-    def _health_and_sample(self, logits: torch.Tensor, emit_slots: tuple
-                           ) -> tuple[np.ndarray, np.ndarray]:
-        """(B, V) logits -> ((B,) tokens, (B,) finite-logits flags) on the
-        host. Only emitting sampled slots draw (and advance their
-        generator); a slot with non-finite logits draws nothing."""
+    def _health(self, logits: torch.Tensor, new_cache: dict) -> tuple:
+        """The end of every step body: ``pos`` copied into the engine's own
+        tensor, then the (B, V) fp32 logits and one (2, B) tensor of their
+        argmax and finite-row flags (``isfinite(logits).all(-1)``), the
+        step's single host read."""
+        self.caches["pos"].copy_(new_cache["pos"])
         lg = logits.to(torch.float32)
-        ok = torch.isfinite(lg).all(dim=-1)
         toks = torch.argmax(lg, dim=-1)
-        sampled = [i for i in emit_slots if not self.greedy[i]]
-        if not sampled:
-            host = torch.stack([toks, ok.to(toks.dtype)]).cpu().numpy()
-            return host[0], host[1].astype(bool)
-        ok_host = ok.cpu().numpy()
-        for i in sampled:
-            if ok_host[i]:
-                toks[i] = sample_token(lg[i], float(self.temps[i]),
-                                       int(self.topks[i]), self.gens[i])
-        return toks.cpu().numpy(), ok_host
+        ok = torch.isfinite(lg).all(dim=-1)
+        return lg, torch.stack([toks, ok.to(toks.dtype)])
 
-    def _put(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+    def _sample(self, lg: torch.Tensor, head: torch.Tensor, emit_slots: tuple
+                ) -> tuple[np.ndarray, np.ndarray]:
+        """((B,) tokens, (B,) finite-logits flags) on the host: one read of
+        ``head``; then each emitting sampled slot with finite logits draws
+        from its own generator (advanced only then) and the draws are read
+        once more."""
+        self.logits = lg
+        host = head.cpu().numpy()
+        toks, ok = host[0].copy(), host[1].astype(bool)
+        draw = [i for i in emit_slots if not self.greedy[i] and ok[i]]
+        if draw:
+            toks[draw] = torch.stack([
+                sample_token(lg[i], float(self.temps[i]), int(self.topks[i]),
+                             self.gens[i]) for i in draw]).cpu().numpy()
+        return toks, ok
 
     @torch.no_grad()
     def step(self, so: SchedulerOutput,
@@ -171,16 +211,10 @@ class EngineCore:
         for c in so.chunks:
             if c.start == 0:            # new request: seed sampling state
                 self._set_sampling(c.slot, c.req.sampling)
-        if self.packed:
-            logits, emit, n_valid, n_batch = self._packed_step(so,
-                                                               last_tokens)
-        elif self.paged or so.chunks:
-            logits, emit, n_valid, n_batch = self._window_step(so,
-                                                               last_tokens)
-        else:
-            logits, emit, n_valid, n_batch = self._decode_step(so,
-                                                               last_tokens)
-        toks, ok = self._health_and_sample(logits, emit)
+        run = (self._packed_step if self.packed else self._window_step
+               if self.paged or so.chunks else self._decode_step)
+        (lg, head), emit, n_valid, n_batch = run(so, last_tokens)
+        toks, ok = self._sample(lg, head, emit)
         bad: list = []
         for i in so.decode_slots:
             if ok[i]:
@@ -207,18 +241,28 @@ class EngineCore:
         """Every valid token in one pow-2-bucketed stream, against the page
         pools (paged) or the contiguous cache."""
         ps = pack_step(so, last_tokens, self._host_pos, self.B, self.window)
-        self.step_shapes.add(("packed", ps.n_batch))
-        args = [self._put(a) for a in (ps.tokens, ps.slot_ids, ps.positions,
-                                       ps.new_pos, ps.emit_idx)]
+        key = ("packed", ps.n_batch)
+        self.step_shapes.add(key)
+        inputs = dict(tokens=ps.tokens, slot_ids=ps.slot_ids,
+                      positions=ps.positions, new_pos=ps.new_pos,
+                      emit_idx=ps.emit_idx)
         if self.paged:
-            logits, self.caches = R.serve_step_paged(
-                self.params, self.cfg, self.caches,
-                self._put(self.pager.page_table), *args)
-        else:
-            logits, self.caches = R.serve_step_packed(
-                self.params, self.cfg, self.caches, *args)
+            inputs["page_table"] = self.pager.page_table
+        out = self.graphs.run(key, inputs, self._packed_body)
         self._host_pos[:] = ps.new_pos
-        return logits, ps.emit_slots, ps.n_valid, ps.n_batch
+        return out, ps.emit_slots, ps.n_valid, ps.n_batch
+
+    def _packed_body(self, a: dict) -> tuple:
+        args = (a["tokens"], a["slot_ids"], a["positions"], a["new_pos"],
+                a["emit_idx"])
+        if self.paged:
+            logits, new = R.serve_step_paged(self.params, self.cfg,
+                                             self.caches, a["page_table"],
+                                             *args)
+        else:
+            logits, new = R.serve_step_packed(self.params, self.cfg,
+                                              self.caches, *args)
+        return self._health(logits, new)
 
     def _window_step(self, so: SchedulerOutput, last_tokens):
         """One (B, W) ragged window, W the chunk size: decode slots ride at
@@ -239,27 +283,41 @@ class EngineCore:
         if fresh:
             self.caches["pos"][fresh] = 0
             self._host_pos[fresh] = 0
-        self.step_shapes.add(("window", W))
-        step = (R.serve_step_window_paged if self.paged
-                else R.serve_step_window)
-        extra = (self._put(self.pager.page_table),) if self.paged else ()
-        logits, self.caches = step(self.params, self.cfg, self.caches,
-                                   *extra, self._put(tokens),
-                                   self._put(n_tok))
+        key = ("window", W)
+        self.step_shapes.add(key)
+        inputs = dict(tokens=tokens, n_tok=n_tok)
+        if self.paged:
+            inputs["page_table"] = self.pager.page_table
+        out = self.graphs.run(key, inputs, self._window_body)
         self._host_pos += n_tok
         emit = tuple(so.decode_slots) + tuple(c.slot for c in so.chunks
                                               if c.last)
-        return logits, emit, int(n_tok.sum()), self.B * W
+        return out, emit, int(n_tok.sum()), self.B * W
+
+    def _window_body(self, a: dict) -> tuple:
+        if self.paged:
+            logits, new = R.serve_step_window_paged(
+                self.params, self.cfg, self.caches, a["page_table"],
+                a["tokens"], a["n_tok"])
+        else:
+            logits, new = R.serve_step_window(self.params, self.cfg,
+                                              self.caches, a["tokens"],
+                                              a["n_tok"])
+        return self._health(logits, new)
 
     def _decode_step(self, so: SchedulerOutput, last_tokens):
         """A chunk-free step of the contiguous window style: every slot
         advances one token (idle ones too, as the reference's vmap does)."""
-        last = np.zeros(self.B, np.int32)
+        last = np.zeros((self.B, 1), np.int32)
         for i in so.decode_slots:
-            last[i] = last_tokens[i]
-        self.step_shapes.add(("decode", 1))
-        logits, self.caches = R.serve_step(self.params, self.cfg,
-                                           self.caches,
-                                           self._put(last)[:, None])
+            last[i, 0] = last_tokens[i]
+        key = ("decode", 1)
+        self.step_shapes.add(key)
+        out = self.graphs.run(key, dict(tokens=last), self._decode_body)
         self._host_pos += 1
-        return logits, tuple(so.decode_slots), len(so.decode_slots), self.B
+        return out, tuple(so.decode_slots), len(so.decode_slots), self.B
+
+    def _decode_body(self, a: dict) -> tuple:
+        logits, new = R.serve_step(self.params, self.cfg, self.caches,
+                                   a["tokens"])
+        return self._health(logits, new)

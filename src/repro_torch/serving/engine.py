@@ -113,7 +113,10 @@ class LLMEngine:
     """Continuous-batching serving engine over a fixed set of slots.
 
     ``params`` must already live on ``device`` (``"cuda"`` by default; with
-    no GPU present that raises unless ``device="cpu"`` is passed)."""
+    no GPU present that raises unless ``device="cpu"`` is passed). On the
+    card every step replays a CUDA graph, one per step shape
+    (``EngineCore``); ``capture=False`` runs the same steps eagerly, for
+    comparison."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int = 4,
                  buffer_len: int = 256, eos_id: Optional[int] = None,
@@ -121,7 +124,8 @@ class LLMEngine:
                  max_step_tokens: Optional[int] = None,
                  packed: bool = False, paged: bool = False,
                  page_size: int = 16, kv_pages: Optional[int] = None,
-                 calibrate: bool = False, device="cuda"):
+                 calibrate: bool = False, device="cuda",
+                 capture: bool = True):
         self.device = resolve_device(device)
         if chunk_size is None:
             raise NotImplementedError(
@@ -149,7 +153,7 @@ class LLMEngine:
                                buffer_len=buffer_len, window=chunk_size,
                                packed=packed, paged=paged,
                                page_size=page_size, kv_pages=kv_pages,
-                               device=self.device)
+                               device=self.device, capture=capture)
         pages = self.core.pager.P if paged else 0
         self.scheduler = FCFSScheduler(buffer_len, chunk_size=chunk_size,
                                        page_size=page_size if paged else None,
@@ -333,6 +337,7 @@ class LLMEngine:
         calibration table, with the engine's own target and candidate paths
         (so on the card a plan the card can run). Compare it with
         ``self.cfg.exec_plan`` to see what the loop re-maps; the engine
-        keeps its plan (build a new engine to adopt this one)."""
+        keeps its plan (build a new engine to adopt this one: its step
+        graphs hold the plan's kernels and the params' addresses)."""
         return _decode_plan(self._base_cfg, self.B, self.device,
                             self.calibration)
