@@ -153,6 +153,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
              beside the plans phase 6 ran; the calibrated ResNet-50 plan
              must take at most 1.01x the default plan's device ms and less
              than the uncalibrated ``ALL_PATHS`` plan's.
+  8. chaos:  the fault paths of ``LLMEngine`` on full-width TinyLlama-1.1B
+             (OVSF rho 0.5 on q, o, gate, up, down, planned ``fused``;
+             every step replayed from CUDA graphs), no kernel of its own:
+             (1) the CI chaos lines (``ci.yml:68-69``: 6 requests, max-new
+             8, chunk 8, ``nan:step=3`` and ``fail:step=7``) in the
+             contiguous and the paged window, fp32 and bf16, each beside
+             the same run without faults: exactly the request in slot 0 at
+             step 3 ends ``error``, one recovery, the graphs after it the
+             fault-free step shapes; fp32: every other stream equal; bf16:
+             the count that agree printed. (2) ``nan:step=3`` alone: the
+             same graphs and captures as without it, and over replayed
+             decode steps whose poison row is live the profiler's kernels
+             by name and the wrappers' counters equal, no new capture. (3)
+             ``fail:step=5,every=10`` over at least 3 recoveries: each one's
+             rebuild and re-capture ms (the engine's counters) and
+             ``memory_reserved`` after it, equal after every rebuild within
+             2 MiB. (4) fp32: a step body that raises on its first call under
+             capture; the engine recovers, no stream is left capturing, the
+             streams equal the fault-free run's; then the stall watchdog
+             with ``step_timeout_s`` between a replayed step and a first
+             step of a shape, and a ``delay`` fault: the delayed step
+             stalls, every stall recovers once, first steps of a shape
+             longer than the timeout (the rebuilt core's captures) do not
+             stall, the streams equal. (5) fp32 paged packed, page
+             gate (8 pages) and ``admission="preempt"`` with a priority-5
+             late arrival: greedy and sampled streams equal the runs never
+             preempted, with the recompute's extra prompt tokens. (6) bf16:
+             ``max_waiting=2`` sheds, a deadline expires a running request,
+             ``cancel()`` frees a slot and its pages; each request finishes
+             once, with its reason. (7) the CI kill-9 line in a subprocess
+             (``python -m repro_torch.launch.serve ... --journal DIR
+             --supervise --inject die:step=3``), bf16 and ``--dtype
+             float32``: exit 0, one terminal record a request in the
+             journal; fp32 streams equal the run without the kill, bf16's
+             agreement printed. (8) the replayed bf16 paged packed
+             chunk-free step wall with the journal and without, in turns.
+             Every chaos run must recover exactly as often as its faults
+             ask, and every serve run of phase 4 not at all.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -726,6 +764,19 @@ STYLES = {"paged packed": dict(paged=True, packed=True),
           "contiguous packed": dict(packed=True),
           "paged window": dict(paged=True)}
 
+def check_fault_free(eng, tag: str, core) -> None:
+    """A run that injects no fault must not have recovered: ``LLMEngine``
+    turns a step's exception into a core rebuild, so an error that failed
+    the run before the watchdog existed would now be retried silently. The
+    engine must still hold ``core``, the one the caller set up."""
+    st = eng.stats
+    if st.recoveries or st.stalls or st.errors or eng.core is not core:
+        raise RuntimeError(f"{tag} recoveries={st.recoveries} stalls="
+                           f"{st.stalls} errors={st.errors}, core "
+                           f"{'kept' if eng.core is core else 'rebuilt'} in "
+                           "a run without faults")
+
+
 def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
               capture: bool, calibrate: bool) -> tuple:
     """One engine in ``style`` over ``reqs``, replaying its step graphs
@@ -742,7 +793,8 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
                     chunk_size=64, calibrate=calibrate, device=dev,
                     capture=capture, **STYLES[style])
     steps = []
-    core_step = eng.core.step
+    core = eng.core
+    core_step = core.step
 
     def recording_step(so, last=None):
         out = core_step(so, last)
@@ -751,7 +803,7 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
                           eng.core.logits.to("cpu", copy=True)))
         return out
 
-    eng.core.step = recording_step
+    core.step = recording_step
     G.reset_launches()
     paged_flash_decode.launches = 0
     flash_decode_attn.launches = 0
@@ -765,7 +817,8 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
     stats = eng.run_until_drained(max_steps=1000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    eng.core.step = core_step
+    check_fault_free(eng, tag, core)    # every step's logits recorded
+    core.step = core_step
     launches = {"ovsf_gemm": G.ovsf_gemm.launches,
                 "paged_flash_decode": paged_flash_decode.launches,
                 "flash_decode_attn": flash_decode_attn.launches}
@@ -785,7 +838,7 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
         chunk_free=sum(cf for cf, _l in steps), steps=steps,
         tokens={o.rid: list(o.tokens) for o in outs},
         step_shapes=sorted(eng.core.step_shapes),
-        graphs=sorted(eng.core.graphs.keys()),
+        graphs=sorted(eng.core.graphs.keys()), core=core,
         peak_mib=(torch.cuda.max_memory_reserved(dev) - base) / 2**20)
 
 
@@ -867,6 +920,8 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
                              DECODE_STEPS, tag)
     profiles = {m: decode_profile(e, f"{tag} {m}", walls[m], windows[m])
                 for m, e in engines.items()}
+    for m, e in engines.items():
+        check_fault_free(e, f"{tag} {m}", runs[m].pop("core"))
     graph_eng = engines["graph"]
     profiles["graph"]["replay_ms"] = replay_span(
         graph_eng, tuple(profiles["graph"]["step_shapes"][0]))
@@ -2227,6 +2282,677 @@ def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
                 fused_summary=summary)
 
 
+# -- phase 8: chaos ----------------------------------------------------------
+
+CHAOS_PLAN = ("nan:step=3", "fail:step=7")      # the CI chaos lines' faults
+CHAOS_STYLES = {"contiguous window": dict(), "paged window": dict(paged=True)}
+CHAOS_ALLOWED = ("eos", "length")
+
+
+def chaos_specs(cfg, seed: int, n: int = 6, max_new: int = 8,
+                buffer: int = 128, sampled=()) -> list:
+    """The requests ``launch.serve`` submits for ``--seed``/``--buffer``:
+    (rid, prompt, max_new, sampling kw); the rids in ``sampled`` (all of
+    them when True) draw at temperature 0.8, top-k 20, seed = rid."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for rid in range(n):
+        plen = int(rng.integers(4, buffer // 4))
+        prompt = rng.integers(0, cfg.vocab, plen, dtype=np.int32)
+        sp = (dict(temperature=0.8, top_k=20, seed=rid)
+              if sampled is True or rid in sampled else {})
+        out.append((rid, prompt, max_new, sp))
+    return out
+
+
+def chaos_engine(params, cfg, dev, faults=(), **kw):
+    """``LLMEngine`` as ``launch.serve`` builds it (4 slots, buffer 128,
+    chunk 8) with ``faults`` armed and ``kw`` on top."""
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.serving import LLMEngine
+    args = dict(batch_slots=4, buffer_len=128, chunk_size=8)
+    args.update(kw)
+    return LLMEngine(params, cfg, device=dev,
+                     faults=FaultPlan.parse(faults) if faults else None,
+                     **args)
+
+
+def chaos_submit(eng, specs, fins: list, must_admit: bool = True,
+                 **kw) -> list:
+    """``specs`` into ``eng``, each request reporting to ``fins``; a
+    request refused at submission fails the run unless ``must_admit`` is
+    False."""
+    from repro_torch.serving import Request, SamplingParams
+    reqs = [Request(rid, prompt.copy(), max_new_tokens=max_new,
+                    sampling=SamplingParams(**sp), on_finish=fins.append,
+                    **kw) for rid, prompt, max_new, sp in specs]
+    for r in reqs:
+        if not eng.submit(r) and must_admit:
+            raise RuntimeError(f"request {r.rid} refused: {r.finish_reason}")
+    return reqs
+
+
+def chaos_decoding(eng, reqs, tag: str) -> None:
+    """Step ``eng`` until every request of ``reqs`` has emitted a token."""
+    for _ in range(64):
+        if all(r.out_tokens for r in reqs):
+            return
+        eng.step()
+    raise RuntimeError(f"{tag} requests still in prefill after 64 steps")
+
+
+def chaos_outputs(eng, fins: list, rids, tag: str, allowed) -> dict:
+    """{rid: (reason, tokens)}: every request of ``rids`` finished exactly
+    once (``on_finish`` and ``outputs()``) with a reason in ``allowed``."""
+    got = sorted(o.rid for o in fins)
+    if got != sorted(rids) or sorted(o.rid for o in eng.outputs()) != got:
+        raise RuntimeError(f"{tag} finished {got} (on_finish), "
+                           f"{sorted(o.rid for o in eng.outputs())} "
+                           f"(outputs); expected each of {sorted(rids)} once")
+    outs = {o.rid: (o.finish_reason, list(o.tokens)) for o in fins}
+    bad = {r: o[0] for r, o in outs.items() if o[0] not in allowed}
+    if bad:
+        raise RuntimeError(f"{tag} finish reasons {bad}, allowed {allowed}")
+    return outs
+
+
+def chaos_recovered(eng, tag: str, recoveries: int, stalls: int = 0
+                    ) -> None:
+    """``eng`` rebuilt its core exactly ``recoveries`` times, ``stalls`` of
+    them for a stalled step: a fault the run did not inject, caught by the
+    watchdog, fails the run."""
+    st = eng.stats
+    if (st.recoveries, st.stalls) != (recoveries, stalls):
+        raise RuntimeError(f"{tag} recoveries={st.recoveries} stalls="
+                           f"{st.stalls}, expected {recoveries} and {stalls}")
+
+
+def chaos_drain(eng, specs, tag: str, allowed=CHAOS_ALLOWED,
+                recoveries: int = 0) -> dict:
+    fins: list = []
+    chaos_submit(eng, specs, fins)
+    eng.run_until_drained(max_steps=2000)
+    torch.cuda.synchronize()
+    chaos_recovered(eng, tag, recoveries)
+    return chaos_outputs(eng, fins, [s[0] for s in specs], tag, allowed)
+
+
+def chaos_params(seed: int, dev, dtype: str):
+    """Full-width TinyLlama-1.1B as ``launch.serve --seed`` builds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    cfg = get_config("tinyllama_1_1b")
+    cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf, alpha_dtype=""),
+                      dtype=dtype)
+    return cfg, R.model_init(cfg, seed, dev)
+
+
+def agree(outs: dict, clean: dict) -> list:
+    """The rids whose (reason, tokens) equal the fault-free run's."""
+    return [r for r in outs if outs[r] == clean[r]]
+
+
+def chaos_ci_lines(seed: int, dev, cfg, params, x_name: str) -> dict:
+    """``ci.yml``'s chaos lines (6 requests, max-new 8, chunk 8, nan at
+    step 3, fail at step 7) in the contiguous and the paged window, each
+    beside the same run without faults: exactly the request in slot 0 at
+    step 3 ends ``error``, one recovery, the graph keys after it the step
+    shapes of the fault-free run; fp32: every other stream equal; bf16:
+    the count that agree is printed (near-tied logits may part)."""
+    res = {}
+    for style, kw in CHAOS_STYLES.items():
+        tag = f"[chaos {x_name} {style}]"
+        specs = chaos_specs(cfg, seed)
+        eng = chaos_engine(params, cfg, dev, **kw)
+        clean = chaos_drain(eng, specs, f"{tag} fault-free")
+        shapes = sorted(eng.core.step_shapes)
+        eng.core.close()
+        eng = chaos_engine(params, cfg, dev, CHAOS_PLAN, **kw)
+        # the nan fault's step 3 precedes the rebuild at step 7, so it runs
+        # on the first core
+        first_core, core_step, poisoned = eng.core, eng.core.step, []
+
+        def step(so, last=None, _eng=eng):
+            if first_core.step_idx == 3:        # the nan fault's step, slot 0
+                poisoned.append(_eng.slots[0].rid if _eng.slots[0] else None)
+            return core_step(so, last)
+        first_core.step = step
+        t0 = time.perf_counter()
+        outs = chaos_drain(eng, specs, tag, CHAOS_ALLOWED + ("error",), 1)
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        errored = [r for r, o in outs.items() if o[0] == "error"]
+        same = agree(outs, clean)
+        keys = sorted(eng.core.graphs.keys())
+        print(f"{tag} {CHAOS_PLAN}: errored {errored} (slot 0 at step 3: "
+              f"{poisoned}), errors={st.errors} recoveries={st.recoveries}; "
+              f"{len(same)} of {len(outs) - len(errored)} other streams "
+              f"equal the fault-free run's; graphs after recovery {keys}, "
+              f"fault-free step shapes {shapes}; {st.steps} steps in "
+              f"{wall:.3f}s", flush=True)
+        if (st.recoveries, st.errors) != (1, 1) or errored != poisoned:
+            raise RuntimeError(f"{tag} errored {errored}, slot 0 at step 3 "
+                               f"{poisoned}, recoveries {st.recoveries}")
+        if keys != sorted(eng.core.step_shapes) or keys != shapes:
+            raise RuntimeError(f"{tag} graphs {keys}, step shapes "
+                               f"{sorted(eng.core.step_shapes)}, fault-free "
+                               f"{shapes}")
+        if x_name == "fp32" and len(same) != len(outs) - 1:
+            raise RuntimeError(f"{tag} streams {outs} differ from the "
+                               f"fault-free run's {clean}")
+        eng.core.close()
+        res[style] = dict(errored=errored, errors=st.errors,
+                          recoveries=st.recoveries, agree=len(same),
+                          others=len(outs) - len(errored), graphs=keys,
+                          fault_free_shapes=shapes, steps=st.steps,
+                          wall_s=wall, tokens={r: o[1] for r, o in
+                                               outs.items()},
+                          fault_free_tokens={r: o[1] for r, o in
+                                             clean.items()})
+    return res
+
+
+def chaos_nan_only(seed: int, dev, cfg, params) -> dict:
+    """``nan:step=3`` alone beside the fault-free run (bf16, contiguous
+    window): the same graphs and the same number of captures. Then both
+    engines decode three requests, the nan engine's idle slot 3 poisoned
+    at every step, and ``agreed_windows`` holds the profiler's kernels per
+    replayed step, by name, and the wrappers' counters equal, with no new
+    capture."""
+    tag = "[chaos bf16 nan only]"
+    specs = chaos_specs(cfg, seed)
+    engines, runs = {}, {}
+    for name, plan in (("fault-free", ()), ("nan", ("nan:step=3",))):
+        eng = chaos_engine(params, cfg, dev, plan)
+        chaos_drain(eng, specs, f"{tag} {name}", CHAOS_ALLOWED + ("error",))
+        runs[name] = dict(graphs=sorted(eng.core.graphs.keys()),
+                          captures=eng.stats.warmups, errors=eng.stats.errors)
+        engines[name] = eng
+    a, b = runs["fault-free"], runs["nan"]
+    rng = np.random.default_rng(seed + 5)
+    from repro_torch.runtime.faults import FaultPlan
+    for name, eng in engines.items():
+        reqs = chaos_submit(eng, [(100 + j, rng.integers(
+            0, cfg.vocab, 24, dtype=np.int32), 100, {}) for j in range(3)],
+            [])
+        chaos_decoding(eng, reqs, tag)  # three slots decode, slot 3 idle
+        if name == "nan":               # an idle slot's logits, every step
+            eng.core.faults = FaultPlan.parse(["nan:step=0,every=1,slot=3"])
+    caps_before = {n: e.stats.warmups for n, e in engines.items()}
+    windows = agreed_windows({n: e.step for n, e in engines.items()},
+                             DECODE_STEPS, tag)
+    counts = {n: w["counts"] for n, w in windows.items()}
+    new_caps = {n: e.stats.warmups - caps_before[n]
+                for n, e in engines.items()}
+    kernels = {n: sum(c.values()) / DECODE_STEPS for n, c in counts.items()}
+    print(f"{tag} graphs {b['graphs']} ({b['captures']} captures; "
+          f"fault-free {a['graphs']}, {a['captures']}), errors "
+          f"{b['errors']}; poisoned decode windows: "
+          f"{kernels['nan']:g} kernels a step (fault-free "
+          f"{kernels['fault-free']:g}), new captures {new_caps}, "
+          f"{windows['nan']['windows']} profiled windows", flush=True)
+    if (b["graphs"] != a["graphs"] or b["captures"] != a["captures"]
+            or b["errors"] != 1 or any(new_caps.values())
+            or counts["nan"] != counts["fault-free"]
+            or windows["nan"]["wrappers"] != windows["fault-free"]["wrappers"]
+            or not counts["nan"]):
+        raise RuntimeError(f"{tag} the poison changed the graphs or the "
+                           f"launches: {runs}, windows "
+                           f"{count_diff(counts['nan'], counts['fault-free'])}"
+                           f", new captures {new_caps}")
+    for name, eng in engines.items():
+        chaos_recovered(eng, f"{tag} {name}", 0)
+        eng.core.close()
+    return dict(graphs=b["graphs"], captures=b["captures"],
+                fault_free_captures=a["captures"],
+                wrappers_per_window=windows["nan"]["wrappers"],
+                kernels_per_poisoned_step=kernels["nan"],
+                fault_free_kernels_per_step=kernels["fault-free"],
+                profiled_windows=windows["nan"]["windows"])
+
+
+def chaos_recoveries(seed: int, dev, cfg, params, card: str) -> dict:
+    """``fail:step=5,every=10`` (bf16, contiguous window, max-new 16) over
+    at least 3 recoveries, read from the engine's counters: each recovery's
+    rebuild ms (``EngineStats.rebuild_s``: the old core freed, the new one
+    built), the re-capture ms of each shape on the rebuilt core (its
+    ``StepGraphs.first_calls``: warm-up and capture), ``memory_reserved`` before
+    and after each rebuild. Every value after a rebuild must equal the one
+    after the 1st within the allocator's 2 MiB granularity: a leak per
+    recovery of any size fails."""
+    tag = "[chaos bf16 recoveries]"
+    eng = chaos_engine(params, cfg, dev, ("fail:step=5,every=10",))
+    specs = chaos_specs(cfg, seed, max_new=16)
+    fins: list = []
+    chaos_submit(eng, specs, fins)
+    recs: list = []
+    for _ in range(2000):
+        st = eng.stats
+        reserved, rebuild_s, n = (torch.cuda.memory_reserved(dev),
+                                  st.rebuild_s, st.recoveries)
+        left = eng.step()
+        if st.recoveries != n:
+            torch.cuda.synchronize()
+            recs.append(dict(
+                rebuild_ms=(st.rebuild_s - rebuild_s) * 1e3,
+                reserved_before_mib=reserved / 2**20,
+                reserved_after_mib=torch.cuda.memory_reserved(dev) / 2**20,
+                core=eng.core))
+        if left == 0:
+            break
+    torch.cuda.synchronize()
+    n = eng.stats.recoveries
+    chaos_recovered(eng, tag, n)
+    outs = chaos_outputs(eng, fins, [sp[0] for sp in specs], tag,
+                         CHAOS_ALLOWED)
+    for r in recs:                      # each rebuilt core's first calls
+        r["capture_ms"] = {f"{k[0]} {k[1]}": v * 1e3 for k, v in
+                           r.pop("core").graphs.first_calls}
+    for i, r in enumerate(recs):
+        print(f"{tag} recovery {i + 1}: rebuild {r['rebuild_ms']:.1f} ms, "
+              "re-capture " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                        r["capture_ms"].items())
+              + f"; memory_reserved {r['reserved_before_mib']:.1f} -> "
+              f"{r['reserved_after_mib']:.1f} MiB ({card})", flush=True)
+    if n < 3 or len(recs) != n:
+        raise RuntimeError(f"{tag} {n} recoveries ({len(recs)} seen), "
+                           "expected at least 3")
+    first = recs[0]["reserved_after_mib"]
+    grown = [r["reserved_after_mib"] - first for r in recs[1:]]
+    pools = recs[1]["reserved_before_mib"] - first
+    print(f"{tag} {n} recoveries, {len(outs)} requests finished; reserved "
+          f"after each rebuild minus after the 1st {grown} MiB (at most "
+          f"2 MiB each); a rebuilt core's pools and step temporaries "
+          f"{pools:.1f} MiB", flush=True)
+    if any(abs(g) > 2.0 for g in grown):
+        raise RuntimeError(f"{tag} memory_reserved after the rebuilds moved "
+                           f"{grown} MiB from the 1st's {first:.1f} MiB")
+    eng.core.close()
+    return dict(recoveries=n, per_recovery=recs, grown_mib=grown,
+                one_core_mib=pools)
+
+
+def chaos_timed_steps(eng) -> list:
+    """Step ``eng`` until it is idle; for each step that ran the core:
+    (host wall s, first-call s of new shapes, whether it stalled, the
+    core's step index it ran)."""
+    rows = []
+    for _ in range(2000):
+        st = eng.stats
+        steps, warm, stalls = st.steps, st.warmup_s, st.stalls
+        idx = eng.core.step_idx
+        t0 = time.perf_counter()
+        left = eng.step()
+        dt = time.perf_counter() - t0
+        if eng.core.step_idx > idx:
+            rows.append((dt, eng.stats.warmup_s - warm,
+                         eng.stats.stalls > stalls, idx))
+        if left == 0:
+            return rows
+    raise RuntimeError("the engine did not drain in 2000 steps")
+
+
+def chaos_stall(seed: int, dev, cfg, params, card: str) -> dict:
+    """The stall watchdog, fp32 contiguous window, the CI requests. The
+    fault-free run, stepped one at a time, gives each step's host wall:
+    replayed steps, and the first steps of a shape (warm-up and capture).
+    ``step_timeout_s`` lies between them (the geometric mean of the
+    slowest replayed and the fastest first step) and ``delay:step=4``
+    sleeps 3x it. Then: the delayed step stalls; a step stalls if and only
+    if its wall less its first calls exceeds the timeout; every stall
+    rebuilds the core once; at least one first step of a shape on the
+    rebuilt core took longer than the timeout and did not stall (counted,
+    it would rebuild the core again at every first step, without end);
+    every request finishes and the streams equal the fault-free run's."""
+    tag = "[chaos fp32 stall watchdog]"
+    specs = chaos_specs(cfg, seed)
+    rids = [sp[0] for sp in specs]
+    eng = chaos_engine(params, cfg, dev)
+    fins: list = []
+    chaos_submit(eng, specs, fins)
+    rows = chaos_timed_steps(eng)
+    torch.cuda.synchronize()
+    chaos_recovered(eng, f"{tag} fault-free", 0)
+    clean = chaos_outputs(eng, fins, rids, f"{tag} fault-free",
+                          CHAOS_ALLOWED)
+    eng.core.close()
+    replayed = [w for w, warm, _s, _i in rows if not warm]
+    first = [w for w, warm, _s, _i in rows if warm]
+    timeout = math.sqrt(max(replayed) * min(first))
+    delay = 3 * timeout
+    eng = chaos_engine(params, cfg, dev, (f"delay:step=4,s={delay:.6f}",),
+                       step_timeout_s=timeout)
+    fins = []
+    chaos_submit(eng, specs, fins)
+    t0 = time.perf_counter()
+    rows = chaos_timed_steps(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    outs = chaos_outputs(eng, fins, rids, tag, CHAOS_ALLOWED)
+    same = agree(outs, clean)
+    # first calls alone longer than the timeout, and no stall counted
+    spared = [warm for _w, warm, stalled, _i in rows
+              if warm > timeout and not stalled]
+    # a stall counted for a step whose wall less its first calls was short
+    wrong = [(w, warm) for w, warm, stalled, _i in rows
+             if stalled and w - warm <= timeout]
+    delayed = [stalled for _w, _warm, stalled, i in rows if i == 4]
+    print(f"{tag} timeout {timeout * 1e3:.3f} ms (replayed steps "
+          f"{min(replayed) * 1e3:.3f}-{max(replayed) * 1e3:.3f} ms, first "
+          f"steps of a shape {[round(w * 1e3, 1) for w in first]} ms), delay "
+          f"{delay * 1e3:.3f} ms at step 4: stalls={st.stalls} recoveries="
+          f"{st.recoveries}; {st.warmups} first steps of a shape off the "
+          f"stall clock ({st.warmup_s * 1e3:.1f} ms), {len(spared)} of them "
+          f"longer than the timeout alone "
+          f"({[round(w * 1e3, 1) for w in spared]} ms); {len(same)} of {len(outs)} streams equal the fault-free "
+          f"run's; {st.steps} steps in {wall:.3f}s ({card})", flush=True)
+    if (delayed != [True] or wrong or not spared or not st.stalls
+            or st.recoveries != st.stalls or outs != clean):
+        raise RuntimeError(f"{tag} delayed step stalled {delayed}, steps "
+                           f"against the clock {wrong}, first steps spared "
+                           f"{spared}, stalls {st.stalls}, recoveries "
+                           f"{st.recoveries}, streams {outs} vs {clean}")
+    eng.core.close()
+    return dict(timeout_ms=timeout * 1e3,
+                replayed_step_ms=[w * 1e3 for w in replayed],
+                first_step_ms=[w * 1e3 for w in first],
+                spared_first_step_ms=[w * 1e3 for w in spared],
+                stalls=st.stalls, recoveries=st.recoveries,
+                warmups=st.warmups, warmup_ms=st.warmup_s * 1e3,
+                agree=len(same))
+
+
+def chaos_capture_failure(seed: int, dev, cfg, params, clean: dict) -> dict:
+    """fp32 contiguous window, no faults: the first core's window body
+    raises on its first call under capture (after its eager warm-up). The
+    engine recovers, no stream is left capturing, the caller's stream is
+    current again, and the streams equal the fault-free run's (``clean``)."""
+    tag = "[chaos fp32 capture failure]"
+    eng = chaos_engine(params, cfg, dev)
+    body, raised = eng.core._window_body, []
+
+    def failing(bufs):
+        if torch.cuda.is_current_stream_capturing() and not raised:
+            raised.append(1)
+            raise RuntimeError("injected failure under capture")
+        return body(bufs)
+    eng.core._window_body = failing
+    outs = chaos_drain(eng, chaos_specs(cfg, seed), tag, recoveries=1)
+    capturing = torch.cuda.is_current_stream_capturing()
+    stream_ok = torch.cuda.current_stream(dev) == torch.cuda.default_stream(
+        dev)
+    keys = sorted(eng.core.graphs.keys())
+    print(f"{tag} raised under capture {len(raised)}x, recoveries "
+          f"{eng.stats.recoveries}, capturing after {capturing}, default "
+          f"stream current {stream_ok}, graphs {keys}; "
+          f"{len(agree(outs, clean))} of {len(outs)} streams equal the "
+          "fault-free run's", flush=True)
+    if (not raised or eng.stats.recoveries != 1 or capturing or not stream_ok
+            or outs != clean or keys != sorted(eng.core.step_shapes)):
+        raise RuntimeError(f"{tag} did not recover cleanly: {outs} vs "
+                           f"{clean}")
+    eng.core.close()
+    return dict(raised=len(raised), recoveries=eng.stats.recoveries,
+                graphs=keys, agree=len(outs))
+
+
+def chaos_preempt(seed: int, dev, cfg, params) -> dict:
+    """fp32 paged packed, odd rids sampled: (a) a pool of 8 pages (one
+    slot's buffer) under 6 requests of max-new 16, the page gate must
+    preempt; (b) ``admission="preempt"`` and a priority-5 request arriving
+    once four requests decode. Streams equal the runs never preempted
+    (default pool; ``admission="reject"``); the extra prompt tokens the
+    recompute cost are printed."""
+    res = {}
+    sampled = (1, 3, 5)
+    paged = dict(paged=True, packed=True)
+    specs = chaos_specs(cfg, seed, max_new=16, sampled=sampled)
+    for case, kw in (("page gate", dict(kv_pages=8)),
+                     ("admission preempt", dict(admission="preempt"))):
+        tag = f"[chaos fp32 paged packed, {case}]"
+        runs = {}
+        for name, extra in (("never preempted", {}), ("preempted", kw)):
+            eng = chaos_engine(params, cfg, dev, **paged, **extra)
+            if case == "page gate":
+                outs = chaos_drain(eng, specs, f"{tag} {name}")
+            else:
+                fins: list = []
+                chaos_decoding(eng, chaos_submit(eng, specs[:4], fins), tag)
+                late = (9, np.random.default_rng(seed + 9).integers(
+                    0, cfg.vocab, 20, dtype=np.int32), 8, {})
+                chaos_submit(eng, [late], fins, priority=5)
+                eng.run_until_drained(max_steps=2000)
+                torch.cuda.synchronize()
+                chaos_recovered(eng, f"{tag} {name}", 0)
+                outs = chaos_outputs(eng, fins, [0, 1, 2, 3, 9],
+                                     f"{tag} {name}", CHAOS_ALLOWED)
+            runs[name] = dict(outs=outs, st=dataclasses.replace(eng.stats))
+            eng.core.close()
+        a, b = runs["never preempted"], runs["preempted"]
+        extra_tokens = b["st"].chunk_tokens - a["st"].chunk_tokens
+        same = agree(b["outs"], a["outs"])
+        print(f"{tag} preemptions={b['st'].preemptions}; {len(same)} of "
+              f"{len(b['outs'])} streams (greedy and sampled) equal the "
+              f"never-preempted run's; recompute cost {extra_tokens} extra "
+              f"prompt tokens ({b['st'].chunk_tokens} vs "
+              f"{a['st'].chunk_tokens}); peak pages {b['st'].kv_pages_used}"
+              f" of {b['st'].kv_pages_total}", flush=True)
+        if b["st"].preemptions < 1 or len(same) != len(b["outs"]):
+            raise RuntimeError(f"{tag} preemptions {b['st'].preemptions}, "
+                               f"streams {b['outs']} vs {a['outs']}")
+        res[case] = dict(preemptions=b["st"].preemptions,
+                         extra_prompt_tokens=extra_tokens,
+                         chunk_tokens=b["st"].chunk_tokens,
+                         never_preempted_chunk_tokens=a["st"].chunk_tokens,
+                         agree=len(same), requests=len(b["outs"]))
+    return res
+
+
+def chaos_lifetimes(seed: int, dev, cfg, params) -> dict:
+    """bf16 paged packed with ``max_waiting=2``: of four requests submitted
+    at once two are shed; once the first two decode, one's deadline passes
+    (``timeout`` out of its slot, tokens kept) and the other is cancelled
+    (``cancelled``, its pages back at once); a queued request is cancelled
+    too. Each request finishes once, with its reason."""
+    tag = "[chaos bf16 deadlines, shedding, cancellation]"
+    eng = chaos_engine(params, cfg, dev, paged=True, packed=True,
+                       max_waiting=2)
+    specs = chaos_specs(cfg, seed, max_new=32)
+    fins: list = []
+    reqs = chaos_submit(eng, specs[:4], fins, must_admit=False)
+    shed = [o.rid for o in fins]
+    for _ in range(12):
+        eng.step()
+        if all(len(r.out_tokens) > 1 for r in reqs[:2]):
+            break
+    more = chaos_submit(eng, specs[4:], fins)
+    pager = eng.core.pager
+    slot = next(i for i, r in enumerate(eng.slots) if r is reqs[1])
+    pages = len(pager.slot_pages(slot))
+    used = pager.used_pages
+    cancelled = eng.cancel(reqs[1])
+    freed = used - pager.used_pages
+    queued = eng.cancel(more[1])        # still waiting: withdrawn
+    reqs[0].deadline_s = time.perf_counter() - reqs[0].t_submit
+    eng.run_until_drained(max_steps=2000)
+    torch.cuda.synchronize()
+    chaos_recovered(eng, tag, 0)
+    outs = chaos_outputs(eng, fins, [s[0] for s in specs], tag,
+                         CHAOS_ALLOWED + ("shed", "timeout", "cancelled"))
+    reasons = {r: o[0] for r, o in sorted(outs.items())}
+    want = {0: "timeout", 1: "cancelled", 2: "shed", 3: "shed",
+            4: "length", 5: "cancelled"}
+    st = eng.stats
+    print(f"{tag} reasons {reasons}; shed at submission {shed}; the "
+          f"cancelled running request freed {freed} of its {pages} pages at "
+          f"once; timed-out tokens {len(outs[0][1])} of 32; counters "
+          f"timeouts={st.timeouts} shed={st.shed} cancelled={st.cancelled}",
+          flush=True)
+    if (reasons != want or not cancelled or not queued or freed != pages
+            or not 0 < len(outs[0][1]) < 32 or pager.used_pages
+            or (st.timeouts, st.shed, st.cancelled) != (1, 2, 2)):
+        raise RuntimeError(f"{tag} reasons {reasons}, expected {want}; "
+                           f"freed {freed} of {pages} pages")
+    eng.core.close()
+    return dict(reasons=reasons, freed_pages=freed,
+                timed_out_tokens=len(outs[0][1]))
+
+
+def journal_records(path: str) -> dict:
+    """rid -> the number of records in the journal at ``path`` that carry a
+    terminal reason (``fin`` records and compacted snapshots)."""
+    from repro_torch.serving.journal import _iter_records
+    count: dict = {}
+    for seg in sorted(os.listdir(path)):
+        with open(os.path.join(path, seg), "rb") as f:
+            for rec in _iter_records(f.read()):
+                if rec.get("t") == "fin" or (rec.get("t") == "entry"
+                                             and "reason" in rec):
+                    count[rec["rid"]] = count.get(rec["rid"], 0) + 1
+    return count
+
+
+def chaos_kill9(seed: int, dev, cfg, params, x_name: str, out_dir: str
+                ) -> dict:
+    """``ci.yml``'s kill-9 line at full width on the card, in a subprocess:
+    ``python -m repro_torch.launch.serve --arch tinyllama_1_1b --requests 6
+    --max-new 8 --chunk-size 8 --temperature 0.8 --top-k 20 --journal DIR
+    --supervise --inject die:step=3`` (``--dtype float32`` for the fp32
+    run). It must exit 0 with each request finished exactly once in its
+    journal; its streams are held against the same requests in this
+    process without the kill: equal in fp32, the count that agree printed
+    in bf16 (the recomputed context rounds otherwise than the first pass
+    did)."""
+    import shutil
+    from repro_torch.serving import RequestJournal
+    tag = f"[chaos {x_name} kill-9]"
+    jdir = os.path.join(out_dir, f"chaos_journal_{x_name}")
+    shutil.rmtree(jdir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "tinyllama_1_1b", "--requests", "6", "--max-new", "8",
+           "--chunk-size", "8", "--temperature", "0.8", "--top-k", "20",
+           "--seed", str(seed), "--journal", jdir, "--supervise",
+           "--inject", "die:step=3"]
+    if x_name == "fp32":
+        cmd += ["--dtype", "float32"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0 or "restart #1" not in log:
+        raise RuntimeError(f"{tag} exit {res.returncode}:\n{log[-4000:]}")
+    fins = journal_records(jdir)
+    entries = {rid: (e.finish_reason, list(e.tokens)) for rid, e in
+               RequestJournal(jdir).entries.items()}
+    shutil.rmtree(jdir, ignore_errors=True)
+    eng = chaos_engine(params, cfg, dev)
+    clean = chaos_drain(eng, chaos_specs(cfg, seed, sampled=True),
+                        f"{tag} fault-free")
+    eng.core.close()
+    same = agree(entries, clean)
+    recovered = [ln for ln in log.splitlines() if "[serve] journal:" in ln]
+    print(f"{tag} exit 0 in {wall:.1f}s; {recovered}; terminal records per "
+          f"request {fins}; {len(same)} of {len(entries)} streams equal the "
+          "run without the kill", flush=True)
+    if (sorted(entries) != list(range(6)) or fins != {r: 1 for r in range(6)}
+            or any(e[0] != "length" or len(e[1]) != 8
+                   for e in entries.values())):
+        raise RuntimeError(f"{tag} journal {entries}, terminal records "
+                           f"{fins}")
+    if x_name == "fp32" and len(same) != 6:
+        raise RuntimeError(f"{tag} streams {entries} differ from the run "
+                           f"without the kill {clean}")
+    return dict(wall_s=wall, agree=len(same), terminal_records=fins,
+                recovered=recovered, tokens={r: e[1] for r, e in
+                                             entries.items()},
+                fault_free_tokens={r: o[1] for r, o in clean.items()})
+
+
+def chaos_journal_cost(seed: int, dev, cfg, params, out_dir: str,
+                       card: str) -> dict:
+    """The replayed chunk-free step wall of the bf16 paged packed engine
+    with ``--journal`` and without, in turns over the same kind of work:
+    four requests decoding (the chunk-free graph already captured), windows
+    of 16 steps, A B B A A B B A. Each journaled step writes four ``tok``
+    records and one fsync."""
+    import shutil
+    from repro_torch.serving import RequestJournal
+    tag = "[chaos bf16 journal cost]"
+    jdir = os.path.join(out_dir, "chaos_journal_cost")
+    shutil.rmtree(jdir, ignore_errors=True)
+    journal = RequestJournal(jdir)
+    engines = {"no journal": chaos_engine(params, cfg, dev, paged=True,
+                                          packed=True),
+               "journal": chaos_engine(params, cfg, dev, paged=True,
+                                       packed=True, journal=journal)}
+    rng = np.random.default_rng(seed + 3)
+    for eng in engines.values():
+        reqs = chaos_submit(eng, [(j, rng.integers(0, cfg.vocab, 24,
+                                                   dtype=np.int32), 96, {})
+                                  for j in range(4)], [])
+        chaos_decoding(eng, reqs, tag)  # every slot decodes
+        for _ in range(2):              # the chunk-free shape captured
+            eng.step()
+    walls: dict = {n: [] for n in engines}
+    for name in ("no journal", "journal", "journal", "no journal") * 2:
+        eng = engines[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            eng.step()
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) / 16 * 1e3)
+    flushes = journal.flushes
+    for name, eng in engines.items():
+        eng.run_until_drained(max_steps=2000)
+        chaos_recovered(eng, f"{tag} {name}", 0)
+        eng.core.close()
+    journal.close()
+    shutil.rmtree(jdir, ignore_errors=True)
+    med = {n: float(np.median(w)) for n, w in walls.items()}
+    print(f"{tag} chunk-free step wall, median of 4 windows of 16 steps: "
+          f"{med['journal']:.3f} ms with the journal ({flushes} flushes), "
+          f"{med['no journal']:.3f} ms without, +"
+          f"{med['journal'] - med['no journal']:.3f} ms ({card}); windows "
+          f"{ {n: [round(x, 3) for x in w] for n, w in walls.items()} }",
+          flush=True)
+    return dict(step_ms=med, windows_ms=walls, flushes=flushes)
+
+
+def chaos_phase(seed: int, card: str, dev, out_dir: str) -> dict:
+    """Phase 8 (module docstring): the fault paths of ``LLMEngine`` at full
+    width, every step replayed from CUDA graphs."""
+    t0 = time.perf_counter()
+    res = {}
+    cfg, params = chaos_params(seed, dev, "float32")
+    res["ci_fp32"] = chaos_ci_lines(seed, dev, cfg, params, "fp32")
+    clean = {r: ("length", t) for r, t in
+             res["ci_fp32"]["contiguous window"]["fault_free_tokens"].items()}
+    res["capture_failure"] = chaos_capture_failure(seed, dev, cfg, params,
+                                                   clean)
+    res["stall"] = chaos_stall(seed, dev, cfg, params, card)
+    res["preempt"] = chaos_preempt(seed, dev, cfg, params)
+    res["kill9_fp32"] = chaos_kill9(seed, dev, cfg, params, "fp32", out_dir)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = chaos_params(seed, dev, "bfloat16")
+    res["ci_bf16"] = chaos_ci_lines(seed, dev, cfg, params, "bf16")
+    res["nan_only"] = chaos_nan_only(seed, dev, cfg, params)
+    res["recoveries"] = chaos_recoveries(seed, dev, cfg, params, card)
+    res["lifetimes"] = chaos_lifetimes(seed, dev, cfg, params)
+    res["kill9_bf16"] = chaos_kill9(seed, dev, cfg, params, "bf16", out_dir)
+    res["journal_cost"] = chaos_journal_cost(seed, dev, cfg, params,
+                                             out_dir, card)
+    del params
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[chaos] phase passed in {res['wall_s']:.1f}s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2313,6 +3039,7 @@ def main(argv=None) -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     calib = calibrate_phase(args.seed, card, dev, cnns, out_dir)
+    chaos = chaos_phase(args.seed, card, dev, out_dir)
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -2394,7 +3121,7 @@ def main(argv=None) -> int:
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32,
                    "parity": parity, "parity_contiguous": parity_contiguous,
-                   "cnn": cnns, "calibration": calib}, f,
+                   "cnn": cnns, "calibration": calib, "chaos": chaos}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

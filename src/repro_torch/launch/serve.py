@@ -2,7 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
       --chunk-size 64 [--packed] [--paged] [--smoke] [--device cpu] \
-      [--alpha-dtype int8|int4] [--calibrate [--calibration-out F]]
+      [--alpha-dtype int8|int4] [--calibrate [--calibration-out F]] \
+      [--admission reject|truncate|preempt] [--inject KIND:K=V,...] \
+      [--max-waiting N] [--step-timeout S] [--deadline S] \
+      [--journal DIR [--supervise]] [--dtype float32]
 
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
 present). Parameters are initialised natively from ``--seed``;
@@ -17,14 +20,35 @@ contiguous one. ``--calibrate`` records measured-vs-modeled step times
 and the layers the calibrated re-plan would re-map, saving the table to
 ``--calibration-out`` when given. On the GPU every step replays a CUDA graph,
 one per step shape; the launcher prints the step shapes run and the graphs
-captured (none on the CPU, where steps run eagerly). Exit contract: every
-request must end as ``eos``,
-``length`` or ``rejected``, else the launcher exits non-zero.
+captured (none on the CPU, where steps run eagerly).
+
+Chaos flags, as the reference's: ``--inject`` arms deterministic faults
+(repeatable: ``nan:step=3``, ``fail:step=7``, ``delay:step=5,s=0.2``,
+``die:step=3``; ``flip`` is refused, it needs the gateway's resident
+banks), ``--admission preempt`` lets a more urgent request evict a running
+one (recomputed), ``--max-waiting`` bounds the queue (load shedding),
+``--deadline`` bounds each request's life, ``--step-timeout`` arms the
+stall watchdog (a step's wall less the first step of each shape on a core:
+its warm-up and CUDA-graph capture). ``--journal DIR`` arms the write-ahead request journal: a
+restarted launcher pointed at DIR recovers every live request instead of
+submitting it again. ``--supervise`` (with ``--journal``) runs the launcher
+as a child under a restart loop (``launch.supervise``), so ``--inject
+die:step=N`` is a real process death that must still finish every request
+exactly once.
+
+Exit contract (the reference's): every request must be terminal, and a
+finish reason other than ``eos``, ``length`` or ``rejected`` must come
+from a degradation this run configured (``nan`` -> ``error``,
+``--deadline`` -> ``timeout``, ``--max-waiting`` or ``--admission
+preempt`` -> ``shed``/``preempted``); a request the journal shows
+finished before a crash counts once. Otherwise the launcher exits
+non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -32,7 +56,9 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry as R
-from repro_torch.serving import LLMEngine, Request, SamplingParams
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.serving import (LLMEngine, Request, RequestJournal,
+                                 SamplingParams)
 
 
 def main(argv=None) -> None:
@@ -45,6 +71,10 @@ def main(argv=None) -> None:
     ap.add_argument("--buffer", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="", choices=["", "bfloat16", "float32"],
+                    help="model dtype (default: the config's); in float32 "
+                         "a recomputed context rounds as the first pass "
+                         "did, so recovered streams can be held equal")
     ap.add_argument("--alpha-dtype", default="", choices=["", "int8", "int4"],
                     help="quantised alpha storage: int8 halves / int4 "
                          "quarters the streamed alpha bytes (dequantised "
@@ -64,45 +94,109 @@ def main(argv=None) -> None:
                          "the calibrated re-plan")
     ap.add_argument("--calibration-out", default="",
                     help="write the calibration table JSON here")
+    ap.add_argument("--admission", default="reject",
+                    choices=["reject", "truncate", "preempt"])
+    ap.add_argument("--inject", action="append", default=[],
+                    metavar="KIND:KEY=V,...",
+                    help="deterministic fault injection, repeatable: "
+                         "nan:step=3,slot=0 | fail:step=7 | "
+                         "delay:p=0.1,s=0.002 | die:step=3 (seed-driven)")
+    ap.add_argument("--max-waiting", type=int, default=None,
+                    help="bound the waiting queue; overloads load-shed the "
+                         "least urgent request (FINISH_SHED)")
+    ap.add_argument("--step-timeout", type=float, default=None,
+                    help="soft per-step watchdog: a slower step counts a "
+                         "stall and triggers a core rebuild + recompute")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request deadline in seconds (FINISH_TIMEOUT "
+                         "past it)")
+    ap.add_argument("--journal", default="",
+                    help="write-ahead request journal directory; on start "
+                         "its live requests are recovered mid-stream")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run this launcher as a supervised child process "
+                         "that is restarted after an injected die fault "
+                         "(requires --journal)")
     args = ap.parse_args(argv)
+
+    if args.supervise:
+        from repro_torch.launch.supervise import supervise
+        raw = list(sys.argv[1:] if argv is None else argv)
+        if not args.journal:
+            raise SystemExit("--supervise requires --journal: a crash "
+                             "without a journal loses every live request")
+        supervise("repro_torch.launch.serve",
+                  [a for a in raw if a != "--supervise"])
+        return
     if args.chunk_size is None:
         raise SystemExit("the port serves prompts via chunks only: pass "
                          "--chunk-size N; the legacy phase-based path waits "
                          "for a later slice (ROADMAP A.3)")
 
+    plan = FaultPlan.parse(args.inject, seed=args.seed)
+    if any(f.kind == "flip" for f in plan.faults):
+        raise SystemExit(
+            "--inject flip:... corrupts a RESIDENT registry bank, which a "
+            "single-engine launcher does not have (the gateway is ROADMAP "
+            "A.6)")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,
                                                alpha_dtype=args.alpha_dtype))
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype)
     params = R.model_init(cfg, args.seed, device)
     print(f"[serve] {cfg.name}: {R.param_count(params)/1e6:.1f}M params "
           f"on {device}"
           + (f" (alphas={args.alpha_dtype})" if args.alpha_dtype else ""))
+    if plan:
+        print(f"[serve] chaos: {len(plan.faults)} injector(s) armed "
+              f"(seed={args.seed}): "
+              + ", ".join(f.kind for f in plan.faults))
+    journal = RequestJournal(args.journal) if args.journal else None
     eng = LLMEngine(params, cfg, batch_slots=args.slots,
-                    buffer_len=args.buffer, chunk_size=args.chunk_size,
+                    buffer_len=args.buffer, admission=args.admission,
+                    chunk_size=args.chunk_size,
                     packed=args.packed, paged=args.paged,
                     page_size=args.page_size,
                     kv_pages=args.kv_pages, calibrate=args.calibrate,
+                    max_waiting=args.max_waiting,
+                    step_timeout_s=args.step_timeout,
+                    faults=plan if plan else None, journal=journal,
                     device=device)
     if eng.cfg.exec_plan is not None:
         print(f"[serve] plan ({eng.cfg.exec_plan.hw_label}): " + ", ".join(
             f"{n}={p.path}" for n, p in eng.cfg.exec_plan.entries))
+    if journal is not None and journal.entries:
+        recovered = eng.recover_from_journal()
+        ndone = sum(1 for e in journal.entries.values() if e.done)
+        print(f"[serve] journal: {len(recovered)} live request(s) recovered "
+              f"mid-stream, {ndone} already terminal (replayed, not re-run)")
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         plen = int(rng.integers(4, args.buffer // 4))
         prompt = rng.integers(0, cfg.vocab, plen, dtype=np.int32)
-        admitted, _ = eng.add_request(Request(
+        if journal is not None and rid in journal.entries:
+            continue    # journaled before the crash: recovered or terminal
+        admitted, bp = eng.add_request(Request(
             rid, prompt, max_new_tokens=args.max_new,
+            deadline_s=args.deadline,
             sampling=SamplingParams(temperature=args.temperature,
                                     top_k=args.top_k, seed=rid)))
         if not admitted:
-            print(f"[serve] request {rid} not admitted")
+            print(f"[serve] request {rid} not admitted "
+                  f"(backpressure={bp:.2f})")
     t0 = time.perf_counter()
     stats = eng.run_until_drained()
     dt = time.perf_counter() - t0
     print(f"[serve] completed={stats.completed} rejected={stats.rejected} "
           f"steps={stats.steps} tokens={stats.tokens_out} "
           f"({stats.tokens_out/dt:.1f} tok/s on {device})")
+    if plan or stats.preemptions or stats.timeouts or stats.shed:
+        print(f"[serve] faults: errors={stats.errors} "
+              f"recoveries={stats.recoveries} stalls={stats.stalls} "
+              f"preemptions={stats.preemptions} timeouts={stats.timeouts} "
+              f"shed={stats.shed}")
     print(f"[serve] decode={stats.decode_s:.2f}s mixed={stats.mixed_s:.2f}s "
           f"padding: valid={stats.packed_tokens} batch={stats.padded_tokens} "
           f"efficiency={stats.padding_efficiency:.2f}")
@@ -140,7 +234,20 @@ def main(argv=None) -> None:
             print(f"[serve] calibrate: table -> {args.calibration_out}")
 
     outs = {o.rid: o for o in eng.outputs()}
+    if journal is not None:
+        # requests that went terminal before a crash live only in the
+        # journal; they count as finished, once
+        for rid, e in journal.entries.items():
+            if e.done and rid not in outs:
+                outs[rid] = e
+        journal.close()
     allowed = {"eos", "length", "rejected"}
+    if any(f.kind == "nan" for f in plan.faults):
+        allowed.add("error")
+    if args.deadline is not None:
+        allowed.add("timeout")
+    if args.max_waiting is not None or args.admission == "preempt":
+        allowed.update(("shed", "preempted"))
     missing = [r for r in range(args.requests) if r not in outs]
     bad = [(r, o.finish_reason) for r, o in outs.items()
            if o.finish_reason not in allowed]

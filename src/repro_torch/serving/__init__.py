@@ -1,5 +1,6 @@
-"""Request-level serving stack of the port: ``LLMEngine`` over the paged +
-packed path (see ``repro_torch.serving.engine``)."""
+"""Request-level serving stack of the port: ``LLMEngine`` over the four
+chunked styles, with fault handling and the write-ahead journal (see
+``repro_torch.serving.engine``)."""
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_ERROR, FINISH_EVICTED,
                                      FINISH_LENGTH, FINISH_PREEMPTED,
@@ -8,6 +9,8 @@ from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      SamplingParams)
 from repro_torch.serving.core import EngineCore, StepOutput
 from repro_torch.serving.engine import EngineStats, LLMEngine, plan_cfg
+from repro_torch.serving.journal import (JournalEntry, RequestJournal,
+                                         body_fingerprint, key_after)
 from repro_torch.serving.kvcache import PagedKVCache, pages_for
 from repro_torch.serving.scheduler import (ChunkTask, FCFSScheduler,
                                            PackedStep, SchedulerOutput,
@@ -22,4 +25,5 @@ __all__ = [
     "PackedStep", "pack_bucket", "pack_step",
     "EngineCore", "LLMEngine", "EngineStats", "plan_cfg",
     "PagedKVCache", "pages_for",
+    "RequestJournal", "JournalEntry", "key_after", "body_fingerprint",
 ]

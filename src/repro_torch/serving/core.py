@@ -34,12 +34,26 @@ argmax, and the sampled slots draw eagerly. ``capture=False`` runs the same
 step bodies eagerly through the same buffers (for comparison; the launcher
 does not expose it), as does every step on the CPU.
 
-Sampling state: each sampled slot owns a ``torch.Generator`` on the device,
-seeded from ``SamplingParams.seed`` at admission and advanced only when the
-slot emits a token, so a sampled stream does not depend on batch
-composition, slot placement, chunking or step style. The numbers differ
-from the reference's threefry keys: greedy streams match the reference,
-sampled streams match only within the port.
+Sampling keys: the draw of a request's t-th emitted token is a pure
+function of ``(SamplingParams.seed, t)``. Each sampled slot holds the
+reference's threefry key on the host (``serving.journal``: a numpy port of
+``jax.random.PRNGKey`` and ``split``), set at admission to ``key_after(seed,
+tokens already emitted)`` and split once per emitted token, as the
+reference's keys are; the draw's subkey seeds one ``torch.Generator`` on the
+device. So a stream does not depend on batch composition, slot placement,
+chunking or step style, and resumes exactly after a preemption, a watchdog
+recovery or a process restart, with no key state to stash. The categorical
+draw itself is torch's: greedy streams match the reference, sampled streams
+match only within the port.
+
+Faults (``runtime.faults.FaultPlan``), keyed on ``step_idx``, which
+advances before the fault applies (the engine carries it across a rebuild,
+so a step-pinned fault fires once a run): ``fail``, ``delay`` and ``die``
+apply at the top of ``step``, before any device work; ``nan`` rides the
+(B,) fp32 ``poison`` input of every step key (zeros unless a fault fires),
+added to the logits inside the step body before their finite-row flags, so
+a poisoned step replays the graph its shape already has and never captures
+another.
 """
 from __future__ import annotations
 
@@ -52,8 +66,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as R
+from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.graphs import StepGraphs
 from repro_torch.serving.api import SamplingParams
+from repro_torch.serving.journal import key_after, prng_key, split
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.scheduler import SchedulerOutput, pack_step
 
@@ -94,7 +110,8 @@ class EngineCore:
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int,
                  buffer_len: int, window: int, packed: bool, paged: bool,
                  page_size: int, kv_pages: Optional[int],
-                 device: torch.device, capture: bool = True):
+                 device: torch.device, capture: bool = True,
+                 faults: Optional[FaultPlan] = None):
         if window <= 0:
             raise ValueError("step-based serving consumes prompts via "
                              "chunks; pass a chunk size")
@@ -106,6 +123,10 @@ class EngineCore:
         self.packed = packed
         self.paged = paged
         self.device = device
+        self.faults = faults
+        # monotone step counter driving the fault plan
+        self.step_idx = 0
+        self._zero_poison = np.zeros(batch_slots, np.float32)
         # the window's slack: a W-wide write at pos <= buffer_len - 1 never
         # clamps; packed and paged steps scatter at exact positions
         self.T_alloc = buffer_len if (packed or paged) else buffer_len + window
@@ -133,7 +154,8 @@ class EngineCore:
         self.temps = np.zeros(batch_slots, np.float32)
         self.topks = np.zeros(batch_slots, np.int32)
         self.greedy = np.ones(batch_slots, bool)
-        self.gens: list = [None] * batch_slots
+        self.keys = np.zeros((batch_slots, 2), np.uint32)   # threefry keys
+        self._gen = torch.Generator(device=device)      # reseeded per draw
         self.logits: Optional[torch.Tensor] = None   # last step's, fp32
 
     # a graph holds the addresses of the params and of the plan's choices:
@@ -156,28 +178,38 @@ class EngineCore:
         self.graphs.clear()
         self._cfg = cfg
 
-    def _set_sampling(self, i: int, sp: SamplingParams) -> None:
+    def close(self) -> None:
+        """Free the device state: the caches, and every graph with its
+        static buffers and memory pool (a rebuilt core must never replay a
+        graph against another core's caches)."""
+        self.caches = None
+        self.logits = None
+        self.graphs.clear()
+
+    def _set_sampling(self, i: int, sp: SamplingParams, n_emitted: int
+                      ) -> None:
+        """Seed slot ``i`` for a request that has already emitted
+        ``n_emitted`` tokens (non-zero after a preemption or a restart)."""
         self.temps[i] = max(sp.temperature, 0.0)
         self.topks[i] = sp.top_k
         self.greedy[i] = sp.greedy
-        self.gens[i] = (None if sp.greedy else
-                        torch.Generator(device=self.device).manual_seed(
-                            sp.seed))
+        self.keys[i] = (key_after(sp.seed, n_emitted) if n_emitted
+                        else prng_key(sp.seed))
 
     def clear_sampling(self, i: int) -> None:
         """Reset a freed slot to greedy (the next request re-seeds)."""
         self.temps[i] = 0.0
         self.topks[i] = 0
         self.greedy[i] = True
-        self.gens[i] = None
 
-    def _health(self, logits: torch.Tensor, new_cache: dict) -> tuple:
+    def _health(self, logits: torch.Tensor, new_cache: dict,
+                poison: torch.Tensor) -> tuple:
         """The end of every step body: ``pos`` copied into the engine's own
-        tensor, then the (B, V) fp32 logits and one (2, B) tensor of their
-        argmax and finite-row flags (``isfinite(logits).all(-1)``), the
-        step's single host read."""
+        tensor, then the (B, V) fp32 logits plus the (B,) ``poison`` and one
+        (2, B) tensor of their argmax and finite-row flags
+        (``isfinite(logits).all(-1)``), the step's single host read."""
         self.caches["pos"].copy_(new_cache["pos"])
-        lg = logits.to(torch.float32)
+        lg = logits.to(torch.float32) + poison[:, None]
         toks = torch.argmax(lg, dim=-1)
         ok = torch.isfinite(lg).all(dim=-1)
         return lg, torch.stack([toks, ok.to(toks.dtype)])
@@ -185,17 +217,23 @@ class EngineCore:
     def _sample(self, lg: torch.Tensor, head: torch.Tensor, emit_slots: tuple
                 ) -> tuple[np.ndarray, np.ndarray]:
         """((B,) tokens, (B,) finite-logits flags) on the host: one read of
-        ``head``; then each emitting sampled slot with finite logits draws
-        from its own generator (advanced only then) and the draws are read
-        once more."""
+        ``head``; then each emitting sampled slot with finite logits splits
+        its key (advanced only then), draws with the generator seeded from
+        the subkey, and the draws are read once more."""
         self.logits = lg
         host = head.cpu().numpy()
         toks, ok = host[0].copy(), host[1].astype(bool)
         draw = [i for i in emit_slots if not self.greedy[i] and ok[i]]
-        if draw:
-            toks[draw] = torch.stack([
-                sample_token(lg[i], float(self.temps[i]), int(self.topks[i]),
-                             self.gens[i]) for i in draw]).cpu().numpy()
+        picks = []
+        for i in draw:
+            self.keys[i], sub = split(self.keys[i])
+            # the generator's seed and offset are read at the launch, so
+            # reseeding it for the next slot leaves this draw alone
+            self._gen.manual_seed(int(sub[0]) << 32 | int(sub[1]))
+            picks.append(sample_token(lg[i], float(self.temps[i]),
+                                      int(self.topks[i]), self._gen))
+        if picks:
+            toks[draw] = torch.stack(picks).cpu().numpy()
         return toks, ok
 
     @torch.no_grad()
@@ -203,17 +241,26 @@ class EngineCore:
              last_tokens: Optional[np.ndarray] = None) -> StepOutput:
         """Execute one scheduler iteration as ONE model call in the engine's
         style. ``last_tokens`` carries each decode slot's previous token at
-        its slot index."""
+        its slot index. The fault plan's step ``step_idx`` applies first."""
         out = StepOutput()
+        idx = self.step_idx
+        self.step_idx += 1
+        poison = self._zero_poison
+        if self.faults:
+            self.faults.raise_or_delay(idx)
+            row = self.faults.poison_row(idx, self.B)
+            if row is not None:
+                poison = row
         if not (so.chunks or so.decode_slots):
             return out
         t0 = time.perf_counter()
         for c in so.chunks:
             if c.start == 0:            # new request: seed sampling state
-                self._set_sampling(c.slot, c.req.sampling)
+                self._set_sampling(c.slot, c.req.sampling,
+                                   len(c.req.out_tokens))
         run = (self._packed_step if self.packed else self._window_step
                if self.paged or so.chunks else self._decode_step)
-        (lg, head), emit, n_valid, n_batch = run(so, last_tokens)
+        (lg, head), emit, n_valid, n_batch = run(so, last_tokens, poison)
         toks, ok = self._sample(lg, head, emit)
         bad: list = []
         for i in so.decode_slots:
@@ -237,7 +284,7 @@ class EngineCore:
             out.decode_s = dt
         return out
 
-    def _packed_step(self, so: SchedulerOutput, last_tokens):
+    def _packed_step(self, so: SchedulerOutput, last_tokens, poison):
         """Every valid token in one pow-2-bucketed stream, against the page
         pools (paged) or the contiguous cache."""
         ps = pack_step(so, last_tokens, self._host_pos, self.B, self.window)
@@ -245,7 +292,7 @@ class EngineCore:
         self.step_shapes.add(key)
         inputs = dict(tokens=ps.tokens, slot_ids=ps.slot_ids,
                       positions=ps.positions, new_pos=ps.new_pos,
-                      emit_idx=ps.emit_idx)
+                      emit_idx=ps.emit_idx, poison=poison)
         if self.paged:
             inputs["page_table"] = self.pager.page_table
         out = self.graphs.run(key, inputs, self._packed_body)
@@ -262,9 +309,9 @@ class EngineCore:
         else:
             logits, new = R.serve_step_packed(self.params, self.cfg,
                                               self.caches, *args)
-        return self._health(logits, new)
+        return self._health(logits, new, a["poison"])
 
-    def _window_step(self, so: SchedulerOutput, last_tokens):
+    def _window_step(self, so: SchedulerOutput, last_tokens, poison):
         """One (B, W) ragged window, W the chunk size: decode slots ride at
         width 1, chunk slots at their slice length, idle slots at 0."""
         W = self.window
@@ -285,7 +332,7 @@ class EngineCore:
             self._host_pos[fresh] = 0
         key = ("window", W)
         self.step_shapes.add(key)
-        inputs = dict(tokens=tokens, n_tok=n_tok)
+        inputs = dict(tokens=tokens, n_tok=n_tok, poison=poison)
         if self.paged:
             inputs["page_table"] = self.pager.page_table
         out = self.graphs.run(key, inputs, self._window_body)
@@ -303,9 +350,9 @@ class EngineCore:
             logits, new = R.serve_step_window(self.params, self.cfg,
                                               self.caches, a["tokens"],
                                               a["n_tok"])
-        return self._health(logits, new)
+        return self._health(logits, new, a["poison"])
 
-    def _decode_step(self, so: SchedulerOutput, last_tokens):
+    def _decode_step(self, so: SchedulerOutput, last_tokens, poison):
         """A chunk-free step of the contiguous window style: every slot
         advances one token (idle ones too, as the reference's vmap does)."""
         last = np.zeros((self.B, 1), np.int32)
@@ -313,11 +360,12 @@ class EngineCore:
             last[i, 0] = last_tokens[i]
         key = ("decode", 1)
         self.step_shapes.add(key)
-        out = self.graphs.run(key, dict(tokens=last), self._decode_body)
+        out = self.graphs.run(key, dict(tokens=last, poison=poison),
+                              self._decode_body)
         self._host_pos += 1
         return out, tuple(so.decode_slots), len(so.decode_slots), self.B
 
     def _decode_body(self, a: dict) -> tuple:
         logits, new = R.serve_step(self.params, self.cfg, self.caches,
                                    a["tokens"])
-        return self._health(logits, new)
+        return self._health(logits, new, a["poison"])

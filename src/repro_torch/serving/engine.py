@@ -1,14 +1,16 @@
 """LLMEngine: step-based serving over chunked prompts (port of
 ``repro.serving.engine``).
 
-Each ``step()``: the :class:`~repro_torch.serving.scheduler.FCFSScheduler`
-emits one :class:`SchedulerOutput` (running decode slots plus fixed-size
-prompt chunks), ``_page_gate`` grants the KV pages it needs when the cache
-is paged, and the :class:`~repro_torch.serving.core.EngineCore` runs it as
-ONE step in the engine's style (contiguous or paged cache, window or
-packed step) with fused sampling; this module tracks slots, prefill
-progress, finish reasons, streaming callbacks and the ``EngineStats``
-counters.
+Each ``step()``: expired deadlines finish, the
+:class:`~repro_torch.serving.scheduler.FCFSScheduler` emits one
+:class:`SchedulerOutput` (running decode slots plus fixed-size prompt
+chunks, and under ``admission="preempt"`` a slot to evict), the evicted
+slot is requeued for recompute, ``_page_gate`` grants the KV pages the
+step needs when the cache is paged, and the
+:class:`~repro_torch.serving.core.EngineCore` runs it as ONE step in the
+engine's style (contiguous or paged cache, window or packed step) with
+fused sampling; this module tracks slots, prefill progress, finish
+reasons, streaming callbacks and the ``EngineStats`` counters.
 
 When the model has OVSF layers and its config carries no plan, the engine
 asks the layer mapper (``runtime.mapper``) for a decode-shaped
@@ -22,11 +24,47 @@ into ``self.calibration``, keyed by ``self.hw_label``; ``replan()`` plans
 again under that table with the engine's own target and candidates, and
 returns the plan without swapping it in, as the reference does.
 
+Failure handling, as the reference's:
+
+* **Preemption and recompute.** A slot evicted for a more urgent waiter
+  (``admission="preempt"``) or by a page-pool shortfall of running work
+  (``_page_gate``: the least urgent, youngest scheduled slot goes first)
+  releases its pages, its prompt becomes ``original + generated tokens``,
+  and it goes back to the waiting queue in its arrival order; chunked
+  prefill recomputes its context. Streams resume token for token, greedy
+  and sampled (a draw is a pure function of the seed and the tokens
+  emitted, ``serving.core``).
+* **NaN quarantine.** A slot whose emitted logits are not finite finishes
+  ``FINISH_ERROR``; the others keep serving.
+* **Watchdog.** A step that raises, or takes longer than
+  ``step_timeout_s`` (its output is committed first), requeues every live
+  slot recompute-style and rebuilds the core: the old core's caches,
+  graphs and graph pools are freed first, and the new core carries
+  ``step_idx`` and ``step_shapes`` over and captures its graphs anew on
+  its first step of each shape (a graph holds raw addresses of the old
+  caches and is never replayed against new ones). The stall clock leaves
+  out the first call of each shape on a core (warm-up and capture,
+  ``StepGraphs.first_calls``; counted in ``EngineStats.warmups``): the
+  reference's rebuilt core reuses its jit traces, the port's captures
+  again, and a capture counted as a stall would rebuild the core again on
+  its own first step, so a ``step_timeout_s`` below the capture time would
+  never finish a prompt. Recovery needs a device
+  that still answers: an error that poisons the CUDA context (a
+  device-side trap, such as ``ovsf_decompress``'s out-of-range code id)
+  makes every later call fail, so the engine re-raises it and the process
+  must be restarted (``launch.serve --journal --supervise``).
+* **Deadlines, shedding, cancellation.** ``Request.deadline_s`` expires
+  queued and running requests as ``FINISH_TIMEOUT``; a bounded waiting
+  queue (``max_waiting``) sheds the least urgent request as
+  ``FINISH_SHED``; ``cancel()`` finishes a request as
+  ``FINISH_CANCELLED`` and frees its slot and pages at once.
+* **Durability.** With a ``journal`` (``serving.journal.RequestJournal``)
+  admissions, tokens and finishes are logged, flushed once a step and on
+  every finish; ``recover_from_journal()`` re-admits a crashed process's
+  live requests through the recompute path.
+
 ``chunk_size`` is required: the legacy phase-based path (whole-prompt
-prefill groups), the int8 KV cache, preemption, deadlines, load shedding,
-fault injection and the journal wait for later slices (ROADMAP A.3, A.4).
-A page-pool shortfall for running work raises ``RuntimeError``: the
-default pool (``slots * buffer_len / page_size`` pages) never runs short.
+prefill groups) and the int8 KV cache wait for a later slice (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -41,8 +79,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.runtime import mapper
 from repro_torch.runtime.calibrate import CalibrationTable, update_from_step
-from repro_torch.serving.api import (FINISH_EOS, FINISH_ERROR,
-                                     FINISH_LENGTH, FINISH_REJECTED, Request,
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
+                                     FINISH_ERROR, FINISH_LENGTH,
+                                     FINISH_PREEMPTED, FINISH_REJECTED,
+                                     FINISH_SHED, FINISH_TIMEOUT, Request,
                                      RequestOutput, SamplingParams)
 from repro_torch.serving.core import EngineCore, StepOutput
 from repro_torch.serving.scheduler import (FCFSScheduler, SchedulerOutput,
@@ -88,7 +129,19 @@ class EngineStats:
     padded_tokens: int = 0        # batch tokens across all steps (incl. pad)
     completed: int = 0            # finished naturally (eos / length)
     rejected: int = 0
+    preemptions: int = 0          # slot evictions for recompute (transient)
+    recoveries: int = 0           # watchdog core rebuilds (exception/stall)
+    stalls: int = 0               # steps longer than step_timeout_s
+    timeouts: int = 0             # requests expired (FINISH_TIMEOUT)
+    shed: int = 0                 # load-shed and dropped preempted requests
+                                  # (FINISH_SHED / FINISH_PREEMPTED)
     errors: int = 0               # quarantined non-finite-logits requests
+    cancelled: int = 0            # caller-cancelled (FINISH_CANCELLED)
+    warmups: int = 0              # first steps of a shape on a core (on the
+                                  # card: warm-up + CUDA-graph capture)
+    warmup_s: float = 0.0         # their first calls' time, off the stall clock
+    rebuild_s: float = 0.0        # watchdog rebuild time (old core freed, new
+                                  # core built; its captures are warmup_s)
     decode_s: float = 0.0         # chunk-free step wall time
     mixed_s: float = 0.0          # chunk-bearing step wall time
     kv_pages_total: int = 0       # page pool size (0 unless paged)
@@ -116,16 +169,21 @@ class LLMEngine:
     no GPU present that raises unless ``device="cpu"`` is passed). On the
     card every step replays a CUDA graph, one per step shape
     (``EngineCore``); ``capture=False`` runs the same steps eagerly, for
-    comparison."""
+    comparison. ``admission``, ``max_waiting``, ``step_timeout_s``,
+    ``faults`` and ``journal`` are the reference's (module docstring)."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int = 4,
                  buffer_len: int = 256, eos_id: Optional[int] = None,
+                 admission: str = "reject",
                  chunk_size: Optional[int] = None,
                  max_step_tokens: Optional[int] = None,
                  packed: bool = False, paged: bool = False,
                  page_size: int = 16, kv_pages: Optional[int] = None,
-                 calibrate: bool = False, device="cuda",
-                 capture: bool = True):
+                 calibrate: bool = False,
+                 max_waiting: Optional[int] = None,
+                 step_timeout_s: Optional[float] = None,
+                 faults: Optional[FaultPlan] = None,
+                 journal=None, device="cuda", capture: bool = True):
         self.device = resolve_device(device)
         if chunk_size is None:
             raise NotImplementedError(
@@ -149,13 +207,20 @@ class LLMEngine:
             # the mixed-step bucket: chunk-bearing steps fill their shape
             max_step_tokens = pack_bucket(0, batch_slots, chunk_size, True)
         self.max_step_tokens = max_step_tokens
-        self.core = EngineCore(params, self.cfg, batch_slots=batch_slots,
+        self.faults = faults
+        self.step_timeout_s = step_timeout_s
+        # what a watchdog rebuild of the core needs
+        self._core_args = dict(batch_slots=batch_slots,
                                buffer_len=buffer_len, window=chunk_size,
                                packed=packed, paged=paged,
                                page_size=page_size, kv_pages=kv_pages,
-                               device=self.device, capture=capture)
+                               device=self.device, capture=capture,
+                               faults=faults)
+        self.core = EngineCore(params, self.cfg, **self._core_args)
         pages = self.core.pager.P if paged else 0
         self.scheduler = FCFSScheduler(buffer_len, chunk_size=chunk_size,
+                                       admission=admission,
+                                       max_waiting=max_waiting,
                                        page_size=page_size if paged else None,
                                        total_pages=pages or None)
         self.slots: list[Optional[Request]] = [None] * batch_slots
@@ -165,26 +230,38 @@ class LLMEngine:
         self._finished: list[RequestOutput] = []
         self.calibrate = calibrate
         self.calibration = CalibrationTable()
+        # write-ahead journal (None: not durable); flushed once a step
+        self.journal = journal
 
     # -- request intake ----------------------------------------------------
 
     def submit(self, req: Request) -> bool:
-        """Admit a request; False (and a ``rejected`` output) if it would
-        overflow the cache buffer or the page pool."""
+        """Admit a request; False (and a ``rejected`` or ``shed`` output) if
+        it would overflow the cache buffer or the page pool, or was shed
+        from a full bounded queue."""
         req.t_submit = time.perf_counter()
+        if self.journal is not None:
+            # the admission record precedes any effect of the request
+            self.journal.admit_request(req)
         admitted = self.scheduler.add(req)
         if not admitted:
             self._finalize(req)
+        self._drain_shed()      # the bounded queue may have evicted a waiter
         return admitted
 
     def add_request(self, req: Request) -> tuple:
         """``submit`` plus the backpressure signal ``(admitted,
-        backpressure)``; the waiting queue is unbounded here, so
-        backpressure is always 0.0."""
-        return self.submit(req), 0.0
+        backpressure)``: the waiting queue's fill fraction in [0, 1] (0.0
+        when unbounded)."""
+        admitted = self.submit(req)
+        return admitted, self.backpressure
+
+    @property
+    def backpressure(self) -> float:
+        return self.scheduler.backpressure
 
     def outputs(self) -> list[RequestOutput]:
-        """Finished (completed + rejected) requests, in finish order."""
+        """Finished requests (every terminal reason), in finish order."""
         return list(self._finished)
 
     # -- slots and commit --------------------------------------------------
@@ -199,6 +276,8 @@ class LLMEngine:
     def _commit_first_token(self, i: int, req: Request, tok: int) -> None:
         req.emit(tok)
         self._prefill_done[i] = req.prompt_len
+        # out_tokens holds what a recomputed request generated before, so
+        # its budget resumes where the eviction cut it
         self.slot_remaining[i] = req.max_new_tokens - len(req.out_tokens)
         self.stats.prefills += 1
         self.stats.tokens_out += 1
@@ -217,8 +296,9 @@ class LLMEngine:
         self._finalize(req)
 
     def _finalize(self, req: Request) -> None:
-        """Book a terminal request: output record, per-reason counter, and
-        the exactly-once ``on_finish`` notification."""
+        """Book a terminal request: output record, per-reason counter, the
+        journal's ``fin`` (durable before the result surfaces), and the
+        exactly-once ``on_finish`` notification."""
         out = req.output()
         self._finished.append(out)
         r = req.finish_reason
@@ -227,22 +307,46 @@ class LLMEngine:
             st.completed += 1
         elif r == FINISH_REJECTED:
             st.rejected += 1
+        elif r == FINISH_TIMEOUT:
+            st.timeouts += 1
+        elif r in (FINISH_SHED, FINISH_PREEMPTED):
+            st.shed += 1
         elif r == FINISH_ERROR:
             st.errors += 1
+        elif r == FINISH_CANCELLED:
+            st.cancelled += 1
+        if self.journal is not None:
+            self.journal.finish(req.rid, r)
         if req.on_finish is not None and not req._notified:
             req._notified = True
             req.on_finish(out)
 
+    def _drain_shed(self) -> None:
+        """Finalize the victims the scheduler took out of its bounded queue
+        (already marked SHED or PREEMPTED)."""
+        shed = self.scheduler.shed
+        for req in shed:
+            self._finalize(req)
+        shed.clear()
+
     # -- the step loop -----------------------------------------------------
 
     def step(self) -> int:
-        """One scheduler iteration: schedule, grant pages (paged), run one
-        step, commit. Returns the remaining work (occupied slots plus
-        queued requests; 0 = idle)."""
+        """One scheduler iteration: expire deadlines, schedule, evict the
+        scheduler's preemption victim, grant pages (paged), run one step,
+        commit. A step exception, or a step past ``step_timeout_s``, runs
+        the watchdog (``_recover``) instead of propagating. Returns the
+        remaining work (occupied slots plus queued requests; 0 = idle)."""
+        self._expire_deadlines()
+        self._drain_shed()
         so = self.scheduler.schedule(self._running_view(), self._free_slots(),
                                      token_budget=self.max_step_tokens)
+        for i in so.preempt_slots:      # evict + recompute-requeue
+            self._requeue_slot(i, preempt=True)
+        self._drain_shed()              # a requeue into a full queue sheds
         if self.paged:
-            so = self._page_gate(so)
+            so = self._page_gate(so)    # grant pages / preempt on shortfall
+            self._drain_shed()
         if so.empty:
             return self._remaining()
         last = np.zeros(self.B, np.int32)
@@ -252,44 +356,213 @@ class LLMEngine:
             if c.start == 0:
                 self.slots[c.slot] = c.req
                 self._prefill_done[c.slot] = 0
-        out = self.core.step(so, last)
+        first = self.core.graphs.first_calls
+        n_first = len(first)
+        t0 = time.perf_counter()
+        try:
+            out = self.core.step(so, last)
+        except Exception as exc:        # watchdog: the step crashed
+            self._check_device(exc)
+            self._recover()
+            return self._remaining()
+        # the stall watchdog measures around the core call, less the first
+        # calls of new shapes; the step's output is valid, so it is
+        # committed before the rebuild
+        warm = sum(s for _key, s in first[n_first:])
+        self.stats.warmups += len(first) - n_first
+        self.stats.warmup_s += warm
+        stalled = (self.step_timeout_s is not None
+                   and time.perf_counter() - t0 - warm > self.step_timeout_s)
         self._commit(so, out)
+        if self.journal is not None:
+            self.journal.flush()        # group-commit this step's records
+        if stalled:
+            self.stats.stalls += 1
+            self._recover()
         return self._remaining()
 
+    def _check_device(self, exc: Exception) -> None:
+        """Re-raise when the device no longer answers: a sticky CUDA error
+        (a device-side trap) fails every later call, so only a new process
+        recovers from it."""
+        if self.device.type != "cuda":
+            return
+        try:
+            torch.cuda.synchronize(self.device)
+        except Exception as err:
+            raise RuntimeError(
+                "the CUDA context is lost: a step failed and the device no "
+                "longer answers; restart the process (launch.serve "
+                "--journal --supervise recovers every live request)"
+            ) from err
+
     def _page_gate(self, so: SchedulerOutput) -> SchedulerOutput:
-        """Grant KV pages for everything the scheduler just emitted. Running
-        work (decodes, continuing chunks) must fit; a new prompt whose pages
-        cannot be granted goes back to the waiting queue and retries next
-        step."""
+        """Grant KV pages for everything the scheduler just emitted.
+
+        Running work (decodes, chunks continuing a started prompt) cannot
+        wait, so a pool shortfall preempts the least urgent, youngest of
+        those slots for recompute until the rest fits. A new prompt whose
+        pages cannot be granted goes back to the waiting queue (its arrival
+        order kept) and retries once pages are released."""
         pager = self.core.pager
         pos = self.core._host_pos
         decodes = list(so.decode_slots)
         run_chunks = [c for c in so.chunks if c.start > 0]
-        need = (sum(pager.pages_needed(i, int(pos[i]) + 1) for i in decodes)
-                + sum(pager.pages_needed(c.slot, c.start + c.length)
-                      for c in run_chunks))
-        if need > pager.free_pages:
-            raise RuntimeError(
-                f"KV page pool exhausted: running work needs {need} pages, "
-                f"{pager.free_pages} free; preemption-and-recompute is not "
-                f"ported yet — raise kv_pages (the default, slots * "
-                f"buffer_len / page_size, never runs short)")
+        new_chunks = [c for c in so.chunks if c.start == 0]
+
+        def shortfall() -> int:
+            need = (sum(pager.pages_needed(i, int(pos[i]) + 1)
+                        for i in decodes)
+                    + sum(pager.pages_needed(c.slot, c.start + c.length)
+                          for c in run_chunks))
+            return need - pager.free_pages
+
+        while shortfall() > 0:
+            cands = ([(i, self.slots[i]) for i in decodes]
+                     + [(c.slot, self.slots[c.slot]) for c in run_chunks])
+            if len(cands) <= 1:
+                break   # one slot always fits: admission caps it at the pool
+            victim = min(cands, key=lambda t: (t[1].priority,
+                                               -(t[1]._sched_seq or 0)))[0]
+            decodes = [i for i in decodes if i != victim]
+            run_chunks = [c for c in run_chunks if c.slot != victim]
+            self._requeue_slot(victim, preempt=True)    # releases its pages
         for i in decodes:
             pager.grant(i, int(pos[i]) + 1)
         for c in run_chunks:
             pager.grant(c.slot, c.start + c.length)
-        chunks = []
-        for c in so.chunks:
-            if c.start > 0 or pager.grant(c.slot, c.start + c.length):
-                chunks.append(c)
+        kept_new = []
+        for c in new_chunks:
+            if pager.grant(c.slot, c.start + c.length):
+                kept_new.append(c)
             else:
                 self.scheduler.requeue(c.req)
+        keep = {id(c) for c in run_chunks} | {id(c) for c in kept_new}
+        chunks = tuple(c for c in so.chunks if id(c) in keep)
         st = self.stats
         st.kv_pages_used = max(st.kv_pages_used, pager.used_pages)
         st.kv_bytes_used = max(st.kv_bytes_used, pager.used_bytes)
         return dataclasses.replace(
-            so, chunks=tuple(chunks),
+            so, decode_slots=tuple(decodes), chunks=chunks,
             n_scheduled_tokens=len(decodes) + sum(c.length for c in chunks))
+
+    def _expire_deadlines(self) -> None:
+        """Finish expired requests as FINISH_TIMEOUT: queued ones through
+        the scheduler, running ones straight out of their slot."""
+        for req in self.scheduler.pop_expired(time.perf_counter()):
+            self._finalize(req)
+        for i in range(self.B):
+            req = self.slots[i]
+            if req is not None and req.expired:
+                self._finish(i, FINISH_TIMEOUT)
+
+    def _stash_slot(self, i: int) -> Request:
+        """Evict slot ``i`` recompute-style and return its request: the
+        prompt becomes original + generated tokens, prefill progress
+        resets, the pages go back to the pool. No sampling state is kept:
+        the next admission derives the key from the tokens emitted."""
+        req = self.slots[i]
+        self.slots[i] = None
+        self.core.clear_sampling(i)
+        if self.paged:
+            self.core.pager.release(i)
+        self._prefill_done[i] = 0
+        self.slot_remaining[i] = 0
+        if req.prompt_len_orig is None:
+            req.prompt_len_orig = req.prompt_len
+        # the tokens generated since the last rewrite
+        new_tail = req.out_tokens[req.prompt_len - req.prompt_len_orig:]
+        if new_tail:
+            req.prompt = np.concatenate(
+                [np.asarray(req.prompt, np.int32),
+                 np.asarray(new_tail, np.int32)])
+        return req
+
+    def _requeue_slot(self, i: int, *, preempt: bool) -> None:
+        """``_stash_slot`` and re-enqueue here; ``preempt=True`` books a
+        preemption (a watchdog's requeue is not one)."""
+        req = self._stash_slot(i)
+        if preempt:
+            req.preemptions += 1
+            self.stats.preemptions += 1
+        self.scheduler.requeue(req)
+
+    # -- hooks for callers: migration, crash recovery, drain, cancel ---------
+
+    def adopt(self, req: Request) -> None:
+        """Accept a request already admitted by an identically configured
+        engine (a recomputed prompt keeps its total cache need), bypassing
+        admission."""
+        self.scheduler.requeue(req)
+        self._drain_shed()
+
+    def recover_from_journal(self, *, wire=None) -> list:
+        """Crash recovery: re-admit every non-terminal journaled request
+        through the recompute path, in admission order, and return them.
+        A request whose deadline passed while the process was down
+        finishes ``FINISH_TIMEOUT`` here (``on_finish`` once). ``wire(req)``
+        may attach callbacks before each request is adopted or finalized.
+        The journal is compacted afterwards."""
+        if self.journal is None:
+            return []
+        recovered = []
+        for entry in self.journal.live_entries():
+            req = entry.to_request()
+            if wire is not None:
+                wire(req)
+            if req.expired:
+                req.finish_reason = FINISH_TIMEOUT
+                self._finalize(req)
+                continue
+            self.adopt(req)
+            recovered.append(req)
+        self.journal.compact()
+        return recovered
+
+    def drain_requests(self) -> list:
+        """Strip every live request off this engine: running slots evicted
+        recompute-style, then the waiting queue in priority-FCFS order. The
+        engine is left empty and usable."""
+        out = [self._stash_slot(i) for i in range(self.B)
+               if self.slots[i] is not None]
+        out.extend(self.scheduler.pop_all())
+        return out
+
+    def cancel(self, req: Request) -> bool:
+        """Cancel one live request: a running one finishes
+        FINISH_CANCELLED with its slot and pages freed at once, a queued
+        one is withdrawn. False when it is not live here."""
+        if req.done:
+            return False
+        for i in range(self.B):
+            if self.slots[i] is req:
+                self._finish(i, FINISH_CANCELLED)
+                return True
+        if self.scheduler.remove(req):
+            req.finish_reason = FINISH_CANCELLED
+            self._finalize(req)
+            return True
+        return False
+
+    def _recover(self) -> None:
+        """Watchdog recovery: requeue every live slot recompute-style, free
+        the old core (caches, graphs, graph pools), and build a new one that
+        carries ``step_idx`` and ``step_shapes`` over, so a step-pinned
+        fault fires once a run."""
+        for i in range(self.B):
+            if self.slots[i] is not None:
+                self._requeue_slot(i, preempt=False)
+        self._drain_shed()
+        t0 = time.perf_counter()
+        step_idx, shapes = self.core.step_idx, self.core.step_shapes
+        self.core.close()
+        self.core = EngineCore(self.params, self.cfg, **self._core_args)
+        self.core.step_idx = step_idx
+        self.core.step_shapes = shapes
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)     # the new caches' zeros
+        self.stats.rebuild_s += time.perf_counter() - t0
+        self.stats.recoveries += 1
 
     def _remaining(self) -> int:
         return (sum(s is not None for s in self.slots)
@@ -302,9 +575,14 @@ class LLMEngine:
         for i in out.bad_slots:         # NaN quarantine: the request ends
             self._finish(i, FINISH_ERROR)
         for i, tok in out.first_tokens.items():
+            # the token is journaled before any finish it triggers
+            if self.journal is not None:
+                self.journal.tokens(self.slots[i].rid, (tok,))
             self._commit_first_token(i, self.slots[i], tok)
         for i, tok in out.decode_tokens.items():
             req = self.slots[i]
+            if self.journal is not None:
+                self.journal.tokens(req.rid, (tok,))
             req.emit(tok)
             self.stats.tokens_out += 1
             self.slot_remaining[i] -= 1

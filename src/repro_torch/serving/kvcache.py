@@ -3,7 +3,8 @@
 Each layer's K and V live in ``(n_pages, page_size, n_kv_heads, head_dim)``
 pools shared by every slot (allocated by ``models.transformer.
 init_paged_cache``; this module only does the bookkeeping). Pages are
-granted on demand from a free list and reclaimed wholesale on finish. The
+granted on demand from a free list and reclaimed wholesale on finish,
+preemption, shedding, cancellation and recovery. The
 host page table ``(n_slots + 1, max_pages)`` int32 maps (slot, page index)
 to a physical page; unmapped entries and the whole sentinel row ``n_slots``
 (packed-step padding tokens) carry ``n_pages``. Position ``p`` of a slot
@@ -56,6 +57,13 @@ class PagedKVCache:
     def used_bytes(self) -> int:
         return self.used_pages * self.page_bytes
 
+    @property
+    def total_bytes(self) -> int:
+        return self.P * self.page_bytes
+
+    def slot_pages(self, slot: int) -> tuple:
+        return tuple(self._slot_pages[slot])
+
     def pages_needed(self, slot: int, new_len: int) -> int:
         """Additional pages slot needs to hold ``new_len`` tokens."""
         return max(pages_for(new_len, self.ps) - len(self._slot_pages[slot]),
@@ -88,3 +96,6 @@ class PagedKVCache:
         self._slot_pages[slot] = []
         self.page_table[slot, :] = self.P
         return n
+
+    def release_all(self) -> int:
+        return sum(self.release(i) for i in range(self.S))

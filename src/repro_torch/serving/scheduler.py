@@ -4,10 +4,12 @@ path needs from ``repro.serving.scheduler``).
 ``FCFSScheduler.schedule`` emits one :class:`SchedulerOutput` per engine
 iteration: every running decode slot advances one token, and the rest of
 the token budget goes to fixed-size prompt chunks (highest priority first,
-FCFS within a level, partial prefills before new admissions). ``pack_step``
-flattens that into the dense ``(T,)`` token stream of one packed step. The
-legacy phase-based mode, load shedding, deadlines and preemption wait for
-later slices.
+FCFS within a level, partial prefills before new admissions), and under
+``admission="preempt"`` the slot to evict for a more urgent waiter; it
+also bounds the waiting queue (load shedding) and expires deadlines.
+``pack_step`` flattens a step into the dense ``(T,)`` token stream of one
+packed step. The legacy phase-based mode waits for a later slice (ROADMAP
+A.3).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.ovsf import next_pow2
-from repro_torch.serving.api import FINISH_REJECTED, Request
+from repro_torch.serving.api import (FINISH_PREEMPTED, FINISH_REJECTED,
+                                     FINISH_SHED, FINISH_TIMEOUT, Request)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,14 +37,18 @@ class ChunkTask:
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerOutput:
-    """What the engine core executes in ONE ``step()`` iteration."""
+    """What the engine core executes in ONE ``step()`` iteration.
+    ``preempt_slots`` are running slots the engine evicts before the step
+    (excluded from ``decode_slots`` and ``chunks``; their requests are
+    re-enqueued for recompute)."""
     decode_slots: tuple = ()        # slots advancing one generated token
     chunks: tuple = ()              # ChunkTask prompt slices this step
+    preempt_slots: tuple = ()       # slots to evict + recompute-requeue
     n_scheduled_tokens: int = 0
 
     @property
     def empty(self) -> bool:
-        return not (self.decode_slots or self.chunks)
+        return not (self.decode_slots or self.chunks or self.preempt_slots)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,54 +136,150 @@ def pack_step(so: SchedulerOutput, last_tokens, slot_pos, B: int,
 class FCFSScheduler:
     """Priority-FCFS admission and chunked step scheduling.
 
-    ``add`` rejects (FINISH_REJECTED) a request whose prompt plus
-    ``max_new_tokens`` would not fit the buffer, or — paged — the whole
-    page pool. The waiting queue is ordered by priority (higher first), FCFS
-    within a level.
+    ``admission``: ``"reject"`` marks a request whose prompt plus
+    ``max_new_tokens`` would overflow the buffer (or, paged, the whole page
+    pool) FINISH_REJECTED at ``add``; ``"truncate"`` clamps
+    ``max_new_tokens`` to what fits (a prompt longer than ``buffer_len -
+    1`` is rejected either way); ``"preempt"`` admits like ``"reject"`` and
+    also evicts the least urgent running slot when a strictly more urgent
+    request waits and no slot is free (``SchedulerOutput.preempt_slots``):
+    the victim is recomputed, not lost.
+
+    The waiting queue is ordered by priority (higher first), FCFS within a
+    level. With ``max_waiting`` it is bounded and an overload sheds the
+    least urgent request (the new one, or a less urgent waiter) as
+    FINISH_SHED; victims taken out of the queue land in ``self.shed`` for
+    the engine to finalize.
     """
 
     def __init__(self, buffer_len: int, *, chunk_size: int,
+                 admission: str = "reject",
+                 max_waiting: Optional[int] = None,
                  page_size: Optional[int] = None,
                  total_pages: Optional[int] = None):
+        if admission not in ("reject", "truncate", "preempt"):
+            raise ValueError(f"admission policy {admission!r}")
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if max_waiting is not None and max_waiting < 1:
+            raise ValueError(f"max_waiting must be >= 1, got {max_waiting}")
         self.buffer_len = buffer_len
+        self.admission = admission
         self.chunk_size = chunk_size
+        self.max_waiting = max_waiting
+        # paged admission: a request whose whole lifetime exceeds the ENTIRE
+        # pool could never run even alone; transient pool pressure is the
+        # engine's page gate's (wait, or preempt and recompute)
         self.page_size = page_size
         self.total_pages = total_pages
         self.waiting: list[Request] = []
+        self.shed: list[Request] = []   # load-shed victims awaiting finalize
         self._seq = 0
 
     def __len__(self) -> int:
         return len(self.waiting)
 
+    @property
+    def backpressure(self) -> float:
+        """Queue fill fraction in [0, 1]; 0.0 when unbounded."""
+        if not self.max_waiting:
+            return 0.0
+        return min(len(self.waiting) / self.max_waiting, 1.0)
+
     def _key(self, req: Request):
         return (-req.priority, req._sched_seq)
+
+    def _peek(self) -> Optional[Request]:
+        if not self.waiting:
+            return None
+        return min(self.waiting, key=self._key)
 
     def _pop_next(self) -> Request:
         i = min(range(len(self.waiting)),
                 key=lambda i: self._key(self.waiting[i]))
         return self.waiting.pop(i)
 
+    def _shed_victim_idx(self) -> int:
+        """Least urgent queued request: lowest priority, youngest within."""
+        return max(range(len(self.waiting)),
+                   key=lambda i: (-self.waiting[i].priority,
+                                  self.waiting[i]._sched_seq))
+
     def add(self, req: Request) -> bool:
-        """Admit or reject (FINISH_REJECTED)."""
+        """Admit, reject (FINISH_REJECTED) or load-shed (FINISH_SHED)."""
         plen = req.prompt_len
         cap = self.buffer_len - plen
         if self.page_size and self.total_pages:
             cap = min(cap, self.total_pages * self.page_size - plen)
-        if plen < 1 or plen > self.buffer_len - 1 or cap < 1 \
-                or req.max_new_tokens > cap:
+        overflow = req.max_new_tokens > cap
+        if plen < 1 or plen > self.buffer_len - 1 or cap < 1 or (
+                overflow and self.admission != "truncate"):
             req.finish_reason = FINISH_REJECTED
             return False
+        if overflow:                    # admission == "truncate"
+            req.max_new_tokens = cap
         if req._sched_seq is None:
             req._sched_seq = self._seq
             self._seq += 1
+        if self.max_waiting and len(self.waiting) >= self.max_waiting:
+            vi = self._shed_victim_idx()
+            if self.waiting[vi].priority < req.priority:
+                victim = self.waiting.pop(vi)   # evict a less urgent waiter
+                victim.finish_reason = FINISH_SHED
+                self.shed.append(victim)
+            else:
+                req.finish_reason = FINISH_SHED
+                return False
         self.waiting.append(req)
         return True
 
-    def requeue(self, req: Request) -> None:
-        """Put an admitted request back (its arrival order is kept)."""
+    def requeue(self, req: Request) -> bool:
+        """Re-enqueue an admitted request (preempted, recovered, or a new
+        prompt whose pages could not be granted), its arrival order kept.
+        Into a full bounded queue it displaces a less urgent waiter, or is
+        dropped as FINISH_PREEMPTED when every waiter is at least as
+        urgent (the one case preemption is lossy)."""
+        if self.max_waiting and len(self.waiting) >= self.max_waiting:
+            vi = self._shed_victim_idx()
+            victim = self.waiting[vi]
+            if (victim.priority, -victim._sched_seq) < (req.priority,
+                                                        -req._sched_seq):
+                self.waiting.pop(vi)
+                victim.finish_reason = FINISH_SHED
+                self.shed.append(victim)
+            else:
+                req.finish_reason = FINISH_PREEMPTED
+                self.shed.append(req)
+                return False
         self.waiting.append(req)
+        return True
+
+    def remove(self, req: Request) -> bool:
+        """Withdraw one queued request (cancellation): True iff it was
+        waiting. The caller finalizes it."""
+        try:
+            self.waiting.remove(req)
+            return True
+        except ValueError:
+            return False
+
+    def pop_all(self) -> list[Request]:
+        """Drain the waiting queue in priority-FCFS order."""
+        out = sorted(self.waiting, key=self._key)
+        self.waiting = []
+        return out
+
+    def pop_expired(self, now: float) -> list[Request]:
+        """Remove and return the waiting requests past their deadline
+        (marked FINISH_TIMEOUT; the engine finalizes them)."""
+        expired = [r for r in self.waiting
+                   if r.deadline_s is not None and r.t_submit > 0.0
+                   and now - r.t_submit > r.deadline_s]
+        if expired:
+            self.waiting = [r for r in self.waiting if r not in expired]
+            for r in expired:
+                r.finish_reason = FINISH_TIMEOUT
+        return expired
 
     def schedule(self, running, free_slots, *,
                  token_budget: Optional[int] = None) -> SchedulerOutput:
@@ -184,12 +287,24 @@ class FCFSScheduler:
 
         ``running`` is ``[(slot, Request, prefill_done)]`` for occupied
         slots (``prefill_done == prompt_len`` means the slot decodes);
-        ``free_slots`` are unoccupied slot ids. Decodes are always
-        scheduled; the rest of ``token_budget`` is split across prompt
-        chunks of at most ``chunk_size`` tokens, and a mid-prefill slot
-        always progresses by at least one token.
+        ``free_slots`` are unoccupied slot ids. Under ``admission=
+        "preempt"``, when no slot is free and the waiting head is strictly
+        more urgent than the least urgent running slot, that slot goes to
+        ``preempt_slots`` (at most one a step) and gets no work this step.
+        Decodes are always scheduled; the rest of ``token_budget`` is split
+        across prompt chunks of at most ``chunk_size`` tokens, and a
+        mid-prefill slot always progresses by at least one token.
         """
         chunk = self.chunk_size
+        preempt: tuple = ()
+        if self.admission == "preempt" and running and not free_slots:
+            head = self._peek()
+            vslot, vreq, _vd = min(
+                running, key=lambda t: (t[1].priority, -(t[1]._sched_seq
+                                                         or 0)))
+            if head is not None and head.priority > vreq.priority:
+                preempt = (vslot,)
+                running = [t for t in running if t[0] != vslot]
         decodes = [s for s, req, done in running if done >= req.prompt_len]
         budget = (token_budget if token_budget is not None
                   else len(decodes) + chunk * max(len(running)
@@ -208,6 +323,8 @@ class FCFSScheduler:
             if not self.waiting or budget <= 0:
                 break
             req = self._pop_next()
+            # a recomputed request prefills its whole rewritten prompt
+            # (original + generated tokens) from position 0
             take = min(chunk, req.prompt_len, budget)
             chunks.append(ChunkTask(slot, req, 0, take,
                                     take >= req.prompt_len))
@@ -215,4 +332,5 @@ class FCFSScheduler:
         n_tok = len(decodes) + sum(c.length for c in chunks)
         return SchedulerOutput(decode_slots=tuple(decodes),
                                chunks=tuple(chunks),
+                               preempt_slots=preempt,
                                n_scheduled_tokens=n_tok)

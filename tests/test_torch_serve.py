@@ -250,7 +250,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.hwmodel.tile_balance, repro_torch.kernels.ovsf_gemm, "
             "repro_torch.models.cnn, repro_torch.configs.resnet18, "
             "repro_torch.configs.resnet34, repro_torch.configs.resnet50, "
-            "repro_torch.configs.squeezenet1_1; "
+            "repro_torch.configs.squeezenet1_1, repro_torch.runtime.faults, "
+            "repro_torch.serving.journal, repro_torch.launch.supervise; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
