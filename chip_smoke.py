@@ -22,7 +22,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
              attention case prints the split count and block count it ran
              with, and both attention kernels are also checked, untimed,
              at shapes that take their other code paths, each launched
-             twice with outputs equal bit for bit) and
+             twice with outputs equal bit for bit; and both over int8 K/V
+             (the int8 KV cache: paged T 4 and 128, the window decode and
+             packed gather shapes, bf16 and fp32 q) against their int8
+             plain versions, a second launch equal to the first, with the
+             bound over the int8 bytes, SDPA over the K/V dequantised
+             beforehand as the library call and the ratio to the same case
+             over a cache of q's type; ``ovsf_gemm`` with bf16 alphas also
+             at M = 1024, the legacy prefill's 256 bucket at 4 slots) and
              ``ovsf_decompress`` (the ResNet-50 and SqueezeNet-1.1 shapes, a
              ragged shape, repeated code ids) and ``fwht`` (the (M, L) of
              the planned ResNet-50 and SqueezeNet-1.1 forwards at batch 8,
@@ -92,6 +99,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
              as ``step_shapes``, and its chunk-free step wall (host clock)
              must be below eager's; both print wall, device busy and idle
              share.
+  4b. legacy: the legacy phase-based path (``LLMEngine(chunk_size=None)``,
+             the launcher's default) at full width in bf16, 4 slots, buffer
+             256, the same 8 requests, bucketed and unbucketed
+             (``bucketed_prefill=False``), eagerly and replayed: every
+             request finishes, streams, every step's logits and the launch
+             counters equal in the two; every step launches 110
+             ``ovsf_gemm`` (all tensor-core) for each prefill call and for
+             the decode, 22 ``flash_decode_attn`` for the decode and no
+             attention kernel in a prefill (its S > 1 attention is plain
+             ``sdpa``, as the reference's); the graphs are the bucketed
+             prefill keys (at most 6 buckets) and ``("decode", 1)`` (exact
+             prefills run eagerly); it prints the host ms a prefill call,
+             the device ms of one replay of each bucket and, bucketed, the
+             decode step's wall, replay span, busy time and idle share
+             (profiled as phase 4's, eager against graph). The replayed
+             run's reserved memory (K/V cache and peak above the run's
+             start) must stay within ``LEGACY_MEMORY`` x the contiguous
+             window run's of phase 4 (5x bucketed, 1x unbucketed), each
+             bucket's graph must hold K/V Lb columns deep, and 8 more
+             requests of new prompt lengths (in the captured buckets, or
+             new exact lengths) must capture nothing and leave
+             ``memory_reserved`` within 2 MiB; the MiB its graphs hold is
+             printed. Then the int8
+             KV cache, replayed, in the legacy path and the paged packed
+             engine: every request finishes with the bf16 cache's launch
+             counts, the cache's K/V bytes half the bf16 cache's, and the
+             legacy decode step profiled (the int8 instances of
+             ``flash_decode_kernel`` counted by name among the hand-written
+             kernels). Then fp32: at one slot the legacy streams equal the
+             packed engine's (the reference's single-slot anchor); card vs
+             CPU ``serve_prefill_ragged`` logits at a (4, 64) bucket
+             within 1e-3 relative L2, over an fp32 cache and over an int8
+             cache with the CPU fed the card's int8 K/V layer by layer (the
+             CPU's own int8 prefill's error printed beside the count of
+             cache entries its quantisation puts one step from the card's,
+             each at most one); and card vs CPU
+             ``serve_step`` and a paged decode step over the same int8
+             caches (22 launches of the int8 ``flash_decode_attn`` and
+             ``paged_flash_decode`` instances) within 1e-3.
   5. parity: one full-width packed paged step in fp32 on the card vs the
              same step with the same parameters on the CPU (plain versions),
              with fp32 and with int8 alphas, planned as the engine plans on
@@ -343,8 +389,10 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
     cases = [(16, M, K, N, dt) for M in (4, 128)
              for (K, N) in ((2048, 2048), (2048, 5632), (5632, 2048))
              for dt in (torch.bfloat16, torch.float32)]
-    # the paged window's step: 4 slots x 64 tokens through every projection
-    cases += [(16, 256, K, N, torch.bfloat16)
+    # the paged window's step: 4 slots x 64 tokens through every projection;
+    # bf16 alphas also the legacy prefill's 256 bucket at 4 slots (M 1024)
+    cases += [(16, M, K, N, torch.bfloat16)
+              for M in ((256,) if alpha_dtype else (256, 1024))
               for (K, N) in ((2048, 2048), (2048, 5632), (5632, 2048))]
     cases += [(16, 13, 128, 64, dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [(0, 5, 1000, 1000, dt) for dt in (torch.bfloat16, torch.float32)]
@@ -402,9 +450,10 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
               f"plain={plain_ms:.4f}ms library(matmul, dense W)="
               f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
     # one decode layer's five projections at M = 4 in bf16 (the summary row
-    # of the kernels line), and the same at M = 128 and 256
+    # of the kernels line), and the same at M = 128, 256 and (bf16 alphas)
+    # 1024
     summary = {}
-    for M in (4, 128, 256):
+    for M in (4, 128, 256) + (() if alpha_dtype else (1024,)):
         pick = {(r["K"], r["N"]): r for r in rows if r["seg"] and r["M"] == M
                 and r["dtype"] == "torch.bfloat16"}
         s = {key: sum(pick[kn][key] for kn in layer.values())
@@ -420,7 +469,7 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
               f"(x{s['vs_library']:.2f}), bound {s['bound_ms']:.4f}ms",
               flush=True)
     summary = dict(summary[4], layer_M128=summary[128],
-                   layer_M256=summary[256])
+                   layer_M256=summary[256], layer_M1024=summary.get(1024))
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return rows, summary
 
@@ -756,6 +805,99 @@ def run_attn_shape_checks(rng, dev) -> list:
     return rows
 
 
+def int8_kv(x: torch.Tensor) -> torch.Tensor:
+    """An int8 cache of ``x`` (the reference's static-scale quantiser)."""
+    from repro_torch.kernels.ref import quant_like
+    return quant_like(x, torch.int8)
+
+
+def run_int8_attn_checks(rng, dev, paged_rows: list, flash_rows: list):
+    """Both attention kernels over int8 K/V (the int8 KV cache) with bf16
+    and fp32 q, at the paged T = 4 and 128 shapes and the contiguous window
+    decode and packed gather shapes: against the int8 plain version
+    (``dequant`` and then the float one), a second launch equal to the
+    first; device time, the bound over the int8 bytes, the plain version's
+    time, the library call's (SDPA over the K/V dequantised beforehand) and
+    the ratio to the same case over a cache of q's type (``paged_rows`` /
+    ``flash_rows``, the float checks above)."""
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels.ref import dequant
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [("paged_flash_decode", f"T={T}", T) for T in (4, 128)]
+    cases += [("flash_decode_attn", c[0], c) for c in FLASH_CASES
+              if c[0] in ("window decode", "packed gather")]
+    rows = []
+    for name, shape, c in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            if name == "paged_flash_decode":
+                args, bytes_, flops = paged_case(rng, c, dt, dev)
+                fn, plain = da.paged_flash_decode, \
+                    da.paged_flash_decode_int8_plain
+                args = (args[0], int8_kv(args[1]), int8_kv(args[2]),
+                        *args[3:])
+                lib_of = sdpa_inputs
+                float_row = next(r for r in paged_rows if r["T"] == c
+                                 and r["dtype"] == str(dt))
+            else:
+                args, bytes_, flops = flash_case(rng, *c[1:], dt, dev)
+                fn, plain = da.flash_decode_attn, \
+                    da.flash_decode_attn_int8_plain
+                args = (args[0], int8_kv(args[1]), int8_kv(args[2]),
+                        args[3])
+                lib_of = flash_sdpa_inputs
+                float_row = next(r for r in flash_rows if r["case"]
+                                 .startswith(f"flash_decode_attn {c[0]} B")
+                                 and r["dtype"] == str(dt))
+            # the float case's bytes with its K/V elements at one byte each:
+            # q and out in q's type, pos (contiguous) int32
+            es = args[0].element_size()
+            q_bytes = 2 * args[0].numel() * es
+            pos_bytes = 4 * c[1] if name == "flash_decode_attn" else 0
+            bytes8 = q_bytes + pos_bytes + (bytes_ - q_bytes - pos_bytes) // es
+            label = f"{name} int8 K/V {shape} {str(dt).split('.')[-1]}"
+            got = fn(*args)
+            err = check(label, got, plain(*args), dt)
+            if not torch.equal(got, fn(*args)):
+                raise RuntimeError(f"{label}: a second launch differs")
+            t_bound, by = bound(bytes8, flops, dt)
+            copies = [(args[0], args[1].clone(), args[2].clone(), *args[3:])
+                      for _ in range(n_copies(2 * args[1].numel()))]
+            ms, call_ms = timings([lambda a=a: fn(*a) for a in copies], 50)
+            plain_ms, _ = timings([lambda a=a: plain(*a)
+                                   for a in copies[:2]], 4)
+            deq = [(a[0], dequant(a[1], dt), dequant(a[2], dt), *a[3:])
+                   for a in copies[:2]]
+            lib_in = [lib_of(*a) for a in deq]
+            lib_ms, _ = timings([lambda a=a: sdpa(a[0], a[1], a[2],
+                                                  attn_mask=a[3])
+                                 for a in lib_in], 50)
+            del copies, deq, lib_in
+            ratio = ms / float_row["ms"]
+            rows.append(dict(case=label, dtype=str(dt), max_abs_err=err,
+                             tol=TOL[dt], ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=t_bound, bound_by=by,
+                             float_cache_ms=float_row["ms"],
+                             vs_float_cache=ratio))
+            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol {TOL[dt]}), "
+                  f"a second launch equal bit for bit; kernel={ms:.4f}ms "
+                  f"(per Python call {call_ms:.4f}ms) bound={t_bound:.5f}ms "
+                  f"({by}, int8 K/V bytes) plain={plain_ms:.4f}ms "
+                  f"library(SDPA, K/V dequantised beforehand)={lib_ms:.4f}ms;"
+                  f" x{ratio:.2f} the {str(dt).split('.')[-1]}-cache kernel "
+                  f"({float_row['ms']:.4f}ms)", flush=True)
+        torch.cuda.empty_cache()
+    pick = lambda n: dict(next(r for r in rows if r["case"].startswith(n)
+                               and "bfloat16" in r["dtype"]))
+    summaries = {"paged_flash_decode": pick("paged_flash_decode int8 K/V "
+                                            "T=4"),
+                 "flash_decode_attn": pick("flash_decode_attn int8 K/V "
+                                           "window decode")}
+    for s in summaries.values():
+        s["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return rows, summaries
+
+
 # -- phase 4: serve ----------------------------------------------------------
 
 # engine style -> LLMEngine arguments besides chunk_size
@@ -778,29 +920,41 @@ def check_fault_free(eng, tag: str, core) -> None:
 
 
 def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
-              capture: bool, calibrate: bool) -> tuple:
-    """One engine in ``style`` over ``reqs``, replaying its step graphs
-    (``capture``) or eager: (engine, dict of stats, launch counters zeroed
-    just before, chunk-free step count, token streams, each step's
-    (chunk-free, fp32 logits on the host) and the peak memory the run
-    reserved above what was reserved at its start (the params, another
-    engine))."""
+              capture: bool, calibrate: bool, engine_kw=None) -> tuple:
+    """One engine in ``style`` (``engine_kw``: the engine's arguments
+    besides slots and buffer instead, e.g. the legacy path's) over
+    ``reqs``, replaying its step graphs (``capture``) or eager: (engine,
+    dict of stats, launch counters zeroed just before, chunk-free step
+    count, token streams, each step's (chunk-free, fp32 logits on the host),
+    each step's (prefill keys, decoded, launch counters' increase), the
+    K/V bytes of the engine's cache and the peak memory the run reserved
+    above what was reserved at its start (the params, another engine))."""
     from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.kernels.decode_attn import (flash_decode_attn,
                                                  paged_flash_decode)
     from repro_torch.serving import LLMEngine
+    kw = engine_kw if engine_kw is not None else dict(chunk_size=64,
+                                                       **STYLES[style])
     eng = LLMEngine(params, cfg, batch_slots=4, buffer_len=256,
-                    chunk_size=64, calibrate=calibrate, device=dev,
-                    capture=capture, **STYLES[style])
-    steps = []
+                    calibrate=calibrate, device=dev, capture=capture, **kw)
+    steps, per_step = [], []
     core = eng.core
     core_step = core.step
 
     def recording_step(so, last=None):
+        before = wrapper_counts()
         out = core_step(so, last)
-        if so.decode_slots or so.chunks:
+        if so.decode_slots or so.chunks or so.prefill_groups:
             steps.append((bool(not so.chunks),
                           eng.core.logits.to("cpu", copy=True)))
+        calls = [("prefill_exact", r.prompt_len) if pg.exact
+                 else ("prefill", min(pg.bucket, core.T))
+                 for pg in so.prefill_groups
+                 for _i, r in (pg.slot_reqs if pg.exact
+                               else pg.slot_reqs[:1])]
+        after = wrapper_counts()
+        per_step.append((calls, bool(so.decode_slots or so.chunks),
+                         {k: after[k] - before[k] for k in after}))
         return out
 
     core.step = recording_step
@@ -836,10 +990,32 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
         by_alpha=dict(G.ovsf_gemm.launches_by_alpha),
         by_kernel=dict(G.ovsf_gemm.launches_by_kernel),
         chunk_free=sum(cf for cf, _l in steps), steps=steps,
-        tokens={o.rid: list(o.tokens) for o in outs},
+        per_step=per_step, tokens={o.rid: list(o.tokens) for o in outs},
         step_shapes=sorted(eng.core.step_shapes),
         graphs=sorted(eng.core.graphs.keys()), core=core,
+        kv_bytes=sum(eng.core.caches[n].nbytes for n in ("k_rows", "v_rows")),
         peak_mib=(torch.cuda.max_memory_reserved(dev) - base) / 2**20)
+
+
+def serve_specs(cfg, seed: int) -> list:
+    """The serve phases' 8 requests, (rid, prompt of 8-149 tokens, sampling
+    kw): requests 2 and 5 sampled."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for rid in range(8):
+        sp = (dict(temperature=0.8, top_k=40, seed=rid) if rid in (2, 5)
+              else {})
+        prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 150)),
+                              dtype=np.int32)
+        specs.append((rid, prompt, sp))
+    return specs
+
+
+def serve_requests(specs) -> list:
+    from repro_torch.serving import Request, SamplingParams
+    return [Request(rid, prompt, max_new_tokens=16,
+                    sampling=SamplingParams(**sp))
+            for rid, prompt, sp in specs]
 
 
 def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
@@ -857,7 +1033,6 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
     from repro_torch.configs import get_config
     from repro_torch.core.ovsf import alpha_params
     from repro_torch.models import registry as R
-    from repro_torch.serving import Request, SamplingParams
     adt = alpha_dtype or "fp"
     kw = STYLES[style]
     x_name = "bf16" if dtype == "bfloat16" else "fp32"
@@ -881,23 +1056,14 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
     if stored != {alpha_dtype}:
         raise RuntimeError(f"serve: OVSF layers store {stored} alphas, "
                            f"expected {adt}")
-    rng = np.random.default_rng(seed)
-    specs = []
-    for rid in range(8):
-        sp = (dict(temperature=0.8, top_k=40, seed=rid) if rid in (2, 5)
-              else {})
-        prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 150)),
-                              dtype=np.int32)
-        specs.append((rid, prompt, sp))
+    specs = serve_specs(cfg, seed)
     # the calibration loop rides the bf16 paged packed run
     calibrate = style == "paged packed" and not alpha_dtype and \
         dtype == "bfloat16"
     # both engines stay alive until their profiled windows agree
     runs, engines, walls = {}, {}, {}
     for mode in ("eager", "graph"):
-        reqs = [Request(rid, prompt, max_new_tokens=16,
-                        sampling=SamplingParams(**sp))
-                for rid, prompt, sp in specs]
+        reqs = serve_requests(specs)
         eng, run = serve_run(params, cfg, dev, style, reqs, f"{tag} {mode}",
                              mode == "graph", calibrate and mode == "graph")
         if mode == "graph":
@@ -977,6 +1143,7 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
                   launches=launches, ovsf_gemm_by_kernel=by_kernel,
                   padding_efficiency=stats.padding_efficiency,
                   tokens=graph["tokens"], graph_vs_eager=compare,
+                  kv_bytes=graph["kv_bytes"],
                   decode_profile=profiles["graph"],
                   eager_decode_profile=profiles["eager"])
     if calibrate:
@@ -984,6 +1151,517 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
     del params
     torch.cuda.empty_cache()
     return result, launches
+
+
+# the legacy phase-based path's engine arguments besides slots and buffer
+LEGACY_STYLES = {"bucketed": dict(chunk_size=None),
+                 "unbucketed": dict(chunk_size=None, bucketed_prefill=False)}
+
+
+def ovsf_per_layer(params) -> int:
+    """OVSF projections a block (q, o, gate, up, down at full width: k and
+    v, 256 wide, are dense)."""
+    block = params["blocks"][0]
+    return sum("idx" in p for grp in ("attn", "mlp")
+               for p in block[grp].values())
+
+
+def check_legacy_steps(tag: str, run: dict, n_layers: int,
+                       n_ovsf: int) -> None:
+    """Every step of a legacy run launched, by the wrappers' counters, 110
+    ``ovsf_gemm`` (``n_ovsf`` = 5 OVSF projections x 22 layers) a prefill
+    call and a decode, 22 ``flash_decode_attn`` a decode (the prefill's
+    S > 1 attention is plain ``sdpa``, as in the reference), and nothing
+    else."""
+    for calls, decoded, delta in run["per_step"]:
+        want = {k: 0 for k in delta}
+        want["ovsf_gemm"] = n_ovsf * n_layers * (len(calls) + decoded)
+        want["flash_decode_attn"] = n_layers * decoded
+        if delta != want:
+            raise RuntimeError(f"{tag} a step with prefill calls {calls} and "
+                               f"{'a' if decoded else 'no'} decode launched "
+                               f"{delta}, expected {want}")
+
+
+def legacy_pair(params, cfg, dev, specs, label: str, tag: str) -> tuple:
+    """The legacy path in ``label``'s mode, eager and replayed, over the
+    same requests: streams, every step's logits (prefill-only steps
+    included) bit for bit, launch counters, each step's launches
+    (``check_legacy_steps``); ``prefill_compiles`` = the prefill keys run;
+    each bucket's graph holds K/V Lb columns deep;
+    the graphs = the bucketed prefill keys and ``("decode", 1)`` (an exact
+    prefill runs eagerly: a graph per prompt length would grow with the
+    traffic)."""
+    runs, engines = {}, {}
+    for mode in ("eager", "graph"):
+        eng, run = serve_run(params, cfg, dev, label, serve_requests(specs),
+                             f"{tag} {mode}", mode == "graph", False,
+                             engine_kw=LEGACY_STYLES[label])
+        check_legacy_steps(f"{tag} {mode}", run, cfg.n_layers,
+                           ovsf_per_layer(params))
+        runs[mode], engines[mode] = run, eng
+    eager, graph = runs["eager"], runs["graph"]
+    if graph["tokens"] != eager["tokens"]:
+        raise RuntimeError(f"{tag} graph streams differ from eager's")
+    equal = [torch.equal(g, e) for (_c, g), (_d, e)
+             in zip(graph["steps"], eager["steps"])]
+    if len(graph["steps"]) != len(eager["steps"]) or not all(equal):
+        raise RuntimeError(f"{tag} step logits bit-equal to eager in "
+                           f"{sum(equal)} of {len(eager['steps'])} steps")
+    tensor_core = graph["by_kernel"]["tensor_core"]
+    if graph["launches"] != eager["launches"] or \
+            graph["by_kernel"] != eager["by_kernel"] or \
+            tensor_core != graph["launches"]["ovsf_gemm"]:
+        raise RuntimeError(f"{tag} launches: graph {graph['launches']} "
+                           f"{graph['by_kernel']}, eager {eager['launches']} "
+                           f"{eager['by_kernel']}")
+    keys = [tuple(k) for k in graph["graphs"]]
+    prefill = sorted({k for calls, _d, _l in graph["per_step"]
+                      for k in calls})
+    captured = {k for k in prefill if k[0] == "prefill"}
+    entries = engines["graph"].core.graphs._entries
+    deep = {k: tuple(entries[k].outputs[n].shape[2] for n in (2, 3))
+            for k in captured}
+    if any(d != (k[1], k[1]) for k, d in deep.items()):
+        raise RuntimeError(f"{tag} a bucket's graph holds K/V columns "
+                           f"{deep}, not its Lb")
+    if set(keys) != captured | {("decode", 1)} or \
+            (label == "bucketed") != bool(captured) or \
+            graph["step_shapes"] != [("decode", 1)] or \
+            graph["stats"].prefill_compiles != len(prefill) or \
+            (label == "bucketed" and len(prefill) > 6):
+        raise RuntimeError(f"{tag} graphs {keys}, step shapes "
+                           f"{graph['step_shapes']}, prefill_compiles "
+                           f"{graph['stats'].prefill_compiles}")
+    return runs, engines, prefill
+
+
+def graphs_held_mib(eng, dev) -> float:
+    """MiB the engine's graphs hold: ``memory_reserved`` before and after
+    dropping every graph with its pool (the engine is discarded next)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    eng.core.graphs.clear()
+    return (before - torch.cuda.memory_reserved(dev)) / 2**20
+
+
+# a legacy run's reserved memory over the contiguous window's (phase 4's,
+# same slots, buffer and requests): a bucketed prefill's call is B x 256
+# tokens at the 256 bucket where a window step is B x 64 (4x the
+# activations), and the buckets' graphs keep their (B, Lb) caches besides
+# (sum of Lb = 480 columns: 1.9x the live cache); an unbucketed run holds
+# the decode graph only
+LEGACY_MEMORY = {"bucketed": 5.0, "unbucketed": 1.0}
+
+
+def reserved_growth(eng, cfg, dev, lengths: list, seed: int) -> tuple:
+    """Serve requests of new prompt lengths (``lengths``, 4 new tokens
+    each) on a replayed legacy engine that has served before: (MiB
+    ``memory_reserved`` grew by, graphs captured meanwhile). Lengths in
+    the buckets already captured, or exact ones (run eagerly), must leave
+    both at nothing: what the graphs keep does not grow with traffic."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    keys = set(eng.core.graphs.keys())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    for i, n in enumerate(lengths):
+        if not eng.submit(Request(100 + i, rng.integers(0, cfg.vocab, n,
+                                                         dtype=np.int32),
+                                  max_new_tokens=4)):
+            raise RuntimeError(f"a request of {n} prompt tokens rejected")
+    eng.run_until_drained(max_steps=1000)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ((torch.cuda.memory_reserved(dev) - before) / 2**20,
+            sorted(set(eng.core.graphs.keys()) - keys))
+
+
+def legacy_memory_gate(tag: str, label: str, out: dict, window: dict
+                       ) -> dict:
+    """The replayed run's reserved memory (its K/V cache and the peak
+    reserved above the run's start: graphs' pools, activations) at most
+    ``LEGACY_MEMORY[label]`` x the contiguous window run's."""
+    win = (window["kv_bytes"] / 2**20
+           + window["graph_vs_eager"]["peak_mib"])
+    got = out["kv_bytes"] / 2**20 + out["peak_mib"]
+    print(f"{tag} reserved memory: K/V {out['kv_bytes'] / 2**20:.1f} MiB + "
+          f"peak above the run's start {out['peak_mib']:.1f} MiB (eager "
+          f"{out['eager_peak_mib']:.1f}) = {got:.1f} MiB, the graphs hold "
+          f"{out['graphs_mib']:.1f} MiB; the contiguous window's "
+          f"{win:.1f} MiB (ratio {got / win:.3f}, limit "
+          f"{LEGACY_MEMORY[label]})", flush=True)
+    if got > LEGACY_MEMORY[label] * win:
+        raise RuntimeError(f"{tag} reserves {got:.1f} MiB, more than "
+                           f"{LEGACY_MEMORY[label]} x the contiguous "
+                           f"window's {win:.1f} MiB")
+    return dict(reserved_mib=got, window_reserved_mib=win)
+
+
+def legacy_phase(seed: int, card: str, dev, paged_bf16: dict,
+                 window_bf16: dict) -> dict:
+    """Phase 4b (module docstring): the legacy phase-based path at full
+    width in bf16, bucketed and unbucketed, eager and replayed, its
+    reserved memory held against the contiguous window's (``window_bf16``:
+    phase 4's run of that style); then the int8 KV cache in the legacy and
+    the paged packed engines (replayed), held against the bf16-cache runs
+    (``paged_bf16``: phase 4's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    cfg = get_config("tinyllama_1_1b")
+    params = R.model_init(cfg, seed, dev)
+    specs = serve_specs(cfg, seed)
+    res = {}
+    for label in LEGACY_STYLES:
+        tag = f"[legacy {label}]"
+        runs, engines, prefill = legacy_pair(params, cfg, dev, specs, label,
+                                             tag)
+        graph, eager = runs["graph"], runs["eager"]
+        out = dict(tokens=graph["tokens"], launches=graph["launches"],
+                   steps=len(graph["per_step"]),
+                   prefill_calls=sum(len(c) for c, _d, _l
+                                     in graph["per_step"]),
+                   prefill_keys=[list(k) for k in prefill],
+                   prefill_s=graph["stats"].prefill_s,
+                   eager_prefill_s=eager["stats"].prefill_s,
+                   decode_s=graph["stats"].decode_s,
+                   eager_decode_s=eager["stats"].decode_s,
+                   wall_s=graph["wall"], eager_wall_s=eager["wall"],
+                   kv_bytes=graph["kv_bytes"], peak_mib=graph["peak_mib"],
+                   eager_peak_mib=eager["peak_mib"])
+        if label == "bucketed":
+            walls = {m: decode_ready(e, cfg, np.random.default_rng(seed + 1))
+                     for m, e in engines.items()}
+            windows = agreed_windows({m: e.step for m, e in engines.items()},
+                                     DECODE_STEPS, tag)
+            profiles = {m: decode_profile(e, f"{tag} {m}", walls[m],
+                                          windows[m])
+                        for m, e in engines.items()}
+            pg, pe = profiles["graph"], profiles["eager"]
+            if pg["own"] != pe["own"] or \
+                    pg["kernels_per_step"] != pe["kernels_per_step"]:
+                raise RuntimeError(f"{tag} profiled decode steps: graph "
+                                   f"{pg['own']} {pg['kernels_per_step']}, "
+                                   f"eager {pe['own']} "
+                                   f"{pe['kernels_per_step']}")
+            out["decode_profile"], out["eager_decode_profile"] = pg, pe
+            out["decode_replay_ms"] = replay_span(engines["graph"],
+                                                  ("decode", 1))
+            prefill = sorted(k for k in engines["graph"].core.graphs.keys()
+                             if k[0] == "prefill")
+        out["prefill_replay_ms"] = {f"{k[0]} {k[1]}": replay_span(
+            engines["graph"], k) for k in prefill if k[0] == "prefill"}
+        out["prefill_ms_a_call"] = 1e3 * out["prefill_s"] / \
+            out["prefill_calls"]
+        first = {len(p) for _r, p, _s in specs}
+        buckets = [k[1] for k in engines["graph"].core.graphs.keys()
+                   if k[0] == "prefill"]
+        # in the buckets captured (bucketed), or new exact lengths
+        lengths = sorted({n for n in ([b - 8 for b in buckets]
+                                      + [b // 2 + 2 for b in buckets]
+                                      if buckets else
+                                      [n + 1 for n in first])
+                          if n not in first})
+        out["growth_mib"], new = reserved_growth(engines["graph"], cfg, dev,
+                                                 lengths, seed + 5)
+        print(f"{tag} {len(lengths)} more requests of new prompt lengths "
+              f"{lengths}: memory_reserved grew {out['growth_mib']:.1f} MiB"
+              f" (limit 2), graphs captured {new}", flush=True)
+        if abs(out["growth_mib"]) > 2 or new or not lengths:
+            raise RuntimeError(f"{tag} reserved memory grew "
+                               f"{out['growth_mib']:.1f} MiB over new "
+                               f"prompt lengths, graphs {new}")
+        for m, e in engines.items():
+            check_fault_free(e, f"{tag} {m}", runs[m]["core"])
+        out["graphs_mib"] = graphs_held_mib(engines["graph"], dev)
+        out.update(legacy_memory_gate(tag, label, out, window_bf16))
+        del engines, runs
+        torch.cuda.empty_cache()
+        print(f"{tag} 8/8 finished, streams, logits ({out['steps']} steps) "
+              f"and launches equal eager vs replayed; {out['prefill_calls']} "
+              f"prefill calls over {len(out['prefill_keys'])} keys "
+              f"{out['prefill_keys']}; launches {out['launches']} (110 "
+              "ovsf_gemm a prefill call and a decode, 22 flash_decode_attn "
+              f"a decode); wall {out['wall_s']:.3f}s (eager "
+              f"{out['eager_wall_s']:.3f}s), prefill_s "
+              f"{out['prefill_s']:.3f} (eager {out['eager_prefill_s']:.3f}),"
+              f" decode_s {out['decode_s']:.3f} (eager "
+              f"{out['eager_decode_s']:.3f}); host ms a prefill call "
+              f"{out['prefill_ms_a_call']:.3f}; device ms a prefill replay:"
+              f" " + (", ".join(f"{k} {v:.3f}" for k, v in
+                                out["prefill_replay_ms"].items())
+                      or "none (exact prefills run eagerly)")
+              + (f"; decode step: wall {out['decode_profile']['step_ms']:.3f}"
+                 f" ms (eager {out['eager_decode_profile']['step_ms']:.3f}), "
+                 f"a replay spans {out['decode_replay_ms']:.3f} ms, device "
+                 f"busy {out['decode_profile']['busy_ms']}, idle share "
+                 f"{out['decode_profile']['idle_share']}"
+                 if "decode_profile" in out else "") + f" ({card})",
+              flush=True)
+        res[label] = out
+    res["window_reserved_mib"] = res["bucketed"]["window_reserved_mib"]
+    res["int8"] = int8_kv_runs(params, cfg, dev, specs, res["bucketed"],
+                               paged_bf16)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_kv_runs(params, cfg, dev, specs, legacy_bf16: dict,
+                 paged_bf16: dict) -> dict:
+    """The int8 KV cache at full width, replayed: the legacy path (bucketed)
+    and the paged packed engine, each over the bf16-cache run's requests:
+    every request finishes, the launch counters equal the bf16-cache run's,
+    the cache's K/V bytes are half of it; the legacy decode step is
+    profiled (its own kernels, int8 instances of ``flash_decode_kernel``
+    among them, equal to the wrappers' counters)."""
+    c8 = cfg.replace(kv_cache_dtype="int8")
+    out = {}
+    for label, style, kw, bf16 in (
+            ("legacy", "bucketed", LEGACY_STYLES["bucketed"], legacy_bf16),
+            ("paged packed", "paged packed", None, paged_bf16)):
+        tag = f"[int8 kv {label}]"
+        eng, run = serve_run(params, c8, dev, style, serve_requests(specs),
+                             tag, True, False, engine_kw=kw)
+        if eng.core.caches["k"].dtype != torch.int8:
+            raise RuntimeError(f"{tag} cache is {eng.core.caches['k'].dtype}")
+        if label == "legacy":
+            check_legacy_steps(tag, run, cfg.n_layers, ovsf_per_layer(params))
+        if run["launches"] != bf16["launches"] or \
+                2 * run["kv_bytes"] != bf16["kv_bytes"]:
+            raise RuntimeError(f"{tag} launches {run['launches']} and K/V "
+                               f"bytes {run['kv_bytes']}; the bf16 cache's "
+                               f"{bf16['launches']}, {bf16['kv_bytes']}")
+        res = dict(launches=run["launches"], kv_bytes=run["kv_bytes"],
+                   bf16_kv_bytes=bf16["kv_bytes"], wall_s=run["wall"],
+                   tokens_equal_bf16=sum(run["tokens"][r] == bf16["tokens"][r]
+                                         for r in run["tokens"]))
+        if label == "legacy":
+            wall = decode_ready(eng, c8, np.random.default_rng(7))
+            windows = agreed_windows({"graph": eng.step}, DECODE_STEPS, tag,
+                                     least=1)
+            res["decode_profile"] = decode_profile(eng, tag, wall,
+                                                   windows["graph"])
+        check_fault_free(eng, tag, run["core"])
+        print(f"{tag} 8/8 finished; launches {run['launches']} equal the "
+              f"bf16 cache's; K/V {run['kv_bytes'] / 2**20:.1f} MiB, half "
+              f"the bf16 cache's {bf16['kv_bytes'] / 2**20:.1f} MiB; "
+              f"{res['tokens_equal_bf16']} of 8 streams equal the bf16 "
+              f"cache's; wall {run['wall']:.3f}s", flush=True)
+        out[label] = res
+        del eng, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def legacy_fp32_checks(seed: int, dev) -> dict:
+    """fp32, full width: the reference's single-slot anchor (at one slot,
+    where no slot is reused, the legacy stream equals the packed one); card
+    vs CPU ``serve_prefill_ragged`` (``prefill_parity``) and the int8 steps
+    (``int8_step_parity``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serving import LLMEngine, Request, plan_cfg
+    cfg = get_config("tinyllama_1_1b").replace(dtype="float32")
+    params = R.model_init(cfg, seed + 3, dev)
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 77, 140)]
+    streams = {}
+    for label, kw in (("legacy", dict()),
+                      ("packed", dict(chunk_size=64, packed=True))):
+        eng = LLMEngine(params, cfg, batch_slots=1, buffer_len=256,
+                        device=dev, **kw)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new_tokens=6))
+        eng.run_until_drained()
+        streams[label] = {o.rid: list(o.tokens) for o in eng.outputs()}
+        del eng
+    if len(streams["legacy"]) != 3 or streams["legacy"] != streams["packed"]:
+        raise RuntimeError(f"[legacy fp32] single-slot streams: legacy "
+                           f"{streams['legacy']}, packed {streams['packed']}")
+    cfg = plan_cfg(cfg, 4, dev)
+    cpu_params = R.params_to(params, "cpu")
+    res = dict(single_slot_streams_equal=True,
+               prefill=prefill_parity(params, cpu_params, cfg, dev, rng),
+               int8_steps=int8_step_parity(params, cpu_params, cfg, dev,
+                                           rng))
+    print(f"[legacy fp32] single slot: legacy streams equal the packed "
+          f"engine's for 3 requests (20, 77, 140 prompt tokens)", flush=True)
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return res
+
+
+def one_step_apart(a: torch.Tensor, b: torch.Tensor, tag: str) -> int:
+    """Entries of two int8 caches that differ: each by one step of the
+    quantiser at most (a K or V value on a .5 boundary in one device's fp32
+    and not in the other's)."""
+    d = (a.cpu().int() - b.cpu().int()).abs()
+    if int(d.max()) > 1:
+        raise RuntimeError(f"{tag} int8 caches {int(d.max())} steps apart")
+    return int((d > 0).sum())
+
+
+def prefill_parity(params, cpu_params, cfg, dev, rng) -> dict:
+    """Card vs CPU ``serve_prefill_ragged`` at a (4, 64) bucket, into a
+    cache 64 deep as the engine prefills, logits within 1e-3 relative L2:
+    over an fp32 cache; over an int8 cache with the CPU fed the card's
+    quantised K/V layer by layer (``fed_quant``), so both read the same
+    int8 cache in every layer and the comparison holds the card's int8
+    prefill to the limit. Every K/V a prefill writes is quantised and read
+    back within the call: a value one fp32 rounding from a .5 boundary
+    quantises one step apart on the two devices and moves by 1/15.875, and
+    the network would carry that on from layer to layer. Printed beside
+    it: the CPU's own prefill (its own quantisation, not gated), and the
+    entries where the CPU's quantisation of a layer's K/V, from inputs
+    that differ by the card's fp32 rounding alone, is one step from the
+    card's (each at most one)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import registry as R
+    tokens = rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+    lengths = np.array([64, 9, 33, 1], np.int32)
+    out = {}
+
+    def prefill(p, c, d):
+        with torch.no_grad():
+            return R.serve_prefill_ragged(
+                p, c, torch.from_numpy(tokens).to(d), 64,
+                torch.from_numpy(lengths).to(d))
+
+    def rel_err(a, b):
+        a, b = a.float().cpu(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    for label, c in (("fp32 cache", cfg),
+                     ("int8 cache", cfg.replace(kv_cache_dtype="int8"))):
+        card = prefill(params, c, dev)
+        if not torch.isfinite(card[0]).all():
+            raise RuntimeError(f"[legacy fp32] prefill {label}: non-finite")
+        if not c.kv_cache_dtype:
+            res = dict(rel_err=rel_err(card[0],
+                                       prefill(cpu_params, c, "cpu")[0]))
+        else:
+            own = prefill(cpu_params, c, "cpu")
+            fed, apart = fed_quant(card[1]), [0]
+            real = A.quant_like
+
+            def quant(x, dtype):
+                got = fed(x, dtype)
+                apart[0] += one_step_apart(real(x, dtype), got,
+                                           "[legacy fp32] prefill")
+                return got
+            A.quant_like = quant
+            try:
+                fedl = prefill(cpu_params, c, "cpu")
+            finally:
+                A.quant_like = real
+            if not all(torch.equal(fedl[1][n], card[1][n].cpu())
+                       for n in ("k", "v")):
+                raise RuntimeError("[legacy fp32] prefill int8 cache: the "
+                                   "fed CPU cache differs from the card's")
+            res = dict(rel_err=rel_err(card[0], fedl[0]),
+                       own_rel_err=rel_err(card[0], own[0]),
+                       one_step_apart=apart[0],
+                       entries=2 * card[1]["k"].numel())
+        out[label] = res
+        print(f"[legacy fp32] serve_prefill_ragged (4, 64), {label}: card vs"
+              f" CPU logits rel L2 err={res['rel_err']:.3e} (limit 1e-3"
+              + (f"; the CPU fed the card's int8 K/V layer by layer; with "
+                 f"its own quantisation {res['own_rel_err']:.3e}, not "
+                 f"gated: {res['one_step_apart']} of {res['entries']} int8 "
+                 "cache entries one quantiser step apart"
+                 if c.kv_cache_dtype else "") + ")", flush=True)
+        if res["rel_err"] > 1e-3:
+            raise RuntimeError(f"[legacy fp32] prefill {label}: card vs CPU "
+                               f"rel L2 {res['rel_err']:.3e} > 1e-3")
+    return out
+
+
+def fed_quant(cache: dict):
+    """``quant_like`` for a prefill's writes, which come k then v a layer
+    (``attention.attn_apply``): each returns the layer's K or V from
+    ``cache`` (the card's, on the CPU) in place of its own quantisation."""
+    n_layers = cache["k"].shape[0]
+    rows = iter([cache[n][li].cpu() for li in range(n_layers)
+                 for n in ("k", "v")])
+
+    def quant(x, dtype):
+        got = next(rows)
+        if got.shape != x.shape or got.dtype != dtype:
+            raise RuntimeError(f"[legacy fp32] fed K/V {tuple(got.shape)} "
+                               f"{got.dtype} for {tuple(x.shape)} {dtype}")
+        return got
+    return quant
+
+
+def int8_step_parity(params, cpu_params, cfg, dev, rng) -> dict:
+    """Card vs CPU steps over the same int8 caches (random values, given to
+    both devices): the contiguous ``serve_step`` (22 int8
+    ``flash_decode_attn`` launches on the card; rows at pos 100, 77, 255
+    and an idle row at 300) and a paged decode step (4 tokens at 120, 200,
+    64, 255; 22 int8 ``paged_flash_decode`` launches); logits within 1e-3
+    relative L2, the rows each writes at most one quantiser step apart
+    (counted). Every token attends over a long context: a token at pos 0
+    attends its own freshly quantised row alone, so a value one fp32
+    rounding from a .5 boundary, quantised one step apart on the two
+    devices, moves that token's attention output by a whole step (1/15.875)
+    undiluted, and the random-weight network carries it on (the prefill
+    above shows how far)."""
+    from repro_torch.kernels.decode_attn import (flash_decode_attn,
+                                                 paged_flash_decode)
+    from repro_torch.kernels.ref import quant_like
+    from repro_torch.models import registry as R
+    c = cfg.replace(kv_cache_dtype="int8")
+    nl, Hkv, hd, B = c.n_layers, c.n_kv_heads, c.hd, 4
+
+    def kv8(shape):
+        x = torch.from_numpy(rng.standard_normal(shape, np.float32) * 2)
+        return quant_like(x, torch.int8)
+
+    cont = dict(k=kv8((nl, B, 256, Hkv, hd)), v=kv8((nl, B, 256, Hkv, hd)),
+                pos=torch.tensor([100, 77, 255, 300], dtype=torch.int32),
+                tokens=torch.from_numpy(rng.integers(0, c.vocab, (B, 1))
+                                        .astype(np.int32)))
+    P, ps, npg = 64, 16, 16
+    table = np.full((B + 1, npg), P, np.int32)
+    table[:B] = rng.permutation(P).reshape(B, npg)
+    poss = np.array([120, 200, 64, 255], np.int32)
+    paged = dict(k=kv8((nl, P, ps, Hkv, hd)), v=kv8((nl, P, ps, Hkv, hd)),
+                 host=[table, rng.integers(0, c.vocab, B).astype(np.int32),
+                       np.arange(B, dtype=np.int32), poss, poss + 1,
+                       np.arange(B, dtype=np.int32)])
+
+    def run(p, d):
+        put = lambda t: t.clone().to(d)
+        with torch.no_grad():
+            flash_decode_attn.launches = paged_flash_decode.launches = 0
+            cache = {n: put(cont[n]) for n in ("k", "v", "pos")}
+            l1, _ = R.serve_step(p, c, cache, put(cont["tokens"]))
+            pc = {"k": put(paged["k"]), "v": put(paged["v"]),
+                  "pos": torch.zeros(B, dtype=torch.int32, device=d)}
+            l2, _ = R.serve_step_paged(
+                p, c, pc, *(torch.from_numpy(a).to(d) for a in paged["host"]))
+        return ((l1.float().cpu(), l2.float().cpu()), (cache, pc),
+                (flash_decode_attn.launches, paged_flash_decode.launches))
+
+    gl, gc, n = run(params, dev)
+    hl, hc, _ = run(cpu_params, torch.device("cpu"))
+    rel = [float((g - h).norm() / h.norm()) for g, h in zip(gl, hl)]
+    print(f"[int8 steps] card vs CPU logits rel L2 err {rel}", flush=True)
+    apart = sum(one_step_apart(a[k], b[k], "[int8 steps]")
+                for a, b in zip(gc, hc) for k in ("k", "v"))
+    print(f"[int8 steps] fp32, full width, the same int8 caches on both "
+          f"devices: card vs CPU logits rel L2 err serve_step={rel[0]:.3e}, "
+          f"serve_step_paged={rel[1]:.3e} (limit 1e-3); launches on the card"
+          f" (flash_decode_attn, paged_flash_decode) {n}; {apart} cache "
+          "entries one quantiser step apart", flush=True)
+    if max(rel) > 1e-3 or n != (nl, nl) or not all(
+            torch.isfinite(g).all() for g in gl):
+        raise RuntimeError(f"[int8 steps] rel L2 {rel}, launches {n}")
+    return dict(rel_err=rel, launches=list(n), one_step_apart=apart)
 
 
 def replay_span(eng, key: tuple, n: int = 10) -> float:
@@ -2982,6 +3660,8 @@ def main(argv=None) -> int:
     attn_rows, attn_sum = run_paged_checks(rng, dev)
     flash_rows, flash_sum, flash_gathers = run_flash_checks(rng, dev)
     attn_shapes = run_attn_shape_checks(rng, dev)
+    int8_rows, int8_sums = run_int8_attn_checks(rng, dev, attn_rows,
+                                                flash_rows)
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
     fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
     mono_rows = run_mono_checks(rng, dev)
@@ -2992,7 +3672,8 @@ def main(argv=None) -> int:
                       for adt, (rows, _s) in gemm.items())
           + f" cases), paged_flash_decode ({len(attn_rows)} cases), "
           f"flash_decode_attn ({len(flash_rows)} cases), the two attention "
-          f"kernels at other shapes ({len(attn_shapes)} cases), "
+          f"kernels at other shapes ({len(attn_shapes)} cases) and over int8"
+          f" K/V ({len(int8_rows)} cases), "
           f"ovsf_decompress ({len(dec_rows)} cases), fwht "
           f"({len(fwht_rows)} cases), the monolithic tensor-core ovsf_gemm "
           f"({len(mono_rows)} cases here, the 19 CNN convs in the calibrate "
@@ -3008,6 +3689,9 @@ def main(argv=None) -> int:
                                                      "", style)
     serve_fp32 = {style: serve_phase(args.seed, card, dev, "", style,
                                      "float32")[0] for style in STYLES}
+    legacy = legacy_phase(args.seed, card, dev, serve["fp"],
+                          styles["contiguous window"])
+    legacy["fp32"] = legacy_fp32_checks(args.seed, dev)
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
     parity_contiguous = parity_contiguous_phase(args.seed, dev)
     from repro_torch.configs import get_config
@@ -3058,6 +3742,16 @@ def main(argv=None) -> int:
              "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:64", flash_sum,
              launches["contiguous window"]["flash_decode_attn"]),
+            ("paged_flash_decode_int8kv",
+             "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:160",
+             int8_sums["paged_flash_decode"],
+             legacy["int8"]["paged packed"]["launches"]["paged_flash_decode"]),
+            ("flash_decode_attn_int8kv",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64",
+             int8_sums["flash_decode_attn"],
+             legacy["int8"]["legacy"]["launches"]["flash_decode_attn"]),
             ("ovsf_decompress",
              "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
              "src/repro/kernels/ovsf_gemm.py:256", dec_sum,
@@ -3085,6 +3779,8 @@ def main(argv=None) -> int:
                    "ovsf_gemm_layer_M256": {
                        adt or "fp": s["layer_M256"]
                        for adt, (_r, s) in gemm.items()},
+                   "ovsf_gemm_layer_M1024": gemm[""][1]["layer_M1024"],
+                   "attention_int8_kv_cases": int8_rows,
                    "paged_flash_decode_cases": attn_rows,
                    "flash_decode_attn_cases": flash_rows,
                    "attention_shape_checks": attn_shapes,
@@ -3101,6 +3797,14 @@ def main(argv=None) -> int:
                        "flash_decode_attn": "window decode B=4 T=320 bf16; "
                                             "launches: the contiguous window "
                                             "serve phase",
+                       "paged_flash_decode_int8kv": "T=4 decode, bf16 q, "
+                                                    "int8 K/V; launches: the "
+                                                    "int8-cache paged packed "
+                                                    "serve run",
+                       "flash_decode_attn_int8kv": "window decode B=4 T=320,"
+                                                   " bf16 q, int8 K/V; "
+                                                   "launches: the int8-cache"
+                                                   " legacy serve run",
                        "ovsf_decompress": "one ResNet-50 forward's 13 calls "
                                           "(4 x s1, 6 x s2, 3 x s3), fp32",
                        "fwht": "one planned ResNet-50 forward's 13 calls "
@@ -3119,7 +3823,7 @@ def main(argv=None) -> int:
                                               "ResNet-50 forward"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
-                   "serve_fp32": serve_fp32,
+                   "serve_fp32": serve_fp32, "legacy": legacy,
                    "parity": parity, "parity_contiguous": parity_contiguous,
                    "cnn": cnns, "calibration": calib, "chaos": chaos}, f,
                   indent=1)

@@ -64,10 +64,17 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    kv_cache_dtype: str = ""    # "" -> dtype; "int8": static-scale int8 K/V
     ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
     # Per-layer execution plan (``runtime.mapper.ExecutionPlan``, frozen and
     # hashable like the config). None -> uniform dispatch by ovsf.exec_path.
     exec_plan: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in ("", "int8"):
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: the "
+                             "port stores K/V in the model dtype ('') or "
+                             "int8")
 
     @property
     def hd(self) -> int:
@@ -76,6 +83,11 @@ class ModelConfig:
     @property
     def act_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def kv_dtype(self) -> torch.dtype:
+        """The KV cache's storage type."""
+        return torch.int8 if self.kv_cache_dtype == "int8" else self.act_dtype
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

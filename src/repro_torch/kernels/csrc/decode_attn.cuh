@@ -20,8 +20,20 @@
 //     16-byte cp.async (K and V rows as stored, bf16 stays bf16, widened in
 //     registers) with NSTAGE - 1 tiles in flight, and waits on its own
 //     copies only (cp.async.wait_group + __syncwarp): no block barrier in
-//     the loop. Rows whose hd * sizeof(T) is not whole 16-byte words, or
+//     the loop. Rows whose hd * sizeof(KV) is not whole 16-byte words, or
 //     pools not 16-byte aligned, take a scalar copy (VEC = false).
+//   * K/V storage. KV is q's type T, or int8 (the int8 KV cache of
+//     repro/models/attention.py: _quant_like / _dequant, static scale
+//     127 / 8). The ring holds the bytes as stored, so an int8 cache moves
+//     half the bf16 cache's bytes. Each int8 tile is dequantised once,
+//     as the reference dequantises the cache before its attention: int8
+//     -> fp32, the correctly rounded quotient by 15.875 (a product with
+//     the reciprocal plus one fma correction, equal to the true division
+//     for all 255 int8 values; a product alone would round otherwise),
+//     rounded to T; the warp converts the tile into a T tile of its own
+//     (each element once, not once per head of the block), and the fp32
+//     score, softmax and accumulator path reads that as it reads a cache
+//     of q's type.
 //   * A tile: 4 scores per head, each a dot product over the lane's slice
 //     reduced over the 4 lanes of the head by two shuffles; one max, one
 //     rescale of (l, acc) and 4 FMAs of V rows per element.
@@ -54,6 +66,8 @@ constexpr int MAX_SPLITS = 64;    // the plan keeps splits below this
 constexpr float MASKED = -1e30f;  // score of an all_masked column
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float KV_SCALE = 15.875f;  // 127 / 8, the int8 cache's static scale
+constexpr float KV_RCP = 0x1.020408p-4f;  // 8 / 127 rounded to fp32
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -62,6 +76,62 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 __device__ __forceinline__ void from_f(float x, float* p) { *p = x; }
 __device__ __forceinline__ void from_f(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void from_f(float x, signed char* p) {
+  *p = static_cast<signed char>(x);   // only zero is stored this way
+}
+
+// int8 x / 15.875, correctly rounded in fp32: q0 = x * (8/127), then one
+// fma correction of its residual (checked against the true division for
+// every x in [-127, 127], tests/test_torch_kv_int8.py). The division
+// itself (__fdiv_rn) ran the int8 kernels at 1.2-2.4x the float-cache
+// kernels' time on an H100, this form at 1.0-1.2x.
+__device__ __forceinline__ float dequant_i8(int x) {
+  const float xf = static_cast<float>(x);
+  const float q0 = __fmul_rn(xf, KV_RCP);
+  return __fmaf_rn(__fmaf_rn(-q0, KV_SCALE, xf), KV_RCP, q0);
+}
+
+// 16 dequantised values stored in T (round to nearest even)
+__device__ __forceinline__ void store16(const float (&f)[16], float* dst) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    reinterpret_cast<float4*>(dst)[i] =
+        make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
+}
+__device__ __forceinline__ void store16(const float (&f)[16],
+                                        __nv_bfloat16* dst) {
+  unsigned w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// The tile a warp reads: a ring slot of q's type as it is; an int8 slot of
+// N elements converted by the warp into its T tile `cvt` (16 elements a
+// lane per pass), ordered before the reads by a __syncwarp.
+template <int N, typename T>
+__device__ __forceinline__ const T* tile_of(const T* st, T*, int) {
+  return st;
+}
+template <int N, typename T>
+__device__ __forceinline__ const T* tile_of(const signed char* st, T* cvt,
+                                            int lane) {
+  for (int e = lane * 16; e < N; e += 32 * 16) {
+    const int4 u = *reinterpret_cast<const int4*>(st + e);
+    const int w[4] = {u.x, u.y, u.z, u.w};
+    float f[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      f[i] = dequant_i8(static_cast<signed char>(w[i / 4] >> (8 * (i % 4))));
+    store16(f, cvt + e);
+  }
+  __syncwarp();
+  return cvt;
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -121,22 +191,28 @@ struct PagedRows {
   }
 };
 
-// Bytes of dynamic shared memory a block takes: every warp's ring; the
-// end-of-split merge and the combine reuse it.
-template <typename T, int NCH>
+// Bytes of dynamic shared memory a block takes: every warp's ring of KV
+// elements, then (int8 K/V) every warp's T tile; the end-of-split merge
+// (GC x STRIDE fp32 a warp: an int8 ring is exactly that size) and the
+// combine ((2 MAX_SPLITS + 1) GC fp32) reuse the rings.
+template <typename T, typename KV, int NCH>
 constexpr int smem_bytes() {
-  return WARPS * NSTAGE * 2 * R * NCH * 32 * (int)sizeof(T);
+  constexpr int ring = WARPS * NSTAGE * 2 * R * NCH * 32 * (int)sizeof(KV);
+  constexpr int tile = sizeof(T) == sizeof(KV)
+                           ? 0 : WARPS * 2 * R * NCH * 32 * (int)sizeof(T);
+  constexpr int combine = (2 * MAX_SPLITS + 1) * GC * (int)sizeof(float);
+  return ring + tile > combine ? ring + tile : combine;
 }
 
 // Stage rows [cb, cb + nr) of K and V into one ring slot (K rows 0..R-1,
 // V rows R..2R-1, row stride STRIDE elements).
-template <typename T, int STRIDE, bool VEC, class Rows>
-__device__ __forceinline__ void stage_rows(T* st, const T* __restrict__ k,
-                                           const T* __restrict__ v,
+template <typename KV, int STRIDE, bool VEC, class Rows>
+__device__ __forceinline__ void stage_rows(KV* st, const KV* __restrict__ k,
+                                           const KV* __restrict__ v,
                                            const Rows& rows, int cb, int nr,
                                            int hd, int lane) {
   if constexpr (VEC) {
-    constexpr int EPC = 16 / sizeof(T);   // elements of a 16-byte word
+    constexpr int EPC = 16 / sizeof(KV);  // elements of a 16-byte word
     const int cpr = hd / EPC;
     for (int e = lane; e < nr * cpr; e += 32) {
       const int r = e / cpr, ch = e - r * cpr;
@@ -155,15 +231,17 @@ __device__ __forceinline__ void stage_rows(T* st, const T* __restrict__ k,
 }
 
 // One block: query heads qrow0 .. qrow0 + heads - 1 (rows of q and out, hd
-// elements each) over columns [z * cps, min((z + 1) * cps, n)) of the rows
-// that `rows` maps. Partials go to part_acc ((T * H, splits, hdp) fp32,
-// hdp = hd rounded up to 4) and part_ml ((T * H, splits, 2)); `ticket` is
-// this (token, kv-head, head chunk)'s, zero before and after.
-template <typename T, int NCH, bool VEC, class Rows>
+// elements each, type T) over columns [z * cps, min((z + 1) * cps, n)) of
+// the K/V rows (type KV) that `rows` maps. Partials go to part_acc
+// ((T * H, splits, hdp) fp32, hdp = hd rounded up to 4) and part_ml
+// ((T * H, splits, 2)); `ticket` is this (token, kv-head, head chunk)'s,
+// zero before and after.
+template <typename T, typename KV, int NCH, bool VEC, class Rows>
 __device__ __forceinline__ void decode_block(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, unsigned* __restrict__ ticket,
+    const T* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    unsigned* __restrict__ ticket,
     const Rows& rows, size_t qrow0, int heads, int hd, int n, bool all_masked,
     int cps, float qscale) {
   constexpr int STRIDE = NCH * 32;          // shared-memory row, elements
@@ -176,7 +254,9 @@ __device__ __forceinline__ void decode_block(
   const int g = lane >> 2, c = lane & 3;
   const int z = blockIdx.z, splits = gridDim.z;
   const int c0 = z * cps, c1 = min(c0 + cps, n);
-  T* ring = reinterpret_cast<T*>(smem) + (size_t)warp * RING;
+  KV* ring = reinterpret_cast<KV*>(smem) + (size_t)warp * RING;
+  T* cvt = reinterpret_cast<T*>(reinterpret_cast<KV*>(smem) + WARPS * RING) +
+           (size_t)warp * 2 * R * STRIDE;   // int8 K/V: the warp's T tile
 
   float qf[NCH][8], acc[NCH][8];
   {
@@ -203,7 +283,7 @@ __device__ __forceinline__ void decode_block(
     auto issue = [&](int i) {
       if (i < mine) {
         const int cb = c0 + (warp + i * WARPS) * R;
-        stage_rows<T, STRIDE, VEC>(ring + (i % NSTAGE) * 2 * R * STRIDE, k,
+        stage_rows<KV, STRIDE, VEC>(ring + (i % NSTAGE) * 2 * R * STRIDE, k,
                                    v, rows, cb, min(R, c1 - cb), hd, lane);
       }
       cp_async_commit();
@@ -216,7 +296,8 @@ __device__ __forceinline__ void decode_block(
       issue(i + NSTAGE - 1);
       const int cb = c0 + (warp + i * WARPS) * R;
       const int nr = min(R, c1 - cb);
-      const T* st = ring + (i % NSTAGE) * 2 * R * STRIDE;
+      const T* st = tile_of<2 * R * STRIDE>(
+          ring + (i % NSTAGE) * 2 * R * STRIDE, cvt, lane);
       float s[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -304,7 +385,7 @@ __device__ __forceinline__ void decode_block(
         const float wt = fast_exp2(red_m[w][hg] - M);
         const float4 x = *reinterpret_cast<const float4*>(
             reinterpret_cast<const float*>(
-                reinterpret_cast<const T*>(smem) + (size_t)w * RING) +
+                reinterpret_cast<const KV*>(smem) + (size_t)w * RING) +
             hg * STRIDE + qd * 4);
         L += wt * red_l[w][hg];
         a.x += wt * x.x;
@@ -412,22 +493,22 @@ inline float qscale_of(int hd) { return LOG2E / sqrtf((float)hd); }
 
 // K/V rows that are whole 16-byte words at 16-byte addresses take the
 // cp.async path (VEC); the rest the scalar copy.
-template <typename T>
+template <typename KV>
 bool vec_rows(int hd, const void* k, const void* v) {
-  return (hd * sizeof(T)) % 16 == 0 &&
+  return (hd * sizeof(KV)) % 16 == 0 &&
          reinterpret_cast<size_t>(k) % 16 == 0 &&
          reinterpret_cast<size_t>(v) % 16 == 0;
 }
 
-// Launch one (T, NCH, VEC) instantiation with the dynamic shared memory it
-// takes; the opt-in attribute is set at its first launch (a 48 KB ring
+// Launch one (T, KV, NCH, VEC) instantiation with the dynamic shared memory
+// it takes; the opt-in attribute is set at its first launch (a 48 KB ring
 // plus the 272 static bytes already needs it). The template arguments,
 // with the kernel's parameter types, key the flag to one kernel.
-template <typename T, int NCH, bool VEC, typename... Params,
+template <typename T, typename KV, int NCH, bool VEC, typename... Params,
           typename... Args>
 cudaError_t launch_kernel(void (*kern)(Params...), dim3 grid,
                           cudaStream_t stream, Args... args) {
-  constexpr int smem = smem_bytes<T, NCH>();
+  constexpr int smem = smem_bytes<T, KV, NCH>();
   static bool set = false;
   if (!set) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -7,13 +7,16 @@
 // the table), and masks virtual columns > positions[t] (inclusive; a
 // position past the table reads every page, a negative one, outside the
 // contract, weighs all npg * ps columns alike, as the plain version does).
-// GQA: H = G * Hkv, any G; hd <= 256; any page size. fp32 softmax state;
-// the output is written once in q's type.
+// GQA: H = G * Hkv, any G; hd <= 256; any page size. The pools are of q's
+// type or int8 (the int8 KV cache: each element dequantised on load as the
+// reference's _dequant, decode_attn.cuh). fp32 softmax state; the output is
+// written once in q's type.
 //
 // What bounds it on the H100: bytes, and at decode the latency of a few
 // dependent DRAM round trips. Each token needs (positions[t] + 1) K and V
 // rows of each kv-head; the arithmetic, 4 * G * hd flops per row (8 flops
-// a byte in bf16), is far below the card's ratio of operations to bytes.
+// a byte in bf16, 16 over int8 pools), is far below the card's ratio of
+// operations to bytes.
 // At decode (T = 4, Hkv = 4) there are only 16 (token, kv-head) pairs for
 // 132 SMs. Design (the block body is decode_attn.cuh, which says more):
 //   * the grid is (token, kv-head x head chunk, split): a token's pages are
@@ -36,10 +39,10 @@ namespace {
 
 using namespace decode_attn;
 
-template <typename T, int NCH, bool VEC>
+template <typename T, typename KV, int NCH, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                    const KV* __restrict__ v_pool,
                     const int* __restrict__ page_table,
                     const int* __restrict__ slot_ids,
                     const int* __restrict__ positions, T* __restrict__ out,
@@ -58,27 +61,28 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int n =
       all_masked ? cols : (int)min((long long)pos + 1, (long long)cols);
   const PagedRows rows{page_table + (size_t)sid * npg, P, ps, Hkv, h};
-  decode_block<T, NCH, VEC>(
+  decode_block<T, KV, NCH, VEC>(
       q, k_pool, v_pool, out, part_acc, part_ml,
       tickets + (size_t)t * gridDim.y + blockIdx.y, rows,
       (size_t)t * H + (size_t)h * G + (size_t)hc * GC, min(GC, G - hc * GC),
       hd, n, all_masked, cps, qscale);
 }
 
-template <typename T, bool VEC>
+template <typename T, typename KV, bool VEC>
 cudaError_t launch_vec(int nch, dim3 grid, cudaStream_t s, const T* q,
-                       const T* k_pool, const T* v_pool,
+                       const KV* k_pool, const KV* v_pool,
                        const int* page_table, const int* slot_ids,
                        const int* positions, T* out, float* part_acc,
                        float* part_ml, unsigned* tickets, int H, int Hkv,
                        int hd, int P, int ps, int npg, int n_rows, int cps,
                        float qscale) {
 #define PAGED_LAUNCH(N)                                                   \
-  return launch_kernel<T, N, VEC>(paged_decode_kernel<T, N, VEC>, grid, s, \
-                                  q, k_pool, v_pool, page_table, slot_ids,  \
-                                  positions, out, part_acc, part_ml,        \
-                                  tickets, H, Hkv, hd, P, ps, npg, n_rows,  \
-                                  cps, qscale)
+  return launch_kernel<T, KV, N, VEC>(paged_decode_kernel<T, KV, N, VEC>, \
+                                      grid, s, q, k_pool, v_pool,         \
+                                      page_table, slot_ids, positions,    \
+                                      out, part_acc, part_ml, tickets, H, \
+                                      Hkv, hd, P, ps, npg, n_rows, cps,   \
+                                      qscale)
   switch (nch) {
     case 1: PAGED_LAUNCH(1);
     case 2: PAGED_LAUNCH(2);
@@ -89,7 +93,7 @@ cudaError_t launch_vec(int nch, dim3 grid, cudaStream_t s, const T* q,
 #undef PAGED_LAUNCH
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* page_table, const void* slot_ids,
                    const void* positions, void* out, void* part_acc,
@@ -97,11 +101,11 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    int hd, int P, int ps, int npg, int n_rows, int cps,
                    int splits, cudaStream_t s) {
   if (!shape_ok(hd, splits)) return cudaErrorInvalidValue;
-  auto go = vec_rows<T>(hd, k_pool, v_pool) ? launch_vec<T, true>
-                                            : launch_vec<T, false>;
+  auto go = vec_rows<KV>(hd, k_pool, v_pool) ? launch_vec<T, KV, true>
+                                             : launch_vec<T, KV, false>;
   return go(nch_of(hd), grid_of(T_, H, Hkv, splits), s,
-            static_cast<const T*>(q), static_cast<const T*>(k_pool),
-            static_cast<const T*>(v_pool),
+            static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+            static_cast<const KV*>(v_pool),
             static_cast<const int*>(page_table),
             static_cast<const int*>(slot_ids),
             static_cast<const int*>(positions), static_cast<T*>(out),
@@ -112,8 +116,9 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// q (T, H, hd), k_pool/v_pool (P, ps, Hkv, hd) and out (T, H, hd) in one
-// type (bf16 != 0 -> bfloat16, else float32), contiguous; page_table
+// q (T, H, hd) and out (T, H, hd) in one type (bf16 != 0 -> bfloat16, else
+// float32), k_pool/v_pool (P, ps, Hkv, hd) in that type or, kv_int8 != 0,
+// int8, contiguous; page_table
 // (n_rows, npg), slot_ids (T,) and positions (T,) int32. The grid's split
 // z covers virtual columns [z * cols_per_split, (z + 1) * cols_per_split);
 // with splits > 1, part_acc (T * H * splits * hdp fp32, hdp = hd rounded up
@@ -125,14 +130,13 @@ extern "C" int paged_decode_attn_launch(
     const void* page_table, const void* slot_ids, const void* positions,
     void* out, void* part_acc, void* part_ml, void* tickets, int T_, int H,
     int Hkv, int hd, int P, int ps, int npg, int n_rows, int cols_per_split,
-    int splits, int bf16, void* stream) {
+    int splits, int bf16, int kv_int8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, slot_ids,
-                                 positions, out, part_acc, part_ml, tickets,
-                                 T_, H, Hkv, hd, P, ps, npg, n_rows,
-                                 cols_per_split, splits, s);
-  return launch<float>(q, k_pool, v_pool, page_table, slot_ids, positions,
-                       out, part_acc, part_ml, tickets, T_, H, Hkv, hd, P,
-                       ps, npg, n_rows, cols_per_split, splits, s);
+  auto go = bf16 ? (kv_int8 ? launch<__nv_bfloat16, signed char>
+                            : launch<__nv_bfloat16, __nv_bfloat16>)
+                 : (kv_int8 ? launch<float, signed char>
+                            : launch<float, float>);
+  return go(q, k_pool, v_pool, page_table, slot_ids, positions, out, part_acc,
+            part_ml, tickets, T_, H, Hkv, hd, P, ps, npg, n_rows,
+            cols_per_split, splits, s);
 }

@@ -12,6 +12,11 @@ under the inclusive mask ``col <= positions[t]`` (see
 of (token, kv-head x head chunk, split) blocks, each split a run of pages or
 rows; ``split_plan`` sets the run from the shapes alone, and the splits
 merge in the same launch (design and bound in each source's header note).
+K/V are of q's type or int8 (the int8 KV cache,
+``ModelConfig.kv_cache_dtype``): the kernels dequantise each int8 element
+as they load it, as the reference dequantises the cache before its
+attention (``kernels.ref.dequant``); the plain versions over int8 are
+``dequant`` and then the float ones.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version; any other device raises. Shapes, types and the
@@ -26,20 +31,25 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ovsf_gemm import ticket_buffer
-from repro_torch.kernels.ref import decode_attn_ref, paged_decode_attn_ref
+from repro_torch.kernels.ref import (decode_attn_int8_ref, decode_attn_ref,
+                                     paged_decode_attn_int8_ref,
+                                     paged_decode_attn_ref)
 
-# The plain PyTorch versions of the kernels (CPU path and on-card reference).
+# The plain PyTorch versions of the kernels (CPU path and on-card
+# reference), over K/V of q's type and over int8 K/V.
 flash_decode_attn_plain = decode_attn_ref
 paged_flash_decode_plain = paged_decode_attn_ref
+flash_decode_attn_int8_plain = decode_attn_int8_ref
+paged_flash_decode_int8_plain = paged_decode_attn_int8_ref
 
 MAX_HD = 256                  # largest head dim either kernel takes
 HEADS_PER_BLOCK = 8           # query heads a block holds; more: head chunks
 ROW_UNIT = 16                 # rows of a contiguous split's unit
 SPLIT_TARGET_CAP = 32         # splits stay below twice this (the kernels'
                               # MAX_SPLITS, 64)
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
              + [ctypes.c_void_p])
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
 
 
@@ -95,6 +105,16 @@ def _scratch(out: torch.Tensor, splits: int):
                         device=out.device))
 
 
+def _check_types(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """q float32 or bfloat16; K and V both of q's type or both int8."""
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != v.dtype \
+            or k.dtype not in (q.dtype, torch.int8):
+        raise ValueError(f"{name}: q {q.dtype}, k/v {k.dtype}/{v.dtype}: q "
+                         "float32 or bfloat16; K and V of one type, q's or "
+                         "int8")
+
+
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  ) -> None:
     """What the kernel takes, checked on every device, so that a path that
@@ -109,25 +129,24 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if hd > MAX_HD:
         raise ValueError(f"flash_decode_attn: head dim {hd} above the "
                          f"kernel's limit {MAX_HD}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_decode_attn: q {q.dtype}, k/v {k.dtype}/"
-                         f"{v.dtype} must share one type, float32 or "
-                         "bfloat16")
+    _check_types("flash_decode_attn", q, k, v)
 
 
 def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       pos) -> torch.Tensor:
     """Single-token GQA attention over a contiguous cache.
 
-    q: (B, H, hd), hd <= ``MAX_HD``; k/v: (B, T, Hkv, hd); q, k and v of
-    one type (float32 or bfloat16); pos: the fill level per row, a (B,) or
+    q: (B, H, hd), hd <= ``MAX_HD``; k/v: (B, T, Hkv, hd); q float32 or
+    bfloat16, k and v of q's type or int8 (dequantised as loaded, see
+    ``kernels.ref.dequant``); pos: the fill level per row, a (B,) or
     0-dim int tensor on q's device, or an int. Columns ``>= pos[b]`` are
     masked; ``pos >= T`` reads all T rows, ``pos <= 0`` gives the mean of
     V. Returns (B, H, hd) in q's type.
     """
     _check_flash(q, k, v)
     if q.device.type == "cpu":
+        if k.dtype == torch.int8:
+            return flash_decode_attn_int8_plain(q, k, v, pos)
         return flash_decode_attn_plain(q, k, v, pos)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attn: unsupported device {q.device}")
@@ -162,7 +181,7 @@ def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         tickets.data_ptr(), B,
         T, H, Hkv, hd, rows_per_split, splits,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), int(k.dtype == torch.int8),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode_attn: CUDA launch failed "
@@ -190,11 +209,7 @@ def _check_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if hd > MAX_HD:
         raise ValueError(f"paged_flash_decode: head dim {hd} above the "
                          f"kernel's limit {MAX_HD}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"paged_flash_decode: q {q.dtype}, pools "
-                         f"{k_pool.dtype}/{v_pool.dtype} must share one "
-                         "type, float32 or bfloat16")
+    _check_types("paged_flash_decode", q, k_pool, v_pool)
     if page_table.dim() != 2 or slot_ids.shape != (T,) or \
             positions.shape != (T,):
         raise ValueError("paged_flash_decode: page_table must be 2-D and "
@@ -207,15 +222,17 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        ) -> torch.Tensor:
     """Packed-token GQA attention over paged K/V pools.
 
-    q: (T, H, hd), hd <= ``MAX_HD``; k_pool/v_pool: (P, ps, Hkv, hd), of
-    q's type (float32 or bfloat16); page_table: (n_slots + 1, max_pages)
-    int32, sentinel entries carry P; slot_ids / positions: (T,) with
-    positions >= 0. Returns (T, H, hd) in q.dtype.
+    q: (T, H, hd), hd <= ``MAX_HD``, float32 or bfloat16; k_pool/v_pool:
+    (P, ps, Hkv, hd), of q's type or int8 (dequantised as loaded);
+    page_table: (n_slots + 1, max_pages) int32, sentinel entries carry P;
+    slot_ids / positions: (T,) with positions >= 0. Returns (T, H, hd) in
+    q.dtype.
     """
     _check_paged(q, k_pool, v_pool, page_table, slot_ids, positions)
     if q.device.type == "cpu":
-        return paged_flash_decode_plain(q, k_pool, v_pool, page_table,
-                                        slot_ids, positions)
+        plain = (paged_flash_decode_int8_plain if k_pool.dtype == torch.int8
+                 else paged_flash_decode_plain)
+        return plain(q, k_pool, v_pool, page_table, slot_ids, positions)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     T, H, hd = q.shape
@@ -226,7 +243,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
         if t.device != q.device:
             raise ValueError(f"paged_flash_decode: {name} on {t.device}, q "
                              f"on {q.device}")
-        if t.dtype in (torch.float32, torch.bfloat16) and \
+        if t.dtype in (torch.float32, torch.bfloat16, torch.int8) and \
                 not t.is_contiguous():
             raise ValueError(f"paged_flash_decode: {name} must be contiguous")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -246,6 +263,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
         sid.data_ptr(), pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), tickets.data_ptr(), T, H, Hkv, hd, P, ps, npg,
         pt.shape[0], cols_per_split, splits, int(q.dtype == torch.bfloat16),
+        int(k_pool.dtype == torch.int8),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_flash_decode: CUDA launch failed "

@@ -58,6 +58,29 @@ def ovsf_matmul_ref(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
     return (x.to(torch.float32) @ W).to(x.dtype)
 
 
+# The int8 KV cache's static scale (``repro.models.attention._KV_SCALE``):
+# attention values are O(1) after the norms.
+KV_SCALE = 127.0 / 8.0
+
+
+def quant_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` stored as a cache of type ``dtype``: int8 is round(x * 127/8)
+    in fp32 (half to even, as ``jnp.round``), clipped to +-127; any other
+    type is a cast."""
+    if dtype == torch.int8:
+        return torch.round(x.to(torch.float32) * KV_SCALE).clamp(
+            -127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def dequant(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A cache read back in ``dtype``: int8 to fp32, a true division by the
+    scale, then a cast; any other type is a cast."""
+    if x.dtype == torch.int8:
+        return (x.to(torch.float32) / KV_SCALE).to(dtype)
+    return x.to(dtype)
+
+
 def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pos) -> torch.Tensor:
     """Single-token GQA attention over a contiguous cache.
@@ -106,3 +129,21 @@ def paged_decode_attn_ref(q: torch.Tensor, k_pool: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("tngc,tcnd->tngd", p, vt.to(torch.float32))
     return o.reshape(T, H, hd).to(q.dtype)
+
+
+def decode_attn_int8_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos) -> torch.Tensor:
+    """``decode_attn_ref`` over an int8 cache: K/V dequantised to q's type
+    first, as the reference's ``_dequant`` before its attention."""
+    return decode_attn_ref(q, dequant(k, q.dtype), dequant(v, q.dtype), pos)
+
+
+def paged_decode_attn_int8_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, page_table: torch.Tensor,
+                               slot_ids: torch.Tensor, positions: torch.Tensor
+                               ) -> torch.Tensor:
+    """``paged_decode_attn_ref`` over int8 pools, dequantised to q's type
+    first."""
+    return paged_decode_attn_ref(q, dequant(k_pool, q.dtype),
+                                 dequant(v_pool, q.dtype), page_table,
+                                 slot_ids, positions)

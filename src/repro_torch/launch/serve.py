@@ -1,7 +1,8 @@
 """Serving launcher for the port: batched requests through ``LLMEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
-      --chunk-size 64 [--packed] [--paged] [--smoke] [--device cpu] \
+      [--no-bucketing | --chunk-size 64 [--packed] [--paged]] \
+      [--smoke] [--device cpu] \
       [--alpha-dtype int8|int4] [--calibrate [--calibration-out F]] \
       [--admission reject|truncate|preempt] [--inject KIND:K=V,...] \
       [--max-waiting N] [--step-timeout S] [--deadline S] \
@@ -12,15 +13,20 @@ present). Parameters are initialised natively from ``--seed``;
 ``--alpha-dtype`` stores the OVSF alphas as int8 or nibble-packed int4 with
 per-segment fp32 scales. The engine's mapper plans each OVSF weight type,
 as the reference engine does, against the device's target (``h100`` on the
-GPU, ``cpu`` on the CPU); the plan is printed. ``--chunk-size N`` is
-required (the legacy phase-based path is not ported); ``--packed`` picks the
-packed step over the (B, W) window, ``--paged`` the paged KV cache over the
-contiguous one. ``--calibrate`` records measured-vs-modeled step times
+GPU, ``cpu`` on the CPU); the plan is printed. Without ``--chunk-size`` the
+engine runs the legacy phase-based path, as the reference's launcher does:
+whole prompts prefill in length-bucketed groups (``--no-bucketing``: each
+at its native length), then decode. ``--chunk-size N`` switches to
+step-based serving (prompt chunks of N tokens beside the decodes);
+``--packed`` picks the packed step over the (B, W) window, ``--paged`` the
+paged KV cache over the contiguous one (both need ``--chunk-size``).
+``--calibrate`` records measured-vs-modeled step times
 (``runtime.calibrate``) and prints the table's keys and relative factors
 and the layers the calibrated re-plan would re-map, saving the table to
-``--calibration-out`` when given. On the GPU every step replays a CUDA graph,
-one per step shape; the launcher prints the step shapes run and the graphs
-captured (none on the CPU, where steps run eagerly).
+``--calibration-out`` when given. On the GPU every step replays a CUDA
+graph, one per step shape (and one per prefill key in legacy mode); the
+launcher prints the step shapes run and the graphs captured (none on the
+CPU, where steps run eagerly).
 
 Chaos flags, as the reference's: ``--inject`` arms deterministic faults
 (repeatable: ``nan:step=3``, ``fail:step=7``, ``delay:step=5,s=0.2``,
@@ -82,7 +88,12 @@ def main(argv=None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples with per-request seeds")
     ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--chunk-size", type=int, default=None)
+    ap.add_argument("--no-bucketing", action="store_true",
+                    help="legacy path: prefill each prompt at its native "
+                         "length")
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="step-based serving: interleave N-token prompt "
+                         "chunks with decode (None = phase-based prefill)")
     ap.add_argument("--packed", action="store_true")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--page-size", type=int, default=16,
@@ -128,10 +139,10 @@ def main(argv=None) -> None:
         supervise("repro_torch.launch.serve",
                   [a for a in raw if a != "--supervise"])
         return
-    if args.chunk_size is None:
-        raise SystemExit("the port serves prompts via chunks only: pass "
-                         "--chunk-size N; the legacy phase-based path waits "
-                         "for a later slice (ROADMAP A.3)")
+    if args.packed and args.chunk_size is None:
+        raise SystemExit("--packed requires --chunk-size")
+    if args.paged and args.chunk_size is None:
+        raise SystemExit("--paged requires --chunk-size")
 
     plan = FaultPlan.parse(args.inject, seed=args.seed)
     if any(f.kind == "flip" for f in plan.faults):
@@ -155,8 +166,9 @@ def main(argv=None) -> None:
               + ", ".join(f.kind for f in plan.faults))
     journal = RequestJournal(args.journal) if args.journal else None
     eng = LLMEngine(params, cfg, batch_slots=args.slots,
-                    buffer_len=args.buffer, admission=args.admission,
-                    chunk_size=args.chunk_size,
+                    buffer_len=args.buffer,
+                    bucketed_prefill=not args.no_bucketing,
+                    admission=args.admission, chunk_size=args.chunk_size,
                     packed=args.packed, paged=args.paged,
                     page_size=args.page_size,
                     kv_pages=args.kv_pages, calibrate=args.calibrate,
@@ -197,8 +209,12 @@ def main(argv=None) -> None:
               f"recoveries={stats.recoveries} stalls={stats.stalls} "
               f"preemptions={stats.preemptions} timeouts={stats.timeouts} "
               f"shed={stats.shed}")
-    print(f"[serve] decode={stats.decode_s:.2f}s mixed={stats.mixed_s:.2f}s "
-          f"padding: valid={stats.packed_tokens} batch={stats.padded_tokens} "
+    print(f"[serve] prefill={stats.prefill_s:.2f}s (batches="
+          f"{stats.prefill_batches}, compiles={stats.prefill_compiles}) "
+          f"decode={stats.decode_s:.2f}s mixed={stats.mixed_s:.2f}s "
+          f"step_compiles={stats.step_compiles}")
+    print(f"[serve] padding: valid={stats.packed_tokens} "
+          f"batch={stats.padded_tokens} "
           f"efficiency={stats.padding_efficiency:.2f}")
     graphs = sorted(eng.core.graphs.keys())
     print(f"[serve] step shapes {sorted(eng.core.step_shapes)}; "

@@ -11,6 +11,12 @@ compacting the kept rows with a boolean mask. Single-token attention runs
 through the Hopper kernels on CUDA (``flash_decode_attn``,
 ``paged_flash_decode``) and their plain versions on the CPU; the reference
 leaves it to an XLA einsum.
+
+An int8 cache (``ModelConfig.kv_cache_dtype="int8"``) stores each written
+K/V as ``quant_like`` does (the reference's static-scale ``_quant_like``).
+The kernels take the int8 K/V as they are and dequantise as they load
+(never a dequantised copy of the cache); the S > 1 path reads the cache
+through ``dequant`` into the plain ``sdpa``, as the reference does.
 """
 from __future__ import annotations
 
@@ -21,7 +27,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attn import (flash_decode_attn,
                                              paged_flash_decode)
+from repro_torch.kernels.ref import dequant, quant_like
 from repro_torch.models import layers as L
+
+
+# query rows of one plain ``sdpa`` call in ``attn_apply``: its fp32 scores
+# are (B, H, rows, T), so a prefill's attention temporaries grow with the
+# bucket Lb, not Lb^2 (a captured bucket keeps them in its graph's pool);
+# each query's softmax is its own, so the rows split freely
+SDPA_ROWS = 64
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,7 +55,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         m = (mask[:, None, :, None, :] if mask.dim() == 3
              else mask[None, None, :, None, :])
-        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+        logits = logits.masked_fill_(~m, -1e30)    # in place: one copy
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bnsgt,btnd->bsngd", probs.to(torch.float32),
                        v.to(torch.float32))
@@ -59,7 +73,8 @@ def drop_write(cache: dict, rows: torch.Tensor, keep: torch.Tensor,
     row for a real cell. A cache allocated without that row (a caller's
     own tensors) is written through a padded copy of itself, copied back.
     Kept rows with one target leave one of their values, as the
-    reference's scatter does."""
+    reference's scatter does. K/V are stored as ``quant_like`` gives them
+    in the cache's type."""
     for name, src in (("k", k), ("v", v)):
         dst = cache[name]
         flat = cache.get(name + "_rows")
@@ -68,7 +83,7 @@ def drop_write(cache: dict, rows: torch.Tensor, keep: torch.Tensor,
             flat = torch.cat([dst.reshape((-1,) + dst.shape[-2:]),
                               dst.new_zeros((1,) + dst.shape[-2:])])
         idx = torch.where(keep, rows, flat.shape[0] - 1)
-        flat.index_copy_(0, idx, src.to(flat.dtype))
+        flat.index_copy_(0, idx, quant_like(src, flat.dtype))
         if pad:
             dst.copy_(flat[:-1].view(dst.shape))
 
@@ -97,7 +112,8 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     the start clamped to ``[0, T - S]`` as ``dynamic_update_slice`` clamps
     it; query s of row b then attends columns ``<= cache_pos[b] + s``.
     S == 1 runs ``flash_decode_attn`` with pos ``cache_pos + 1``; S > 1 the
-    plain ``sdpa``, as the reference leaves it to XLA.
+    plain ``sdpa``, as the reference leaves it to XLA, ``SDPA_ROWS``
+    queries at a time.
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
@@ -108,15 +124,18 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     start = cache_pos.clamp(0, max(T - S, 0))
     rows = torch.arange(B, device=x.device)[:, None]
     cols = start[:, None] + torch.arange(S, device=x.device)[None, :]
-    ck[rows, cols] = k.to(ck.dtype)
-    cv[rows, cols] = v.to(cv.dtype)
+    ck[rows, cols] = quant_like(k, ck.dtype)
+    cv[rows, cols] = quant_like(v, cv.dtype)
     if S == 1:
         out = flash_decode_attn(q[:, 0], ck, cv, cache_pos + 1)[:, None]
     else:
         idx = cache_pos[:, None] + torch.arange(S, device=x.device)[None, :]
         mask = (torch.arange(T, device=x.device)[None, None, :]
                 <= idx[:, :, None])                         # (B, S, T)
-        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask)
+        kd, vd = dequant(ck, q.dtype), dequant(cv, q.dtype)
+        out = torch.cat([sdpa(q[:, i:i + SDPA_ROWS], kd, vd,
+                              mask[:, i:i + SDPA_ROWS])
+                         for i in range(0, S, SDPA_ROWS)], dim=1)
     y = L.linear_apply(p["o"], out.reshape(B, S, H * hd), cfg, "attn_o")
     return y, {"k": ck, "v": cv}
 
@@ -135,7 +154,8 @@ def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     token then attends its slot's gathered row under ``col <= positions[t]``
     through ``flash_decode_attn`` with pos ``positions + 1``; the gather
     copies (T, Tbuf, Hkv, hd) per layer, as the reference's ``jnp.take``
-    does.
+    does, in the cache's type (an int8 row cast to q's type without the
+    scale would be silently wrong; the kernel dequantises it).
     """
     H, hd = cfg.n_heads, cfg.hd
     T = x.shape[1]
@@ -148,7 +168,7 @@ def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         (positions < Tbuf)
     drop_write(cache, slot_ids * Tbuf + positions, keep, k[0], v[0])
     sid = slot_ids.clamp(0, B - 1)
-    out = flash_decode_attn(q[0], ck[sid].to(q.dtype), cv[sid].to(q.dtype),
+    out = flash_decode_attn(q[0], ck[sid], cv[sid],
                             positions + 1)                  # (T, H, hd)
     y = L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg, "attn_o")
     return y, {"k": ck, "v": cv}

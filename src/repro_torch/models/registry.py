@@ -89,6 +89,8 @@ def params_to(params, device):
     return [params_to(v, device) for v in params]
 
 
+serve_prefill = T.serve_prefill
+serve_prefill_ragged = T.serve_prefill_ragged
 serve_step = T.serve_step
 serve_step_window = T.serve_step_window
 serve_step_packed = T.serve_step_packed

@@ -11,8 +11,13 @@ paged pools ``(n_layers, P, page_size, Hkv, hd)``. ``init_cache`` and
 row a layer (``"k_rows"`` / ``"v_rows"``): the scratch row that dropped
 writes go to (``attention.drop_write``), which no read addresses.
 
+K/V are stored in ``cfg.kv_dtype``: the model dtype, or int8 under
+``kv_cache_dtype="int8"`` (``attention``).
+
 The steps return ``pos`` as a new tensor, as the reference does; a caller
 that replays a step as a CUDA graph copies it into its own (the engine).
+The legacy engine's prefills (``serve_prefill``, ``serve_prefill_ragged``)
+fill a fresh cache of their own and return it.
 """
 from __future__ import annotations
 
@@ -93,10 +98,10 @@ def _kv(shapes: dict, dtype, device) -> dict[str, torch.Tensor]:
 
 def init_cache(cfg: ModelConfig, B: int, T: int, device
                ) -> dict[str, torch.Tensor]:
-    """Zero contiguous cache: K/V in the model dtype (with their scratch
+    """Zero contiguous cache: K/V in ``cfg.kv_dtype`` (with their scratch
     rows), ``pos`` int32."""
     shapes = cache_shapes(cfg, B, T)
-    return {**_kv(shapes, cfg.act_dtype, device),
+    return {**_kv(shapes, cfg.kv_dtype, device),
             "pos": torch.zeros(shapes["pos"], dtype=torch.int32,
                                device=device)}
 
@@ -114,6 +119,39 @@ def _trunk(params: dict, cfg: ModelConfig, cache: dict,
         x = _block(p, cfg, x, A.attn_apply, positions=positions,
                    cache=_layer(cache, li), cache_pos=pos0)
     return x
+
+
+def serve_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  buffer_len: int) -> tuple[torch.Tensor, dict]:
+    """Run (B, Sp) prompts through the model into a fresh cache of
+    ``buffer_len``: ((B, vocab) logits at the last position, the cache with
+    ``pos`` = Sp)."""
+    B, Sp = tokens.shape
+    cache = init_cache(cfg, B, buffer_len, tokens.device)
+    x = _trunk(params, cfg, cache, tokens)
+    logits = _unembed(params, cfg, x[:, -1:])[:, 0]
+    cache["pos"] += Sp
+    return logits, cache
+
+
+def serve_prefill_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                         buffer_len: int, lengths: torch.Tensor
+                         ) -> tuple[torch.Tensor, dict]:
+    """Batched prefill of right-padded prompts: row b's prompt in columns
+    [0, lengths[b]) of (B, Lb) ``tokens``. Returns the (B, vocab) logits at
+    column ``lengths[b] - 1`` (clipped into [0, Lb)), which causal attention
+    makes independent of the padding, and a fresh cache of ``buffer_len``
+    holding K/V for all Lb columns (padding included) with ``pos`` = Lb;
+    the engine re-bases each row's ``pos`` to its true length, and decode
+    overwrites each padded position before attending to it."""
+    B, Lb = tokens.shape
+    cache = init_cache(cfg, B, buffer_len, tokens.device)
+    x = _trunk(params, cfg, cache, tokens)
+    col = (lengths.long() - 1).clamp(0, Lb - 1)
+    feats = x[torch.arange(B, device=x.device), col]            # (B, d)
+    logits = _unembed(params, cfg, feats[None])[0]
+    cache["pos"] += Lb
+    return logits, cache
 
 
 def serve_step(params: dict, cfg: ModelConfig, cache: dict,
@@ -189,8 +227,8 @@ def paged_cache_shapes(cfg: ModelConfig, page_size: int, n_pages: int
 
 def init_paged_cache(cfg: ModelConfig, page_size: int, n_pages: int,
                      device) -> dict[str, torch.Tensor]:
-    """Zero page pools in the model dtype, with their scratch rows."""
-    return _kv(paged_cache_shapes(cfg, page_size, n_pages), cfg.act_dtype,
+    """Zero page pools in ``cfg.kv_dtype``, with their scratch rows."""
+    return _kv(paged_cache_shapes(cfg, page_size, n_pages), cfg.kv_dtype,
                device)
 
 

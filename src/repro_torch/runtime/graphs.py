@@ -13,11 +13,17 @@ pool shared by every graph is safe only when the graphs replay in the
 order they were captured: a later capture may place its outputs in memory
 an earlier graph frees as temporaries, which that graph's replay then
 overwrites. Steps of a server and forwards of a model come in any order.)
+Keys run with the same ``pool`` label capture into one pool instead: it
+holds about the largest of their temporaries rather than the sum. That is
+safe only where a key's outputs are read before any other key of the
+label replays (a replay may overwrite another key's outputs, never its
+own or a graph's of another pool): the legacy prefill buckets, whose
+caches are adopted and logits read right after each replay.
 A capture error raises: nothing falls back to eager. A key is registered
 only once its first call has succeeded: a body that raises during the
 warm-up or the capture leaves no capture open, the caller's stream current
 again, and the key unrecorded, so the next call of the key starts over.
-``clear()`` drops every graph with its buffers and memory pool and returns
+``clear()`` drops every graph with its buffers and memory pools and returns
 the pools to the driver. On the CPU, or with ``capture=False``, ``body``
 runs eagerly through the same buffers.
 
@@ -131,6 +137,7 @@ class StepGraphs:
         self.device = torch.device(device)
         self.capture = capture and self.device.type == "cuda"
         self._entries: dict = {}
+        self._pools: dict = {}          # label -> a pool its keys share
         self._stream = None             # the side stream of warm-up, capture
         self._main = None               # the caller's stream at warm-up
         self.first_calls: list = []     # (key, seconds) of each first call
@@ -149,10 +156,11 @@ class StepGraphs:
         if self.capture:
             torch.cuda.synchronize(self.device)
         self._entries.clear()
+        self._pools.clear()
         if self.capture:
             torch.cuda.empty_cache()
 
-    def run(self, key, inputs: dict, body) -> tuple:
+    def run(self, key, inputs: dict, body, pool=None) -> tuple:
         e = self._entries.get(key)
         if e is not None:
             e.load(inputs)
@@ -171,7 +179,7 @@ class StepGraphs:
                 out = self._warm_up(body, e.bufs)
                 before = launch_counts()
                 try:
-                    e.graph, e.outputs = self._capture(body, e.bufs)
+                    e.graph, e.outputs = self._capture(body, e.bufs, pool)
                 finally:                # the capture launched nothing
                     e.launches = [a - b for a, b
                                   in zip(launch_counts(), before)]
@@ -206,10 +214,15 @@ class StepGraphs:
             t.record_stream(main)
         return out
 
-    def _capture(self, body, bufs: dict) -> tuple:
+    def _capture(self, body, bufs: dict, pool) -> tuple:
         g = torch.cuda.CUDAGraph()
+        handle = None
+        if pool is not None:
+            if pool not in self._pools:
+                self._pools[pool] = torch.cuda.graph_pool_handle()
+            handle = self._pools[pool]
         try:
-            with torch.cuda.graph(g, stream=self._stream):
+            with torch.cuda.graph(g, pool=handle, stream=self._stream):
                 out = body(bufs)
         except BaseException:
             # the graph's exit ends the capture; if that failed before the

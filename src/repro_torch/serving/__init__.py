@@ -1,6 +1,6 @@
 """Request-level serving stack of the port: ``LLMEngine`` over the four
-chunked styles, with fault handling and the write-ahead journal (see
-``repro_torch.serving.engine``)."""
+chunked styles and the legacy phase-based path, with fault handling and the
+write-ahead journal (see ``repro_torch.serving.engine``)."""
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      FINISH_ERROR, FINISH_EVICTED,
                                      FINISH_LENGTH, FINISH_PREEMPTED,
@@ -13,8 +13,11 @@ from repro_torch.serving.journal import (JournalEntry, RequestJournal,
                                          body_fingerprint, key_after)
 from repro_torch.serving.kvcache import PagedKVCache, pages_for
 from repro_torch.serving.scheduler import (ChunkTask, FCFSScheduler,
-                                           PackedStep, SchedulerOutput,
-                                           pack_bucket, pack_step)
+                                           PackedStep, PrefillAssignment,
+                                           PrefillGroup, SchedulerOutput,
+                                           bucket_for, bucket_lengths,
+                                           legacy_schedule, pack_bucket,
+                                           pack_step)
 
 __all__ = [
     "SamplingParams", "Request", "RequestOutput",
@@ -22,7 +25,8 @@ __all__ = [
     "FINISH_TIMEOUT", "FINISH_SHED", "FINISH_ERROR", "FINISH_PREEMPTED",
     "FINISH_EVICTED", "FINISH_CANCELLED",
     "FCFSScheduler", "ChunkTask", "SchedulerOutput", "StepOutput",
-    "PackedStep", "pack_bucket", "pack_step",
+    "PackedStep", "pack_bucket", "pack_step", "PrefillGroup",
+    "PrefillAssignment", "bucket_lengths", "bucket_for", "legacy_schedule",
     "EngineCore", "LLMEngine", "EngineStats", "plan_cfg",
     "PagedKVCache", "pages_for",
     "RequestJournal", "JournalEntry", "key_after", "body_fingerprint",

@@ -1,9 +1,10 @@
 """EngineCore: the KV cache, the step styles and the fused sampling tail
-(port of the chunked paths of ``repro.serving.core``).
+(port of ``repro.serving.core``).
 
 ``step(SchedulerOutput) -> StepOutput`` runs one scheduler iteration as ONE
-model call in the engine's style, then samples on the device: argmax for
-greedy slots, top-k / temperature draws for sampled ones, plus a per-slot
+model call in the engine's style (legacy mode: one call per prefill group,
+then one decode), then samples on the device: argmax for greedy slots,
+top-k / temperature draws for sampled ones, plus a per-slot
 ``ok = all(isfinite(logits))`` row. The styles, as the reference's:
 
 * **contiguous window** (``packed=False, paged=False``): per-slot K/V
@@ -21,13 +22,37 @@ greedy slots, top-k / temperature draws for sampled ones, plus a per-slot
   window through ``serve_step_window_paged`` at W = the chunk size on every
   step. The engine grants pages before calling ``step``
   (``LLMEngine._page_gate``).
+* **legacy phase-based** (``window=0``, neither packed nor paged): per-slot
+  buffers of ``buffer_len``. Each prefill group runs first: its prompts,
+  right-padded to the bucket Lb, in ONE (B, Lb) ``serve_prefill_ragged``
+  call over every slot row (idle rows are dummies) into a fresh cache of
+  its own, only Lb columns deep, so no running slot's K/V is touched; each
+  group row is then copied into its slot's first Lb columns, the columns
+  past them zeroed (the reference's fresh full-depth cache holds zeros
+  there), with ``pos`` re-based to the true prompt length. ``exact``
+  groups prefill each prompt alone at its native length
+  (``serve_prefill``), into a cache as deep as the prompt. Then, when any slot decodes, the all-slot
+  ``serve_step``: it advances EVERY slot, a slot prefilled in this very
+  step too, whose cache then holds token 0 at its prompt length before its
+  first token is decoded (a defect of the reference's legacy engine,
+  copied for parity). ``prefill_compiles`` counts the distinct prefill
+  keys run on this core, as the reference counts its prefill traces.
 
 On the card every step replays a CUDA graph, one per step shape, under the
 keys ``step_shapes`` records (``("packed", T)``, ``("window", W)``,
 ``("decode", 1)``), as the reference traces one ``jax.jit`` per shape
 (``runtime.graphs.StepGraphs``; the first step of a shape runs eagerly and
-captures it). The step's inputs reach the key's static buffers from pinned
-host staging; the caches stay at their addresses (K/V written in place,
+captures it); a bucketed prefill replays one per ``("prefill", Lb)``
+bucket, whose fresh (B, Lb) cache is a static output of the graph (it lives
+in the graph's pool as long as the graph: the buckets' graphs together hold
+about two B-row caches of the buffer's depth). The buckets' graphs share
+one pool (``pool="prefill"``), so their temporaries take about the largest
+bucket's room, not the sum: each bucket's cache is adopted and its logits
+read before the next replay can overwrite them. An exact prefill runs
+eagerly: one graph per distinct prompt length, each holding its own pool,
+would grow with the traffic up to ``buffer_len`` graphs. The step's
+inputs reach the key's static buffers from pinned host staging; the
+caches stay at their addresses (K/V written in place,
 ``pos`` by ``copy_``). The graph ends with the fp32 logits, their finite-row
 flags and argmax; after the replay one device-to-host copy reads flags and
 argmax, and the sampled slots draw eagerly. ``capture=False`` runs the same
@@ -53,7 +78,8 @@ apply at the top of ``step``, before any device work; ``nan`` rides the
 (B,) fp32 ``poison`` input of every step key (zeros unless a fault fires),
 added to the logits inside the step body before their finite-row flags, so
 a poisoned step replays the graph its shape already has and never captures
-another.
+another. As in the reference, the poison reaches only the steps: a legacy
+prefill's finite-row flags are those of its own logits.
 """
 from __future__ import annotations
 
@@ -72,6 +98,15 @@ from repro_torch.serving.api import SamplingParams
 from repro_torch.serving.journal import key_after, prng_key, split
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.scheduler import SchedulerOutput, pack_step
+
+
+def _head(lg: torch.Tensor) -> tuple:
+    """(B, V) fp32 logits and one (2, B) tensor of their argmax and
+    finite-row flags (``isfinite(logits).all(-1)``), a step's single host
+    read."""
+    toks = torch.argmax(lg, dim=-1)
+    ok = torch.isfinite(lg).all(dim=-1)
+    return lg, torch.stack([toks, ok.to(toks.dtype)])
 
 
 def sample_token(logits: torch.Tensor, temperature: float, top_k: int,
@@ -98,6 +133,7 @@ class StepOutput:
     first_tokens: dict = dataclasses.field(default_factory=dict)
     decode_tokens: dict = dataclasses.field(default_factory=dict)
     bad_slots: tuple = ()
+    prefill_s: float = 0.0      # legacy prefill groups' wall time
     decode_s: float = 0.0       # chunk-free (pure decode) step wall time
     mixed_s: float = 0.0        # step carrying prompt chunks
     n_valid_tokens: int = 0     # tokens that were real work this step
@@ -112,13 +148,14 @@ class EngineCore:
                  page_size: int, kv_pages: Optional[int],
                  device: torch.device, capture: bool = True,
                  faults: Optional[FaultPlan] = None):
-        if window <= 0:
-            raise ValueError("step-based serving consumes prompts via "
+        if window <= 0 and (packed or paged):
+            raise ValueError("packed and paged serving consume prompts via "
                              "chunks; pass a chunk size")
         self.graphs = StepGraphs(device, capture)
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
+        self.T = buffer_len
         self.window = window
         self.packed = packed
         self.paged = paged
@@ -131,6 +168,8 @@ class EngineCore:
         # clamps; packed and paged steps scatter at exact positions
         self.T_alloc = buffer_len if (packed or paged) else buffer_len + window
         self.step_shapes: set = set()   # distinct step shapes run
+        self.prefill_compiles = 0       # distinct prefill keys run here
+        self._prefill_keys: set = set()
         self.pager: Optional[PagedKVCache] = None
         if paged:
             if buffer_len % page_size:
@@ -141,7 +180,7 @@ class EngineCore:
             n_pages = (int(kv_pages) if kv_pages is not None
                        else batch_slots * max_pages)
             page_bytes = (2 * cfg.n_layers * page_size * cfg.n_kv_heads
-                          * cfg.hd * cfg.act_dtype.itemsize)
+                          * cfg.hd * cfg.kv_dtype.itemsize)
             self.pager = PagedKVCache(batch_slots, page_size, n_pages,
                                       max_pages, page_bytes)
             self.caches = R.init_paged_cache(cfg, page_size, n_pages, device)
@@ -205,14 +244,10 @@ class EngineCore:
     def _health(self, logits: torch.Tensor, new_cache: dict,
                 poison: torch.Tensor) -> tuple:
         """The end of every step body: ``pos`` copied into the engine's own
-        tensor, then the (B, V) fp32 logits plus the (B,) ``poison`` and one
-        (2, B) tensor of their argmax and finite-row flags
-        (``isfinite(logits).all(-1)``), the step's single host read."""
+        tensor, then the (B, V) fp32 logits plus the (B,) ``poison`` and
+        their ``_head``."""
         self.caches["pos"].copy_(new_cache["pos"])
-        lg = logits.to(torch.float32) + poison[:, None]
-        toks = torch.argmax(lg, dim=-1)
-        ok = torch.isfinite(lg).all(dim=-1)
-        return lg, torch.stack([toks, ok.to(toks.dtype)])
+        return _head(logits.to(torch.float32) + poison[:, None])
 
     def _sample(self, lg: torch.Tensor, head: torch.Tensor, emit_slots: tuple
                 ) -> tuple[np.ndarray, np.ndarray]:
@@ -240,8 +275,9 @@ class EngineCore:
     def step(self, so: SchedulerOutput,
              last_tokens: Optional[np.ndarray] = None) -> StepOutput:
         """Execute one scheduler iteration as ONE model call in the engine's
-        style. ``last_tokens`` carries each decode slot's previous token at
-        its slot index. The fault plan's step ``step_idx`` applies first."""
+        style; legacy mode runs the prefill groups first. ``last_tokens``
+        carries each decode slot's previous token at its slot index. The
+        fault plan's step ``step_idx`` applies first."""
         out = StepOutput()
         idx = self.step_idx
         self.step_idx += 1
@@ -251,7 +287,15 @@ class EngineCore:
             row = self.faults.poison_row(idx, self.B)
             if row is not None:
                 poison = row
+        bad: list = []
+        if so.prefill_groups:
+            if self.window:
+                raise ValueError("a chunked core serves prompts via chunks "
+                                 "only; a legacy scheduler emitted "
+                                 "prefill_groups")
+            self._prefill_groups(so.prefill_groups, out, bad)
         if not (so.chunks or so.decode_slots):
+            out.bad_slots = tuple(bad)
             return out
         t0 = time.perf_counter()
         for c in so.chunks:
@@ -262,7 +306,6 @@ class EngineCore:
                if self.paged or so.chunks else self._decode_step)
         (lg, head), emit, n_valid, n_batch = run(so, last_tokens, poison)
         toks, ok = self._sample(lg, head, emit)
-        bad: list = []
         for i in so.decode_slots:
             if ok[i]:
                 out.decode_tokens[i] = int(toks[i])
@@ -275,8 +318,8 @@ class EngineCore:
                 else:
                     bad.append(c.slot)
         out.bad_slots = tuple(bad)
-        out.n_valid_tokens = n_valid
-        out.n_batch_tokens = n_batch
+        out.n_valid_tokens += n_valid
+        out.n_batch_tokens += n_batch
         dt = time.perf_counter() - t0
         if so.chunks:
             out.mixed_s = dt
@@ -353,8 +396,10 @@ class EngineCore:
         return self._health(logits, new, a["poison"])
 
     def _decode_step(self, so: SchedulerOutput, last_tokens, poison):
-        """A chunk-free step of the contiguous window style: every slot
-        advances one token (idle ones too, as the reference's vmap does)."""
+        """A chunk-free step of the contiguous window style or a legacy
+        decode: every slot advances one token (idle ones, and in legacy
+        mode slots prefilled this step, too, as the reference's vmap
+        does)."""
         last = np.zeros((self.B, 1), np.int32)
         for i in so.decode_slots:
             last[i, 0] = last_tokens[i]
@@ -369,3 +414,98 @@ class EngineCore:
         logits, new = R.serve_step(self.params, self.cfg, self.caches,
                                    a["tokens"])
         return self._health(logits, new, a["poison"])
+
+    # -- legacy mode: prefill groups ----------------------------------------
+
+    def _prefill_groups(self, groups: tuple, out: StepOutput, bad: list
+                        ) -> None:
+        """Every group of the step, bucketed or exact: first tokens (or the
+        slot in ``bad`` when its logits are not finite), wall time and
+        token counts into ``out``."""
+        for pg in groups:
+            t0 = time.perf_counter()
+            if pg.exact:
+                for i, req in pg.slot_reqs:
+                    toks, ok = self.prefill_one(i, req)
+                    if ok[i]:
+                        out.first_tokens[i] = int(toks[i])
+                    else:
+                        bad.append(i)
+                out.n_batch_tokens += sum(r.prompt_len
+                                          for _i, r in pg.slot_reqs)
+            else:
+                toks, ok = self.prefill_group(pg.slot_reqs, pg.bucket)
+                for i, _req in pg.slot_reqs:
+                    if ok[i]:
+                        out.first_tokens[i] = int(toks[i])
+                    else:
+                        bad.append(i)
+                out.n_batch_tokens += self.B * min(pg.bucket, self.T)
+            out.prefill_s += time.perf_counter() - t0
+            out.n_valid_tokens += sum(r.prompt_len for _i, r in pg.slot_reqs)
+
+    def _prefill_key(self, key: tuple) -> tuple:
+        if key not in self._prefill_keys:
+            self._prefill_keys.add(key)
+            self.prefill_compiles += 1
+        return key
+
+    def prefill_group(self, slot_reqs, bucket: int) -> tuple:
+        """Prefill same-bucket requests in ONE (B, Lb) call, each request's
+        row at its slot index (the other rows are dummies of length 1).
+        Returns ((B,) first tokens, (B,) finite-logits flags); only the
+        group's rows mean anything."""
+        Lb = min(bucket, self.T)
+        tokens = np.zeros((self.B, Lb), np.int32)
+        lengths = np.ones(self.B, np.int32)
+        for i, req in slot_reqs:
+            tokens[i, :req.prompt_len] = req.prompt
+            lengths[i] = req.prompt_len
+            self._set_sampling(i, req.sampling, len(req.out_tokens))
+        lg, head, gk, gv = self.graphs.run(
+            self._prefill_key(("prefill", Lb)),
+            dict(tokens=tokens, lengths=lengths), self._prefill_body,
+            pool="prefill")
+        for i, req in slot_reqs:
+            self._adopt_row(i, gk, gv, i, req.prompt_len)
+        return self._sample(lg, head, tuple(i for i, _r in slot_reqs))
+
+    def prefill_one(self, slot: int, req) -> tuple:
+        """Exact prefill of one request at its native prompt length, into
+        ``slot``. Returns ((B,) first tokens, (B,) finite-logits flags), the
+        one row's broadcast over every slot as the reference samples it;
+        only ``slot`` means anything."""
+        self._set_sampling(slot, req.sampling, len(req.out_tokens))
+        self._prefill_key(("prefill_exact", req.prompt_len))
+        tokens = torch.from_numpy(np.asarray(req.prompt, np.int32)[None])
+        lg, head, gk, gv = self._prefill_exact_body(
+            dict(tokens=tokens.to(self.device)))
+        self._adopt_row(slot, gk, gv, 0, req.prompt_len)
+        return self._sample(lg, head, (slot,))
+
+    def _prefill_body(self, a: dict) -> tuple:
+        tokens = a["tokens"]
+        logits, cache = R.serve_prefill_ragged(self.params, self.cfg, tokens,
+                                               tokens.shape[1], a["lengths"])
+        return (*_head(logits.to(torch.float32)), cache["k"], cache["v"])
+
+    def _prefill_exact_body(self, a: dict) -> tuple:
+        tokens = a["tokens"]
+        logits, cache = R.serve_prefill(self.params, self.cfg, tokens,
+                                        tokens.shape[1])
+        return (*_head(logits.to(torch.float32).expand(self.B, -1)),
+                cache["k"], cache["v"])
+
+    def _adopt_row(self, i: int, gk: torch.Tensor, gv: torch.Tensor,
+                   row: int, plen: int) -> None:
+        """Row ``row`` of a prefill's cache (Lb columns deep) into slot
+        ``i``'s first Lb columns, the columns past them zeroed as in the
+        reference's fresh full-depth cache, its ``pos`` re-based to the true
+        prompt length (the padded K/V past it are masked until decode
+        overwrites them)."""
+        n = gk.shape[2]
+        for name, g in (("k", gk), ("v", gv)):
+            self.caches[name][:, i, :n].copy_(g[:, row])
+            self.caches[name][:, i, n:].zero_()
+        self.caches["pos"][i] = plen
+        self._host_pos[i] = plen

@@ -1,16 +1,20 @@
-"""LLMEngine: step-based serving over chunked prompts (port of
-``repro.serving.engine``).
+"""LLMEngine: step-based serving (port of ``repro.serving.engine``).
 
 Each ``step()``: expired deadlines finish, the
 :class:`~repro_torch.serving.scheduler.FCFSScheduler` emits one
 :class:`SchedulerOutput` (running decode slots plus fixed-size prompt
-chunks, and under ``admission="preempt"`` a slot to evict), the evicted
-slot is requeued for recompute, ``_page_gate`` grants the KV pages the
-step needs when the cache is paged, and the
-:class:`~repro_torch.serving.core.EngineCore` runs it as ONE step in the
-engine's style (contiguous or paged cache, window or packed step) with
-fused sampling; this module tracks slots, prefill progress, finish
-reasons, streaming callbacks and the ``EngineStats`` counters.
+chunks, and under ``admission="preempt"`` a slot to evict; with
+``chunk_size=None``, the legacy phase-based mode, running decode slots
+plus whole prefill groups for the free slots, bucketed by length unless
+``bucketed_prefill=False``), the evicted slot is requeued for recompute,
+``_page_gate`` grants the KV pages the step needs when the cache is paged,
+and the :class:`~repro_torch.serving.core.EngineCore` runs it in the
+engine's style (contiguous or paged cache, window or packed step, or the
+legacy prefill groups and decode) with fused sampling; this module tracks
+slots, prefill progress, finish reasons, streaming callbacks and the
+``EngineStats`` counters. ``scheduler=`` takes another scheduler: one with
+``schedule``, or a legacy one with only ``add`` / ``next_group`` /
+``__len__``, adapted by ``scheduler.legacy_schedule``.
 
 When the model has OVSF layers and its config carries no plan, the engine
 asks the layer mapper (``runtime.mapper``) for a decode-shaped
@@ -63,8 +67,7 @@ Failure handling, as the reference's:
   every finish; ``recover_from_journal()`` re-admits a crashed process's
   live requests through the recompute path.
 
-``chunk_size`` is required: the legacy phase-based path (whole-prompt
-prefill groups) and the int8 KV cache wait for a later slice (ROADMAP A.3).
+``packed`` and ``paged`` need ``chunk_size``, as in the reference.
 """
 from __future__ import annotations
 
@@ -87,7 +90,7 @@ from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_EOS,
                                      RequestOutput, SamplingParams)
 from repro_torch.serving.core import EngineCore, StepOutput
 from repro_torch.serving.scheduler import (FCFSScheduler, SchedulerOutput,
-                                           pack_bucket)
+                                           legacy_schedule, pack_bucket)
 
 __all__ = ["LLMEngine", "EngineStats", "Request", "SamplingParams",
            "RequestOutput", "plan_cfg"]
@@ -124,6 +127,11 @@ class EngineStats:
     steps: int = 0                # step calls
     tokens_out: int = 0
     prefills: int = 0             # requests whose prompt completed
+    prefill_batches: int = 0      # legacy prefill calls (a group, or one
+                                  # per request of an exact group)
+    prefill_compiles: int = 0     # distinct prefill keys run (<= the number
+                                  # of buckets when bucketing)
+    step_compiles: int = 0        # distinct step shapes run
     chunk_tokens: int = 0         # prompt tokens consumed via chunks
     packed_tokens: int = 0        # valid (useful) tokens across all steps
     padded_tokens: int = 0        # batch tokens across all steps (incl. pad)
@@ -142,6 +150,7 @@ class EngineStats:
     warmup_s: float = 0.0         # their first calls' time, off the stall clock
     rebuild_s: float = 0.0        # watchdog rebuild time (old core freed, new
                                   # core built; its captures are warmup_s)
+    prefill_s: float = 0.0        # legacy prefill groups' wall time
     decode_s: float = 0.0         # chunk-free step wall time
     mixed_s: float = 0.0          # chunk-bearing step wall time
     kv_pages_total: int = 0       # page pool size (0 unless paged)
@@ -174,8 +183,8 @@ class LLMEngine:
 
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int = 4,
                  buffer_len: int = 256, eos_id: Optional[int] = None,
-                 admission: str = "reject",
-                 chunk_size: Optional[int] = None,
+                 bucketed_prefill: bool = True, admission: str = "reject",
+                 scheduler=None, chunk_size: Optional[int] = None,
                  max_step_tokens: Optional[int] = None,
                  packed: bool = False, paged: bool = False,
                  page_size: int = 16, kv_pages: Optional[int] = None,
@@ -185,11 +194,12 @@ class LLMEngine:
                  faults: Optional[FaultPlan] = None,
                  journal=None, device="cuda", capture: bool = True):
         self.device = resolve_device(device)
-        if chunk_size is None:
-            raise NotImplementedError(
-                "the port serves prompts via chunks only: pass chunk_size; "
-                "the legacy phase-based path (chunk_size=None) waits for a "
-                "later slice (ROADMAP A.3)")
+        if packed and chunk_size is None:
+            raise ValueError("packed=True requires chunk_size (the packed "
+                             "step serves prompts via chunk tasks)")
+        if paged and chunk_size is None:
+            raise ValueError("paged=True requires chunk_size (the paged "
+                             "cache serves prompts via chunk tasks)")
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
         table = params["embed"]["table"]
@@ -203,6 +213,9 @@ class LLMEngine:
         self.B = batch_slots
         self.eos = eos_id
         self.paged = paged
+        # padded batched prefill is exact for the KV-cache families, the
+        # only ones the port serves
+        self.bucketed = bucketed_prefill
         if packed and max_step_tokens is None:
             # the mixed-step bucket: chunk-bearing steps fill their shape
             max_step_tokens = pack_bucket(0, batch_slots, chunk_size, True)
@@ -211,18 +224,24 @@ class LLMEngine:
         self.step_timeout_s = step_timeout_s
         # what a watchdog rebuild of the core needs
         self._core_args = dict(batch_slots=batch_slots,
-                               buffer_len=buffer_len, window=chunk_size,
+                               buffer_len=buffer_len, window=chunk_size or 0,
                                packed=packed, paged=paged,
                                page_size=page_size, kv_pages=kv_pages,
                                device=self.device, capture=capture,
                                faults=faults)
         self.core = EngineCore(params, self.cfg, **self._core_args)
         pages = self.core.pager.P if paged else 0
-        self.scheduler = FCFSScheduler(buffer_len, chunk_size=chunk_size,
-                                       admission=admission,
-                                       max_waiting=max_waiting,
-                                       page_size=page_size if paged else None,
-                                       total_pages=pages or None)
+        self.scheduler = scheduler if scheduler is not None else \
+            FCFSScheduler(buffer_len, admission=admission,
+                          bucketing=self.bucketed, chunk_size=chunk_size,
+                          max_waiting=max_waiting,
+                          page_size=page_size if paged else None,
+                          total_pages=pages or None)
+        if (packed or paged) and not hasattr(self.scheduler, "schedule"):
+            raise ValueError(
+                "packed/paged mode requires a step scheduler (schedule "
+                "method): legacy add/next_group schedulers emit whole "
+                "prefill groups, which this core cannot execute")
         self.slots: list[Optional[Request]] = [None] * batch_slots
         self.slot_remaining = np.zeros(batch_slots, np.int32)
         self._prefill_done = np.zeros(batch_slots, np.int64)
@@ -258,7 +277,7 @@ class LLMEngine:
 
     @property
     def backpressure(self) -> float:
-        return self.scheduler.backpressure
+        return float(getattr(self.scheduler, "backpressure", 0.0))
 
     def outputs(self) -> list[RequestOutput]:
         """Finished requests (every terminal reason), in finish order."""
@@ -272,6 +291,16 @@ class LLMEngine:
     def _running_view(self) -> list:
         return [(i, self.slots[i], int(self._prefill_done[i]))
                 for i in range(self.B) if self.slots[i] is not None]
+
+    def _schedule(self) -> SchedulerOutput:
+        running, free = self._running_view(), self._free_slots()
+        if hasattr(self.scheduler, "schedule"):
+            return self.scheduler.schedule(
+                running, free, token_budget=self.max_step_tokens,
+                exact_prefill=not self.bucketed)
+        # a legacy three-method scheduler (add / next_group / __len__)
+        return legacy_schedule(self.scheduler, running, free,
+                               not self.bucketed)
 
     def _commit_first_token(self, i: int, req: Request, tok: int) -> None:
         req.emit(tok)
@@ -324,10 +353,11 @@ class LLMEngine:
     def _drain_shed(self) -> None:
         """Finalize the victims the scheduler took out of its bounded queue
         (already marked SHED or PREEMPTED)."""
-        shed = self.scheduler.shed
-        for req in shed:
-            self._finalize(req)
-        shed.clear()
+        shed = getattr(self.scheduler, "shed", None)
+        if shed:
+            for req in shed:
+                self._finalize(req)
+            shed.clear()
 
     # -- the step loop -----------------------------------------------------
 
@@ -339,8 +369,7 @@ class LLMEngine:
         remaining work (occupied slots plus queued requests; 0 = idle)."""
         self._expire_deadlines()
         self._drain_shed()
-        so = self.scheduler.schedule(self._running_view(), self._free_slots(),
-                                     token_budget=self.max_step_tokens)
+        so = self._schedule()
         for i in so.preempt_slots:      # evict + recompute-requeue
             self._requeue_slot(i, preempt=True)
         self._drain_shed()              # a requeue into a full queue sheds
@@ -356,6 +385,10 @@ class LLMEngine:
             if c.start == 0:
                 self.slots[c.slot] = c.req
                 self._prefill_done[c.slot] = 0
+        for pg in so.prefill_groups:    # legacy whole-prompt prefill
+            for i, req in pg.slot_reqs:
+                self.slots[i] = req
+                self._prefill_done[i] = 0
         first = self.core.graphs.first_calls
         n_first = len(first)
         t0 = time.perf_counter()
@@ -436,7 +469,7 @@ class LLMEngine:
             if pager.grant(c.slot, c.start + c.length):
                 kept_new.append(c)
             else:
-                self.scheduler.requeue(c.req)
+                self._requeue(c.req)
         keep = {id(c) for c in run_chunks} | {id(c) for c in kept_new}
         chunks = tuple(c for c in so.chunks if id(c) in keep)
         st = self.stats
@@ -449,8 +482,9 @@ class LLMEngine:
     def _expire_deadlines(self) -> None:
         """Finish expired requests as FINISH_TIMEOUT: queued ones through
         the scheduler, running ones straight out of their slot."""
-        for req in self.scheduler.pop_expired(time.perf_counter()):
-            self._finalize(req)
+        if hasattr(self.scheduler, "pop_expired"):
+            for req in self.scheduler.pop_expired(time.perf_counter()):
+                self._finalize(req)
         for i in range(self.B):
             req = self.slots[i]
             if req is not None and req.expired:
@@ -485,7 +519,15 @@ class LLMEngine:
         if preempt:
             req.preemptions += 1
             self.stats.preemptions += 1
-        self.scheduler.requeue(req)
+        self._requeue(req)
+
+    def _requeue(self, req: Request) -> None:
+        """Back into the waiting queue, its arrival order kept; a legacy
+        scheduler without ``requeue`` re-admits it FCFS."""
+        if hasattr(self.scheduler, "requeue"):
+            self.scheduler.requeue(req)
+        else:
+            self.scheduler.add(req)
 
     # -- hooks for callers: migration, crash recovery, drain, cancel ---------
 
@@ -493,7 +535,7 @@ class LLMEngine:
         """Accept a request already admitted by an identically configured
         engine (a recomputed prompt keeps its total cache need), bypassing
         admission."""
-        self.scheduler.requeue(req)
+        self._requeue(req)
         self._drain_shed()
 
     def recover_from_journal(self, *, wire=None) -> list:
@@ -525,7 +567,14 @@ class LLMEngine:
         engine is left empty and usable."""
         out = [self._stash_slot(i) for i in range(self.B)
                if self.slots[i] is not None]
-        out.extend(self.scheduler.pop_all())
+        if hasattr(self.scheduler, "pop_all"):
+            out.extend(self.scheduler.pop_all())
+        else:                           # a legacy scheduler: FCFS groups
+            while len(self.scheduler):
+                pg = self.scheduler.next_group(self.B)
+                if pg is None:
+                    break
+                out.extend(pg.requests)
         return out
 
     def cancel(self, req: Request) -> bool:
@@ -538,7 +587,7 @@ class LLMEngine:
             if self.slots[i] is req:
                 self._finish(i, FINISH_CANCELLED)
                 return True
-        if self.scheduler.remove(req):
+        if hasattr(self.scheduler, "remove") and self.scheduler.remove(req):
             req.finish_reason = FINISH_CANCELLED
             self._finalize(req)
             return True
@@ -547,18 +596,20 @@ class LLMEngine:
     def _recover(self) -> None:
         """Watchdog recovery: requeue every live slot recompute-style, free
         the old core (caches, graphs, graph pools), and build a new one that
-        carries ``step_idx`` and ``step_shapes`` over, so a step-pinned
-        fault fires once a run."""
+        carries ``step_idx``, ``step_shapes`` and ``prefill_compiles`` over,
+        so a step-pinned fault fires once a run (the new core runs its
+        prefill keys anew, as the reference's traces its prefills anew)."""
         for i in range(self.B):
             if self.slots[i] is not None:
                 self._requeue_slot(i, preempt=False)
         self._drain_shed()
         t0 = time.perf_counter()
-        step_idx, shapes = self.core.step_idx, self.core.step_shapes
-        self.core.close()
+        old = self.core
+        old.close()
         self.core = EngineCore(self.params, self.cfg, **self._core_args)
-        self.core.step_idx = step_idx
-        self.core.step_shapes = shapes
+        self.core.step_idx = old.step_idx
+        self.core.step_shapes = old.step_shapes
+        self.core.prefill_compiles = old.prefill_compiles
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)     # the new caches' zeros
         self.stats.rebuild_s += time.perf_counter() - t0
@@ -591,13 +642,19 @@ class LLMEngine:
             elif self.slot_remaining[i] <= 0:
                 self._finish(i, FINISH_LENGTH)
         st = self.stats
+        st.prefill_s += out.prefill_s
         st.decode_s += out.decode_s
         st.mixed_s += out.mixed_s
         st.packed_tokens += out.n_valid_tokens
         st.padded_tokens += out.n_batch_tokens
         if so.decode_slots or so.chunks:
             st.steps += 1
+        st.prefill_batches += sum(len(pg.slot_reqs) if pg.exact else 1
+                                  for pg in so.prefill_groups)
+        st.prefill_compiles = self.core.prefill_compiles
+        st.step_compiles = len(self.core.step_shapes)
         if (self.calibrate and out.decode_s > 0.0 and not so.chunks
+                and not so.prefill_groups
                 and self.cfg.exec_plan is not None):
             update_from_step(self.calibration, self.cfg.exec_plan,
                              out.decode_s, self.hw_label)

@@ -1,15 +1,19 @@
-"""Step scheduling and the token-packed layout (copy of what the packed
-path needs from ``repro.serving.scheduler``).
+"""Step scheduling and the token-packed layout (port of
+``repro.serving.scheduler``).
 
 ``FCFSScheduler.schedule`` emits one :class:`SchedulerOutput` per engine
-iteration: every running decode slot advances one token, and the rest of
-the token budget goes to fixed-size prompt chunks (highest priority first,
-FCFS within a level, partial prefills before new admissions), and under
-``admission="preempt"`` the slot to evict for a more urgent waiter; it
+iteration. Chunked mode (``chunk_size`` set): every running decode slot
+advances one token, and the rest of the token budget goes to fixed-size
+prompt chunks (highest priority first, FCFS within a level, partial
+prefills before new admissions), and under ``admission="preempt"`` the
+slot to evict for a more urgent waiter. Legacy phase-based mode
+(``chunk_size=None``): every running slot decodes and the free slots fill
+with whole prefill groups (``next_group``: the head of the queue plus
+younger requests of its length bucket, ``bucket_lengths``). The scheduler
 also bounds the waiting queue (load shedding) and expires deadlines.
 ``pack_step`` flattens a step into the dense ``(T,)`` token stream of one
-packed step. The legacy phase-based mode waits for a later slice (ROADMAP
-A.3).
+packed step. ``legacy_schedule`` adapts any ``add`` / ``next_group`` /
+``__len__`` scheduler onto the step contract.
 """
 from __future__ import annotations
 
@@ -21,6 +25,38 @@ import numpy as np
 from repro_torch.core.ovsf import next_pow2
 from repro_torch.serving.api import (FINISH_PREEMPTED, FINISH_REJECTED,
                                      FINISH_SHED, FINISH_TIMEOUT, Request)
+
+
+def bucket_lengths(buffer_len: int, *, min_bucket: int = 8,
+                   n_buckets: int = 0) -> tuple[int, ...]:
+    """Power-of-two prefill buckets from ``min_bucket`` up to the buffer,
+    the last one clamped to ``buffer_len`` so that a near-capacity prompt
+    still fits after padding (the last ``n_buckets`` when that is set)."""
+    out: list[int] = []
+    b = max(min_bucket, 1)
+    while b < buffer_len:
+        out.append(b)
+        b *= 2
+    out.append(buffer_len)
+    if n_buckets and len(out) > n_buckets:
+        out = out[-n_buckets:]
+    return tuple(out)
+
+
+def bucket_for(plen: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket >= plen (admission guarantees one exists)."""
+    for b in buckets:
+        if plen <= b:
+            return b
+    raise ValueError(f"prompt length {plen} exceeds largest bucket "
+                     f"{buckets[-1]}")
+
+
+@dataclasses.dataclass
+class PrefillGroup:
+    """Same-bucket requests to prefill in one batched call."""
+    bucket: int
+    requests: list
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,19 +72,32 @@ class ChunkTask:
 
 
 @dataclasses.dataclass(frozen=True)
+class PrefillAssignment:
+    """Legacy phase-based prefill: one bucketed (or, ``exact``, native
+    length per request) group mapped onto concrete slots."""
+    bucket: int
+    slot_reqs: tuple          # ((slot, Request), ...)
+    exact: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class SchedulerOutput:
-    """What the engine core executes in ONE ``step()`` iteration.
-    ``preempt_slots`` are running slots the engine evicts before the step
-    (excluded from ``decode_slots`` and ``chunks``; their requests are
-    re-enqueued for recompute)."""
+    """What the engine core executes in ONE ``step()`` iteration: chunked
+    mode fills ``decode_slots`` and ``chunks`` (one call), legacy mode
+    ``decode_slots`` and ``prefill_groups`` (the groups first, then the
+    decode). ``preempt_slots`` are running slots the engine evicts before
+    the step (excluded from ``decode_slots`` and ``chunks``; their requests
+    are re-enqueued for recompute)."""
     decode_slots: tuple = ()        # slots advancing one generated token
     chunks: tuple = ()              # ChunkTask prompt slices this step
+    prefill_groups: tuple = ()      # PrefillAssignment (legacy mode)
     preempt_slots: tuple = ()       # slots to evict + recompute-requeue
     n_scheduled_tokens: int = 0
 
     @property
     def empty(self) -> bool:
-        return not (self.decode_slots or self.chunks or self.preempt_slots)
+        return not (self.decode_slots or self.chunks or self.prefill_groups
+                    or self.preempt_slots)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,7 +183,9 @@ def pack_step(so: SchedulerOutput, last_tokens, slot_pos, B: int,
 
 
 class FCFSScheduler:
-    """Priority-FCFS admission and chunked step scheduling.
+    """Priority-FCFS admission and step scheduling, chunked or (with
+    ``chunk_size=None``) legacy phase-based with length buckets
+    (``bucketing=False``: one exact-length "bucket" a prompt length).
 
     ``admission``: ``"reject"`` marks a request whose prompt plus
     ``max_new_tokens`` would overflow the buffer (or, paged, the whole page
@@ -143,7 +194,7 @@ class FCFSScheduler:
     1`` is rejected either way); ``"preempt"`` admits like ``"reject"`` and
     also evicts the least urgent running slot when a strictly more urgent
     request waits and no slot is free (``SchedulerOutput.preempt_slots``):
-    the victim is recomputed, not lost.
+    the victim is recomputed, not lost; it needs ``chunk_size``.
 
     The waiting queue is ordered by priority (higher first), FCFS within a
     level. With ``max_waiting`` it is bounded and an overload sheds the
@@ -152,19 +203,25 @@ class FCFSScheduler:
     the engine to finalize.
     """
 
-    def __init__(self, buffer_len: int, *, chunk_size: int,
-                 admission: str = "reject",
+    def __init__(self, buffer_len: int, *, admission: str = "reject",
+                 min_bucket: int = 8, bucketing: bool = True,
+                 chunk_size: Optional[int] = None,
                  max_waiting: Optional[int] = None,
                  page_size: Optional[int] = None,
                  total_pages: Optional[int] = None):
         if admission not in ("reject", "truncate", "preempt"):
             raise ValueError(f"admission policy {admission!r}")
-        if chunk_size < 1:
+        if admission == "preempt" and chunk_size is None:
+            raise ValueError(
+                "admission='preempt' requires chunk_size: preempted "
+                "requests are recomputed via chunked prefill")
+        if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         if max_waiting is not None and max_waiting < 1:
             raise ValueError(f"max_waiting must be >= 1, got {max_waiting}")
         self.buffer_len = buffer_len
         self.admission = admission
+        self.bucketing = bucketing
         self.chunk_size = chunk_size
         self.max_waiting = max_waiting
         # paged admission: a request whose whole lifetime exceeds the ENTIRE
@@ -172,6 +229,7 @@ class FCFSScheduler:
         # engine's page gate's (wait, or preempt and recompute)
         self.page_size = page_size
         self.total_pages = total_pages
+        self.buckets = bucket_lengths(buffer_len, min_bucket=min_bucket)
         self.waiting: list[Request] = []
         self.shed: list[Request] = []   # load-shed victims awaiting finalize
         self._seq = 0
@@ -188,6 +246,10 @@ class FCFSScheduler:
 
     def _key(self, req: Request):
         return (-req.priority, req._sched_seq)
+
+    def _sorted_idx(self) -> list[int]:
+        return sorted(range(len(self.waiting)),
+                      key=lambda i: self._key(self.waiting[i]))
 
     def _peek(self) -> Optional[Request]:
         if not self.waiting:
@@ -281,20 +343,47 @@ class FCFSScheduler:
                 r.finish_reason = FINISH_TIMEOUT
         return expired
 
+    def bucket_of(self, req: Request) -> int:
+        if not self.bucketing:
+            return req.prompt_len        # exact-length "bucket" per request
+        return bucket_for(req.prompt_len, self.buckets)
+
+    def next_group(self, max_size: int) -> Optional[PrefillGroup]:
+        """Pop the next prefill group: the head of the queue (highest
+        priority, oldest within) plus up to ``max_size - 1`` younger
+        requests of its bucket, in queue order."""
+        if not self.waiting or max_size < 1:
+            return None
+        order = self._sorted_idx()
+        bucket = self.bucket_of(self.waiting[order[0]])
+        picked_idx = [i for i in order
+                      if self.bucket_of(self.waiting[i]) == bucket][:max_size]
+        picked = [self.waiting[i] for i in picked_idx]
+        taken = set(picked_idx)
+        self.waiting = [r for i, r in enumerate(self.waiting)
+                        if i not in taken]
+        return PrefillGroup(bucket, picked)
+
     def schedule(self, running, free_slots, *,
-                 token_budget: Optional[int] = None) -> SchedulerOutput:
+                 token_budget: Optional[int] = None,
+                 exact_prefill: bool = False) -> SchedulerOutput:
         """Emit one step's worth of work.
 
         ``running`` is ``[(slot, Request, prefill_done)]`` for occupied
         slots (``prefill_done == prompt_len`` means the slot decodes);
-        ``free_slots`` are unoccupied slot ids. Under ``admission=
-        "preempt"``, when no slot is free and the waiting head is strictly
-        more urgent than the least urgent running slot, that slot goes to
-        ``preempt_slots`` (at most one a step) and gets no work this step.
-        Decodes are always scheduled; the rest of ``token_budget`` is split
-        across prompt chunks of at most ``chunk_size`` tokens, and a
-        mid-prefill slot always progresses by at least one token.
+        ``free_slots`` are unoccupied slot ids. Legacy mode: every running
+        slot decodes and the free slots fill with whole prefill groups
+        (``exact_prefill``: native-length prefill per request). Chunked
+        mode: under ``admission="preempt"``, when no slot is free and the
+        waiting head is strictly more urgent than the least urgent running
+        slot, that slot goes to ``preempt_slots`` (at most one a step) and
+        gets no work this step. Decodes are always scheduled; the rest of
+        ``token_budget`` is split across prompt chunks of at most
+        ``chunk_size`` tokens, and a mid-prefill slot always progresses by
+        at least one token.
         """
+        if self.chunk_size is None:
+            return legacy_schedule(self, running, free_slots, exact_prefill)
         chunk = self.chunk_size
         preempt: tuple = ()
         if self.admission == "preempt" and running and not free_slots:
@@ -334,3 +423,26 @@ class FCFSScheduler:
                                chunks=tuple(chunks),
                                preempt_slots=preempt,
                                n_scheduled_tokens=n_tok)
+
+
+def legacy_schedule(scheduler, running, free_slots,
+                    exact_prefill: bool) -> SchedulerOutput:
+    """Any ``add`` / ``next_group`` / ``__len__`` scheduler on the step
+    contract: every running slot decodes, the free slots fill with whole
+    prefill groups. Shared by ``FCFSScheduler`` (``chunk_size=None``) and
+    the engine's adapter for such schedulers."""
+    decodes = tuple(s for s, _req, _d in running)
+    groups: list[PrefillAssignment] = []
+    free = list(free_slots)
+    while free and len(scheduler):
+        g = scheduler.next_group(len(free))
+        if g is None or not g.requests:
+            break
+        groups.append(PrefillAssignment(
+            g.bucket, tuple(zip(free, g.requests)), exact=exact_prefill))
+        free = free[len(g.requests):]
+    n_tok = len(decodes) + sum(r.prompt_len for pg in groups
+                               for _s, r in pg.slot_reqs)
+    return SchedulerOutput(decode_slots=decodes,
+                           prefill_groups=tuple(groups),
+                           n_scheduled_tokens=n_tok)

@@ -14,7 +14,9 @@ same numpy inputs from a seed:
 * the engine in the contiguous window, contiguous packed and paged window
   styles: greedy streams, finish reasons and token counters identical to
   the JAX engine's; within the port, all four styles give the same greedy
-  and sampled streams; near-capacity requests; the launcher.
+  and sampled streams; near-capacity requests; the launcher, chunked and
+  (no ``--chunk-size``) legacy, the latter with the reference launcher's
+  streams.
 """
 import dataclasses
 import functools
@@ -386,7 +388,48 @@ def test_launcher_styles_on_cpu(flags, capsys):
     assert ("kv_pages" in out) == ("--paged" in flags)
 
 
-def test_launcher_refuses_legacy_path():
-    with pytest.raises(SystemExit, match="ROADMAP A.3"):
-        tserve.main(["--arch", "tinyllama_1_1b", "--smoke", "--device",
-                     "cpu"])
+def _launcher_streams(main, module, flags, monkeypatch) -> dict:
+    """Run a launcher's ``main`` and return its engine's streams."""
+    engines = []
+    cls = module.LLMEngine
+
+    class Recorded(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    monkeypatch.setattr(module, "LLMEngine", Recorded)
+    main(flags)
+    (eng,) = engines
+    return {o.rid: (o.finish_reason, list(o.tokens)) for o in eng.outputs()}
+
+
+@pytest.mark.parametrize("flags", [[], ["--no-bucketing"]])
+def test_launcher_refuses_legacy_path(flags, monkeypatch, capsys):
+    """(Name kept from when the port refused it.) The launcher without
+    ``--chunk-size`` serves the legacy phase-based path, as the reference's
+    launcher does, and finishes every request with the reference launcher's
+    greedy streams on the same seed (its params carried over through the
+    bridge); ``--packed`` or ``--paged`` without ``--chunk-size`` exit with
+    the reference's messages."""
+    from repro.launch import serve as jserve
+    args = ["--arch", "tinyllama_1_1b", "--smoke", *flags]
+
+    def bridged(cfg, seed, device):
+        jcfg = j_smoke("tinyllama_1_1b")
+        tree = jax.tree_util.tree_map(
+            np.asarray, jR.model_init(jax.random.PRNGKey(seed), jcfg))
+        return bridge.params_from_numpy(tree, cfg, device)
+
+    want = _launcher_streams(jserve.main, jserve, args + ["--hw", "cpu"],
+                             monkeypatch)
+    monkeypatch.setattr(tserve.R, "model_init", bridged)
+    got = _launcher_streams(tserve.main, tserve, args + ["--device", "cpu"],
+                            monkeypatch)
+    assert len(got) == 8 and got == want
+    assert all(r == "length" for r, _t in got.values())
+    out = capsys.readouterr().out
+    assert "completed=8" in out and "prefill=" in out
+    for flag in ("--packed", "--paged"):
+        with pytest.raises(SystemExit, match=f"{flag} requires --chunk-size"):
+            tserve.main(args + ["--device", "cpu", flag])

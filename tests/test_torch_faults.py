@@ -476,7 +476,7 @@ def test_failing_capture_leaves_no_key_and_takes_counts_back(monkeypatch):
     body = lambda bufs: (bufs["x"] + 1,)
     fails = [True]
 
-    def capture(body_, bufs):
+    def capture(body_, bufs, pool):
         G.ovsf_gemm.launches += 5       # what a capture's wrappers count
         if fails.pop(0) if fails else False:
             raise torch.cuda.OutOfMemoryError("under capture")

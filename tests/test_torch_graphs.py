@@ -22,6 +22,7 @@ where every step runs eagerly through the same static buffers:
   counts, and ``kernels.launch_counters`` names every wrapper's counter;
   replacing the engine's params or config drops its graphs.
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -150,11 +151,11 @@ def _recording(sg, mode):
     """``sg.run`` with every body run under ``mode``."""
     run = sg.run
 
-    def wrapped(key, inputs, body):
+    def wrapped(key, inputs, body, **kw):
         def recorded(bufs):
             with mode:
                 return body(bufs)
-        return run(key, inputs, recorded)
+        return run(key, inputs, recorded, **kw)
     return wrapped
 
 
@@ -461,7 +462,8 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
     sg.capture = True                   # the card's route, simulated
     fake = _FakeGraph()
     monkeypatch.setattr(sg, "_warm_up", lambda body, bufs: body(bufs))
-    monkeypatch.setattr(sg, "_capture", lambda body, bufs: (fake, body(bufs)))
+    monkeypatch.setattr(sg, "_capture",
+                        lambda body, bufs, pool: (fake, body(bufs)))
 
     def body(bufs):
         G.ovsf_gemm.launches += 5
@@ -487,6 +489,38 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
         [5, 0, 1, 0, 2, 0, 5, 0, 5, 0, 0]
     G.reset_launches()
     D.paged_flash_decode.launches = F.fwht.launches = 0
+
+
+def test_keys_of_one_pool_label_capture_into_one_pool(monkeypatch):
+    """Keys run with one ``pool`` label capture into one pool handle (the
+    legacy prefill buckets); a key without a label gets a pool of its own
+    (``pool=None``); ``clear()`` drops the labels' pools with the graphs."""
+    sg = graphs.StepGraphs("cpu")
+    sg.capture = True                   # the card's route, simulated
+    handles, pools = iter(range(100)), []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, stream=None):
+        pools.append(pool)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: next(handles))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(sg, "_warm_up", lambda body, bufs: body(bufs))
+
+    def body(bufs):
+        return (bufs["x"] + 1,)
+    runs = (("a", "p"), ("b", "p"), ("c", None), ("a", "p"), ("d", "q"),
+            ("e", "p"))
+    for key, pool in runs:
+        sg.run(key, {"x": np.zeros(2)}, body, pool=pool)
+    assert pools == [0, 0, None, 1, 0]      # "a" replayed, captured once
+    sg.clear()
+    sg.run("a", {"x": np.zeros(2)}, body, pool="p")
+    assert pools[-1] == 2 and sg.keys() == ["a"]
 
 
 def test_launch_counters_name_every_wrapper_counter():

@@ -221,8 +221,13 @@ def test_engine_rejects_overflow_and_requires_chunk_size():
     assert not eng.submit(TRequest(0, np.ones(10, np.int32),
                                    max_new_tokens=10))
     assert eng.outputs()[0].finish_reason == "rejected"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
+    # the reference's refusals: the packed step and the paged cache serve
+    # prompts via chunks (without either, chunk_size=None is the legacy
+    # path, tests/test_torch_legacy.py)
+    with pytest.raises(ValueError, match="packed=True requires chunk_size"):
         TEngine(params, tcfg, packed=True, paged=True, device="cpu")
+    with pytest.raises(ValueError, match="paged=True requires chunk_size"):
+        TEngine(params, tcfg, paged=True, device="cpu")
 
 
 def test_engine_needs_gpu_unless_cpu_is_asked(monkeypatch):
@@ -251,7 +256,12 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.models.cnn, repro_torch.configs.resnet18, "
             "repro_torch.configs.resnet34, repro_torch.configs.resnet50, "
             "repro_torch.configs.squeezenet1_1, repro_torch.runtime.faults, "
-            "repro_torch.serving.journal, repro_torch.launch.supervise; "
+            "repro_torch.serving.journal, repro_torch.launch.supervise, "
+            "repro_torch.serving.scheduler, repro_torch.serving.core, "
+            "repro_torch.serving.engine, repro_torch.models.attention, "
+            "repro_torch.models.transformer, repro_torch.models.registry, "
+            "repro_torch.kernels.decode_attn, repro_torch.kernels.ref, "
+            "repro_torch.configs.base; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
