@@ -51,9 +51,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
              alphas, scales that do not tile J), and ``ovsf_matmul`` must
-             refuse ``materialize`` of quantised alphas and ``spectral`` of
-             segmented codes on the card (they have no kernel; no plain
-             fallback runs there). Last, one ResNet-50 s2 conv's GEMM (M
+             refuse ``materialize`` of quantised alphas and of segmented
+             codes on the card (they have no kernel; no plain fallback runs
+             there), while ``spectral`` of segmented codes (plain tensor
+             code, as the reference's jnp) runs there and equals the CPU's.
+             Last, one ResNet-50 s2 conv's GEMM (M
              1568, 2304 -> 256, rho 0.5, integer-valued inputs) under
              ``materialize``, ``fused`` and ``spectral`` plans: the three
              outputs must be equal, each through its own kernel (``fused``
@@ -237,6 +239,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
              chunk-free step wall with the journal and without, in turns.
              Every chaos run must recover exactly as often as its faults
              ask, and every serve run of phase 4 not at all.
+  9. gateway: the multi-model gateway (``serving.gateway``) at full
+             width. (1) ``ovsf_gemm`` (bf16, 16-long segments) at
+             qwen2_5_14b's projection shapes (5120 -> 5120, 1024, 13824 and
+             13824 -> 5120; M 4 and 64), each on the tensor-core kernel, and
+             ``flash_decode_attn`` at its heads (H 40, Hkv 8, hd 128; bf16
+             and fp32), against their plain versions with device ms, bound
+             and library ms; ``ovsf_matmul_multi`` over 2 variants equal to
+             ``spectral_matmul`` bit for bit at TinyLlama-1.1B's q and down
+             shapes (T 8 and 64, bf16 and fp32). (2) A ``ServingGateway``
+             (4 slots, buffer 128, chunk 8, every step replayed) over a
+             registry of tl-a and tl-b (full-width TinyLlama-1.1B and its
+             ``make_alpha_variant``, stacked into one engine) and qw
+             (qwen2_5_14b at its published widths, ``QWEN_LAYERS`` layers),
+             bf16, 12 requests round-robin (greedy and sampled): each
+             finishes once; the stacked engine launches 22
+             ``flash_decode_attn`` a step and no ``ovsf_gemm``, qw's 7 x
+             layers ``ovsf_gemm`` a step (tensor-core) and its layers'
+             ``flash_decode_attn`` a chunk-free step; each engine's graphs
+             are its step shapes (at most 2); the pair's resident bytes
+             below one dense-fp32 TinyLlama, the pool's below one dense-fp32
+             qwen2_5_14b. Re-routing the stacked engine's slots to the
+             other variants captures nothing; its replayed chunk-free step
+             prints wall, device busy and idle share beside phase 4's
+             contiguous packed step, its profiled hand-written launches
+             equal to the wrappers' counters. bf16 streams vs dedicated
+             spectral engines: agreement printed; in fp32 (2 replicas,
+             packed; reserved KV and graph MiB printed per replica) equal.
+             ``flip`` + scrub repair 4 times under traffic (fp32 pair,
+             packed): the live bytes (``memory_allocated``) after each
+             within 2 MiB of the first's (``memory_reserved`` printed),
+             the streams equal a run without flips. (3) The CI gateway lines
+             (``ci.yml:80``, ``:81``, ``:99``, ``:113``, the last in
+             ``--dtype bfloat16`` and ``float32``) through ``python -m
+             repro_torch.launch.gateway --smoke`` in subprocesses started
+             together: each exits 0, its wall printed; fp32 kill-9 streams
+             byte-identical to the fault-free re-run.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -244,6 +282,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -376,14 +415,67 @@ def gemm_case(rng, seg: int, M: int, K: int, N: int, dtype, dev):
             torch.from_numpy(idx.astype(np.int32)).to(dev), nk)
 
 
+def gemm_row(rng, dev, seg: int, M: int, K: int, N: int, dt,
+             alpha_dtype: str, name: str) -> dict:
+    """One ``ovsf_gemm`` case held against its plain version: the kernel it
+    ran, its error, device and call ms, bound, the plain version's and
+    matmul on the dense W's ms."""
+    from repro_torch.core.ovsf import quantize_alphas
+    from repro_torch.kernels.ovsf_gemm import ovsf_gemm, ovsf_gemm_plain
+    from repro_torch.kernels.ref import ovsf_decompress_ref
+    x, al, idx, nk = gemm_case(rng, seg, M, K, N, dt, dev)
+    scale = None
+    if alpha_dtype:
+        al, scale = quantize_alphas(al.float(), idx.shape[0] if seg else 1,
+                                    alpha_dtype)
+    kw = dict(alpha_scale=scale, alpha_dtype=alpha_dtype)
+    label = (f"{name} {'seg' if seg else 'mono'} M={M} {K}->{N} "
+             f"{str(dt).split('.')[-1]}")
+    before = dict(ovsf_gemm.launches_by_kernel)
+    got = ovsf_gemm(x, al, idx, **kw)
+    kernel = next(k for k, n in ovsf_gemm.launches_by_kernel.items()
+                  if n != before[k])
+    err = check(label, got, ovsf_gemm_plain(x, al, idx, **kw), dt)
+    es = x.element_size()
+    bytes_ = ((x.numel() + M * N) * es + al.numel() * al.element_size()
+              + idx.numel() * 4 + (scale.numel() * 4 if alpha_dtype else 0))
+    gen_macs = K * N * (nk if seg else al.shape[0])
+    flops = 2 * M * K * N + 2 * gen_macs
+    t_bound, by = bound(bytes_, flops, dt)
+    copies = [(torch.randn_like(x), al.clone()) for _ in
+              range(n_copies(bytes_))]
+    ms, call_ms = timings([lambda a=a, b=b: ovsf_gemm(a, b, idx, **kw)
+                           for a, b in copies], 40)
+    plain_ms, _ = timings([lambda a=a, b=b: ovsf_gemm_plain(a, b, idx, **kw)
+                           for a, b in copies[:2]], 4)
+    W = ovsf_decompress_ref(al if alpha_dtype else al.float(), idx, K,
+                            **kw).to(dt)
+    lib_err = float((torch.matmul(x, W).float()
+                     - ovsf_gemm_plain(x, al, idx, **kw).float())
+                    .abs().max())
+    wcopies = [(a, W.clone()) for a, _ in copies[:n_copies(W.numel() * es)]]
+    lib_ms, _ = timings([lambda a=a, w=w: torch.matmul(a, w)
+                         for a, w in wcopies], 40)
+    del copies, wcopies, W
+    row = dict(case=label, seg=seg, M=M, K=K, N=N, dtype=str(dt),
+               alpha_dtype=alpha_dtype or "fp", kernel=kernel,
+               max_abs_err=err, tol=TOL[dt], ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+               bound_ms=t_bound, bound_by=by)
+    print(f"[kernel] {label} ({kernel}): max_abs_err={err:.3e} "
+          f"(tol {TOL[dt]}) "
+          f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
+          f"bound={t_bound:.4f}ms ({by}) "
+          f"plain={plain_ms:.4f}ms library(matmul, dense W)="
+          f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
+    return row
+
+
 def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
     """``ovsf_gemm`` with alphas in x's type (``alpha_dtype=""``) or stored
     as int8 / packed int4 with per-segment fp32 scales. The byte bound
     counts the stored alpha bytes (J*N for int8, J*N/2 for int4) plus the
     scales, x, y and idx."""
-    from repro_torch.core.ovsf import quantize_alphas
-    from repro_torch.kernels.ovsf_gemm import ovsf_gemm, ovsf_gemm_plain
-    from repro_torch.kernels.ref import ovsf_decompress_ref
     layer = {"q": (2048, 2048), "o": (2048, 2048), "gate": (2048, 5632),
              "up": (2048, 5632), "down": (5632, 2048)}
     cases = [(16, M, K, N, dt) for M in (4, 128)
@@ -397,58 +489,8 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
     cases += [(16, 13, 128, 64, dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [(0, 5, 1000, 1000, dt) for dt in (torch.bfloat16, torch.float32)]
     name = "ovsf_gemm" + (f"_{alpha_dtype}" if alpha_dtype else "")
-    rows = []
-    for seg, M, K, N, dt in cases:
-        x, al, idx, nk = gemm_case(rng, seg, M, K, N, dt, dev)
-        scale = None
-        if alpha_dtype:
-            al, scale = quantize_alphas(al.float(), idx.shape[0] if seg else 1,
-                                        alpha_dtype)
-        kw = dict(alpha_scale=scale, alpha_dtype=alpha_dtype)
-        label = (f"{name} {'seg' if seg else 'mono'} M={M} {K}->{N} "
-                 f"{str(dt).split('.')[-1]}")
-        before = dict(ovsf_gemm.launches_by_kernel)
-        got = ovsf_gemm(x, al, idx, **kw)
-        kernel = next(k for k, n in ovsf_gemm.launches_by_kernel.items()
-                      if n != before[k])
-        err = check(label, got, ovsf_gemm_plain(x, al, idx, **kw), dt)
-        es = x.element_size()
-        bytes_ = ((x.numel() + M * N) * es + al.numel() * al.element_size()
-                  + idx.numel() * 4 + (scale.numel() * 4 if alpha_dtype
-                                       else 0))
-        gen_macs = K * N * (nk if seg else al.shape[0])
-        flops = 2 * M * K * N + 2 * gen_macs
-        t_bound, by = bound(bytes_, flops, dt)
-        copies = [(torch.randn_like(x), al.clone()) for _ in
-                  range(n_copies(bytes_))]
-        ms, call_ms = timings([lambda a=a, b=b: ovsf_gemm(a, b, idx, **kw)
-                               for a, b in copies], 40)
-        plain_ms, _ = timings([lambda a=a, b=b: ovsf_gemm_plain(a, b, idx,
-                                                                **kw)
-                               for a, b in copies[:2]], 4)
-        W = ovsf_decompress_ref(al if alpha_dtype else al.float(), idx, K,
-                                **kw).to(dt)
-        lib_err = float((torch.matmul(x, W).float()
-                         - ovsf_gemm_plain(x, al, idx, **kw).float())
-                        .abs().max())
-        wcopies = [(a, W.clone()) for a, _ in
-                   copies[:n_copies(W.numel() * es)]]
-        lib_ms, _ = timings([lambda a=a, w=w: torch.matmul(a, w)
-                             for a, w in wcopies], 40)
-        del copies, wcopies, W
-        row = dict(case=label, seg=seg, M=M, K=K, N=N, dtype=str(dt),
-                   alpha_dtype=alpha_dtype or "fp", kernel=kernel,
-                   max_abs_err=err,
-                   tol=TOL[dt], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, library_err=lib_err, bound_ms=t_bound,
-                   bound_by=by)
-        rows.append(row)
-        print(f"[kernel] {label} ({kernel}): max_abs_err={err:.3e} "
-              f"(tol {TOL[dt]}) "
-              f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
-              f"bound={t_bound:.4f}ms ({by}) "
-              f"plain={plain_ms:.4f}ms library(matmul, dense W)="
-              f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
+    rows = [gemm_row(rng, dev, seg, M, K, N, dt, alpha_dtype, name)
+            for seg, M, K, N, dt in cases]
     # one decode layer's five projections at M = 4 in bf16 (the summary row
     # of the kernels line), and the same at M = 128, 256 and (bf16 alphas)
     # 1024
@@ -477,9 +519,10 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
 def check_quant_contract(dev) -> list:
     """The quantised wrapper refuses, before any launch, what the kernel does
     not take; a refusal must not count as a launch. What has no kernel
-    refuses to run on the card: ``materialize`` of quantised alphas and
-    ``spectral`` of segmented codes (monolithic ``spectral`` runs the
-    ``fwht`` kernel: ``run_three_paths``)."""
+    refuses to run on the card: ``materialize`` of quantised alphas and of
+    segmented codes. ``spectral`` of segmented codes is plain tensor code on
+    every device (the multi-model path's product, as the reference's jnp):
+    it runs here and must equal the same call on the CPU."""
     from repro_torch.core.ovsf import quantize_alphas
     from repro_torch.kernels.ops import ovsf_matmul
     from repro_torch.kernels.ovsf_gemm import ovsf_gemm
@@ -502,18 +545,29 @@ def check_quant_contract(dev) -> list:
             refused.append(f"{what}: {e}")
             continue
         raise RuntimeError(f"ovsf_gemm took {what} without raising")
-    for path in ("materialize", "spectral"):
+    fp_alphas = torch.randn((64, 64), device=dev, dtype=torch.bfloat16)
+    for what, kw in (("materialize of int4 alphas",
+                      dict(alphas=q, alpha_scale=s, alpha_dtype="int4")),
+                     ("materialize of segmented codes",
+                      dict(alphas=fp_alphas))):
         try:
-            ovsf_matmul(x, q, idx, path=path, alpha_scale=s,
-                        alpha_dtype="int4")
+            ovsf_matmul(x, idx=idx, path="materialize", **kw)
         except NotImplementedError as e:
-            refused.append(f"{path} on the card: {e}")
+            refused.append(f"{what} on the card: {e}")
             continue
-        raise RuntimeError(f"ovsf_matmul ran the {path} path on the card")
+        raise RuntimeError(f"ovsf_matmul ran {what} on the card")
     if ovsf_gemm.launches != before:
         raise RuntimeError("a refused ovsf_gemm call counted a launch")
+    got = ovsf_matmul(x, q, idx, path="spectral", alpha_scale=s,
+                      alpha_dtype="int4")
+    want = ovsf_matmul(x.cpu(), q.cpu(), idx.cpu(), path="spectral",
+                       alpha_scale=s.cpu(), alpha_dtype="int4")
+    err = check("spectral of segmented codes on the card", got.cpu(), want,
+                torch.bfloat16)
     print(f"[kernel] ovsf_gemm int4 wrapper and ovsf_matmul refuse: "
-          + "; ".join(r.split(":")[0] for r in refused), flush=True)
+          + "; ".join(r.split(":")[0] for r in refused)
+          + f"; spectral of segmented codes runs on the card (plain tensor "
+          f"code), max_abs_err vs the CPU {err:.3e}", flush=True)
     return refused
 
 
@@ -664,55 +718,60 @@ def flash_sdpa_inputs(q, k, v, pos):
     return q[:, :, None, :], kk, vv, mask[:, None, None, :]
 
 
-def run_flash_checks(rng, dev):
-    """``flash_decode_attn`` vs its plain version; the packed path's row
-    gather (``cache[slot_ids]`` of K and V, T 128 from B 4, Tbuf 256) timed
-    at the mixed bucket."""
+def flash_row(rng, dev, label0: str, B: int, H: int, Hkv: int, hd: int,
+              T: int, pos, dt) -> dict:
+    """One ``flash_decode_attn`` case held against its plain version: its
+    split and block counts, error, device and call ms, bound, the plain
+    version's and SDPA's ms."""
     from repro_torch.kernels.decode_attn import (flash_decode_attn,
                                                  flash_decode_attn_plain,
                                                  flash_plan, sm_count)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    args, bytes_, flops = flash_case(rng, B, H, Hkv, hd, T, pos, dt, dev)
+    label = (f"flash_decode_attn {label0} B={B} H={H} Hkv={Hkv} "
+             f"hd={hd} T={T} {str(dt).split('.')[-1]}")
+    _r, splits, blocks = flash_plan(B, H, Hkv, T, sm_count(dev))
+    err = check(label, flash_decode_attn(*args),
+                flash_decode_attn_plain(*args), dt)
+    t_bound, by = bound(bytes_, flops, dt)
+    kv_bytes = 2 * args[1].numel() * args[1].element_size()
+    copies = [(args[0], args[1].clone(), args[2].clone(), args[3])
+              for _ in range(n_copies(kv_bytes))]
+    ms, call_ms = timings([lambda a=a: flash_decode_attn(*a)
+                           for a in copies], 50)
+    plain_ms, _ = timings([lambda a=a: flash_decode_attn_plain(*a)
+                           for a in copies[:2]], 4)
+    lib_in = [flash_sdpa_inputs(*a) for a in copies[:2]]
+    live = args[3] > 0      # see flash_sdpa_inputs
+    lib_err = float((sdpa(*lib_in[0][:3], attn_mask=lib_in[0][3])
+                     [:, :, 0].float()
+                     - flash_decode_attn_plain(*args).float())
+                    [live].abs().max())
+    lib_ms, _ = timings([lambda a=a: sdpa(a[0], a[1], a[2], attn_mask=a[3])
+                         for a in lib_in], 50)
+    del copies, lib_in
+    print(f"[kernel] {label}: {splits} splits, {blocks} blocks: "
+          f"max_abs_err={err:.3e} (tol {TOL[dt]}) "
+          f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
+          f"bound={t_bound:.5f}ms ({by}) "
+          f"plain={plain_ms:.4f}ms library(SDPA, boolean mask)="
+          f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
+    return dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, T=T,
+                pos=args[3].tolist(), dtype=str(dt), splits=splits,
+                blocks=blocks, max_abs_err=err, tol=TOL[dt], ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_err=lib_err, bound_ms=t_bound, bound_by=by)
+
+
+def run_flash_checks(rng, dev):
+    """``flash_decode_attn`` vs its plain version; the packed path's row
+    gather (``cache[slot_ids]`` of K and V, T 128 from B 4, Tbuf 256) timed
+    at the mixed bucket."""
     rows = []
     for label0, B, H, Hkv, hd, T, pos in FLASH_CASES:
         for dt in (torch.bfloat16, torch.float32):
-            args, bytes_, flops = flash_case(rng, B, H, Hkv, hd, T, pos, dt,
-                                             dev)
-            label = (f"flash_decode_attn {label0} B={B} H={H} Hkv={Hkv} "
-                     f"hd={hd} T={T} {str(dt).split('.')[-1]}")
-            _r, splits, blocks = flash_plan(B, H, Hkv, T, sm_count(dev))
-            err = check(label, flash_decode_attn(*args),
-                        flash_decode_attn_plain(*args), dt)
-            t_bound, by = bound(bytes_, flops, dt)
-            kv_bytes = 2 * args[1].numel() * args[1].element_size()
-            copies = [(args[0], args[1].clone(), args[2].clone(), args[3])
-                      for _ in range(n_copies(kv_bytes))]
-            ms, call_ms = timings([lambda a=a: flash_decode_attn(*a)
-                                   for a in copies], 50)
-            plain_ms, _ = timings([lambda a=a: flash_decode_attn_plain(*a)
-                                   for a in copies[:2]], 4)
-            lib_in = [flash_sdpa_inputs(*a) for a in copies[:2]]
-            live = args[3] > 0      # see flash_sdpa_inputs
-            lib_err = float((sdpa(*lib_in[0][:3], attn_mask=lib_in[0][3])
-                             [:, :, 0].float()
-                             - flash_decode_attn_plain(*args).float())
-                            [live].abs().max())
-            lib_ms, _ = timings([lambda a=a: sdpa(a[0], a[1], a[2],
-                                                  attn_mask=a[3])
-                                 for a in lib_in], 50)
-            del copies, lib_in
-            rows.append(dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, T=T,
-                             pos=args[3].tolist(), dtype=str(dt),
-                             splits=splits, blocks=blocks,
-                             max_abs_err=err, tol=TOL[dt], ms=ms,
-                             call_ms=call_ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, library_err=lib_err,
-                             bound_ms=t_bound, bound_by=by))
-            print(f"[kernel] {label}: {splits} splits, {blocks} blocks: "
-                  f"max_abs_err={err:.3e} (tol {TOL[dt]}) "
-                  f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
-                  f"bound={t_bound:.5f}ms ({by}) "
-                  f"plain={plain_ms:.4f}ms library(SDPA, boolean mask)="
-                  f"{lib_ms:.4f}ms (its err {lib_err:.1e})", flush=True)
+            rows.append(flash_row(rng, dev, label0, B, H, Hkv, hd, T, pos,
+                                  dt))
         torch.cuda.empty_cache()
     gathers = []
     for dt in (torch.bfloat16, torch.float32):
@@ -2441,7 +2500,8 @@ def run_three_paths(seed: int, dev) -> dict:
     outs = {}
     for path in ops.EXEC_PATHS:
         outs[path], got = path_launches(lambda: ops.ovsf_matmul(
-            x, al, p["idx"], plan=dataclasses.replace(base, path=path)))
+            x, al, p["idx"], plan=dataclasses.replace(base, path=path,
+                                                      cache_weights=False)))
         check_path_launches("three paths", path, got)
         if (path == "fused"
                 and ovsf_gemm.launches_by_kernel["mono_tc"] != 1):
@@ -2539,7 +2599,9 @@ def cnn_path_times(seed: int, dev, arch: str, table) -> list:
         row = dict(arch=arch, conv=name, M=M, M_plan=M_plan, d_in=K, d_out=N,
                    rho=rho, J=J, plan_path=entry.path)
         for path in mapper.ALL_PATHS:
-            lp = dataclasses.replace(entry, path=path)
+            # every call generates its W (no weight-stationary cache): what
+            # the path costs a forward (``no_cache``)
+            lp = dataclasses.replace(entry, path=path, cache_weights=False)
             y, got = path_launches(lambda: ops.ovsf_matmul(x, al, idx,
                                                            plan=lp))
             check_path_launches(label, path, got)
@@ -2622,6 +2684,17 @@ def calibrated_cnn_plan(arch: str, table):
         hw_label="h100")
 
 
+def no_cache(plan):
+    """``plan`` with ``cache_weights`` off in every entry. The CNN phases
+    count and time forwards that generate their weights at every call (the
+    paper's on-the-fly generation); a ``materialize`` entry with the
+    mapper's weight-stationary cache would generate once and reuse it in
+    eager calls. The cache's own card check: ``run_cache_check``."""
+    return dataclasses.replace(plan, entries=tuple(
+        (n, dataclasses.replace(lp, cache_weights=False))
+        for n, lp in plan.entries))
+
+
 def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
               launches_per_forward: int = 0, plan=None,
               label: str = "none") -> dict:
@@ -2650,7 +2723,7 @@ def cnn_phase(seed: int, card: str, dev, arch: str, mode: str,
             "fwht": 0, "paged_flash_decode": 0, "flash_decode_attn": 0}
     plan_paths_count = None
     if plan is not None:
-        cfg = cfg.replace(exec_plan=plan)
+        cfg = cfg.replace(exec_plan=no_cache(plan))
         tag = f"[cnn {arch} {cfg.ovsf_mode} plan h100 {label}]"
         plan_paths_count = dict(Counter(
             lp.path for _n, lp in cfg.exec_plan.entries))
@@ -3631,6 +3704,646 @@ def chaos_phase(seed: int, card: str, dev, out_dir: str) -> dict:
     return res
 
 
+# -- phase 9: gateway --------------------------------------------------------
+
+# qwen2_5_14b's OVSF projections (d 5120, d_ff 13824, 40 x 128 query and
+# 8 x 128 key/value heads: k and v are OVSF too, 1024 >= min_dim 512)
+QWEN_LAYER = {"q": (5120, 5120), "k": (5120, 1024), "v": (5120, 1024),
+              "o": (5120, 5120), "gate": (5120, 13824),
+              "up": (5120, 13824), "down": (13824, 5120)}
+QWEN_FLASH_CASES = (("qwen window decode", 4, 40, 8, 128, 128,
+                     (1, 33, 100, 128)),
+                    ("qwen packed", 64, 40, 8, 128, 128, None))
+QWEN_LAYERS = 48            # the depth phase 9 serves qwen2_5_14b at
+GATEWAY_MODELS = (("tinyllama_1_1b", "tl-a", 0),
+                  ("tinyllama_1_1b", "tl-b", 1),
+                  ("qwen2_5_14b", "qw", 0))
+GATEWAY_KW = dict(batch_slots=4, buffer_len=128, chunk_size=8)
+SCRUB_REPAIRS = 4           # flip + scrub repair cycles of the memory gate
+GATEWAY_CI = "tinyllama_1_1b:tl-a,tinyllama_1_1b:tl-b,qwen2_5_14b:qw"
+# ci.yml:80, :81, :99 and :113 (``--hw cpu`` is the reference's; the port's
+# launcher runs on the card by default)
+GATEWAY_CI_LINES = {
+    "ci.yml:80 smoke": ["--models", GATEWAY_CI, "--chunk-size", "8",
+                        "--self-test", "8"],
+    "ci.yml:81 nan scoped to qw": [
+        "--models", GATEWAY_CI, "--chunk-size", "8", "--self-test", "8",
+        "--inject", "nan:step=3", "--inject-model", "qw"],
+    "ci.yml:99 fleet chaos": [
+        "--models", GATEWAY_CI, "--chunk-size", "8", "--max-new", "8",
+        "--replicas", "2", "--dead-after", "1", "--scrub-every", "2",
+        "--inject", "fail:step=2", "--inject", "flip:step=3",
+        "--inject-model", "tl-a", "--self-test", "12"],
+}
+GATEWAY_KILL9 = ["--models", "tinyllama_1_1b:tl-a,tinyllama_1_1b:tl-b",
+                 "--chunk-size", "8", "--max-new", "8", "--supervise",
+                 "--self-test", "6", "--inject", "die:step=5", "--port", "0"]
+
+
+def run_qwen_checks(rng, dev) -> dict:
+    """Phase 9 (1): ``ovsf_gemm`` (bf16 x and alphas, 16-long segments) at
+    qwen2_5_14b's projection shapes, M 4 and 64, each on the tensor-core
+    kernel, and ``flash_decode_attn`` at its head layout (H 40, Hkv 8, hd
+    128), bf16 and fp32, against their plain versions; the summary rows of
+    the kernels line: one layer's seven projections at M 4, and the window
+    decode in bf16."""
+    rows = [gemm_row(rng, dev, 16, M, K, N, torch.bfloat16, "",
+                     "ovsf_gemm_qwen")
+            for M in (4, 64) for (K, N) in sorted(set(QWEN_LAYER.values()))]
+    off = [r["case"] for r in rows if r["kernel"] != "tensor_core"]
+    if off:
+        raise RuntimeError(f"[gateway kernel] not on the tensor-core "
+                           f"ovsf_gemm: {off}")
+    gemm = {}
+    for M in (4, 64):
+        pick = {(r["K"], r["N"]): r for r in rows if r["M"] == M}
+        s = {key: sum(pick[kn][key] for kn in QWEN_LAYER.values())
+             for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
+        s["bound_by"] = ("bytes" if all(pick[kn]["bound_by"] == "bytes"
+                                        for kn in QWEN_LAYER.values())
+                         else "operations")
+        gemm[M] = s
+        print(f"[gateway kernel] ovsf_gemm qwen2_5_14b layer (q, k, v, o, "
+              f"gate, up, down) M={M} bf16: {s['ms']:.4f}ms, matmul on "
+              f"dense W {s['library_ms']:.4f}ms, bound {s['bound_ms']:.4f}ms "
+              f"({s['bound_by']})", flush=True)
+    gemm_summary = dict(gemm[4], layer_M64=gemm[64],
+                        max_abs_err=max(r["max_abs_err"] for r in rows))
+    flash = []
+    for label0, B, H, Hkv, hd, T, pos in QWEN_FLASH_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            flash.append(flash_row(rng, dev, label0, B, H, Hkv, hd, T, pos,
+                                   dt))
+        torch.cuda.empty_cache()
+    flash_summary = dict(next(r for r in flash if "window" in r["case"]
+                              and "bfloat16" in r["dtype"]))
+    flash_summary["max_abs_err"] = max(r["max_abs_err"] for r in flash)
+    return dict(gemm_rows=rows, gemm_summary=gemm_summary, flash_rows=flash,
+                flash_summary=flash_summary)
+
+
+def run_multi_checks(rng, dev) -> list:
+    """``ovsf_matmul_multi`` over M = 2 stacked variants at TinyLlama-1.1B's
+    q (2048 -> 2048) and down (5632 -> 2048) shapes, 16-long segments at rho
+    0.5, T 8 and 64, bf16 and fp32: every token's row must equal
+    ``spectral_matmul`` of its variant on the same x, bit for bit."""
+    from repro_torch.kernels.ops import ovsf_matmul_multi, spectral_matmul
+    rows = []
+    for K, N in ((2048, 2048), (5632, 2048)):
+        ns = K // 16
+        idx = torch.from_numpy(np.stack([np.sort(rng.choice(16, 8,
+                                                            replace=False))
+                                         for _ in range(ns)]).astype(np.int32)
+                               ).to(dev)
+        for T in (8, 64):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((T, K), device=dev).to(dt)
+                al = (torch.randn((2, ns * 8, N), device=dev)
+                      / math.sqrt(K * 8)).to(dt)
+                mids = torch.from_numpy(rng.integers(0, 2, T).astype(
+                    np.int32)).to(dev)
+                y = ovsf_matmul_multi(x, al, idx, mids)
+                for m in range(2):
+                    sel = mids == m
+                    if not torch.equal(y[sel],
+                                       spectral_matmul(x, al[m], idx)[sel]):
+                        raise RuntimeError(
+                            f"[gateway kernel] ovsf_matmul_multi {K}->{N} "
+                            f"T={T} {dt}: variant {m}'s rows differ from "
+                            "spectral_matmul")
+                rows.append(dict(K=K, N=N, T=T, dtype=str(dt), equal=True))
+    print(f"[gateway kernel] ovsf_matmul_multi equals spectral_matmul bit "
+          f"for bit in {len(rows)} cases (M 2, TinyLlama q and down, T 8 and "
+          "64, bf16 and fp32)", flush=True)
+    return rows
+
+
+def run_cache_check(dev) -> dict:
+    """The decompress-weight cache on the card: a ``materialize`` plan with
+    ``cache_weights`` (one ResNet-50 s1 conv's GEMM, fp32, monolithic
+    codes) generates W once (one ``ovsf_decompress`` launch), a second
+    eager call hits (no launch, equal output); captured into a CUDA graph
+    the call bypasses the cache (one launch a replay, equal output), and
+    the counters of its label read 1 miss and 2 hits (the second call and
+    the capture's eager warm-up)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.graphs import StepGraphs
+    from repro_torch.runtime.mapper import LayerPlan
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((512, 576), generator=gen, device=dev)
+    al = torch.randn((512, 64), generator=gen, device=dev) / 24.0
+    idx = torch.sort(torch.randperm(1024, generator=gen, device=dev)[:512]
+                     ).values.to(torch.int32)
+    plan = LayerPlan("materialize", cache_weights=True,
+                     cache_key="s1b0c2")
+    label = "chip-smoke cache check"
+    ops.clear_weight_cache(label)
+    with ops.weight_cache_scope(label):
+        y1, l1 = path_launches(lambda: ops.ovsf_matmul(x, al, idx,
+                                                       plan=plan))
+        y2, l2 = path_launches(lambda: ops.ovsf_matmul(x, al, idx,
+                                                       plan=plan))
+        sg = StepGraphs(dev)
+        body = lambda a: (ops.ovsf_matmul(a["x"], al, idx, plan=plan),)
+        sg.run("cache", {"x": x}, body)
+        y3, l3 = path_launches(lambda: sg.run("cache", {"x": x}, body)[0])
+        stats = ops.weight_cache_stats(label)
+    sg.clear()
+    ops.clear_weight_cache(label)
+    want = {"entries": 1, "hits": 2, "misses": 1}
+    got = {k: stats[k] for k in want}
+    ok = (l1["ovsf_decompress"] == 1 and l2["ovsf_decompress"] == 0
+          and l3["ovsf_decompress"] == 1 and torch.equal(y1, y2)
+          and torch.equal(y1, y3) and got == want)
+    print(f"[gateway kernel] decompress cache on the card: launches "
+          f"{l1['ovsf_decompress']} (miss) / {l2['ovsf_decompress']} (hit) "
+          f"/ {l3['ovsf_decompress']} a replay (capture bypasses it), "
+          f"counters {got}, outputs equal: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError(f"decompress cache: launches {l1} {l2} {l3}, "
+                           f"counters {got} (want {want})")
+    return dict(launches=[l1, l2, l3], counters=got)
+
+
+def gateway_registry(seed: int, dev, dtype: str, models, qwen_layers: int):
+    """A ``ModelRegistry`` of ``models`` ((arch, alias, occurrence)) at full
+    width in ``dtype``, loaded by the launcher's seeded loaders on the card
+    (occurrence k > 0: ``make_alpha_variant`` of the base); qwen2_5_14b at
+    ``qwen_layers`` layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.gateway import make_loader
+    from repro_torch.serving import ModelRegistry
+    reg = ModelRegistry()
+    for arch, alias, k in models:
+        cfg = get_config(arch).replace(dtype=dtype)
+        if arch == "qwen2_5_14b":
+            cfg = cfg.replace(n_layers=qwen_layers)
+        reg.register(alias, cfg, make_loader(cfg, seed, k, dev),
+                     tags=(arch, f"variant-{k}"))
+    return reg
+
+
+def gateway_specs(seed: int, names: list, vocab: int, n: int = 12,
+                  max_new: int = 16) -> list:
+    """n requests round-robin over ``names``: (rid, model, prompt of 8-40
+    tokens below ``vocab``, max_new, sampling kw); every third sampled
+    (temperature 0.8, top-k 40, seed = rid)."""
+    rng = np.random.default_rng(seed + 9)
+    return [(rid, names[rid % len(names)],
+             rng.integers(0, vocab, int(rng.integers(8, 41)),
+                          dtype=np.int32), max_new,
+             dict(temperature=0.8, top_k=40, seed=rid) if rid % 3 == 2
+             else {})
+            for rid in range(n)]
+
+
+def gateway_requests(specs, fins: list) -> list:
+    from repro_torch.serving import Request, SamplingParams
+    return [Request(rid, prompt, max_new_tokens=max_new, model=model,
+                    sampling=SamplingParams(**sp), on_finish=fins.append)
+            for rid, model, prompt, max_new, sp in specs]
+
+
+def gateway_outputs(fins: list, specs, tag: str) -> dict:
+    """{rid: tokens}: every request finished exactly once, eos or length."""
+    got = sorted(o.rid for o in fins)
+    if got != sorted(r[0] for r in specs):
+        raise RuntimeError(f"{tag} finished {got}: not each request once")
+    bad = {o.rid: o.finish_reason for o in fins
+           if o.finish_reason not in ("eos", "length")}
+    if bad:
+        raise RuntimeError(f"{tag} finish reasons {bad}")
+    return {o.rid: list(o.tokens) for o in fins}
+
+
+def gateway_drive(reg, dev, specs, tag: str, count: bool = True,
+                  **kw) -> tuple:
+    """A ``ServingGateway`` over ``reg`` (4 slots, buffer 128, chunk 8; every
+    step replayed from CUDA graphs) serving ``specs``: (gateway, streams,
+    wall s, per-engine counts). With ``count`` each engine's core step is
+    wrapped to count its steps, its chunk-free steps and its kernels'
+    launches (the wrappers' counters, zeroed just before the run)."""
+    from repro_torch.serving import ServingGateway
+    gw = ServingGateway(reg, device=dev, **GATEWAY_KW, **kw)
+    fins: list = []
+    reqs = gateway_requests(specs, fins)
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not gw.add_request(r)[0]:
+            raise RuntimeError(f"{tag} request {r.rid} was not admitted")
+    per = {}
+    for rs in (gw._groups.values() if count else ()):
+        for eng in rs.engines:
+            key = eng.model_label
+            per[key] = dict(steps=0, chunk_free=0, launches={},
+                            variants=eng.variants)
+            core_step = eng.core.step
+
+            def counted(so, last=None, _f=core_step, _k=key):
+                before = wrapper_counts()
+                out = _f(so, last)
+                after = wrapper_counts()
+                c = per[_k]
+                c["steps"] += 1
+                c["chunk_free"] += not so.chunks
+                for w in after:
+                    c["launches"][w] = (c["launches"].get(w, 0)
+                                        + after[w] - before[w])
+                return out
+            eng.core.step = counted
+    reset_wrapper_counts()
+    gw.run_until_drained(max_steps=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for rs in (gw._groups.values() if count else ()):
+        for eng in rs.engines:
+            # the wrapper holds the core: unwrap, so that a closed engine's
+            # params die with it (no reference cycle waits for the GC)
+            eng.core.__dict__.pop("step", None)
+    return gw, gateway_outputs(fins, specs, tag), wall, per
+
+
+def dedicated_streams(reg, names, dev, specs, tag: str, **kw) -> dict:
+    """Each of ``names`` alone in a dedicated ``LLMEngine`` on its resident
+    params, the spectral path pinned (``use_mapper=False``,
+    ``exec_path="spectral"``), serving its share of ``specs``."""
+    from repro_torch.serving import LLMEngine
+    out = {}
+    for name in names:
+        e = reg.entries[name]
+        cfg = e.cfg.replace(ovsf=dataclasses.replace(e.cfg.ovsf,
+                                                     exec_path="spectral"))
+        eng = LLMEngine(e.params, cfg, device=dev, use_mapper=False,
+                        **GATEWAY_KW, **kw)
+        mine = [s for s in specs if s[1] == name]
+        fins: list = []
+        for r in gateway_requests(mine, fins):
+            eng.submit(r)
+        eng.run_until_drained(max_steps=4000)
+        out.update(gateway_outputs(fins, mine, f"{tag} dedicated {name}"))
+        eng.core.close()
+    return out
+
+
+def close_gateway(gw) -> None:
+    for g in list(gw._groups):
+        gw._drop_group(g)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def multi_decode_profile(eng, seed: int, card: str, n_layers: int) -> dict:
+    """Re-routing and the replayed multi step: four requests (tl-b, tl-a,
+    tl-b, tl-a: each slot on the other variant than in the run before) of
+    48 prompt tokens straight into the stacked engine must capture nothing;
+    then ``DECODE_STEPS`` chunk-free steps timed (host wall) and profiled
+    (``agreed_windows``): the hand-written kernels' launches by name equal
+    the wrappers' counters, one ``flash_decode_attn`` a layer a step (22)
+    and no ``ovsf_gemm``; idle share = 1 - device busy / wall."""
+    from repro_torch.serving import Request
+    tag = "[gateway bf16 multi]"
+    keys = sorted(eng.core.graphs.keys())
+    first = len(eng.core.graphs.first_calls)
+    rng = np.random.default_rng(seed + 5)
+    for j, model in enumerate(("tl-b", "tl-a", "tl-b", "tl-a")):
+        eng.submit(Request(200 + j, rng.integers(0, eng.cfg.vocab, 48,
+                                                 dtype=np.int32),
+                           max_new_tokens=2 * DECODE_STEPS
+                           + (DECODE_STEPS + 1) * MOST_WINDOWS, model=model))
+    routed = None
+    for _ in range(12):
+        eng.step()
+        if all(s is not None and s.out_tokens for s in eng.slots):
+            routed = eng.core.model_ids.tolist()
+            break
+    if routed is None:
+        raise RuntimeError(f"{tag} the four requests never all decoded")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    windows = agreed_windows({"graph": eng.step}, DECODE_STEPS, tag)["graph"]
+    per_step = {w: n / DECODE_STEPS for w, n in windows["wrappers"].items()}
+    want = {w: 0.0 for w in per_step}
+    want["flash_decode_attn"] = float(n_layers)
+    if per_step != want:
+        raise RuntimeError(f"{tag} launches per chunk-free step {per_step}, "
+                           f"expected {want}")
+    prof = decode_profile(eng, tag, step_ms, windows)
+    if sorted(eng.core.graphs.keys()) != keys or \
+            len(eng.core.graphs.first_calls) != first:
+        raise RuntimeError(f"{tag} re-routing captured: graphs "
+                           f"{sorted(eng.core.graphs.keys())} (were {keys})")
+    print(f"{tag} re-routed slots to variants {routed}: no capture, graphs "
+          f"{keys}; chunk-free multi step {step_ms:.3f}ms on {card}",
+          flush=True)
+    return dict(prof, routed=routed, graphs=keys, per_step=per_step)
+
+
+def gateway_memory_gate(reg, seed: int, dev, card: str) -> dict:
+    """H2: ``flip`` + scrub repair ``SCRUB_REPAIRS`` times on the fp32
+    TinyLlama pair (``reg``) under traffic (packed steps; a flip at gateway
+    steps 2, 5, 8, ...; a scrub every 3 steps): each repair drains the
+    group, closes its engine, reloads and verifies the banks bitwise and
+    builds (and captures) a new engine. After every repair (the GC run and
+    the cache emptied) the live bytes, ``memory_allocated``, must stay
+    within 2 MiB of the first repair's: an engine, a graph pool or a bank
+    that outlived its repair would add its MiB. ``memory_reserved`` is
+    printed beside it, not gated: what the allocator keeps after
+    ``empty_cache`` follows the layout each reload happens to take (0 to
+    218 MiB apart over one run's repairs on an NVIDIA H100 80GB HBM3, the
+    live bytes within 1 MiB). A flip is a copy in a new
+    tree: the engine serving meanwhile keeps its clean tensors, so the
+    streams equal a run with no flip (fp32: the recomputed contexts round
+    as the first pass did)."""
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.serving import ServingGateway
+    tag = "[gateway fp32 scrub]"
+    names = [a for _x, a, _k in GATEWAY_MODELS[:2]]
+    plan = FaultPlan.parse([f"flip:step={2 + 3 * i},leaf={3 + i},bit="
+                            f"{11 + 977 * i}" for i in range(SCRUB_REPAIRS)])
+    specs = [(rid, names[rid % 2], p, 48, sp) for rid, _m, p, _n, sp
+             in gateway_specs(seed + 1, names, reg.entries["tl-a"].cfg.vocab,
+                              n=4)]
+    reserved, allocated, repair_s = [], [], []
+    orig = ServingGateway._scrub_tick
+
+    def tick(gw):
+        t0 = time.perf_counter()
+        before = gw.stats.scrub_repairs
+        orig(gw)
+        if gw.stats.scrub_repairs != before:
+            torch.cuda.synchronize()
+            repair_s.append(time.perf_counter() - t0)
+            gc.collect()                # live memory only: no cached block
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved(dev))
+            allocated.append(torch.cuda.memory_allocated(dev))
+    ServingGateway._scrub_tick = tick
+    try:
+        gw, outs, wall, _per = gateway_drive(reg, dev, specs, tag,
+                                             count=False, packed=True,
+                                             faults={"tl-a": plan},
+                                             scrub_every=3)
+    finally:
+        ServingGateway._scrub_tick = orig
+    s = gw.stats
+    close_gateway(gw)
+    clean_gw, clean, _w, _p = gateway_drive(reg, dev, specs,
+                                            f"{tag} no flip", count=False,
+                                            packed=True)
+    close_gateway(clean_gw)
+    res_mib = [(r - reserved[0]) / 2**20 for r in reserved]
+    all_mib = [(a - allocated[0]) / 2**20 for a in allocated]
+    print(f"{tag} {s.corruptions_injected} flips, {s.scrub_corruptions} "
+          f"caught, {s.scrub_repairs} repaired bitwise in {wall:.1f}s "
+          f"(repairs {[round(x, 2) for x in repair_s]} s); after each "
+          f"repair vs the first: memory_allocated "
+          f"{[round(x, 2) for x in all_mib]} MiB, memory_reserved "
+          f"{[round(x, 2) for x in res_mib]} MiB ({reserved[0] / 2**30:.2f} "
+          f"GiB; {card}); streams equal the run without flips: "
+          f"{outs == clean}", flush=True)
+    if not (s.corruptions_injected == s.scrub_corruptions
+            == s.scrub_repairs == SCRUB_REPAIRS):
+        raise RuntimeError(f"{tag} injected {s.corruptions_injected}, "
+                           f"caught {s.scrub_corruptions}, repaired "
+                           f"{s.scrub_repairs}; expected {SCRUB_REPAIRS}")
+    if any(abs(m) > 2.0 for m in all_mib):
+        raise RuntimeError(f"{tag} memory across scrub repairs: allocated "
+                           f"{all_mib} MiB, reserved {res_mib} MiB")
+    if outs != clean:
+        raise RuntimeError(f"{tag} the flips reached a stream: {outs} vs "
+                           f"{clean}")
+    return dict(repairs=s.scrub_repairs, repair_s=repair_s,
+                allocated_mib_vs_first=all_mib,
+                reserved_mib_vs_first=res_mib, wall_s=wall)
+
+
+def gateway_ci_start(out_dir: str) -> dict:
+    """The four CI gateway lines (``GATEWAY_CI_LINES``; the kill-9 line
+    twice, ``--dtype bfloat16`` and ``--dtype float32``) as subprocesses of
+    ``python -m repro_torch.launch.gateway --smoke``, started together:
+    name -> (process, start time, log path, log file, end time), the end
+    time set by a thread that waits for the process."""
+    import shutil
+    import threading
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+    lines = dict(GATEWAY_CI_LINES)
+    for dt in ("bfloat16", "float32"):
+        jdir = os.path.join(out_dir, f"gateway_journal_{dt}")
+        shutil.rmtree(jdir, ignore_errors=True)
+        lines[f"ci.yml:113 kill-9 {dt}"] = (GATEWAY_KILL9
+                                            + ["--journal", jdir,
+                                               "--dtype", dt])
+    for name, argv in lines.items():
+        path = os.path.join(out_dir, "gateway_" + re.sub(r"\W+", "_", name)
+                            + ".log")
+        log = open(path, "w")
+        # a session of its own: the supervised lines start grandchildren,
+        # and a failed phase must stop them too (``gateway_ci_kill``)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.gateway", "--smoke"]
+            + argv, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        end: list = []
+        threading.Thread(target=lambda p=proc, e=end: (
+            p.wait(), e.append(time.perf_counter())), daemon=True).start()
+        runs[name] = (proc, time.perf_counter(), path, log, end)
+    return runs
+
+
+def gateway_ci_kill(runs: dict) -> None:
+    """Stop every process the CI lines started (each line's session)."""
+    import signal
+    for proc, *_rest in runs.values():
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        proc.wait()
+
+
+def gateway_ci_wait(runs: dict, timeout_s: float = 400.0) -> dict:
+    """Wait for the CI lines: each must exit 0 (the launcher's self-test
+    contract); walls and the contract's lines printed."""
+    out = {}
+    deadline = time.perf_counter() + timeout_s
+    for name, (proc, t0, path, log, end) in runs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            gateway_ci_kill(runs)
+            raise RuntimeError(f"[gateway ci] {name} still running after "
+                               f"{timeout_s:.0f}s")
+        for _ in range(100):            # the waiter thread's stamp
+            if end:
+                break
+            time.sleep(0.01)
+        wall = (end[0] if end else time.perf_counter()) - t0
+        log.close()
+        text = open(path).read()
+        said = [ln for ln in text.splitlines()
+                if " OK" in ln or "byte-identical" in ln]
+        print(f"[gateway ci] {name} (--smoke): exit {rc} in {wall:.1f}s; "
+              + " | ".join(said), flush=True)
+        if rc != 0:
+            gateway_ci_kill(runs)
+            raise RuntimeError(f"[gateway ci] {name} exit {rc}:\n"
+                               f"{text[-4000:]}")
+        out[name] = dict(rc=rc, wall_s=wall, said=said)
+    fp32 = out["ci.yml:113 kill-9 float32"]["said"]
+    if not any("6/6 recovered streams byte-identical" in s for s in fp32):
+        raise RuntimeError(f"[gateway ci] kill-9 fp32 streams: {fp32}")
+    return out
+
+
+def gateway_phase(seed: int, card: str, dev, out_dir: str,
+                  packed_profile: dict) -> dict:
+    """Phase 9 (module docstring): the multi-model gateway at full width on
+    the card, every engine step replayed from CUDA graphs."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.model_registry import (dense_fp32_bytes,
+                                                    param_bytes)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 25)
+    res = dict(qwen_kernels=run_qwen_checks(rng, dev),
+               multi_equal=run_multi_checks(rng, dev),
+               cache=run_cache_check(dev))
+    names = [a for _x, a, _k in GATEWAY_MODELS]
+    # (2) the bf16 gateway: the stacked tl-a/tl-b engine and qw's engine
+    tag = "[gateway bf16]"
+    t0 = time.perf_counter()
+    reg = gateway_registry(seed, dev, "bfloat16", GATEWAY_MODELS,
+                           QWEN_LAYERS)
+    specs = gateway_specs(seed, names, min(e.cfg.vocab for e in
+                                           reg.entries.values()))
+    for e in reg.entries.values():
+        reg.ensure_resident_group(e.group)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    gw, streams, wall, per = gateway_drive(reg, dev, specs, tag)
+    multi = gw.engine_for("tl-a")
+    qw = gw.engine_for("qw")
+    if multi is not gw.engine_for("tl-b") or multi.variants != 2 or \
+            qw.variants:
+        raise RuntimeError(f"{tag} engines: tl-a/tl-b not one stacked pair")
+    mc, qc = per[multi.model_label], per[qw.model_label]
+    n_qw = reg.entries["qw"].cfg.n_layers
+    n_tl = reg.entries["tl-a"].cfg.n_layers
+    want_m = {w: 0 for w in mc["launches"]}
+    want_m["flash_decode_attn"] = n_tl * mc["steps"]
+    want_q = {w: 0 for w in qc["launches"]}
+    want_q["ovsf_gemm"] = len(QWEN_LAYER) * n_qw * qc["steps"]
+    want_q["flash_decode_attn"] = n_qw * qc["chunk_free"]
+    if mc["launches"] != want_m or qc["launches"] != want_q:
+        raise RuntimeError(f"{tag} launches: stacked {mc} (want {want_m}), "
+                           f"qw {qc} (want {want_q})")
+    for eng in (multi, qw):
+        keys = sorted(eng.core.graphs.keys())
+        if keys != sorted(eng.core.step_shapes) or len(keys) > 2:
+            raise RuntimeError(f"{tag} {eng.model_label} graphs {keys}, step "
+                               f"shapes {sorted(eng.core.step_shapes)}")
+    pair_bytes = reg.resident_bytes() - param_bytes(reg.entries["qw"].params)
+    tl_dense = dense_fp32_bytes(reg.entries["tl-a"].cfg)
+    pool = gw.resident_bytes()
+    qw_dense = dense_fp32_bytes(get_config("qwen2_5_14b"))
+    if not pair_bytes < tl_dense or not pool < qw_dense:
+        raise RuntimeError(f"{tag} resident bytes: pair {pair_bytes} vs "
+                           f"TinyLlama dense fp32 {tl_dense}; pool {pool} vs "
+                           f"qwen2_5_14b dense fp32 {qw_dense}")
+    tcfg, qcfg = reg.entries["tl-a"].cfg, reg.entries["qw"].cfg
+    print(f"{tag} registry tl-a, tl-b (stacked, {n_tl} layers, d "
+          f"{tcfg.d_model}) and qw (qwen2_5_14b, {n_qw} of "
+          f"{get_config('qwen2_5_14b').n_layers} layers, d {qcfg.d_model}, "
+          f"d_ff {qcfg.d_ff}, {qcfg.n_heads}/{qcfg.n_kv_heads} heads) loaded "
+          f"and checksummed in {load_s:.1f}s; 12 requests finished once in "
+          f"{wall:.2f}s on {card}; stacked engine {mc['steps']} steps, "
+          f"launches {mc['launches']}; qw engine {qc['steps']} steps "
+          f"({qc['chunk_free']} chunk-free), launches {qc['launches']}; "
+          f"graphs stacked {sorted(multi.core.graphs.keys())}, qw "
+          f"{sorted(qw.core.graphs.keys())}; resident: pair "
+          f"{pair_bytes / 2**30:.3f} GiB < TinyLlama dense fp32 "
+          f"{tl_dense / 2**30:.3f} GiB, pool {pool / 2**30:.3f} GiB < "
+          f"qwen2_5_14b dense fp32 {qw_dense / 2**30:.3f} GiB", flush=True)
+    res["bf16"] = dict(load_s=load_s, wall_s=wall, stacked=mc, qw=qc,
+                       pair_bytes=pair_bytes, tl_dense_fp32=tl_dense,
+                       pool_bytes=pool, qw_dense_fp32=qw_dense,
+                       qwen_layers=n_qw, tokens=streams)
+    res["multi_step"] = multi_decode_profile(multi, seed, card, n_tl)
+    res["multi_step"]["single_packed"] = {
+        k: packed_profile.get(k) for k in ("step_ms", "busy_ms",
+                                           "idle_share")}
+    print(f"{tag} replayed chunk-free step: stacked pair (2 variants, "
+          f"window W 1) {res['multi_step']['step_ms']:.3f}ms, idle share "
+          f"{res['multi_step']['idle_share']}; phase 4's single-model "
+          f"contiguous packed step {packed_profile.get('step_ms')}ms, idle "
+          f"share {packed_profile.get('idle_share')}", flush=True)
+    del multi, qw
+    close_gateway(gw)
+    # the CI lines run beside the rest of the phase (the timings are done)
+    ci = gateway_ci_start(out_dir)
+    try:
+        tl = [n for n in names if n != "qw"]
+        ded = dedicated_streams(reg, tl, dev, specs, tag)
+        mine = {r: t for r, t in streams.items() if specs[r][1] in tl}
+        same = [r for r in mine if mine[r] == ded[r]]
+        print(f"{tag} {len(same)} of {len(mine)} tl-a/tl-b streams equal "
+              "dedicated spectral engines (bf16: printed, held in fp32)",
+              flush=True)
+        res["bf16"]["dedicated_agree"] = len(same)
+        del reg
+        torch.cuda.empty_cache()
+        # fp32: the pair over 2 replicas, streams held equal
+        tag32 = "[gateway fp32]"
+        reg32 = gateway_registry(seed, dev, "float32", GATEWAY_MODELS[:2],
+                                 QWEN_LAYERS)
+        specs32 = [(rid, tl[rid % 2], p, n, sp) for rid, _m, p, n, sp
+                   in specs]
+        gw32, s32, wall32, per32 = gateway_drive(reg32, dev, specs32,
+                                                 tag32, replicas=2,
+                                                 packed=True)
+        replicas = []
+        for eng in gw32._groups[reg32.entries["tl-a"].group].engines:
+            kv = sum(eng.core.caches[n].nbytes for n in ("k_rows",
+                                                          "v_rows"))
+            replicas.append(dict(label=eng.model_label,
+                                 steps=per32[eng.model_label]["steps"],
+                                 kv_mib=kv / 2**20,
+                                 graphs=sorted(eng.core.graphs.keys()),
+                                 graphs_mib=graphs_held_mib(eng, dev)))
+        close_gateway(gw32)
+        ded32 = dedicated_streams(reg32, tl, dev, specs32, tag32,
+                                  packed=True)
+        print(f"{tag32} 12 requests over 2 replicas of the stacked pair in "
+              f"{wall32:.2f}s; per replica: "
+              + "; ".join(f"{r['label']} {r['steps']} steps, KV "
+                          f"{r['kv_mib']:.1f} MiB, graphs {r['graphs']} "
+                          f"holding {r['graphs_mib']:.1f} MiB"
+                          for r in replicas)
+              + f"; streams equal dedicated spectral engines: "
+              f"{s32 == ded32}", flush=True)
+        if s32 != ded32:
+            raise RuntimeError(f"{tag32} streams {s32} differ from "
+                               f"dedicated engines {ded32}")
+        res["fp32"] = dict(wall_s=wall32, replicas=replicas,
+                           equal_dedicated=True)
+        res["scrub"] = gateway_memory_gate(reg32, seed, dev, card)
+        del reg32
+        torch.cuda.empty_cache()
+    except BaseException:
+        gateway_ci_kill(ci)
+        raise
+    res["ci"] = gateway_ci_wait(ci)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"[gateway] phase passed in {res['wall_s']:.1f}s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3724,6 +4437,9 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     calib = calibrate_phase(args.seed, card, dev, cnns, out_dir)
     chaos = chaos_phase(args.seed, card, dev, out_dir)
+    gateway = gateway_phase(args.seed, card, dev, out_dir,
+                            styles["contiguous packed"]["decode_profile"])
+    qk = gateway["qwen_kernels"]
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -3761,7 +4477,14 @@ def main(argv=None) -> int:
              cnns[3]["launches"]["fwht"]),
             ("ovsf_gemm_fp32_mono", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", calib["fused_summary"],
-             fused_r50["launches"]["ovsf_gemm"])):
+             fused_r50["launches"]["ovsf_gemm"]),
+            ("ovsf_gemm_qwen", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", qk["gemm_summary"],
+             gateway["bf16"]["qw"]["launches"]["ovsf_gemm"]),
+            ("flash_decode_attn_qwen",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64", qk["flash_summary"],
+             gateway["bf16"]["qw"]["launches"]["flash_decode_attn"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -3820,12 +4543,22 @@ def main(argv=None) -> int:
                                               "tensor cores + one WHT a "
                                               "column, or the bytes; "
                                               "launches: one all-fused "
-                                              "ResNet-50 forward"},
+                                              "ResNet-50 forward",
+                       "ovsf_gemm_qwen": "qwen2_5_14b's seven OVSF "
+                                         "projections (q, k, v, o, gate, "
+                                         "up, down) at M=4, bf16 x and "
+                                         "alphas, summed; launches: the qw "
+                                         "engine of the phase 9 gateway run",
+                       "flash_decode_attn_qwen": "window decode B=4 H=40 "
+                                                 "Hkv=8 hd=128 T=128 bf16; "
+                                                 "launches: the qw engine of "
+                                                 "the phase 9 gateway run"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
                    "parity": parity, "parity_contiguous": parity_contiguous,
-                   "cnn": cnns, "calibration": calib, "chaos": chaos}, f,
+                   "cnn": cnns, "calibration": calib, "chaos": chaos,
+                   "gateway": gateway}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

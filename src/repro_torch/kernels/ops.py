@@ -22,24 +22,39 @@
 What has no hand-written kernel yet runs on the CPU only and raises on any
 other device: ``materialize`` of segmented codes or quantised alphas (plain
 per-segment WHT or dequantisation, as the reference computes them in jnp;
-nothing sends them to ``ovsf_decompress``) and ``spectral`` of segmented
-codes (the reference's per-segment WHT is plain jnp, not ``fwht_pallas``).
-So on the card the LM layers, all segmented, run ``fused`` only, and the
-engine plans with that path alone. Quantised alphas under ``spectral`` are
-dequantised with plain tensor code on any device, as the reference does in
-jnp before its GEMM.
+nothing sends them to ``ovsf_decompress``). So on the card the single-model
+engine plans its LM layers, all segmented, with ``fused`` alone
+(``serving.engine._PLAN_TARGETS``). ``spectral`` of segmented codes runs
+on any device as plain tensor code (a per-segment butterfly, ``gather``,
+``torch.matmul``), as the reference's per-segment WHT is plain jnp and not
+``fwht_pallas``: the multi-model path (``ovsf_matmul_multi``) and the
+gateway's dedicated spectral baselines run it on the card. Quantised alphas
+under ``spectral`` are dequantised with plain tensor code on any device, as
+the reference does in jnp before its GEMM.
 
 ``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan`` and runs its
-path. The plan's block sizes and cache policy are recorded, not used: the
-CUDA ``ovsf_gemm`` tiles by its own kernel's plan (the tensor-core kernel's
+path. The plan's block sizes are recorded, not used: the CUDA
+``ovsf_gemm`` tiles by its own kernel's plan (the tensor-core kernel's
 ``tc_plan``: 64-column tiles, 128-row k-blocks split over up to 16 blocks;
 the monolithic kernel's ``mono_plan``: W stripes of 8-64 columns, one a
-two-block cluster; the CUDA-core kernel's ``tiling``), and the decompress
-cache waits until a plan on the card can reuse a dense W.
-``ovsf_matmul_multi`` waits for the gateway slice.
+two-block cluster; the CUDA-core kernel's ``tiling``). Its cache policy is
+used: a ``materialize`` layer with ``cache_weights`` generates its dense W
+once per parameter version (``cached_decompress``), keyed by the plan's
+``cache_key`` plus the alpha dtype, per model label
+(``weight_cache_scope``), as the reference's cache. The cache is bypassed
+while a CUDA graph is being captured, as the reference's is under a jit
+trace: no graph holds a cached W, and a replayed step launches what it
+launched at capture.
+
+``ovsf_matmul_multi`` runs M stacked alpha variants over one activation
+stream: one ``spectral_matmul`` per variant, then a per-token
+``torch.where`` on the variant ids, so each token's row is bit for bit its
+variant's ``spectral_matmul`` (the multi-model gateway's same-architecture
+batching).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -95,10 +110,10 @@ def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(..., d_in) activations -> (..., J) kept-code coefficients: monolithic
     (J,) ids pad to L = next_pow2(d_in) on the right, transform with
     ``fwht`` and keep the ids' columns; segmented (n_seg, n_keep) ids run
-    the plain per-segment WHT on the CPU only."""
+    the plain per-segment WHT (on any device: the reference's is plain jnp
+    too)."""
     d_in = x.shape[-1]
     if idx.dim() == 2:
-        _plain_only(x, "spectral path for segmented codes")
         ns, nk = idx.shape
         xs = x.reshape(x.shape[:-1] + (ns, d_in // ns))
         xh = ovsf.fwht(xs, dim=-1)                     # tiny per-seg WHT
@@ -120,13 +135,117 @@ def spectral_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
     return (xk @ alphas.to(xk.dtype)).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Decompressed-weight cache (the mapper's weight-stationary layers)
+# ---------------------------------------------------------------------------
+# A layer planned ``materialize`` with ``cache_weights`` generates its dense
+# W once per parameter version and reuses it. Entries hold strong references
+# to the source alphas and ids, so the ``is`` identity check never aliases a
+# recycled object; a new parameter version overwrites its key's slot, so the
+# cache holds at most one (alphas, idx, W) per key. Entries and counters are
+# kept per model label (the active ``weight_cache_scope``): a multi-model
+# gateway gets one ledger per model; "" is the single-model default.
+
+_WEIGHT_CACHE: dict = {}            # label -> {cache_key: (alphas, idx, W)}
+_WEIGHT_CACHE_HITS: dict = {}       # label -> lookups served
+_WEIGHT_CACHE_MISSES: dict = {}     # label -> generator runs
+_CACHE_LABEL = ""                   # the active model label
+
+
+@contextlib.contextmanager
+def weight_cache_scope(label: str):
+    """Attribute cache entries and counters to model ``label`` (scopes
+    nest; outside every scope the label is "")."""
+    global _CACHE_LABEL
+    prev = _CACHE_LABEL
+    _CACHE_LABEL = label or ""
+    try:
+        yield
+    finally:
+        _CACHE_LABEL = prev
+
+
+def clear_weight_cache(label: Optional[str] = None) -> None:
+    """Drop cached weights and counters: one label's, or every label's."""
+    if label is None:
+        _WEIGHT_CACHE.clear()
+        _WEIGHT_CACHE_HITS.clear()
+        _WEIGHT_CACHE_MISSES.clear()
+    else:
+        _WEIGHT_CACHE.pop(label, None)
+        _WEIGHT_CACHE_HITS.pop(label, None)
+        _WEIGHT_CACHE_MISSES.pop(label, None)
+
+
+def weight_cache_stats(label: Optional[str] = None) -> dict:
+    """Cache counters (hits, misses, entries, bytes) of one label, or summed
+    over every label (``None``). Cumulative since import or the last
+    ``clear_weight_cache``: a caller that wants one run's figures takes a
+    baseline and reports the difference (``EngineStats``)."""
+    if label is None:
+        caches = list(_WEIGHT_CACHE.values())
+        hits = sum(_WEIGHT_CACHE_HITS.values())
+        misses = sum(_WEIGHT_CACHE_MISSES.values())
+    else:
+        caches = [_WEIGHT_CACHE.get(label, {})]
+        hits = _WEIGHT_CACHE_HITS.get(label, 0)
+        misses = _WEIGHT_CACHE_MISSES.get(label, 0)
+    return {"entries": sum(len(c) for c in caches),
+            "hits": hits,
+            "misses": misses,
+            "bytes": sum(w.numel() * w.element_size()
+                         for c in caches for *_s, w in c.values())}
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def cached_generate(cache_key: str, alphas: torch.Tensor, idx: torch.Tensor,
+                    gen_fn) -> torch.Tensor:
+    """``gen_fn()`` memoised per (label, ``cache_key``, parameter identity).
+    While a CUDA graph is being captured the cache is bypassed (no lookup,
+    no entry, no count), as the reference's is under a jit trace."""
+    if _capturing(alphas):
+        return gen_fn()
+    label = _CACHE_LABEL
+    bucket = _WEIGHT_CACHE.setdefault(label, {})
+    ent = bucket.get(cache_key)
+    if ent is not None and ent[0] is alphas and ent[1] is idx:
+        _WEIGHT_CACHE_HITS[label] = _WEIGHT_CACHE_HITS.get(label, 0) + 1
+        return ent[2]
+    _WEIGHT_CACHE_MISSES[label] = _WEIGHT_CACHE_MISSES.get(label, 0) + 1
+    W = gen_fn()
+    bucket[cache_key] = (alphas, idx, W)
+    return W
+
+
+def cached_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
+                      cache_key: str, alpha_scale=None,
+                      alpha_dtype: str = "") -> torch.Tensor:
+    """``decompress`` generated once per parameter version. The key must
+    already carry the alpha dtype (``ovsf_matmul`` appends it), so a dtype
+    switch never serves a stale W. (The reference also generates an (E, J,
+    d_out) MoE expert bank here; that waits for the MoE family.)"""
+    return cached_generate(cache_key, alphas, idx, lambda: decompress(
+        alphas, idx, d_in, alpha_scale=alpha_scale, alpha_dtype=alpha_dtype))
+
+
 def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
                 path: str = "materialize", plan: Optional[Any] = None,
                 alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
     """y = x @ W(alphas, idx) over (..., d_in) activations, by ``path``, or
-    by ``plan`` (a ``runtime.mapper.LayerPlan``, whose path it runs)."""
+    by ``plan`` (a ``runtime.mapper.LayerPlan``: its path, and for
+    ``materialize`` its decompress-cache policy)."""
+    cache_key = ""
     if plan is not None:
         path = plan.path
+        if plan.cache_weights:
+            cache_key = plan.cache_key or f"ovsf:{id(alphas)}"
+    if cache_key:
+        # an alpha-dtype switch re-keys the slot instead of serving a
+        # stale W
+        cache_key = f"{cache_key}|{alpha_dtype or 'fp'}"
     lead = x.shape[:-1]
     d_in = x.shape[-1]
     d_out = alphas.shape[-1] * (2 if alpha_dtype == "int4" else 1)
@@ -135,8 +254,13 @@ def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
         y = ovsf_gemm(x2, alphas, idx, alpha_scale=alpha_scale,
                       alpha_dtype=alpha_dtype)
     elif path == "materialize":
-        W = decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
-                       alpha_dtype=alpha_dtype)
+        if cache_key:
+            W = cached_decompress(alphas, idx, d_in, cache_key=cache_key,
+                                  alpha_scale=alpha_scale,
+                                  alpha_dtype=alpha_dtype)
+        else:
+            W = decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
+                           alpha_dtype=alpha_dtype)
         y = (x2 @ W.to(x2.dtype)).to(x.dtype)
     elif path == "spectral":
         y = spectral_matmul(x2, alphas, idx, alpha_scale=alpha_scale,
@@ -144,3 +268,29 @@ def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     else:
         raise ValueError(f"unknown exec path: {path}")
     return y.reshape(lead + (d_out,))
+
+
+def ovsf_matmul_multi(x: torch.Tensor, alphas: torch.Tensor,
+                      idx: torch.Tensor, mids: torch.Tensor, *,
+                      alpha_scale=None, alpha_dtype: str = ""
+                      ) -> torch.Tensor:
+    """y[t] = x[t] @ W(alphas[mids[t]], idx): M stacked same-architecture
+    variants ((M, J, d_out) alphas sharing ``idx``), each token picking its
+    variant by ``mids`` (x.shape[:-1] integer ids) inside one call.
+
+    Each variant runs the literal single-model ``spectral_matmul`` on the
+    same flattened activations, and each token takes its variant's row
+    through ``torch.where``, a bitwise pass-through: every token's output
+    is bit for bit ``spectral_matmul`` of its variant on the same x, the
+    license for token-exact gateway streams. (One batched product would be
+    fewer launches, but its reduction order may differ.)"""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    m2 = mids.reshape(-1)
+    out = None
+    for m in range(alphas.shape[0]):
+        ym = spectral_matmul(x2, alphas[m], idx,
+                             alpha_scale=None if alpha_scale is None
+                             else alpha_scale[m], alpha_dtype=alpha_dtype)
+        out = ym if out is None else torch.where((m2 == m)[:, None], ym, out)
+    return out.reshape(lead + (out.shape[-1],))

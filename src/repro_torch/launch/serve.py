@@ -31,7 +31,7 @@ CPU, where steps run eagerly).
 Chaos flags, as the reference's: ``--inject`` arms deterministic faults
 (repeatable: ``nan:step=3``, ``fail:step=7``, ``delay:step=5,s=0.2``,
 ``die:step=3``; ``flip`` is refused, it needs the gateway's resident
-banks), ``--admission preempt`` lets a more urgent request evict a running
+banks: ``repro_torch.launch.gateway``), ``--admission preempt`` lets a more urgent request evict a running
 one (recomputed), ``--max-waiting`` bounds the queue (load shedding),
 ``--deadline`` bounds each request's life, ``--step-timeout`` arms the
 stall watchdog (a step's wall less the first step of each shape on a core:
@@ -148,8 +148,8 @@ def main(argv=None) -> None:
     if any(f.kind == "flip" for f in plan.faults):
         raise SystemExit(
             "--inject flip:... corrupts a RESIDENT registry bank, which a "
-            "single-engine launcher does not have (the gateway is ROADMAP "
-            "A.6)")
+            "single-engine launcher does not have (run it through "
+            "repro_torch.launch.gateway)")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,

@@ -88,14 +88,15 @@ def drop_write(cache: dict, rows: torch.Tensor, keep: torch.Tensor,
             dst.copy_(flat[:-1].view(dst.shape))
 
 
-def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+         mids: Optional[torch.Tensor] = None):
     """q, k, v of (B, S, d) x, RoPE on q and k at ``positions`` ((B, S) or
-    (S,))."""
+    (S,)); ``mids`` (B, S) picks each token's stacked-alpha variant."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = L.linear_apply(p["q"], x, cfg, "attn_q").reshape(B, S, H, hd)
-    k = L.linear_apply(p["k"], x, cfg, "attn_k").reshape(B, S, Hkv, hd)
-    v = L.linear_apply(p["v"], x, cfg, "attn_v").reshape(B, S, Hkv, hd)
+    q = L.linear_apply(p["q"], x, cfg, "attn_q", mids).reshape(B, S, H, hd)
+    k = L.linear_apply(p["k"], x, cfg, "attn_k", mids).reshape(B, S, Hkv, hd)
+    v = L.linear_apply(p["v"], x, cfg, "attn_v", mids).reshape(B, S, Hkv, hd)
     return (L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -142,7 +143,8 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                       positions: torch.Tensor, slot_ids: torch.Tensor,
-                      cache: dict) -> tuple[torch.Tensor, dict]:
+                      cache: dict, mids: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, dict]:
     """Packed-query attention over the contiguous per-slot cache.
 
     ``x`` is (1, T, d): T tokens of different slots; ``slot_ids`` /
@@ -155,13 +157,15 @@ def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     through ``flash_decode_attn`` with pos ``positions + 1``; the gather
     copies (T, Tbuf, Hkv, hd) per layer, as the reference's ``jnp.take``
     does, in the cache's type (an int8 row cast to q's type without the
-    scale would be silently wrong; the kernel dequantises it).
+    scale would be silently wrong; the kernel dequantises it). ``mids``
+    (T,) picks each token's stacked-alpha variant (multi-model steps).
     """
     H, hd = cfg.n_heads, cfg.hd
     T = x.shape[1]
     ck, cv = cache["k"], cache["v"]
     B, Tbuf = ck.shape[0], ck.shape[1]
-    q, k, v = _qkv(p, cfg, x, positions)
+    m2 = None if mids is None else mids[None, :]            # (1, T)
+    q, k, v = _qkv(p, cfg, x, positions, m2)
     slot_ids = slot_ids.long()
     positions = positions.long()
     keep = (slot_ids >= 0) & (slot_ids < B) & (positions >= 0) & \
@@ -170,7 +174,8 @@ def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     sid = slot_ids.clamp(0, B - 1)
     out = flash_decode_attn(q[0], ck[sid], cv[sid],
                             positions + 1)                  # (T, H, hd)
-    y = L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg, "attn_o")
+    y = L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg, "attn_o",
+                       m2)
     return y, {"k": ck, "v": cv}
 
 

@@ -5,7 +5,11 @@ The reference's params arrive as nested dicts of numpy arrays (e.g.
 along a leading layer axis; the port keeps the same key names (``alphas`` /
 ``alphas_q8`` / ``alphas_q4`` + ``alpha_scale``, ``idx``, ``w``, ``b``,
 ``scale``, ``table``) and holds ``blocks`` as a list of per-layer dicts.
-The CNNs' ``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
+A multi-model tree (the reference's ``serving.model_registry.VariantSet``)
+carries its alpha leaves as ``(n_layers, M, ...)``, the variant axis after
+the layer axis: splitting axis 0 gives each layer its ``(M, ...)`` stacked
+bank, the layout of the port's ``stack_variants``. The CNNs'
+``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
 ``cnn_params_to_numpy``) are flat dicts of layer dicts; only their conv
 filters change layout (HWIO in the reference, OIHW in the port). Nothing
 here imports JAX: numpy is the interchange format.

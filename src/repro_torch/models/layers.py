@@ -6,6 +6,8 @@ the bridge from the JAX pytree is a one-to-one copy.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -54,15 +56,24 @@ def layer_plan(cfg: ModelConfig, name: str):
 
 
 def linear_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 name: str = "") -> torch.Tensor:
+                 name: str = "", mids: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Dense layers are one ``torch.matmul``. OVSF layers dispatch by the
     mapper's plan for weight type ``name`` (e.g. "mlp_up") when
-    ``cfg.exec_plan`` holds one, else by ``cfg.ovsf.exec_path``."""
+    ``cfg.exec_plan`` holds one, else by ``cfg.ovsf.exec_path``. ``mids``
+    (x.shape[:-1] integer ids) picks each token's variant when the alpha
+    bank is stacked (M, J, d_out): ``ovsf_matmul_multi``, the multi-model
+    gateway's same-architecture batching. Dense and unstacked OVSF leaves
+    are shared by the variants and ignore ``mids``."""
     if "alphas" in p or "alphas_q8" in p or "alphas_q4" in p:
         al, scale, adt = ovsf.alpha_params(p)
-        y = kops.ovsf_matmul(x, al, p["idx"], path=cfg.ovsf.exec_path,
-                             plan=layer_plan(cfg, name), alpha_scale=scale,
-                             alpha_dtype=adt)
+        if mids is not None and al.dim() == 3:
+            y = kops.ovsf_matmul_multi(x, al, p["idx"], mids,
+                                       alpha_scale=scale, alpha_dtype=adt)
+        else:
+            y = kops.ovsf_matmul(x, al, p["idx"], path=cfg.ovsf.exec_path,
+                                 plan=layer_plan(cfg, name),
+                                 alpha_scale=scale, alpha_dtype=adt)
     else:
         y = x @ p["w"].to(x.dtype)
     if "b" in p:

@@ -99,3 +99,5 @@ cache_shapes = T.cache_shapes
 serve_step_paged = T.serve_step_paged
 serve_step_window_paged = T.serve_step_window_paged
 init_paged_cache = T.init_paged_cache
+serve_step_packed_multi = T.serve_step_packed_multi
+serve_step_window_multi = T.serve_step_window_multi

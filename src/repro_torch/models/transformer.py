@@ -22,6 +22,7 @@ fill a fresh cache of their own and return it.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -39,15 +40,16 @@ def _check_family(cfg: ModelConfig) -> None:
             f"{cfg.family!r}")
 
 
-def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    u = L.linear_apply(p["up"], x, cfg, "mlp_up")
+def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               mids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    u = L.linear_apply(p["up"], x, cfg, "mlp_up", mids)
     if cfg.mlp_gated:
-        g = L.linear_apply(p["gate"], x, cfg, "mlp_gate")
+        g = L.linear_apply(p["gate"], x, cfg, "mlp_gate", mids)
         h = (torch.nn.functional.silu(g.to(torch.float32))
              * u.to(torch.float32)).to(x.dtype)
     else:
         h = torch.nn.functional.gelu(u.to(torch.float32)).to(x.dtype)
-    return L.linear_apply(p["down"], h, cfg, "mlp_down")
+    return L.linear_apply(p["down"], h, cfg, "mlp_down", mids)
 
 
 def _layer(cache: dict, li: int) -> dict:
@@ -59,12 +61,16 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, **kw
            ) -> torch.Tensor:
     """Pre-norm attention + MLP block; ``attn`` is one of the attention
     functions of ``models.attention`` over the layer's cache, called with
-    ``kw``."""
+    ``kw``. A ``mids`` entry of ``kw`` ((T,) variant ids of a packed
+    stream) reaches the attention's and the MLP's linears."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     y, _ = attn(p["attn"], cfg, h, **kw)
     x = x + y
     h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + _mlp_apply(p["mlp"], cfg, h)
+    mids = kw.get("mids")
+    # mids is (T,); the MLP's activations are (1, T, d)
+    return x + _mlp_apply(p["mlp"], cfg, h,
+                          None if mids is None else mids[None, :])
 
 
 def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -206,14 +212,24 @@ def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
 def serve_step_packed(params: dict, cfg: ModelConfig, cache: dict,
                       tokens: torch.Tensor, slot_ids: torch.Tensor,
                       positions: torch.Tensor, new_pos: torch.Tensor,
-                      emit_idx: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                      emit_idx: torch.Tensor, *,
+                      model_ids: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, dict]:
     """Token-packed step against the contiguous cache: the contract of
     ``serve_step_paged`` without the page table (padding tokens carry
     ``slot_id == B``). Returns ((B, vocab) logits gathered at ``emit_idx``
-    before the unembed, the cache with ``pos`` set to ``new_pos``)."""
+    before the unembed, the cache with ``pos`` set to ``new_pos``).
+    ``model_ids`` (B,) maps each slot to a stacked-alpha variant
+    (``serve_step_packed_multi``); None = one model."""
+    kw = {}
+    if model_ids is not None:
+        # padding tokens (slot_id == B) clip to slot B - 1: their variant
+        # is arbitrary, their writes dropped and their outputs discarded
+        B = model_ids.shape[0]
+        kw["mids"] = model_ids[slot_ids.long().clamp(0, B - 1)]
     return _packed_trunk(params, cfg, cache, tokens, new_pos, emit_idx,
                          A.attn_apply_packed, slot_ids=slot_ids,
-                         positions=positions)
+                         positions=positions, **kw)
 
 
 def paged_cache_shapes(cfg: ModelConfig, page_size: int, n_pages: int
@@ -259,6 +275,43 @@ def serve_step_window_paged(params: dict, cfg: ModelConfig, cache: dict,
     window), returning each slot's logits at column ``n_valid[b] - 1``: the
     window is flattened onto ``serve_step_paged``; padding columns become
     sentinel-slot tokens at position 0. ``cache["pos"]`` is (B,)."""
+    tok, slot_ids, positions, new_pos, emit_idx = _window_as_packed(
+        cache, tokens, n_valid)
+    return serve_step_paged(params, cfg, cache, page_table, tok, slot_ids,
+                            positions, new_pos, emit_idx)
+
+
+# ---------------------------------------------------------------------------
+# Multi-model steps: same-architecture variants batched in one step
+# ---------------------------------------------------------------------------
+
+def serve_step_packed_multi(params: dict, cfg: ModelConfig, cache: dict,
+                            tokens: torch.Tensor, slot_ids: torch.Tensor,
+                            positions: torch.Tensor, new_pos: torch.Tensor,
+                            emit_idx: torch.Tensor, model_ids: torch.Tensor
+                            ) -> tuple[torch.Tensor, dict]:
+    """``serve_step_packed`` over M stacked same-architecture variants.
+
+    ``params``' OVSF alpha leaves carry a leading (M, ...) variant axis
+    (every other leaf, ids included, is shared: ``serving.model_registry.
+    stack_variants``); ``model_ids`` (B,) maps each slot to its variant,
+    and each packed token contracts against its slot's alpha bank
+    (``kernels.ops.ovsf_matmul_multi``), so a step mixes models at the
+    single-model step shapes."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "multi-model batching over MoE expert banks is not supported "
+            "yet (per-expert alpha stacking)")
+    return serve_step_packed(params, cfg, cache, tokens, slot_ids, positions,
+                             new_pos, emit_idx, model_ids=model_ids)
+
+
+def _window_as_packed(cache: dict, tokens: torch.Tensor,
+                      n_valid: torch.Tensor) -> tuple:
+    """A (B, W) ragged window flattened onto the packed layout: padding
+    columns (``col >= n_valid[b]``) become sentinel-slot tokens at position
+    0; each slot emits at its column ``n_valid[b] - 1``. ``cache["pos"]``
+    is (B,)."""
     B, W = tokens.shape
     dev = tokens.device
     pos0 = cache["pos"].long()
@@ -270,5 +323,19 @@ def serve_step_window_paged(params: dict, cfg: ModelConfig, cache: dict,
                             0).reshape(-1)
     new_pos = pos0 + n_valid
     emit_idx = torch.arange(B, device=dev) * W + (n_valid - 1).clamp(0, W - 1)
-    return serve_step_paged(params, cfg, cache, page_table, tokens.reshape(-1),
-                            slot_ids, positions, new_pos, emit_idx)
+    return tokens.reshape(-1), slot_ids, positions, new_pos, emit_idx
+
+
+def serve_step_window_multi(params: dict, cfg: ModelConfig, cache: dict,
+                            tokens: torch.Tensor, n_valid: torch.Tensor,
+                            model_ids: torch.Tensor
+                            ) -> tuple[torch.Tensor, dict]:
+    """``serve_step_window`` semantics over stacked variants: slot b
+    advances by ``n_valid[b]`` of its W tokens under variant
+    ``model_ids[b]``, the window flattened onto the packed multi trunk as
+    ``serve_step_window_paged`` flattens it onto the paged one (exact
+    writes, no window slack). ``cache["pos"]`` is (B,)."""
+    tok, slot_ids, positions, new_pos, emit_idx = _window_as_packed(
+        cache, tokens, n_valid)
+    return serve_step_packed_multi(params, cfg, cache, tok, slot_ids,
+                                   positions, new_pos, emit_idx, model_ids)

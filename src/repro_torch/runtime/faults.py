@@ -18,10 +18,13 @@ seeded by ``(plan.seed, index, step)``:
 * ``delay`` sleep ``delay_s`` inside the step (trips ``step_timeout_s``);
 * ``die``   ``os._exit(DIE_EXIT_CODE)`` mid-step: a ``kill -9``; only the
             write-ahead journal (``serving.journal``) survives it;
-* ``flip``  parsed for spec parity with the reference (its gateway flips a
-            resident alpha-bank bit); the single-engine launcher refuses it.
+* ``flip``  flip bit ``bit`` of alpha-bank leaf ``leaf`` in a model's
+            RESIDENT registry bank; the gateway applies it at its own step
+            counter (``serving.gateway``; the scrub must catch and repair
+            it), engines ignore it, the single-engine launcher refuses it.
 
-CLI syntax (``--inject`` on ``repro_torch.launch.serve``)::
+CLI syntax (``--inject`` on ``repro_torch.launch.serve`` and
+``repro_torch.launch.gateway``)::
 
     nan:step=3            poison slot 0's logits at step 3
     nan:step=3,slot=1     ... slot 1
@@ -30,6 +33,7 @@ CLI syntax (``--inject`` on ``repro_torch.launch.serve``)::
     fail:step=7,every=50  ... and every 50 steps after
     delay:step=5,s=0.2    sleep 200ms inside step 5
     die:step=5            os._exit the whole process at step 5
+    flip:step=3,leaf=2,bit=17   gateway: flip bit 17 of bank leaf 2
 """
 from __future__ import annotations
 

@@ -27,6 +27,12 @@ again, and the key unrecorded, so the next call of the key starts over.
 the pools to the driver. On the CPU, or with ``capture=False``, ``body``
 runs eagerly through the same buffers.
 
+Captures use ``torch.cuda.graph``'s default ``capture_error_mode=
+"global"``: while a capture is underway, a CUDA call from any other thread
+of the process fails it. So a server that steps engines on one thread
+keeps every other thread off the device (``serving.gateway``: HTTP
+handlers hand their calls to the pump thread).
+
 ``first_calls`` logs ``(key, host seconds)`` for every first call of a key
 (again after ``clear()``): on the card the eager warm-up, the capture and
 the wait for both (the device is synchronized once, at the end of the

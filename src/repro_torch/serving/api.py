@@ -1,9 +1,9 @@
 """Request-level serving API (copy of ``repro.serving.api``'s request types).
 
-The port keeps its own copy: it imports nothing of ``repro``. The gateway's
-routing field (``model``) waits for the gateway (ROADMAP A.6); a preempted
+The port keeps its own copy: it imports nothing of ``repro``. A preempted
 request carries no PRNG state, because a sampled draw is a pure function of
-``(seed, tokens emitted)`` (``serving.core``).
+``(seed, tokens emitted)`` (``serving.core``). ``Request.model`` is the
+multi-model gateway's routing target (``serving.gateway``).
 """
 from __future__ import annotations
 
@@ -73,6 +73,9 @@ class Request:
     prompt: np.ndarray                  # (S,) int32 token ids
     max_new_tokens: int = 16
     sampling: SamplingParams = GREEDY
+    # gateway routing target (registry model name); None = single-model
+    # engines, which ignore it
+    model: Optional[str] = None
     # called as stream(rid, token) the moment each token is committed
     stream: Optional[Callable[[int, int], None]] = None
     priority: int = 0                   # higher = more urgent

@@ -22,6 +22,18 @@ top-k / temperature draws for sampled ones, plus a per-slot
   window through ``serve_step_window_paged`` at W = the chunk size on every
   step. The engine grants pages before calling ``step``
   (``LLMEngine._page_gate``).
+* **multi-model** (``variants=M``): the params' alpha leaves carry a
+  leading (M, ...) variant axis and each slot serves the variant of its
+  entry in ``model_ids`` (B,), the gateway's same-architecture batching
+  (``serving.gateway``). The contiguous cache without slack; a packed
+  core runs ``serve_step_packed_multi``, a window core
+  ``serve_step_window_multi`` at W = the chunk size when the step carries
+  chunks and W = 1 when it does not (recorded as ``("decode", 1)``, so a
+  multi engine runs the two step shapes of a single-model window engine).
+  ``model_ids`` is an input of every step, copied into the key's static
+  buffer before each replay, so routing a slot to another variant never
+  captures again. The paged cache and the legacy path refuse variants, as
+  the reference's core does.
 * **legacy phase-based** (``window=0``, neither packed nor paged): per-slot
   buffers of ``buffer_len``. Each prefill group runs first: its prompts,
   right-padded to the bucket Lb, in ONE (B, Lb) ``serve_prefill_ragged``
@@ -147,10 +159,20 @@ class EngineCore:
                  buffer_len: int, window: int, packed: bool, paged: bool,
                  page_size: int, kv_pages: Optional[int],
                  device: torch.device, capture: bool = True,
-                 faults: Optional[FaultPlan] = None):
+                 faults: Optional[FaultPlan] = None, variants: int = 0):
         if window <= 0 and (packed or paged):
             raise ValueError("packed and paged serving consume prompts via "
                              "chunks; pass a chunk size")
+        if variants:
+            if paged:
+                raise NotImplementedError(
+                    "multi-model variants over the paged KV cache are not "
+                    "supported yet (page-table routing per variant)")
+            if window <= 0:
+                raise ValueError(
+                    "multi-model serving consumes prompts via chunks; pass "
+                    "a chunked window (chunk_size)")
+        self.variants = variants
         self.graphs = StepGraphs(device, capture)
         self.params = params
         self.cfg = cfg
@@ -165,8 +187,12 @@ class EngineCore:
         self.step_idx = 0
         self._zero_poison = np.zeros(batch_slots, np.float32)
         # the window's slack: a W-wide write at pos <= buffer_len - 1 never
-        # clamps; packed and paged steps scatter at exact positions
-        self.T_alloc = buffer_len if (packed or paged) else buffer_len + window
+        # clamps; packed, paged and multi-model steps scatter at exact
+        # positions
+        self.T_alloc = (buffer_len if (packed or paged or variants)
+                        else buffer_len + window)
+        # each slot's stacked-alpha variant (multi-model cores)
+        self.model_ids = np.zeros(batch_slots, np.int32)
         self.step_shapes: set = set()   # distinct step shapes run
         self.prefill_compiles = 0       # distinct prefill keys run here
         self._prefill_keys: set = set()
@@ -302,8 +328,9 @@ class EngineCore:
             if c.start == 0:            # new request: seed sampling state
                 self._set_sampling(c.slot, c.req.sampling,
                                    len(c.req.out_tokens))
-        run = (self._packed_step if self.packed else self._window_step
-               if self.paged or so.chunks else self._decode_step)
+        run = (self._packed_step if self.packed
+               else self._window_step if self.paged or so.chunks
+               or self.variants else self._decode_step)
         (lg, head), emit, n_valid, n_batch = run(so, last_tokens, poison)
         toks, ok = self._sample(lg, head, emit)
         for i in so.decode_slots:
@@ -338,6 +365,8 @@ class EngineCore:
                       emit_idx=ps.emit_idx, poison=poison)
         if self.paged:
             inputs["page_table"] = self.pager.page_table
+        if self.variants:
+            inputs["model_ids"] = self.model_ids
         out = self.graphs.run(key, inputs, self._packed_body)
         self._host_pos[:] = ps.new_pos
         return out, ps.emit_slots, ps.n_valid, ps.n_batch
@@ -349,6 +378,9 @@ class EngineCore:
             logits, new = R.serve_step_paged(self.params, self.cfg,
                                              self.caches, a["page_table"],
                                              *args)
+        elif self.variants:
+            logits, new = R.serve_step_packed_multi(
+                self.params, self.cfg, self.caches, *args, a["model_ids"])
         else:
             logits, new = R.serve_step_packed(self.params, self.cfg,
                                               self.caches, *args)
@@ -356,8 +388,12 @@ class EngineCore:
 
     def _window_step(self, so: SchedulerOutput, last_tokens, poison):
         """One (B, W) ragged window, W the chunk size: decode slots ride at
-        width 1, chunk slots at their slice length, idle slots at 0."""
-        W = self.window
+        width 1, chunk slots at their slice length, idle slots at 0. A
+        multi-model core routes each slot by ``model_ids`` and runs a
+        chunk-free step at W = 1 (the single-model window engine's
+        ``("decode", 1)`` shape)."""
+        chunked = bool(so.chunks) or not self.variants
+        W = self.window if chunked else 1
         tokens = np.zeros((self.B, W), np.int32)
         n_tok = np.zeros(self.B, np.int32)
         for i in so.decode_slots:
@@ -373,11 +409,13 @@ class EngineCore:
         if fresh:
             self.caches["pos"][fresh] = 0
             self._host_pos[fresh] = 0
-        key = ("window", W)
+        key = ("window", W) if chunked else ("decode", 1)
         self.step_shapes.add(key)
         inputs = dict(tokens=tokens, n_tok=n_tok, poison=poison)
         if self.paged:
             inputs["page_table"] = self.pager.page_table
+        if self.variants:
+            inputs["model_ids"] = self.model_ids
         out = self.graphs.run(key, inputs, self._window_body)
         self._host_pos += n_tok
         emit = tuple(so.decode_slots) + tuple(c.slot for c in so.chunks
@@ -385,7 +423,11 @@ class EngineCore:
         return out, emit, int(n_tok.sum()), self.B * W
 
     def _window_body(self, a: dict) -> tuple:
-        if self.paged:
+        if self.variants:
+            logits, new = R.serve_step_window_multi(
+                self.params, self.cfg, self.caches, a["tokens"], a["n_tok"],
+                a["model_ids"])
+        elif self.paged:
             logits, new = R.serve_step_window_paged(
                 self.params, self.cfg, self.caches, a["page_table"],
                 a["tokens"], a["n_tok"])

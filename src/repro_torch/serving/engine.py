@@ -68,6 +68,21 @@ Failure handling, as the reference's:
   live requests through the recompute path.
 
 ``packed`` and ``paged`` need ``chunk_size``, as in the reference.
+
+Multi-model mode (the gateway's same-architecture batching,
+``serving.gateway``): ``variants=M`` stacked alpha variants in the params
+(``serving.model_registry.stack_variants``), ``model_index`` mapping a
+``Request.model`` name to its variant row. Each admitted request's slot is
+routed through ``EngineCore.model_ids``; the mapper is off (a stacked bank
+runs ``kernels.ops.ovsf_matmul_multi`` whatever the plan says), and
+``chunk_size`` is required. ``use_mapper=False`` serves an unplanned
+config (``cfg.ovsf.exec_path``), as the reference's flag does: the
+gateway's dedicated baselines pin ``spectral`` so that their streams can be
+held bit for bit against the multi engine's. ``model_label`` (default the
+config's name) keys this engine's ledger in the decompress-weight cache:
+steps run inside ``kernels.ops.weight_cache_scope(model_label)`` and
+``EngineStats.weight_cache_*`` are that ledger's counters since the
+engine's construction.
 """
 from __future__ import annotations
 
@@ -80,6 +95,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.runtime import mapper
 from repro_torch.runtime.calibrate import CalibrationTable, update_from_step
 from repro_torch.runtime.faults import FaultPlan
@@ -145,6 +161,10 @@ class EngineStats:
                                   # (FINISH_SHED / FINISH_PREEMPTED)
     errors: int = 0               # quarantined non-finite-logits requests
     cancelled: int = 0            # caller-cancelled (FINISH_CANCELLED)
+    weight_cache_hits: int = 0    # decompress-cache counters of this
+    weight_cache_misses: int = 0  # engine's model_label since construction
+    weight_cache_entries: int = 0
+    weight_cache_bytes: int = 0   # resident dense W of the label
     warmups: int = 0              # first steps of a shape on a core (on the
                                   # card: warm-up + CUDA-graph capture)
     warmup_s: float = 0.0         # their first calls' time, off the stall clock
@@ -192,8 +212,15 @@ class LLMEngine:
                  max_waiting: Optional[int] = None,
                  step_timeout_s: Optional[float] = None,
                  faults: Optional[FaultPlan] = None,
-                 journal=None, device="cuda", capture: bool = True):
+                 journal=None, device="cuda", capture: bool = True,
+                 use_mapper: bool = True, variants: int = 0,
+                 model_index=None, model_label: Optional[str] = None):
         self.device = resolve_device(device)
+        self.variants = int(variants)
+        self._model_index = model_index
+        if self.variants and chunk_size is None:
+            raise ValueError("variants>0 requires chunk_size (multi-model "
+                             "steps serve prompts via chunk tasks)")
         if packed and chunk_size is None:
             raise ValueError("packed=True requires chunk_size (the packed "
                              "step serves prompts via chunk tasks)")
@@ -208,7 +235,11 @@ class LLMEngine:
                              f"runs on {self.device}")
         self._base_cfg = cfg
         self.hw_label = _PLAN_TARGETS[self.device.type][0]
-        self.cfg = plan_cfg(cfg, batch_slots, self.device)
+        # a stacked bank runs the multi path whatever a plan says
+        use_mapper = use_mapper and not self.variants
+        self.cfg = (plan_cfg(cfg, batch_slots, self.device) if use_mapper
+                    else cfg)
+        self.model_label = cfg.name if model_label is None else model_label
         self.params = params
         self.B = batch_slots
         self.eos = eos_id
@@ -228,7 +259,7 @@ class LLMEngine:
                                packed=packed, paged=paged,
                                page_size=page_size, kv_pages=kv_pages,
                                device=self.device, capture=capture,
-                               faults=faults)
+                               faults=faults, variants=self.variants)
         self.core = EngineCore(params, self.cfg, **self._core_args)
         pages = self.core.pager.P if paged else 0
         self.scheduler = scheduler if scheduler is not None else \
@@ -251,6 +282,7 @@ class LLMEngine:
         self.calibration = CalibrationTable()
         # write-ahead journal (None: not durable); flushed once a step
         self.journal = journal
+        self._wc_base = kops.weight_cache_stats(self.model_label)
 
     # -- request intake ----------------------------------------------------
 
@@ -385,6 +417,11 @@ class LLMEngine:
             if c.start == 0:
                 self.slots[c.slot] = c.req
                 self._prefill_done[c.slot] = 0
+                if self.variants:       # route the slot to its variant
+                    self.core.model_ids[c.slot] = (
+                        self._model_index(c.req.model)
+                        if self._model_index is not None
+                        and c.req.model is not None else 0)
         for pg in so.prefill_groups:    # legacy whole-prompt prefill
             for i, req in pg.slot_reqs:
                 self.slots[i] = req
@@ -393,7 +430,10 @@ class LLMEngine:
         n_first = len(first)
         t0 = time.perf_counter()
         try:
-            out = self.core.step(so, last)
+            # the decompress cache's entries and counters go to this
+            # engine's model label
+            with kops.weight_cache_scope(self.model_label):
+                out = self.core.step(so, last)
         except Exception as exc:        # watchdog: the step crashed
             self._check_device(exc)
             self._recover()
@@ -653,6 +693,11 @@ class LLMEngine:
                                   for pg in so.prefill_groups)
         st.prefill_compiles = self.core.prefill_compiles
         st.step_compiles = len(self.core.step_shapes)
+        wc = kops.weight_cache_stats(self.model_label)
+        st.weight_cache_hits = wc["hits"] - self._wc_base["hits"]
+        st.weight_cache_misses = wc["misses"] - self._wc_base["misses"]
+        st.weight_cache_entries = wc["entries"]
+        st.weight_cache_bytes = wc["bytes"]
         if (self.calibrate and out.decode_s > 0.0 and not so.chunks
                 and not so.prefill_groups
                 and self.cfg.exec_plan is not None):

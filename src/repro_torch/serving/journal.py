@@ -124,8 +124,7 @@ def body_fingerprint(prompt, max_new_tokens: int, temperature: float,
 @dataclasses.dataclass
 class JournalEntry:
     """In-memory state of one journaled request (replayed or live).
-    ``model`` is the gateway's routing target, kept for the format and the
-    fingerprint; the port's single-model engine does not route on it."""
+    ``model`` is the gateway's routing target (``Request.model``)."""
     rid: int
     prompt: list                    # original prompt token ids
     max_new_tokens: int
@@ -157,8 +156,8 @@ class JournalEntry:
         prompt = np.asarray(list(self.prompt) + list(self.tokens), np.int32)
         req = Request(rid=self.rid, prompt=prompt,
                       max_new_tokens=self.max_new_tokens, sampling=sp,
-                      priority=self.priority, deadline_s=self.deadline_s,
-                      idempotency_key=self.ikey)
+                      model=self.model, priority=self.priority,
+                      deadline_s=self.deadline_s, idempotency_key=self.ikey)
         req.out_tokens = list(self.tokens)
         req.prompt_len_orig = len(self.prompt)
         req.token_times = [time.perf_counter()] * len(self.tokens)
@@ -303,10 +302,11 @@ class RequestJournal:
         e = JournalEntry(
             rid=req.rid, prompt=prompt, max_new_tokens=req.max_new_tokens,
             temperature=sp.temperature, top_k=sp.top_k, seed=sp.seed,
-            priority=req.priority, deadline_s=req.deadline_s,
-            wall=time.time(), ikey=req.idempotency_key,
+            model=req.model, priority=req.priority,
+            deadline_s=req.deadline_s, wall=time.time(),
+            ikey=req.idempotency_key,
             fp=body_fingerprint(prompt, req.max_new_tokens, sp.temperature,
-                                sp.top_k, sp.seed, None))
+                                sp.top_k, sp.seed, req.model))
         self.entries[e.rid] = e
         d = e.snapshot()
         d["t"] = "admit"

@@ -43,6 +43,18 @@ LOGITS_REL = 1e-4
 ARCHS = ("resnet18", "resnet34", "resnet50", "squeezenet1_1")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its smoke-sized work
+    gains nothing from more, and beside the rest of the suite on several
+    workers every parallel region would wait for threads that the other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -57,6 +57,18 @@ from repro_torch.serving import SamplingParams as TSampling
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its smoke-sized work
+    gains nothing from more, and beside the rest of the suite on several
+    workers every parallel region would wait for threads that the other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fused(cfg):
     return cfg.replace(ovsf=dataclasses.replace(cfg.ovsf, exec_path="fused"))
 

@@ -179,9 +179,11 @@ def test_card_plan_has_fused_only(batch_slots, alpha_dtype):
 @pytest.mark.parametrize("alpha_dtype", ADTS)
 @pytest.mark.parametrize("path", ["materialize", "spectral"])
 def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
-    """``materialize`` and ``spectral`` of segmented codes have no kernel:
-    on any device but the CPU (here ``meta``, standing in for the card) a
-    plan naming them raises instead of running plain tensor code."""
+    """``materialize`` of segmented codes has no kernel: on any device but
+    the CPU (here ``meta``, standing in for the card) a plan naming it
+    raises instead of running plain tensor code. ``spectral`` of segmented
+    codes is plain tensor code on every device, as the reference's jnp is
+    (the multi-model gateway's path): off the CPU it runs."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
     al = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
@@ -198,6 +200,10 @@ def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
                                rtol=2e-3, atol=2e-3)      # runs on the CPU
     meta = [t.to("meta") for t in (x, al, idx)]
     kw["alpha_scale"] = None if s is None else s.to("meta")
+    if path == "spectral":
+        out = tops.ovsf_matmul(*meta, **kw)
+        assert out.device.type == "meta" and out.shape == want.shape
+        return
     with pytest.raises(NotImplementedError, match="no hand-written kernel"):
         tops.ovsf_matmul(*meta, **kw)
 

@@ -261,7 +261,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.serving.engine, repro_torch.models.attention, "
             "repro_torch.models.transformer, repro_torch.models.registry, "
             "repro_torch.kernels.decode_attn, repro_torch.kernels.ref, "
-            "repro_torch.configs.base; "
+            "repro_torch.configs.base, repro_torch.serving.gateway, "
+            "repro_torch.serving.model_registry, "
+            "repro_torch.serving.health, repro_torch.launch.gateway, "
+            "repro_torch.serving.api; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
