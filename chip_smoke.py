@@ -198,9 +198,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              CNNs run as in phase 6 under their calibrated ``ALL_PATHS``
              plans (``classify_gemm(..., calibration=table)`` per conv),
              with the paths per conv and device ms per forward printed
-             beside the plans phase 6 ran; the calibrated ResNet-50 plan
-             must take at most 1.01x the default plan's device ms and less
-             than the uncalibrated ``ALL_PATHS`` plan's.
+             beside the plans phase 6 ran. Last, the default, the
+             uncalibrated ``ALL_PATHS`` and the calibrated ResNet-50 plans
+             replay their captured forwards in turn (9 rounds of 20, the
+             order rotated, CUDA events): the calibrated plan's median must
+             be at most 1.01x the default plan's and below the uncalibrated
+             ``ALL_PATHS`` plan's.
   8. chaos:  the fault paths of ``LLMEngine`` on full-width TinyLlama-1.1B
              (OVSF rho 0.5 on q, o, gate, up, down, planned ``fused``;
              every step replayed from CUDA graphs), no kernel of its own:
@@ -275,6 +278,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
              repro_torch.launch.gateway --smoke`` in subprocesses started
              together: each exits 0, its wall printed; fp32 kill-9 streams
              byte-identical to the fault-free re-run.
+  10. moe:   the MoE family: ``olmoe_1b_7b`` at its published widths,
+             uncut (16 layers, d 2048, 16/16 heads of 128, vocab 50304, 64
+             experts top-8 of d_ff 1024, OVSF rho 0.5 on attention and
+             experts, 16-long segments), bf16, random weights from --seed.
+             (1) ``paged_flash_decode`` (T 4 and 128, page 16) and
+             ``flash_decode_attn`` (window decode B 4, T 128) at its heads
+             (H 16, Hkv 16, hd 128), bf16 and fp32, against their plain
+             versions with device ms, bound and SDPA's ms. (2) The 8
+             requests of phase 4 through ``LLMEngine`` paged packed (chunk
+             64, 4 slots, buffer 256), eager and replayed: every request
+             finishes; the plan is the reference's, ``fused`` for
+             ``attn_q/k/v/o`` and ``e`` (the three expert weight types
+             share that one entry, as the reference's mapper names it);
+             every step launches 64 ``ovsf_gemm`` (all tensor-core) and 16
+             ``paged_flash_decode`` and nothing else of ours; streams,
+             every chunk-free step's logits, launches and profiled kernels
+             equal between the runs; at most 3 packed graphs; the
+             profiler's launches equal to the wrappers' counters. Printed
+             only: wall, replay span, device busy, idle share, the MoE
+             blocks' device ms a step, each graph's MiB. (3) The same
+             through the legacy path, bucketed, eager and replayed:
+             streams and every step's logits equal, 64 ``ovsf_gemm`` a
+             prefill call and a decode, 16 ``flash_decode_attn`` a decode.
+             (4) Card vs CPU in fp32 at full width but 2 layers
+             (``MOE_PARITY_LAYERS``), a paged packed step and a decode
+             step: the routing first (a flip whose k-th/(k+1)-th
+             probability gap exceeds 1e-5 fails; a step must match some
+             slot), then every matched slot's logits within 1e-3 relative
+             L2. (5) The expert alphas' bytes on the card at most 0.55x
+             the dense bf16 banks'. No host clock, idle share or reserved
+             memory is gated here.
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -287,6 +321,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -627,16 +662,22 @@ def sdpa_inputs(q, kp, vp, table, sids, poss):
     return q[:, :, None, :], k.contiguous(), v.contiguous(), mask
 
 
-def run_paged_checks(rng, dev):
+def run_paged_checks(rng, dev, heads: tuple = (32, 4, 64), name: str = ""):
+    """``paged_flash_decode`` vs its plain version at T 4 and 128, bf16 and
+    fp32, with ``heads`` = (H, Hkv, hd) (TinyLlama-1.1B's by default;
+    ``name`` prefixes the case labels)."""
     from repro_torch.kernels.decode_attn import (paged_flash_decode,
                                                  paged_flash_decode_plain,
                                                  paged_plan, sm_count)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, Hkv, hd = heads
     rows = []
     for T in (4, 128):
         for dt in (torch.bfloat16, torch.float32):
-            args, bytes_, flops = paged_case(rng, T, dt, dev)
-            label = f"paged_flash_decode T={T} {str(dt).split('.')[-1]}"
+            args, bytes_, flops = paged_case(rng, T, dt, dev, H, Hkv, hd)
+            label = (f"paged_flash_decode {name}T={T} "
+                     + (f"H={H} Hkv={Hkv} hd={hd} " if name else "")
+                     + str(dt).split('.')[-1])
             _P, ps, Hkv, _hd = args[1].shape
             _c, splits, blocks = paged_plan(T, args[0].shape[1], Hkv,
                                             args[3].shape[1], ps,
@@ -1218,20 +1259,22 @@ LEGACY_STYLES = {"bucketed": dict(chunk_size=None),
 
 
 def ovsf_per_layer(params) -> int:
-    """OVSF projections a block (q, o, gate, up, down at full width: k and
-    v, 256 wide, are dense)."""
+    """OVSF projections a block runs through ``ovsf_gemm``: its attention
+    and MLP linears (TinyLlama-1.1B at full width: q, o, gate, up, down; k
+    and v, 256 wide, are dense. OLMoE-1B-7B: q, k, v, o; its expert banks
+    are regenerated whole, not through ``ovsf_gemm``)."""
     block = params["blocks"][0]
     return sum("idx" in p for grp in ("attn", "mlp")
-               for p in block[grp].values())
+               for p in block.get(grp, {}).values())
 
 
 def check_legacy_steps(tag: str, run: dict, n_layers: int,
                        n_ovsf: int) -> None:
-    """Every step of a legacy run launched, by the wrappers' counters, 110
-    ``ovsf_gemm`` (``n_ovsf`` = 5 OVSF projections x 22 layers) a prefill
-    call and a decode, 22 ``flash_decode_attn`` a decode (the prefill's
-    S > 1 attention is plain ``sdpa``, as in the reference), and nothing
-    else."""
+    """Every step of a legacy run launched, by the wrappers' counters,
+    ``n_ovsf`` x ``n_layers`` ``ovsf_gemm`` a prefill call and a decode
+    (TinyLlama-1.1B: 5 x 22 = 110; OLMoE-1B-7B: 4 x 16 = 64), one
+    ``flash_decode_attn`` a layer a decode (the prefill's S > 1 attention
+    is plain ``sdpa``, as in the reference), and nothing else."""
     for calls, decoded, delta in run["per_step"]:
         want = {k: 0 for k in delta}
         want["ovsf_gemm"] = n_ovsf * n_layers * (len(calls) + decoded)
@@ -1742,15 +1785,17 @@ def replay_span(eng, key: tuple, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def graph_vs_eager(tag: str, eager: dict, graph: dict, profiles: dict
-                   ) -> dict:
+def graph_vs_eager(tag: str, eager: dict, graph: dict, profiles: dict,
+                   wall_gate: bool = True) -> dict:
     """The graph run against the eager one: token streams equal (greedy
     and sampled), every chunk-free step's logits bit for bit (mixed steps
     counted), launch counters equal, at most 3 packed and 2 window graphs
     keyed as ``step_shapes``, profiler launches of each hand-written kernel
     over the profiled chunk-free steps equal (and equal to the wrappers'
-    counters), all kernels per step equal, and the chunk-free step wall
-    below eager's."""
+    counters), all kernels per step equal, and (``wall_gate``) the
+    chunk-free step wall below eager's (printed only otherwise: a step the
+    device holds for most of its wall, as a MoE step, replays in about
+    eager's wall, and a host clock then orders the two by chance)."""
     if graph["tokens"] != eager["tokens"]:
         diff = [r for r in eager["tokens"]
                 if graph["tokens"].get(r) != eager["tokens"][r]]
@@ -1793,7 +1838,7 @@ def graph_vs_eager(tag: str, eager: dict, graph: dict, profiles: dict
         raise RuntimeError(f"{tag} profiler kernels per chunk-free step: "
                            f"graph {pg['kernels_per_step']}, eager "
                            f"{pe['kernels_per_step']}; differing: {diff}")
-    if not pg["step_ms"] < pe["step_ms"]:
+    if wall_gate and not pg["step_ms"] < pe["step_ms"]:
         raise RuntimeError(f"{tag} chunk-free step wall {pg['step_ms']:.3f}"
                            f" ms replayed, not below eager's "
                            f"{pe['step_ms']:.3f}")
@@ -2958,14 +3003,66 @@ def cnn_graph_phase(tag: str, params, state, cfg, x, logits, want: dict,
                 ), eager
 
 
+RACE_ROUNDS = 9          # rounds of plan_race: every plan once a round
+RACE_REPLAYS = 20        # back-to-back replays a plan is timed over a round
+
+
+def plan_race(seed: int, dev, arch: str, plans: dict) -> dict:
+    """Device ms per forward of one CNN (matrix mode, batch 8, fp32) under
+    each ``ExecutionPlan`` of ``plans`` (label -> plan) on the same weights
+    and images: each plan's forward captured once (``CapturedForward``),
+    then ``RACE_ROUNDS`` rounds that replay every plan's graph
+    ``RACE_REPLAYS`` times back to back between CUDA events, the order
+    rotated each round; per plan the median of its rounds. Plans timed in
+    turn within seconds see the same clocks; the profiled forwards of
+    ``cnn_phase``, minutes apart, moved by more than the plans differ (the
+    default ResNet-50 plan 6.097-6.230 ms over five runs on one card type
+    and limit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cnn
+    B = 8
+    cfg = get_config(arch).replace(ovsf_mode="matrix")
+    params, state = cnn.cnn_init(cfg, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    x = torch.randn((B, cfg.in_hw, cfg.in_hw, 3), generator=gen, device=dev)
+    labels = list(plans)
+    graphs = {}
+    for label in labels:
+        fwd = cnn.CapturedForward(params, state,
+                                  cfg.replace(exec_plan=no_cache(plans[label])))
+        fwd(x)                              # eager warm-up, then capture
+        fwd(x)
+        graphs[label] = fwd.graphs._entries[fwd.key(B)].graph
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rounds = {label: [] for label in labels}
+    for r in range(RACE_ROUNDS):
+        for label in labels[r % len(labels):] + labels[:r % len(labels)]:
+            g = graphs[label]
+            g.replay()
+            start.record()
+            for _ in range(RACE_REPLAYS):
+                g.replay()
+            end.record()
+            end.synchronize()
+            rounds[label].append(start.elapsed_time(end) / RACE_REPLAYS)
+    del graphs, params, state, x
+    torch.cuda.empty_cache()
+    return {label: dict(median_ms=statistics.median(ms), ms=ms)
+            for label, ms in rounds.items()}
+
+
 def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
                     ) -> dict:
     """Per-conv path times of full-width ResNet-50 and SqueezeNet-1.1 into
     an h100 ``CalibrationTable`` (saved to ``out_dir``), then each CNN under
     its calibrated ``ALL_PATHS`` plan through ``cnn_phase``, its device ms
-    per forward beside the plans ``cnns`` ran in this run. The calibrated
-    ResNet-50 plan must take at most 1.01x the default plan's device time
-    and less than the uncalibrated ``ALL_PATHS`` plan's."""
+    per forward beside the plans ``cnns`` ran in this run. Then the three
+    ResNet-50 plans race in turn (``plan_race``): the calibrated plan's
+    median must be at most 1.01x the default plan's and below the
+    uncalibrated ``ALL_PATHS`` plan's."""
+    from repro_torch.configs import get_config
     from repro_torch.runtime import mapper
     from repro_torch.runtime.calibrate import CalibrationTable
     table = CalibrationTable()
@@ -2997,17 +3094,28 @@ def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
         print(f"[cnn] {arch} matrix mode, device ms per forward by plan (h100 "
               "target): " + ", ".join(f"{k} {v}" for k, v in ran.items()),
               flush=True)
-    r50 = by_plan["resnet50"]
-    cal, dflt, uncal = (r50["calibrated ALL_PATHS"], r50["materialize+fused"],
-                        r50["ALL_PATHS"])
-    if None in (cal, dflt, uncal):
-        raise RuntimeError("calibrate: torch.profiler recorded no device time"
-                           f" for a ResNet-50 plan (calibrated {cal}, default "
-                           f"{dflt}, uncalibrated ALL_PATHS {uncal}): the "
-                           "plan comparison cannot be made")
+    cfg50 = get_config("resnet50").replace(ovsf_mode="matrix")
+    dflt_label = "+".join(mapper.DEFAULT_PATHS)
+    race = plan_race(seed, dev, "resnet50", {
+        dflt_label: mapper.plan_cnn(cfg50, batch=8, hw="h100",
+                                    paths=mapper.DEFAULT_PATHS),
+        "ALL_PATHS": mapper.plan_cnn(cfg50, batch=8, hw="h100",
+                                     paths=mapper.ALL_PATHS),
+        "calibrated ALL_PATHS": plans["resnet50"]})
+    cal, dflt, uncal = (race["calibrated ALL_PATHS"]["median_ms"],
+                        race[dflt_label]["median_ms"],
+                        race["ALL_PATHS"]["median_ms"])
+    print(f"[calibrate] resnet50 plans in turn on {card} ({RACE_ROUNDS} "
+          f"rounds of {RACE_REPLAYS} replays, CUDA events), median ms per "
+          "forward: " + ", ".join(
+              f"{k} {v['median_ms']:.4f} (rounds {min(v['ms']):.4f}-"
+              f"{max(v['ms']):.4f})" for k, v in race.items())
+          + f"; calibrated / default {cal / dflt:.4f} (limit 1.01)",
+          flush=True)
     if not (cal <= 1.01 * dflt and cal < uncal):
-        raise RuntimeError(f"calibrated ResNet-50 plan {cal:.3f} ms, default "
-                           f"{dflt:.3f}, uncalibrated ALL_PATHS {uncal:.3f}")
+        raise RuntimeError(f"calibrated ResNet-50 plan {cal:.4f} ms, default "
+                           f"{dflt:.4f}, uncalibrated ALL_PATHS {uncal:.4f} "
+                           "(medians of the plans replayed in turn)")
     ratios = {f"{a} {r['conv']}": r["fused"]["vs_library"]
               for a in archs for r in rows[a]}
     print("[calibrate] fused (monolithic tensor-core ovsf_gemm) / matmul on "
@@ -3029,7 +3137,7 @@ def calibrate_phase(seed: int, card: str, dev, cnns: list, out_dir: str
                 table=table.to_json(), factors=factors, path_times=rows,
                 plans={a: {n: lp.path for n, lp in p.entries}
                        for a, p in plans.items()},
-                runs=runs, device_ms_by_plan=by_plan,
+                runs=runs, device_ms_by_plan=by_plan, plan_race=race,
                 fused_summary=summary)
 
 
@@ -4344,10 +4452,430 @@ def gateway_phase(seed: int, card: str, dev, out_dir: str,
     return res
 
 
+# -- phase 10: the MoE family ------------------------------------------------
+
+MOE_ARCH = "olmoe_1b_7b"    # 16 layers, d 2048, 16 x 128 heads (a GQA group
+                            # of 1), 64 experts top-8, expert d_ff 1024
+# the window decode at OLMoE-1B-7B's heads: (label, B, H, Hkv, hd, T, pos)
+MOE_FLASH = ("olmoe window decode", 4, 16, 16, 128, 128, (1, 37, 100, 128))
+MOE_PARITY_LAYERS = 2       # the card-vs-CPU steps' depth (full width)
+MOE_FLIP_GAP = 1e-5         # a routing flip needs a k-th/(k+1)-th tie
+MOE_ALPHA_SHARE = 0.55      # expert alphas' bytes / dense bf16 banks' (rho .5)
+MOE_PLAN = ("attn_q", "attn_k", "attn_v", "attn_o", "e")
+
+
+def run_moe_kernel_checks(rng, dev) -> dict:
+    """Phase 10 (1): ``paged_flash_decode`` (T 4 and 128) and
+    ``flash_decode_attn`` (the window decode, B 4, T 128) at OLMoE-1B-7B's
+    heads (H 16, Hkv 16, hd 128: a GQA group of 1 at hd 128), bf16 and
+    fp32, against their plain versions with device ms, bound and SDPA's
+    ms. The kernels line's summaries: the T 4 paged decode and the window
+    decode, bf16."""
+    paged_rows, paged_summary = run_paged_checks(rng, dev, (16, 16, 128),
+                                                 "olmoe ")
+    label0, B, H, Hkv, hd, T, pos = MOE_FLASH
+    flash = [flash_row(rng, dev, label0, B, H, Hkv, hd, T, pos, dt)
+             for dt in (torch.bfloat16, torch.float32)]
+    flash_summary = dict(flash[0])
+    flash_summary["max_abs_err"] = max(r["max_abs_err"] for r in flash)
+    torch.cuda.empty_cache()
+    return dict(paged_rows=paged_rows, paged_summary=paged_summary,
+                flash_rows=flash, flash_summary=flash_summary)
+
+
+def moe_resident(params, cfg, card: str) -> dict:
+    """Phase 10 (5): the bytes the expert banks' alphas and ids hold on the
+    card (each storage once) against the same banks stored dense in bf16:
+    at most ``MOE_ALPHA_SHARE`` (rho 0.5 keeps half the coefficients)."""
+    d, f = cfg.d_model, cfg.d_ff
+    seen, alpha, ids, dense = set(), 0, 0, 0
+    for blk in params["blocks"]:
+        for name, (d_in, d_out) in (("gate", (d, f)), ("up", (d, f)),
+                                    ("down", (f, d))):
+            p = blk["moe"][name]
+            if "alphas" not in p:
+                raise RuntimeError(f"moe: expert bank {name} is dense")
+            for t, add in ((p["alphas"], "alpha"), (p["idx"], "ids")):
+                st = t.untyped_storage()
+                if st.data_ptr() in seen:
+                    continue
+                seen.add(st.data_ptr())
+                if add == "alpha":
+                    alpha += st.nbytes()
+                else:
+                    ids += st.nbytes()
+            dense += cfg.n_experts * d_in * d_out * 2
+    share = alpha / dense
+    print(f"[moe resident] {cfg.name} expert banks ({cfg.n_layers} layers x "
+          f"3 x {cfg.n_experts} experts): alphas {alpha / 2**20:.1f} MiB "
+          f"(+ ids {ids / 2**10:.1f} KiB) on the card vs {dense / 2**20:.1f}"
+          f" MiB as dense bf16 banks: {share:.4f} (limit {MOE_ALPHA_SHARE})"
+          f" ({card})", flush=True)
+    if not share <= MOE_ALPHA_SHARE:
+        raise RuntimeError(f"moe: expert alphas hold {share:.4f} of the "
+                           f"dense bf16 banks' bytes, above "
+                           f"{MOE_ALPHA_SHARE}")
+    return dict(alpha_bytes=alpha, ids_bytes=ids, dense_bf16_bytes=dense,
+                share=share)
+
+
+def check_moe_plan(tag: str, xplan) -> dict:
+    """The engine's plan on the card: the reference's entries, ``fused``
+    each (the expert weight types share the entry ``e``: the reference's
+    mapper cuts ``expert_gatex64`` to ``e`` with ``split("x")``); returns
+    each OVSF weight type's resolved path."""
+    plan = {n: p.path for n, p in xplan.entries}
+    names = ("attn_q", "attn_k", "attn_v", "attn_o", "expert_gate",
+             "expert_up", "expert_down")
+    resolved = {n: getattr(xplan.plan_for(n), "path", None) for n in names}
+    print(f"{tag} mapper plan (hw {xplan.hw_label}, decode at 4 slots): "
+          + ", ".join(f"{n}={p}" for n, p in plan.items())
+          + f"; per weight type {resolved}", flush=True)
+    if tuple(plan) != MOE_PLAN or set(plan.values()) != {"fused"} or \
+            set(resolved.values()) != {"fused"}:
+        raise RuntimeError(f"{tag} plan {plan} (per weight type {resolved}):"
+                           f" expected {MOE_PLAN} all fused")
+    return resolved
+
+
+def graphs_mib_by_key(eng, dev) -> dict:
+    """MiB each of the engine's graphs holds (its own pool): reserved
+    memory before and after dropping it. Drops every graph (the engine is
+    discarded next)."""
+    sg = eng.core.graphs
+    out = {}
+    for key in sg.keys():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(dev)
+        del sg._entries[key]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out[" ".join(map(str, key))] = \
+            (before - torch.cuda.memory_reserved(dev)) / 2**20
+    sg.clear()
+    return out
+
+
+def expert_step_ms(eng, params, T: int, dev) -> float:
+    """Device ms of a step's MoE blocks at ``T`` tokens (the replayed
+    chunk-free step's bucket): layer 0's ``moe_apply`` (router, dispatch,
+    the three banks regenerated and multiplied, combine) under the engine's
+    plan, timed from graph replay, times the layers."""
+    from repro_torch.models import moe
+    cfg = eng.cfg
+    blk = params["blocks"][0]["moe"]
+    h = torch.randn((1, T, cfg.d_model), device=dev).to(cfg.act_dtype)
+    with torch.no_grad():
+        ms, _ = timings([lambda: moe.moe_apply(blk, cfg, h)], 3)
+    torch.cuda.empty_cache()
+    return ms * cfg.n_layers
+
+
+def moe_serve(params, cfg, seed: int, card: str, dev) -> dict:
+    """Phase 10 (2): the 8 requests of phase 4 (6 greedy, 2 sampled)
+    through ``LLMEngine(paged=True, packed=True, chunk_size=64)`` at 4
+    slots and buffer 256, eager and replayed (``serve_run``). Gates: every
+    request finishes; the plan (``check_moe_plan``); every step launches
+    4 x layers ``ovsf_gemm`` (all on the tensor-core kernel) and one
+    ``paged_flash_decode`` a layer, nothing else of ours; streams, every
+    chunk-free step's logits, launch counters, profiled kernels by name
+    and per step equal between the two runs, at most 3 packed graphs, the
+    profiler's launches of our kernels equal to the wrappers' counters
+    (``graph_vs_eager``, its wall comparison printed only). Printed: wall,
+    replay span, device busy and idle share, the MoE blocks' device ms a
+    step and each graph's MiB."""
+    tag = f"[{MOE_ARCH} paged packed]"
+    specs = serve_specs(cfg, seed)
+    n_ovsf = ovsf_per_layer(params)
+    if n_ovsf != 4:
+        raise RuntimeError(f"{tag} {n_ovsf} OVSF linears a block, expected "
+                           "4 (q, k, v, o)")
+    none = {k: 0 for k in wrapper_counts()}
+    want = dict(none, ovsf_gemm=n_ovsf * cfg.n_layers,
+                paged_flash_decode=cfg.n_layers)
+    runs, engines, walls = {}, {}, {}
+    for mode in ("eager", "graph"):
+        eng, run = serve_run(params, cfg, dev, "paged packed",
+                             serve_requests(specs), f"{tag} {mode}",
+                             mode == "graph", False)
+        for _calls, active, delta in run["per_step"]:
+            if delta != (want if active else none):
+                raise RuntimeError(f"{tag} {mode}: a step launched {delta}, "
+                                   f"expected {want}")
+        if run["by_kernel"]["tensor_core"] != run["launches"]["ovsf_gemm"]:
+            raise RuntimeError(f"{tag} {mode}: ovsf_gemm by kernel "
+                               f"{run['by_kernel']}, not all tensor-core")
+        runs[mode], engines[mode] = run, eng
+        walls[mode] = decode_ready(eng, cfg, np.random.default_rng(seed + 1))
+    resolved = check_moe_plan(tag, engines["graph"].cfg.exec_plan)
+    windows = agreed_windows({m: e.step for m, e in engines.items()},
+                             DECODE_STEPS, tag)
+    profiles = {m: decode_profile(e, f"{tag} {m}", walls[m], windows[m])
+                for m, e in engines.items()}
+    for m, e in engines.items():
+        check_fault_free(e, f"{tag} {m}", runs[m].pop("core"))
+    graph_eng = engines["graph"]
+    key = tuple(profiles["graph"]["step_shapes"][0])
+    profiles["graph"]["replay_ms"] = replay_span(graph_eng, key)
+    compare = graph_vs_eager(tag, runs["eager"], runs["graph"], profiles,
+                             wall_gate=False)
+    moe_ms = expert_step_ms(graph_eng, params, key[1], dev)
+    mib = graphs_mib_by_key(graph_eng, dev)
+    del engines, graph_eng, eng
+    torch.cuda.empty_cache()
+    graph, eager = runs["graph"], runs["eager"]
+    stats, span = graph["stats"], profiles["graph"]["replay_ms"]
+    print(f"{tag} 8/8 finished: steps={stats.steps} chunk_free_steps="
+          f"{graph['chunk_free']} tokens={stats.tokens_out} wall="
+          f"{graph['wall']:.3f}s (eager {eager['wall']:.3f}s) launches="
+          f"{graph['launches']} ({n_ovsf * cfg.n_layers} ovsf_gemm and "
+          f"{cfg.n_layers} paged_flash_decode a step); the chunk-free step "
+          f"{key} replays in {span:.3f} ms on the device, its MoE blocks "
+          f"{moe_ms:.3f} ms of it ({moe_ms / span:.3f}; layer 0's block "
+          f"timed alone x {cfg.n_layers}); graphs' MiB "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mib.items())
+          + f" ({card})", flush=True)
+    return dict(steps=stats.steps, chunk_free_steps=graph["chunk_free"],
+                tokens_out=stats.tokens_out, wall_s=graph["wall"],
+                eager_wall_s=eager["wall"], launches=graph["launches"],
+                ovsf_gemm_by_kernel=graph["by_kernel"],
+                per_weight_type=resolved, graph_vs_eager=compare,
+                decode_profile=profiles["graph"],
+                eager_decode_profile=profiles["eager"], replay_ms=span,
+                moe_blocks_ms=moe_ms, graphs_mib=mib,
+                tokens=graph["tokens"])
+
+
+def moe_legacy(params, cfg, seed: int, card: str, dev) -> dict:
+    """Phase 10 (3): the same model and requests through the legacy path,
+    bucketed, eager and replayed (``legacy_pair``: streams, every step's
+    logits and launch counters equal; 4 x layers ``ovsf_gemm`` a prefill
+    call and a decode, one ``flash_decode_attn`` a layer a decode and none
+    in a prefill), each graph's replay ms and MiB printed."""
+    tag = f"[{MOE_ARCH} legacy bucketed]"
+    specs = serve_specs(cfg, seed)
+    runs, engines, prefill = legacy_pair(params, cfg, dev, specs,
+                                         "bucketed", tag)
+    graph, eager = runs["graph"], runs["eager"]
+    for m, e in engines.items():
+        check_fault_free(e, f"{tag} {m}", runs[m]["core"])
+    replay = {" ".join(map(str, k)): replay_span(engines["graph"], tuple(k))
+              for k in graph["graphs"]}
+    mib = graphs_mib_by_key(engines["graph"], dev)
+    del engines
+    torch.cuda.empty_cache()
+    print(f"{tag} 8/8 finished; streams, logits ({len(graph['steps'])} "
+          f"steps) and launches {graph['launches']} equal eager vs "
+          f"replayed; prefill keys {prefill}; wall {graph['wall']:.3f}s "
+          f"(eager {eager['wall']:.3f}s); device ms a replay: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in replay.items())
+          + "; graphs' MiB " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in mib.items())
+          + f" ({card})", flush=True)
+    return dict(tokens=graph["tokens"], launches=graph["launches"],
+                steps=len(graph["steps"]),
+                prefill_keys=[list(k) for k in prefill],
+                wall_s=graph["wall"], eager_wall_s=eager["wall"],
+                replay_ms=replay, graphs_mib=mib)
+
+
+def routing_recorder():
+    """(records, a ``moe.route`` that records each call's chosen experts,
+    kept mask and probabilities on the host): installed by the caller."""
+    from repro_torch.models import moe
+    route, records = moe.route, []
+
+    def recording(p, cfg, xg):
+        r = route(p, cfg, xg)
+        records.append({k: r[k].detach().cpu()
+                        for k in ("gate_idx", "keep", "probs")})
+        return r
+    return records, recording
+
+
+def compare_routing(card: list, cpu: list, slot_of: list, k: int) -> tuple:
+    """Card vs CPU routing over a sequence of packed steps (``card``,
+    ``cpu``: one record a MoE block in call order, steps after steps;
+    ``slot_of``: each step's (T,) slot ids, the sentinel padding its own
+    group). A token's routing matches when its top-k set and the kept
+    experts among it are equal. A slot whose token differed is perturbed
+    from then on (its later layers and steps read what the difference
+    changed); a set difference of an unperturbed slot is a flip, with the
+    k-th minus (k+1)-th probability on each side. Returns (flips, each
+    step's matched slots, differences in all)."""
+    per_step = len(card) // len(slot_of)
+    perturbed, flips, matched, diffs = set(), [], [], 0
+    for s, slots in enumerate(slot_of):
+        for layer in range(per_step):
+            a, b = card[s * per_step + layer], cpu[s * per_step + layer]
+            hit = set()
+            for t, slot in enumerate(slots):
+                ia, ib = a["gate_idx"][0, t], b["gate_idx"][0, t]
+                ka, kb = a["keep"][0, t], b["keep"][0, t]
+                same_set = set(ia.tolist()) == set(ib.tolist())
+                if same_set and sorted(zip(ia.tolist(), ka.tolist())) == \
+                        sorted(zip(ib.tolist(), kb.tolist())):
+                    continue
+                diffs += 1
+                hit.add(slot)
+                if not same_set and slot not in perturbed:
+                    gap = []
+                    for p in (a["probs"], b["probs"]):
+                        v = p[0, t].sort(descending=True).values
+                        gap.append(float(v[k - 1] - v[k]))
+                    flips.append(dict(step=s, layer=layer, token=t,
+                                      slot=slot, gap_card=gap[0],
+                                      gap_cpu=gap[1]))
+            perturbed |= hit
+        matched.append(sorted(set(slots) - perturbed))
+    return flips, matched, diffs
+
+
+def moe_parity(seed: int, dev) -> dict:
+    """Phase 10 (4): OLMoE-1B-7B at full width but ``MOE_PARITY_LAYERS``
+    layers in fp32 (TF32 off), planned as the engine plans it on the card:
+    a paged packed step (chunks of 40 and 20 tokens, one one-token chunk,
+    three padding tokens) and a decode step over its cache, on the card and
+    on the CPU with the same parameters. The routing is compared first
+    (``compare_routing``): the run fails on a flip whose probability gap
+    exceeds ``MOE_FLIP_GAP`` on either side, or if a step matched no slot;
+    every matched slot's logits row within 1e-3 relative L2 of the CPU's.
+    Slots that differ are counted and printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    cfg = get_config(MOE_ARCH).replace(dtype="float32",
+                                       n_layers=MOE_PARITY_LAYERS)
+    cfg = plan_cfg(cfg, 4, dev)
+    if {p.path for _n, p in cfg.exec_plan.entries} != {"fused"}:
+        raise RuntimeError(f"moe parity: plan {cfg.exec_plan} is not fused")
+    params = R.model_init(cfg, seed + 3, dev)
+    n_slots, ps, npg = 4, 16, 16
+    P = n_slots * npg
+    table = np.full((n_slots + 1, npg), P, np.int32)
+    table[0, :3] = [7, 2, 40]
+    table[1, :2] = [11, 5]
+    table[2, :1] = [63]
+    rng = np.random.default_rng(seed + 3)
+    T, n = 64, 61
+    tokens = np.zeros(T, np.int32)
+    tokens[:n] = rng.integers(0, cfg.vocab, n)
+    slot_ids = np.full(T, n_slots, np.int32)
+    slot_ids[:n] = [0] * 40 + [1] * 20 + [2]
+    positions = np.zeros(T, np.int32)
+    positions[:n] = list(range(40)) + list(range(20)) + [0]
+    steps = [(tokens, slot_ids, positions, np.array([40, 20, 1, 0], np.int32),
+              np.array([39, 59, 60, 0], np.int32)),
+             (np.array(list(rng.integers(0, cfg.vocab, 3)) + [0], np.int32),
+              np.array([0, 1, 2, n_slots], np.int32),
+              np.array([40, 20, 1, 0], np.int32),
+              np.array([41, 21, 2, 0], np.int32),
+              np.array([0, 1, 2, 0], np.int32))]
+    active = [0, 1, 2]                  # slot 3 takes no token
+
+    def run(p, device):
+        records, recording = routing_recorder()
+        route, moe.route = moe.route, recording
+        try:
+            cache = R.init_paged_cache(cfg, ps, P, device)
+            cache["pos"] = torch.zeros(n_slots, dtype=torch.int32,
+                                       device=device)
+            out = []
+            with torch.no_grad():
+                for step in steps:
+                    logits, cache = R.serve_step_paged(
+                        p, cfg, cache, torch.from_numpy(table).to(device),
+                        *(torch.from_numpy(a).to(device) for a in step))
+                    out.append(logits.float().cpu())
+        finally:
+            moe.route = route
+        return out, records
+
+    t0 = time.perf_counter()
+    gpu, g_rec = run(params, dev)
+    t_gpu = time.perf_counter() - t0
+    cpu_params = R.params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu, c_rec = run(cpu_params, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    if len(g_rec) != len(steps) * cfg.n_layers or len(c_rec) != len(g_rec):
+        raise RuntimeError(f"moe parity: {len(g_rec)} card and {len(c_rec)}"
+                           f" CPU MoE blocks recorded, expected "
+                           f"{len(steps) * cfg.n_layers}")
+    flips, matched, diffs = compare_routing(
+        g_rec, c_rec, [s[1].tolist() for s in steps], cfg.top_k)
+    rel = []
+    for g, c, ok in zip(gpu, cpu, matched):
+        if g.shape != (n_slots, cfg.vocab) or not torch.isfinite(g).all():
+            raise RuntimeError(f"moe parity: logits {tuple(g.shape)} not "
+                               "finite")
+        rel.append({r: float((g[r] - c[r]).norm() / c[r].norm())
+                    for r in active if r in ok})
+    unmatched = [sorted(set(active) - set(ok)) for ok in matched]
+    print(f"[moe parity] {MOE_ARCH} full width, {cfg.n_layers} layers, fp32,"
+          f" a packed step and a decode step: routing card vs CPU differs "
+          f"in {diffs} (token, block) pairs, flips {flips} (gap limit "
+          f"{MOE_FLIP_GAP}); slots matched in every block "
+          f"{[[r for r in active if r in ok] for ok in matched]}, unmatched "
+          f"{unmatched}; their logits rel L2 err "
+          + "; ".join(", ".join(f"slot {r} {e:.3e}" for r, e in st.items())
+                      for st in rel)
+          + f" (limit 1e-3); card steps {t_gpu:.3f}s, CPU steps "
+          f"{t_cpu:.3f}s", flush=True)
+    big = [f for f in flips if max(f["gap_card"], f["gap_cpu"])
+           > MOE_FLIP_GAP]
+    if big:
+        raise RuntimeError(f"moe parity: routing flips with a probability "
+                           f"gap above {MOE_FLIP_GAP}: {big}")
+    if not all(st for st in rel):
+        raise RuntimeError(f"moe parity: a step matched no slot's routing "
+                           f"({matched})")
+    worst = max(e for st in rel for e in st.values())
+    if not worst <= 1e-3:
+        raise RuntimeError(f"moe parity: relative error {rel} > 1e-3")
+    return dict(rel_err=[{str(r): e for r, e in st.items()} for st in rel],
+                flips=flips, routing_diffs=diffs, unmatched=unmatched,
+                gpu_steps_s=t_gpu, cpu_steps_s=t_cpu, layers=cfg.n_layers)
+
+
+def moe_phase(seed: int, card: str, dev) -> dict:
+    """Phase 10 (module docstring): the MoE family, OLMoE-1B-7B at full
+    width on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 26)
+    res = dict(kernels=run_moe_kernel_checks(rng, dev))
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = R.model_init(cfg, seed, dev)
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.name} bf16: {R.param_count(params) / 1e9:.3f}B stored"
+          f" values initialised on the card in {time.perf_counter() - t0:.2f}"
+          f"s, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated",
+          flush=True)
+    res["resident"] = moe_resident(params, cfg, card)
+    res["paged packed"] = moe_serve(params, cfg, seed, card, dev)
+    res["legacy"] = moe_legacy(params, cfg, seed, card, dev)
+    del params
+    torch.cuda.empty_cache()
+    res["parity"] = moe_parity(seed, dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"[moe] phase passed in {res['wall_s']:.1f}s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -4440,6 +4968,8 @@ def main(argv=None) -> int:
     gateway = gateway_phase(args.seed, card, dev, out_dir,
                             styles["contiguous packed"]["decode_profile"])
     qk = gateway["qwen_kernels"]
+    moe_res = moe_phase(args.seed, card, dev)
+    mk = moe_res["kernels"]
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -4484,7 +5014,15 @@ def main(argv=None) -> int:
             ("flash_decode_attn_qwen",
              "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:64", qk["flash_summary"],
-             gateway["bf16"]["qw"]["launches"]["flash_decode_attn"])):
+             gateway["bf16"]["qw"]["launches"]["flash_decode_attn"]),
+            ("paged_flash_decode_olmoe",
+             "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:160", mk["paged_summary"],
+             moe_res["paged packed"]["launches"]["paged_flash_decode"]),
+            ("flash_decode_attn_olmoe",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64", mk["flash_summary"],
+             moe_res["legacy"]["launches"]["flash_decode_attn"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -4552,14 +5090,24 @@ def main(argv=None) -> int:
                        "flash_decode_attn_qwen": "window decode B=4 H=40 "
                                                  "Hkv=8 hd=128 T=128 bf16; "
                                                  "launches: the qw engine of "
-                                                 "the phase 9 gateway run"},
+                                                 "the phase 9 gateway run",
+                       "paged_flash_decode_olmoe": "T=4 decode H=16 Hkv=16 "
+                                                   "hd=128 bf16; launches: "
+                                                   "the phase 10 paged "
+                                                   "packed run (replayed)",
+                       "flash_decode_attn_olmoe": "window decode B=4 H=16 "
+                                                  "Hkv=16 hd=128 T=128 bf16;"
+                                                  " launches: the phase 10 "
+                                                  "legacy run (replayed)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
                    "parity": parity, "parity_contiguous": parity_contiguous,
                    "cnn": cnns, "calibration": calib, "chaos": chaos,
-                   "gateway": gateway}, f,
+                   "gateway": gateway, "moe": moe_res}, f,
                   indent=1)
+    print(f"[chip_smoke] every phase passed; the whole run took "
+          f"{time.perf_counter() - t_run:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

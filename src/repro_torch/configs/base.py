@@ -1,11 +1,13 @@
 """Config dataclasses and the arch registry (port of ``repro.configs.base``).
 
-Only the dense-family fields the ported serving path reads are carried,
-plus ``ShapeConfig`` and the reference's four ``SHAPES`` (the workload
-shapes the mapper, the autotuner and the DSE model) and
-``ModelConfig.exec_plan`` (the mapper's per-layer plan). ``input_specs``
-(a JAX-lowering helper) and the MoE / SSM / encoder-decoder / VLM fields
-wait for the slices that port those families.
+Only the fields the ported serving path reads are carried: the dense
+family's and the MoE family's (``n_experts``, ``top_k``,
+``n_shared_experts``, ``capacity_factor``, ``router_aux_weight``), plus
+``ShapeConfig`` and the reference's four ``SHAPES`` (the workload shapes
+the mapper, the autotuner and the DSE model) and ``ModelConfig.exec_plan``
+(the mapper's per-layer plan). ``input_specs`` (a JAX-lowering helper) and
+the SSM / encoder-decoder / VLM fields wait for the slices that port those
+families.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ class OVSFConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # only "dense" is ported so far
+    family: str                 # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,6 +65,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
     dtype: str = "bfloat16"
     kv_cache_dtype: str = ""    # "" -> dtype; "int8": static-scale int8 K/V
     ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
@@ -124,7 +132,7 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Reduced same-family config: small widths/layers/vocab."""
+    """Reduced same-family config: small widths/layers/experts/vocab."""
     kw: dict[str, Any] = dict(
         name=cfg.name + "_smoke",
         n_layers=min(cfg.n_layers, 2),
@@ -136,6 +144,8 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab=512,
         dtype="float32",
     )
+    if cfg.n_experts:
+        kw.update(n_experts=8, top_k=2, d_ff=64)
     if cfg.ovsf.enable:
         kw["ovsf"] = dataclasses.replace(cfg.ovsf, min_dim=32)
     kw.update(overrides)

@@ -48,20 +48,26 @@ def hadamard_matrix(L: int, dtype=torch.float32, device=None) -> torch.Tensor:
 
 def fwht(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Unnormalised fast Walsh-Hadamard transform along ``dim``
-    (== x @ H_L); the inverse is fwht(y) / L."""
-    x = x.movedim(dim, -1)
-    L = x.shape[-1]
+    (== x @ H_L); the inverse is fwht(y) / L. Each butterfly stage views
+    the axis as (L / 2h, 2, h) in place, whatever axes follow it, and
+    writes a + b and a - b straight into the halves of its output (the
+    reference's adds in its order, without moving ``dim`` last)."""
+    dim = dim % x.dim()
+    L = x.shape[dim]
     if L & (L - 1):
         raise ValueError(f"FWHT length must be a power of two, got {L}")
-    shape = x.shape[:-1]
+    pre, post = x.shape[:dim], x.shape[dim + 1:]
     y = x
     h = 1
     while h < L:
-        y = y.reshape(shape + (L // (2 * h), 2, h))
-        a, b = y[..., 0, :], y[..., 1, :]
-        y = torch.stack([a + b, a - b], dim=-2)
+        y = y.reshape(pre + (L // (2 * h), 2, h) + post)
+        out = torch.empty_like(y)
+        a, b = y.select(dim + 1, 0), y.select(dim + 1, 1)
+        torch.add(a, b, out=out.select(dim + 1, 0))
+        torch.sub(a, b, out=out.select(dim + 1, 1))
+        y = out
         h *= 2
-    return y.reshape(shape + (L,)).movedim(-1, dim)
+    return y.reshape(x.shape)
 
 
 def reconstruct(kept: torch.Tensor, idx: torch.Tensor, d: int,

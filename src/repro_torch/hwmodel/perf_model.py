@@ -13,8 +13,8 @@ is the reference's, unchanged: the same (shape, rho, target) gives the same
 plan in both packages. Registered targets: the reference's four (v5e, v5p,
 v6e, cpu) and ``h100``, the card the port runs on (data-sheet peaks, not
 calibrated against the port's kernels; ``runtime.calibrate`` corrects
-them from measured times). ``model_layers`` covers the dense family only,
-the one family the port serves; ``model_timing``, ``serve_step_timing``
+them from measured times). ``model_layers`` covers the dense and MoE
+families, the ones the port serves; ``model_timing``, ``serve_step_timing``
 and ``throughput`` sum its layers' IIs for the autotuner, the DSE and the
 serving model.
 """
@@ -242,14 +242,18 @@ def layer_timing(layer: GemmLayer, hw: HW = V5E) -> LayerTiming:
 
 def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
                  m_valid: int = 0, kv_len: int = 0) -> list[GemmLayer]:
-    """Expand a dense-family ModelConfig x ShapeConfig into per-device GEMM
-    workloads. Decode: M = batch/dp tokens; train/prefill: M =
-    batch*seq/dp. TP divides d_out (column-parallel) or d_in (row-parallel).
-    ``m_valid`` marks the valid token rows (0 = all); ``kv_len`` attaches
-    the per-step KV-read bytes to each attention block's output GEMM."""
-    if cfg.family != "dense":
+    """Expand a dense- or MoE-family ModelConfig x ShapeConfig into
+    per-device GEMM workloads. Decode: M = batch/dp tokens; train/prefill:
+    M = batch*seq/dp. TP divides d_out (column-parallel) or d_in
+    (row-parallel). ``m_valid`` marks the valid token rows (0 = all);
+    ``kv_len`` attaches the per-step KV-read bytes to each attention
+    block's output GEMM. A MoE block's routed experts are one workload per
+    matrix at M = M * top_k / (E / tp) rows, the gate and up names carrying
+    the per-device expert count as ``x{E}`` (the mapper strips it)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"model_layers covers the dense family only, got {cfg.family!r}")
+            f"model_layers covers the dense and MoE families only, got "
+            f"{cfg.family!r}")
     dp = max(n_devices // tp, 1)
     if shape.kind == "decode":
         M = max(shape.global_batch // dp, 1)
@@ -283,7 +287,16 @@ def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
                     mk(f"L{i}/attn_o", cfg.n_heads * hd // tp, d, "attn"),
                     kv_bytes=kv_by),
             ]
-        if cfg.d_ff:
+        if cfg.n_experts:
+            e_dev = cfg.n_experts // tp
+            m_e = M * cfg.top_k // max(e_dev, 1) or 1
+            for nm in ("gate", "up"):
+                l = mk(f"L{i}/expert_{nm}", d, cfg.d_ff, "expert")
+                layers.append(dataclasses.replace(
+                    l, M=m_e, name=l.name + f"x{e_dev}"))
+            layers.append(dataclasses.replace(
+                mk(f"L{i}/expert_down", cfg.d_ff, d, "expert"), M=m_e))
+        elif cfg.d_ff:
             f = cfg.d_ff // tp
             if cfg.mlp_gated:
                 layers.append(mk(f"L{i}/mlp_gate", d, f, "mlp"))

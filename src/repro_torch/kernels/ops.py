@@ -46,6 +46,13 @@ while a CUDA graph is being captured, as the reference's is under a jit
 trace: no graph holds a cached W, and a replayed step launches what it
 launched at capture.
 
+An MoE expert bank, (E, J, d_out) alphas sharing one ``idx``
+(``models.moe``), generates its dense (E, d_in, d_out) W through
+``decompress_bank``, plain tensor code for segmented codes on any device:
+the reference regenerates a bank with its plain jnp under every plan
+(``fused`` included; it has no expert kernel). Quantised banks are
+refused, as the reference refuses them.
+
 ``ovsf_matmul_multi`` runs M stacked alpha variants over one activation
 stream: one ``spectral_matmul`` per variant, then a per-token
 ``torch.where`` on the variant ids, so each token's row is bit for bit its
@@ -70,16 +77,18 @@ EXEC_PATHS = ("materialize", "fused", "spectral")
 def _segmented_decompress(alphas: torch.Tensor, idx: torch.Tensor,
                           d_in: int) -> torch.Tensor:
     """Scatter kept coefficients into each segment's spectrum, then a
-    per-segment WHT: (J, d_out) -> dense (d_in, d_out)."""
+    per-segment WHT: (..., J, d_out) -> dense (..., d_in, d_out), any
+    leading axes (an expert bank's E) sharing ``idx``."""
     ns, nk = idx.shape
     L0 = d_in // ns
-    d_out = alphas.shape[-1]
-    full = torch.zeros((ns, L0, d_out), dtype=alphas.dtype,
+    lead, d_out = alphas.shape[:-2], alphas.shape[-1]
+    full = torch.zeros(lead + (ns, L0, d_out), dtype=alphas.dtype,
                        device=alphas.device)
-    full.scatter_(1, idx.long()[:, :, None].expand(ns, nk, d_out),
-                  alphas.reshape(ns, nk, d_out))
-    w = ovsf.fwht(full.transpose(1, 2), dim=-1)          # (ns, d_out, L0)
-    return w.transpose(1, 2).reshape(d_in, d_out)
+    full.scatter_(-2, idx.long()[:, :, None].expand(lead + (ns, nk, d_out)),
+                  alphas.reshape(lead + (ns, nk, d_out)))
+    # each segment's WHT along L0 in place: every stage's halves are whole
+    # (h, d_out) blocks, so the butterflies run on contiguous rows
+    return ovsf.fwht(full, dim=-2).reshape(lead + (d_in, d_out))
 
 
 def _plain_only(t: torch.Tensor, what: str) -> None:
@@ -104,6 +113,23 @@ def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
         if idx.dim() == 2:
             return _segmented_decompress(alphas, idx, d_in)
     return ovsf_decompress(alphas, idx, d_in)
+
+
+def decompress_bank(alphas: torch.Tensor, idx: torch.Tensor,
+                    d_in: int) -> torch.Tensor:
+    """Dense (E, d_in, d_out) W of an MoE expert bank: (E, J, d_out) float
+    alphas sharing ``idx``, as the reference vmaps ``decompress`` over the
+    experts. Segmented codes run the per-segment WHT as plain tensor code
+    on any device (the reference's is plain jnp; the expert path is the
+    one caller that runs it off the CPU); monolithic codes decompress the
+    experts side by side as the columns of one (J, E * d_out) matrix
+    through ``ovsf_decompress`` (each column's transform is its own)."""
+    E, J, d_out = alphas.shape
+    if idx.dim() == 2:
+        return _segmented_decompress(alphas, idx, d_in)
+    cols = alphas.permute(1, 0, 2).reshape(J, E * d_out)
+    W = ovsf_decompress(cols, idx, d_in)                  # (d_in, E*d_out)
+    return W.reshape(d_in, E, d_out).permute(1, 0, 2)
 
 
 def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -223,12 +249,21 @@ def cached_generate(cache_key: str, alphas: torch.Tensor, idx: torch.Tensor,
 def cached_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                       cache_key: str, alpha_scale=None,
                       alpha_dtype: str = "") -> torch.Tensor:
-    """``decompress`` generated once per parameter version. The key must
-    already carry the alpha dtype (``ovsf_matmul`` appends it), so a dtype
-    switch never serves a stale W. (The reference also generates an (E, J,
-    d_out) MoE expert bank here; that waits for the MoE family.)"""
-    return cached_generate(cache_key, alphas, idx, lambda: decompress(
-        alphas, idx, d_in, alpha_scale=alpha_scale, alpha_dtype=alpha_dtype))
+    """``decompress`` generated once per parameter version; an (E, J,
+    d_out) MoE expert bank (shared ``idx``) through ``decompress_bank``.
+    The key must already carry the alpha dtype (``ovsf_matmul`` appends
+    it), so a dtype switch never serves a stale W. Quantised banks are
+    refused, as the reference refuses them."""
+    def gen():
+        if alphas.dim() == 3:
+            if alpha_dtype:
+                raise NotImplementedError(
+                    "quantised (E, J, d_out) expert alpha banks are not "
+                    "supported yet (per-expert scales)")
+            return decompress_bank(alphas, idx, d_in)
+        return decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
+                          alpha_dtype=alpha_dtype)
+    return cached_generate(cache_key, alphas, idx, gen)
 
 
 def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,

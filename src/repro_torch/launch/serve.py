@@ -9,7 +9,11 @@
       [--journal DIR [--supervise]] [--dtype float32]
 
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
-present). Parameters are initialised natively from ``--seed``;
+present). ``--arch`` (or ``--model``) names a config of
+``repro_torch.configs``, dense
+(``tinyllama_1_1b``, ``qwen2_5_14b``, ``qwen1_5_32b``) or MoE
+(``olmoe_1b_7b``; ``kimi_k2_1t_a32b``, about 1T parameters, with
+``--smoke`` only). Parameters are initialised natively from ``--seed``;
 ``--alpha-dtype`` stores the OVSF alphas as int8 or nibble-packed int4 with
 per-segment fp32 scales. The engine's mapper plans each OVSF weight type,
 as the reference engine does, against the device's target (``h100`` on the
@@ -69,7 +73,7 @@ from repro_torch.serving import (LLMEngine, Request, RequestJournal,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", "--model", dest="arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)

@@ -8,7 +8,10 @@ along a leading layer axis; the port keeps the same key names (``alphas`` /
 A multi-model tree (the reference's ``serving.model_registry.VariantSet``)
 carries its alpha leaves as ``(n_layers, M, ...)``, the variant axis after
 the layer axis: splitting axis 0 gives each layer its ``(M, ...)`` stacked
-bank, the layout of the port's ``stack_variants``. The CNNs'
+bank, the layout of the port's ``stack_variants``. A MoE tree splits
+the same way: ``moe.router.w`` (n_layers, d, E), each expert bank's
+``alphas`` (n_layers, E, J, d_out) and its shared ``idx`` (n_layers, ns,
+nk), a shared expert's linears as any linear's. The CNNs'
 ``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
 ``cnn_params_to_numpy``) are flat dicts of layer dicts; only their conv
 filters change layout (HWIO in the reference, OIHW in the port). Nothing

@@ -6,6 +6,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 
@@ -19,9 +20,13 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     def norm():
         return {"scale": torch.ones((d,), dtype=cfg.act_dtype, device=device)}
 
-    mlp = {"up": lin("mlp_up", d, f), "down": lin("mlp_down", f, d)}
-    if cfg.mlp_gated:
-        mlp["gate"] = lin("mlp_gate", d, f)
+    if cfg.family == "moe":
+        ffn = {"moe": M.moe_init(gen, cfg, device)}
+    else:
+        mlp = {"up": lin("mlp_up", d, f), "down": lin("mlp_down", f, d)}
+        if cfg.mlp_gated:
+            mlp["gate"] = lin("mlp_gate", d, f)
+        ffn = {"mlp": mlp}
     return {
         "norm1": norm(),
         "attn": {"q": lin("attn_q", d, H * hd, cfg.qkv_bias),
@@ -29,7 +34,7 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
                  "v": lin("attn_v", d, Hkv * hd, cfg.qkv_bias),
                  "o": lin("attn_o", H * hd, d)},
         "norm2": norm(),
-        "mlp": mlp,
+        **ffn,
     }
 
 

@@ -1,5 +1,12 @@
-"""Dense decoder trunk over the serving KV caches (port of the dense family
-of ``repro.models.transformer``).
+"""Decoder trunk over the serving KV caches (port of the dense and MoE
+families of ``repro.models.transformer``).
+
+A MoE block's MLP is ``models.moe.moe_apply`` over the block's tokens as
+the reference routes them: the packed, paged (packed and window) and
+prefill steps route the whole step's tokens together, sentinel padding
+included (so a real token's output depends on the bucket it rides in, as
+in the reference); the contiguous decode and window steps route each slot
+alone (``per_row``), as the reference's engine vmaps them over slots.
 
 The reference's ``lax.scan`` over stacked ``blocks`` becomes a Python loop
 over a list of per-layer param dicts. The caches stay stacked over layers
@@ -29,14 +36,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
-_FAMILIES = ("dense",)
+_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense family only so far, got "
+            f"the port serves the dense and MoE families only so far, got "
             f"{cfg.family!r}")
 
 
@@ -57,16 +65,20 @@ def _layer(cache: dict, li: int) -> dict:
     return {name: t[li] for name, t in cache.items() if name != "pos"}
 
 
-def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, **kw
-           ) -> torch.Tensor:
-    """Pre-norm attention + MLP block; ``attn`` is one of the attention
-    functions of ``models.attention`` over the layer's cache, called with
-    ``kw``. A ``mids`` entry of ``kw`` ((T,) variant ids of a packed
-    stream) reaches the attention's and the MLP's linears."""
+def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, *,
+           per_row: bool = False, **kw) -> torch.Tensor:
+    """Pre-norm attention + MLP (or MoE) block; ``attn`` is one of the
+    attention functions of ``models.attention`` over the layer's cache,
+    called with ``kw``. A ``mids`` entry of ``kw`` ((T,) variant ids of a
+    packed stream) reaches the attention's and the MLP's linears.
+    ``per_row`` routes a MoE block's rows alone (module docstring)."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     y, _ = attn(p["attn"], cfg, h, **kw)
     x = x + y
     h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        y, _aux = M.moe_apply(p["moe"], cfg, h, per_row=per_row)
+        return x + y
     mids = kw.get("mids")
     # mids is (T,); the MLP's activations are (1, T, d)
     return x + _mlp_apply(p["mlp"], cfg, h,
@@ -113,17 +125,19 @@ def init_cache(cfg: ModelConfig, B: int, T: int, device
 
 
 def _trunk(params: dict, cfg: ModelConfig, cache: dict,
-           tokens: torch.Tensor) -> torch.Tensor:
+           tokens: torch.Tensor, per_row: bool = False) -> torch.Tensor:
     """(B, S) tokens appended at each row's ``cache["pos"]``: features
-    (B, S, d), K/V written into the cache in place."""
+    (B, S, d), K/V written into the cache in place. ``per_row`` routes a
+    MoE block's rows alone (the reference's vmapped steps)."""
     _check_family(cfg)
     S = tokens.shape[1]
     pos0 = cache["pos"].long()
     positions = pos0[:, None] + torch.arange(S, device=tokens.device)[None]
     x = L.embed_apply(params["embed"], tokens)                  # (B, S, d)
     for li, p in enumerate(params["blocks"]):
-        x = _block(p, cfg, x, A.attn_apply, positions=positions,
-                   cache=_layer(cache, li), cache_pos=pos0)
+        x = _block(p, cfg, x, A.attn_apply, per_row=per_row,
+                   positions=positions, cache=_layer(cache, li),
+                   cache_pos=pos0)
     return x
 
 
@@ -163,8 +177,9 @@ def serve_prefill_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def serve_step(params: dict, cfg: ModelConfig, cache: dict,
                tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One decode step: tokens (B, 1) -> ((B, vocab) logits, the cache with
-    every row's ``pos`` advanced by one)."""
-    x = _trunk(params, cfg, cache, tokens)
+    every row's ``pos`` advanced by one). A MoE block routes each row
+    alone, as the reference's engine vmaps this step over its slots."""
+    x = _trunk(params, cfg, cache, tokens, per_row=True)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
     new_cache = dict(cache)
     new_cache["pos"] = cache["pos"] + 1
@@ -180,9 +195,11 @@ def serve_step_window(params: dict, cfg: ModelConfig, cache: dict,
     unembedding only those B rows, and the cache with ``pos += n_valid``.
     The padded K/V written past a row's true tokens sit beyond every query
     position until real tokens overwrite them; the engine over-allocates
-    the buffer by W so that the writes never clamp for a live slot."""
+    the buffer by W so that the writes never clamp for a live slot. A MoE
+    block routes each row alone, as the reference's engine vmaps this step
+    over its slots."""
     W = tokens.shape[1]
-    x = _trunk(params, cfg, cache, tokens)
+    x = _trunk(params, cfg, cache, tokens, per_row=True)
     col = (n_valid.long() - 1).clamp(0, W - 1)
     feats = x[torch.arange(x.shape[0], device=x.device), col]   # (B, d)
     logits = _unembed(params, cfg, feats[None])[0]

@@ -177,10 +177,13 @@ def plan_model(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
                tp: int = 1, paths: Sequence[str] = DEFAULT_PATHS,
                weight_reuse: Optional[int] = None,
                calibration=None) -> ExecutionPlan:
-    """An ExecutionPlan for a dense-family ModelConfig under a workload
-    shape: the config's GEMMs (``pm.model_layers``) collapse to one plan per
-    weight type, each from ``classify_gemm`` (``calibration`` threads a
-    measured-vs-modeled table into every one). ``weight_reuse`` defaults to
+    """An ExecutionPlan for a dense- or MoE-family ModelConfig under a
+    workload shape: the config's GEMMs (``pm.model_layers``) collapse to one
+    plan per weight type, each from ``classify_gemm`` (``calibration``
+    threads a measured-vs-modeled table into every one). The type is the
+    name cut at its first ``x``, as in the reference: that strips an
+    expert workload's ``x{E}`` suffix but also cuts ``expert_*`` to ``e``,
+    so the three expert types share one entry ``e`` (copied for parity). ``weight_reuse`` defaults to
     1 for training and 256 otherwise (frozen serving params); the plan is
     stamped with the target's name."""
     hw = pm.resolve_hw(hw)

@@ -227,7 +227,7 @@ class LLMEngine:
         if paged and chunk_size is None:
             raise ValueError("paged=True requires chunk_size (the paged "
                              "cache serves prompts via chunk tasks)")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
         table = params["embed"]["table"]
         if table.device != self.device:
@@ -244,8 +244,8 @@ class LLMEngine:
         self.B = batch_slots
         self.eos = eos_id
         self.paged = paged
-        # padded batched prefill is exact for the KV-cache families, the
-        # only ones the port serves
+        # padded batched prefill is exact for the KV-cache families, dense
+        # and MoE the ones the port serves (the reference buckets MoE too)
         self.bucketed = bucketed_prefill
         if packed and max_step_tokens is None:
             # the mixed-step bucket: chunk-bearing steps fill their shape

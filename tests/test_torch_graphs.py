@@ -191,6 +191,31 @@ def test_step_body_reads_nothing_back(style, monkeypatch):
     assert "index_copy_" in mode.ops or style == "contiguous window"
 
 
+# the card's plan for a MoE model: attention and the expert entry "e" fused
+_MOE_FUSED = ExecutionPlan((("attn", LayerPlan("fused")),
+                            ("e", LayerPlan("fused"))), hw_label="cpu")
+
+
+@pytest.mark.parametrize("style", ["paged packed", "contiguous packed"])
+def test_moe_packed_step_body_reads_nothing_back(style, monkeypatch):
+    """The MoE packed step body (router, stable top-k sort, the capacity
+    cumsum, one-hot dispatch and combine, the expert banks regenerated
+    whole) on the ``olmoe_1b_7b`` smoke config, as the engine captures it
+    on the card."""
+    _stub_kernels(monkeypatch)
+    cfg = t_smoke("olmoe_1b_7b").replace(exec_plan=_MOE_FUSED)
+    params = tR.model_init(cfg, 0, "cpu")
+    eng = TEngine(params, cfg, batch_slots=4, buffer_len=64, chunk_size=8,
+                  device="cpu", **_STYLES[style])
+    mode = _HostReads()
+    eng.core.graphs.run = _recording(eng.core.graphs, mode)
+    _drain(eng, _requests(TRequest, n=4, max_new=3, sampled=True))
+    assert len(eng.outputs()) == 4
+    assert not mode.bad, sorted(set(mode.bad))
+    assert {"cumsum", "sort", "scatter_"} <= set(mode.ops)
+    assert {k for k, _n in eng.core.step_shapes} == {"packed"}
+
+
 def _cnn_smoke(paths=None):
     cfg = t_smoke("resnet50").replace(ovsf_mode="matrix")
     params, state = cnn.cnn_init(cfg, 3, "cpu")
