@@ -85,7 +85,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              engine's plan; ``suggest_rhos`` at the decode shape on h100
              prints its raises. Every serve run above, and the same four
              styles again in fp32 (fp32 alphas; ``ovsf_gemm`` on its CUDA-core
-             kernel), runs twice on the same params and requests: eagerly
+             kernel; full width, depth cut to ``SERVE_FP32_LAYERS``, 6 of
+             22), runs twice on the same params and requests: eagerly
              (``LLMEngine(capture=False)``) and replaying the engine's CUDA
              graphs (its default, one graph per step shape). The two must
              give the same token streams (greedy and sampled), every
@@ -254,8 +255,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (4 slots, buffer 128, chunk 8, every step replayed) over a
              registry of tl-a and tl-b (full-width TinyLlama-1.1B and its
              ``make_alpha_variant``, stacked into one engine) and qw
-             (qwen2_5_14b at its published widths, ``QWEN_LAYERS`` layers),
-             bf16, 12 requests round-robin (greedy and sampled): each
+             (qwen2_5_14b at its published widths, ``QWEN_LAYERS`` = 12
+             of its 48 layers), bf16, 12 requests round-robin (greedy and sampled): each
              finishes once; the stacked engine launches 22
              ``flash_decode_attn`` a step and no ``ovsf_gemm``, qw's 7 x
              layers ``ovsf_gemm`` a step (tensor-core) and its layers'
@@ -270,18 +271,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
              spectral engines: agreement printed; in fp32 (2 replicas,
              packed; reserved KV and graph MiB printed per replica) equal.
              ``flip`` + scrub repair 4 times under traffic (fp32 pair,
-             packed): the live bytes (``memory_allocated``) after each
-             within 2 MiB of the first's (``memory_reserved`` printed),
-             the streams equal a run without flips. (3) The CI gateway lines
+             packed): after each, ``memory_reserved`` split by pool (the
+             allocator's default pool and each graph's: segments, reserved
+             and live bytes) is printed, and the live bytes
+             (``memory_allocated``) and ``memory_reserved`` must each stay
+             within 2 MiB of the first repair's; the streams equal a run
+             without flips. (3) The CI gateway lines
              (``ci.yml:80``, ``:81``, ``:99``, ``:113``, the last in
              ``--dtype bfloat16`` and ``float32``) through ``python -m
              repro_torch.launch.gateway --smoke`` in subprocesses started
              together: each exits 0, its wall printed; fp32 kill-9 streams
              byte-identical to the fault-free re-run.
-  10. moe:   the MoE family: ``olmoe_1b_7b`` at its published widths,
-             uncut (16 layers, d 2048, 16/16 heads of 128, vocab 50304, 64
-             experts top-8 of d_ff 1024, OVSF rho 0.5 on attention and
-             experts, 16-long segments), bf16, random weights from --seed.
+  10. moe:   the MoE family: ``olmoe_1b_7b`` at its published widths
+             (d 2048, 16/16 heads of 128, vocab 50304, 64 experts top-8 of
+             d_ff 1024, OVSF rho 0.5 on attention and experts, 16-long
+             segments), its depth cut to ``MOE_LAYERS`` (4 of 16), bf16,
+             random weights from --seed.
              (1) ``paged_flash_decode`` (T 4 and 128, page 16) and
              ``flash_decode_attn`` (window decode B 4, T 128) at its heads
              (H 16, Hkv 16, hd 128), bf16 and fp32, against their plain
@@ -291,16 +296,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              finishes; the plan is the reference's, ``fused`` for
              ``attn_q/k/v/o`` and ``e`` (the three expert weight types
              share that one entry, as the reference's mapper names it);
-             every step launches 64 ``ovsf_gemm`` (all tensor-core) and 16
-             ``paged_flash_decode`` and nothing else of ours; streams,
+             every step launches 4 ``ovsf_gemm`` a layer (all tensor-core)
+             and one ``paged_flash_decode`` a layer and nothing else of
+             ours; streams,
              every chunk-free step's logits, launches and profiled kernels
              equal between the runs; at most 3 packed graphs; the
              profiler's launches equal to the wrappers' counters. Printed
              only: wall, replay span, device busy, idle share, the MoE
              blocks' device ms a step, each graph's MiB. (3) The same
              through the legacy path, bucketed, eager and replayed:
-             streams and every step's logits equal, 64 ``ovsf_gemm`` a
-             prefill call and a decode, 16 ``flash_decode_attn`` a decode.
+             streams and every step's logits equal, 4 ``ovsf_gemm`` a
+             layer a prefill call and a decode, one ``flash_decode_attn``
+             a layer a decode.
              (4) Card vs CPU in fp32 at full width but 2 layers
              (``MOE_PARITY_LAYERS``), a paged packed step and a decode
              step: the routing first (a flip whose k-th/(k+1)-th
@@ -309,6 +316,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
              L2. (5) The expert alphas' bytes on the card at most 0.55x
              the dense bf16 banks'. No host clock, idle share or reserved
              memory is gated here.
+  11. ssm:   the recurrent families at their published widths, uncut:
+             ``falcon_mamba_7b`` (64 Mamba-1 layers, d 4096, d_inner 8192,
+             N 16, vocab 65024) and ``zamba2_1_2b`` (38 Mamba-2 layers, d
+             2048, N 64, heads of 64, a weight-shared attention + MLP block
+             after every 6th: 32/32 heads of 64, d_ff 8192), bf16, OVSF
+             rho 0.5 on the Mamba in/out projections and the shared block.
+             (1) ``ovsf_gemm`` (M 4, bf16) at their projections and at
+             StarCoder2-15B's six (d 6144, d_ff 24576, ungated), each on
+             the tensor-core kernel; ``flash_decode_attn`` (window decode B
+             4, T 128) at Zamba2's and StarCoder2's heads and
+             ``paged_flash_decode`` (T 4 and 128) at StarCoder2's (H 48, Hkv
+             4, hd 128), bf16 and fp32, against their plain versions with
+             device ms, bound and the library call's ms. (2) Each model
+             through ``LLMEngine(chunk_size=64, paged=True, packed=True)``,
+             as the main path's launcher asks: the engine must warn and
+             fall back to the legacy engine with exact per-request prefill
+             (no chunks, pages, packing or bucketing); phase 4's 8 requests
+             (16 new tokens each, 4 slots, buffer 256), eager and replayed:
+             every request finishes; the plan ``fused`` at every entry and
+             for ``mlp_in`` / ``mlp_out`` (and the shared block's seven);
+             every step launches 2 ``ovsf_gemm`` a Mamba block and 7 a
+             shared-block application for each prefill call and for the
+             decode (all tensor-core; Falcon 128, Zamba2 76 + 42 = 118),
+             one ``flash_decode_attn`` an application a decode (Zamba2 6)
+             and nothing else of ours; streams, every step's logits,
+             launch counters and profiled kernels equal between the runs;
+             one graph, ``("decode", 1)``; the profiler's launches equal
+             to the wrappers' counters; the ``conv`` / ``ssm`` state and
+             K/V keep their addresses through the runs and the profiled
+             replays. Printed: the replayed decode step's wall, replay
+             span, device busy and idle share, the graph's MiB, the
+             state's bytes, the alphas' bytes against dense bf16 (at most
+             0.55x). (3) Card vs CPU in fp32 at full width but 2 (Falcon) /
+             6 (Zamba2: one shared-attention application) layers: three
+             exact prefills and two all-slot decode steps, logits within
+             1e-3 relative L2, the state after them too. (4) StarCoder2-15B
+             at full width but 2 layers, bf16, replayed, paged packed and
+             legacy: every request finishes with 6 ``ovsf_gemm`` and one
+             attention kernel a layer a step (the launch counts of its
+             kernel rows).
+Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1058,6 +1106,7 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
         return out
 
     core.step = recording_step
+    ptrs = {n: t.data_ptr() for n, t in core.caches.items()}
     G.reset_launches()
     paged_flash_decode.launches = 0
     flash_decode_attn.launches = 0
@@ -1093,8 +1142,16 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
         per_step=per_step, tokens={o.rid: list(o.tokens) for o in outs},
         step_shapes=sorted(eng.core.step_shapes),
         graphs=sorted(eng.core.graphs.keys()), core=core,
-        kv_bytes=sum(eng.core.caches[n].nbytes for n in ("k_rows", "v_rows")),
+        kv_bytes=cache_bytes(core.caches),
+        moved=[n for n, t in core.caches.items() if t.data_ptr() != ptrs[n]],
         peak_mib=(torch.cuda.max_memory_reserved(dev) - base) / 2**20)
+
+
+def cache_bytes(caches: dict) -> int:
+    """Bytes of an engine's serving cache: the K/V buffers (scratch rows
+    included) and the recurrent ``conv`` / ``ssm`` states, where held."""
+    return sum(caches[n].nbytes for n in ("k_rows", "v_rows", "conv", "ssm")
+               if n in caches)
 
 
 def serve_specs(cfg, seed: int) -> list:
@@ -1118,9 +1175,17 @@ def serve_requests(specs) -> list:
             for rid, prompt, sp in specs]
 
 
+# the depth the four fp32 style runs serve TinyLlama-1.1B at (full width),
+# so that the script with phase 11 stays inside its time limit; their
+# checks hold at any depth
+SERVE_FP32_LAYERS = 6
+
+
 def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
-                style: str = "paged packed", dtype: str = "bfloat16"):
-    """Serve 8 requests at full width (model ``dtype``) with alphas in the
+                style: str = "paged packed", dtype: str = "bfloat16",
+                n_layers: int = 0):
+    """Serve 8 requests at full width (model ``dtype``; ``n_layers`` cuts
+    the depth, 0 keeps the config's) with alphas in the
     model's type (``""``), int8 or int4, in one engine style (``STYLES``);
     the engine plans its OVSF layers with the mapper (target h100). The
     same params and requests run twice: eagerly (``capture=False``) and
@@ -1141,11 +1206,13 @@ def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
               else f" {style}]"))
     cfg = get_config("tinyllama_1_1b").replace(dtype=dtype)
     cfg = cfg.replace(ovsf=dataclasses.replace(cfg.ovsf,
-                                               alpha_dtype=alpha_dtype))
+                                               alpha_dtype=alpha_dtype),
+                      n_layers=n_layers or cfg.n_layers)
     t0 = time.perf_counter()
     params = R.model_init(cfg, seed, dev)
     torch.cuda.synchronize()
-    print(f"{tag} {cfg.name} {x_name}, alphas {alpha_dtype or x_name}: "
+    print(f"{tag} {cfg.name} {x_name}, {cfg.n_layers} layers, alphas "
+          f"{alpha_dtype or x_name}: "
           f"{R.param_count(params)/1e9:.3f}B stored values initialised on "
           f"the card in {time.perf_counter() - t0:.2f}s", flush=True)
     # full width: q, o, gate, up, down are OVSF (k/v, 256 wide, are dense)
@@ -1444,10 +1511,13 @@ def legacy_phase(seed: int, card: str, dev, paged_bf16: dict,
             pg, pe = profiles["graph"], profiles["eager"]
             if pg["own"] != pe["own"] or \
                     pg["kernels_per_step"] != pe["kernels_per_step"]:
+                diff = ("not measured" if pg["by_name"] is None
+                        else count_diff(pg["by_name"], pe["by_name"]))
                 raise RuntimeError(f"{tag} profiled decode steps: graph "
                                    f"{pg['own']} {pg['kernels_per_step']}, "
                                    f"eager {pe['own']} "
-                                   f"{pe['kernels_per_step']}")
+                                   f"{pe['kernels_per_step']}; kernels "
+                                   f"whose counts differ: {diff}")
             out["decode_profile"], out["eager_decode_profile"] = pg, pe
             out["decode_replay_ms"] = replay_span(engines["graph"],
                                                   ("decode", 1))
@@ -3822,7 +3892,9 @@ QWEN_LAYER = {"q": (5120, 5120), "k": (5120, 1024), "v": (5120, 1024),
 QWEN_FLASH_CASES = (("qwen window decode", 4, 40, 8, 128, 128,
                      (1, 33, 100, 128)),
                     ("qwen packed", 64, 40, 8, 128, 128, None))
-QWEN_LAYERS = 48            # the depth phase 9 serves qwen2_5_14b at
+QWEN_LAYERS = 12            # the depth phase 9 serves qwen2_5_14b at
+                            # (48 before its run shared the time limit with
+                            # phase 11; full width either way)
 GATEWAY_MODELS = (("tinyllama_1_1b", "tl-a", 0),
                   ("tinyllama_1_1b", "tl-b", 1),
                   ("qwen2_5_14b", "qw", 0))
@@ -4151,19 +4223,50 @@ def multi_decode_profile(eng, seed: int, card: str, n_layers: int) -> dict:
     return dict(prof, routed=routed, graphs=keys, per_step=per_step)
 
 
+def reserved_by_pool(dev) -> dict:
+    """``memory_reserved`` split by memory pool, from
+    ``torch.cuda.memory_snapshot()``: the caching allocator's default pool
+    (``segment_pool_id`` (0, 0)) and each CUDA graph's private pool, each
+    with its segment count, reserved bytes (``total_size``) and live bytes
+    (``allocated_size``). Their reserved bytes sum to ``memory_reserved``."""
+    out: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != dev.index:
+            continue
+        pid = tuple(seg.get("segment_pool_id", (0, 0)))
+        name = "default" if pid == (0, 0) else f"graph {pid[0]}.{pid[1]}"
+        p = out.setdefault(name, dict(segments=0, reserved=0, allocated=0))
+        p["segments"] += 1
+        p["reserved"] += seg["total_size"]
+        p["allocated"] += seg["allocated_size"]
+    return out
+
+
+def pool_line(split: dict) -> str:
+    return "; ".join(f"{k}: {v['segments']} segments, reserved "
+                     f"{v['reserved'] / 2**20:.2f} MiB, allocated "
+                     f"{v['allocated'] / 2**20:.2f} MiB"
+                     for k, v in sorted(split.items()))
+
+
 def gateway_memory_gate(reg, seed: int, dev, card: str) -> dict:
     """H2: ``flip`` + scrub repair ``SCRUB_REPAIRS`` times on the fp32
     TinyLlama pair (``reg``) under traffic (packed steps; a flip at gateway
     steps 2, 5, 8, ...; a scrub every 3 steps): each repair drains the
-    group, closes its engine, reloads and verifies the banks bitwise and
-    builds (and captures) a new engine. After every repair (the GC run and
-    the cache emptied) the live bytes, ``memory_allocated``, must stay
-    within 2 MiB of the first repair's: an engine, a graph pool or a bank
-    that outlived its repair would add its MiB. ``memory_reserved`` is
-    printed beside it, not gated: what the allocator keeps after
-    ``empty_cache`` follows the layout each reload happens to take (0 to
-    218 MiB apart over one run's repairs on an NVIDIA H100 80GB HBM3, the
-    live bytes within 1 MiB). A flip is a copy in a new
+    group, closes its engine, drops every member's params, reloads them in
+    registration order and verifies the banks bitwise, and builds a new
+    engine (it captures at its next step). After every repair (the GC run
+    and the cache emptied) ``memory_reserved`` is split by pool
+    (``reserved_by_pool``: the allocator's default pool and each graph's
+    pool, segments, reserved and live bytes, printed), and both the live
+    bytes, ``memory_allocated``, and ``memory_reserved`` must stay within
+    2 MiB of the first repair's: an engine, a graph pool or a bank that
+    outlived its repair would add its MiB, and a reload that took another
+    layout would move the reserved bytes (ROADMAP C.1: before
+    ``ModelRegistry.repair_group`` dropped the whole group first, each
+    member reloaded beside the other's live copy, into whatever holes the
+    last layout left, and ``memory_reserved`` moved 0 to 218 MiB between
+    repairs with the live bytes flat). A flip is a copy in a new
     tree: the engine serving meanwhile keeps its clean tensors, so the
     streams equal a run with no flip (fp32: the recomputed contexts round
     as the first pass did)."""
@@ -4176,7 +4279,7 @@ def gateway_memory_gate(reg, seed: int, dev, card: str) -> dict:
     specs = [(rid, names[rid % 2], p, 48, sp) for rid, _m, p, _n, sp
              in gateway_specs(seed + 1, names, reg.entries["tl-a"].cfg.vocab,
                               n=4)]
-    reserved, allocated, repair_s = [], [], []
+    reserved, allocated, repair_s, pools = [], [], [], []
     orig = ServingGateway._scrub_tick
 
     def tick(gw):
@@ -4190,6 +4293,15 @@ def gateway_memory_gate(reg, seed: int, dev, card: str) -> dict:
             torch.cuda.empty_cache()
             reserved.append(torch.cuda.memory_reserved(dev))
             allocated.append(torch.cuda.memory_allocated(dev))
+            pools.append(reserved_by_pool(dev))
+            print(f"{tag} after repair {len(pools)}: memory_reserved "
+                  f"{reserved[-1] / 2**20:.2f} MiB, memory_allocated "
+                  f"{allocated[-1] / 2**20:.2f} MiB; by pool: "
+                  f"{pool_line(pools[-1])}", flush=True)
+            if sum(p["reserved"] for p in pools[-1].values()) != \
+                    reserved[-1]:
+                raise RuntimeError(f"{tag} the pools' reserved bytes do not "
+                                   f"sum to memory_reserved: {pools[-1]}")
     ServingGateway._scrub_tick = tick
     try:
         gw, outs, wall, _per = gateway_drive(reg, dev, specs, tag,
@@ -4219,15 +4331,17 @@ def gateway_memory_gate(reg, seed: int, dev, card: str) -> dict:
         raise RuntimeError(f"{tag} injected {s.corruptions_injected}, "
                            f"caught {s.scrub_corruptions}, repaired "
                            f"{s.scrub_repairs}; expected {SCRUB_REPAIRS}")
-    if any(abs(m) > 2.0 for m in all_mib):
+    if any(abs(m) > 2.0 for m in all_mib + res_mib):
         raise RuntimeError(f"{tag} memory across scrub repairs: allocated "
-                           f"{all_mib} MiB, reserved {res_mib} MiB")
+                           f"{all_mib} MiB, reserved {res_mib} MiB (limit "
+                           f"2 MiB each); by pool: "
+                           + " | ".join(pool_line(p) for p in pools))
     if outs != clean:
         raise RuntimeError(f"{tag} the flips reached a stream: {outs} vs "
                            f"{clean}")
     return dict(repairs=s.scrub_repairs, repair_s=repair_s,
                 allocated_mib_vs_first=all_mib,
-                reserved_mib_vs_first=res_mib, wall_s=wall)
+                reserved_mib_vs_first=res_mib, pools=pools, wall_s=wall)
 
 
 def gateway_ci_start(out_dir: str) -> dict:
@@ -4456,6 +4570,8 @@ def gateway_phase(seed: int, card: str, dev, out_dir: str,
 
 MOE_ARCH = "olmoe_1b_7b"    # 16 layers, d 2048, 16 x 128 heads (a GQA group
                             # of 1), 64 experts top-8, expert d_ff 1024
+MOE_LAYERS = 4              # the depth phase 10 serves it at (16 before
+                            # phase 11 shared the time limit; full width)
 # the window decode at OLMoE-1B-7B's heads: (label, B, H, Hkv, hd, T, pos)
 MOE_FLASH = ("olmoe window decode", 4, 16, 16, 128, 128, (1, 37, 100, 128))
 MOE_PARITY_LAYERS = 2       # the card-vs-CPU steps' depth (full width)
@@ -4852,7 +4968,7 @@ def moe_phase(seed: int, card: str, dev) -> dict:
     t_phase = time.perf_counter()
     rng = np.random.default_rng(seed + 26)
     res = dict(kernels=run_moe_kernel_checks(rng, dev))
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     params = R.model_init(cfg, seed, dev)
     torch.cuda.synchronize()
@@ -4868,6 +4984,412 @@ def moe_phase(seed: int, card: str, dev) -> dict:
     res["parity"] = moe_parity(seed, dev)
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"[moe] phase passed in {res['wall_s']:.1f}s", flush=True)
+    return res
+
+
+# -- phase 11: the recurrent families -----------------------------------------
+
+SSM_ARCHS = ("falcon_mamba_7b", "zamba2_1_2b")
+# the card-vs-CPU steps' depth (full width): Zamba2's first shared-attention
+# application follows its 6th Mamba-2 block
+SSM_PARITY_LAYERS = {"falcon_mamba_7b": 2, "zamba2_1_2b": 6}
+# the main path's launcher flags; the recurrent families fall back from them
+# to the legacy engine with exact per-request prefill
+SSM_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True)
+# (K, N) of the projections ``ovsf_gemm`` runs per layer: a Mamba block's
+# in/out projections, and the hybrid's shared attention + MLP block
+SSM_GEMMS = {"falcon_mamba_7b": {"in": (4096, 16384), "out": (8192, 4096)},
+             "zamba2_1_2b": {"in": (2048, 8384), "out": (4096, 2048)}}
+ZAMBA2_SHARED = {"q": (2048, 2048), "k": (2048, 2048), "v": (2048, 2048),
+                 "o": (2048, 2048), "gate": (2048, 8192),
+                 "up": (2048, 8192), "down": (8192, 2048)}
+# the window decode at Zamba2's heads: (label, B, H, Hkv, hd, T, pos)
+SSM_FLASH = ("zamba2 window decode", 4, 32, 32, 64, 128, (1, 37, 100, 128))
+# StarCoder2-15B: its six OVSF projections (ungated MLP; k and v 512 wide)
+# and its heads (H 48, Hkv 4, hd 128)
+STARCODER_ARCH = "starcoder2_15b"
+STARCODER_LAYER = {"q": (6144, 6144), "k": (6144, 512), "v": (6144, 512),
+                   "o": (6144, 6144), "up": (6144, 24576),
+                   "down": (24576, 6144)}
+STARCODER_FLASH = ("starcoder2 window decode", 4, 48, 4, 128, 128,
+                   (1, 37, 100, 128))
+STARCODER_LAYERS = 2        # the depth its launch counts are served at
+
+
+def gemm_summary(rows: list, shapes: dict, M: int, label: str) -> dict:
+    """``shapes``' ``ovsf_gemm`` rows at ``M`` (bf16) summed: one layer's
+    projections, the summary row of the kernels line."""
+    pick = {(r["K"], r["N"]): r for r in rows if r["M"] == M}
+    s = {key: sum(pick[kn][key] for kn in shapes.values())
+         for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+    s["bound_by"] = ("bytes" if all(pick[kn]["bound_by"] == "bytes"
+                                    for kn in shapes.values())
+                     else "operations")
+    s["max_abs_err"] = max(pick[kn]["max_abs_err"] for kn in shapes.values())
+    print(f"[ssm kernel] ovsf_gemm {label} ({', '.join(shapes)}) M={M} "
+          f"bf16: {s['ms']:.4f}ms, matmul on dense W {s['library_ms']:.4f}ms"
+          f" (x{s['ms'] / s['library_ms']:.2f}), bound {s['bound_ms']:.4f}ms "
+          f"({s['bound_by']})", flush=True)
+    return s
+
+
+def run_ssm_kernel_checks(rng, dev) -> dict:
+    """Phase 11 (1): ``ovsf_gemm`` (bf16 x and alphas, 16-long segments,
+    M 4) at Falcon-Mamba-7B's and Zamba2-1.2B's in/out projections, at the
+    shared block's and at StarCoder2-15B's six, each on the tensor-core
+    kernel; ``flash_decode_attn`` (window decode B 4, T 128) at Zamba2's
+    heads (H 32, Hkv 32, hd 64) and at StarCoder2's (H 48, Hkv 4, hd 128),
+    and ``paged_flash_decode`` (T 4 and 128) at StarCoder2's, bf16 and
+    fp32; each against its plain version with device ms, bound and the
+    library call's ms."""
+    shapes = {kn for layer in (*SSM_GEMMS.values(), ZAMBA2_SHARED,
+                               STARCODER_LAYER) for kn in layer.values()}
+    rows = [gemm_row(rng, dev, 16, 4, K, N, torch.bfloat16, "",
+                     "ovsf_gemm_ssm") for (K, N) in sorted(shapes)]
+    torch.cuda.empty_cache()
+    off = [r["case"] for r in rows if r["kernel"] != "tensor_core"]
+    if off:
+        raise RuntimeError(f"[ssm kernel] not on the tensor-core ovsf_gemm: "
+                           f"{off}")
+    gemm = {"falcon_mamba_7b": gemm_summary(
+                rows, SSM_GEMMS["falcon_mamba_7b"], 4, "falcon_mamba_7b"),
+            "zamba2_1_2b": gemm_summary(
+                rows, {**SSM_GEMMS["zamba2_1_2b"], **ZAMBA2_SHARED}, 4,
+                "zamba2_1_2b (a Mamba-2 block and the shared block)"),
+            STARCODER_ARCH: gemm_summary(rows, STARCODER_LAYER, 4,
+                                         STARCODER_ARCH)}
+    flash = {}
+    for arch, (label0, B, H, Hkv, hd, T, pos) in (
+            ("zamba2_1_2b", SSM_FLASH), (STARCODER_ARCH, STARCODER_FLASH)):
+        cases = [flash_row(rng, dev, label0, B, H, Hkv, hd, T, pos, dt)
+                 for dt in (torch.bfloat16, torch.float32)]
+        flash[arch] = dict(cases[0], max_abs_err=max(r["max_abs_err"]
+                                                     for r in cases),
+                           cases=cases)
+        torch.cuda.empty_cache()
+    paged_rows, paged_summary = run_paged_checks(rng, dev, (48, 4, 128),
+                                                 "starcoder2 ")
+    torch.cuda.empty_cache()
+    return dict(gemm_rows=rows, gemm=gemm, flash=flash,
+                paged_rows=paged_rows, paged_summary=paged_summary)
+
+
+def ssm_gemms_per_call(cfg) -> int:
+    """``ovsf_gemm`` launches of one pass of the trunk: two a Mamba block,
+    seven a shared-block application (the hybrid)."""
+    from repro_torch.models.transformer import n_attn_apps
+    apps = n_attn_apps(cfg) if cfg.family == "hybrid" else 0
+    return 2 * cfg.n_layers + len(ZAMBA2_SHARED) * apps
+
+
+def ssm_plan(tag: str, cfg) -> dict:
+    """The engine's plan on the card: ``fused`` for every entry, and every
+    OVSF weight type the model dispatches (``mlp_in`` / ``mlp_out``; the
+    hybrid's shared block's seven) resolved to a ``fused`` entry."""
+    xplan = cfg.exec_plan
+    plan = {n: p.path for n, p in xplan.entries}
+    names = ["mlp_in", "mlp_out"]
+    if cfg.family == "hybrid":
+        names += ["attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate",
+                  "mlp_up", "mlp_down"]
+    resolved = {n: getattr(xplan.plan_for(n), "path", None) for n in names}
+    print(f"{tag} mapper plan (hw {xplan.hw_label}, decode at 4 slots): "
+          + ", ".join(f"{n}={p}" for n, p in plan.items())
+          + f"; per weight type {resolved}", flush=True)
+    if set(plan.values()) != {"fused"} or \
+            set(resolved.values()) != {"fused"}:
+        raise RuntimeError(f"{tag} plan {plan} (per weight type {resolved}):"
+                           " expected every entry and weight type fused")
+    return resolved
+
+
+def ovsf_resident(params, card: str, tag: str) -> dict:
+    """Bytes of every OVSF layer's alphas on the card against the same
+    matrices stored dense in bf16 (d_in = segments x 16)."""
+    from repro_torch.models import registry as R
+    alpha = dense = 0
+
+    def walk(t):
+        nonlocal alpha, dense
+        if isinstance(t, dict):
+            if "alphas" in t and "idx" in t:
+                alpha += t["alphas"].nbytes
+                dense += t["idx"].shape[0] * 16 * t["alphas"].shape[-1] * 2
+                return
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(params)
+    total = sum(t.nbytes for t in R.leaves(params))
+    print(f"{tag} OVSF alphas {alpha / 2**20:.1f} MiB on the card vs "
+          f"{dense / 2**20:.1f} MiB as dense bf16 ({alpha / dense:.4f}); "
+          f"all params {total / 2**30:.3f} GiB ({card})", flush=True)
+    if not alpha / dense <= MOE_ALPHA_SHARE:
+        raise RuntimeError(f"{tag} alphas hold {alpha / dense:.4f} of the "
+                           f"dense bf16 bytes, above {MOE_ALPHA_SHARE}")
+    return dict(alpha_bytes=alpha, dense_bf16_bytes=dense,
+                share=alpha / dense, param_bytes=total)
+
+
+def ssm_serve(params, cfg, seed: int, card: str, dev) -> dict:
+    """Phase 11 (2): the 8 requests of phase 4 (6 greedy, 2 sampled, 16 new
+    tokens each) through ``LLMEngine(chunk_size=64, paged=True,
+    packed=True)`` at 4 slots and buffer 256, eager and replayed. Gates: the
+    engine warns and falls back to phase-based serving (no chunks, pages or
+    packing; no bucketing: every prefill exact, eager); every request
+    finishes; the plan (``ssm_plan``); every step launches
+    ``ssm_gemms_per_call`` ``ovsf_gemm`` a prefill call and a decode (all
+    tensor-core) and one ``flash_decode_attn`` a shared-block application
+    a decode, nothing else of ours; streams, every step's logits, launch
+    counters, profiled kernels by name and per step equal between the two
+    runs; one graph, ``("decode", 1)``; the profiler's launches of our
+    kernels equal the wrappers' counters; the cache (``conv``, ``ssm``,
+    K/V) keeps its addresses through the runs and the replays after.
+    Printed: the replayed decode step's wall, replay span, device busy and
+    idle share, the graph's MiB, the state's bytes."""
+    import warnings
+    from repro_torch.models.transformer import n_attn_apps
+    tag = f"[{cfg.name} legacy]"
+    specs = serve_specs(cfg, seed)
+    per_call = ssm_gemms_per_call(cfg)
+    apps = n_attn_apps(cfg) if cfg.family == "hybrid" else 0
+    runs, engines, walls, fell = {}, {}, {}, []
+    for mode in ("eager", "graph"):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            eng, run = serve_run(params, cfg, dev, "legacy",
+                                 serve_requests(specs), f"{tag} {mode}",
+                                 mode == "graph", False,
+                                 engine_kw=SSM_ENGINE_KW)
+        fell += [str(x.message) for x in w
+                 if "chunked prefill requires a KV-cache family"
+                 in str(x.message)]
+        core = eng.core
+        if (core.window, core.packed, core.paged, eng.bucketed) != \
+                (0, False, False, False) or core.pager is not None:
+            raise RuntimeError(f"{tag} {mode}: the engine did not fall back "
+                               f"to exact phase-based serving")
+        for calls, decoded, delta in run["per_step"]:
+            want = {k: 0 for k in delta}
+            want["ovsf_gemm"] = per_call * (len(calls) + decoded)
+            want["flash_decode_attn"] = apps * decoded
+            if delta != want or any(k[0] != "prefill_exact" for k in calls):
+                raise RuntimeError(f"{tag} {mode}: a step with prefill calls"
+                                   f" {calls} and {'a' if decoded else 'no'}"
+                                   f" decode launched {delta}, expected "
+                                   f"{want}")
+        if run["by_kernel"]["tensor_core"] != run["launches"]["ovsf_gemm"]:
+            raise RuntimeError(f"{tag} {mode}: ovsf_gemm by kernel "
+                               f"{run['by_kernel']}, not all tensor-core")
+        if run["moved"]:
+            raise RuntimeError(f"{tag} {mode}: cache leaves {run['moved']} "
+                               "changed address during the run")
+        runs[mode], engines[mode] = run, eng
+        walls[mode] = decode_ready(eng, cfg, np.random.default_rng(seed + 1))
+    if len(fell) != 2:
+        raise RuntimeError(f"{tag} fallback warnings {fell}, expected one "
+                           "an engine")
+    resolved = ssm_plan(tag, engines["graph"].cfg)
+    graph_core = engines["graph"].core
+    ptrs = {n: t.data_ptr() for n, t in graph_core.caches.items()}
+    windows = agreed_windows({m: e.step for m, e in engines.items()},
+                             DECODE_STEPS, tag)
+    profiles = {m: decode_profile(e, f"{tag} {m}", walls[m], windows[m])
+                for m, e in engines.items()}
+    for m, e in engines.items():
+        check_fault_free(e, f"{tag} {m}", runs[m].pop("core"))
+    key = ("decode", 1)
+    profiles["graph"]["replay_ms"] = replay_span(engines["graph"], key)
+    moved = [n for n, t in graph_core.caches.items()
+             if t.data_ptr() != ptrs[n]]
+    if moved:
+        raise RuntimeError(f"{tag} cache leaves {moved} changed address "
+                           "across the replays")
+    compare = graph_vs_eager(tag, runs["eager"], runs["graph"], profiles,
+                             wall_gate=False)
+    mib = graphs_mib_by_key(engines["graph"], dev)
+    del engines, graph_core, eng, core
+    torch.cuda.empty_cache()
+    graph, eager = runs["graph"], runs["eager"]
+    stats, pg = graph["stats"], profiles["graph"]
+    print(f"{tag} 8/8 finished through the fallback (exact prefills, "
+          f"eager; decode replayed): steps={stats.steps} tokens="
+          f"{stats.tokens_out} wall={graph['wall']:.3f}s (eager "
+          f"{eager['wall']:.3f}s) launches={graph['launches']} ({per_call} "
+          f"ovsf_gemm a prefill call and a decode, {apps} flash_decode_attn "
+          f"a decode); the decode step's wall {pg['step_ms']:.3f} ms "
+          f"replayed (eager {profiles['eager']['step_ms']:.3f}), a replay "
+          f"{pg['replay_ms']:.3f} ms on the device, idle share "
+          f"{pg['idle_share']}; cache {graph['kv_bytes'] / 2**20:.1f} MiB at "
+          f"fixed addresses; graphs' MiB "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mib.items())
+          + f" ({card})", flush=True)
+    return dict(steps=stats.steps, tokens_out=stats.tokens_out,
+                wall_s=graph["wall"], eager_wall_s=eager["wall"],
+                launches=graph["launches"], per_call=per_call,
+                ovsf_gemm_by_kernel=graph["by_kernel"],
+                per_weight_type=resolved, graph_vs_eager=compare,
+                decode_profile=pg, eager_decode_profile=profiles["eager"],
+                replay_ms=pg["replay_ms"], graphs_mib=mib,
+                cache_bytes=graph["kv_bytes"], fallback_warning=fell[0],
+                tokens=graph["tokens"])
+
+
+def ssm_parity(arch: str, seed: int, dev) -> dict:
+    """Phase 11 (3): the model at full width but ``SSM_PARITY_LAYERS``
+    layers in fp32 (TF32 off), planned as the engine plans it on the card:
+    three prompts (9, 40 and 70 tokens: the last crosses a 64-long scan
+    chunk) each prefilled alone (``serve_prefill``), adopted into a 4-slot
+    cache, then two all-slot decode steps (``serve_step``; slot 3 idle), on
+    the card and on the CPU with the same parameters; every logits row of
+    every call within 1e-3 relative L2 of the CPU's, and the recurrent
+    state after the last step within 1e-3 too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    cfg = get_config(arch).replace(dtype="float32",
+                                   n_layers=SSM_PARITY_LAYERS[arch])
+    cfg = plan_cfg(cfg, 4, dev)
+    if {p.path for _n, p in cfg.exec_plan.entries} != {"fused"}:
+        raise RuntimeError(f"ssm parity: plan {cfg.exec_plan} is not fused")
+    params = R.model_init(cfg, seed + 3, dev)
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab, (1, n)).astype(np.int64)
+               for n in (9, 40, 70)]
+    steps = [rng.integers(0, cfg.vocab, (4, 1)).astype(np.int64)
+             for _ in range(2)]
+    T = 96
+
+    def run(p, device):
+        cache = R.init_cache(cfg, 4, T, device)
+        out = []
+        with torch.no_grad():
+            for b, toks in enumerate(prompts):
+                lg, c = R.serve_prefill(p, cfg, torch.from_numpy(toks)
+                                        .to(device), T)
+                out.append(lg.float().cpu())
+                for name in ("conv", "ssm", "k", "v"):
+                    if name in c:
+                        cache[name][:, b].copy_(c[name][:, 0])
+                cache["pos"][b] = toks.shape[1]
+            for toks in steps:
+                lg, cache = R.serve_step(p, cfg, cache,
+                                         torch.from_numpy(toks).to(device))
+                out.append(lg.float().cpu())
+        return out, {n: cache[n].float().cpu() for n in ("conv", "ssm")}
+
+    t0 = time.perf_counter()
+    gpu, gstate = run(params, dev)
+    t_gpu = time.perf_counter() - t0
+    cpu_params = R.params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu, cstate = run(cpu_params, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    rel = []
+    for g, c in zip(gpu, cpu):
+        if g.shape != c.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"ssm parity {arch}: logits {tuple(g.shape)} "
+                               "not finite or misshapen")
+        rel.append([float((g[r] - c[r]).norm() / c[r].norm())
+                    for r in range(g.shape[0])])
+    state = {n: float((gstate[n] - cstate[n]).norm() / cstate[n].norm())
+             for n in gstate}
+    worst = max(max(r) for r in rel)
+    print(f"[ssm parity] {arch} full width, {cfg.n_layers} layers, fp32: "
+          f"3 exact prefills and 2 all-slot decode steps, logits rel L2 err "
+          f"max {worst:.3e} (per call "
+          + ", ".join(f"{max(r):.2e}" for r in rel)
+          + f"), state after the last step {state} (limit 1e-3); card "
+          f"{t_gpu:.3f}s, CPU {t_cpu:.3f}s", flush=True)
+    if not worst <= 1e-3 or not max(state.values()) <= 1e-3:
+        raise RuntimeError(f"ssm parity {arch}: relative error {rel}, state "
+                           f"{state} > 1e-3")
+    return dict(rel_err=rel, state_rel_err=state, layers=cfg.n_layers,
+                gpu_s=t_gpu, cpu_s=t_cpu)
+
+
+def starcoder2_serve(seed: int, card: str, dev) -> dict:
+    """Phase 11 (4): StarCoder2-15B at full width but ``STARCODER_LAYERS``
+    layers, bf16, the 8 requests of phase 4, replayed: through the main
+    path's engine (paged packed, chunk 64: per step 6 ``ovsf_gemm`` and one
+    ``paged_flash_decode`` a layer) and the legacy engine (bucketed: 6
+    ``ovsf_gemm`` a layer a prefill call and a decode, one
+    ``flash_decode_attn`` a layer a decode). Every request finishes; the
+    launch counts of its kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    cfg = get_config(STARCODER_ARCH).replace(n_layers=STARCODER_LAYERS)
+    params = R.model_init(cfg, seed, dev)
+    n_ovsf = ovsf_per_layer(params)
+    if n_ovsf != len(STARCODER_LAYER):
+        raise RuntimeError(f"[{STARCODER_ARCH}] {n_ovsf} OVSF linears a "
+                           f"block, expected {len(STARCODER_LAYER)}")
+    specs = serve_specs(cfg, seed)
+    tag = f"[{STARCODER_ARCH} paged packed]"
+    _eng, run = serve_run(params, cfg, dev, "paged packed",
+                          serve_requests(specs), tag, True, False)
+    none = {k: 0 for k in wrapper_counts()}
+    want = dict(none, ovsf_gemm=n_ovsf * cfg.n_layers,
+                paged_flash_decode=cfg.n_layers)
+    for _calls, active, delta in run["per_step"]:
+        if delta != (want if active else none):
+            raise RuntimeError(f"{tag} a step launched {delta}, expected "
+                               f"{want}")
+    del _eng
+    tag2 = f"[{STARCODER_ARCH} legacy]"
+    _eng, legacy = serve_run(params, cfg, dev, "bucketed",
+                             serve_requests(specs), tag2, True, False,
+                             engine_kw=LEGACY_STYLES["bucketed"])
+    check_legacy_steps(tag2, legacy, cfg.n_layers, n_ovsf)
+    del _eng, params
+    torch.cuda.empty_cache()
+    print(f"[{STARCODER_ARCH}] full width (d {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}), "
+          f"{cfg.n_layers} layers, bf16, replayed: paged packed 8/8 finished"
+          f", launches {run['launches']} in {run['stats'].steps} steps; "
+          f"legacy 8/8, launches {legacy['launches']} in "
+          f"{legacy['stats'].steps} steps ({card})", flush=True)
+    return {"paged packed": dict(launches=run["launches"],
+                                 steps=run["stats"].steps,
+                                 tokens=run["tokens"]),
+            "legacy": dict(launches=legacy["launches"],
+                           steps=legacy["stats"].steps,
+                           tokens=legacy["tokens"])}
+
+
+def ssm_phase(seed: int, card: str, dev) -> dict:
+    """Phase 11 (module docstring): the recurrent families at full width on
+    the card, and StarCoder2-15B's kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 28)
+    res = dict(kernels=run_ssm_kernel_checks(rng, dev))
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = R.model_init(cfg, seed, dev)
+        torch.cuda.synchronize()
+        tag = f"[ssm] {cfg.name}"
+        print(f"{tag} bf16 ({cfg.n_layers} layers, d {cfg.d_model}, d_inner "
+              f"{cfg.d_inner}, N {cfg.ssm_state}, vocab {cfg.vocab}): "
+              f"{R.param_count(params) / 1e9:.3f}B stored values initialised"
+              f" on the card in {time.perf_counter() - t0:.2f}s, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated",
+              flush=True)
+        res[arch] = dict(resident=ovsf_resident(params, card, tag),
+                         serve=ssm_serve(params, cfg, seed, card, dev))
+        del params
+        gc.collect()            # the engines' reference cycles hold them
+        torch.cuda.empty_cache()
+        res[arch]["parity"] = ssm_parity(arch, seed, dev)
+    res[STARCODER_ARCH] = starcoder2_serve(seed, card, dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"[ssm] phase passed in {res['wall_s']:.1f}s", flush=True)
     return res
 
 
@@ -4890,12 +5412,18 @@ def main(argv=None) -> int:
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
           flush=True)
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"[build] {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f}s: "
           + ", ".join(p.name for p in libs.values()), flush=True)
 
+    mark("build")
     rng = np.random.default_rng(args.seed)
     gemm = {adt: run_gemm_checks(rng, dev, adt) for adt in ALPHA_DTYPES}
     attn_rows, attn_sum = run_paged_checks(rng, dev)
@@ -4920,6 +5448,7 @@ def main(argv=None) -> int:
           f"({len(mono_rows)} cases here, the 19 CNN convs in the calibrate "
           "phase)", flush=True)
 
+    mark("kernels")
     serve, launches = {}, {}
     for adt in ALPHA_DTYPES:
         serve[adt or "fp"], launches[adt] = serve_phase(args.seed, card, dev,
@@ -4929,12 +5458,16 @@ def main(argv=None) -> int:
         styles[style], launches[style] = serve_phase(args.seed, card, dev,
                                                      "", style)
     serve_fp32 = {style: serve_phase(args.seed, card, dev, "", style,
-                                     "float32")[0] for style in STYLES}
+                                     "float32", SERVE_FP32_LAYERS)[0]
+                  for style in STYLES}
+    mark("serve")
     legacy = legacy_phase(args.seed, card, dev, serve["fp"],
                           styles["contiguous window"])
     legacy["fp32"] = legacy_fp32_checks(args.seed, dev)
+    mark("legacy")
     parity = [parity_phase(args.seed, dev, adt) for adt in ("", "int8")]
     parity_contiguous = parity_contiguous_phase(args.seed, dev)
+    mark("parity")
     from repro_torch.configs import get_config
     from repro_torch.runtime.mapper import ALL_PATHS, DEFAULT_PATHS, plan_cnn
 
@@ -4959,17 +5492,31 @@ def main(argv=None) -> int:
                 ("squeezenet1_1", "matrix", 0,
                  planned("squeezenet1_1", DEFAULT_PATHS),
                  "+".join(DEFAULT_PATHS)))]
+    mark("cnn")
     fused_r50 = next(c for c in cnns if c["arch"] == "resnet50"
                      and c["plan"] == "fused")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     calib = calibrate_phase(args.seed, card, dev, cnns, out_dir)
+    mark("calibrate")
     chaos = chaos_phase(args.seed, card, dev, out_dir)
+    mark("chaos")
     gateway = gateway_phase(args.seed, card, dev, out_dir,
                             styles["contiguous packed"]["decode_profile"])
+    mark("gateway")
     qk = gateway["qwen_kernels"]
     moe_res = moe_phase(args.seed, card, dev)
+    mark("moe")
     mk = moe_res["kernels"]
+    ssm_res = ssm_phase(args.seed, card, dev)
+    mark("ssm")
+    sk = ssm_res["kernels"]
+    phase_s = {name: t - marks[i][1]
+               for i, (name, t) in enumerate(marks[1:])}
+    print("[timing] seconds a phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),
+          flush=True)
+    star = ssm_res[STARCODER_ARCH]
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
     kernels = []
@@ -5022,7 +5569,32 @@ def main(argv=None) -> int:
             ("flash_decode_attn_olmoe",
              "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:64", mk["flash_summary"],
-             moe_res["legacy"]["launches"]["flash_decode_attn"])):
+             moe_res["legacy"]["launches"]["flash_decode_attn"]),
+            ("ovsf_gemm_falcon_mamba", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158",
+             sk["gemm"]["falcon_mamba_7b"],
+             ssm_res["falcon_mamba_7b"]["serve"]["launches"]["ovsf_gemm"]),
+            ("ovsf_gemm_zamba2", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", sk["gemm"]["zamba2_1_2b"],
+             ssm_res["zamba2_1_2b"]["serve"]["launches"]["ovsf_gemm"]),
+            ("flash_decode_attn_zamba2",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64",
+             sk["flash"]["zamba2_1_2b"],
+             ssm_res["zamba2_1_2b"]["serve"]["launches"]
+             ["flash_decode_attn"]),
+            ("ovsf_gemm_starcoder2", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", sk["gemm"][STARCODER_ARCH],
+             star["paged packed"]["launches"]["ovsf_gemm"]),
+            ("paged_flash_decode_starcoder2",
+             "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:160", sk["paged_summary"],
+             star["paged packed"]["launches"]["paged_flash_decode"]),
+            ("flash_decode_attn_starcoder2",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64",
+             sk["flash"][STARCODER_ARCH],
+             star["legacy"]["launches"]["flash_decode_attn"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -5098,14 +5670,45 @@ def main(argv=None) -> int:
                        "flash_decode_attn_olmoe": "window decode B=4 H=16 "
                                                   "Hkv=16 hd=128 T=128 bf16;"
                                                   " launches: the phase 10 "
-                                                  "legacy run (replayed)"},
+                                                  "legacy run (replayed)",
+                       "ovsf_gemm_falcon_mamba": "falcon_mamba_7b's in/out "
+                                                 "projections (4096->16384, "
+                                                 "8192->4096) at M=4 bf16, "
+                                                 "summed; launches: the "
+                                                 "phase 11 legacy run "
+                                                 "(replayed)",
+                       "ovsf_gemm_zamba2": "zamba2_1_2b's Mamba-2 in/out "
+                                           "projections (2048->8384, "
+                                           "4096->2048) and its shared "
+                                           "block's seven at M=4 bf16, "
+                                           "summed; launches: the phase 11 "
+                                           "legacy run (replayed)",
+                       "flash_decode_attn_zamba2": "window decode B=4 H=32 "
+                                                   "Hkv=32 hd=64 T=128 bf16;"
+                                                   " launches: the phase 11 "
+                                                   "legacy run (replayed)",
+                       "ovsf_gemm_starcoder2": "starcoder2_15b's six OVSF "
+                                               "projections (q, k, v, o, "
+                                               "up, down) at M=4 bf16, "
+                                               "summed; launches: its "
+                                               "2-layer paged packed run",
+                       "paged_flash_decode_starcoder2": "T=4 decode H=48 "
+                                                        "Hkv=4 hd=128 bf16; "
+                                                        "launches: its "
+                                                        "2-layer paged "
+                                                        "packed run",
+                       "flash_decode_attn_starcoder2": "window decode B=4 "
+                                                       "H=48 Hkv=4 hd=128 "
+                                                       "T=128 bf16; launches:"
+                                                       " its 2-layer legacy "
+                                                       "run"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
                    "parity": parity, "parity_contiguous": parity_contiguous,
                    "cnn": cnns, "calibration": calib, "chaos": chaos,
-                   "gateway": gateway, "moe": moe_res}, f,
-                  indent=1)
+                   "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
+                   "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,14 @@
 """Config dataclasses and the arch registry (port of ``repro.configs.base``).
 
 Only the fields the ported serving path reads are carried: the dense
-family's and the MoE family's (``n_experts``, ``top_k``,
-``n_shared_experts``, ``capacity_factor``, ``router_aux_weight``), plus
+family's, the MoE family's (``n_experts``, ``top_k``,
+``n_shared_experts``, ``capacity_factor``, ``router_aux_weight``), the SSM
+family's (``ssm_state``, ``ssm_conv``, ``ssm_expand``, ``ssm_head_dim``,
+``ssm_chunk``, ``mamba_version``) and the hybrid's (``attn_every``), plus
 ``ShapeConfig`` and the reference's four ``SHAPES`` (the workload shapes
 the mapper, the autotuner and the DSE model) and ``ModelConfig.exec_plan``
 (the mapper's per-layer plan). ``input_specs`` (a JAX-lowering helper) and
-the SSM / encoder-decoder / VLM fields wait for the slices that port those
+the encoder-decoder / VLM fields wait for the slices that port those
 families.
 """
 from __future__ import annotations
@@ -52,7 +54,7 @@ class OVSFConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe (the families ported so far)
+    family: str                 # dense | moe | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -71,6 +73,15 @@ class ModelConfig:
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # --- SSM (mamba) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64      # mamba2 head size
+    ssm_chunk: int = 64         # chunked-scan chunk length
+    mamba_version: int = 1
+    # --- hybrid (zamba2-style shared attention) ---
+    attn_every: int = 0         # the shared attn block after every k SSM blocks
     dtype: str = "bfloat16"
     kv_cache_dtype: str = ""    # "" -> dtype; "int8": static-scale int8 K/V
     ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
@@ -89,6 +100,10 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def act_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -96,6 +111,15 @@ class ModelConfig:
     def kv_dtype(self) -> torch.dtype:
         """The KV cache's storage type."""
         return torch.int8 if self.kv_cache_dtype == "int8" else self.act_dtype
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence handling (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -146,6 +170,10 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
     )
     if cfg.n_experts:
         kw.update(n_experts=8, top_k=2, d_ff=64)
+    if cfg.ssm_state:
+        kw.update(ssm_state=8, ssm_chunk=16, ssm_head_dim=16)
+    if cfg.attn_every:
+        kw.update(attn_every=2, n_layers=4)
     if cfg.ovsf.enable:
         kw["ovsf"] = dataclasses.replace(cfg.ovsf, min_dim=32)
     kw.update(overrides)

@@ -242,18 +242,23 @@ def layer_timing(layer: GemmLayer, hw: HW = V5E) -> LayerTiming:
 
 def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
                  m_valid: int = 0, kv_len: int = 0) -> list[GemmLayer]:
-    """Expand a dense- or MoE-family ModelConfig x ShapeConfig into
-    per-device GEMM workloads. Decode: M = batch/dp tokens; train/prefill:
-    M = batch*seq/dp. TP divides d_out (column-parallel) or d_in
-    (row-parallel). ``m_valid`` marks the valid token rows (0 = all);
-    ``kv_len`` attaches the per-step KV-read bytes to each attention
-    block's output GEMM. A MoE block's routed experts are one workload per
-    matrix at M = M * top_k / (E / tp) rows, the gate and up names carrying
-    the per-device expert count as ``x{E}`` (the mapper strips it)."""
-    if cfg.family not in ("dense", "moe"):
+    """Expand a dense-, MoE-, SSM- or hybrid-family ModelConfig x
+    ShapeConfig into per-device GEMM workloads. Decode: M = batch/dp
+    tokens; train/prefill: M = batch*seq/dp. TP divides d_out
+    (column-parallel) or d_in (row-parallel). ``m_valid`` marks the valid
+    token rows (0 = all); ``kv_len`` attaches the per-step KV-read bytes to
+    each attention block's output GEMM. A MoE block's routed experts are
+    one workload per matrix at M = M * top_k / (E / tp) rows, the gate and
+    up names carrying the per-device expert count as ``x{E}`` (the mapper
+    strips it). A config with SSM state adds each layer's Mamba in/out
+    projections (``ssm_in`` d -> 2 d_inner, ``ssm_out`` d_inner -> d, the
+    reference's sizes for both Mamba versions); as in the reference, every
+    layer also carries the attention and MLP workloads its ``n_heads`` and
+    ``d_ff`` name (the hybrid's shared block counted at every layer)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"model_layers covers the dense and MoE families only, got "
-            f"{cfg.family!r}")
+            f"model_layers covers the dense, MoE, SSM and hybrid families "
+            f"only, got {cfg.family!r}")
     dp = max(n_devices // tp, 1)
     if shape.kind == "decode":
         M = max(shape.global_batch // dp, 1)
@@ -302,6 +307,10 @@ def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
                 layers.append(mk(f"L{i}/mlp_gate", d, f, "mlp"))
             layers += [mk(f"L{i}/mlp_up", d, f, "mlp"),
                        mk(f"L{i}/mlp_down", f, d, "mlp")]
+        if cfg.ssm_state:
+            di = cfg.d_inner // tp
+            layers += [mk(f"L{i}/ssm_in", d, 2 * di, "mlp"),
+                       mk(f"L{i}/ssm_out", di, d, "mlp")]
     return layers
 
 

@@ -11,9 +11,13 @@
 Runs on the GPU unless ``--device cpu`` is given (it raises when no GPU is
 present). ``--arch`` (or ``--model``) names a config of
 ``repro_torch.configs``, dense
-(``tinyllama_1_1b``, ``qwen2_5_14b``, ``qwen1_5_32b``) or MoE
-(``olmoe_1b_7b``; ``kimi_k2_1t_a32b``, about 1T parameters, with
-``--smoke`` only). Parameters are initialised natively from ``--seed``;
+(``tinyllama_1_1b``, ``qwen2_5_14b``, ``qwen1_5_32b``, ``starcoder2_15b``),
+MoE (``olmoe_1b_7b``; ``kimi_k2_1t_a32b``, about 1T parameters, with
+``--smoke`` only), SSM (``falcon_mamba_7b``) or hybrid (``zamba2_1_2b``).
+The recurrent families (SSM, hybrid) are served by the legacy path with
+exact per-request prefill only: given ``--chunk-size`` (and ``--packed`` /
+``--paged``) the engine warns and falls back to it, as the reference's
+does. Parameters are initialised natively from ``--seed``;
 ``--alpha-dtype`` stores the OVSF alphas as int8 or nibble-packed int4 with
 per-segment fp32 scales. The engine's mapper plans each OVSF weight type,
 as the reference engine does, against the device's target (``h100`` on the
@@ -223,7 +227,7 @@ def main(argv=None) -> None:
     graphs = sorted(eng.core.graphs.keys())
     print(f"[serve] step shapes {sorted(eng.core.step_shapes)}; "
           f"{len(graphs)} CUDA graphs captured {graphs}")
-    if args.paged:
+    if eng.paged:
         print(f"[serve] kv_pages: total={stats.kv_pages_total} "
               f"peak_used={stats.kv_pages_used} "
               f"peak_bytes={stats.kv_bytes_used} "

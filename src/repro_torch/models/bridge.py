@@ -11,7 +11,12 @@ the layer axis: splitting axis 0 gives each layer its ``(M, ...)`` stacked
 bank, the layout of the port's ``stack_variants``. A MoE tree splits
 the same way: ``moe.router.w`` (n_layers, d, E), each expert bank's
 ``alphas`` (n_layers, E, J, d_out) and its shared ``idx`` (n_layers, ns,
-nk), a shared expert's linears as any linear's. The CNNs'
+nk), a shared expert's linears as any linear's. An SSM or hybrid tree
+splits the same way: each layer's ``mamba`` dict (``in_proj`` /
+``out_proj``, OVSF or dense, the dense ``x_proj``, ``dt_proj`` {w, b},
+``conv_w`` / ``conv_b``, ``A_log``, ``D`` and, Mamba-2, ``dt_bias`` and
+``norm``); the hybrid's ``shared_attn`` block is one unstacked attention +
+MLP block, carried as ``embed`` is. The CNNs'
 ``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
 ``cnn_params_to_numpy``) are flat dicts of layer dicts; only their conv
 filters change layout (HWIO in the reference, OIHW in the port). Nothing
@@ -19,7 +24,8 @@ here imports JAX: numpy is the interchange format.
 
 Float leaves take the model dtype, except those the reference holds in
 float32 whatever the model dtype is (``_FLOAT32_KEYS``: the per-segment
-``alpha_scale`` of quantised alphas, ``core.ovsf.quantize_alphas``).
+``alpha_scale`` of quantised alphas, ``core.ovsf.quantize_alphas``, and the
+Mamba blocks' ``A_log``, ``D`` and ``dt_bias``, ``models.ssm``).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-_FLOAT32_KEYS = frozenset({"alpha_scale"})
+_FLOAT32_KEYS = frozenset({"alpha_scale", "A_log", "D", "dt_bias"})
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:

@@ -7,18 +7,33 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 
+def _norm(cfg: ModelConfig, device) -> dict:
+    return {"scale": torch.ones((cfg.d_model,), dtype=cfg.act_dtype,
+                                device=device)}
+
+
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """One layer of the family's stack: attention + MLP (dense; the
+    hybrid's shared block), attention + MoE, or a Mamba-1 (SSM) / Mamba-2
+    (hybrid) block."""
+    if cfg.family in ("ssm", "hybrid"):
+        init = SSM.mamba1_init if cfg.family == "ssm" else SSM.mamba2_init
+        return {"norm1": _norm(cfg, device),
+                "mamba": init(gen, cfg, device)}
+    return _attn_block_init(gen, cfg, device)
+
+
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device
+                     ) -> dict:
     d, H, Hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
 
     def lin(name, d_in, d_out, bias=False):
         return L.linear_init(gen, cfg, name, d_in, d_out, device, bias=bias)
-
-    def norm():
-        return {"scale": torch.ones((d,), dtype=cfg.act_dtype, device=device)}
 
     if cfg.family == "moe":
         ffn = {"moe": M.moe_init(gen, cfg, device)}
@@ -28,12 +43,12 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
             mlp["gate"] = lin("mlp_gate", d, f)
         ffn = {"mlp": mlp}
     return {
-        "norm1": norm(),
+        "norm1": _norm(cfg, device),
         "attn": {"q": lin("attn_q", d, H * hd, cfg.qkv_bias),
                  "k": lin("attn_k", d, Hkv * hd, cfg.qkv_bias),
                  "v": lin("attn_v", d, Hkv * hd, cfg.qkv_bias),
                  "o": lin("attn_o", H * hd, d)},
-        "norm2": norm(),
+        "norm2": _norm(cfg, device),
         **ffn,
     }
 
@@ -44,13 +59,14 @@ def _model_init(cfg: ModelConfig, gen, dev) -> dict:
         "embed": {"table": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                                        dtype=dtype, device=dev) * 0.02},
         "blocks": [_block_init(gen, cfg, dev) for _ in range(cfg.n_layers)],
-        "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dtype,
-                                           device=dev)},
+        "final_norm": _norm(cfg, dev),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": torch.randn((cfg.d_model, cfg.vocab),
                                          generator=gen, dtype=dtype,
                                          device=dev) * 0.02}
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _attn_block_init(gen, cfg, dev)
     return p
 
 
@@ -59,7 +75,8 @@ def model_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     as ``repro.models.registry.model_init``, drawn from a ``torch.Generator``
     seeded with ``seed`` on ``device`` (the numbers differ from the
     reference's ``jax.random`` ones; ``models.bridge`` carries those over).
-    ``blocks`` is a list of per-layer dicts."""
+    ``blocks`` is a list of per-layer dicts; the hybrid's weight-shared
+    attention block is ``shared_attn``."""
     T._check_family(cfg)
     dev = resolve_device(device)
     return _model_init(cfg, torch.Generator(device=dev).manual_seed(seed),

@@ -1,5 +1,5 @@
-"""Decoder trunk over the serving KV caches (port of the dense and MoE
-families of ``repro.models.transformer``).
+"""Decoder trunk over the serving caches (port of the dense, MoE, SSM and
+hybrid families of ``repro.models.transformer``).
 
 A MoE block's MLP is ``models.moe.moe_apply`` over the block's tokens as
 the reference routes them: the packed, paged (packed and window) and
@@ -21,6 +21,20 @@ writes go to (``attention.drop_write``), which no read addresses.
 K/V are stored in ``cfg.kv_dtype``: the model dtype, or int8 under
 ``kv_cache_dtype="int8"`` (``attention``).
 
+The SSM family (``falcon_mamba_7b``: Mamba-1 blocks) and the hybrid
+(``zamba2_1_2b``: runs of ``attn_every`` Mamba-2 blocks, each full run
+followed by one weight-shared attention + MLP block, ``params
+["shared_attn"]``) carry a recurrent state: ``conv`` (n_layers, B, K-1, C)
+in the model dtype and ``ssm`` (n_layers, B, ...) in fp32, beside the
+hybrid's K/V of (n_apps, B, T, Hkv, hd), one per application of the shared
+block. Every state update is copied into the cache's buffers in place (a
+replayed decode step reads and writes them at fixed addresses). Their
+state would run through padding, so they are served only by the legacy
+engine's exact prefill (``serve_prefill``) and all-slot decode
+(``serve_step``); every padded entry point (ragged prefill, window,
+packed, paged, multi-model) refuses them, as the reference's callers gate
+them out.
+
 The steps return ``pos`` as a new tensor, as the reference does; a caller
 that replays a step as a CUDA graph copies it into its own (the engine).
 The legacy engine's prefills (``serve_prefill``, ``serve_prefill_ragged``)
@@ -37,15 +51,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as SSM
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_RECURRENT = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense and MoE families only so far, got "
-            f"{cfg.family!r}")
+            f"the port serves the dense, MoE, SSM and hybrid families only "
+            f"so far, got {cfg.family!r}")
+
+
+def _check_padded(cfg: ModelConfig, what: str) -> None:
+    """The padded entry points take the KV-cache families only."""
+    _check_family(cfg)
+    if cfg.family in _RECURRENT:
+        raise NotImplementedError(
+            f"{what} requires a KV-cache family, got {cfg.family!r}: "
+            f"recurrent state would run through the padding")
 
 
 def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -56,7 +81,9 @@ def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         h = (torch.nn.functional.silu(g.to(torch.float32))
              * u.to(torch.float32)).to(x.dtype)
     else:
-        h = torch.nn.functional.gelu(u.to(torch.float32)).to(x.dtype)
+        # jax.nn.gelu's default: the tanh approximation
+        h = torch.nn.functional.gelu(u.to(torch.float32),
+                                     approximate="tanh").to(x.dtype)
     return L.linear_apply(p["down"], h, cfg, "mlp_down", mids)
 
 
@@ -92,12 +119,41 @@ def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]["w"].to(x.dtype)
 
 
+def _hybrid_groups(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
+    """[(start, end, attn_after)] runs of mamba2 blocks (zamba2 pattern)."""
+    k = cfg.attn_every
+    out = []
+    i = 0
+    while i < cfg.n_layers:
+        j = min(i + k, cfg.n_layers)
+        out.append((i, j, j - i == k))
+        i = j
+    return out
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's shared attention block (its K/V
+    caches)."""
+    return sum(1 for *_r, a in _hybrid_groups(cfg) if a)
+
+
 def cache_shapes(cfg: ModelConfig, B: int, T: int) -> dict[str, tuple]:
     """Shapes of the contiguous serving cache: per-slot K/V buffers of
-    length T, stacked over layers, and each slot's fill level."""
+    length T, stacked over layers (the hybrid: over the shared block's
+    applications), the SSM families' ``conv`` and ``ssm`` states stacked
+    over layers, and each slot's fill level."""
     _check_family(cfg)
-    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd)
-    return {"k": shape, "v": shape, "pos": (B,)}
+    out: dict[str, tuple] = {}
+    if cfg.family in _RECURRENT:
+        fn = (SSM.mamba1_cache_shapes if cfg.family == "ssm"
+              else SSM.mamba2_cache_shapes)
+        for name, (shape, _dt) in fn(cfg, B).items():
+            out[name] = (cfg.n_layers,) + shape
+    if cfg.family != "ssm":
+        n = n_attn_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
+        out["k"] = out["v"] = (n, B, T, cfg.n_kv_heads, cfg.hd)
+    out["pos"] = (B,)
+    return out
 
 
 def _kv(shapes: dict, dtype, device) -> dict[str, torch.Tensor]:
@@ -117,23 +173,64 @@ def _kv(shapes: dict, dtype, device) -> dict[str, torch.Tensor]:
 def init_cache(cfg: ModelConfig, B: int, T: int, device
                ) -> dict[str, torch.Tensor]:
     """Zero contiguous cache: K/V in ``cfg.kv_dtype`` (with their scratch
-    rows), ``pos`` int32."""
+    rows), ``conv`` in the model dtype and ``ssm`` in fp32, ``pos``
+    int32."""
     shapes = cache_shapes(cfg, B, T)
-    return {**_kv(shapes, cfg.kv_dtype, device),
-            "pos": torch.zeros(shapes["pos"], dtype=torch.int32,
-                               device=device)}
+    out = _kv(shapes, cfg.kv_dtype, device) if "k" in shapes else {}
+    for name, dtype in (("conv", cfg.act_dtype), ("ssm", torch.float32),
+                        ("pos", torch.int32)):
+        if name in shapes:
+            out[name] = torch.zeros(shapes[name], dtype=dtype, device=device)
+    return out
+
+
+def _mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                 li: int) -> torch.Tensor:
+    """Pre-norm Mamba block of layer ``li`` (Mamba-1 for the SSM family,
+    Mamba-2 for the hybrid); its new ``conv`` / ``ssm`` state copied into
+    layer ``li`` of the cache in place."""
+    h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    fn = SSM.mamba1_apply if cfg.family == "ssm" else SSM.mamba2_apply
+    state = {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
+    y, new = fn(p["mamba"], cfg, h, cache=state)
+    for name in ("conv", "ssm"):
+        state[name].copy_(new[name])
+    return x + y
+
+
+def _kv_layer(cache: dict, i: int) -> dict:
+    """K/V ``i`` (and their scratch-row buffers, where allocated)."""
+    return {n: cache[n][i] for n in ("k", "v", "k_rows", "v_rows")
+            if n in cache}
 
 
 def _trunk(params: dict, cfg: ModelConfig, cache: dict,
            tokens: torch.Tensor, per_row: bool = False) -> torch.Tensor:
     """(B, S) tokens appended at each row's ``cache["pos"]``: features
-    (B, S, d), K/V written into the cache in place. ``per_row`` routes a
-    MoE block's rows alone (the reference's vmapped steps)."""
+    (B, S, d), K/V and recurrent states written into the cache in place.
+    ``per_row`` routes a MoE block's rows alone (the reference's vmapped
+    steps). The hybrid runs its groups of Mamba-2 blocks, the shared
+    attention block after each full group over its own K/V."""
     _check_family(cfg)
     S = tokens.shape[1]
     pos0 = cache["pos"].long()
     positions = pos0[:, None] + torch.arange(S, device=tokens.device)[None]
     x = L.embed_apply(params["embed"], tokens)                  # (B, S, d)
+    if cfg.family == "ssm":
+        for li, p in enumerate(params["blocks"]):
+            x = _mamba_block(p, cfg, x, cache, li)
+        return x
+    if cfg.family == "hybrid":
+        app = 0
+        for i, j, attn_after in _hybrid_groups(cfg):
+            for li in range(i, j):
+                x = _mamba_block(params["blocks"][li], cfg, x, cache, li)
+            if attn_after:
+                x = _block(params["shared_attn"], cfg, x, A.attn_apply,
+                           positions=positions, cache=_kv_layer(cache, app),
+                           cache_pos=pos0)
+                app += 1
+        return x
     for li, p in enumerate(params["blocks"]):
         x = _block(p, cfg, x, A.attn_apply, per_row=per_row,
                    positions=positions, cache=_layer(cache, li),
@@ -163,7 +260,9 @@ def serve_prefill_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     makes independent of the padding, and a fresh cache of ``buffer_len``
     holding K/V for all Lb columns (padding included) with ``pos`` = Lb;
     the engine re-bases each row's ``pos`` to its true length, and decode
-    overwrites each padded position before attending to it."""
+    overwrites each padded position before attending to it. The recurrent
+    families are refused (their state would run through the padding)."""
+    _check_padded(cfg, "ragged prefill")
     B, Lb = tokens.shape
     cache = init_cache(cfg, B, buffer_len, tokens.device)
     x = _trunk(params, cfg, cache, tokens)
@@ -197,7 +296,8 @@ def serve_step_window(params: dict, cfg: ModelConfig, cache: dict,
     position until real tokens overwrite them; the engine over-allocates
     the buffer by W so that the writes never clamp for a live slot. A MoE
     block routes each row alone, as the reference's engine vmaps this step
-    over its slots."""
+    over its slots. The recurrent families are refused."""
+    _check_padded(cfg, "window step")
     W = tokens.shape[1]
     x = _trunk(params, cfg, cache, tokens, per_row=True)
     col = (n_valid.long() - 1).clamp(0, W - 1)
@@ -215,7 +315,6 @@ def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
     """One dense pass over a packed (T,) token stream, ``attn`` reading and
     writing each layer's cache; the unembed runs on the B rows at
     ``emit_idx`` only."""
-    _check_family(cfg)
     x = L.embed_apply(params["embed"], tokens[None])           # (1, T, d)
     for li, p in enumerate(params["blocks"]):
         x = _block(p, cfg, x, attn, cache=_layer(cache, li), **kw)
@@ -238,6 +337,7 @@ def serve_step_packed(params: dict, cfg: ModelConfig, cache: dict,
     before the unembed, the cache with ``pos`` set to ``new_pos``).
     ``model_ids`` (B,) maps each slot to a stacked-alpha variant
     (``serve_step_packed_multi``); None = one model."""
+    _check_padded(cfg, "packed step")
     kw = {}
     if model_ids is not None:
         # padding tokens (slot_id == B) clip to slot B - 1: their variant
@@ -253,7 +353,7 @@ def paged_cache_shapes(cfg: ModelConfig, page_size: int, n_pages: int
                        ) -> dict[str, tuple]:
     """Shapes of the paged serving cache: per-layer K/V page pools shared by
     every slot, stacked over layers."""
-    _check_family(cfg)
+    _check_padded(cfg, "paged cache")
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
     return {"k": shape, "v": shape}
 
@@ -279,6 +379,7 @@ def serve_step_paged(params: dict, cfg: ModelConfig, cache: dict,
     Returns ((B, vocab) logits at ``emit_idx``, the cache with its K/V pools
     updated in place and ``pos`` set to ``new_pos``).
     """
+    _check_padded(cfg, "paged step")
     return _packed_trunk(params, cfg, cache, tokens, new_pos, emit_idx,
                          A.attn_apply_paged, slot_ids=slot_ids,
                          positions=positions, page_table=page_table)
@@ -315,6 +416,7 @@ def serve_step_packed_multi(params: dict, cfg: ModelConfig, cache: dict,
     and each packed token contracts against its slot's alpha bank
     (``kernels.ops.ovsf_matmul_multi``), so a step mixes models at the
     single-model step shapes."""
+    _check_padded(cfg, "multi-model step")
     if cfg.family == "moe":
         raise NotImplementedError(
             "multi-model batching over MoE expert banks is not supported "

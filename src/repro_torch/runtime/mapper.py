@@ -172,18 +172,27 @@ def _ceil8(n: int) -> int:
 
 _LAYER_PREFIX = re.compile(r"^L\d+/")
 
+# perf_model workload names -> the weight-type names the model code passes
+# to ``linear_apply`` (``models.ssm`` registers its projections under the
+# ``mlp`` OVSF target group as ``mlp_in`` / ``mlp_out``); without them the
+# Mamba projections would get no plan entry
+_WTYPE_ALIASES = {"ssm_in": "mlp_in", "ssm_out": "mlp_out"}
+
 
 def plan_model(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
                tp: int = 1, paths: Sequence[str] = DEFAULT_PATHS,
                weight_reuse: Optional[int] = None,
                calibration=None) -> ExecutionPlan:
-    """An ExecutionPlan for a dense- or MoE-family ModelConfig under a
-    workload shape: the config's GEMMs (``pm.model_layers``) collapse to one
-    plan per weight type, each from ``classify_gemm`` (``calibration``
-    threads a measured-vs-modeled table into every one). The type is the
+    """An ExecutionPlan for a dense-, MoE-, SSM- or hybrid-family
+    ModelConfig under a workload shape: the config's GEMMs
+    (``pm.model_layers``) collapse to one plan per weight type, each from
+    ``classify_gemm`` (``calibration`` threads a measured-vs-modeled table
+    into every one). The type is the
     name cut at its first ``x``, as in the reference: that strips an
     expert workload's ``x{E}`` suffix but also cuts ``expert_*`` to ``e``,
-    so the three expert types share one entry ``e`` (copied for parity). ``weight_reuse`` defaults to
+    so the three expert types share one entry ``e`` (copied for parity);
+    the Mamba workloads ``ssm_in`` / ``ssm_out`` take the names the model
+    dispatches under (``_WTYPE_ALIASES``). ``weight_reuse`` defaults to
     1 for training and 256 otherwise (frozen serving params); the plan is
     stamped with the target's name."""
     hw = pm.resolve_hw(hw)
@@ -196,6 +205,7 @@ def plan_model(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
         if not l.ovsf:
             continue
         wtype = _LAYER_PREFIX.sub("", l.name).split("x")[0]
+        wtype = _WTYPE_ALIASES.get(wtype, wtype)
         if wtype in seen:
             continue
         seen.add(wtype)

@@ -43,11 +43,16 @@ top-k / temperature draws for sampled ones, plus a per-slot
   past them zeroed (the reference's fresh full-depth cache holds zeros
   there), with ``pos`` re-based to the true prompt length. ``exact``
   groups prefill each prompt alone at its native length
-  (``serve_prefill``), into a cache as deep as the prompt. Then, when any slot decodes, the all-slot
-  ``serve_step``: it advances EVERY slot, a slot prefilled in this very
-  step too, whose cache then holds token 0 at its prompt length before its
-  first token is decoded (a defect of the reference's legacy engine,
-  copied for parity). ``prefill_compiles`` counts the distinct prefill
+  (``serve_prefill``), into a cache as deep as the prompt. Then, when any
+  slot decodes, the all-slot ``serve_step``: it advances EVERY slot, a
+  slot prefilled in this very step too, whose cache then holds token 0 at
+  its prompt length before its first token is decoded (a defect of the
+  reference's legacy engine, copied for parity; for the recurrent
+  families token 0 enters the new request's state and changes its
+  stream, as in the reference). The SSM and hybrid families have no
+  padded prefill (``supports_bucketing`` is False): every group is exact,
+  and a slot adopts the prefill's ``conv`` / ``ssm`` states with its
+  K/V. ``prefill_compiles`` counts the distinct prefill
   keys run on this core, as the reference counts its prefill traces.
 
 On the card every step replays a CUDA graph, one per step shape, under the
@@ -110,6 +115,10 @@ from repro_torch.serving.api import SamplingParams
 from repro_torch.serving.journal import key_after, prng_key, split
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.scheduler import SchedulerOutput, pack_step
+
+# padded batched prefill is exact only for the KV-cache families (the
+# reference's tuple; its vlm and encdec families are not ported yet)
+_BUCKETED_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _head(lg: torch.Tensor) -> tuple:
@@ -222,6 +231,14 @@ class EngineCore:
         self.keys = np.zeros((batch_slots, 2), np.uint32)   # threefry keys
         self._gen = torch.Generator(device=device)      # reseeded per draw
         self.logits: Optional[torch.Tensor] = None   # last step's, fp32
+        # the per-slot cache leaves a legacy prefill fills and a slot adopts
+        self._leaves = tuple(n for n in ("k", "v", "conv", "ssm")
+                             if n in self.caches)
+
+    @property
+    def supports_bucketing(self) -> bool:
+        """Padded batched prefill is exact only for KV-cache families."""
+        return self.cfg.family in _BUCKETED_FAMILIES
 
     # a graph holds the addresses of the params and of the plan's choices:
     # replacing either drops every graph
@@ -504,12 +521,12 @@ class EngineCore:
             tokens[i, :req.prompt_len] = req.prompt
             lengths[i] = req.prompt_len
             self._set_sampling(i, req.sampling, len(req.out_tokens))
-        lg, head, gk, gv = self.graphs.run(
+        lg, head, *leaves = self.graphs.run(
             self._prefill_key(("prefill", Lb)),
             dict(tokens=tokens, lengths=lengths), self._prefill_body,
             pool="prefill")
         for i, req in slot_reqs:
-            self._adopt_row(i, gk, gv, i, req.prompt_len)
+            self._adopt_row(i, leaves, i, req.prompt_len)
         return self._sample(lg, head, tuple(i for i, _r in slot_reqs))
 
     def prefill_one(self, slot: int, req) -> tuple:
@@ -520,34 +537,39 @@ class EngineCore:
         self._set_sampling(slot, req.sampling, len(req.out_tokens))
         self._prefill_key(("prefill_exact", req.prompt_len))
         tokens = torch.from_numpy(np.asarray(req.prompt, np.int32)[None])
-        lg, head, gk, gv = self._prefill_exact_body(
+        lg, head, *leaves = self._prefill_exact_body(
             dict(tokens=tokens.to(self.device)))
-        self._adopt_row(slot, gk, gv, 0, req.prompt_len)
+        self._adopt_row(slot, leaves, 0, req.prompt_len)
         return self._sample(lg, head, (slot,))
 
     def _prefill_body(self, a: dict) -> tuple:
         tokens = a["tokens"]
         logits, cache = R.serve_prefill_ragged(self.params, self.cfg, tokens,
                                                tokens.shape[1], a["lengths"])
-        return (*_head(logits.to(torch.float32)), cache["k"], cache["v"])
+        return (*_head(logits.to(torch.float32)),
+                *(cache[n] for n in self._leaves))
 
     def _prefill_exact_body(self, a: dict) -> tuple:
         tokens = a["tokens"]
         logits, cache = R.serve_prefill(self.params, self.cfg, tokens,
                                         tokens.shape[1])
         return (*_head(logits.to(torch.float32).expand(self.B, -1)),
-                cache["k"], cache["v"])
+                *(cache[n] for n in self._leaves))
 
-    def _adopt_row(self, i: int, gk: torch.Tensor, gv: torch.Tensor,
-                   row: int, plen: int) -> None:
-        """Row ``row`` of a prefill's cache (Lb columns deep) into slot
-        ``i``'s first Lb columns, the columns past them zeroed as in the
-        reference's fresh full-depth cache, its ``pos`` re-based to the true
-        prompt length (the padded K/V past it are masked until decode
-        overwrites them)."""
-        n = gk.shape[2]
-        for name, g in (("k", gk), ("v", gv)):
-            self.caches[name][:, i, :n].copy_(g[:, row])
-            self.caches[name][:, i, n:].zero_()
+    def _adopt_row(self, i: int, leaves: list, row: int, plen: int) -> None:
+        """Row ``row`` of a prefill's cache leaves (``self._leaves``; K/V
+        Lb columns deep) into slot ``i``: K/V into its first Lb columns, the
+        columns past them zeroed as in the reference's fresh full-depth
+        cache; the recurrent ``conv`` / ``ssm`` states whole. Its ``pos`` is
+        re-based to the true prompt length (the padded K/V past it are
+        masked until decode overwrites them)."""
+        for name, g in zip(self._leaves, leaves):
+            dst = self.caches[name][:, i]
+            if name in ("k", "v"):
+                n = g.shape[2]
+                dst[:, :n].copy_(g[:, row])
+                dst[:, n:].zero_()
+            else:
+                dst.copy_(g[:, row])
         self.caches["pos"][i] = plen
         self._host_pos[i] = plen

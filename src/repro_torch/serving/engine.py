@@ -67,7 +67,12 @@ Failure handling, as the reference's:
   every finish; ``recover_from_journal()`` re-admits a crashed process's
   live requests through the recompute path.
 
-``packed`` and ``paged`` need ``chunk_size``, as in the reference.
+``packed`` and ``paged`` need ``chunk_size``, as in the reference. The
+recurrent families (``ssm``, ``hybrid``) are served by the legacy path
+with exact per-request prefill only, as in the reference: given a
+``chunk_size`` the engine warns and falls back to phase-based serving,
+dropping ``packed`` and ``paged``, and ``bucketed`` is False (a padded
+prefill would run their state through the padding).
 
 Multi-model mode (the gateway's same-architecture batching,
 ``serving.gateway``): ``variants=M`` stacked alpha variants in the params
@@ -88,6 +93,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -227,8 +233,17 @@ class LLMEngine:
         if paged and chunk_size is None:
             raise ValueError("paged=True requires chunk_size (the paged "
                              "cache serves prompts via chunk tasks)")
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        if chunk_size is not None and cfg.family in ("ssm", "hybrid"):
+            warnings.warn(
+                f"chunked prefill requires a KV-cache family (got "
+                f"{cfg.family!r}: recurrent state would run through window "
+                f"padding); falling back to phase-based serving",
+                stacklevel=2)
+            chunk_size = None
+            packed = False
+            paged = False
         table = params["embed"]["table"]
         if table.device != self.device:
             raise ValueError(f"params live on {table.device}, the engine "
@@ -244,9 +259,6 @@ class LLMEngine:
         self.B = batch_slots
         self.eos = eos_id
         self.paged = paged
-        # padded batched prefill is exact for the KV-cache families, dense
-        # and MoE the ones the port serves (the reference buckets MoE too)
-        self.bucketed = bucketed_prefill
         if packed and max_step_tokens is None:
             # the mixed-step bucket: chunk-bearing steps fill their shape
             max_step_tokens = pack_bucket(0, batch_slots, chunk_size, True)
@@ -261,6 +273,8 @@ class LLMEngine:
                                device=self.device, capture=capture,
                                faults=faults, variants=self.variants)
         self.core = EngineCore(params, self.cfg, **self._core_args)
+        # padded batched prefill is exact for the KV-cache families only
+        self.bucketed = bucketed_prefill and self.core.supports_bucketing
         pages = self.core.pager.P if paged else 0
         self.scheduler = scheduler if scheduler is not None else \
             FCFSScheduler(buffer_len, admission=admission,

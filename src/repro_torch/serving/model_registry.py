@@ -47,6 +47,7 @@ tensor operation here belongs to the thread that steps the engines
 from __future__ import annotations
 
 import dataclasses
+import gc
 import zlib
 from typing import Any, Callable, Optional
 
@@ -407,17 +408,28 @@ class ModelRegistry:
 
         The resident copy is dropped before the reload, so a repair holds
         one copy of the params at a time; the caller drops the engines
-        serving it first (the gateway's scrub does). On the card the freed
-        blocks are released (``torch.cuda.empty_cache``) before the reload,
-        which would otherwise lay the new bank into whatever the old
-        layout left free.
-        A reload that does not verify
-        leaves the entry evicted, never serving a bank it cannot vouch for
-        (the reference keeps the corrupted copy resident)."""
-        e = self.entries[name]
-        e.params = None
+        serving it first (the gateway's scrub does). A reload that does not
+        verify leaves the entry evicted, never serving a bank it cannot
+        vouch for (the reference keeps the corrupted copy resident)."""
+        self._release([name])
+        self._reload(name)
+
+    def _release(self, names: list) -> None:
+        """Drop the entries' params, collect the reference cycles that may
+        still hold their tensors (a closed engine's), and on the card
+        release the freed blocks (``torch.cuda.empty_cache``): a reload then
+        lays its tensors out from an allocator state that only the other
+        live tensors shape, the same at every repair, instead of into
+        whatever holes the old copies and the garbage left (the reserved
+        bytes would move from one repair to the next)."""
+        for n in names:
+            self.entries[n].params = None
+        gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+
+    def _reload(self, name: str) -> None:
+        e = self.entries[name]
         fresh = e.loader()
         if alpha_crc_ledger(fresh) != e.crc_ledger:
             e.evictions += 1
@@ -432,12 +444,25 @@ class ModelRegistry:
 
     def repair_group(self, group: str) -> list:
         """Bitwise reload of every resident member of ``group`` (stacked
-        variants rebuild together). Returns the repaired names."""
+        variants rebuild together). Every member's copy is dropped first,
+        then each reloads in registration order, so the group's tensors
+        take the same layout at every repair. A member that fails
+        verification stays evicted; the others still reload, and the first
+        failure is raised after them. Returns the repaired names."""
+        names = [n for n in self.group_members(group)
+                 if self.entries[n].resident]
+        self._release(names)
+        failed = None
         done = []
-        for n in self.group_members(group):
-            if self.entries[n].resident:
-                self.repair(n)
-                done.append(n)
+        for n in names:
+            try:
+                self._reload(n)
+            except RuntimeError as exc:
+                failed = failed or exc
+                continue
+            done.append(n)
+        if failed is not None:
+            raise failed
         return done
 
     def unregister(self, name: str) -> ModelEntry:

@@ -2,7 +2,8 @@
 replay of the serve step per step shape and of the CNN forward) on the CPU,
 where every step runs eagerly through the same static buffers:
 
-* the step bodies of the four engine styles and the captured CNN forward
+* the step bodies of the four engine styles, the recurrent families'
+  legacy decode (its state written in place) and the captured CNN forward
   issue no host-reading op (``nonzero``, ``_local_scalar_dense``,
   ``masked_select``, indexing with a boolean index), the kernel wrappers
   stubbed (their plain versions never run on the card);
@@ -214,6 +215,38 @@ def test_moe_packed_step_body_reads_nothing_back(style, monkeypatch):
     assert not mode.bad, sorted(set(mode.bad))
     assert {"cumsum", "sort", "scatter_"} <= set(mode.ops)
     assert {k for k, _n in eng.core.step_shapes} == {"packed"}
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1_2b"])
+def test_recurrent_decode_body_reads_nothing_back(arch, monkeypatch):
+    """The legacy engine's all-slot decode of the SSM and hybrid smoke
+    configs (exact prefills run eagerly), as the engine captures it on the
+    card: no host read in its body, and every call writes the recurrent
+    state in place (``conv`` and ``ssm`` change and keep their addresses,
+    which a replayed graph reads and writes)."""
+    _stub_kernels(monkeypatch)
+    cfg = t_smoke(arch).replace(exec_plan=_FUSED)
+    eng = TEngine(tR.model_init(cfg, 0, "cpu"), cfg, batch_slots=4,
+                  buffer_len=64, device="cpu")
+    core, mode, seen = eng.core, _HostReads(), []
+    core.graphs.run = _recording(core.graphs, mode)
+    body = core._decode_body
+
+    def watched(a):
+        before = {n: (core.caches[n].data_ptr(), core.caches[n].clone())
+                  for n in ("conv", "ssm")}
+        out = body(a)
+        seen.append(all(core.caches[n].data_ptr() == ptr
+                        and not torch.equal(core.caches[n], old)
+                        for n, (ptr, old) in before.items()))
+        return out
+    core._decode_body = watched
+    _drain(eng, _requests(TRequest, n=4, max_new=3, sampled=True))
+    assert len(eng.outputs()) == 4
+    assert not mode.bad, sorted(set(mode.bad))
+    assert "copy_" in mode.ops
+    assert core.step_shapes == {("decode", 1)}
+    assert len(seen) >= 2 and all(seen)
 
 
 def _cnn_smoke(paths=None):

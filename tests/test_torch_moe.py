@@ -859,6 +859,7 @@ def test_multi_steps_refuse_moe():
 
 
 def test_other_families_still_refused():
-    cfg = dataclasses.replace(t_smoke("olmoe_1b_7b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="dense and MoE"):
+    cfg = dataclasses.replace(t_smoke("olmoe_1b_7b"), family="encdec")
+    with pytest.raises(NotImplementedError, match="dense, MoE, SSM and "
+                       "hybrid families only"):
         tR.model_init_specs(cfg)

@@ -266,7 +266,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.serving.health, repro_torch.launch.gateway, "
             "repro_torch.serving.api, repro_torch.models.moe, "
             "repro_torch.configs.olmoe_1b_7b, "
-            "repro_torch.configs.kimi_k2_1t_a32b; "
+            "repro_torch.configs.kimi_k2_1t_a32b, repro_torch.models.ssm, "
+            "repro_torch.configs.falcon_mamba_7b, "
+            "repro_torch.configs.zamba2_1_2b, "
+            "repro_torch.configs.starcoder2_15b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -284,6 +287,9 @@ def test_port_sources_import_no_jax_or_reference():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     assert ROOT / "src" / "repro_torch" / "models" / "moe.py" in files
+    assert ROOT / "src" / "repro_torch" / "models" / "ssm.py" in files
+    assert (ROOT / "src" / "repro_torch" / "configs" /
+            "zamba2_1_2b.py") in files
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"
