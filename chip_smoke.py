@@ -356,6 +356,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
              legacy: every request finishes with 6 ``ovsf_gemm`` and one
              attention kernel a layer a step (the launch counts of its
              kernel rows).
+  12. encdec/vlm: the encoder-decoder and VLM families at their published
+             widths: ``whisper_tiny`` uncut (4 + 4 layers, d 384, 6 heads
+             of 64, Te 1500, vocab 51865; no OVSF layer at this width) and
+             ``llava_next_34b`` (``LLAVA_LAYERS`` of 60 layers, d 7168,
+             56/8 heads of 128, d_ff 20480, vocab 64000, OVSF rho 0.5 on
+             its seven projections), bf16. (1) ``ovsf_gemm`` at LLaVA's
+             projections, M 4 and 1024, each on the tensor-core kernel;
+             ``flash_decode_attn`` at LLaVA's heads (a GQA group of 7),
+             Whisper's self heads, Whisper's cross read (B 4, T 1500, pos
+             1500 on every row) and the packed cross read (B 128);
+             ``paged_flash_decode`` (T 4 and 128) at LLaVA's and Whisper's
+             heads; bf16 and fp32, each against its plain version with
+             device ms, bound and the library call's ms; the packed cross
+             gather timed. (2) Whisper: ``serve_prefill`` with frames (4 x
+             1500 x 384 from the seed) and 16 greedy steps (two
+             ``flash_decode_attn`` a layer a step, none in the prefill),
+             the frames moving the prefill logits; fp32 card vs CPU within
+             1e-3 relative L2 at every call; then the main path's engine
+             (chunk 64, paged, packed) and the legacy engine, eager and
+             replayed: every request finishes, replayed streams and logits
+             equal eager's, launches a step as the path gives them, the
+             cross caches zero (the engine passes tokens only) and no
+             prefill graph holding one; kernels a step, device busy and
+             idle share printed. (3) LLaVA: the alphas at most 0.55x the
+             dense bf16 bytes; the plan ``fused`` at its seven entries;
+             ``serve_prefill`` with the config's 1024 image positions and
+             32-64 text tokens, then 16 decode steps (7 ``ovsf_gemm`` a
+             layer a call, one ``flash_decode_attn`` a layer a step); the
+             two engines as Whisper's; the replayed decode step's device
+             ms and ``ovsf_gemm`` share against the byte bound of the
+             alphas and ``lm_head``. (4) LLaVA at full width but 2 layers,
+             fp32, 8 image positions: card vs CPU within 1e-3.
 Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
@@ -1075,6 +1107,7 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
     dict of stats, launch counters zeroed just before, chunk-free step
     count, token streams, each step's (chunk-free, fp32 logits on the host),
     each step's (prefill keys, decoded, launch counters' increase), the
+    ``flash_decode_attn`` launches that read every column (cross reads), the
     K/V bytes of the engine's cache and the peak memory the run reserved
     above what was reserved at its start (the params, another engine))."""
     from repro_torch.kernels import ovsf_gemm as G
@@ -1109,7 +1142,7 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
     ptrs = {n: t.data_ptr() for n, t in core.caches.items()}
     G.reset_launches()
     paged_flash_decode.launches = 0
-    flash_decode_attn.launches = 0
+    flash_decode_attn.launches = flash_decode_attn.launches_unmasked = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_reserved(dev)     # params, the other engine
@@ -1138,6 +1171,7 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
         stats=dataclasses.replace(stats), wall=wall, launches=launches,
         by_alpha=dict(G.ovsf_gemm.launches_by_alpha),
         by_kernel=dict(G.ovsf_gemm.launches_by_kernel),
+        flash_unmasked=flash_decode_attn.launches_unmasked,
         chunk_free=sum(cf for cf, _l in steps), steps=steps,
         per_step=per_step, tokens={o.rid: list(o.tokens) for o in outs},
         step_shapes=sorted(eng.core.step_shapes),
@@ -1149,9 +1183,10 @@ def serve_run(params, cfg, dev, style: str, reqs: list, tag: str,
 
 def cache_bytes(caches: dict) -> int:
     """Bytes of an engine's serving cache: the K/V buffers (scratch rows
-    included) and the recurrent ``conv`` / ``ssm`` states, where held."""
-    return sum(caches[n].nbytes for n in ("k_rows", "v_rows", "conv", "ssm")
-               if n in caches)
+    included), the recurrent ``conv`` / ``ssm`` states and the cross caches
+    ``xk`` / ``xv``, where held."""
+    return sum(caches[n].nbytes for n in ("k_rows", "v_rows", "conv", "ssm",
+                                          "xk", "xv") if n in caches)
 
 
 def serve_specs(cfg, seed: int) -> list:
@@ -1336,23 +1371,26 @@ def ovsf_per_layer(params) -> int:
 
 
 def check_legacy_steps(tag: str, run: dict, n_layers: int,
-                       n_ovsf: int) -> None:
+                       n_ovsf: int, flash_per_layer: int = 1) -> None:
     """Every step of a legacy run launched, by the wrappers' counters,
     ``n_ovsf`` x ``n_layers`` ``ovsf_gemm`` a prefill call and a decode
-    (TinyLlama-1.1B: 5 x 22 = 110; OLMoE-1B-7B: 4 x 16 = 64), one
-    ``flash_decode_attn`` a layer a decode (the prefill's S > 1 attention
-    is plain ``sdpa``, as in the reference), and nothing else."""
+    (TinyLlama-1.1B: 5 x 22 = 110; OLMoE-1B-7B: 4 x 16 = 64),
+    ``flash_per_layer`` ``flash_decode_attn`` a layer a decode (one; two
+    for an encoder-decoder: self and cross attention; the prefill's S > 1
+    attention is plain ``sdpa``, as in the reference), and nothing
+    else."""
     for calls, decoded, delta in run["per_step"]:
         want = {k: 0 for k in delta}
         want["ovsf_gemm"] = n_ovsf * n_layers * (len(calls) + decoded)
-        want["flash_decode_attn"] = n_layers * decoded
+        want["flash_decode_attn"] = flash_per_layer * n_layers * decoded
         if delta != want:
             raise RuntimeError(f"{tag} a step with prefill calls {calls} and "
                                f"{'a' if decoded else 'no'} decode launched "
                                f"{delta}, expected {want}")
 
 
-def legacy_pair(params, cfg, dev, specs, label: str, tag: str) -> tuple:
+def legacy_pair(params, cfg, dev, specs, label: str, tag: str,
+                flash_per_layer: int = 1) -> tuple:
     """The legacy path in ``label``'s mode, eager and replayed, over the
     same requests: streams, every step's logits (prefill-only steps
     included) bit for bit, launch counters, each step's launches
@@ -1367,7 +1405,7 @@ def legacy_pair(params, cfg, dev, specs, label: str, tag: str) -> tuple:
                              f"{tag} {mode}", mode == "graph", False,
                              engine_kw=LEGACY_STYLES[label])
         check_legacy_steps(f"{tag} {mode}", run, cfg.n_layers,
-                           ovsf_per_layer(params))
+                           ovsf_per_layer(params), flash_per_layer)
         runs[mode], engines[mode] = run, eng
     eager, graph = runs["eager"], runs["graph"]
     if graph["tokens"] != eager["tokens"]:
@@ -1380,6 +1418,7 @@ def legacy_pair(params, cfg, dev, specs, label: str, tag: str) -> tuple:
     tensor_core = graph["by_kernel"]["tensor_core"]
     if graph["launches"] != eager["launches"] or \
             graph["by_kernel"] != eager["by_kernel"] or \
+            graph["flash_unmasked"] != eager["flash_unmasked"] or \
             tensor_core != graph["launches"]["ovsf_gemm"]:
         raise RuntimeError(f"{tag} launches: graph {graph['launches']} "
                            f"{graph['by_kernel']}, eager {eager['launches']} "
@@ -2114,7 +2153,7 @@ def reset_wrapper_counts() -> None:
     from repro_torch.kernels.fwht import fwht
     G.reset_launches()
     paged_flash_decode.launches = flash_decode_attn.launches = 0
-    fwht.launches = 0
+    flash_decode_attn.launches_unmasked = fwht.launches = 0
 
 
 def wrapper_counts() -> dict:
@@ -2252,7 +2291,7 @@ def parity_phase(seed: int, dev, alpha_dtype: str = ""):
     host = (table, tokens, slot_ids, positions, new_pos, emit_idx)
 
     def run(p, device):
-        cache = R.init_paged_cache(cfg, ps, P, device)
+        cache = R.init_paged_cache(cfg, n_slots, ps, P, device)
         cache["pos"] = torch.zeros(n_slots, dtype=torch.int32, device=device)
         with torch.no_grad():
             logits, _ = R.serve_step_paged(
@@ -4691,111 +4730,28 @@ def expert_step_ms(eng, params, T: int, dev) -> float:
 
 
 def moe_serve(params, cfg, seed: int, card: str, dev) -> dict:
-    """Phase 10 (2): the 8 requests of phase 4 (6 greedy, 2 sampled)
-    through ``LLMEngine(paged=True, packed=True, chunk_size=64)`` at 4
-    slots and buffer 256, eager and replayed (``serve_run``). Gates: every
-    request finishes; the plan (``check_moe_plan``); every step launches
-    4 x layers ``ovsf_gemm`` (all on the tensor-core kernel) and one
-    ``paged_flash_decode`` a layer, nothing else of ours; streams, every
-    chunk-free step's logits, launch counters, profiled kernels by name
-    and per step equal between the two runs, at most 3 packed graphs, the
-    profiler's launches of our kernels equal to the wrappers' counters
-    (``graph_vs_eager``, its wall comparison printed only). Printed: wall,
-    replay span, device busy and idle share, the MoE blocks' device ms a
-    step and each graph's MiB."""
+    """Phase 10 (2): ``family_serve`` over OLMoE: every step launches 4 x
+    layers ``ovsf_gemm`` (q, k, v, o; all on the tensor-core kernel) and
+    one ``paged_flash_decode`` a layer, nothing else of ours; the plan
+    (``check_moe_plan``). Printed besides: the MoE blocks' device ms a
+    step."""
     tag = f"[{MOE_ARCH} paged packed]"
-    specs = serve_specs(cfg, seed)
     n_ovsf = ovsf_per_layer(params)
     if n_ovsf != 4:
         raise RuntimeError(f"{tag} {n_ovsf} OVSF linears a block, expected "
                            "4 (q, k, v, o)")
-    none = {k: 0 for k in wrapper_counts()}
-    want = dict(none, ovsf_gemm=n_ovsf * cfg.n_layers,
-                paged_flash_decode=cfg.n_layers)
-    runs, engines, walls = {}, {}, {}
-    for mode in ("eager", "graph"):
-        eng, run = serve_run(params, cfg, dev, "paged packed",
-                             serve_requests(specs), f"{tag} {mode}",
-                             mode == "graph", False)
-        for _calls, active, delta in run["per_step"]:
-            if delta != (want if active else none):
-                raise RuntimeError(f"{tag} {mode}: a step launched {delta}, "
-                                   f"expected {want}")
-        if run["by_kernel"]["tensor_core"] != run["launches"]["ovsf_gemm"]:
-            raise RuntimeError(f"{tag} {mode}: ovsf_gemm by kernel "
-                               f"{run['by_kernel']}, not all tensor-core")
-        runs[mode], engines[mode] = run, eng
-        walls[mode] = decode_ready(eng, cfg, np.random.default_rng(seed + 1))
-    resolved = check_moe_plan(tag, engines["graph"].cfg.exec_plan)
-    windows = agreed_windows({m: e.step for m, e in engines.items()},
-                             DECODE_STEPS, tag)
-    profiles = {m: decode_profile(e, f"{tag} {m}", walls[m], windows[m])
-                for m, e in engines.items()}
-    for m, e in engines.items():
-        check_fault_free(e, f"{tag} {m}", runs[m].pop("core"))
-    graph_eng = engines["graph"]
-    key = tuple(profiles["graph"]["step_shapes"][0])
-    profiles["graph"]["replay_ms"] = replay_span(graph_eng, key)
-    compare = graph_vs_eager(tag, runs["eager"], runs["graph"], profiles,
-                             wall_gate=False)
-    moe_ms = expert_step_ms(graph_eng, params, key[1], dev)
-    mib = graphs_mib_by_key(graph_eng, dev)
-    del engines, graph_eng, eng
-    torch.cuda.empty_cache()
-    graph, eager = runs["graph"], runs["eager"]
-    stats, span = graph["stats"], profiles["graph"]["replay_ms"]
-    print(f"{tag} 8/8 finished: steps={stats.steps} chunk_free_steps="
-          f"{graph['chunk_free']} tokens={stats.tokens_out} wall="
-          f"{graph['wall']:.3f}s (eager {eager['wall']:.3f}s) launches="
-          f"{graph['launches']} ({n_ovsf * cfg.n_layers} ovsf_gemm and "
-          f"{cfg.n_layers} paged_flash_decode a step); the chunk-free step "
-          f"{key} replays in {span:.3f} ms on the device, its MoE blocks "
-          f"{moe_ms:.3f} ms of it ({moe_ms / span:.3f}; layer 0's block "
-          f"timed alone x {cfg.n_layers}); graphs' MiB "
-          + ", ".join(f"{k} {v:.1f}" for k, v in mib.items())
-          + f" ({card})", flush=True)
-    return dict(steps=stats.steps, chunk_free_steps=graph["chunk_free"],
-                tokens_out=stats.tokens_out, wall_s=graph["wall"],
-                eager_wall_s=eager["wall"], launches=graph["launches"],
-                ovsf_gemm_by_kernel=graph["by_kernel"],
-                per_weight_type=resolved, graph_vs_eager=compare,
-                decode_profile=profiles["graph"],
-                eager_decode_profile=profiles["eager"], replay_ms=span,
-                moe_blocks_ms=moe_ms, graphs_mib=mib,
-                tokens=graph["tokens"])
-
-
-def moe_legacy(params, cfg, seed: int, card: str, dev) -> dict:
-    """Phase 10 (3): the same model and requests through the legacy path,
-    bucketed, eager and replayed (``legacy_pair``: streams, every step's
-    logits and launch counters equal; 4 x layers ``ovsf_gemm`` a prefill
-    call and a decode, one ``flash_decode_attn`` a layer a decode and none
-    in a prefill), each graph's replay ms and MiB printed."""
-    tag = f"[{MOE_ARCH} legacy bucketed]"
-    specs = serve_specs(cfg, seed)
-    runs, engines, prefill = legacy_pair(params, cfg, dev, specs,
-                                         "bucketed", tag)
-    graph, eager = runs["graph"], runs["eager"]
-    for m, e in engines.items():
-        check_fault_free(e, f"{tag} {m}", runs[m]["core"])
-    replay = {" ".join(map(str, k)): replay_span(engines["graph"], tuple(k))
-              for k in graph["graphs"]}
-    mib = graphs_mib_by_key(engines["graph"], dev)
-    del engines
-    torch.cuda.empty_cache()
-    print(f"{tag} 8/8 finished; streams, logits ({len(graph['steps'])} "
-          f"steps) and launches {graph['launches']} equal eager vs "
-          f"replayed; prefill keys {prefill}; wall {graph['wall']:.3f}s "
-          f"(eager {eager['wall']:.3f}s); device ms a replay: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in replay.items())
-          + "; graphs' MiB " + ", ".join(f"{k} {v:.1f}"
-                                         for k, v in mib.items())
-          + f" ({card})", flush=True)
-    return dict(tokens=graph["tokens"], launches=graph["launches"],
-                steps=len(graph["steps"]),
-                prefill_keys=[list(k) for k in prefill],
-                wall_s=graph["wall"], eager_wall_s=eager["wall"],
-                replay_ms=replay, graphs_mib=mib)
+    res = family_serve(
+        params, cfg, seed, card, dev, tag,
+        {"ovsf_gemm": n_ovsf * cfg.n_layers,
+         "paged_flash_decode": cfg.n_layers},
+        lambda eng, key: dict(
+            per_weight_type=check_moe_plan(tag, eng.cfg.exec_plan),
+            moe_blocks_ms=expert_step_ms(eng, params, key[1], dev)))
+    moe_ms, span = res["moe_blocks_ms"], res["replay_ms"]
+    print(f"{tag} the MoE blocks {moe_ms:.3f} ms of the chunk-free step's "
+          f"{span:.3f} ms replay ({moe_ms / span:.3f}; layer 0's block "
+          f"timed alone x {cfg.n_layers}) ({card})", flush=True)
+    return res
 
 
 def routing_recorder():
@@ -4897,7 +4853,7 @@ def moe_parity(seed: int, dev) -> dict:
         records, recording = routing_recorder()
         route, moe.route = moe.route, recording
         try:
-            cache = R.init_paged_cache(cfg, ps, P, device)
+            cache = R.init_paged_cache(cfg, n_slots, ps, P, device)
             cache["pos"] = torch.zeros(n_slots, dtype=torch.int32,
                                        device=device)
             out = []
@@ -4978,7 +4934,8 @@ def moe_phase(seed: int, card: str, dev) -> dict:
           flush=True)
     res["resident"] = moe_resident(params, cfg, card)
     res["paged packed"] = moe_serve(params, cfg, seed, card, dev)
-    res["legacy"] = moe_legacy(params, cfg, seed, card, dev)
+    res["legacy"] = family_legacy(params, cfg, seed, card, dev,
+                                  f"[{MOE_ARCH} legacy bucketed]", 1)
     del params
     torch.cuda.empty_cache()
     res["parity"] = moe_parity(seed, dev)
@@ -5016,7 +4973,8 @@ STARCODER_FLASH = ("starcoder2 window decode", 4, 48, 4, 128, 128,
 STARCODER_LAYERS = 2        # the depth its launch counts are served at
 
 
-def gemm_summary(rows: list, shapes: dict, M: int, label: str) -> dict:
+def gemm_summary(rows: list, shapes: dict, M: int, label: str,
+                 tag: str = "[ssm kernel]") -> dict:
     """``shapes``' ``ovsf_gemm`` rows at ``M`` (bf16) summed: one layer's
     projections, the summary row of the kernels line."""
     pick = {(r["K"], r["N"]): r for r in rows if r["M"] == M}
@@ -5026,7 +4984,7 @@ def gemm_summary(rows: list, shapes: dict, M: int, label: str) -> dict:
                                     for kn in shapes.values())
                      else "operations")
     s["max_abs_err"] = max(pick[kn]["max_abs_err"] for kn in shapes.values())
-    print(f"[ssm kernel] ovsf_gemm {label} ({', '.join(shapes)}) M={M} "
+    print(f"{tag} ovsf_gemm {label} ({', '.join(shapes)}) M={M} "
           f"bf16: {s['ms']:.4f}ms, matmul on dense W {s['library_ms']:.4f}ms"
           f" (x{s['ms'] / s['library_ms']:.2f}), bound {s['bound_ms']:.4f}ms "
           f"({s['bound_by']})", flush=True)
@@ -5393,6 +5351,551 @@ def ssm_phase(seed: int, card: str, dev) -> dict:
     return res
 
 
+# -- phase 12: the encoder-decoder and VLM families ---------------------------
+
+WHISPER_ARCH = "whisper_tiny"
+LLAVA_ARCH = "llava_next_34b"
+# the depth phase 12 serves LLaVA-NeXT-34B at (of 60, full width): all 60
+# took the whole script to 893 s of its 1200 s limit on a slow host
+LLAVA_LAYERS = 30
+LLAVA_PARITY_LAYERS = 2     # the card-vs-CPU steps' depth (full width)
+LLAVA_PARITY_IMAGE = 8      # image positions of the card-vs-CPU prefill
+ENTRY_STEPS = 16            # greedy decode steps after each family's prefill
+# (K, N) of LLaVA-NeXT-34B's seven OVSF projections a layer (k and v 1024
+# wide: 8 KV heads of 128)
+LLAVA_LAYER = {"q": (7168, 7168), "k": (7168, 1024), "v": (7168, 1024),
+               "o": (7168, 7168), "gate": (7168, 20480),
+               "up": (7168, 20480), "down": (20480, 7168)}
+LLAVA_PLAN = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate", "mlp_up",
+              "mlp_down")
+# (label, B, H, Hkv, hd, T, positions): LLaVA's heads (a GQA group of 7),
+# Whisper's self heads, Whisper's cross read (every row at Te = 1500, the
+# tail of the split plan not a whole tile) and the same read of the paged
+# packed engine's mixed bucket (128 tokens, each its slot's gathered rows)
+ENCDEC_VLM_FLASH = {
+    "llava": ("llava window decode", 4, 56, 8, 128, 128, (1, 37, 100, 128)),
+    "whisper": ("whisper window decode", 4, 6, 6, 64, 128, (1, 37, 100, 128)),
+    "whisper_cross": ("whisper cross read", 4, 6, 6, 64, 1500, (1500,) * 4),
+    "whisper_packed_cross": ("whisper packed cross read", 128, 6, 6, 64,
+                             1500, (1500,) * 128)}
+ENCDEC_VLM_PAGED = {"llava": (56, 8, 128), "whisper": (6, 6, 64)}
+
+
+def run_encdec_vlm_kernel_checks(rng, dev) -> dict:
+    """Phase 12 (1): ``ovsf_gemm`` (bf16, 16-long segments) at LLaVA's seven
+    projections at M 4 (decode) and 1024 (a prefill's rows), each on the
+    tensor-core kernel, summed a layer; ``flash_decode_attn`` at LLaVA's
+    heads, Whisper's self heads, Whisper's cross read (B 4, T 1500, pos
+    1500) and the packed cross read (B 128); ``paged_flash_decode`` (T 4
+    and 128) at LLaVA's and Whisper's heads; bf16 and fp32, each against
+    its plain version with device ms, bound and the library call's ms
+    (matmul on the dense W; SDPA). The packed cross path's row gather
+    (``xk[sid]``, ``xv[sid]``: 128 tokens from 4 slots of 1500 rows) is
+    timed beside them."""
+    shapes = sorted(set(LLAVA_LAYER.values()))
+    rows = [gemm_row(rng, dev, 16, M, K, N, torch.bfloat16, "",
+                     "ovsf_gemm_llava") for M in (4, 1024) for K, N in shapes]
+    torch.cuda.empty_cache()
+    off = [r["case"] for r in rows if r["kernel"] != "tensor_core"]
+    if off:
+        raise RuntimeError(f"[encdec/vlm kernel] not on the tensor-core "
+                           f"ovsf_gemm: {off}")
+    gemm = {M: gemm_summary(rows, LLAVA_LAYER, M, LLAVA_ARCH,
+                            "[encdec/vlm kernel]") for M in (4, 1024)}
+    flash = {}
+    for key, (label0, B, H, Hkv, hd, T, pos) in ENCDEC_VLM_FLASH.items():
+        cases = [flash_row(rng, dev, label0, B, H, Hkv, hd, T, pos, dt)
+                 for dt in (torch.bfloat16, torch.float32)]
+        flash[key] = dict(cases[0], max_abs_err=max(r["max_abs_err"]
+                                                    for r in cases),
+                          cases=cases)
+        torch.cuda.empty_cache()
+    paged = {}
+    for key, heads in ENCDEC_VLM_PAGED.items():
+        cases, summary = run_paged_checks(rng, dev, heads, f"{key} ")
+        paged[key] = dict(summary, cases=cases)
+        torch.cuda.empty_cache()
+    gathers = []
+    for dt in (torch.bfloat16, torch.float32):
+        xk = torch.randn((4, 1500, 6, 64), device=dev).to(dt)
+        xv = torch.randn((4, 1500, 6, 64), device=dev).to(dt)
+        sid = torch.from_numpy(rng.integers(0, 4, 128)).to(dev)
+        g_ms, _ = timings([lambda: (xk[sid], xv[sid])], 20)
+        g_bytes = 2 * (4 + 128) * 1500 * 6 * 64 * xk.element_size()
+        gathers.append(dict(T=128, Te=1500, dtype=str(dt), ms=g_ms,
+                            bytes=g_bytes,
+                            bound_ms=g_bytes / HBM_BYTES_PER_S * 1e3))
+        print(f"[encdec/vlm kernel] packed cross gather T=128 Te=1500 "
+              f"{str(dt).split('.')[-1]}: {g_ms:.4f}ms per layer "
+              f"({g_bytes / 1e6:.1f} MB read once and written, bound "
+              f"{g_bytes / HBM_BYTES_PER_S * 1e3:.4f}ms)", flush=True)
+        del xk, xv
+    torch.cuda.empty_cache()
+    return dict(gemm_rows=rows, gemm=gemm, flash=flash, paged=paged,
+                cross_gather=gathers)
+
+
+def entry_calls(params, cfg, device, tokens: np.ndarray, extra: dict,
+                feed=None, steps: int = ENTRY_STEPS) -> dict:
+    """``serve_prefill`` of (B, Sp) ``tokens`` with ``extra`` (``frames`` or
+    ``image_embeds``, numpy) on ``device``, then ``steps`` decode steps
+    fed greedily (or the tokens ``feed`` gives, a step each): fp32
+    logits of every call on the host, the tokens fed, each call's launch
+    counters' increase and host seconds, and the cache after the
+    prefill's cross leaves' shape and type (an encoder-decoder's)."""
+    from repro_torch.models import registry as R
+    Sp = tokens.shape[1]
+    kw = {k: torch.from_numpy(v).to(device, cfg.act_dtype)
+          for k, v in extra.items()}
+    tok = torch.from_numpy(tokens.astype(np.int64)).to(device)
+    out, fed, launches, secs = [], [], [], []
+    cross = None
+    with torch.no_grad():
+        for i in range(steps + 1):
+            before = wrapper_counts()
+            t0 = time.perf_counter()
+            if i == 0:
+                lg, cache = R.serve_prefill(params, cfg, tok, Sp + steps,
+                                            **kw)
+                if "xk" in cache:
+                    cross = (tuple(cache["xk"].shape), str(cache["xk"].dtype),
+                             bool(cache["xk"].any()))
+            else:
+                lg, cache = R.serve_step(params, cfg, cache, tok)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            after = wrapper_counts()
+            launches.append({k: after[k] - before[k] for k in after})
+            out.append(lg.float().cpu())
+            nxt = (lg.argmax(-1) if feed is None
+                   else torch.from_numpy(feed[i]).to(device))
+            fed.append(nxt.cpu().numpy())
+            tok = nxt[:, None]
+    return dict(logits=out, fed=fed, launches=launches, secs=secs,
+                cross=cross)
+
+
+def rel_rows(got: list, want: list, tag: str) -> list:
+    """Each call's logits rows' relative L2 error (card against CPU), the
+    shapes equal and the values finite."""
+    rel = []
+    for g, c in zip(got, want):
+        if g.shape != c.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"{tag} logits {tuple(g.shape)} vs "
+                               f"{tuple(c.shape)}, or not finite")
+        rel.append([float((g[r] - c[r]).norm() / c[r].norm())
+                    for r in range(g.shape[0])])
+    return rel
+
+
+def check_entry_launches(tag: str, run: dict, want_prefill: dict,
+                         want_step: dict) -> None:
+    """The prefill launched ``want_prefill`` and every decode step
+    ``want_step`` of the wrappers' counters (the rest 0)."""
+    for i, delta in enumerate(run["launches"]):
+        want = {k: 0 for k in delta}
+        want.update(want_prefill if i == 0 else want_step)
+        if delta != want:
+            raise RuntimeError(f"{tag} call {i} launched {delta}, expected "
+                               f"{want}")
+
+
+def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
+                 want: dict, extra=None) -> dict:
+    """The 8 requests of phase 4 (6 greedy, 2 sampled, 16 new tokens)
+    through the main path's engine (``LLMEngine(chunk_size=64, paged=True,
+    packed=True)``, 4 slots, buffer 256), eager and replayed: every request
+    finishes; every step that runs tokens launches ``want`` of the
+    wrappers' counters and nothing else; streams, every chunk-free step's
+    logits, launch counters and profiled kernels equal between the two
+    runs (``graph_vs_eager``, the wall printed only); the cache keeps its
+    addresses; an encoder-decoder's cross caches stay zero (the engine
+    passes tokens only). ``extra(engine, step key)``, if given, runs on
+    the replaying engine before it is freed; its dict joins the result.
+    Printed: the chunk-free step's wall, replay span, device busy and idle
+    share, its ``ovsf_gemm`` device ms, the graphs' MiB."""
+    specs = serve_specs(cfg, seed)
+    none = {k: 0 for k in wrapper_counts()}
+    want = dict(none, **want)
+    runs, engines, walls = {}, {}, {}
+    for mode in ("eager", "graph"):
+        eng, run = serve_run(params, cfg, dev, "paged packed",
+                             serve_requests(specs), f"{tag} {mode}",
+                             mode == "graph", False)
+        for _calls, active, delta in run["per_step"]:
+            if delta != (want if active else none):
+                raise RuntimeError(f"{tag} {mode}: a step launched {delta}, "
+                                   f"expected {want}")
+        if run["by_kernel"]["tensor_core"] != run["launches"]["ovsf_gemm"]:
+            raise RuntimeError(f"{tag} {mode}: ovsf_gemm by kernel "
+                               f"{run['by_kernel']}, not all tensor-core")
+        if run["moved"]:
+            raise RuntimeError(f"{tag} {mode}: cache leaves {run['moved']} "
+                               "changed address during the run")
+        caches = eng.core.caches
+        if "xk" in caches and (caches["xk"].any() or caches["xv"].any()):
+            raise RuntimeError(f"{tag} {mode}: the engine wrote its cross "
+                               "caches")
+        runs[mode], engines[mode] = run, eng
+        walls[mode] = decode_ready(eng, cfg, np.random.default_rng(seed + 1))
+    windows = agreed_windows({m: e.step for m, e in engines.items()},
+                             DECODE_STEPS, tag)
+    profiles = {m: decode_profile(e, f"{tag} {m}", walls[m], windows[m])
+                for m, e in engines.items()}
+    for m, e in engines.items():
+        check_fault_free(e, f"{tag} {m}", runs[m].pop("core"))
+    graph_eng = engines["graph"]
+    key = tuple(profiles["graph"]["step_shapes"][0])
+    profiles["graph"]["replay_ms"] = replay_span(graph_eng, key)
+    compare = graph_vs_eager(tag, runs["eager"], runs["graph"], profiles,
+                             wall_gate=False)
+    gemm_names = OWN_OF_WRAPPER["ovsf_gemm"] + ("sum_splits_kernel",)
+    gemm_ms = sum(e.self_device_time_total for e in windows["graph"]["first"]
+                  if any(re.search(rf"\b{k}\b", e.key)
+                         for k in gemm_names)) / DECODE_STEPS / 1e3
+    mib = graphs_mib_by_key(graph_eng, dev)
+    more = extra(graph_eng, key) if extra is not None else {}
+    del engines, graph_eng, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph, eager = runs["graph"], runs["eager"]
+    stats, pg = graph["stats"], profiles["graph"]
+    busy = pg["busy_ms"]
+    print(f"{tag} 8/8 finished: steps={stats.steps} chunk_free_steps="
+          f"{graph['chunk_free']} tokens={stats.tokens_out} wall="
+          f"{graph['wall']:.3f}s (eager {eager['wall']:.3f}s) launches="
+          f"{graph['launches']} ({want} a step); the chunk-free step {key}: "
+          f"wall {pg['step_ms']:.3f} ms, replay {pg['replay_ms']:.3f} ms on "
+          f"the device, busy "
+          + ("not measured" if busy is None else f"{busy:.3f} ms")
+          + f", idle share {pg['idle_share']}, kernels a step "
+          f"{pg['kernels_per_step']}, ovsf_gemm {gemm_ms:.3f} ms of it; "
+          f"cache {graph['kv_bytes'] / 2**20:.1f} MiB; graphs' MiB "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mib.items())
+          + f" ({card})", flush=True)
+    return dict(steps=stats.steps, chunk_free_steps=graph["chunk_free"],
+                tokens_out=stats.tokens_out, wall_s=graph["wall"],
+                eager_wall_s=eager["wall"], launches=graph["launches"],
+                ovsf_gemm_by_kernel=graph["by_kernel"],
+                graph_vs_eager=compare, decode_profile=pg,
+                eager_decode_profile=profiles["eager"],
+                replay_ms=pg["replay_ms"], ovsf_gemm_ms=gemm_ms,
+                graphs_mib=mib, cache_bytes=graph["kv_bytes"],
+                flash_unmasked=graph["flash_unmasked"],
+                tokens=graph["tokens"], **more)
+
+
+def family_legacy(params, cfg, seed: int, card: str, dev, tag: str,
+                  flash_per_layer: int) -> dict:
+    """The same model and requests through the legacy path, bucketed,
+    eager and replayed (``legacy_pair``: streams, every step's logits and
+    launch counters equal; each bucket's graph holds K/V as deep as its
+    bucket), ``flash_per_layer`` ``flash_decode_attn`` a layer a decode;
+    no prefill graph holds a cross cache (the prefill bodies leave them
+    out). Printed: each graph's replay ms and MiB."""
+    specs = serve_specs(cfg, seed)
+    runs, engines, prefill = legacy_pair(params, cfg, dev, specs,
+                                         "bucketed", tag, flash_per_layer)
+    graph, eager = runs["graph"], runs["eager"]
+    for m, e in engines.items():
+        check_fault_free(e, f"{tag} {m}", runs[m]["core"])
+    core = engines["graph"].core
+    held = {k: [tuple(o.shape) for o in core.graphs._entries[k].outputs]
+            for k in core.graphs.keys() if k[0] == "prefill"}
+    if any(len(shapes) != 4 for shapes in held.values()):
+        raise RuntimeError(f"{tag} prefill graphs hold outputs {held}: "
+                           "logits, head, K and V only")
+    if "xk" in core.caches and core.caches["xk"].any():
+        raise RuntimeError(f"{tag} the legacy engine wrote its cross caches")
+    replay = {" ".join(map(str, k)): replay_span(engines["graph"], tuple(k))
+              for k in graph["graphs"]}
+    mib = graphs_mib_by_key(engines["graph"], dev)
+    del engines, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag} 8/8 finished; streams, logits ({len(graph['steps'])} "
+          f"steps) and launches {graph['launches']} equal eager vs "
+          f"replayed; prefill keys {prefill}; wall {graph['wall']:.3f}s "
+          f"(eager {eager['wall']:.3f}s); device ms a replay: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in replay.items())
+          + "; graphs' MiB " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in mib.items())
+          + f" ({card})", flush=True)
+    return dict(tokens=graph["tokens"], launches=graph["launches"],
+                flash_unmasked=graph["flash_unmasked"],
+                steps=len(graph["steps"]),
+                prefill_keys=[list(k) for k in prefill],
+                wall_s=graph["wall"], eager_wall_s=eager["wall"],
+                replay_ms=replay, graphs_mib=mib)
+
+
+def whisper_inputs(cfg, seed: int) -> tuple:
+    """(4, Sp) prompts, Sp drawn in [4, 32], and (4, Te, d) frames, from
+    ``seed``."""
+    rng = np.random.default_rng(seed + 29)
+    Sp = int(rng.integers(4, 33))
+    tokens = rng.integers(0, cfg.vocab, (4, Sp))
+    frames = rng.standard_normal((4, cfg.encoder_seq, cfg.d_model),
+                                 np.float32)
+    return tokens, frames
+
+
+def whisper_phase(seed: int, card: str, dev) -> dict:
+    """Phase 12 (2): Whisper-tiny uncut (4 + 4 layers, d 384, 6 heads of 64,
+    Te 1500, vocab 51865), bf16: no OVSF layer at this width (d 384 <
+    min_dim 512), so its path runs the two attention kernels only.
+    ``serve_prefill`` with frames (4 x 1500 x 384 from the seed) and
+    prompts of one length in [4, 32], then 16 greedy ``serve_step``s: the
+    cross caches Te deep in bf16; no kernel in the prefill (S > 1: plain
+    ``sdpa``), two ``flash_decode_attn`` a layer a step (self, and cross
+    over the 1500 rows); the frames reach the decoder (the prefill's
+    logits without them differ). The same in fp32 on the card and the CPU
+    (the card's greedy tokens fed to both): every call's logits within
+    1e-3 relative L2. Then ``family_serve`` (a paged packed step launches
+    one ``paged_flash_decode`` and one ``flash_decode_attn``, the cross
+    read of the packed tokens, a layer) and ``family_legacy`` (two
+    ``flash_decode_attn`` a layer a decode), counting the cross reads
+    apart (``flash_decode_attn.launches_unmasked``): all of the packed
+    steps' reads and half the legacy decodes'."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    cfg = get_config(WHISPER_ARCH)
+    tag = f"[{WHISPER_ARCH}]"
+    params = R.model_init(cfg, seed, dev)
+    if ovsf_per_layer(params) or ovsf_per_layer(params["encoder"]):
+        raise RuntimeError(f"{tag} an OVSF layer at d {cfg.d_model}")
+    pcfg = plan_cfg(cfg, 4, dev)
+    if pcfg.exec_plan.names():
+        raise RuntimeError(f"{tag} plan {pcfg.exec_plan.names()}: expected "
+                           "none (no OVSF layer)")
+    tokens, frames = whisper_inputs(cfg, seed)
+    L = cfg.n_layers
+    run = entry_calls(params, pcfg, dev, tokens, {"frames": frames})
+    check_entry_launches(tag, run, {}, {"flash_decode_attn": 2 * L})
+    Te = cfg.encoder_seq
+    if run["cross"] != ((L, 4, Te, cfg.n_kv_heads, cfg.hd),
+                        "torch.bfloat16", True):
+        raise RuntimeError(f"{tag} the prefill's cross caches {run['cross']}")
+    bare = entry_calls(params, pcfg, dev, tokens, {}, steps=0)
+    if bare["cross"][2]:
+        raise RuntimeError(f"{tag} cross caches filled without frames")
+    a, b = run["logits"][0], bare["logits"][0]
+    gap = [float((a[r] - b[r]).norm() / b[r].norm()) for r in range(4)]
+    if not min(gap) > 1e-2:
+        raise RuntimeError(f"{tag} prefill logits with frames within {gap} "
+                           "relative L2 of those without: the frames do not "
+                           "reach the decoder")
+    step_ms = statistics.median(run["secs"][1:]) * 1e3
+    print(f"{tag} bf16 uncut ({cfg.encoder_layers} + {L} layers, d "
+          f"{cfg.d_model}, Te {Te}): serve_prefill with frames (4 x "
+          f"{Te} x {cfg.d_model}) and {tokens.shape[1]}-token prompts in "
+          f"{run['secs'][0] * 1e3:.1f} ms, cross caches {run['cross'][0]} "
+          f"{run['cross'][1]}; {ENTRY_STEPS} greedy steps, median "
+          f"{step_ms:.2f} ms eager, {2 * L} flash_decode_attn each; the "
+          f"frames move the prefill logits by {min(gap):.3f}-{max(gap):.3f} "
+          f"relative L2 ({card})", flush=True)
+    del bare
+    c32 = get_config(WHISPER_ARCH).replace(dtype="float32")
+    p32 = R.model_init(c32, seed + 3, dev)
+    card32 = entry_calls(p32, c32, dev, tokens, {"frames": frames})
+    cpu32 = entry_calls(R.params_to(p32, "cpu"), c32, torch.device("cpu"),
+                        tokens, {"frames": frames}, feed=card32["fed"])
+    del p32
+    rel = rel_rows(card32["logits"], cpu32["logits"], f"{tag} fp32")
+    worst = max(max(r) for r in rel)
+    print(f"{tag} fp32 card vs CPU: prefill with frames and "
+          f"{ENTRY_STEPS} steps, logits rel L2 err max {worst:.3e} (limit "
+          f"1e-3); card {sum(card32['secs']):.3f}s, CPU "
+          f"{sum(cpu32['secs']):.3f}s", flush=True)
+    if not worst <= 1e-3:
+        raise RuntimeError(f"{tag} fp32 card vs CPU relative error {rel}")
+    serve = family_serve(params, cfg, seed, card, dev,
+                         f"[{WHISPER_ARCH} paged packed]",
+                         {"paged_flash_decode": L, "flash_decode_attn": L})
+    legacy = family_legacy(params, cfg, seed, card, dev,
+                           f"[{WHISPER_ARCH} legacy bucketed]", 2)
+    # every packed step's flash_decode_attn is a cross read; a legacy
+    # decode runs a self read and a cross read a layer
+    flash = {"paged packed": serve, "legacy": legacy}
+    if serve["flash_unmasked"] != serve["launches"]["flash_decode_attn"] or \
+            2 * legacy["flash_unmasked"] != \
+            legacy["launches"]["flash_decode_attn"]:
+        raise RuntimeError(f"{tag} flash_decode_attn launches, all and "
+                           "cross reads: " + ", ".join(
+                               f"{k} {r['launches']['flash_decode_attn']} "
+                               f"{r['flash_unmasked']}"
+                               for k, r in flash.items()))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(entry=dict(prompt_len=int(tokens.shape[1]),
+                           prefill_s=run["secs"][0], step_ms=step_ms,
+                           cross=list(run["cross"][:2]), frames_gap=gap,
+                           launches=run["launches"][1]),
+                parity=dict(rel_err=rel, worst=worst), serve=serve,
+                legacy=legacy)
+
+
+def llava_plan(tag: str, cfg) -> dict:
+    """The engine's plan on the card: the seven projections' entries, each
+    ``fused``."""
+    xplan = cfg.exec_plan
+    plan = {n: p.path for n, p in xplan.entries}
+    print(f"{tag} mapper plan (hw {xplan.hw_label}, decode at 4 slots): "
+          + ", ".join(f"{n}={p}" for n, p in plan.items()), flush=True)
+    if tuple(plan) != LLAVA_PLAN or set(plan.values()) != {"fused"}:
+        raise RuntimeError(f"{tag} plan {plan}: expected {LLAVA_PLAN} all "
+                           "fused")
+    return plan
+
+
+def llava_inputs(cfg, seed: int, n_img: int, lo: int, hi: int) -> tuple:
+    """(4, n_img + St) tokens, St drawn in [lo, hi], and (4, n_img, d)
+    image embeddings (N(0, 0.02^2), an embedding's scale), from
+    ``seed``."""
+    rng = np.random.default_rng(seed + 34)
+    St = int(rng.integers(lo, hi + 1))
+    tokens = rng.integers(0, cfg.vocab, (4, n_img + St))
+    img = rng.standard_normal((4, n_img, cfg.d_model), np.float32) * 0.02
+    return tokens, img
+
+
+def llava_parity(seed: int, dev) -> dict:
+    """Phase 12 (4): LLaVA-NeXT-34B at full width but
+    ``LLAVA_PARITY_LAYERS`` layers in fp32 (TF32 off), planned as the engine
+    plans it on the card: ``serve_prefill`` of 4 rows with
+    ``LLAVA_PARITY_IMAGE`` image positions and 32 text tokens, then two
+    decode steps, on the card and on the CPU with the same parameters (the
+    card's greedy tokens fed to both): every call's logits within 1e-3
+    relative L2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    cfg = plan_cfg(get_config(LLAVA_ARCH).replace(
+        dtype="float32", n_layers=LLAVA_PARITY_LAYERS), 4, dev)
+    params = R.model_init(cfg, seed + 3, dev)
+    tokens, img = llava_inputs(cfg, seed, LLAVA_PARITY_IMAGE, 32, 32)
+    card_run = entry_calls(params, cfg, dev, tokens, {"image_embeds": img},
+                           steps=2)
+    cpu_params = R.params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    cpu_run = entry_calls(cpu_params, cfg, torch.device("cpu"), tokens,
+                          {"image_embeds": img}, feed=card_run["fed"],
+                          steps=2)
+    rel = rel_rows(card_run["logits"], cpu_run["logits"], "[llava parity]")
+    worst = max(max(r) for r in rel)
+    print(f"[llava parity] {LLAVA_ARCH} full width, {cfg.n_layers} layers, "
+          f"fp32: a prefill with {LLAVA_PARITY_IMAGE} image positions and 2"
+          f" decode steps, logits rel L2 err max {worst:.3e} (per call "
+          + ", ".join(f"{max(r):.2e}" for r in rel)
+          + f"; limit 1e-3); card {sum(card_run['secs']):.3f}s, CPU "
+          f"{sum(cpu_run['secs']):.3f}s", flush=True)
+    if not worst <= 1e-3:
+        raise RuntimeError(f"[llava parity] relative error {rel} > 1e-3")
+    return dict(rel_err=rel, worst=worst, layers=cfg.n_layers,
+                gpu_s=sum(card_run["secs"]), cpu_s=sum(cpu_run["secs"]))
+
+
+def llava_phase(seed: int, card: str, dev) -> dict:
+    """Phase 12 (3): LLaVA-NeXT-34B at full width (d 7168, 56/8 heads of
+    128, d_ff 20480, vocab 64000; ``LLAVA_LAYERS`` of its 60 layers), bf16,
+    OVSF rho 0.5 on the seven projections: the alphas at most 0.55x the
+    dense bf16 bytes; the plan ``fused`` at every entry. ``serve_prefill``
+    of 4 rows with the config's 1024 image positions (embeddings from the
+    seed) and one text length in [32, 64] after them, then 16 greedy
+    decode steps: 7 ``ovsf_gemm`` a layer a call (all tensor-core), one
+    ``flash_decode_attn`` a layer a step. Then ``family_serve`` (7
+    ``ovsf_gemm`` and one ``paged_flash_decode`` a layer a step) and
+    ``family_legacy``; the decode step's device ms and its ``ovsf_gemm``
+    share against the byte bound of the alphas and ``lm_head``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    cfg = get_config(LLAVA_ARCH).replace(n_layers=LLAVA_LAYERS)
+    tag = f"[{LLAVA_ARCH}]"
+    t0 = time.perf_counter()
+    params = R.model_init(cfg, seed, dev)
+    torch.cuda.synchronize()
+    print(f"{tag} bf16 ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}): {R.param_count(params) / 1e9:.3f}"
+          f"B stored values initialised on the card in "
+          f"{time.perf_counter() - t0:.2f}s; allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB before)", flush=True)
+    resident = ovsf_resident(params, card, tag)
+    n_ovsf = ovsf_per_layer(params)
+    if n_ovsf != len(LLAVA_LAYER):
+        raise RuntimeError(f"{tag} {n_ovsf} OVSF linears a block, expected "
+                           f"{len(LLAVA_LAYER)}")
+    pcfg = plan_cfg(cfg, 4, dev)
+    plan = llava_plan(tag, pcfg)
+    L = cfg.n_layers
+    tokens, img = llava_inputs(cfg, seed, cfg.vlm_image_tokens, 32, 64)
+    G.reset_launches()
+    run = entry_calls(params, pcfg, dev, tokens, {"image_embeds": img})
+    check_entry_launches(tag, run, {"ovsf_gemm": n_ovsf * L},
+                         {"ovsf_gemm": n_ovsf * L, "flash_decode_attn": L})
+    if G.ovsf_gemm.launches_by_kernel["tensor_core"] != \
+            G.ovsf_gemm.launches:
+        raise RuntimeError(f"{tag} ovsf_gemm by kernel "
+                           f"{dict(G.ovsf_gemm.launches_by_kernel)}")
+    step_ms = statistics.median(run["secs"][1:]) * 1e3
+    print(f"{tag} serve_prefill of 4 x ({cfg.vlm_image_tokens} image + "
+          f"{tokens.shape[1] - cfg.vlm_image_tokens} text) positions in "
+          f"{run['secs'][0]:.3f}s ({n_ovsf * L} ovsf_gemm at M = "
+          f"{tokens.size}); {ENTRY_STEPS} greedy steps, median "
+          f"{step_ms:.2f} ms eager ({n_ovsf * L} ovsf_gemm, {L} "
+          f"flash_decode_attn each) ({card})", flush=True)
+    serve = family_serve(params, cfg, seed, card, dev,
+                         f"[{LLAVA_ARCH} paged packed]",
+                         {"ovsf_gemm": n_ovsf * L, "paged_flash_decode": L})
+    legacy = family_legacy(params, cfg, seed, card, dev,
+                           f"[{LLAVA_ARCH} legacy bucketed]", 1)
+    head = params["lm_head"]["w"]
+    bound_ms = (resident["alpha_bytes"] + head.nbytes) / HBM_BYTES_PER_S * 1e3
+    pg = serve["decode_profile"]
+    busy = pg["busy_ms"]
+    print(f"{tag} the replayed chunk-free paged packed step: "
+          f"{serve['replay_ms']:.3f} ms on the device (busy "
+          + ("not measured" if busy is None else f"{busy:.3f} ms")
+          + f"), ovsf_gemm {serve['ovsf_gemm_ms']:.3f} ms of it; byte bound "
+          f"of the alphas and lm_head {bound_ms:.3f} ms "
+          f"({(resident['alpha_bytes'] + head.nbytes) / 1e9:.2f} GB); "
+          f"replay / bound {serve['replay_ms'] / bound_ms:.2f} ({card})",
+          flush=True)
+    del params, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=L, resident=resident, plan=plan,
+                entry=dict(text_len=int(tokens.shape[1])
+                           - cfg.vlm_image_tokens,
+                           prefill_s=run["secs"][0], step_ms=step_ms,
+                           launches=run["launches"][1]),
+                serve=serve, legacy=legacy, bound_ms=bound_ms,
+                parity=llava_parity(seed, dev))
+
+
+def encdec_vlm_phase(seed: int, card: str, dev) -> dict:
+    """Phase 12 (module docstring): the encoder-decoder and VLM families at
+    their published widths on the card."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 29)
+    res = dict(kernels=run_encdec_vlm_kernel_checks(rng, dev))
+    res[WHISPER_ARCH] = whisper_phase(seed, card, dev)
+    res[LLAVA_ARCH] = llava_phase(seed, card, dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"[encdec/vlm] phase passed in {res['wall_s']:.1f}s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5511,6 +6014,11 @@ def main(argv=None) -> int:
     ssm_res = ssm_phase(args.seed, card, dev)
     mark("ssm")
     sk = ssm_res["kernels"]
+    ev_res = encdec_vlm_phase(args.seed, card, dev)
+    mark("encdec_vlm")
+    ek = ev_res["kernels"]
+    wsp = ev_res[WHISPER_ARCH]
+    lv = ev_res[LLAVA_ARCH]
     phase_s = {name: t - marks[i][1]
                for i, (name, t) in enumerate(marks[1:])}
     print("[timing] seconds a phase: "
@@ -5594,7 +6102,36 @@ def main(argv=None) -> int:
              "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:64",
              sk["flash"][STARCODER_ARCH],
-             star["legacy"]["launches"]["flash_decode_attn"])):
+             star["legacy"]["launches"]["flash_decode_attn"]),
+            ("ovsf_gemm_llava", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", ek["gemm"][4],
+             lv["serve"]["launches"]["ovsf_gemm"]),
+            ("paged_flash_decode_llava",
+             "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:160", ek["paged"]["llava"],
+             lv["serve"]["launches"]["paged_flash_decode"]),
+            ("flash_decode_attn_llava",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64", ek["flash"]["llava"],
+             lv["legacy"]["launches"]["flash_decode_attn"]),
+            ("paged_flash_decode_whisper",
+             "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:160", ek["paged"]["whisper"],
+             wsp["serve"]["launches"]["paged_flash_decode"]),
+            ("flash_decode_attn_whisper",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64", ek["flash"]["whisper"],
+             wsp["legacy"]["launches"]["flash_decode_attn"]
+             - wsp["legacy"]["flash_unmasked"]),
+            ("flash_decode_attn_whisper_cross",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64",
+             ek["flash"]["whisper_cross"], wsp["legacy"]["flash_unmasked"]),
+            ("flash_decode_attn_whisper_packed_cross",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64",
+             ek["flash"]["whisper_packed_cross"],
+             wsp["serve"]["flash_unmasked"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -5701,13 +6238,51 @@ def main(argv=None) -> int:
                                                        "H=48 Hkv=4 hd=128 "
                                                        "T=128 bf16; launches:"
                                                        " its 2-layer legacy "
-                                                       "run"},
+                                                       "run",
+                       "ovsf_gemm_llava": "llava_next_34b's seven OVSF "
+                                          "projections (q, o 7168 -> 7168; "
+                                          "k, v -> 1024; gate, up -> 20480;"
+                                          " down 20480 -> 7168) at M=4 "
+                                          "bf16, summed; launches: its "
+                                          "paged packed run (phase 12)",
+                       "paged_flash_decode_llava": "T=4 decode H=56 Hkv=8 "
+                                                   "hd=128 bf16; launches: "
+                                                   "llava's paged packed run",
+                       "flash_decode_attn_llava": "window decode B=4 H=56 "
+                                                  "Hkv=8 hd=128 T=128 bf16; "
+                                                  "launches: llava's legacy "
+                                                  "run",
+                       "paged_flash_decode_whisper": "T=4 decode H=6 Hkv=6 "
+                                                     "hd=64 bf16; launches: "
+                                                     "whisper's paged packed"
+                                                     " run (self attention)",
+                       "flash_decode_attn_whisper": "window decode B=4 H=6 "
+                                                    "Hkv=6 hd=64 T=128 bf16;"
+                                                    " launches: whisper's "
+                                                    "legacy run, its self "
+                                                    "reads (all less the "
+                                                    "unmasked ones)",
+                       "flash_decode_attn_whisper_cross": "cross read B=4 "
+                                                          "T=1500, pos 1500 "
+                                                          "on every row, "
+                                                          "bf16; launches: "
+                                                          "whisper's legacy "
+                                                          "run, its cross "
+                                                          "reads (unmasked "
+                                                          "launches)",
+                       "flash_decode_attn_whisper_packed_cross":
+                           "cross read of a packed step's 128 tokens, each "
+                           "over its slot's gathered 1500 rows, bf16; "
+                           "launches: whisper's paged packed run, its "
+                           "cross reads (unmasked launches: all of its "
+                           "flash_decode_attn)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
                    "parity": parity, "parity_contiguous": parity_contiguous,
                    "cnn": cnns, "calibration": calib, "chaos": chaos,
                    "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
+                   "encdec_vlm": ev_res,
                    "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)

@@ -4,12 +4,13 @@ Only the fields the ported serving path reads are carried: the dense
 family's, the MoE family's (``n_experts``, ``top_k``,
 ``n_shared_experts``, ``capacity_factor``, ``router_aux_weight``), the SSM
 family's (``ssm_state``, ``ssm_conv``, ``ssm_expand``, ``ssm_head_dim``,
-``ssm_chunk``, ``mamba_version``) and the hybrid's (``attn_every``), plus
-``ShapeConfig`` and the reference's four ``SHAPES`` (the workload shapes
-the mapper, the autotuner and the DSE model) and ``ModelConfig.exec_plan``
-(the mapper's per-layer plan). ``input_specs`` (a JAX-lowering helper) and
-the encoder-decoder / VLM fields wait for the slices that port those
-families.
+``ssm_chunk``, ``mamba_version``), the hybrid's (``attn_every``), the
+encoder-decoder's (``encoder_layers``, ``encoder_seq``) and the VLM's
+(``vlm_image_tokens``), plus ``ShapeConfig`` and the reference's four
+``SHAPES`` (the workload shapes the mapper, the autotuner and the DSE
+model), ``ModelConfig.exec_plan`` (the mapper's per-layer plan) and the
+reference's arch registry (``ARCHS``, ``PAPER_ARCHS``). ``input_specs``
+(a JAX-lowering helper) is not carried.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ class OVSFConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid (ported so far)
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -82,6 +83,11 @@ class ModelConfig:
     mamba_version: int = 1
     # --- hybrid (zamba2-style shared attention) ---
     attn_every: int = 0         # the shared attn block after every k SSM blocks
+    # --- encoder-decoder (whisper; the audio frontend is a stub) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 1500     # whisper's 30 s frame count
+    # --- VLM (llava; the anyres frontend is a stub) ---
+    vlm_image_tokens: int = 0   # leading positions fed by precomputed embeds
     dtype: str = "bfloat16"
     kv_cache_dtype: str = ""    # "" -> dtype; "int8": static-scale int8 K/V
     ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
@@ -133,6 +139,13 @@ class ShapeConfig:
     kind: str                   # train | prefill | decode
 
 
+ARCHS = (
+    "qwen1_5_32b", "qwen2_5_14b", "tinyllama_1_1b", "starcoder2_15b",
+    "zamba2_1_2b", "kimi_k2_1t_a32b", "olmoe_1b_7b", "whisper_tiny",
+    "falcon_mamba_7b", "llava_next_34b",
+)
+PAPER_ARCHS = ("resnet18", "resnet34", "resnet50", "squeezenet1_1")
+
 SHAPES: dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
     "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
@@ -174,6 +187,10 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw.update(ssm_state=8, ssm_chunk=16, ssm_head_dim=16)
     if cfg.attn_every:
         kw.update(attn_every=2, n_layers=4)
+    if cfg.encoder_layers:
+        kw.update(encoder_layers=2, encoder_seq=16)
+    if cfg.vlm_image_tokens:
+        kw.update(vlm_image_tokens=4)
     if cfg.ovsf.enable:
         kw["ovsf"] = dataclasses.replace(cfg.ovsf, min_dim=32)
     kw.update(overrides)

@@ -242,8 +242,8 @@ def layer_timing(layer: GemmLayer, hw: HW = V5E) -> LayerTiming:
 
 def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
                  m_valid: int = 0, kv_len: int = 0) -> list[GemmLayer]:
-    """Expand a dense-, MoE-, SSM- or hybrid-family ModelConfig x
-    ShapeConfig into per-device GEMM workloads. Decode: M = batch/dp
+    """Expand an LM-family (dense, MoE, SSM, hybrid, encoder-decoder, VLM)
+    ModelConfig x ShapeConfig into per-device GEMM workloads. Decode: M = batch/dp
     tokens; train/prefill: M = batch*seq/dp. TP divides d_out
     (column-parallel) or d_in (row-parallel). ``m_valid`` marks the valid
     token rows (0 = all); ``kv_len`` attaches the per-step KV-read bytes to
@@ -254,11 +254,13 @@ def model_layers(cfg, shape, *, n_devices: int = 256, tp: int = 16,
     projections (``ssm_in`` d -> 2 d_inner, ``ssm_out`` d_inner -> d, the
     reference's sizes for both Mamba versions); as in the reference, every
     layer also carries the attention and MLP workloads its ``n_heads`` and
-    ``d_ff`` name (the hybrid's shared block counted at every layer)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    ``d_ff`` name (the hybrid's shared block counted at every layer). As in
+the reference, an encoder-decoder's encoder layers and cross projections
+and a VLM's image positions add no workload: the decoder stack alone is
+expanded."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
         raise NotImplementedError(
-            f"model_layers covers the dense, MoE, SSM and hybrid families "
-            f"only, got {cfg.family!r}")
+            f"model_layers covers the LM families only, got {cfg.family!r}")
     dp = max(n_devices // tp, 1)
     if shape.kind == "decode":
         M = max(shape.global_batch // dp, 1)

@@ -21,7 +21,9 @@ attention (``kernels.ref.dequant``); the plain versions over int8 are
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version; any other device raises. Shapes, types and the
 head-dim limit are checked on every device first. ``<wrapper>.launches``
-counts kernel launches.
+counts kernel launches; ``flash_decode_attn.launches_unmasked`` counts
+those of its launches given an int ``pos`` at or past T, in which every
+row reads every column (cross attention's reads).
 """
 from __future__ import annotations
 
@@ -152,6 +154,7 @@ def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode_attn: unsupported device {q.device}")
     B, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    unmasked = not isinstance(pos, torch.Tensor) and int(pos) >= T
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_decode_attn: {name} on {t.device}, q "
@@ -187,10 +190,12 @@ def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_decode_attn: CUDA launch failed "
                            f"(cudaError {err})")
     flash_decode_attn.launches += 1
+    flash_decode_attn.launches_unmasked += int(unmasked)
     return out
 
 
 flash_decode_attn.launches = 0
+flash_decode_attn.launches_unmasked = 0
 
 
 def _check_paged(q: torch.Tensor, k_pool: torch.Tensor,

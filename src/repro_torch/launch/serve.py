@@ -13,7 +13,10 @@ present). ``--arch`` (or ``--model``) names a config of
 ``repro_torch.configs``, dense
 (``tinyllama_1_1b``, ``qwen2_5_14b``, ``qwen1_5_32b``, ``starcoder2_15b``),
 MoE (``olmoe_1b_7b``; ``kimi_k2_1t_a32b``, about 1T parameters, with
-``--smoke`` only), SSM (``falcon_mamba_7b``) or hybrid (``zamba2_1_2b``).
+``--smoke`` only), SSM (``falcon_mamba_7b``), hybrid (``zamba2_1_2b``),
+encoder-decoder (``whisper_tiny``) or VLM (``llava_next_34b``); the last
+two are served from tokens alone, as the reference's launcher serves them
+(no frames: the cross caches stay zero; no image embeds: text only).
 The recurrent families (SSM, hybrid) are served by the legacy path with
 exact per-request prefill only: given ``--chunk-size`` (and ``--packed`` /
 ``--paged``) the engine warns and falls back to it, as the reference's

@@ -1,7 +1,11 @@
 """GQA attention over the serving KV caches (port of the cache paths of
 ``repro.models.attention``): ``attn_apply`` over the contiguous per-slot
-cache, ``attn_apply_packed`` over the same cache with a packed token stream,
-``attn_apply_paged`` over the paged pools.
+cache (and, cache-free, the encoder's ``bidir`` mode),
+``attn_apply_packed`` over the same cache with a packed token stream,
+``attn_apply_paged`` over the paged pools; for the encoder-decoder family,
+``make_cross_cache`` (encoder K/V), ``cross_attend`` over it (the
+reference's ``attn_apply`` in ``cross`` mode) and ``cross_attn_packed``
+over per-slot cross caches with a packed token stream.
 
 The caches are written IN PLACE (the reference returns new arrays; the
 returned dicts hold the same, updated, tensors), and with no host sync, so
@@ -10,7 +14,11 @@ send a dropped row to the layer's scratch row (``drop_write``) instead of
 compacting the kept rows with a boolean mask. Single-token attention runs
 through the Hopper kernels on CUDA (``flash_decode_attn``,
 ``paged_flash_decode``) and their plain versions on the CPU; the reference
-leaves it to an XLA einsum.
+leaves it to an XLA einsum. Cross attention at S == 1 is
+``flash_decode_attn`` with every row's ``pos`` at the cross cache's
+length, no column masked: the reference's unmasked ``sdpa``. The cross
+caches (encoder K/V) are in the model dtype whatever ``kv_cache_dtype``
+says, as the reference's: a cross read never sees int8.
 
 An int8 cache (``ModelConfig.kv_cache_dtype="int8"``) stores each written
 K/V as ``quant_like`` does (the reference's static-scale ``_quant_like``).
@@ -101,26 +109,49 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-               positions: torch.Tensor, cache: dict,
-               cache_pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Causal attention of S new tokens per row over the contiguous cache.
+def _sdpa_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``sdpa`` ``SDPA_ROWS`` queries at a time (``mask`` (B, S, T) or
+    None)."""
+    return torch.cat([sdpa(q[:, i:i + SDPA_ROWS], k, v,
+                           None if mask is None else mask[:, i:i + SDPA_ROWS])
+                      for i in range(0, q.shape[1], SDPA_ROWS)], dim=1)
 
-    ``x`` is (B, S, d); ``positions`` (B, S) their RoPE positions;
-    ``cache`` this layer's ``{"k", "v"}`` (B, T, Hkv, hd) buffers;
-    ``cache_pos`` (B,) each row's fill level (the reference vmaps one slot
-    at a time with a scalar). The S new K/V rows land at ``cache_pos[b]``,
-    the start clamped to ``[0, T - S]`` as ``dynamic_update_slice`` clamps
-    it; query s of row b then attends columns ``<= cache_pos[b] + s``.
-    S == 1 runs ``flash_decode_attn`` with pos ``cache_pos + 1``; S > 1 the
-    plain ``sdpa``, as the reference leaves it to XLA, ``SDPA_ROWS``
-    queries at a time.
+
+def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+               positions: torch.Tensor, cache: Optional[dict] = None,
+               cache_pos: Optional[torch.Tensor] = None,
+               mode: str = "causal") -> tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention of S new tokens per row, causal or bidirectional.
+
+    ``causal``: over the contiguous cache. ``x`` is (B, S, d);
+    ``positions`` (B, S) their RoPE positions; ``cache`` this layer's
+    ``{"k", "v"}`` (B, T, Hkv, hd) buffers; ``cache_pos`` (B,) each row's
+    fill level (the reference vmaps one slot at a time with a scalar). The
+    S new K/V rows land at ``cache_pos[b]``, the start clamped to ``[0, T -
+    S]`` as ``dynamic_update_slice`` clamps it; query s of row b then
+    attends columns ``<= cache_pos[b] + s``. S == 1 runs
+    ``flash_decode_attn`` with pos ``cache_pos + 1``; S > 1 the plain
+    ``sdpa``, as the reference leaves it to XLA, ``SDPA_ROWS`` queries at a
+    time.
+
+    ``bidir`` (the encoder's): RoPE at ``positions``, no mask, no cache;
+    returns (y, None). The reference's third mode, ``cross``, is
+    ``cross_attend`` over ``make_cross_cache``'s K/V here.
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
+    q, k, v = _qkv(p, cfg, x, positions)
+    if mode == "bidir":
+        out = _sdpa_rows(q, k, v, None)
+        y = L.linear_apply(p["o"], out.reshape(B, S, H * hd), cfg, "attn_o")
+        return y, None
+    if mode != "causal" or cache is None:
+        raise ValueError(f"attn_apply: mode {mode!r} with cache "
+                         f"{cache is not None}: causal attention runs over "
+                         "a cache, bidir without one")
     ck, cv = cache["k"], cache["v"]
     T = ck.shape[1]
-    q, k, v = _qkv(p, cfg, x, positions)
     cache_pos = cache_pos.long()
     start = cache_pos.clamp(0, max(T - S, 0))
     rows = torch.arange(B, device=x.device)[:, None]
@@ -133,12 +164,58 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         idx = cache_pos[:, None] + torch.arange(S, device=x.device)[None, :]
         mask = (torch.arange(T, device=x.device)[None, None, :]
                 <= idx[:, :, None])                         # (B, S, T)
-        kd, vd = dequant(ck, q.dtype), dequant(cv, q.dtype)
-        out = torch.cat([sdpa(q[:, i:i + SDPA_ROWS], kd, vd,
-                              mask[:, i:i + SDPA_ROWS])
-                         for i in range(0, S, SDPA_ROWS)], dim=1)
+        out = _sdpa_rows(q, dequant(ck, q.dtype), dequant(cv, q.dtype), mask)
     y = L.linear_apply(p["o"], out.reshape(B, S, H * hd), cfg, "attn_o")
     return y, {"k": ck, "v": cv}
+
+
+def cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """Cross attention of (B, S, d) ``x`` over (B, Te, Hkv, hd) ``xk`` /
+    ``xv``, no RoPE and no mask: S == 1 through ``flash_decode_attn`` with
+    pos Te on every row, S > 1 through the plain ``sdpa``, ``SDPA_ROWS``
+    queries at a time (the reference's ``sdpa`` with ``mask=None``)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = L.linear_apply(p["q"], x, cfg, "attn_q").reshape(B, S, H, hd)
+    if S == 1:
+        out = flash_decode_attn(q[:, 0], xk, xv, xk.shape[1])[:, None]
+    else:
+        out = _sdpa_rows(q, dequant(xk, q.dtype), dequant(xv, q.dtype), None)
+    return L.linear_apply(p["o"], out.reshape(B, S, H * hd), cfg, "attn_o")
+
+
+def make_cross_cache(p: dict, cfg: ModelConfig, src: torch.Tensor) -> dict:
+    """Encoder K/V for cross attention: ``{"k", "v"}`` (B, Tf, Hkv, hd)
+    projected from the (B, Tf, d) encoder output ``src``, in its type."""
+    B, Tf, _ = src.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    k = L.linear_apply(p["k"], src, cfg, "attn_k").reshape(B, Tf, Hkv, hd)
+    v = L.linear_apply(p["v"], src, cfg, "attn_v").reshape(B, Tf, Hkv, hd)
+    return {"k": k, "v": v}
+
+
+def cross_attn_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                      slot_ids: torch.Tensor, cache: dict,
+                      mids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Packed-query cross attention: each of the (1, T, d) ``x``'s tokens
+    attends its slot's precomputed encoder K/V (``cache["k"]`` / ``"v"``,
+    (B, Te, Hkv, hd)), no mask, through ``flash_decode_attn`` with pos Te
+    over the gathered rows ``k[sid]`` / ``v[sid]`` ((T, Te, Hkv, hd) per
+    layer, as ``attn_apply_packed`` gathers and the reference's
+    ``jnp.take`` copies). Slot ids are clipped into ``[0, B - 1]`` as the
+    reference clips them: a padding token (slot id B) reads slot B - 1,
+    its output discarded by the caller. ``mids`` (T,) picks each token's
+    stacked-alpha variant."""
+    H, hd = cfg.n_heads, cfg.hd
+    T = x.shape[1]
+    xk, xv = cache["k"], cache["v"]
+    m2 = None if mids is None else mids[None, :]
+    q = L.linear_apply(p["q"], x, cfg, "attn_q", m2).reshape(T, H, hd)
+    sid = slot_ids.long().clamp(0, xk.shape[0] - 1)
+    out = flash_decode_attn(q, xk[sid], xv[sid], xk.shape[1])   # (T, H, hd)
+    return L.linear_apply(p["o"], out.reshape(1, T, H * hd), cfg, "attn_o",
+                          m2)
 
 
 def attn_apply_packed(p: dict, cfg: ModelConfig, x: torch.Tensor, *,

@@ -16,7 +16,11 @@ splits the same way: each layer's ``mamba`` dict (``in_proj`` /
 ``out_proj``, OVSF or dense, the dense ``x_proj``, ``dt_proj`` {w, b},
 ``conv_w`` / ``conv_b``, ``A_log``, ``D`` and, Mamba-2, ``dt_bias`` and
 ``norm``); the hybrid's ``shared_attn`` block is one unstacked attention +
-MLP block, carried as ``embed`` is. The CNNs'
+MLP block, carried as ``embed`` is. An encoder-decoder tree's decoder
+layers carry ``norm_x`` and the dense ``cross`` linears beside their own,
+split as the rest of the layer; its ``encoder`` holds a second stacked
+``blocks`` (``encoder_layers`` deep) and its ``norm``: ``encoder.blocks``
+becomes a list of per-layer dicts as the top-level one does. The CNNs'
 ``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
 ``cnn_params_to_numpy``) are flat dicts of layer dicts; only their conv
 filters change layout (HWIO in the reference, OIHW in the port). Nothing
@@ -53,26 +57,37 @@ def _convert(tree, dtype, device):
     return _tensor(tree, dtype, device)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """Reference param tree (numpy leaves, stacked ``blocks``) -> the port's
-    params on ``device``: float leaves in ``cfg.act_dtype`` (``alpha_scale``
-    in float32), integer leaves (code ids, quantised alphas) as they are."""
-    out = {k: _convert(v, cfg.act_dtype, device) for k, v in tree.items()
-           if k != "blocks"}
-    stacked = _convert(tree["blocks"], cfg.act_dtype, device)
-
+def _split_layers(stacked, n: int) -> list:
+    """A tree of stacked (n, ...) leaves -> a list of n per-layer trees."""
     def layer(sub, i):
         if isinstance(sub, dict):
             return {k: layer(v, i) for k, v in sub.items()}
         return sub[i]
+    return [layer(stacked, i) for i in range(n)]
 
-    out["blocks"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """Reference param tree (numpy leaves, stacked ``blocks``, and an
+    encoder-decoder's stacked ``encoder.blocks``) -> the port's params on
+    ``device``: float leaves in ``cfg.act_dtype`` (``alpha_scale`` in
+    float32), integer leaves (code ids, quantised alphas) as they are."""
+    out = {k: _convert(v, cfg.act_dtype, device) for k, v in tree.items()
+           if k not in ("blocks", "encoder")}
+    out["blocks"] = _split_layers(_convert(tree["blocks"], cfg.act_dtype,
+                                           device), cfg.n_layers)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "blocks": _split_layers(_convert(enc["blocks"], cfg.act_dtype,
+                                             device), cfg.encoder_layers),
+            "norm": _convert(enc["norm"], cfg.act_dtype, device)}
     return out
 
 
 def params_to_numpy(params: dict) -> dict:
     """The port's params -> the reference's layout (numpy leaves, ``blocks``
-    stacked along a leading layer axis; bfloat16 widened to float32)."""
+    and ``encoder.blocks`` stacked along a leading layer axis; bfloat16
+    widened to float32)."""
     def leaf(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -87,8 +102,13 @@ def params_to_numpy(params: dict) -> dict:
             return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
         return np.stack([leaf(t) for t in layers])
 
-    out = {k: conv(v) for k, v in params.items() if k != "blocks"}
+    out = {k: conv(v) for k, v in params.items()
+           if k not in ("blocks", "encoder")}
     out["blocks"] = stack(params["blocks"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"blocks": stack(enc["blocks"]),
+                          "norm": conv(enc["norm"])}
     return out
 
 

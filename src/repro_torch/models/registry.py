@@ -17,23 +17,33 @@ def _norm(cfg: ModelConfig, device) -> dict:
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    """One layer of the family's stack: attention + MLP (dense; the
-    hybrid's shared block), attention + MoE, or a Mamba-1 (SSM) / Mamba-2
-    (hybrid) block."""
+    """One layer of the family's stack: attention + MLP (dense, VLM; the
+    hybrid's shared block), attention + cross attention + MLP (the
+    encoder-decoder's decoder), attention + MoE, or a Mamba-1 (SSM) /
+    Mamba-2 (hybrid) block."""
     if cfg.family in ("ssm", "hybrid"):
         init = SSM.mamba1_init if cfg.family == "ssm" else SSM.mamba2_init
         return {"norm1": _norm(cfg, device),
                 "mamba": init(gen, cfg, device)}
-    return _attn_block_init(gen, cfg, device)
+    return _attn_block_init(gen, cfg, device, cross=cfg.family == "encdec")
 
 
-def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device
-                     ) -> dict:
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device,
+                     cross: bool = False) -> dict:
+    """Attention + MLP (or MoE); with ``cross``, a cross-attention
+    sub-block (``norm_x``, ``cross``) whose linears are named ``cross_*``,
+    so never OVSF (``"cross"`` is no OVSF target), as the reference's."""
     d, H, Hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
 
     def lin(name, d_in, d_out, bias=False):
         return L.linear_init(gen, cfg, name, d_in, d_out, device, bias=bias)
+
+    def attn(pre):
+        return {"q": lin(f"{pre}_q", d, H * hd, cfg.qkv_bias),
+                "k": lin(f"{pre}_k", d, Hkv * hd, cfg.qkv_bias),
+                "v": lin(f"{pre}_v", d, Hkv * hd, cfg.qkv_bias),
+                "o": lin(f"{pre}_o", H * hd, d)}
 
     if cfg.family == "moe":
         ffn = {"moe": M.moe_init(gen, cfg, device)}
@@ -42,15 +52,12 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device
         if cfg.mlp_gated:
             mlp["gate"] = lin("mlp_gate", d, f)
         ffn = {"mlp": mlp}
-    return {
-        "norm1": _norm(cfg, device),
-        "attn": {"q": lin("attn_q", d, H * hd, cfg.qkv_bias),
-                 "k": lin("attn_k", d, Hkv * hd, cfg.qkv_bias),
-                 "v": lin("attn_v", d, Hkv * hd, cfg.qkv_bias),
-                 "o": lin("attn_o", H * hd, d)},
-        "norm2": _norm(cfg, device),
-        **ffn,
-    }
+    p = {"norm1": _norm(cfg, device), "attn": attn("attn"),
+         "norm2": _norm(cfg, device), **ffn}
+    if cross:
+        p["norm_x"] = _norm(cfg, device)
+        p["cross"] = attn("cross")
+    return p
 
 
 def _model_init(cfg: ModelConfig, gen, dev) -> dict:
@@ -67,6 +74,10 @@ def _model_init(cfg: ModelConfig, gen, dev) -> dict:
                                          device=dev) * 0.02}
     if cfg.family == "hybrid":
         p["shared_attn"] = _attn_block_init(gen, cfg, dev)
+    if cfg.family == "encdec":
+        p["encoder"] = {"blocks": [_attn_block_init(gen, cfg, dev)
+                                   for _ in range(cfg.encoder_layers)],
+                        "norm": _norm(cfg, dev)}
     return p
 
 
@@ -76,7 +87,8 @@ def model_init(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     seeded with ``seed`` on ``device`` (the numbers differ from the
     reference's ``jax.random`` ones; ``models.bridge`` carries those over).
     ``blocks`` is a list of per-layer dicts; the hybrid's weight-shared
-    attention block is ``shared_attn``."""
+    attention block is ``shared_attn``; the encoder-decoder's encoder is
+    ``encoder`` = ``{"blocks": [...], "norm"}``."""
     T._check_family(cfg)
     dev = resolve_device(device)
     return _model_init(cfg, torch.Generator(device=dev).manual_seed(seed),

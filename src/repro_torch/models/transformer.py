@@ -1,5 +1,5 @@
-"""Decoder trunk over the serving caches (port of the dense, MoE, SSM and
-hybrid families of ``repro.models.transformer``).
+"""Decoder trunk over the serving caches (port of the dense, MoE, SSM,
+hybrid, encoder-decoder and VLM families of ``repro.models.transformer``).
 
 A MoE block's MLP is ``models.moe.moe_apply`` over the block's tokens as
 the reference routes them: the packed, paged (packed and window) and
@@ -20,6 +20,20 @@ writes go to (``attention.drop_write``), which no read addresses.
 
 K/V are stored in ``cfg.kv_dtype``: the model dtype, or int8 under
 ``kv_cache_dtype="int8"`` (``attention``).
+
+The encoder-decoder (``whisper_tiny``) adds a cross-attention sub-block
+(``norm_x``, ``cross``) after each decoder layer's self-attention, and a
+bidirectional encoder (``params["encoder"]``) over stub audio frames. Its
+caches carry a second, constant pair beside K/V: ``xk`` / ``xv``
+(n_layers, B, Te, Hkv, hd), the encoder's K/V a layer, always in the model
+dtype (never ``kv_cache_dtype``) and with no scratch row (no step writes
+them); the paged cache keeps them per slot, dense. ``serve_prefill`` with
+``frames`` runs the encoder once and fills them, as deep as the frames;
+without frames they stay zero, and cross attention over zero K/V adds
+exactly 0 (``cross.o`` has no bias): the engine, which passes tokens
+only, as the reference's does, serves the family so. The VLM
+(``llava_next_34b``) is the dense stack; ``image_embeds`` replace the
+first ``n_img`` embedded positions of a prefill.
 
 The SSM family (``falcon_mamba_7b``: Mamba-1 blocks) and the hybrid
 (``zamba2_1_2b``: runs of ``attn_every`` Mamba-2 blocks, each full run
@@ -53,15 +67,15 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 _RECURRENT = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense, MoE, SSM and hybrid families only "
-            f"so far, got {cfg.family!r}")
+            f"the port serves the dense, MoE, SSM, hybrid, encoder-decoder "
+            f"and VLM families, got {cfg.family!r}")
 
 
 def _check_padded(cfg: ModelConfig, what: str) -> None:
@@ -88,20 +102,28 @@ def _mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _layer(cache: dict, li: int) -> dict:
-    """Layer ``li``'s K/V (and their scratch-row buffers, where allocated)."""
-    return {name: t[li] for name, t in cache.items() if name != "pos"}
+    """Layer ``li``'s K/V (and their scratch-row buffers, where allocated);
+    the cross caches are read through ``_cross_at`` / ``_packed_cross_at``."""
+    return {name: t[li] for name, t in cache.items()
+            if name not in ("pos", "xk", "xv")}
 
 
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, *,
-           per_row: bool = False, **kw) -> torch.Tensor:
+           per_row: bool = False, cross=None, **kw) -> torch.Tensor:
     """Pre-norm attention + MLP (or MoE) block; ``attn`` is one of the
     attention functions of ``models.attention`` over the layer's cache,
     called with ``kw``. A ``mids`` entry of ``kw`` ((T,) variant ids of a
     packed stream) reaches the attention's and the MLP's linears.
-    ``per_row`` routes a MoE block's rows alone (module docstring)."""
+    ``per_row`` routes a MoE block's rows alone (module docstring). A
+    decoder layer of the encoder-decoder runs its cross sub-block after
+    the self-attention: ``cross(p["cross"], h)`` over its normed
+    features."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     y, _ = attn(p["attn"], cfg, h, **kw)
     x = x + y
+    if "cross" in p:
+        h = L.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps)
+        x = x + cross(p["cross"], h)
     h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
         y, _aux = M.moe_apply(p["moe"], cfg, h, per_row=per_row)
@@ -137,11 +159,26 @@ def n_attn_apps(cfg: ModelConfig) -> int:
     return sum(1 for *_r, a in _hybrid_groups(cfg) if a)
 
 
+def _cross_shapes(cfg: ModelConfig, B: int) -> dict[str, tuple]:
+    """The encoder-decoder's cross caches, ``encoder_seq`` deep."""
+    if cfg.family != "encdec":
+        return {}
+    shape = (cfg.n_layers, B, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+    return {"xk": shape, "xv": shape}
+
+
+def _cross_zeros(cfg: ModelConfig, B: int, device) -> dict:
+    """Zero cross caches in the model dtype (never ``kv_cache_dtype``)."""
+    return {name: torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+            for name, shape in _cross_shapes(cfg, B).items()}
+
+
 def cache_shapes(cfg: ModelConfig, B: int, T: int) -> dict[str, tuple]:
     """Shapes of the contiguous serving cache: per-slot K/V buffers of
     length T, stacked over layers (the hybrid: over the shared block's
     applications), the SSM families' ``conv`` and ``ssm`` states stacked
-    over layers, and each slot's fill level."""
+    over layers, the encoder-decoder's cross caches ``xk`` / ``xv``, and
+    each slot's fill level."""
     _check_family(cfg)
     out: dict[str, tuple] = {}
     if cfg.family in _RECURRENT:
@@ -152,6 +189,7 @@ def cache_shapes(cfg: ModelConfig, B: int, T: int) -> dict[str, tuple]:
     if cfg.family != "ssm":
         n = n_attn_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
         out["k"] = out["v"] = (n, B, T, cfg.n_kv_heads, cfg.hd)
+    out.update(_cross_shapes(cfg, B))
     out["pos"] = (B,)
     return out
 
@@ -173,10 +211,11 @@ def _kv(shapes: dict, dtype, device) -> dict[str, torch.Tensor]:
 def init_cache(cfg: ModelConfig, B: int, T: int, device
                ) -> dict[str, torch.Tensor]:
     """Zero contiguous cache: K/V in ``cfg.kv_dtype`` (with their scratch
-    rows), ``conv`` in the model dtype and ``ssm`` in fp32, ``pos``
-    int32."""
+    rows), ``conv`` and the cross caches in the model dtype and ``ssm`` in
+    fp32, ``pos`` int32."""
     shapes = cache_shapes(cfg, B, T)
     out = _kv(shapes, cfg.kv_dtype, device) if "k" in shapes else {}
+    out.update(_cross_zeros(cfg, B, device))
     for name, dtype in (("conv", cfg.act_dtype), ("ssm", torch.float32),
                         ("pos", torch.int32)):
         if name in shapes:
@@ -204,18 +243,56 @@ def _kv_layer(cache: dict, i: int) -> dict:
             if n in cache}
 
 
+def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  image_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """(B, S, d) embedded tokens; a VLM's ``image_embeds`` (B, n_img, d),
+    cast to the activation dtype, replace the first ``n_img`` positions
+    (``n_img`` the tensor's, not the config's), as in the reference."""
+    x = L.embed_apply(params["embed"], tokens)
+    if cfg.family == "vlm" and image_embeds is not None:
+        img = image_embeds.to(x.dtype)
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+    return x
+
+
+def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor
+            ) -> torch.Tensor:
+    """The encoder over (B, Tf, d) stub audio frames, cast to the model
+    dtype: bidirectional attention + MLP blocks at positions ``arange(Tf)``,
+    then the encoder's norm."""
+    x = frames.to(cfg.act_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p in params["encoder"]["blocks"]:
+        x = _block(p, cfg, x, A.attn_apply, positions=positions,
+                   mode="bidir")
+    return L.rmsnorm_apply(params["encoder"]["norm"], x, cfg.norm_eps)
+
+
+def _cross_at(cfg: ModelConfig, cache: dict, li: int):
+    """Layer ``li``'s cross sub-block over the contiguous cross caches, or
+    None for a family without them."""
+    if "xk" not in cache:
+        return None
+    xk, xv = cache["xk"][li], cache["xv"][li]
+    return lambda p, h: A.cross_attend(p, cfg, h, xk, xv)
+
+
 def _trunk(params: dict, cfg: ModelConfig, cache: dict,
-           tokens: torch.Tensor, per_row: bool = False) -> torch.Tensor:
+           tokens: torch.Tensor, per_row: bool = False,
+           image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S) tokens appended at each row's ``cache["pos"]``: features
     (B, S, d), K/V and recurrent states written into the cache in place.
     ``per_row`` routes a MoE block's rows alone (the reference's vmapped
     steps). The hybrid runs its groups of Mamba-2 blocks, the shared
-    attention block after each full group over its own K/V."""
+    attention block after each full group over its own K/V. An
+    encoder-decoder layer reads its cross caches (``xk`` / ``xv``); a VLM
+    prefill's ``image_embeds`` take the first positions."""
     _check_family(cfg)
     S = tokens.shape[1]
     pos0 = cache["pos"].long()
     positions = pos0[:, None] + torch.arange(S, device=tokens.device)[None]
-    x = L.embed_apply(params["embed"], tokens)                  # (B, S, d)
+    x = _embed_inputs(params, cfg, tokens, image_embeds)        # (B, S, d)
     if cfg.family == "ssm":
         for li, p in enumerate(params["blocks"]):
             x = _mamba_block(p, cfg, x, cache, li)
@@ -233,26 +310,41 @@ def _trunk(params: dict, cfg: ModelConfig, cache: dict,
         return x
     for li, p in enumerate(params["blocks"]):
         x = _block(p, cfg, x, A.attn_apply, per_row=per_row,
-                   positions=positions, cache=_layer(cache, li),
-                   cache_pos=pos0)
+                   cross=_cross_at(cfg, cache, li), positions=positions,
+                   cache=_layer(cache, li), cache_pos=pos0)
     return x
 
 
 def serve_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  buffer_len: int) -> tuple[torch.Tensor, dict]:
+                  buffer_len: int, *, frames: Optional[torch.Tensor] = None,
+                  image_embeds: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, dict]:
     """Run (B, Sp) prompts through the model into a fresh cache of
     ``buffer_len``: ((B, vocab) logits at the last position, the cache with
-    ``pos`` = Sp)."""
+    ``pos`` = Sp). The reference's batch keys: an encoder-decoder's
+    ``frames`` (B, Tf, d) run the encoder once, and each layer's cross K/V
+    (``make_cross_cache`` of the encoder output) replace the cache's zero
+    ``xk`` / ``xv``, Tf deep; a VLM's ``image_embeds`` (B, n_img, d) take
+    the first n_img positions. Other families ignore them, as the
+    reference does."""
     B, Sp = tokens.shape
     cache = init_cache(cfg, B, buffer_len, tokens.device)
-    x = _trunk(params, cfg, cache, tokens)
+    if cfg.family == "encdec" and frames is not None:
+        enc = _encode(params, cfg, frames)
+        xkv = [A.make_cross_cache(p["cross"], cfg, enc)
+               for p in params["blocks"]]
+        cache["xk"] = torch.stack([c["k"] for c in xkv])
+        cache["xv"] = torch.stack([c["v"] for c in xkv])
+    x = _trunk(params, cfg, cache, tokens, image_embeds=image_embeds)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
     cache["pos"] += Sp
     return logits, cache
 
 
 def serve_prefill_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                         buffer_len: int, lengths: torch.Tensor
+                         buffer_len: int, lengths: torch.Tensor, *,
+                         frames: Optional[torch.Tensor] = None,
+                         image_embeds: Optional[torch.Tensor] = None
                          ) -> tuple[torch.Tensor, dict]:
     """Batched prefill of right-padded prompts: row b's prompt in columns
     [0, lengths[b]) of (B, Lb) ``tokens``. Returns the (B, vocab) logits at
@@ -261,11 +353,17 @@ def serve_prefill_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     holding K/V for all Lb columns (padding included) with ``pos`` = Lb;
     the engine re-bases each row's ``pos`` to its true length, and decode
     overwrites each padded position before attending to it. The recurrent
-    families are refused (their state would run through the padding)."""
+    families are refused (their state would run through the padding).
+    ``image_embeds`` take a VLM's first positions, as in ``serve_prefill``.
+    ``frames`` do not reach the decoder: the reference's ragged prefill
+    encodes them but its cross attention reads the fresh cache's zero
+    ``xk`` / ``xv``, so its output is that of a prefill without them; the
+    port skips the unused encoder pass (copied behaviour, ROADMAP C)."""
     _check_padded(cfg, "ragged prefill")
+    del frames
     B, Lb = tokens.shape
     cache = init_cache(cfg, B, buffer_len, tokens.device)
-    x = _trunk(params, cfg, cache, tokens)
+    x = _trunk(params, cfg, cache, tokens, image_embeds=image_embeds)
     col = (lengths.long() - 1).clamp(0, Lb - 1)
     feats = x[torch.arange(B, device=x.device), col]            # (B, d)
     logits = _unembed(params, cfg, feats[None])[0]
@@ -308,6 +406,16 @@ def serve_step_window(params: dict, cfg: ModelConfig, cache: dict,
     return logits, new_cache
 
 
+def _packed_cross_at(cfg: ModelConfig, cache: dict, li: int, kw: dict):
+    """Layer ``li``'s cross sub-block of a packed stream: each token over
+    its slot's cross caches (``attention.cross_attn_packed``), or None."""
+    if "xk" not in cache:
+        return None
+    xkv = {"k": cache["xk"][li], "v": cache["xv"][li]}
+    return lambda p, h: A.cross_attn_packed(
+        p, cfg, h, slot_ids=kw["slot_ids"], cache=xkv, mids=kw.get("mids"))
+
+
 def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
                   tokens: torch.Tensor, new_pos: torch.Tensor,
                   emit_idx: torch.Tensor, attn, **kw
@@ -317,7 +425,9 @@ def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
     ``emit_idx`` only."""
     x = L.embed_apply(params["embed"], tokens[None])           # (1, T, d)
     for li, p in enumerate(params["blocks"]):
-        x = _block(p, cfg, x, attn, cache=_layer(cache, li), **kw)
+        x = _block(p, cfg, x, attn, cross=_packed_cross_at(cfg, cache, li,
+                                                           kw),
+                   cache=_layer(cache, li), **kw)
     feats = x[0][emit_idx.long()]                               # (B, d)
     logits = _unembed(params, cfg, feats[None])[0]              # (B, vocab)
     new_cache = dict(cache)
@@ -349,20 +459,26 @@ def serve_step_packed(params: dict, cfg: ModelConfig, cache: dict,
                          positions=positions, **kw)
 
 
-def paged_cache_shapes(cfg: ModelConfig, page_size: int, n_pages: int
-                       ) -> dict[str, tuple]:
-    """Shapes of the paged serving cache: per-layer K/V page pools shared by
-    every slot, stacked over layers."""
+def paged_cache_shapes(cfg: ModelConfig, B: int, page_size: int,
+                       n_pages: int) -> dict[str, tuple]:
+    """Shapes of the paged serving cache of B slots: per-layer K/V page
+    pools shared by every slot, stacked over layers, and an
+    encoder-decoder's cross caches, per slot and dense (prompt-sized
+    constants, not a growing cache), as the reference's
+    ``paged_cache_spec(cfg, B, page_size, n_pages)``."""
     _check_padded(cfg, "paged cache")
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
-    return {"k": shape, "v": shape}
+    return {"k": shape, "v": shape, **_cross_shapes(cfg, B)}
 
 
-def init_paged_cache(cfg: ModelConfig, page_size: int, n_pages: int,
+def init_paged_cache(cfg: ModelConfig, B: int, page_size: int, n_pages: int,
                      device) -> dict[str, torch.Tensor]:
-    """Zero page pools in ``cfg.kv_dtype``, with their scratch rows."""
-    return _kv(paged_cache_shapes(cfg, page_size, n_pages), cfg.kv_dtype,
-               device)
+    """Zero page pools in ``cfg.kv_dtype``, with their scratch rows, and
+    zero cross caches of B slots in the model dtype."""
+    shapes = paged_cache_shapes(cfg, B, page_size, n_pages)
+    out = _kv(shapes, cfg.kv_dtype, device)
+    out.update(_cross_zeros(cfg, B, device))
+    return out
 
 
 def serve_step_paged(params: dict, cfg: ModelConfig, cache: dict,
@@ -421,6 +537,11 @@ def serve_step_packed_multi(params: dict, cfg: ModelConfig, cache: dict,
         raise NotImplementedError(
             "multi-model batching over MoE expert banks is not supported "
             "yet (per-expert alpha stacking)")
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "multi-model batching of the encoder-decoder family is not "
+            "supported yet (serving.model_registry.stack_variants cannot "
+            "stack the encoder's layer list)")
     return serve_step_packed(params, cfg, cache, tokens, slot_ids, positions,
                              new_pos, emit_idx, model_ids=model_ids)
 

@@ -183,8 +183,8 @@ def plan_model(cfg, shape, *, hw=pm.V5E, n_devices: int = 1,
                tp: int = 1, paths: Sequence[str] = DEFAULT_PATHS,
                weight_reuse: Optional[int] = None,
                calibration=None) -> ExecutionPlan:
-    """An ExecutionPlan for a dense-, MoE-, SSM- or hybrid-family
-    ModelConfig under a workload shape: the config's GEMMs
+    """An ExecutionPlan for an LM-family ModelConfig (dense, MoE, SSM,
+    hybrid, encoder-decoder, VLM) under a workload shape: the config's GEMMs
     (``pm.model_layers``) collapse to one plan per weight type, each from
     ``classify_gemm`` (``calibration`` threads a measured-vs-modeled table
     into every one). The type is the

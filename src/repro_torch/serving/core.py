@@ -55,6 +55,14 @@ top-k / temperature draws for sampled ones, plus a per-slot
   K/V. ``prefill_compiles`` counts the distinct prefill
   keys run on this core, as the reference counts its prefill traces.
 
+The encoder-decoder's cross caches (``xk`` / ``xv``, per slot in every
+style, the paged one included) are read by every step and written by
+none: the engine passes tokens only, as the reference's does, so no
+request brings frames and the cross caches stay as ``init_cache`` /
+``init_paged_cache`` made them, zero (the prefill bodies leave them out of
+their outputs, so a captured bucket holds no Te-deep copy); cross
+attention over them adds 0. A VLM is served as its text-only dense stack.
+
 On the card every step replays a CUDA graph, one per step shape, under the
 keys ``step_shapes`` records (``("packed", T)``, ``("window", W)``,
 ``("decode", 1)``), as the reference traces one ``jax.jit`` per shape
@@ -117,7 +125,7 @@ from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.scheduler import SchedulerOutput, pack_step
 
 # padded batched prefill is exact only for the KV-cache families (the
-# reference's tuple; its vlm and encdec families are not ported yet)
+# reference's tuple)
 _BUCKETED_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
@@ -218,7 +226,8 @@ class EngineCore:
                           * cfg.hd * cfg.kv_dtype.itemsize)
             self.pager = PagedKVCache(batch_slots, page_size, n_pages,
                                       max_pages, page_bytes)
-            self.caches = R.init_paged_cache(cfg, page_size, n_pages, device)
+            self.caches = R.init_paged_cache(cfg, batch_slots, page_size,
+                                             n_pages, device)
             self.caches["pos"] = torch.zeros((batch_slots,),
                                              dtype=torch.int32, device=device)
         else:

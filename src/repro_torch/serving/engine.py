@@ -72,7 +72,10 @@ recurrent families (``ssm``, ``hybrid``) are served by the legacy path
 with exact per-request prefill only, as in the reference: given a
 ``chunk_size`` the engine warns and falls back to phase-based serving,
 dropping ``packed`` and ``paged``, and ``bucketed`` is False (a padded
-prefill would run their state through the padding).
+prefill would run their state through the padding). The encoder-decoder
+and VLM families are served in every style from tokens alone, as the
+reference serves them: ``Request`` carries no frames or image embeds, so
+the cross caches stay zero and a VLM runs text only (``serving.core``).
 
 Multi-model mode (the gateway's same-architecture batching,
 ``serving.gateway``): ``variants=M`` stacked alpha variants in the params
@@ -233,7 +236,8 @@ class LLMEngine:
         if paged and chunk_size is None:
             raise ValueError("paged=True requires chunk_size (the paged "
                              "cache serves prompts via chunk tasks)")
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec",
+                              "vlm"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
         if chunk_size is not None and cfg.family in ("ssm", "hybrid"):
             warnings.warn(

@@ -224,6 +224,10 @@ def stack_variants(named_params: list, cfg: ModelConfig) -> VariantSet:
     if len(named_params) < 2:
         raise ValueError("stack_variants needs >= 2 members; a single model "
                          "serves from a plain LLMEngine")
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "stacking encoder-decoder variants is not supported yet (the "
+            "encoder's layer list has no variant layout here)")
     names = tuple(n for n, _p in named_params)
     flats = []
     for n, p in named_params:

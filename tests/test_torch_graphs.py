@@ -3,8 +3,9 @@ replay of the serve step per step shape and of the CNN forward) on the CPU,
 where every step runs eagerly through the same static buffers:
 
 * the step bodies of the four engine styles, the recurrent families'
-  legacy decode (its state written in place) and the captured CNN forward
-  issue no host-reading op (``nonzero``, ``_local_scalar_dense``,
+  legacy decode (its state written in place), the encoder-decoder's and
+  VLM's steps (the cross read of each packed token's slot) and the
+  captured CNN forward issue no host-reading op (``nonzero``, ``_local_scalar_dense``,
   ``masked_select``, indexing with a boolean index), the kernel wrappers
   stubbed (their plain versions never run on the card);
 * ``attention.drop_write`` equals the old boolean-mask write and the
@@ -215,6 +216,29 @@ def test_moe_packed_step_body_reads_nothing_back(style, monkeypatch):
     assert not mode.bad, sorted(set(mode.bad))
     assert {"cumsum", "sort", "scatter_"} <= set(mode.ops)
     assert {k for k, _n in eng.core.step_shapes} == {"packed"}
+
+
+@pytest.mark.parametrize("style", ["paged packed", "legacy"])
+@pytest.mark.parametrize("arch", ["whisper_tiny", "llava_next_34b"])
+def test_encdec_vlm_step_bodies_read_nothing_back(arch, style, monkeypatch):
+    """The encoder-decoder's and VLM's steps (Whisper's cross read of each
+    token's slot, ``xk[sid]``, in the packed style; over its rows in the
+    legacy decode) and legacy prefill bodies, as the engine captures them
+    on the card: no host read; the cross caches keep their addresses."""
+    _stub_kernels(monkeypatch)
+    cfg = t_smoke(arch).replace(exec_plan=_FUSED)
+    kw = (dict(chunk_size=8, **_STYLES[style]) if style != "legacy"
+          else {})
+    eng = TEngine(tR.model_init(cfg, 0, "cpu"), cfg, batch_slots=4,
+                  buffer_len=64, device="cpu", **kw)
+    ptrs = {n: t.data_ptr() for n, t in eng.core.caches.items()}
+    mode = _HostReads()
+    eng.core.graphs.run = _recording(eng.core.graphs, mode)
+    _drain(eng, _requests(TRequest, n=4, max_new=3, sampled=True))
+    assert len(eng.outputs()) == 4
+    assert not mode.bad, sorted(set(mode.bad))
+    assert {n: t.data_ptr() for n, t in eng.core.caches.items()} == ptrs
+    assert ("xk" in ptrs) == (arch == "whisper_tiny")
 
 
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1_2b"])
@@ -527,7 +551,7 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
     nothing: its counts are taken back, then added at every replay."""
     G.reset_launches()
     D.flash_decode_attn.launches = D.paged_flash_decode.launches = 0
-    F.fwht.launches = 0
+    D.flash_decode_attn.launches_unmasked = F.fwht.launches = 0
     sg = graphs.StepGraphs("cpu")
     sg.capture = True                   # the card's route, simulated
     fake = _FakeGraph()
@@ -540,11 +564,13 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
         G.ovsf_gemm.launches_by_alpha["int8"] += 5
         G.ovsf_gemm.launches_by_kernel["tensor_core"] += 5
         D.paged_flash_decode.launches += 2
+        D.flash_decode_attn.launches += 3
+        D.flash_decode_attn.launches_unmasked += 3
         F.fwht.launches += 1
         return (bufs["tokens"] + 1,)
 
     first = sg.run(("packed", 4), {"tokens": np.arange(4)}, body)
-    assert graphs.launch_counts() == [5, 0, 1, 0, 2, 0, 5, 0, 5, 0, 0]
+    assert graphs.launch_counts() == [5, 0, 1, 3, 2, 0, 5, 0, 5, 0, 0, 3]
     for i in range(n):
         out = sg.run(("packed", 4), {"tokens": np.arange(4) + i}, body)
     assert fake.replays == n and sg.keys() == [("packed", 4)]
@@ -553,12 +579,16 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
     # the warm-up launched once, each replay once more
     assert (G.ovsf_gemm.launches, G.ovsf_gemm.launches_by_alpha["int8"],
             G.ovsf_gemm.launches_by_kernel["tensor_core"],
-            D.paged_flash_decode.launches, F.fwht.launches) == \
-        (5 * (n + 1), 5 * (n + 1), 5 * (n + 1), 2 * (n + 1), n + 1)
+            D.paged_flash_decode.launches, F.fwht.launches,
+            D.flash_decode_attn.launches,
+            D.flash_decode_attn.launches_unmasked) == \
+        (5 * (n + 1), 5 * (n + 1), 5 * (n + 1), 2 * (n + 1), n + 1,
+         3 * (n + 1), 3 * (n + 1))
     assert sg._entries[("packed", 4)].launches == \
-        [5, 0, 1, 0, 2, 0, 5, 0, 5, 0, 0]
+        [5, 0, 1, 3, 2, 0, 5, 0, 5, 0, 0, 3]
     G.reset_launches()
     D.paged_flash_decode.launches = F.fwht.launches = 0
+    D.flash_decode_attn.launches = D.flash_decode_attn.launches_unmasked = 0
 
 
 def test_keys_of_one_pool_label_capture_into_one_pool(monkeypatch):
@@ -597,10 +627,11 @@ def test_launch_counters_name_every_wrapper_counter():
     """The kernels package owns the list of launch counters that a replay
     adds to; the per-storage and per-kernel dicts are read anew."""
     got = kernels.launch_counters()
-    assert [h for h, k in got if not isinstance(h, dict)] == [
-        G.ovsf_gemm, G.ovsf_decompress, F.fwht, D.flash_decode_attn,
-        D.paged_flash_decode]
-    assert all(k == "launches" for h, k in got if not isinstance(h, dict))
+    assert [(h, k) for h, k in got if not isinstance(h, dict)] == [
+        (G.ovsf_gemm, "launches"), (G.ovsf_decompress, "launches"),
+        (F.fwht, "launches"), (D.flash_decode_attn, "launches"),
+        (D.paged_flash_decode, "launches"),
+        (D.flash_decode_attn, "launches_unmasked")]
     assert [k for h, k in got if isinstance(h, dict)] == \
         list(G.ovsf_gemm.launches_by_alpha) + \
         list(G.ovsf_gemm.launches_by_kernel)
@@ -608,7 +639,8 @@ def test_launch_counters_name_every_wrapper_counter():
     assert kernels.launch_counters()[5][0] is G.ovsf_gemm.launches_by_alpha
     assert graphs.launch_counts() == [0, 0] + [
         F.fwht.launches, D.flash_decode_attn.launches,
-        D.paged_flash_decode.launches] + [0] * (len(got) - 5)
+        D.paged_flash_decode.launches] + [0] * (len(got) - 6) + [
+        D.flash_decode_attn.launches_unmasked]
 
 
 def test_replacing_params_or_config_drops_the_graphs():

@@ -325,7 +325,7 @@ def test_paged_step_matches_reference_int8():
     table[2, :1] = [11]
     jcache = jR.init_paged_cache(jcfg, n_slots, ps, P)
     jcache["pos"] = jnp.zeros((n_slots,), jnp.int32)
-    tcache = tR.init_paged_cache(tcfg, ps, P, "cpu")
+    tcache = tR.init_paged_cache(tcfg, n_slots, ps, P, "cpu")
     tcache["pos"] = torch.zeros(n_slots, dtype=torch.int32)
     step = jax.jit(functools.partial(jR.serve_step_paged, cfg=jcfg))
     rng = np.random.default_rng(8)

@@ -584,7 +584,7 @@ def test_packed_step_logits_match_reference(arch, paged):
         shape = (tcfg.n_layers, P, ps, tcfg.n_kv_heads, tcfg.hd)
         jcache = {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
                   "pos": jnp.zeros((B,), jnp.int32)}
-        tcache = tR.init_paged_cache(tcfg, ps, P, "cpu")
+        tcache = tR.init_paged_cache(tcfg, B, ps, P, "cpu")
         jstep = jax.jit(functools.partial(jR.serve_step_paged, cfg=jcfg))
         jkw = dict(page_table=table)
     else:
@@ -859,7 +859,7 @@ def test_multi_steps_refuse_moe():
 
 
 def test_other_families_still_refused():
-    cfg = dataclasses.replace(t_smoke("olmoe_1b_7b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="dense, MoE, SSM and "
-                       "hybrid families only"):
+    cfg = dataclasses.replace(t_smoke("olmoe_1b_7b"), family="retnet")
+    with pytest.raises(NotImplementedError, match="dense, MoE, SSM, hybrid, "
+                       "encoder-decoder and VLM families"):
         tR.model_init_specs(cfg)

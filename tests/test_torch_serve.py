@@ -269,7 +269,9 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.configs.kimi_k2_1t_a32b, repro_torch.models.ssm, "
             "repro_torch.configs.falcon_mamba_7b, "
             "repro_torch.configs.zamba2_1_2b, "
-            "repro_torch.configs.starcoder2_15b; "
+            "repro_torch.configs.starcoder2_15b, "
+            "repro_torch.configs.whisper_tiny, "
+            "repro_torch.configs.llava_next_34b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -290,6 +292,8 @@ def test_port_sources_import_no_jax_or_reference():
     assert ROOT / "src" / "repro_torch" / "models" / "ssm.py" in files
     assert (ROOT / "src" / "repro_torch" / "configs" /
             "zamba2_1_2b.py") in files
+    for name in ("whisper_tiny.py", "llava_next_34b.py"):
+        assert ROOT / "src" / "repro_torch" / "configs" / name in files
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"

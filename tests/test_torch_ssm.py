@@ -490,7 +490,7 @@ def test_padded_entry_points_refuse(arch):
                                                     win, one),
         "packed step": lambda: tR.serve_step_packed(tparams, tcfg, cache, z,
                                                     z, z, z, z),
-        "paged cache": lambda: tR.init_paged_cache(tcfg, 4, 4, "cpu"),
+        "paged cache": lambda: tR.init_paged_cache(tcfg, B, 4, 4, "cpu"),
         "paged step": lambda: tR.serve_step_paged(
             tparams, tcfg, cache, torch.zeros((B + 1, 2), dtype=torch.int32),
             z, z, z, z, z),

@@ -146,7 +146,7 @@ def test_packed_step_logits_match_reference(paged):
         shape = (tcfg.n_layers, P, ps, tcfg.n_kv_heads, tcfg.hd)
         jcache = {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
                   "pos": jnp.zeros((B,), jnp.int32)}
-        tcache = tR.init_paged_cache(tcfg, ps, P, "cpu")
+        tcache = tR.init_paged_cache(tcfg, B, ps, P, "cpu")
         jstep = jax.jit(functools.partial(jR.serve_step_paged, cfg=jcfg))
         jkw = dict(page_table=table)
     else:
@@ -205,7 +205,7 @@ def test_window_steps_match_reference():
     table = np.full((B + 1, npg), P, np.int32)
     table[:B] = np.random.default_rng(2).permutation(P).reshape(B, npg)
     shape = (tcfg.n_layers, P, ps, tcfg.n_kv_heads, tcfg.hd)
-    pcache = tR.init_paged_cache(tcfg, ps, P, "cpu")
+    pcache = tR.init_paged_cache(tcfg, B, ps, P, "cpu")
     pcache["pos"] = torch.zeros(B, dtype=torch.int32)
     jpaged = {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
               "pos": jnp.zeros((B,), jnp.int32)}
