@@ -86,7 +86,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              prints its raises. Every serve run above, and the same four
              styles again in fp32 (fp32 alphas; ``ovsf_gemm`` on its CUDA-core
              kernel; full width, depth cut to ``SERVE_FP32_LAYERS``, 6 of
-             22), runs twice on the same params and requests: eagerly
+             22; the int8 / int4 alpha runs and the bf16 contiguous packed
+             and paged window styles at ``SERVE_CUT_LAYERS``, 6 of 22), runs
+             twice on the same params and requests: eagerly
              (``LLMEngine(capture=False)``) and replaying the engine's CUDA
              graphs (its default, one graph per step shape). The two must
              give the same token streams (greedy and sampled), every
@@ -255,7 +257,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (4 slots, buffer 128, chunk 8, every step replayed) over a
              registry of tl-a and tl-b (full-width TinyLlama-1.1B and its
              ``make_alpha_variant``, stacked into one engine) and qw
-             (qwen2_5_14b at its published widths, ``QWEN_LAYERS`` = 12
+             (qwen2_5_14b at its published widths, ``QWEN_LAYERS`` = 6
              of its 48 layers), bf16, 12 requests round-robin (greedy and sampled): each
              finishes once; the stacked engine launches 22
              ``flash_decode_attn`` a step and no ``ovsf_gemm``, qw's 7 x
@@ -316,9 +318,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              L2. (5) The expert alphas' bytes on the card at most 0.55x
              the dense bf16 banks'. No host clock, idle share or reserved
              memory is gated here.
-  11. ssm:   the recurrent families at their published widths, uncut:
-             ``falcon_mamba_7b`` (64 Mamba-1 layers, d 4096, d_inner 8192,
-             N 16, vocab 65024) and ``zamba2_1_2b`` (38 Mamba-2 layers, d
+  11. ssm:   the recurrent families at their published widths:
+             ``falcon_mamba_7b`` (``SSM_LAYERS``: 16 of its 64 Mamba-1
+             layers, d 4096, d_inner 8192,
+             N 16, vocab 65024) and ``zamba2_1_2b`` (12 of its 38 Mamba-2
+             layers, d
              2048, N 64, heads of 64, a weight-shared attention + MLP block
              after every 6th: 32/32 heads of 64, d_ff 8192), bf16, OVSF
              rho 0.5 on the Mamba in/out projections and the shared block.
@@ -338,7 +342,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              for ``mlp_in`` / ``mlp_out`` (and the shared block's seven);
              every step launches 2 ``ovsf_gemm`` a Mamba block and 7 a
              shared-block application for each prefill call and for the
-             decode (all tensor-core; Falcon 128, Zamba2 76 + 42 = 118),
+             decode (all tensor-core; at 16 / 12 layers Falcon 32, Zamba2
+             24 + 14 = 38),
              one ``flash_decode_attn`` an application a decode (Zamba2 6)
              and nothing else of ours; streams, every step's logits,
              launch counters and profiled kernels equal between the runs;
@@ -388,6 +393,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ms and ``ovsf_gemm`` share against the byte bound of the
              alphas and ``lm_head``. (4) LLaVA at full width but 2 layers,
              fp32, 8 image positions: card vs CPU within 1e-3.
+  13. train: training on the card, TF32 off, under
+             ``torch.use_deterministic_algorithms`` only where said
+             (``CUBLAS_WORKSPACE_CONFIG`` is set at the start for it). (1)
+             Each OVSF autograd wrapper (``kernels.ops``: ``ovsf_gemm``,
+             ``ovsf_decompress``, ``fwht``) against autograd through its
+             kernel's plain version: TinyLlama-1.1B's five projections at
+             M 1024 in bf16 (tensor-core forward), one fp32 projection
+             (CUDA-core), ResNet-50's conv GEMMs at batch 8 in fp32 under
+             ``materialize``, ``fused`` and ``spectral``; y, dx and dA
+             within 2e-3 (fp32) / 2e-2 (bf16) relative L2, ``fwht``'s
+             backward the plain transform bit for bit; forward + backward
+             device ms beside ``torch.matmul`` on a dense W, and the
+             forward alone. (2) ResNet-50 and ResNet-18 in matrix mode,
+             fp32: ``cnn_loss`` forward + backward at batch 8 under the
+             default, ``("fused",)`` and ``ALL_PATHS`` h100 plans, each
+             kernel's launches a step equal to the plan's, against the CPU
+             port: the loss, each BN layer's new statistics, ResNet-50's
+             eval-mode and ResNet-18's train-mode gradients (ResNet-50's
+             train-mode ones are ill-conditioned: ``cnn_train_phase``). (3) One fp32 train step of TinyLlama at full
+             width, ``TRAIN_PARITY_LAYERS`` layers, card vs CPU: loss within
+             1e-5, gradients and updated params within 1e-3 relative L2. (4)
+             ``runtime.supervisor.run`` at full width, ``TRAIN_FAULT_LAYERS``
+             layers, with a ``FaultPlan`` ``fail`` between checkpoints: one
+             failure, a restore, the replayed losses equal the
+             uninterrupted run's bit for bit; the final checkpoint restores
+             bit for bit and a flipped byte is refused, naming its leaf. (5)
+             ``python -m repro_torch.launch.train --arch tinyllama_1_1b``
+             at full width and depth (``main`` in this process): 12 steps
+             of B 8, S 128, checkpoints every 6; finite losses, the last
+             below the first, 220 ``ovsf_gemm`` launches a step (remat
+             recomputes each block's forward), all on the tensor-core
+             kernel; step wall, device busy, idle share, peak
+             ``memory_allocated`` and each save's seconds printed. (6) The
+             trained params served by ``LLMEngine`` paged packed, eager and
+             replayed: streams equal, logits finite.
 Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
@@ -414,6 +454,7 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}   # rtol = atol
+SPIN_HZ = 2.0e9          # cycles a second at most (H100 SXM boost 1.98 GHz)
 FP32_CUDA_CORE_FLOPS = 67e12                     # the WHT's adds
 L2_BYTES = 50e6
 ALPHA_DTYPES = ("", "int8", "int4")         # bf16/fp32, int8, packed int4
@@ -1214,6 +1255,11 @@ def serve_requests(specs) -> list:
 # so that the script with phase 11 stays inside its time limit; their
 # checks hold at any depth
 SERVE_FP32_LAYERS = 6
+# the depth of the bf16 runs with int8 / int4 alphas and of the bf16
+# contiguous packed and paged window styles (full width; cut when phase 13
+# came): the paged packed run (the main path) and the contiguous window
+# (phase 4b's memory yardstick) stay at 22
+SERVE_CUT_LAYERS = 6
 
 
 def serve_phase(seed: int, card: str, dev, alpha_dtype: str = "",
@@ -3489,6 +3535,8 @@ def chaos_recoveries(seed: int, dev, cfg, params, card: str) -> dict:
     after the 1st within the allocator's 2 MiB granularity: a leak per
     recovery of any size fails."""
     tag = "[chaos bf16 recoveries]"
+    print(f"{tag} memory_reserved at the start "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB", flush=True)
     eng = chaos_engine(params, cfg, dev, ("fail:step=5,every=10",))
     specs = chaos_specs(cfg, seed, max_new=16)
     fins: list = []
@@ -3931,9 +3979,10 @@ QWEN_LAYER = {"q": (5120, 5120), "k": (5120, 1024), "v": (5120, 1024),
 QWEN_FLASH_CASES = (("qwen window decode", 4, 40, 8, 128, 128,
                      (1, 33, 100, 128)),
                     ("qwen packed", 64, 40, 8, 128, 128, None))
-QWEN_LAYERS = 12            # the depth phase 9 serves qwen2_5_14b at
+QWEN_LAYERS = 6             # the depth phase 9 serves qwen2_5_14b at
                             # (48 before its run shared the time limit with
-                            # phase 11; full width either way)
+                            # phase 11, 12 before phase 13; full width
+                            # either way)
 GATEWAY_MODELS = (("tinyllama_1_1b", "tl-a", 0),
                   ("tinyllama_1_1b", "tl-b", 1),
                   ("qwen2_5_14b", "qw", 0))
@@ -4542,7 +4591,8 @@ def gateway_phase(seed: int, card: str, dev, out_dir: str,
     print(f"{tag} replayed chunk-free step: stacked pair (2 variants, "
           f"window W 1) {res['multi_step']['step_ms']:.3f}ms, idle share "
           f"{res['multi_step']['idle_share']}; phase 4's single-model "
-          f"contiguous packed step {packed_profile.get('step_ms')}ms, idle "
+          f"contiguous packed step ({SERVE_CUT_LAYERS} of 22 layers) "
+          f"{packed_profile.get('step_ms')}ms, idle "
           f"share {packed_profile.get('idle_share')}", flush=True)
     del multi, qw
     close_gateway(gw)
@@ -4950,6 +5000,10 @@ SSM_ARCHS = ("falcon_mamba_7b", "zamba2_1_2b")
 # the card-vs-CPU steps' depth (full width): Zamba2's first shared-attention
 # application follows its 6th Mamba-2 block
 SSM_PARITY_LAYERS = {"falcon_mamba_7b": 2, "zamba2_1_2b": 6}
+# the depth phase 11 serves each at (full width; 0 = uncut), cut when phase
+# 13 came: Falcon-Mamba-7B from 64, Zamba2-1.2B from 38 (two applications
+# of its shared block)
+SSM_LAYERS = {"falcon_mamba_7b": 16, "zamba2_1_2b": 12}
 # the main path's launcher flags; the recurrent families fall back from them
 # to the legacy engine with exact per-request prefill
 SSM_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True)
@@ -5329,6 +5383,7 @@ def ssm_phase(seed: int, card: str, dev) -> dict:
     res = dict(kernels=run_ssm_kernel_checks(rng, dev))
     for arch in SSM_ARCHS:
         cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=SSM_LAYERS[arch] or cfg.n_layers)
         t0 = time.perf_counter()
         params = R.model_init(cfg, seed, dev)
         torch.cuda.synchronize()
@@ -5357,7 +5412,7 @@ WHISPER_ARCH = "whisper_tiny"
 LLAVA_ARCH = "llava_next_34b"
 # the depth phase 12 serves LLaVA-NeXT-34B at (of 60, full width): all 60
 # took the whole script to 893 s of its 1200 s limit on a slow host
-LLAVA_LAYERS = 30
+LLAVA_LAYERS = 8            # of 60 (30 before phase 13); full width
 LLAVA_PARITY_LAYERS = 2     # the card-vs-CPU steps' depth (full width)
 LLAVA_PARITY_IMAGE = 8      # image positions of the card-vs-CPU prefill
 ENTRY_STEPS = 16            # greedy decode steps after each family's prefill
@@ -5896,11 +5951,776 @@ def encdec_vlm_phase(seed: int, card: str, dev) -> dict:
     return res
 
 
+# -- phase 13: training -------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama_1_1b"
+# TinyLlama-1.1B's five OVSF projections (d 2048, d_ff 5632; k and v, 2048
+# -> 256, are dense): (d_in, d_out)
+TRAIN_LAYER = {"q": (2048, 2048), "o": (2048, 2048), "gate": (2048, 5632),
+               "up": (2048, 5632), "down": (5632, 2048)}
+TRAIN_BATCH, TRAIN_SEQ = 8, 128     # the launcher's step: M = B * S = 1024
+TRAIN_STEPS = 12                    # the launcher's steps ...
+TRAIN_SAVE_EVERY = 6                # ... and its checkpoint interval
+TRAIN_LR = 1e-3
+TRAIN_FAULT_LAYERS = 2              # the supervisor run's depth (full width)
+TRAIN_FAULT_STEPS = 6               # its steps, saving every 3: checkpoints
+TRAIN_FAULT_SAVE_EVERY = 3          # at 3 and 6; a fail at 5 restores 3
+TRAIN_FAULT_AT = 5                  # and replays steps 3 and 4
+TRAIN_PARITY_LAYERS = 2             # card vs CPU: fp32, B 2, S 64
+# ResNet-50's 13 OVSF convs at batch 8 as im2col GEMMs (M, K, N, convs):
+# stages 1-3, rho 0.5, monolithic codes of L = next_pow2(K)
+RESNET50_CONVS = ((6272, 1152, 128, 4), (1568, 2304, 256, 6),
+                  (392, 4608, 512, 3))
+CNN_TRAIN_BATCH = 8
+# (arch, image side, train-mode gradients gated at 1e-3) of the CNN train
+# checks: ResNet-50 at its published size, timed; ResNet-18 at the CPU
+# tests' 64 x 64, where its train-mode gradients are well conditioned
+# (``cnn_train_phase``)
+CNN_TRAIN_CASES = (("resnet50", 224, False), ("resnet18", 64, True))
+CNN_WELL_CONDITIONED = 1e-4     # the CPU's gradient move under a 1e-6 image
+                                # move that a 1e-3 comparison needs
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.detach().double(), want.detach().double().to(got.device)
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def grads_of(fn, inputs: list, g: torch.Tensor) -> tuple:
+    """(output, gradients of ``inputs``) of ``fn(*inputs)`` against dy
+    ``g``, on fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    y = fn(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, g)
+
+
+def grad_check(tag: str, kernel_fn, plain_fn, inputs: list, g, dt) -> float:
+    """y, dx and dA through the kernel path against autograd through the
+    plain version on the same inputs: relative L2 within ``TOL[dt]``;
+    returns the largest absolute error of the gradients."""
+    yk, gk = grads_of(kernel_fn, inputs, g)
+    yp, gp = grads_of(plain_fn, inputs, g)
+    torch.cuda.synchronize()
+    errs = {n: rel_l2(a, b) for n, a, b in
+            zip(("y", "dx", "dA"), (yk,) + tuple(gk), (yp,) + tuple(gp))}
+    bad = {n: e for n, e in errs.items() if not e <= TOL[dt]}
+    finite = all(torch.isfinite(t).all() for t in (yk,) + tuple(gk))
+    if bad or not finite:
+        raise RuntimeError(f"{tag}: relative L2 {errs} beyond {TOL[dt]} "
+                           f"(finite {finite})")
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(gk, gp))
+
+
+def queued_ms(call, n: int) -> float:
+    """Device ms per ``call``: CUDA events around n calls queued behind a
+    spin kernel (``torch.cuda._sleep``) that lasts twice the host's time
+    to enqueue them, so the device runs them back to back and the host's
+    launch gaps (an autograd call is host-bound at these sizes) are not in
+    the number. A call must not synchronise with the host."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SPIN_HZ))
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def fwd_bwd_ms(fn, inputs: list, g, iters: int = 6) -> float:
+    """Device ms of one forward + backward of ``fn`` (``queued_ms``)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    return queued_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, g),
+                     iters)
+
+
+def ovsf_train_bound(M: int, K: int, N: int, J: int, wht_row: int,
+                     dtype, idx_bytes: int) -> dict:
+    """Least device ms of y = x S^T A, forward alone and forward +
+    backward, whatever the path: every input (x, alphas, ids; dy) read and
+    every output (y; dx, dA) written once, or the function's operations.
+    Those are the products with the J kept codes, 2 M J N forward and 4 M J
+    N backward (dA = (x S^T)^T dy, dy A^T), at the operands' peak (bf16:
+    the tensor cores), and ``wht_row`` WHT adds a row of x forward and of
+    dy A^T backward, at the fp32 rate outside the tensor cores."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    out = {}
+    for key, prods, whts, elems in (
+            ("forward", 2, 1, M * K + J * N + M * N),
+            ("train", 6, 2, 2 * (M * K + J * N + M * N))):
+        t_ops = (prods * M * J * N / PEAK_FLOPS[dtype]
+                 + whts * M * wht_row / FP32_CUDA_CORE_FLOPS) * 1e3
+        t_mem = (item * elems + idx_bytes) / HBM_BYTES_PER_S * 1e3
+        out[key] = (t_ops, t_mem)
+    return out
+
+
+def host_us(call, n: int = 3000) -> float:
+    """Host microseconds per ``call`` over n calls in a row (the device
+    keeps up at the sizes it is given)."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def forward_ms(fn, inputs: list, iters: int = 6) -> float:
+    """Device ms of ``fn``'s forward alone, autograd off (``queued_ms``)."""
+    with torch.no_grad():
+        return queued_ms(lambda: fn(*inputs), iters)
+
+
+def run_train_kernel_checks(rng, dev) -> dict:
+    """Phase 13 (1): each autograd wrapper's dx and dA against autograd
+    through its kernel's plain version on the card. TinyLlama's five
+    projections at M 1024 in bf16 (``ovsf_gemm`` forward on the tensor-core
+    kernel, the segmented backward plain tensor code), one fp32 projection
+    on the CUDA-core kernel, ResNet-50's conv GEMMs at batch 8 in fp32 under
+    ``materialize``, ``fused`` (the monolithic kernel) and ``spectral``;
+    ``fwht``'s backward equal to the plain transform of dy bit for bit.
+    Forward + backward device ms (``fwd_bwd_ms``) beside
+    ``torch.matmul`` forward + backward on a dense W that requires grad,
+    and the forward alone (the kernel; the rest is the backward's plain
+    code and ``torch.matmul``). Bounds: ``ovsf_train_bound``."""
+    from repro_torch.core.ovsf import next_pow2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fwht import fwht_plain
+    from repro_torch.kernels.ovsf_gemm import (ovsf_decompress_plain,
+                                               ovsf_gemm, ovsf_gemm_plain)
+    F = torch.nn.functional
+    res = {"lm": [], "cnn": {}}
+    M = TRAIN_BATCH * TRAIN_SEQ
+    for name, (K, N) in TRAIN_LAYER.items():
+        x, al, idx, nk = gemm_case(rng, 16, M, K, N, torch.bfloat16, dev)
+        g = torch.randn((M, N), device=dev, dtype=torch.bfloat16)
+        tag = f"[train kernel] ovsf_gemm {name} M={M} {K}->{N} bf16"
+        before = ovsf_gemm.launches_by_kernel["tensor_core"]
+        err = grad_check(tag, lambda a, b: ops.ovsf_gemm_fn(a, b, idx),
+                         lambda a, b: ovsf_gemm_plain(a, b, idx), [x, al],
+                         g, torch.bfloat16)
+        if ovsf_gemm.launches_by_kernel["tensor_core"] != before + 1:
+            raise RuntimeError(f"{tag}: not on the tensor-core kernel")
+        J = al.shape[0]
+        ms = fwd_bwd_ms(lambda a, b: ops.ovsf_gemm_fn(a, b, idx), [x, al], g)
+        plain_ms = fwd_bwd_ms(lambda a, b: ovsf_gemm_plain(a, b, idx),
+                              [x, al], g, 2)
+        fwd = forward_ms(lambda a, b: ops.ovsf_gemm_fn(a, b, idx), [x, al])
+        W = torch.randn((K, N), device=dev, dtype=torch.bfloat16)
+        lib_ms = fwd_bwd_ms(torch.matmul, [x, W], g)
+        bd = ovsf_train_bound(M, K, N, J, K * 4,     # log2 16 = 4 stages
+                              torch.bfloat16, idx.numel() * 4)
+        t_ops, t_mem = bd["train"]
+        row = dict(case=tag, M=M, K=K, N=N, J=J, max_abs_err=err, ms=ms,
+                   forward_ms=fwd, backward_ms=ms - fwd, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=max(t_ops, t_mem),
+                   bound_by="operations" if t_ops >= t_mem else "bytes",
+                   forward_bound_ms=max(bd["forward"]))
+        res["lm"].append(row)
+        print(f"{tag}: dx, dA within {TOL[torch.bfloat16]} relative L2 of "
+              f"autograd through the plain version (max abs err {err:.3e});"
+              f" forward + backward {ms:.4f} ms (the kernel's forward "
+              f"{fwd:.4f} ms, bound {row['forward_bound_ms']:.4f}; the "
+              f"backward's plain code and matmuls {ms - fwd:.4f}), plain "
+              f"{plain_ms:.4f} ms, matmul on a dense W {lib_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    # what the serving path saves by calling the wrapper, and not the
+    # Function, where autograd records nothing (``ops.ovsf_gemm_fn``)
+    x, al, idx, _nk = gemm_case(rng, 16, 4, 2048, 2048, torch.bfloat16, dev)
+    with torch.no_grad():
+        res["host_us"] = {
+            "wrapper": host_us(lambda: ovsf_gemm(x, al, idx)),
+            "function": host_us(lambda: ops.OvsfGemmFn.apply(x, al, idx))}
+    print("[train kernel] host us a call, q at M=4 bf16 under no_grad: "
+          f"the wrapper {res['host_us']['wrapper']:.2f}, the autograd "
+          f"Function {res['host_us']['function']:.2f}", flush=True)
+    # fp32 x over segmented codes: the CUDA-core kernel
+    x, al, idx, _nk = gemm_case(rng, 16, 256, 2048, 2048, torch.float32, dev)
+    g = torch.randn((256, 2048), device=dev)
+    before = ovsf_gemm.launches_by_kernel["cuda_core"]
+    tag = "[train kernel] ovsf_gemm q M=256 2048->2048 fp32 (cuda_core)"
+    err = grad_check(tag, lambda a, b: ops.ovsf_gemm_fn(a, b, idx),
+                     lambda a, b: ovsf_gemm_plain(a, b, idx), [x, al], g,
+                     torch.float32)
+    if ovsf_gemm.launches_by_kernel["cuda_core"] != before + 1:
+        raise RuntimeError(f"{tag}: not on the CUDA-core kernel")
+    res["fp32_cuda_core_err"] = err
+    print(f"{tag}: within {TOL[torch.float32]} (max abs err {err:.3e})",
+          flush=True)
+
+    def spectral_plain(a, b, idx, K):
+        L = next_pow2(K)
+        return fwht_plain(F.pad(a, (0, L - K)))[:, idx.long()] @ b
+
+    plains = {
+        "materialize": lambda idx, K: (lambda a, b: a @ ovsf_decompress_plain(
+            b, idx, K)),
+        "fused": lambda idx, K: (lambda a, b: ovsf_gemm_plain(a, b, idx)),
+        "spectral": lambda idx, K: (lambda a, b: spectral_plain(a, b, idx,
+                                                                K))}
+    for path in ops.EXEC_PATHS:
+        tot = dict(ms=0.0, forward_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, max_abs_err=0.0, t_ops=0.0, t_mem=0.0)
+        for M_, K, N, count in RESNET50_CONVS:
+            x, al, idx, _nk = gemm_case(rng, 0, M_, K, N, torch.float32,
+                                        dev)
+            g = torch.randn((M_, N), device=dev)
+            tag = f"[train kernel] {path} M={M_} {K}->{N} fp32"
+
+            def kern(a, b, idx=idx):
+                return ops.ovsf_matmul(a, b, idx, path=path)
+            err = grad_check(tag, kern, plains[path](idx, K), [x, al], g,
+                             torch.float32)
+            J, L = al.shape[0], next_pow2(K)
+            ms = fwd_bwd_ms(kern, [x, al], g)
+            fwd = forward_ms(kern, [x, al])
+            plain_ms = fwd_bwd_ms(plains[path](idx, K), [x, al], g, 2)
+            W = torch.randn((K, N), device=dev)
+            lib_ms = fwd_bwd_ms(torch.matmul, [x, W], g)
+            # one function whatever the path, so one bound
+            t_ops, t_mem = ovsf_train_bound(
+                M_, K, N, J, L * (L.bit_length() - 1), torch.float32,
+                J * 4)["train"]
+            for k, v in (("ms", ms), ("forward_ms", fwd),
+                         ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("t_ops", t_ops), ("t_mem", t_mem)):
+                tot[k] += count * v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            print(f"{tag}: within {TOL[torch.float32]} (max abs err "
+                  f"{err:.3e}); forward + backward {ms:.4f} ms (forward "
+                  f"{fwd:.4f}), plain {plain_ms:.4f} ms, matmul on a dense W "
+                  f"{lib_ms:.4f} ms", flush=True)
+            if path == "spectral":
+                xp = F.pad(x, (0, L - K))
+                gp = torch.randn_like(xp)
+                _y, (got,) = grads_of(ops.FwhtFn.apply, [xp], gp)
+                if not torch.equal(got, fwht_plain(gp)):
+                    raise RuntimeError(f"{tag}: fwht's backward is not the "
+                                       "plain transform of dy bit for bit")
+        tot["bound_ms"] = max(tot["t_ops"], tot["t_mem"])
+        tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_mem"]
+                           else "bytes")
+        res["cnn"][path] = tot
+        print(f"[train kernel] ResNet-50's 13 OVSF conv GEMMs under {path}, "
+              f"batch 8, forward + backward: {tot['ms']:.3f} ms (forward "
+              f"{tot['forward_ms']:.3f}; plain "
+              f"{tot['plain_ms']:.3f}, matmul on dense W "
+              f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} ms, "
+              f"{tot['bound_by']})", flush=True)
+    return res
+
+
+def cnn_grads(params: dict, state: dict, cfg, x, labels,
+              train: bool = True) -> tuple:
+    """(loss, {(layer, key): gradient}, new BN state) of ``cnn_loss``."""
+    from repro_torch.models import cnn
+    live = {n: {k: (t.detach().requires_grad_() if t.is_floating_point()
+                    else t) for k, t in layer.items()}
+            for n, layer in params.items()}
+    loss, (new_st, _lg) = cnn.cnn_loss(live, state, cfg, x, labels, train)
+    keys = [(n, k) for n, layer in live.items() for k, t in layer.items()
+            if t.requires_grad]
+    gs = torch.autograd.grad(loss, [live[n][k] for n, k in keys])
+    return loss.detach(), dict(zip(keys, gs)), new_st
+
+
+def grads_rel(got: dict, want: dict) -> float:
+    """Relative L2 of every gradient at once."""
+    return rel_l2(torch.cat([got[k].flatten().cpu() for k in want]),
+                  torch.cat([want[k].flatten().cpu() for k in want]))
+
+
+def cnn_plan_launches(cfg) -> dict:
+    """Kernel launches of one ResNet-50 train step by the plan's paths:
+    ``materialize`` (or no plan) one ``ovsf_decompress`` forward and one
+    ``fwht`` backward (dA), ``fused`` one ``ovsf_gemm`` forward, one
+    ``ovsf_decompress`` (dx) and one ``fwht`` (dA) backward, ``spectral``
+    one ``fwht`` forward and one backward (d pad(x))."""
+    from collections import Counter
+    from repro_torch.models import cnn
+    names = [d["name"] for d in cnn._resnet_layers(cfg)
+             if d["k"] == 3 and d["rho"] < 1.0]
+    plans = [cfg.exec_plan.plan_for(n) if cfg.exec_plan is not None
+             else None for n in names]
+    paths = [lp.path if lp is not None else "materialize" for lp in plans]
+    per = {"materialize": (1, 0, 1), "fused": (1, 1, 1),
+           "spectral": (0, 0, 2)}
+    want = dict(ovsf_decompress=0, ovsf_gemm=0, fwht=0)
+    for p in paths:
+        for k, n in zip(want, per[p]):
+            want[k] += n
+    return want, dict(Counter(paths))
+
+
+def bn_layer_errs(got: dict, want: dict) -> dict:
+    """Relative L2 of each BN layer's new running mean and variance."""
+    return {f"{n}.{k}": rel_l2(got[n][k].cpu(), want[n][k])
+            for n in want for k in ("mean", "var")}
+
+
+def cnn_plans(base) -> list:
+    """(label, planned config) of the default, ``("fused",)`` and
+    ``ALL_PATHS`` h100 plans at the train batch."""
+    from repro_torch.runtime.mapper import ALL_PATHS, DEFAULT_PATHS, plan_cnn
+    return [(label, base.replace(exec_plan=plan_cnn(
+                base, batch=CNN_TRAIN_BATCH, hw="h100", paths=paths)))
+            for label, paths in (("+".join(DEFAULT_PATHS), DEFAULT_PATHS),
+                                 ("fused", ("fused",)),
+                                 ("ALL_PATHS", ALL_PATHS))]
+
+
+def cnn_inputs(arch: str, side: int, seed: int, dev,
+               batch: int = CNN_TRAIN_BATCH, width: float = 1.0) -> tuple:
+    """Matrix-mode ``arch`` at ``width`` from ``seed`` on the CPU and on
+    ``dev``, and ``batch`` side x side images, labels and a 1e-6 move of
+    the images, from the seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cnn
+    base = get_config(arch).replace(ovsf_mode="matrix", width_mult=width)
+    p_cpu, s_cpu = cnn.cnn_init(base, seed, "cpu")
+    rng = np.random.default_rng(seed + 30)
+    shape = (batch, side, side, 3)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32))
+    labels = torch.from_numpy(rng.integers(0, base.num_classes, batch))
+    noise = torch.from_numpy(rng.standard_normal(shape, np.float32)) * 1e-6
+    on = {n: {k: t.to(dev) for k, t in d.items()} for n, d in p_cpu.items()}
+    st = {n: {k: t.to(dev) for k, t in d.items()} for n, d in s_cpu.items()}
+    return base, (p_cpu, s_cpu), (on, st), x, labels, noise
+
+
+def cnn_train_phase(seed: int, card: str, dev) -> dict:
+    """Phase 13 (6): ``cnn_loss`` in matrix mode, fp32, batch 8, under the
+    default, ``("fused",)`` and ``ALL_PATHS`` h100 plans, against the CPU
+    port (unplanned, ``materialize``) on the same weights and images: each
+    kernel's launches a step equal the plan's, the loss within 1e-4, each
+    BN layer's new running mean and variance within 1e-5 relative L2.
+
+    A random-init OVSF ResNet's train-mode gradients are often
+    ill-conditioned: train-mode BN divides by a channel's batch std, and
+    a channel of large mean and small std (the all-ones code sums positive
+    inputs) turns rounding into gradient. How far depends on the weights
+    and images: an image move of 1e-6 shifts ResNet-50's 0.6-5% on the
+    CPU at every batch and side tried, ResNet-18's 7e-6-1e-2 by seed and
+    side (``tools/cnn_conditioning.py``). So ResNet-50 (224 x 224) holds
+    its gradients within 1e-3 relative
+    L2 (all leaves at once) in eval mode, and its train-mode ones only
+    within 3x its own move on the card (or 1e-3), printed; its forward +
+    backward wall and device ms (``queued_ms``) are timed. ResNet-18 (64
+    x 64) holds its train-mode gradients within 1e-3, once the CPU's move
+    shows the comparison is well conditioned (``CNN_WELL_CONDITIONED``):
+    it fails if not."""
+    res = {}
+    for arch, side, gated in CNN_TRAIN_CASES:
+        base, (p_cpu, s_cpu), (params, state), x, labels, noise = \
+            cnn_inputs(arch, side, seed, dev)
+        t0 = time.perf_counter()
+        want_loss, want_g, want_st = cnn_grads(p_cpu, s_cpu, base, x, labels)
+        if not gated:
+            _l, want_eval, _s = cnn_grads(p_cpu, s_cpu, base, x, labels,
+                                          train=False)
+        else:
+            _l, g_cpu, _s = cnn_grads(p_cpu, s_cpu, base, x + noise, labels)
+            cpu_moved = grads_rel(g_cpu, want_g)
+            print(f"[train cnn {arch}] {side} x {side}, batch "
+                  f"{CNN_TRAIN_BATCH}: an image move of 1e-6 moves the CPU's "
+                  f"train-mode gradients {cpu_moved:.2e} (at most "
+                  f"{CNN_WELL_CONDITIONED:.0e} for a 1e-3 comparison)",
+                  flush=True)
+            if not cpu_moved <= CNN_WELL_CONDITIONED:
+                raise RuntimeError(f"[train cnn {arch}] train-mode gradients"
+                                   f" ill-conditioned ({cpu_moved:.2e})")
+        cpu_s = time.perf_counter() - t0
+        xd, ld = x.to(dev), labels.to(dev)
+        out = {"cpu_s": cpu_s, "side": side}
+        if gated:
+            out["cpu_moved"] = cpu_moved
+        for label, cfg in cnn_plans(base):
+            tag = f"[train cnn {arch} {label}]"
+            want, by_path = cnn_plan_launches(cfg)
+            reset_wrapper_counts()
+            loss, g, st = cnn_grads(params, state, cfg, xd, ld)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in wrapper_counts().items() if k in want}
+            if got != want or not torch.isfinite(loss):
+                raise RuntimeError(f"{tag} launched {got} in a train step, "
+                                   f"the plan ({by_path}) says {want}; loss "
+                                   f"{loss}")
+            _l, g_moved, _s = cnn_grads(params, state, cfg, xd + noise.to(dev),
+                                        ld)
+            loss_err = abs(float(loss) - float(want_loss)) / abs(
+                float(want_loss))
+            train_err = grads_rel(g, want_g)
+            moved = grads_rel(g_moved, g)
+            bn = bn_layer_errs(st, want_st)
+            bn_worst = max(bn, key=bn.get)
+            row = dict(launches=got, paths=by_path, loss_err=loss_err,
+                       train_grad_err=train_err, train_grad_moved=moved,
+                       bn_layer_max=bn[bn_worst], bn_worst=bn_worst)
+            line = (f"{tag} plan {by_path}: launches a step {got} (the "
+                    f"plan's); batch {CNN_TRAIN_BATCH}, {side} x {side}, vs "
+                    f"the CPU: loss "
+                    f"{loss_err:.2e} (limit 1e-4), BN statistics per layer "
+                    f"at most {bn[bn_worst]:.2e} ({bn_worst}; limit 1e-5), "
+                    f"train-mode gradients {train_err:.2e} (an image move "
+                    f"of 1e-6 moves them {moved:.2e} on the card)")
+            if not gated:
+                ms = time_ms([lambda: cnn_grads(params, state, cfg, xd, ld)],
+                             3)
+                dev_ms = queued_ms(lambda: cnn_grads(params, state, cfg, xd,
+                                                     ld), 3)
+                _l, g_eval, _s = cnn_grads(params, state, cfg, xd, ld,
+                                           train=False)
+                eval_err = grads_rel(g_eval, want_eval)
+                limit = max(1e-3, 3 * moved)
+                row.update(ms=ms, queued_ms=dev_ms, eval_grad_err=eval_err)
+                line += (f", limit {limit:.2e}; eval-mode gradients "
+                         f"{eval_err:.2e} (limit 1e-3); forward + backward "
+                         f"{ms:.2f} ms wall, {dev_ms:.2f} ms on the device "
+                         f"queued ({card})")
+                ok = eval_err <= 1e-3 and train_err <= limit
+            else:
+                line += ", limit 1e-3"
+                ok = train_err <= 1e-3
+            print(line, flush=True)
+            if not (ok and loss_err <= 1e-4 and bn[bn_worst] <= 1e-5):
+                raise RuntimeError(f"{tag} card vs CPU: {row}")
+            out[label] = row
+        res[arch] = out
+        del params, state
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_parity(seed: int, dev) -> dict:
+    """Phase 13 (4): one train step of TinyLlama at full width,
+    ``TRAIN_PARITY_LAYERS`` layers, fp32, B 2, S 64, on the card (planned
+    ``fused``: the CUDA-core ``ovsf_gemm``) and on the CPU (``materialize``,
+    as the config says) from the same state: the loss within 1e-5
+    relative, every gradient leaf and every updated param within 1e-3
+    relative L2."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import optim, steps
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_PARITY_LAYERS,
+                                         dtype="float32")
+    cpu = steps.train_state_init(cfg, seed, "cpu")
+    card = optim.tree_map(lambda _p, t: t.to(dev), cpu)
+    toks = torch.from_numpy(TokenStream(cfg.vocab, 64, 2, seed=seed)
+                            .batch_at(0)["tokens"])
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    out = {}
+    for name, st, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+        c = steps.planned_cfg(cfg, d, tuple(toks.shape))
+        loss, _m, g = steps.loss_and_grads(c, st["params"],
+                                           {"tokens": toks.to(d)})
+        new_p, _o, _mm = optim.adamw_update(ocfg, g, st["opt"], st["params"])
+        out[name] = (loss, optim.tree_leaves(g), optim.tree_leaves(new_p))
+    plan = steps.planned_cfg(cfg, dev, tuple(toks.shape)).exec_plan
+    paths = sorted({p.path for _n, p in plan.entries}) if plan else None
+    (lc, gc_, pc), (lh, gh, ph) = out["card"], out["cpu"]
+    loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+    g_err = max(rel_l2(a, b) for a, b in zip(gc_, gh) if a is not None)
+    p_err = max(rel_l2(a.float(), b.float()) for a, b in zip(pc, ph)
+                if a.is_floating_point())
+    print(f"[train parity] {cfg.name} fp32, {cfg.n_layers} layers, B 2 S 64:"
+          f" card plan {paths}; loss "
+          f"{float(lc):.6f} vs CPU {float(lh):.6f} ({loss_err:.2e}, limit "
+          f"1e-5), gradients {g_err:.2e}, updated params {p_err:.2e} "
+          "(limit 1e-3 relative L2)", flush=True)
+    if not (loss_err <= 1e-5 and g_err <= 1e-3 and p_err <= 1e-3):
+        raise RuntimeError(f"[train parity] loss {loss_err}, gradients "
+                           f"{g_err}, params {p_err}")
+    return dict(loss_err=loss_err, grad_err=g_err, param_err=p_err)
+
+
+def train_supervised(seed: int, dev, tmp: str) -> dict:
+    """Phase 13 (3): ``supervisor.run`` at full width,
+    ``TRAIN_FAULT_LAYERS`` layers, bf16, B 8, S 128, without and with a
+    ``FaultPlan`` ``fail`` between two checkpoints, both under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: one
+    failure, a restore, and the replayed steps' losses equal the
+    uninterrupted run's bit for bit (within 1e-3 relative where an op of
+    the step warned that it has no deterministic implementation; the op is
+    printed). The final checkpoint restores with CRC verification bit for
+    bit equal to the state in memory, and a flipped byte in one leaf makes
+    ``restore`` raise naming that leaf."""
+    import warnings
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.runtime import supervisor
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.train import optim, steps
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_FAULT_LAYERS)
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                           total_steps=TRAIN_FAULT_STEPS)
+    stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    runs, logs = {}, []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            # the uninterrupted run needs no checkpoint but its last
+            for name, plan, every in (
+                    ("clean", None, TRAIN_FAULT_STEPS),
+                    ("fault", FaultPlan.parse([f"fail:step={TRAIN_FAULT_AT}"]),
+                     TRAIN_FAULT_SAVE_EVERY)):
+                state = steps.train_state_init(cfg, seed, dev)
+                runs[name] = supervisor.run(
+                    steps.make_train_step(cfg, ocfg), state, stream.batch_at,
+                    TRAIN_FAULT_STEPS, supervisor.SupervisorConfig(
+                        ckpt_dir=os.path.join(tmp, name), save_every=every,
+                        log_every=1000),
+                    faults=plan, log=logs.append)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0][:120]
+                     for w in caught if "deterministic" in str(w.message)})
+    (cs, crep), (fs, frep) = runs["clean"], runs["fault"]
+    start = TRAIN_FAULT_AT // TRAIN_FAULT_SAVE_EVERY * TRAIN_FAULT_SAVE_EVERY
+    want = crep.losses[:TRAIN_FAULT_AT] + crep.losses[start:]
+    tag = "[train supervisor]"
+    if frep.failures != 1 or frep.restores < 1 or len(frep.losses) != len(
+            want) or not all(math.isfinite(v) for v in frep.losses):
+        raise RuntimeError(f"{tag} failures {frep.failures} restores "
+                           f"{frep.restores} losses {frep.losses}: {logs}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(frep.losses, want))
+    if (rel != 0.0 if not nondet else rel > 1e-3):
+        raise RuntimeError(f"{tag} replayed losses {frep.losses} vs the "
+                           f"uninterrupted run's {want} (max rel {rel}; ops "
+                           f"without a deterministic implementation: "
+                           f"{nondet})")
+    fault_dir = os.path.join(tmp, "fault")
+    got, step = ckpt.restore(fault_dir, template=ckpt.spec_of(fs))
+    pairs = list(zip(optim.tree_leaves(got), optim.tree_leaves(fs)))
+    if step != TRAIN_FAULT_STEPS or not all(
+            a.device == b.device and torch.equal(a, b) for a, b in pairs):
+        raise RuntimeError(f"{tag} the final checkpoint (step {step}) does "
+                           "not restore bit for bit")
+    path = os.path.join(fault_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaf = json.load(f)["leaves"][5]
+    fp = os.path.join(path, leaf["file"])
+    with open(fp, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0x01]))
+    try:
+        ckpt.restore(fault_dir, template=ckpt.spec_of(fs))
+    except ValueError as e:
+        if repr(leaf["path"]) not in str(e):
+            raise RuntimeError(f"{tag} the flipped leaf {leaf['path']} is "
+                               f"not named: {e}") from e
+    else:
+        raise RuntimeError(f"{tag} a flipped byte in {leaf['path']} "
+                           "restored without an error")
+    print(f"{tag} {cfg.name} bf16, {cfg.n_layers} layers: fail at step "
+          f"{TRAIN_FAULT_AT} -> failures {frep.failures}, restores "
+          f"{frep.restores}, steps {start}-{TRAIN_FAULT_AT - 1} replayed, "
+          f"losses {'equal bit for bit' if rel == 0 else f'within {rel:.1e}'}"
+          f" (ops without a deterministic implementation: {nondet or 'none'})"
+          f"; the final checkpoint restores bit for bit, a flipped byte in "
+          f"{leaf['path']} is refused", flush=True)
+    return dict(failures=frep.failures, restores=frep.restores,
+                losses=frep.losses, clean_losses=crep.losses,
+                max_rel=rel, nondeterministic=nondet,
+                flipped_leaf=leaf["path"])
+
+
+def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
+    """Phase 13 (2): ``python -m repro_torch.launch.train`` in this process
+    at full width and depth (``main``'s argv): exit without an error, finite
+    losses, the last below the first, ``ovsf_gemm`` 2 x 110 launches a step
+    (the forward's 5 projections x 22 layers, again in the backward's
+    recompute; the segmented backward launches no kernel), all on the
+    tensor-core kernel, both checkpoints written; then two more steps of the
+    trained state, the second profiled: step wall, device busy ms, idle
+    share. Returns (result, trained params)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optim, steps
+    cfg = get_config(TRAIN_ARCH)
+    ck = os.path.join(tmp, "launcher")
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--save-every",
+            str(TRAIN_SAVE_EVERY), "--lr", str(TRAIN_LR), "--seed",
+            str(seed), "--ckpt", ck]
+    tag = "[train launcher]"
+    print(f"{tag} python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_wrapper_counts()
+    t0 = time.perf_counter()
+    state, rep = launch_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wrapper_counts()
+    by_kernel = dict(G.ovsf_gemm.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = 2 * len(TRAIN_LAYER) * cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    want["ovsf_gemm"] = per_step * rep.steps_run
+    saved = sorted(os.listdir(ck))
+    if (rep.steps_run != TRAIN_STEPS or rep.failures
+            or not all(math.isfinite(v) for v in rep.losses)
+            or not rep.losses[-1] < rep.losses[0] or launches != want
+            or by_kernel["tensor_core"] != launches["ovsf_gemm"]
+            or saved != [f"step_{s:08d}" for s in
+                         range(TRAIN_SAVE_EVERY, TRAIN_STEPS + 1,
+                               TRAIN_SAVE_EVERY)]):
+        raise RuntimeError(f"{tag} steps {rep.steps_run} failures "
+                           f"{rep.failures} losses {rep.losses} launches "
+                           f"{launches} (want {want}, by kernel "
+                           f"{by_kernel}) checkpoints {saved}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in optim.tree_leaves(state))
+    # two more steps of the trained state, as the train step runs them,
+    # the gradients and the update timed apart; the first unrecorded
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=5,
+                           total_steps=TRAIN_STEPS + 2)
+    stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    run_cfg = steps.planned_cfg(cfg, dev, (TRAIN_BATCH, TRAIN_SEQ))
+    params, opt = state["params"], state["opt"]
+    del state
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=warm_schedule()) as prof:
+        for s in range(2):
+            toks = torch.from_numpy(stream.batch_at(TRAIN_STEPS + s)
+                                    ["tokens"]).to(dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _l, _a, grads = steps.loss_and_grads(run_cfg, params,
+                                                 {"tokens": toks})
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            params, opt, _m = optim.adamw_update(ocfg, grads, opt, params)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            del grads
+            step_ms, grad_ms = (t3 - t1) * 1e3, (t2 - t1) * 1e3
+            update_ms = (t3 - t2) * 1e3
+            prof.step()
+    del opt
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    idle = 1.0 - busy / step_ms if busy > 0 else None
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:60])
+                  for e in events), reverse=True)[:6]
+    n_kernels = sum(kernel_counts(events).values())
+    res = dict(wall_s=wall, losses=rep.losses, step_s=rep.step_times,
+               launches=launches, ovsf_gemm_per_step=per_step,
+               by_kernel=by_kernel, peak_allocated_gib=peak / 2**30,
+               state_gib=state_bytes / 2**30,
+               save_snapshot_s=rep.save_snapshot_s,
+               save_write_s=rep.save_write_s, step_ms=step_ms,
+               grad_ms=grad_ms, update_ms=update_ms, busy_ms=busy or None,
+               idle_share=idle, kernels=n_kernels, top=top)
+    print(f"{tag} {cfg.name} bf16, {cfg.n_layers} layers, B {TRAIN_BATCH} "
+          f"S {TRAIN_SEQ}: {rep.steps_run} steps in {wall:.1f}s, loss "
+          f"{rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}; ovsf_gemm "
+          f"{per_step} a step, all {by_kernel['tensor_core']} on the "
+          f"tensor-core kernel; step wall median "
+          f"{statistics.median(rep.step_times) * 1e3:.1f} ms (the "
+          f"supervisor's clock); a profiled step: wall {step_ms:.1f} ms "
+          f"(loss and gradients {grad_ms:.1f}, AdamW {update_ms:.1f}), "
+          f"device busy {busy:.1f} ms, idle share {idle}, {n_kernels} "
+          f"kernels; top {[(round(a, 2), b, c) for a, b, c in top]}; peak "
+          f"memory_allocated {peak / 2**30:.2f} GiB; state "
+          f"{state_bytes / 2**30:.2f} GiB; saves: host copy "
+          f"{[round(v, 2) for v in rep.save_snapshot_s]} s + write "
+          f"{[round(v, 2) for v in rep.save_write_s]} s ({card})",
+          flush=True)
+    return res, params
+
+
+def train_serve(params, seed: int, dev) -> dict:
+    """Phase 13 (5): the trained params through ``LLMEngine`` paged packed,
+    chunk 64, with phase 4's 8 requests, eager and replayed: equal streams,
+    every step's logits finite."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    specs = serve_specs(cfg, seed)
+    runs = {}
+    for mode in ("eager", "graph"):
+        eng, runs[mode] = serve_run(params, cfg, dev, "paged packed",
+                                    serve_requests(specs),
+                                    f"[train serve {mode}]", mode == "graph",
+                                    False)
+        eng.core.close()
+        del eng
+    finite = all(torch.isfinite(lg).all() for r in runs.values()
+                 for _cf, lg in r["steps"])
+    same = runs["eager"]["tokens"] == runs["graph"]["tokens"]
+    print(f"[train serve] the trained params, paged packed: 8/8 finished "
+          f"eager and replayed, streams equal {same}, logits finite "
+          f"{finite}", flush=True)
+    if not (same and finite):
+        raise RuntimeError("[train serve] streams differ or logits are not "
+                           "finite")
+    return dict(tokens=runs["graph"]["tokens"])
+
+
+def train_phase(seed: int, card: str, dev) -> dict:
+    """Phase 13 (module docstring): training on the card."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        return out
+    rng = np.random.default_rng(seed + 31)
+    res = dict(kernels=timed("kernels", run_train_kernel_checks, rng, dev))
+    res["cnn"] = timed("cnn", cnn_train_phase, seed, card, dev)
+    res["parity"] = timed("parity", train_parity, seed, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        res["supervisor"] = timed("supervisor", train_supervised, seed, dev,
+                                  tmp)
+        res["launcher"], params = timed("launcher", train_launcher, seed,
+                                        card, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["serve"] = timed("serve", train_serve, params, seed, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["seconds"] = secs
+    print(f"[train] phase passed in {res['wall_s']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_run = time.perf_counter()
+    # cuBLAS's deterministic workspace for phase 13's replay check (cuBLAS
+    # reads it when its first handle is made)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -5918,7 +6738,17 @@ def main(argv=None) -> int:
     marks = [("start", time.perf_counter())]
 
     def mark(name: str) -> None:
+        # each phase starts clean: an engine's reference cycles hold its
+        # graphs' memory pools until a collection; the reading before and
+        # after it shows what the phase left
+        before = torch.cuda.memory_reserved(dev) / 2**20
+        gc.collect()
+        torch.cuda.empty_cache()
         marks.append((name, time.perf_counter()))
+        print(f"[timing] {name} {marks[-1][1] - marks[-2][1]:.1f}s; "
+              f"memory_reserved {before:.0f} MiB at its end, "
+              f"{torch.cuda.memory_reserved(dev) / 2**20:.0f} MiB after a "
+              "collection", flush=True)
 
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -5954,12 +6784,14 @@ def main(argv=None) -> int:
     mark("kernels")
     serve, launches = {}, {}
     for adt in ALPHA_DTYPES:
-        serve[adt or "fp"], launches[adt] = serve_phase(args.seed, card, dev,
-                                                        adt)
+        serve[adt or "fp"], launches[adt] = serve_phase(
+            args.seed, card, dev, adt,
+            n_layers=SERVE_CUT_LAYERS if adt else 0)
     styles = {}
     for style in ("contiguous window", "contiguous packed", "paged window"):
-        styles[style], launches[style] = serve_phase(args.seed, card, dev,
-                                                     "", style)
+        styles[style], launches[style] = serve_phase(
+            args.seed, card, dev, "", style,
+            n_layers=0 if style == "contiguous window" else SERVE_CUT_LAYERS)
     serve_fp32 = {style: serve_phase(args.seed, card, dev, "", style,
                                      "float32", SERVE_FP32_LAYERS)[0]
                   for style in STYLES}
@@ -6019,6 +6851,17 @@ def main(argv=None) -> int:
     ek = ev_res["kernels"]
     wsp = ev_res[WHISPER_ARCH]
     lv = ev_res[LLAVA_ARCH]
+    train = train_phase(args.seed, card, dev)
+    mark("train")
+    tk = train["kernels"]
+    lm_train = {k: sum(r[k] for r in tk["lm"]) for k in
+                ("ms", "forward_ms", "forward_bound_ms", "plain_ms",
+                 "library_ms", "bound_ms")}
+    lm_train["max_abs_err"] = max(r["max_abs_err"] for r in tk["lm"])
+    lm_train["bound_by"] = max(tk["lm"], key=lambda r: r["bound_ms"])[
+        "bound_by"]
+    default_plan = "+".join(DEFAULT_PATHS)
+    r50 = train["cnn"]["resnet50"]
     phase_s = {name: t - marks[i][1]
                for i, (name, t) in enumerate(marks[1:])}
     print("[timing] seconds a phase: "
@@ -6131,13 +6974,28 @@ def main(argv=None) -> int:
              "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
              "src/repro/kernels/decode_attn.py:64",
              ek["flash"]["whisper_packed_cross"],
-             wsp["serve"]["flash_unmasked"])):
+             wsp["serve"]["flash_unmasked"]),
+            ("ovsf_gemm_train", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", lm_train,
+             train["launcher"]["launches"]["ovsf_gemm"]),
+            ("ovsf_decompress_train",
+             "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
+             "src/repro/kernels/ovsf_gemm.py:256", tk["cnn"]["materialize"],
+             r50[default_plan]["launches"]["ovsf_decompress"]),
+            ("ovsf_gemm_fp32_mono_train", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", tk["cnn"]["fused"],
+             r50["fused"]["launches"]["ovsf_gemm"]),
+            ("fwht_train", "src/repro_torch/kernels/csrc/fwht.cu",
+             "src/repro/kernels/fwht.py:57", tk["cnn"]["spectral"],
+             r50["ALL_PATHS"]["launches"]["fwht"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"]})
+                        "library_ms": s["library_ms"],
+                        **{k: s[k] for k in ("forward_ms", "forward_bound_ms")
+                           if k in s}})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "kernels": kernels,
@@ -6275,14 +7133,45 @@ def main(argv=None) -> int:
                            "over its slot's gathered 1500 rows, bf16; "
                            "launches: whisper's paged packed run, its "
                            "cross reads (unmasked launches: all of its "
-                           "flash_decode_attn)"},
+                           "flash_decode_attn)",
+                       "ovsf_gemm_train": "TinyLlama-1.1B's five OVSF "
+                                          "projections at M=1024 bf16, "
+                                          "forward + backward (the "
+                                          "backward's fp32 products and "
+                                          "per-segment WHT beside the "
+                                          "kernel), summed; forward_ms: "
+                                          "the kernel's forward alone, "
+                                          "forward_bound_ms its bound; "
+                                          "library: "
+                                          "matmul forward + backward on a "
+                                          "dense W; launches: the "
+                                          "launcher's 12 steps (phase 13)",
+                       "ovsf_decompress_train": "ResNet-50's 13 OVSF conv "
+                                                "GEMMs at batch 8 under "
+                                                "materialize, forward + "
+                                                "backward (decompress, "
+                                                "matmuls, fwht for dA), "
+                                                "summed; launches: one "
+                                                "train step under the "
+                                                "default plan",
+                       "ovsf_gemm_fp32_mono_train": "the same under fused "
+                                                    "(the monolithic "
+                                                    "kernel; decompress "
+                                                    "for dx, fwht for "
+                                                    "dA); launches: one "
+                                                    "train step, all "
+                                                    "fused",
+                       "fwht_train": "the same under spectral (fwht "
+                                     "forward and for d pad(x)); "
+                                     "launches: one train step under "
+                                     "ALL_PATHS"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
                    "parity": parity, "parity_contiguous": parity_contiguous,
                    "cnn": cnns, "calibration": calib, "chaos": chaos,
                    "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
-                   "encdec_vlm": ev_res,
+                   "encdec_vlm": ev_res, "train": train,
                    "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)

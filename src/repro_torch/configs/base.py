@@ -89,6 +89,9 @@ class ModelConfig:
     # --- VLM (llava; the anyres frontend is a stub) ---
     vlm_image_tokens: int = 0   # leading positions fed by precomputed embeds
     dtype: str = "bfloat16"
+    # training: recompute each block's forward in the backward
+    # (torch.utils.checkpoint, the reference's jax.checkpoint)
+    remat: bool = True
     kv_cache_dtype: str = ""    # "" -> dtype; "int8": static-scale int8 K/V
     ovsf: OVSFConfig = dataclasses.field(default_factory=OVSFConfig)
     # Per-layer execution plan (``runtime.mapper.ExecutionPlan``, frozen and
@@ -180,6 +183,7 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=256,
         vocab=512,
         dtype="float32",
+        remat=False,
     )
     if cfg.n_experts:
         kw.update(n_experts=8, top_k=2, d_ff=64)

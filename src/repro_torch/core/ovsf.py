@@ -51,21 +51,28 @@ def fwht(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     (== x @ H_L); the inverse is fwht(y) / L. Each butterfly stage views
     the axis as (L / 2h, 2, h) in place, whatever axes follow it, and
     writes a + b and a - b straight into the halves of its output (the
-    reference's adds in its order, without moving ``dim`` last)."""
+    reference's adds in its order, without moving ``dim`` last). Where
+    autograd records ``x``, each stage stacks the same sums instead (an
+    ``out=`` write has no derivative), so the transform is differentiable
+    with the same values."""
     dim = dim % x.dim()
     L = x.shape[dim]
     if L & (L - 1):
         raise ValueError(f"FWHT length must be a power of two, got {L}")
+    grad = torch.is_grad_enabled() and x.requires_grad
     pre, post = x.shape[:dim], x.shape[dim + 1:]
     y = x
     h = 1
     while h < L:
         y = y.reshape(pre + (L // (2 * h), 2, h) + post)
-        out = torch.empty_like(y)
         a, b = y.select(dim + 1, 0), y.select(dim + 1, 1)
-        torch.add(a, b, out=out.select(dim + 1, 0))
-        torch.sub(a, b, out=out.select(dim + 1, 1))
-        y = out
+        if grad:
+            y = torch.stack((a + b, a - b), dim=dim + 1)
+        else:
+            out = torch.empty_like(y)
+            torch.add(a, b, out=out.select(dim + 1, 0))
+            torch.sub(a, b, out=out.select(dim + 1, 1))
+            y = out
         h *= 2
     return y.reshape(x.shape)
 

@@ -58,6 +58,35 @@ stream: one ``spectral_matmul`` per variant, then a per-token
 ``torch.where`` on the variant ids, so each token's row is bit for bit its
 variant's ``spectral_matmul`` (the multi-model gateway's same-architecture
 batching).
+
+Gradients. ``ovsf_matmul``'s three paths are differentiable in x and the
+fp32/bf16 alphas (the reference has no backward kernel: XLA
+differentiates its jnp). Where autograd records an input, the three kernel
+wrappers run as ``torch.autograd.Function``s (``OvsfGemmFn``,
+``OvsfDecompressFn``, ``FwhtFn``, through ``ovsf_gemm_fn``,
+``ovsf_decompress_fn`` and ``fwht_fn``): the forward is the wrapper (the kernel
+on CUDA, the plain version on the CPU), the backward the exact transpose
+of its function, the same code on every device. With W = S^T A, S =
+H_L[idx, :d_in] and H symmetric: ``fwht`` is its own adjoint; W =
+decompress(A) gives dA = S dW = (fwht(pad(dW^T))[:, idx])^T, through the
+``fwht`` kernel; y = x W gives dA = spectral_transform(x)^T dy (the
+``fwht`` kernel for monolithic codes, the plain per-segment WHT for
+segmented ones) and dx = dy W^T: for monolithic codes W from the
+``ovsf_decompress`` kernel, for segmented ones (dy A^T) S as a scatter of
+the J columns into each segment's spectrum and a plain per-segment WHT,
+so the segmented backward launches no kernel. The products are
+``torch.matmul`` in fp32, as the reference's oracle computes in fp32. What
+runs as plain tensor code (segmented ``materialize`` and ``spectral``,
+``index_select``, the products) is differentiated by autograd directly.
+Where autograd records nothing (every serving path), ``*_fn`` calls the
+wrapper itself and not its Function: the fork is kept for host overhead,
+since a Function call costs more host time than the wrapper (measured by
+``chip_smoke.py`` phase 13, PERF.md §6), paid 110 times in an eager
+TinyLlama-1.1B decode step.
+``fused`` refuses quantised alphas while autograd records x (training
+with them is ROADMAP A.8.3; the train step refuses them up front). The
+decompress cache is bypassed while the alphas require grad (a cached W
+would carry a finished step's graph).
 """
 from __future__ import annotations
 
@@ -72,6 +101,128 @@ from repro_torch.kernels.fwht import fwht
 from repro_torch.kernels.ovsf_gemm import ovsf_decompress, ovsf_gemm
 
 EXEC_PATHS = ("materialize", "fused", "spectral")
+
+
+def _records(*ts) -> bool:
+    """Whether autograd records any of ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FwhtFn(torch.autograd.Function):
+    """``kernels.fwht.fwht`` with its gradient: H is symmetric, so the
+    backward is the same transform of dy (the kernel on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return fwht(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fwht(dy)
+
+
+class OvsfDecompressFn(torch.autograd.Function):
+    """``kernels.ovsf_gemm.ovsf_decompress`` (monolithic codes) with its
+    gradient dA = S dW: the rows of dW^T padded to L, transformed by the
+    ``fwht`` kernel in fp32, the kept columns taken and transposed."""
+
+    @staticmethod
+    def forward(ctx, alphas, idx, d_in):
+        ctx.save_for_backward(idx)
+        ctx.dtype = alphas.dtype
+        return ovsf_decompress(alphas, idx, d_in)
+
+    @staticmethod
+    def backward(ctx, dW):
+        (idx,) = ctx.saved_tensors
+        dA = _coefficients(dW.t().to(torch.float32), idx).t()
+        return dA.to(ctx.dtype), None, None
+
+
+class OvsfGemmFn(torch.autograd.Function):
+    """``kernels.ovsf_gemm.ovsf_gemm`` over fp32/bf16 alphas with its
+    gradients (module docstring): dA = spectral_transform(x)^T dy, and
+    dx = dy W^T, W from the ``ovsf_decompress`` kernel for monolithic codes
+    and (dy A^T) S as a scatter and a plain per-segment WHT for segmented
+    ones. fp32 arithmetic; each gradient in its input's type."""
+
+    @staticmethod
+    def forward(ctx, x, alphas, idx):
+        ctx.save_for_backward(x, alphas, idx)
+        return ovsf_gemm(x, alphas, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, alphas, idx = ctx.saved_tensors
+        d_in = x.shape[-1]
+        dyf = dy.to(torch.float32)
+        dx = dA = None
+        if ctx.needs_input_grad[0]:
+            af = alphas.to(torch.float32)
+            if idx.dim() == 2:
+                dx = _segment_adjoint(dyf @ af.t(), idx, d_in)
+            else:
+                dx = dyf @ ovsf_decompress(af, idx, d_in).t()
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xk = spectral_transform(x.to(torch.float32), idx)
+            dA = (xk.t() @ dyf).to(alphas.dtype)
+        return dx, dA, None
+
+
+def _coefficients(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(R, d) rows -> (R, J): pad to L, ``fwht``, keep the columns of the
+    (J,) monolithic ids (rows @ S^T)."""
+    L = ovsf.next_pow2(rows.shape[-1])
+    if L != rows.shape[-1]:
+        rows = torch.nn.functional.pad(rows, (0, L - rows.shape[-1]))
+    return torch.index_select(fwht(rows), -1, idx)
+
+
+def _segment_adjoint(z: torch.Tensor, idx: torch.Tensor, d_in: int
+                     ) -> torch.Tensor:
+    """(M, J) -> (M, d_in) = z @ S for (n_seg, n_keep) segmented ids: each
+    column added into its segment's spectrum (repeated ids sum, as the
+    forward's sum over j), then the plain per-segment WHT."""
+    ns, nk = idx.shape
+    L0 = d_in // ns
+    flat = (idx.long() + L0 * torch.arange(ns, device=idx.device)[:, None]
+            ).reshape(-1)
+    full = z.new_zeros(z.shape[:-1] + (d_in,)).index_add_(-1, flat, z)
+    return ovsf.fwht(full.reshape(z.shape[:-1] + (ns, L0)),
+                     dim=-1).reshape(z.shape[:-1] + (d_in,))
+
+
+def fwht_fn(x: torch.Tensor) -> torch.Tensor:
+    """``fwht``, differentiable (``FwhtFn``) where autograd records x."""
+    return FwhtFn.apply(x) if _records(x) else fwht(x)
+
+
+def ovsf_decompress_fn(alphas: torch.Tensor, idx: torch.Tensor,
+                       d_in: int) -> torch.Tensor:
+    """``ovsf_decompress``, differentiable (``OvsfDecompressFn``) where
+    autograd records the alphas."""
+    if _records(alphas):
+        return OvsfDecompressFn.apply(alphas, idx, d_in)
+    return ovsf_decompress(alphas, idx, d_in)
+
+
+def _no_quantised_training(alpha_dtype: str) -> None:
+    if alpha_dtype:
+        raise NotImplementedError(
+            f"training with {alpha_dtype} alphas is not ported (ROADMAP "
+            "A.8.3): train fp32/bf16 alphas and quantise after")
+
+
+def ovsf_gemm_fn(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
+                 *, alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
+    """``ovsf_gemm``, differentiable (``OvsfGemmFn``) where autograd
+    records x or the alphas; quantised alphas are refused there."""
+    if not _records(x, alphas):
+        return ovsf_gemm(x, alphas, idx, alpha_scale=alpha_scale,
+                         alpha_dtype=alpha_dtype)
+    _no_quantised_training(alpha_dtype)
+    return OvsfGemmFn.apply(x, alphas, idx)
 
 
 def _segmented_decompress(alphas: torch.Tensor, idx: torch.Tensor,
@@ -112,7 +263,7 @@ def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
         alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
         if idx.dim() == 2:
             return _segmented_decompress(alphas, idx, d_in)
-    return ovsf_decompress(alphas, idx, d_in)
+    return ovsf_decompress_fn(alphas, idx, d_in)
 
 
 def decompress_bank(alphas: torch.Tensor, idx: torch.Tensor,
@@ -148,7 +299,7 @@ def spectral_transform(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     L = ovsf.next_pow2(d_in)
     if L != d_in:
         x = torch.nn.functional.pad(x, (0, L - d_in))
-    return torch.index_select(fwht(x), -1, idx)
+    return torch.index_select(fwht_fn(x), -1, idx)
 
 
 def spectral_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
@@ -277,6 +428,8 @@ def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
         path = plan.path
         if plan.cache_weights:
             cache_key = plan.cache_key or f"ovsf:{id(alphas)}"
+    if _records(alphas):
+        cache_key = ""          # a cached W would carry a finished graph
     if cache_key:
         # an alpha-dtype switch re-keys the slot instead of serving a
         # stale W
@@ -286,8 +439,8 @@ def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     d_out = alphas.shape[-1] * (2 if alpha_dtype == "int4" else 1)
     x2 = x.reshape(-1, d_in)
     if path == "fused":
-        y = ovsf_gemm(x2, alphas, idx, alpha_scale=alpha_scale,
-                      alpha_dtype=alpha_dtype)
+        y = ovsf_gemm_fn(x2, alphas, idx, alpha_scale=alpha_scale,
+                         alpha_dtype=alpha_dtype)
     elif path == "materialize":
         if cache_key:
             W = cached_decompress(alphas, idx, d_in, cache_key=cache_key,

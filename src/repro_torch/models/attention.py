@@ -63,7 +63,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         m = (mask[:, None, :, None, :] if mask.dim() == 3
              else mask[None, None, :, None, :])
-        logits = logits.masked_fill_(~m, -1e30)    # in place: one copy
+        # in place (one copy) unless autograd records the scores
+        logits = (logits.masked_fill(~m, -1e30) if logits.requires_grad
+                  else logits.masked_fill_(~m, -1e30))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bnsgt,btnd->bsngd", probs.to(torch.float32),
                        v.to(torch.float32))
@@ -136,20 +138,27 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     time.
 
     ``bidir`` (the encoder's): RoPE at ``positions``, no mask, no cache;
-    returns (y, None). The reference's third mode, ``cross``, is
-    ``cross_attend`` over ``make_cross_cache``'s K/V here.
+    returns (y, None). ``causal`` without a cache is the training forward
+    (the reference's ``cache=None`` branch): the (S,) ``positions`` of the
+    whole sequence, query s attending keys ``<= s``, one plain ``sdpa``,
+    nothing written in place; returns (y, None). The reference's third
+    mode, ``cross``, is ``cross_attend`` over ``make_cross_cache``'s K/V
+    here.
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     q, k, v = _qkv(p, cfg, x, positions)
-    if mode == "bidir":
-        out = _sdpa_rows(q, k, v, None)
+    if cache is None and mode in ("bidir", "causal"):
+        if mode == "bidir":
+            out = _sdpa_rows(q, k, v, None)
+        else:
+            t = torch.arange(S, device=x.device)
+            out = sdpa(q, k, v, t[None, :] <= t[:, None])
         y = L.linear_apply(p["o"], out.reshape(B, S, H * hd), cfg, "attn_o")
         return y, None
-    if mode != "causal" or cache is None:
-        raise ValueError(f"attn_apply: mode {mode!r} with cache "
-                         f"{cache is not None}: causal attention runs over "
-                         "a cache, bidir without one")
+    if mode != "causal":
+        raise ValueError(f"attn_apply: mode {mode!r} with a cache: bidir "
+                         "attention runs without one")
     ck, cv = cache["k"], cache["v"]
     T = ck.shape[1]
     cache_pos = cache_pos.long()

@@ -23,8 +23,10 @@ split as the rest of the layer; its ``encoder`` holds a second stacked
 becomes a list of per-layer dicts as the top-level one does. The CNNs'
 ``(params, bn_state)`` trees (``cnn_params_from_numpy`` /
 ``cnn_params_to_numpy``) are flat dicts of layer dicts; only their conv
-filters change layout (HWIO in the reference, OIHW in the port). Nothing
-here imports JAX: numpy is the interchange format.
+filters change layout (HWIO in the reference, OIHW in the port). A train
+state (``state_from_numpy`` / ``state_to_numpy``) carries ``params``, the
+optimizer's ``m`` and ``v`` (trees of the params' structure, fp32) and its
+``step``. Nothing here imports JAX: numpy is the interchange format.
 
 Float leaves take the model dtype, except those the reference holds in
 float32 whatever the model dtype is (``_FLOAT32_KEYS``: the per-segment
@@ -110,6 +112,31 @@ def params_to_numpy(params: dict) -> dict:
         out["encoder"] = {"blocks": stack(enc["blocks"]),
                           "norm": conv(enc["norm"])}
     return out
+
+
+def state_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The reference's train state (``{"params", "opt": {"m", "v",
+    "step"}}``, numpy leaves) -> the port's on ``device``: params as
+    ``params_from_numpy``; ``m`` and ``v`` fp32 in every leaf (the code
+    ids' too, as the reference holds them), split by layer the same way;
+    ``step`` an int32 0-d tensor."""
+    f32 = cfg.replace(dtype="float32")
+    opt = tree["opt"]
+    return {"params": params_from_numpy(tree["params"], cfg, device),
+            "opt": {"m": params_from_numpy(opt["m"], f32, device),
+                    "v": params_from_numpy(opt["v"], f32, device),
+                    "step": torch.tensor(np.asarray(opt["step"]),
+                                         dtype=torch.int32, device=device)}}
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's train state -> the reference's layout (numpy leaves,
+    stacked ``blocks``; bfloat16 params widened to float32)."""
+    opt = state["opt"]
+    return {"params": params_to_numpy(state["params"]),
+            "opt": {"m": params_to_numpy(opt["m"]),
+                    "v": params_to_numpy(opt["v"]),
+                    "step": opt["step"].detach().cpu().numpy()}}
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,11 @@ images. ``CNNConfig.exec_plan`` carries the mapper's per-conv plan
 plan names (``spectral`` transforms the patches through the hand-written
 ``fwht``), and ``materialize`` where the plan has none or no plan is set, as
 the reference dispatches. Spatial mode ignores the plan. Training
-(``train=True``, ``cnn_loss``) waits for the training slice.
+(``train=True``, ``cnn_loss``) normalises with the batch's statistics and
+returns the new running ones; its gradients run through the OVSF kernels'
+autograd Functions (``kernels.ops``): ``ovsf_decompress`` and ``fwht`` for
+``materialize``, ``ovsf_gemm``, ``ovsf_decompress`` and ``fwht`` for
+``fused``, ``fwht`` for ``spectral``.
 
 ``CapturedForward`` is the eval-mode ``cnn_apply`` the reference runs
 compiled: on the card it replays one CUDA graph per (arch, batch, plan)
@@ -69,13 +73,6 @@ class CNNConfig:
 
     def replace(self, **kw) -> "CNNConfig":
         return dataclasses.replace(self, **kw)
-
-
-def _inference_only(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "CNN training (batch-statistics BN, cnn_loss) is not ported yet "
-            "(ROADMAP A.8); run with train=False")
 
 
 # ---------------------------------------------------------------------------
@@ -149,16 +146,28 @@ def bn_init(c: int, dtype, device=None) -> tuple[dict, dict]:
              "var": torch.ones((c,), dtype=torch.float32, device=device)})
 
 
-def bn_apply(p: dict, st: dict, x: torch.Tensor, train: bool = False
-             ) -> tuple[torch.Tensor, dict]:
-    """BatchNorm over NCHW channels with the running statistics, computed
-    in float32 and cast back; returns (y, state) like the reference."""
-    _inference_only(train)
+def bn_apply(p: dict, st: dict, x: torch.Tensor, train: bool = False,
+             momentum: float = 0.9) -> tuple[torch.Tensor, dict]:
+    """BatchNorm over NCHW channels, computed in float32 and cast back;
+    returns (y, state) like the reference. ``train`` normalises with the
+    batch's mean and biased variance over N, H, W and returns the running
+    statistics moved toward them by ``1 - momentum`` (detached: no gradient
+    flows into the state); otherwise the running statistics normalise and
+    the state is returned as it is."""
     c = (-1, 1, 1)
-    y = (x.float() - st["mean"].view(c)) * torch.rsqrt(st["var"].view(c)
-                                                        + 1e-5)
+    xf = x.float()
+    if train:
+        mu = torch.mean(xf, dim=(0, 2, 3))
+        var = torch.var(xf, dim=(0, 2, 3), correction=0)
+        new_st = {"mean": (momentum * st["mean"]
+                           + (1 - momentum) * mu).detach(),
+                  "var": (momentum * st["var"]
+                          + (1 - momentum) * var).detach()}
+    else:
+        mu, var, new_st = st["mean"], st["var"], st
+    y = (xf - mu.view(c)) * torch.rsqrt(var.view(c) + 1e-5)
     y = y * p["scale"].float().view(c) + p["bias"].float().view(c)
-    return y.to(x.dtype), st
+    return y.to(x.dtype), new_st
 
 
 def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2
@@ -247,7 +256,6 @@ def resnet_init(cfg: CNNConfig, gen: torch.Generator, device
 def resnet_apply(params: dict, state: dict, cfg: CNNConfig, x: torch.Tensor,
                  train: bool = False) -> tuple[torch.Tensor, dict]:
     """x: (B, H, W, 3) NHWC -> (logits, bn_state)."""
-    _inference_only(train)
     plan = {d["name"]: d for d in _resnet_layers(cfg)}
     kind, blocks = _RESNET_DEF[cfg.depth]
     new_state: dict = {}
@@ -257,7 +265,7 @@ def resnet_apply(params: dict, state: dict, cfg: CNNConfig, x: torch.Tensor,
         y = conv_apply(params[name], cfg, h, d["c_out"], d["k"], d["stride"],
                        name=name)
         y, new_state[name + "_bn"] = bn_apply(params[name + "_bn"],
-                                              state[name + "_bn"], y)
+                                              state[name + "_bn"], y, train)
         return F.relu(y) if relu else y
 
     y = max_pool_same(conv_bn("stem", x.permute(0, 3, 1, 2)))
@@ -319,10 +327,9 @@ def squeezenet_apply(params: dict, state: dict, cfg: CNNConfig,
                      x: torch.Tensor, train: bool = False
                      ) -> tuple[torch.Tensor, dict]:
     """x: (B, H, W, 3) NHWC -> (logits, bn_state)."""
-    _inference_only(train)
     y = conv_apply(params["stem"], cfg, x.permute(0, 3, 1, 2),
                    max(8, int(64 * cfg.width_mult)), 3, 2)
-    y, st = bn_apply(params["stem_bn"], state["stem_bn"], y)
+    y, st = bn_apply(params["stem_bn"], state["stem_bn"], y, train)
     y = max_pool_same(F.relu(y))
     for i, (sq, e1, e3, _stage) in enumerate(_fire_widths(cfg)):
         s = F.relu(conv_apply(params[f"f{i}s"], cfg, y, sq, 1))
@@ -389,6 +396,14 @@ class CapturedForward:
                           bufs["images"])[0],)
 
 
-def cnn_loss(params, state, cfg: CNNConfig, x, labels, train=True):
-    """The training loss: waits for the training slice."""
-    _inference_only(train=True)
+def cnn_loss(params: dict, state: dict, cfg: CNNConfig, x: torch.Tensor,
+             labels: torch.Tensor, train: bool = True
+             ) -> tuple[torch.Tensor, tuple[dict, torch.Tensor]]:
+    """Mean softmax cross entropy of (B, H, W, 3) NHWC images against (B,)
+    integer labels, in fp32: (loss, (new bn_state, logits)), as the
+    reference."""
+    logits, new_state = cnn_apply(params, state, cfg, x, train)
+    lg = logits.to(torch.float32)
+    nll = torch.logsumexp(lg, dim=-1) - torch.gather(
+        lg, -1, labels.long()[:, None])[:, 0]
+    return torch.mean(nll), (new_state, logits)

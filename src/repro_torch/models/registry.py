@@ -123,6 +123,16 @@ def params_to(params, device):
     return [params_to(v, device) for v in params]
 
 
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """The training loss: ``(total, {"loss", "aux"})``."""
+    return T.lm_loss(params, cfg, batch)
+
+
+def forward(params, cfg: ModelConfig, batch: dict):
+    """The cache-free forward: ``(logits, None, aux)``."""
+    return T.model_apply(params, cfg, batch)
+
+
 serve_prefill = T.serve_prefill
 serve_prefill_ragged = T.serve_prefill_ragged
 serve_step = T.serve_step

@@ -49,6 +49,12 @@ engine's exact prefill (``serve_prefill``) and all-slot decode
 packed, paged, multi-model) refuses them, as the reference's callers gate
 them out.
 
+``model_apply`` and ``lm_loss`` are the training forward and loss over a
+whole (B, S) sequence with no cache (causal attention at positions
+``arange(S)``); each block runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` and ``train``, as the reference's ``jax.checkpoint``. They
+take the dense family; the others refuse (ROADMAP A.8.1).
+
 The steps return ``pos`` as a new tensor, as the reference does; a caller
 that replays a step as a CUDA graph copies it into its own (the engine).
 The legacy engine's prefills (``serve_prefill``, ``serve_prefill_ragged``)
@@ -60,6 +66,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -579,3 +586,85 @@ def serve_step_window_multi(params: dict, cfg: ModelConfig, cache: dict,
         cache, tokens, n_valid)
     return serve_step_packed_multi(params, cfg, cache, tok, slot_ids,
                                    positions, new_pos, emit_idx, model_ids)
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss (no cache)
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 1024   # sequence positions per unembed + CE chunk
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The families this port trains: dense only."""
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet (ROADMAP "
+            "A.8.1: MoE aux, SSM and hybrid scans, encoder frames and the "
+            "VLM prefix come with it); the dense family trains")
+
+
+def _train_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    return _block(p, cfg, x, A.attn_apply, positions=positions,
+                  mode="causal")
+
+
+def model_apply(params: dict, cfg: ModelConfig, batch: dict, *,
+                train: bool = False, return_features: bool = False
+                ) -> tuple[torch.Tensor, None, torch.Tensor]:
+    """Forward pass of (B, S) ``batch["tokens"]`` with no cache: (logits,
+    or the final features with ``return_features``, None for the cache the
+    reference would return, the fp32 aux loss: 0 for the dense family).
+    Under ``cfg.remat and train`` each block's activations are recomputed
+    in the backward (``torch.utils.checkpoint``, non-reentrant)."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    x = _embed_inputs(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    remat = cfg.remat and train
+    for p in params["blocks"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _train_block, p, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _train_block(p, cfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = x if return_features else _unembed(params, cfg, x)
+    return out, None, aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (+ ``router_aux_weight`` x the aux loss), the unembed
+    chunked over ``LOSS_CHUNK`` positions so full (B, S, vocab) logits
+    never exist at once; a VLM batch's image positions are masked out of
+    the loss, as in the reference. Returns (total, {"loss", "aux"})."""
+    feats, _, aux = model_apply(params, cfg, batch, train=True,
+                                return_features=True)
+    tokens = batch["tokens"]
+    B, Sm1 = tokens.shape[0], tokens.shape[1] - 1
+    tgt = tokens[:, 1:].long()
+    xs = feats[:, :-1]
+    mask = torch.ones((B, Sm1), dtype=torch.float32, device=feats.device)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        mask[:, : max(batch["image_embeds"].shape[1] - 1, 0)] = 0.0
+    c = min(LOSS_CHUNK, Sm1)
+    pad = (-Sm1) % c
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        tgt = torch.nn.functional.pad(tgt, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=feats.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for i in range(0, xs.shape[1], c):
+        lg = _unembed(params, cfg, xs[:, i:i + c]).to(torch.float32)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[:, i:i + c, None])[..., 0]
+        mc = mask[:, i:i + c]
+        tot = tot + torch.sum((lse - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss, "aux": aux}

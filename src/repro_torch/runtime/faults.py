@@ -1,5 +1,5 @@
-"""Deterministic, seed-driven fault injection for serving (copy of
-``repro.runtime.faults`` without the training adapter).
+"""Deterministic, seed-driven fault injection for serving and training (copy
+of ``repro.runtime.faults``).
 
 One :class:`FaultPlan` describes every fault a run should experience, as a
 pure function of the step index: two runs with the same plan see the same
@@ -158,3 +158,29 @@ class FaultPlan:
         for f in fired:
             if f.kind == "fail":
                 raise InjectedFault(f"injected step failure at step {step}")
+
+    def failure_injector(self):
+        """Adapt onto ``runtime.supervisor.run(failure_injector=...)``: a
+        callable(step) that sleeps for ``delay`` faults (straggler watchdog
+        fodder) and raises on ``fail`` faults. The supervisor re-visits a
+        failed step after restore-and-replay, so each (fault, step) fires at
+        most once per injector: the node dies once, the replay succeeds.
+        ``nan`` (serving), ``flip`` (gateway) and ``die`` (serving) faults
+        are ignored."""
+        fired: set = set()
+
+        def injector(step: int) -> None:
+            live = [(i, f) for i, f in enumerate(self.faults)
+                    if f.kind not in ("nan", "flip", "die")
+                    and (i, step) not in fired
+                    and f.fires_at(step, self.seed, i)]
+            for i, f in live:
+                fired.add((i, step))
+                if f.kind == "delay":
+                    time.sleep(f.delay_s)
+            for _i, f in live:
+                if f.kind == "fail":
+                    raise InjectedFault(
+                        f"injected step failure at step {step}")
+
+        return injector

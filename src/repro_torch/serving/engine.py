@@ -447,6 +447,7 @@ class LLMEngine:
         first = self.core.graphs.first_calls
         n_first = len(first)
         t0 = time.perf_counter()
+        crashed = False
         try:
             # the decompress cache's entries and counters go to this
             # engine's model label
@@ -454,6 +455,11 @@ class LLMEngine:
                 out = self.core.step(so, last)
         except Exception as exc:        # watchdog: the step crashed
             self._check_device(exc)
+            crashed = True
+        if crashed:
+            # rebuilt after the handler: the traceback's frames, and the
+            # failed step's tensors they hold, are freed before the new
+            # core allocates
             self._recover()
             return self._remaining()
         # the stall watchdog measures around the core call, less the first

@@ -1,0 +1,160 @@
+"""Train, eval, prefill and decode steps over one device (port of
+``repro.train.steps``).
+
+``make_train_step`` returns ``(state, batch) -> (state, metrics)``: the
+loss (``models.registry.loss_fn``), its gradients by autograd through the
+OVSF kernels' ``torch.autograd.Function``s (``kernels.ops``), and one AdamW
+update (``train.optim``). The state is ``{"params", "opt": {"m", "v",
+"step"}}``; integer leaves (the code ids) get no gradient, as the
+reference's ``allow_int``. On the card the step plans every OVSF layer
+``fused`` through the mapper (``mapper.plan_model`` with target ``h100``
+and that one candidate), as the serving engine plans its layers: the CUDA
+``ovsf_gemm`` is the kernel the LM's segmented codes have; on the CPU it
+dispatches by ``cfg.ovsf.exec_path``, as the reference does. Training with
+quantised alphas is refused (ROADMAP A.8.3), and so are the families
+other than dense (A.8.1).
+
+The reference's ``jit_train_step`` / ``jit_decode_step`` / ``jit_prefill``
+wrap these functions with explicit shardings over a device mesh; a single
+card has no counterpart, so they are not ported.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import registry as R
+from repro_torch.models import transformer as T
+from repro_torch.runtime import mapper
+from repro_torch.train import optim
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse what this port does not train: families other than dense,
+    and quantised alphas."""
+    T.check_trainable(cfg)
+    if cfg.ovsf.enable and cfg.ovsf.alpha_dtype:
+        raise NotImplementedError(
+            f"training with {cfg.ovsf.alpha_dtype} alphas is not ported "
+            "(ROADMAP A.8.3): train fp32/bf16 alphas and quantise after")
+
+
+def train_state_init(cfg: ModelConfig, seed: int = 0, device="cuda"
+                     ) -> dict:
+    """``{"params", "opt"}``: ``models.registry.model_init`` and AdamW's
+    zero state on ``device``."""
+    check_trainable(cfg)
+    params = R.model_init(cfg, seed, resolve_device(device))
+    return {"params": params, "opt": optim.adamw_init(params)}
+
+
+def planned_cfg(cfg: ModelConfig, device, tokens_shape: tuple
+                ) -> ModelConfig:
+    """``cfg`` as a step on ``device`` runs it: on CUDA every OVSF layer
+    planned ``fused`` by the mapper for a (B, S) train step; elsewhere (or
+    with a plan already, or no OVSF layer) as it is."""
+    if (torch.device(device).type != "cuda" or not cfg.ovsf.enable
+            or cfg.exec_plan is not None):
+        return cfg
+    B, S = tokens_shape
+    plan = mapper.plan_model(cfg, ShapeConfig("train_step", S, B, "train"),
+                             hw="h100", paths=("fused",))
+    return mapper.apply_plan(cfg, plan)
+
+
+def _on(batch: dict, device) -> dict:
+    """The batch's arrays as tensors on ``device``."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+def _first_device(tree) -> torch.device:
+    return optim.tree_leaves(tree)[0].device
+
+
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
+                   ) -> tuple[torch.Tensor, dict, Any]:
+    """(total loss, {"loss", "aux"}, grads) of ``loss_fn`` at ``params``
+    (a batch already on their device): gradients of every float leaf by
+    autograd (zeros for a leaf the loss does not reach), ``None`` for the
+    integer ones."""
+    live = optim.tree_map(
+        lambda _p, t: (t.detach().requires_grad_()
+                       if t.is_floating_point() else t), params)
+    total, aux_metrics = R.loss_fn(live, cfg, batch)
+    wrt = [t for t in optim.tree_leaves(live) if t.requires_grad]
+    got = iter(torch.autograd.grad(total, wrt, allow_unused=True))
+
+    def grad_of(_p, t):
+        if not t.requires_grad:
+            return None
+        g = next(got)
+        return torch.zeros_like(t) if g is None else g
+    return (total.detach(), {k: v.detach() for k, v in aux_metrics.items()},
+            optim.tree_map(grad_of, live))
+
+
+def make_train_step(cfg: ModelConfig, ocfg: optim.OptConfig):
+    """``(state, batch) -> (state, metrics)``; metrics are 0-d tensors:
+    ``total_loss``, ``loss``, ``aux``, ``lr``, ``grad_norm``, ``step``."""
+    check_trainable(cfg)
+    plans: dict = {}
+
+    def step(state: dict, batch: dict):
+        params = state["params"]
+        dev = _first_device(params)
+        b = _on(batch, dev)
+        key = (dev.type, tuple(b["tokens"].shape))
+        if key not in plans:
+            plans[key] = planned_cfg(cfg, dev, key[1])
+        total, aux_metrics, grads = loss_and_grads(plans[key], params, b)
+        new_params, new_opt, m = optim.adamw_update(ocfg, grads,
+                                                    state["opt"], params)
+        return ({"params": new_params, "opt": new_opt},
+                {"total_loss": total, **aux_metrics, **m})
+
+    return step
+
+
+def make_eval_step(cfg: ModelConfig):
+    """``(params, batch) -> {"total_loss", "loss", "aux"}``, no gradient."""
+    T.check_trainable(cfg)
+
+    @torch.no_grad()
+    def step(params: dict, batch: dict):
+        dev = _first_device(params)
+        b = _on(batch, dev)
+        loss, metrics = R.loss_fn(
+            params, planned_cfg(cfg, dev, tuple(b["tokens"].shape)), b)
+        return {"total_loss": loss, **metrics}
+    return step
+
+
+def make_prefill(cfg: ModelConfig, buffer_len: int):
+    """``(params, batch) -> (logits, cache)``: ``serve_prefill`` of the
+    batch's ``tokens`` (and ``frames`` / ``image_embeds`` where present)."""
+    @torch.no_grad()
+    def prefill(params: dict, batch: dict):
+        dev = _first_device(params)
+        b = _on(batch, dev)
+        c = planned_cfg(cfg, dev, tuple(b["tokens"].shape))
+        return R.serve_prefill(params, c, b["tokens"], buffer_len,
+                               frames=b.get("frames"),
+                               image_embeds=b.get("image_embeds"))
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``(params, cache, tokens) -> (logits, cache)``: one ``serve_step``."""
+    @torch.no_grad()
+    def step(params: dict, cache: dict, tokens: Any):
+        dev = _first_device(params)
+        tok = _on({"tokens": tokens}, dev)["tokens"]
+        c = planned_cfg(cfg, dev, tuple(tok.shape))
+        return R.serve_step(params, c, cache, tok)
+    return step

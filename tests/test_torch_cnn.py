@@ -283,8 +283,7 @@ def test_bn_eval_matches_reference(dtype):
                                np.asarray(want, np.float32),
                                **(LAYER_TOL if dtype == "float32"
                                   else TOL[dtype]))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tcnn.bn_apply(p, got_st, got, train=True)
+    assert got_st is not None
 
 
 # ---------------------------------------------------------------------------
@@ -422,13 +421,116 @@ def test_full_width_matrix_mode_ovsf_convs(name, d_ins):
     assert got == d_ins
 
 
-@pytest.mark.parametrize("fn", ["apply", "loss"])
-def test_training_waits_for_its_slice(fn):
-    _jcfg, tcfg = _cfgs()
-    tp, ts = tcnn.cnn_init(tcfg, 0, device="cpu")
-    x = torch.zeros((1, 32, 32, 3))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        if fn == "apply":
-            tcnn.cnn_apply(tp, ts, tcfg, x, train=True)
-        else:
-            tcnn.cnn_loss(tp, ts, tcfg, x, torch.zeros(1, dtype=torch.long))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_train_matches_reference(dtype):
+    """Train-mode BN: the batch's mean and biased variance over N, H, W in
+    fp32, and the running statistics moved by momentum 0.9."""
+    rng = np.random.default_rng(5)
+    c = 6
+    x = (2 + 3 * rng.standard_normal((3, 5, 4, c))).astype(np.float32)
+    p = {"scale": (1 + 0.2 * rng.standard_normal(c)).astype(np.float32),
+         "bias": rng.standard_normal(c).astype(np.float32)}
+    st = {"mean": rng.standard_normal(c).astype(np.float32),
+          "var": np.exp(rng.standard_normal(c)).astype(np.float32)}
+    jx = jnp.asarray(x).astype(dtype)
+    want, want_st = jcnn.bn_apply({k: jnp.asarray(v).astype(dtype)
+                                   for k, v in p.items()}, st, jx, True)
+    td = getattr(torch, dtype)
+    got, got_st = tcnn.bn_apply(
+        {k: torch.from_numpy(v).to(td) for k, v in p.items()},
+        {k: torch.from_numpy(v) for k, v in st.items()},
+        torch.from_numpy(x).to(td).permute(0, 3, 1, 2), train=True)
+    assert got.dtype == td
+    np.testing.assert_allclose(_np(got.permute(0, 2, 3, 1)),
+                               np.asarray(want, np.float32),
+                               **(LAYER_TOL if dtype == "float32"
+                                  else TOL[dtype]))
+    for k in ("mean", "var"):
+        assert got_st[k].dtype == torch.float32
+        np.testing.assert_allclose(_np(got_st[k]), np.asarray(want_st[k]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _grad_tree(tree, live):
+    """The gradients of ``live``'s float leaves in ``tree``'s layout."""
+    flat = [t for layer in live.values() for t in layer.values()
+            if t.requires_grad]
+    got = iter(tree)
+    out = {name: {k: next(got) for k, t in layer.items() if t.requires_grad}
+           for name, layer in live.items()}
+    assert next(got, None) is None and len(flat) == sum(map(len,
+                                                            out.values()))
+    return out
+
+
+# (arch, mode, width_mult, plan paths, image side)
+_TRAIN_NETS = [("resnet18", "matrix", 0.25, None, 64),
+               ("resnet18", "spatial", 0.25, None, 64),
+               ("squeezenet1_1", "matrix", 0.5, None, 32),
+               ("resnet18", "matrix", 0.25, "fused", 64),
+               ("resnet18", "matrix", 0.25, "ALL_PATHS", 64)]
+
+
+@pytest.mark.parametrize("name,mode,wm,paths,side", _TRAIN_NETS)
+def test_cnn_loss_grads_and_bn_state_match_reference(name, mode, wm, paths,
+                                                     side):
+    """``cnn_loss`` at batch 4 in train mode: the loss, every float leaf's
+    gradient (1e-4 relative L2) and the new BN running statistics (1e-5)
+    against ``jax.value_and_grad`` of the reference's, on the same weights
+    and images; matrix mode unplanned (``materialize``: through the
+    ``ovsf_decompress`` Function), under an all-``fused`` plan (``ovsf_gemm``)
+    and under ``ALL_PATHS`` plans (every conv ``spectral``: ``fwht``).
+    ResNet-18 sees 64 x 64 images: at 32 x 32 and batch 2 its last stage's
+    BN normalises two values a channel, and that gradient amplifies the
+    two packages' fp32 rounding past 1e-4. SqueezeNet sees 32 x 32: at 64
+    x 64 the max-pools after its fire modules meet windows whose two
+    largest values differ by rounding alone, and each package sends the
+    window's gradient to its own maximum (given the same inputs the pools'
+    gradients agree exactly)."""
+    from repro.runtime import mapper as jmapper
+    from repro_torch.runtime import mapper as tmapper
+    jcfg, tcfg = _cfgs(name, ovsf_mode=mode, width_mult=wm)
+    if paths:
+        ps = ("fused",) if paths == "fused" else jmapper.ALL_PATHS
+        jcfg = jcfg.__class__(**{**jcfg.__dict__, "exec_plan":
+                                 jmapper.plan_cnn(jcfg, batch=4, hw="cpu",
+                                                  paths=ps)})
+        tcfg = tcfg.replace(exec_plan=tmapper.plan_cnn(tcfg, batch=4,
+                                                       hw="cpu", paths=ps))
+        want = {"fused": {"fused"}, "ALL_PATHS": {"spectral"}}[paths]
+        assert {p.path for _n, p in tcfg.exec_plan.entries} == want
+    params, state = _perturb_bn(*_ref_init(jcfg, seed=1), seed=2)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, side, side, 3)).astype(np.float32)
+    labels = np.array([1, 7, 3, 9], np.int32)
+
+    def jloss(p):
+        loss, (st, _lg) = jcnn.cnn_loss(p, state, jcfg, x, labels)
+        return loss, st
+    (jl, jst), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True,
+                                               allow_int=True))(params)
+    tp, ts = bridge.cnn_params_from_numpy(params, state, tcfg, "cpu")
+    live = {n: {k: t.requires_grad_() if t.is_floating_point() else t
+                for k, t in layer.items()} for n, layer in tp.items()}
+    tl, (tst, logits) = tcnn.cnn_loss(live, ts, tcfg, torch.from_numpy(x),
+                                      torch.from_numpy(labels))
+    assert logits.shape == (4, 10)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    flat = [t for layer in live.values() for t in layer.values()
+            if t.requires_grad]
+    grads = _grad_tree(torch.autograd.grad(tl, flat), live)
+    got, got_st = bridge.cnn_params_to_numpy(grads, tst)
+    n = 0
+    for lname, layer in got.items():
+        for k, g in layer.items():
+            w = np.asarray(jg[lname][k], np.float32)
+            assert g.shape == w.shape, (lname, k)
+            assert _rel(g, w) <= 1e-4, (lname, k, _rel(g, w))
+            n += 1
+    assert n == sum(1 for layer in params.values() for a in layer.values()
+                    if np.issubdtype(a.dtype, np.floating))
+    assert got_st.keys() == jst.keys()
+    for bn, st in got_st.items():
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(st[k], np.asarray(jst[bn][k]),
+                                       rtol=1e-5, atol=1e-5)

@@ -164,12 +164,22 @@ def test_cross_attn_packed_matches_reference():
 
 
 def test_attn_apply_refuses_a_cacheless_causal_call():
-    _j, tcfg, _jp, tparams = _smoke()
-    with pytest.raises(ValueError, match="causal attention runs over a "
-                       "cache"):
-        tA.attn_apply(tparams["blocks"][0]["attn"], tcfg,
-                      torch.zeros(1, 2, tcfg.d_model),
-                      positions=torch.arange(2))
+    """A cacheless causal call was refused until training came: it is the
+    training forward now (the reference's ``cache=None`` branch), and a
+    ``bidir`` call over a cache is what is refused."""
+    jcfg, tcfg, jparams, tparams = _smoke()
+    jp = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"]["attn"])
+    tp = tparams["blocks"][0]["attn"]
+    x = _np(6, (2, 5, tcfg.d_model))
+    jy, _ = jA.attn_apply(jp, jcfg, jnp.asarray(x), positions=jnp.arange(5))
+    ty, none = tA.attn_apply(tp, tcfg, _t(x), positions=torch.arange(5))
+    assert none is None
+    _close(ty, jy)
+    cache = {"k": torch.zeros(2, 8, tcfg.n_kv_heads, tcfg.hd),
+             "v": torch.zeros(2, 8, tcfg.n_kv_heads, tcfg.hd)}
+    with pytest.raises(ValueError, match="bidir attention runs without"):
+        tA.attn_apply(tp, tcfg, _t(x), positions=torch.arange(5),
+                      cache=cache, mode="bidir")
 
 
 # -- caches ----------------------------------------------------------------------

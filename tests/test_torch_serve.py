@@ -271,9 +271,13 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.configs.zamba2_1_2b, "
             "repro_torch.configs.starcoder2_15b, "
             "repro_torch.configs.whisper_tiny, "
-            "repro_torch.configs.llava_next_34b; "
+            "repro_torch.configs.llava_next_34b, "
+            "repro_torch.data.synthetic, repro_torch.train.optim, "
+            "repro_torch.train.compress, repro_torch.train.steps, "
+            "repro_torch.runtime.supervisor, repro_torch.launch.train, "
+            "repro_torch.checkpoint.ckpt; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -283,8 +287,8 @@ def test_import_leaves_jax_and_reference_out():
 
 
 def test_port_sources_import_no_jax_or_reference():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)"
+                     r"(\.|\s|$)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
@@ -294,6 +298,10 @@ def test_port_sources_import_no_jax_or_reference():
             "zamba2_1_2b.py") in files
     for name in ("whisper_tiny.py", "llava_next_34b.py"):
         assert ROOT / "src" / "repro_torch" / "configs" / name in files
+    for name in ("data/synthetic.py", "train/optim.py", "train/compress.py",
+                 "train/steps.py", "runtime/supervisor.py", "launch/train.py",
+                 "checkpoint/ckpt.py"):
+        assert ROOT / "src" / "repro_torch" / name in files
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"
