@@ -31,8 +31,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              over a cache of q's type; ``ovsf_gemm`` with bf16 alphas also
              at M = 1024, the legacy prefill's 256 bucket at 4 slots) and
              ``ovsf_decompress`` (the ResNet-50 and SqueezeNet-1.1 shapes, a
-             ragged shape, repeated code ids) and ``fwht`` (the (M, L) of
-             the planned ResNet-50 and SqueezeNet-1.1 forwards at batch 8,
+             ragged shape, repeated code ids; and its int8 / int4 epilogue
+             at TinyLlama-1.1B's converted shapes, phase 14's model: 2048
+             -> 2048, 2048 -> 5632, 5632 -> 2048 at L 8192, J = L / 2, the
+             ragged 1000 -> 40 and repeated ids, W fp32) and ``fwht``
+             (the (M, L) of the planned ResNet-50 and SqueezeNet-1.1
+             forwards at batch 8,
              ragged (37, 1024), (5, 2) and the limit (3, 32768)) against
              their plain versions on the card, in bf16 and fp32; print each
              error against its tolerance, the kernel's device time
@@ -51,10 +55,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
              alphas, scales that do not tile J), and ``ovsf_matmul`` must
-             refuse ``materialize`` of quantised alphas and of segmented
-             codes on the card (they have no kernel; no plain fallback runs
-             there), while ``spectral`` of segmented codes (plain tensor
-             code, as the reference's jnp) runs there and equals the CPU's.
+             refuse ``materialize`` of segmented codes, float or quantised,
+             on the card (no kernel; no plain fallback runs there), run
+             ``materialize`` of monolithic int8 / int4 alphas through one
+             ``ovsf_decompress`` launch equal to the plain version, and run
+             ``spectral`` of segmented codes (plain tensor code, as the
+             reference's jnp) there, equal to the CPU's.
              Last, one ResNet-50 s2 conv's GEMM (M
              1568, 2304 -> 256, rho 0.5, integer-valued inputs) under
              ``materialize``, ``fused`` and ``spectral`` plans: the three
@@ -428,6 +434,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ``memory_allocated`` and each save's seconds printed. (6) The
              trained params served by ``LLMEngine`` paged packed, eager and
              replayed: streams equal, logits finite.
+  14. convert: the paper's Converter on the card (its kernel rows in phase
+             3). (1) Full-width TinyLlama-1.1B built dense in fp32
+             from --seed and converted by ``layers.linear_convert_to_ovsf``
+             (monolithic codes, rho 0.5, iterative) on its q, o, gate, up
+             and down: to int8 at all 22 layers, to int4 at
+             ``SERVE_CUT_LAYERS``; the conversion's wall and each weight
+             type's relative error of W printed. (2) The first 2 layers
+             converted on the card and on the CPU: equal kept code ids (a
+             flip only at a cut gap within 1e-5 relative), alphas within
+             1e-6 (fp32) or one quantum (int8); the converted int8 and int4
+             models' fp32 packed paged step, card vs CPU, within 1e-3
+             relative L2. (3) The dense model freed, the int8 (22 layers)
+             and int4 models, bf16, through ``LLMEngine(chunk_size=64,
+             paged=True, packed=True, use_mapper=False)``, so every OVSF
+             layer runs ``materialize``: eager and replayed, every request
+             finishes, every step launches 5 ``ovsf_decompress`` a layer
+             and one ``paged_flash_decode`` a layer and nothing else of
+             ours; streams, chunk-free logits, launches and profiled
+             kernels equal between the runs; the step's wall, device busy
+             and idle share printed.
 Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
@@ -675,13 +701,18 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
 def check_quant_contract(dev) -> list:
     """The quantised wrapper refuses, before any launch, what the kernel does
     not take; a refusal must not count as a launch. What has no kernel
-    refuses to run on the card: ``materialize`` of quantised alphas and of
-    segmented codes. ``spectral`` of segmented codes is plain tensor code on
-    every device (the multi-model path's product, as the reference's jnp):
-    it runs here and must equal the same call on the CPU."""
+    refuses to run on the card: ``materialize`` of segmented codes, float
+    or quantised (ROADMAP B.3). ``materialize`` of monolithic codes with
+    int8 / int4 alphas runs through ``ovsf_decompress``'s epilogue: one
+    launch, W equal to the plain version's. ``spectral`` of segmented
+    codes is plain tensor code on every device (the multi-model path's
+    product, as the reference's jnp): it runs here and must equal the same
+    call on the CPU."""
     from repro_torch.core.ovsf import quantize_alphas
     from repro_torch.kernels.ops import ovsf_matmul
-    from repro_torch.kernels.ovsf_gemm import ovsf_gemm
+    from repro_torch.kernels.ovsf_gemm import (ovsf_decompress,
+                                               ovsf_decompress_plain,
+                                               ovsf_gemm)
     x = torch.randn((4, 128), device=dev, dtype=torch.bfloat16)
     idx = torch.arange(8, dtype=torch.int32, device=dev).repeat(8, 1)
     q, s = quantize_alphas(torch.randn((64, 64), device=dev), 8, "int4")
@@ -702,7 +733,7 @@ def check_quant_contract(dev) -> list:
             continue
         raise RuntimeError(f"ovsf_gemm took {what} without raising")
     fp_alphas = torch.randn((64, 64), device=dev, dtype=torch.bfloat16)
-    for what, kw in (("materialize of int4 alphas",
+    for what, kw in (("materialize of int4 alphas over segmented codes",
                       dict(alphas=q, alpha_scale=s, alpha_dtype="int4")),
                      ("materialize of segmented codes",
                       dict(alphas=fp_alphas))):
@@ -714,6 +745,28 @@ def check_quant_contract(dev) -> list:
         raise RuntimeError(f"ovsf_matmul ran {what} on the card")
     if ovsf_gemm.launches != before:
         raise RuntimeError("a refused ovsf_gemm call counted a launch")
+    # monolithic codes with quantised alphas have the decompress kernel's
+    # epilogue: they run, W equal to the plain version's, y to the product
+    # with it
+    mono = torch.from_numpy(np.sort(np.random.default_rng(0).choice(
+        128, 64, replace=False)).astype(np.int32)).to(dev)
+    ran = []
+    for adt in ("int8", "int4"):
+        qm, sm = quantize_alphas(torch.randn((64, 64), device=dev), 1, adt)
+        n0 = ovsf_decompress.launches
+        y = ovsf_matmul(x, qm, mono, path="materialize", alpha_scale=sm,
+                        alpha_dtype=adt)
+        W = ovsf_decompress_plain(qm, mono, 128, alpha_scale=sm,
+                                  alpha_dtype=adt)
+        torch.cuda.synchronize()
+        if ovsf_decompress.launches != n0 + 1 or not torch.equal(
+                y, x @ W.to(x.dtype)) or not torch.equal(
+                ovsf_decompress(qm, mono, 128, alpha_scale=sm,
+                                alpha_dtype=adt), W):
+            raise RuntimeError(f"materialize of monolithic {adt} alphas on "
+                               "the card: not one kernel launch equal to "
+                               "the plain version")
+        ran.append(f"materialize of monolithic {adt} alphas")
     got = ovsf_matmul(x, q, idx, path="spectral", alpha_scale=s,
                       alpha_dtype="int4")
     want = ovsf_matmul(x.cpu(), q.cpu(), idx.cpu(), path="spectral",
@@ -722,6 +775,8 @@ def check_quant_contract(dev) -> list:
                 torch.bfloat16)
     print(f"[kernel] ovsf_gemm int4 wrapper and ovsf_matmul refuse: "
           + "; ".join(r.split(":")[0] for r in refused)
+          + "; run on the card through ovsf_decompress, equal to its plain "
+          "version: " + ", ".join(ran)
           + f"; spectral of segmented codes runs on the card (plain tensor "
           f"code), max_abs_err vs the CPU {err:.3e}", flush=True)
     return refused
@@ -2304,20 +2359,11 @@ def decode_profile(eng, tag: str, step_ms: float, windows: dict) -> dict:
 
 # -- phase 5: card vs CPU parity ---------------------------------------------
 
-def parity_phase(seed: int, dev, alpha_dtype: str = ""):
-    """One full-width fp32 packed step (alphas fp32 or ``alpha_dtype``),
-    planned by the mapper as the engine plans it on the card, run on the
-    card and on the CPU with the same parameters."""
-    from repro_torch.configs import get_config
+def paged_step_logits(params, cfg, device, seed: int) -> torch.Tensor:
+    """fp32 host logits of one packed paged step on ``device`` from empty
+    page pools: slot 0 a 40-token chunk, slot 1 a 20-token chunk, slot 2
+    one token, slot 3 idle; 61 valid tokens of T 64."""
     from repro_torch.models import registry as R
-    from repro_torch.serving import plan_cfg
-    cfg = get_config("tinyllama_1_1b")
-    cfg = cfg.replace(dtype="float32", ovsf=dataclasses.replace(
-        cfg.ovsf, alpha_dtype=alpha_dtype))
-    cfg = plan_cfg(cfg, 4, dev)
-    if {p.path for _n, p in cfg.exec_plan.entries} != {"fused"}:
-        raise RuntimeError(f"parity: plan {cfg.exec_plan} is not fused")
-    params = R.model_init(cfg, seed + 1, dev)
     n_slots, ps, npg = 4, 16, 16
     P = n_slots * npg
     table = np.full((n_slots + 1, npg), P, np.int32)
@@ -2335,15 +2381,32 @@ def parity_phase(seed: int, dev, alpha_dtype: str = ""):
     new_pos = np.array([40, 20, 1, 0], np.int32)
     emit_idx = np.array([39, 59, 60, 0], np.int32)
     host = (table, tokens, slot_ids, positions, new_pos, emit_idx)
+    cache = R.init_paged_cache(cfg, n_slots, ps, P, device)
+    cache["pos"] = torch.zeros(n_slots, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        logits, _ = R.serve_step_paged(
+            params, cfg, cache, *(torch.from_numpy(a).to(device)
+                                  for a in host))
+    return logits.float().cpu()
+
+
+def parity_phase(seed: int, dev, alpha_dtype: str = ""):
+    """One full-width fp32 packed step (alphas fp32 or ``alpha_dtype``),
+    planned by the mapper as the engine plans it on the card, run on the
+    card and on the CPU with the same parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serving import plan_cfg
+    cfg = get_config("tinyllama_1_1b")
+    cfg = cfg.replace(dtype="float32", ovsf=dataclasses.replace(
+        cfg.ovsf, alpha_dtype=alpha_dtype))
+    cfg = plan_cfg(cfg, 4, dev)
+    if {p.path for _n, p in cfg.exec_plan.entries} != {"fused"}:
+        raise RuntimeError(f"parity: plan {cfg.exec_plan} is not fused")
+    params = R.model_init(cfg, seed + 1, dev)
 
     def run(p, device):
-        cache = R.init_paged_cache(cfg, n_slots, ps, P, device)
-        cache["pos"] = torch.zeros(n_slots, dtype=torch.int32, device=device)
-        with torch.no_grad():
-            logits, _ = R.serve_step_paged(
-                p, cfg, cache, *(torch.from_numpy(a).to(device)
-                                 for a in host))
-        return logits.float().cpu()
+        return paged_step_logits(p, cfg, device, seed)
 
     t0 = time.perf_counter()
     gpu = run(params, dev)
@@ -2354,11 +2417,11 @@ def parity_phase(seed: int, dev, alpha_dtype: str = ""):
     t0 = time.perf_counter()
     cpu = run(cpu_params, torch.device("cpu"))
     t_cpu = time.perf_counter() - t0
-    if gpu.shape != (n_slots, cfg.vocab) or not torch.isfinite(gpu).all():
+    if gpu.shape != (4, cfg.vocab) or not torch.isfinite(gpu).all():
         raise RuntimeError(f"parity: logits {tuple(gpu.shape)} not finite")
     rel = float((gpu - cpu).norm() / cpu.norm())
     print(f"[parity] full-width fp32 packed step, alphas "
-          f"{alpha_dtype or 'fp32'} (T={T}, 61 valid): card vs CPU logits "
+          f"{alpha_dtype or 'fp32'} (T=64, 61 valid): card vs CPU logits "
           f"rel L2 err={rel:.3e} (limit 1e-3); card step {t_gpu:.3f}s, CPU "
           f"step {t_cpu:.3f}s", flush=True)
     if not rel <= 1e-3:
@@ -2469,58 +2532,81 @@ def decompress_case(rng, d_in: int, N: int, dtype, dev, repeat=False):
             torch.from_numpy(idx).to(dev), L)
 
 
-def run_decompress_checks(rng, dev):
-    """``ovsf_decompress`` vs its plain version. Bound: the alphas read and
-    W written once (plus the ids), or the transform's N * L * log2 L fp32
-    additions; library: ``torch.matmul(S.T, alphas)``, S = H_L[idx, :d_in]
-    built outside the timed region (the port never calls it)."""
-    from repro_torch.core.ovsf import hadamard_matrix
+def decompress_row(rng, dev, d_in: int, N: int, dt, repeat: bool,
+                   alpha_dtype: str = "", tag: str = "[kernel]") -> dict:
+    """One ``ovsf_decompress`` case (``decompress_case``; with
+    ``alpha_dtype`` its alphas quantised to int8 / int4 with one scale, W
+    then fp32) against its plain version: equal bit for bit and a second
+    launch equal (repeated ids: within the tolerance, atomics sum them in
+    any order). Bound: the stored alphas (and scale) and ids read, W written
+    once, or the dequantising multiplies and the transform's N L log2 L
+    additions at the fp32 rate; library: ``torch.matmul(S.T, alphas)``, S =
+    H_L[idx, :d_in] and the dequantised alphas built outside the timed
+    region (the port never calls it)."""
+    from repro_torch.core.ovsf import (dequantize_alphas, hadamard_matrix,
+                                       quantize_alphas)
     from repro_torch.kernels.ovsf_gemm import (ovsf_decompress,
                                                ovsf_decompress_plain)
+    al, idx, L = decompress_case(rng, d_in, N, dt, dev, repeat)
+    J = L // 2
+    kw = {}
+    if alpha_dtype:
+        al, s = quantize_alphas(al, 1, alpha_dtype)
+        kw = dict(alpha_scale=s, alpha_dtype=alpha_dtype)
+    w_dt = torch.float32 if alpha_dtype else dt
+    label = (f"ovsf_decompress{' ' + alpha_dtype if alpha_dtype else ''} "
+             f"d_in={d_in} L={L} J={J} N={N}"
+             f"{' repeated ids' if repeat else ''} "
+             f"{str(w_dt).split('.')[-1]}")
+    got = ovsf_decompress(al, idx, d_in, **kw)
+    want = ovsf_decompress_plain(al, idx, d_in, **kw)
+    if got.dtype != w_dt:
+        raise RuntimeError(f"{label}: W {got.dtype}, expected {w_dt}")
+    err = check(label, got, want, w_dt)
+    if not repeat:           # repeated ids sum by atomics, in any order
+        exact_and_repeatable(label, got, err,
+                             ovsf_decompress(al, idx, d_in, **kw))
+    bytes_ = (al.numel() * al.element_size() + idx.numel() * 4
+              + d_in * N * got.element_size()
+              + (4 if alpha_dtype else 0))
+    ops = N * L * math.log2(L) + (J * N if alpha_dtype else 0)
+    t_bound, by = bound(bytes_, ops, torch.float32)
+    copies = [al.clone() for _ in range(n_copies(bytes_))]
+    ms, call_ms = timings([lambda a=a: ovsf_decompress(a, idx, d_in, **kw)
+                           for a in copies], 40)
+    plain_ms, _ = timings([lambda a=a: ovsf_decompress_plain(
+        a, idx, d_in, **kw) for a in copies[:2]], 4)
+    S = hadamard_matrix(L, w_dt, dev)[idx.long(), :d_in]
+    lib_in = ([dequantize_alphas(a, s, alpha_dtype) for a in copies]
+              if alpha_dtype else copies)
+    lib_err = float((torch.matmul(S.t(), lib_in[0]).float() - want.float())
+                    .abs().max())
+    lib_ms, _ = timings([lambda a=a: torch.matmul(S.t(), a)
+                         for a in lib_in], 20)
+    del copies, lib_in, S
+    tol = TOL[w_dt] if repeat else 0.0
+    print(f"{tag} {label}: max_abs_err={err:.3e} (tol {tol}) "
+          f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
+          f"bound={t_bound:.5f}ms ({by}; {t_bound / ms:.0%} of it) "
+          f"plain={plain_ms:.4f}ms "
+          f"library(matmul S^T alphas)={lib_ms:.4f}ms (kernel/library "
+          f"{ms / lib_ms:.2f}; its err {lib_err:.1e})", flush=True)
+    return dict(case=label, d_in=d_in, L=L, J=J, N=N, repeated_ids=repeat,
+                dtype=str(dt), alpha_dtype=alpha_dtype or "fp",
+                max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                bound_ms=t_bound, bound_by=by, bound_share=t_bound / ms,
+                vs_library=ms / lib_ms)
+
+
+def run_decompress_checks(rng, dev):
+    """``ovsf_decompress`` over fp32 and bf16 alphas (``decompress_row``)
+    at the ResNet-50 shapes, a ragged one and repeated ids."""
     shapes = [(d, n, False) for d, n, _c in RESNET50_DECOMPRESS]
     shapes += [(288, 128, False), (1000, 40, False), (200, 24, True)]
-    rows = []
-    for d_in, N, repeat in shapes:
-        for dt in (torch.float32, torch.bfloat16):
-            al, idx, L = decompress_case(rng, d_in, N, dt, dev, repeat)
-            label = (f"ovsf_decompress d_in={d_in} L={L} J={L // 2} N={N}"
-                     f"{' repeated ids' if repeat else ''} "
-                     f"{str(dt).split('.')[-1]}")
-            got = ovsf_decompress(al, idx, d_in)
-            err = check(label, got, ovsf_decompress_plain(al, idx, d_in), dt)
-            if not repeat:       # repeated ids sum by atomics, in any order
-                exact_and_repeatable(label, got, err,
-                                     ovsf_decompress(al, idx, d_in))
-            es = al.element_size()
-            bytes_ = al.numel() * es + idx.numel() * 4 + d_in * N * es
-            t_bound, by = bound(bytes_, N * L * math.log2(L), torch.float32)
-            copies = [al.clone() for _ in range(n_copies(bytes_))]
-            ms, call_ms = timings([lambda a=a: ovsf_decompress(a, idx, d_in)
-                                   for a in copies], 40)
-            plain_ms, _ = timings([lambda a=a: ovsf_decompress_plain(
-                a, idx, d_in) for a in copies[:2]], 4)
-            S = hadamard_matrix(L, dt, dev)[idx.long(), :d_in]
-            lib_err = float((torch.matmul(S.t(), al).float()
-                             - ovsf_decompress_plain(al, idx, d_in).float())
-                            .abs().max())
-            lib_ms, _ = timings([lambda a=a: torch.matmul(S.t(), a)
-                                 for a in copies], 20)
-            del copies, S
-            rows.append(dict(case=label, d_in=d_in, L=L, J=L // 2, N=N,
-                             repeated_ids=repeat, dtype=str(dt),
-                             max_abs_err=err, tol=0.0 if not repeat
-                             else TOL[dt], ms=ms,
-                             call_ms=call_ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, library_err=lib_err,
-                             bound_ms=t_bound, bound_by=by,
-                             bound_share=t_bound / ms, vs_library=ms / lib_ms))
-            print(f"[kernel] {label}: max_abs_err={err:.3e} (tol "
-                  f"{TOL[dt] if repeat else 0.0}) "
-                  f"kernel={ms:.4f}ms (per Python call {call_ms:.4f}ms) "
-                  f"bound={t_bound:.5f}ms ({by}; {t_bound / ms:.0%} of it) "
-                  f"plain={plain_ms:.4f}ms "
-                  f"library(matmul S^T alphas)={lib_ms:.4f}ms (kernel/library "
-                  f"{ms / lib_ms:.2f}; its err {lib_err:.1e})", flush=True)
+    rows = [decompress_row(rng, dev, d_in, N, dt, repeat)
+            for d_in, N, repeat in shapes
+            for dt in (torch.float32, torch.bfloat16)]
     # one ResNet-50 forward's 13 calls in fp32 (the kernels line)
     pick = {r["d_in"]: r for r in rows if r["dtype"] == "torch.float32"}
     summary = {key: sum(c * pick[d][key] for d, _n, c in RESNET50_DECOMPRESS)
@@ -5557,7 +5643,7 @@ def check_entry_launches(tag: str, run: dict, want_prefill: dict,
 
 
 def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
-                 want: dict, extra=None) -> dict:
+                 want: dict, extra=None, engine_kw=None) -> dict:
     """The 8 requests of phase 4 (6 greedy, 2 sampled, 16 new tokens)
     through the main path's engine (``LLMEngine(chunk_size=64, paged=True,
     packed=True)``, 4 slots, buffer 256), eager and replayed: every request
@@ -5568,8 +5654,10 @@ def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
     addresses; an encoder-decoder's cross caches stay zero (the engine
     passes tokens only). ``extra(engine, step key)``, if given, runs on
     the replaying engine before it is freed; its dict joins the result.
-    Printed: the chunk-free step's wall, replay span, device busy and idle
-    share, its ``ovsf_gemm`` device ms, the graphs' MiB."""
+    ``engine_kw``: the engine's arguments besides slots and buffer, in
+    place of the main path's. Printed: the chunk-free step's wall, replay
+    span, device busy and idle share, its ``ovsf_gemm`` and
+    ``ovsf_decompress`` device ms, the graphs' MiB."""
     specs = serve_specs(cfg, seed)
     none = {k: 0 for k in wrapper_counts()}
     want = dict(none, **want)
@@ -5577,7 +5665,7 @@ def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
     for mode in ("eager", "graph"):
         eng, run = serve_run(params, cfg, dev, "paged packed",
                              serve_requests(specs), f"{tag} {mode}",
-                             mode == "graph", False)
+                             mode == "graph", False, engine_kw=engine_kw)
         for _calls, active, delta in run["per_step"]:
             if delta != (want if active else none):
                 raise RuntimeError(f"{tag} {mode}: a step launched {delta}, "
@@ -5605,10 +5693,12 @@ def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
     profiles["graph"]["replay_ms"] = replay_span(graph_eng, key)
     compare = graph_vs_eager(tag, runs["eager"], runs["graph"], profiles,
                              wall_gate=False)
-    gemm_names = OWN_OF_WRAPPER["ovsf_gemm"] + ("sum_splits_kernel",)
-    gemm_ms = sum(e.self_device_time_total for e in windows["graph"]["first"]
-                  if any(re.search(rf"\b{k}\b", e.key)
-                         for k in gemm_names)) / DECODE_STEPS / 1e3
+    def own_ms(names):
+        return sum(e.self_device_time_total for e in windows["graph"]["first"]
+                   if any(re.search(rf"\b{k}\b", e.key)
+                          for k in names)) / DECODE_STEPS / 1e3
+    gemm_ms = own_ms(OWN_OF_WRAPPER["ovsf_gemm"] + ("sum_splits_kernel",))
+    dec_ms = own_ms(OWN_OF_WRAPPER["ovsf_decompress"])
     mib = graphs_mib_by_key(graph_eng, dev)
     more = extra(graph_eng, key) if extra is not None else {}
     del engines, graph_eng, eng
@@ -5625,7 +5715,8 @@ def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
           f"the device, busy "
           + ("not measured" if busy is None else f"{busy:.3f} ms")
           + f", idle share {pg['idle_share']}, kernels a step "
-          f"{pg['kernels_per_step']}, ovsf_gemm {gemm_ms:.3f} ms of it; "
+          f"{pg['kernels_per_step']}, ovsf_gemm {gemm_ms:.3f} ms and "
+          f"ovsf_decompress {dec_ms:.3f} ms of it; "
           f"cache {graph['kv_bytes'] / 2**20:.1f} MiB; graphs' MiB "
           + ", ".join(f"{k} {v:.1f}" for k, v in mib.items())
           + f" ({card})", flush=True)
@@ -5636,9 +5727,12 @@ def family_serve(params, cfg, seed: int, card: str, dev, tag: str,
                 graph_vs_eager=compare, decode_profile=pg,
                 eager_decode_profile=profiles["eager"],
                 replay_ms=pg["replay_ms"], ovsf_gemm_ms=gemm_ms,
-                graphs_mib=mib, cache_bytes=graph["kv_bytes"],
+                ovsf_decompress_ms=dec_ms, graphs_mib=mib,
+                cache_bytes=graph["kv_bytes"],
                 flash_unmasked=graph["flash_unmasked"],
-                tokens=graph["tokens"], **more)
+                tokens=graph["tokens"],
+                launch_totals={k: sum(d[k] for _c, _a, d in graph["per_step"])
+                               for k in none}, **more)
 
 
 def family_legacy(params, cfg, seed: int, card: str, dev, tag: str,
@@ -6713,6 +6807,306 @@ def train_phase(seed: int, card: str, dev) -> dict:
     return res
 
 
+# -- phase 14: convert --------------------------------------------------------
+
+CONVERT_ARCH = "tinyllama_1_1b"
+# (d_in, d_out) of the projections the converter makes OVSF at full width
+# (k and v, 256 wide, stay dense); down pads d_in 5632 to L 8192
+CONVERT_LAYER = {"q": (2048, 2048), "o": (2048, 2048), "gate": (2048, 5632),
+                 "up": (2048, 5632), "down": (5632, 2048)}
+# the depth each alpha storage is served at (0: all 22 layers)
+CONVERT_LAYERS = {"int8": 0, "int4": SERVE_CUT_LAYERS}
+CONVERT_PARITY_LAYERS = 2           # card vs CPU: conversion and logits
+CONVERT_FLIP_GAP = 1e-5             # a kept-code flip needs a near-tie
+CONVERT_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True,
+                         use_mapper=False)
+
+
+def convert_cfg(alpha_dtype: str, dtype: str = "bfloat16",
+                n_layers: int = 0):
+    """TinyLlama-1.1B with the converter's OVSF settings: monolithic codes
+    (``seg_len`` 0), rho 0.5, iterative selection, alphas stored as
+    ``alpha_dtype``, served unplanned under ``materialize``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(CONVERT_ARCH)
+    return cfg.replace(dtype=dtype, n_layers=n_layers or cfg.n_layers,
+                       ovsf=dataclasses.replace(
+                           cfg.ovsf, enable=True, seg_len=0, rho=0.5,
+                           strategy="iterative", exec_path="materialize",
+                           alpha_dtype=alpha_dtype))
+
+
+def convert_model(dense: dict, cfg, n_layers: int = 0) -> tuple:
+    """The converter over a dense model's tree (the reference has no
+    whole-model converter; this walk is the caller's): every linear of the
+    first ``n_layers`` blocks (0: all) that ``cfg`` makes OVSF through
+    ``layers.linear_convert_to_ovsf`` (fp32 in, the config's rho, strategy,
+    segment length and alpha storage), every other float leaf cast to the
+    model dtype (the fp32 ``alpha_scale`` kept). Returns (params, seconds
+    by weight type, each conversion's time summed)."""
+    from repro_torch.models.layers import linear_convert_to_ovsf, ovsf_eligible
+    oc, dt = cfg.ovsf, cfg.act_dtype
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: v if k == "alpha_scale" else cast(v)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree.to(dt) if tree.is_floating_point() else tree
+
+    secs = {}
+    blocks = []
+    for blk in dense["blocks"][:n_layers or len(dense["blocks"])]:
+        nb = {}
+        for grp, sub in blk.items():
+            if grp not in ("attn", "mlp"):
+                nb[grp] = cast(sub)
+                continue
+            nb[grp] = {}
+            for k, p in sub.items():
+                name = f"{grp}_{k}"
+                if "w" not in p or not ovsf_eligible(cfg, name, *p["w"].shape):
+                    nb[grp][k] = cast(p)
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nb[grp][k] = cast(linear_convert_to_ovsf(
+                    p, oc.rho_for(name), oc.strategy, seg=oc.seg_len,
+                    alpha_dtype=oc.alpha_dtype))
+                torch.cuda.synchronize()
+                secs[k] = secs.get(k, 0.0) + time.perf_counter() - t0
+        blocks.append(nb)
+    out = {k: cast(v) for k, v in dense.items() if k != "blocks"}
+    out["blocks"] = blocks
+    return out, secs
+
+
+def reconstruction_errors(dense: dict, params: dict, cfg) -> dict:
+    """Per weight type, the relative Frobenius error of the converted W
+    (``core.ovsf.decompress_matrix``, plain tensor code) against the dense
+    fp32 W: the largest over the converted layers."""
+    from repro_torch.core import ovsf
+    out = {}
+    for blk, dblk in zip(params["blocks"], dense["blocks"]):
+        for grp in ("attn", "mlp"):
+            for k, p in blk[grp].items():
+                if "idx" not in p:
+                    continue
+                w = dblk[grp][k]["w"]
+                spec = ovsf.OVSFSpec(*w.shape, rho=cfg.ovsf.rho, seg=0)
+                rec = ovsf.decompress_matrix(p, spec)
+                rel = float((rec - w).norm() / w.norm())
+                out[k] = max(out.get(k, 0.0), rel)
+    return out
+
+
+def run_convert_kernel_checks(rng, dev) -> dict:
+    """Phase 3, for phase 14's model: ``ovsf_decompress``'s int8 / int4
+    epilogue (``decompress_row``) at the converted shapes (q and o, gate
+    and up, down), the ragged 1000 -> 40 and repeated code ids (200 -> 24).
+    Returns the rows and, per storage, one converted layer's five calls
+    summed."""
+    shapes = sorted(set(CONVERT_LAYER.values()))
+    rows = [decompress_row(rng, dev, d_in, N, torch.float32, repeat, adt,
+                           "[convert kernel]")
+            for d_in, N, repeat in [(d, n, False) for d, n in shapes]
+            + [(1000, 40, False), (200, 24, True)]
+            for adt in ("int8", "int4")]
+    summary = {}
+    for adt in ("int8", "int4"):
+        mine = [r for r in rows if r["alpha_dtype"] == adt]
+        pick = {(r["d_in"], r["N"]): r for r in mine
+                if not r["repeated_ids"]}
+        layer = [pick[kn] for kn in CONVERT_LAYER.values()]
+        sm = {k: sum(r[k] for r in layer) for k in
+              ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+        sm["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                         for r in layer) else "operations")
+        sm["max_abs_err"] = max(r["max_abs_err"] for r in mine)
+        summary[adt] = sm
+        print(f"[convert kernel] ovsf_decompress {adt} layer (q, o, gate, "
+              f"up, down): {sm['ms']:.4f}ms, bound {sm['bound_ms']:.4f}ms "
+              f"({sm['bound_by']}), plain {sm['plain_ms']:.4f}ms, matmul "
+              f"S^T alphas {sm['library_ms']:.4f}ms", flush=True)
+    return dict(rows=rows, summary=summary)
+
+
+def convert_cpu_parity(dense: dict, seed: int, dev) -> dict:
+    """Phase 14 (2): the first ``CONVERT_PARITY_LAYERS`` blocks converted on
+    the card and on the CPU from the same fp32 weights, fp32 and int8
+    alphas: the kept code ids first (a flip passes only where the CPU's
+    n_keep-th and (n_keep+1)-th code scores lie within
+    ``CONVERT_FLIP_GAP`` relative: the score sums reduce in another order
+    on the card), then the stored alphas of every leaf with equal ids:
+    fp32 within 1e-6 relative, int8 within one quantum with equal scales.
+    Then the card's converted params (int8 and int4, fp32 model) and their
+    CPU copy run one packed paged step: logits within 1e-3 relative L2."""
+    from repro_torch.core import ovsf
+    from repro_torch.models import registry as R
+    n = CONVERT_PARITY_LAYERS
+    cpu_dense = R.params_to(dict(dense, blocks=dense["blocks"][:n]), "cpu")
+    res = {}
+    for adt in ("", "int8"):
+        cfg = convert_cfg(adt, "float32", n)
+        card, _ = convert_model(dense, cfg, n)
+        host, _ = convert_model(cpu_dense, cfg, n)
+        flips = worst = 0.0
+        leaves = 0
+        for blk, cblk, dblk in zip(card["blocks"], host["blocks"],
+                                   cpu_dense["blocks"]):
+            for grp in ("attn", "mlp"):
+                for k, p in blk[grp].items():
+                    if "idx" not in p:
+                        continue
+                    leaves += 1
+                    hp = cblk[grp][k]
+                    if not torch.equal(p["idx"].cpu(), hp["idx"]):
+                        w = dblk[grp][k]["w"]
+                        al = ovsf.regress_alphas(w.t())
+                        score = torch.sort((al * al).sum(0),
+                                           descending=True).values
+                        kk = p["idx"].numel()
+                        gap = float((score[kk - 1] - score[kk])
+                                    / score[kk - 1])
+                        moved = len(set(p["idx"].tolist())
+                                    ^ set(hp["idx"].tolist())) // 2
+                        print(f"[convert parity] {adt or 'fp32'} {grp}_{k}:"
+                              f" {moved} kept codes flipped, cut gap "
+                              f"{gap:.2e}", flush=True)
+                        if gap > CONVERT_FLIP_GAP:
+                            raise RuntimeError(
+                                f"[convert parity] {grp}_{k}: code flip at "
+                                f"a cut gap {gap:.2e} > {CONVERT_FLIP_GAP}")
+                        flips += moved
+                        continue
+                    al, scale, _a = ovsf.alpha_params(p)
+                    hal, hscale, _b = ovsf.alpha_params(hp)
+                    if adt:
+                        d = float((al.cpu().int() - hal.int()).abs().max())
+                        if d > 1 or not torch.equal(scale.cpu(), hscale):
+                            raise RuntimeError(
+                                f"[convert parity] {grp}_{k}: int8 alphas "
+                                f"{d} quanta apart or scales differ")
+                    else:
+                        d = float((al.cpu() - hal).abs().max()
+                                  / hal.abs().max())
+                        if d > 1e-6:
+                            raise RuntimeError(
+                                f"[convert parity] {grp}_{k}: fp32 alphas "
+                                f"{d:.2e} relative apart")
+                    worst = max(worst, d)
+        print(f"[convert parity] {n} full-width layers converted on the "
+              f"card and the CPU, alphas {adt or 'fp32'}: {leaves} leaves, "
+              f"{flips:g} kept codes flipped; alphas of equal ids "
+              + (f"at most {worst:g} quanta apart" if adt else
+                 f"{worst:.2e} relative apart"), flush=True)
+        res[adt or "fp32"] = dict(leaves=leaves, flips=flips, worst=worst)
+        del card, host
+    for adt in ("int8", "int4"):
+        cfg = convert_cfg(adt, "float32", n)
+        params, _ = convert_model(dense, cfg, n)
+        gpu = paged_step_logits(params, cfg, dev, seed)
+        cpu = paged_step_logits(R.params_to(params, "cpu"), cfg,
+                                torch.device("cpu"), seed)
+        if not torch.isfinite(gpu).all():
+            raise RuntimeError(f"[convert parity] {adt} logits not finite")
+        rel = float((gpu - cpu).norm() / cpu.norm())
+        print(f"[convert parity] converted {adt}, {n} layers, fp32 packed "
+              f"paged step (61 tokens): card vs CPU logits rel L2 "
+              f"{rel:.3e} (limit 1e-3)", flush=True)
+        if not rel <= 1e-3:
+            raise RuntimeError(f"[convert parity] {adt}: {rel:.3e} > 1e-3")
+        res[f"logits_{adt}"] = rel
+        del params
+    del cpu_dense
+    return res
+
+
+def convert_serve(params, cfg, seed: int, card: str, dev) -> dict:
+    """Phase 14 (3): the converted model through ``family_serve`` with the
+    main path's engine unplanned (``CONVERT_ENGINE_KW``): every step
+    launches 5 ``ovsf_decompress`` a layer (the epilogue of the stored
+    storage) and one ``paged_flash_decode`` a layer, nothing else of ours;
+    the engine holds no plan, so every OVSF layer runs ``materialize``."""
+    adt = cfg.ovsf.alpha_dtype
+    tag = f"[convert {adt} paged packed]"
+    n_ovsf = ovsf_per_layer(params)
+    if n_ovsf != len(CONVERT_LAYER):
+        raise RuntimeError(f"{tag} {n_ovsf} OVSF linears a block, expected "
+                           f"{len(CONVERT_LAYER)}")
+
+    def unplanned(eng, _key):
+        if eng.cfg.exec_plan is not None or eng.cfg.ovsf.exec_path != \
+                "materialize":
+            raise RuntimeError(f"{tag} the engine planned {eng.cfg.exec_plan}"
+                               f" / {eng.cfg.ovsf.exec_path}")
+        return {}
+    return family_serve(params, cfg, seed, card, dev, tag,
+                        {"ovsf_decompress": n_ovsf * cfg.n_layers,
+                         "paged_flash_decode": cfg.n_layers}, unplanned,
+                        engine_kw=CONVERT_ENGINE_KW)
+
+
+def convert_phase(seed: int, card: str, dev, kernels: dict) -> dict:
+    """Phase 14 (module docstring): dense TinyLlama-1.1B converted to
+    monolithic int8 / int4 alphas and served under ``materialize``;
+    ``kernels``: phase 3's rows of the epilogue at its shapes
+    (``run_convert_kernel_checks``), kept with the phase's results."""
+    from repro_torch.core.ovsf import alpha_params
+    from repro_torch.models import registry as R
+    t_phase = time.perf_counter()
+    res = dict(kernels=kernels)
+    cfg = convert_cfg("int8")
+    dense_cfg = cfg.replace(dtype="float32", ovsf=dataclasses.replace(
+        cfg.ovsf, enable=False))
+    dense = R.model_init(dense_cfg, seed, dev)
+    torch.cuda.synchronize()
+    dense_gb = R.param_count(dense) * 4 / 1e9
+    models, res["conversion"] = {}, {}
+    depths = {adt: min(d or len(dense["blocks"]), len(dense["blocks"]))
+              for adt, d in CONVERT_LAYERS.items()}
+    for adt, depth in depths.items():
+        c = convert_cfg(adt, "bfloat16", depth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[adt], secs = convert_model(dense, c, depth)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stored = {alpha_params(p)[2] for blk in models[adt]["blocks"]
+                  for g in ("attn", "mlp") for p in blk[g].values()
+                  if "idx" in p}
+        if stored != {adt}:
+            raise RuntimeError(f"[convert] {adt}: the model stores {stored}")
+        errs = reconstruction_errors(dense, models[adt], c)
+        res["conversion"][adt] = dict(layers=c.n_layers, wall_s=wall,
+                                      seconds_by_type=secs, rel_err=errs)
+        print(f"[convert] {CONVERT_ARCH} dense fp32 ({dense_gb:.2f} GB, "
+              f"seed {seed}) -> monolithic {adt} alphas, rho 0.5, iterative,"
+              f" {c.n_layers} layers x {len(CONVERT_LAYER)} projections: "
+              f"{wall:.2f}s on the card (by type "
+              + ", ".join(f"{k} {v:.2f}s" for k, v in secs.items())
+              + "); relative Frobenius error of W, the worst layer: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in errs.items())
+              + f" ({card})", flush=True)
+    res["parity"] = convert_cpu_parity(dense, seed, dev)
+    before = torch.cuda.memory_reserved(dev) / 2**20
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[convert] dense model freed: memory_reserved {before:.0f} -> "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.0f} MiB", flush=True)
+    for adt, depth in depths.items():
+        res[adt] = convert_serve(models.pop(adt),
+                                 convert_cfg(adt, "bfloat16", depth), seed,
+                                 card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"[convert] phase passed in {res['wall_s']:.1f}s", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6765,6 +7159,8 @@ def main(argv=None) -> int:
     int8_rows, int8_sums = run_int8_attn_checks(rng, dev, attn_rows,
                                                 flash_rows)
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
+    conv_kernels = run_convert_kernel_checks(
+        np.random.default_rng(args.seed + 41), dev)
     fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
     mono_rows = run_mono_checks(rng, dev)
     refused = check_quant_contract(dev)
@@ -6776,7 +7172,8 @@ def main(argv=None) -> int:
           f"flash_decode_attn ({len(flash_rows)} cases), the two attention "
           f"kernels at other shapes ({len(attn_shapes)} cases) and over int8"
           f" K/V ({len(int8_rows)} cases), "
-          f"ovsf_decompress ({len(dec_rows)} cases), fwht "
+          f"ovsf_decompress ({len(dec_rows)} cases; its int8 / int4 "
+          f"epilogue {len(conv_kernels['rows'])} cases), fwht "
           f"({len(fwht_rows)} cases), the monolithic tensor-core ovsf_gemm "
           f"({len(mono_rows)} cases here, the 19 CNN convs in the calibrate "
           "phase)", flush=True)
@@ -6853,6 +7250,8 @@ def main(argv=None) -> int:
     lv = ev_res[LLAVA_ARCH]
     train = train_phase(args.seed, card, dev)
     mark("train")
+    conv = convert_phase(args.seed, card, dev, conv_kernels)
+    mark("convert")
     tk = train["kernels"]
     lm_train = {k: sum(r[k] for r in tk["lm"]) for k in
                 ("ms", "forward_ms", "forward_bound_ms", "plain_ms",
@@ -6987,7 +7386,17 @@ def main(argv=None) -> int:
              r50["fused"]["launches"]["ovsf_gemm"]),
             ("fwht_train", "src/repro_torch/kernels/csrc/fwht.cu",
              "src/repro/kernels/fwht.py:57", tk["cnn"]["spectral"],
-             r50["ALL_PATHS"]["launches"]["fwht"])):
+             r50["ALL_PATHS"]["launches"]["fwht"]),
+            ("ovsf_decompress_int8",
+             "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
+             "src/repro/kernels/ovsf_gemm.py:256",
+             conv["kernels"]["summary"]["int8"],
+             conv["int8"]["launch_totals"]["ovsf_decompress"]),
+            ("ovsf_decompress_int4",
+             "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
+             "src/repro/kernels/ovsf_gemm.py:256",
+             conv["kernels"]["summary"]["int4"],
+             conv["int4"]["launch_totals"]["ovsf_decompress"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -7164,7 +7573,20 @@ def main(argv=None) -> int:
                        "fwht_train": "the same under spectral (fwht "
                                      "forward and for d pad(x)); "
                                      "launches: one train step under "
-                                     "ALL_PATHS"},
+                                     "ALL_PATHS",
+                       "ovsf_decompress_int8": "the int8 epilogue at one "
+                                               "converted TinyLlama-1.1B "
+                                               "layer's five W (q, o "
+                                               "2048 -> 2048, gate, up -> "
+                                               "5632, down 5632 (L 8192) "
+                                               "-> 2048), fp32 W, summed; "
+                                               "launches: the converted "
+                                               "int8 model's replayed "
+                                               "paged packed run, 22 "
+                                               "layers (phase 14)",
+                       "ovsf_decompress_int4": "the same, packed int4; "
+                                               "launches: the int4 run at "
+                                               "6 layers (phase 14)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
@@ -7172,6 +7594,7 @@ def main(argv=None) -> int:
                    "cnn": cnns, "calibration": calib, "chaos": chaos,
                    "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
                    "encdec_vlm": ev_res, "train": train,
+                   "convert": conv,
                    "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)

@@ -4,11 +4,14 @@ OVSF codes of length L = 2^k are the rows of the Sylvester-Hadamard matrix
 H_L, H[i, j] = (-1)^popcount(i & j). A weight matrix is stored as alpha
 coefficients over a kept subset of codes and regenerated on the fly.
 
-Carried here: code construction, the WHT, ``reconstruct`` and the CNN
-filters' ``extract_kxk``, the int8/int4 alpha storage
+Carried here: code construction, the WHT and its inverse, the paper's
+Converter (``regress_alphas``, ``select_basis``, ``compress_matrix`` and its
+inverse ``decompress_matrix``; ``reconstruct`` and ``reconstruct_matmul``),
+the CNN filters' ``extract_kxk``, the int8/int4 alpha storage
 (``quantize_alphas``/``quantize_params`` and their inverses), ``OVSFSpec``
-and the from-scratch ``init_ovsf``. The converter
-(``select_basis``/``compress_matrix``) waits for a later slice.
+and the from-scratch ``init_ovsf``. Everything here is plain tensor code on
+every device, as the reference's is jnp: the hand-written kernels live in
+``repro_torch.kernels``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,16 @@ def _parity(x: torch.Tensor) -> torch.Tensor:
     return x & 1
 
 
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    """Branch-free popcount of the low 32 bits of integer ``x``, as int64
+    (torch has no full uint32 arithmetic; the reference returns uint32)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def hadamard_matrix(L: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Sylvester Hadamard matrix H_L: H[i, j] = (-1)^popcount(i & j)."""
     if L & (L - 1):
@@ -44,6 +57,13 @@ def hadamard_matrix(L: int, dtype=torch.float32, device=None) -> torch.Tensor:
     i = torch.arange(L, dtype=torch.int64, device=device)
     par = _parity(i[:, None] & i[None, :])
     return (1 - 2 * par).to(dtype)
+
+
+def ovsf_codes(L: int, rows: Optional[torch.Tensor] = None,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """The (len(rows), L) OVSF codes of length L; all L when rows is None."""
+    H = hadamard_matrix(L, dtype=dtype, device=device)
+    return H if rows is None else H[torch.as_tensor(rows).long()]
 
 
 def fwht(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -77,6 +97,52 @@ def fwht(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+def ifwht(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inverse WHT along ``dim`` (H_L^-1 = H_L / L)."""
+    return fwht(y, dim=dim) / y.shape[dim]
+
+
+# ---------------------------------------------------------------------------
+# The Converter: alpha regression and basis selection (paper section 6.1)
+# ---------------------------------------------------------------------------
+
+def regress_alphas(w: torch.Tensor, L: Optional[int] = None) -> torch.Tensor:
+    """(..., d) weight vectors -> (..., L) coefficients over the full OVSF
+    basis: zero-pad to L (default next_pow2(d)), transform, divide by L, in
+    w's type (the converter passes fp32, as the reference's does), so that
+    w == crop_d(alpha @ H_L) exactly."""
+    d = w.shape[-1]
+    L = L or next_pow2(d)
+    if d > L:
+        raise ValueError(f"vector dim {d} exceeds code length {L}")
+    wp = torch.nn.functional.pad(w, (0, L - d)) if L != d else w
+    return fwht(wp, dim=-1) / L
+
+
+def select_basis(alphas: torch.Tensor, rho: float,
+                 strategy: str = "iterative"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keep round(rho * L) codes of (..., L) coefficients, one code set for
+    every filter of the layer: (idx (n_keep,) int32 ascending, kept (...,
+    n_keep)). "sequential" keeps the first n_keep codes; "iterative" the
+    n_keep with the largest sum of squares over the filters (L2-optimal for
+    an orthogonal basis). Ties go to the lower code id, as
+    ``jax.lax.top_k``'s do: a stable descending sort, first n_keep taken
+    (``torch.topk`` promises no order among ties)."""
+    L = alphas.shape[-1]
+    n_keep = max(1, int(round(rho * L)))
+    if strategy == "sequential":
+        idx = torch.arange(n_keep, dtype=torch.int32, device=alphas.device)
+    elif strategy == "iterative":
+        flat = alphas.reshape(-1, L)
+        score = torch.sum(flat * flat, dim=0)
+        order = torch.sort(score, descending=True, stable=True).indices
+        idx = torch.sort(order[:n_keep]).values.to(torch.int32)
+    else:
+        raise ValueError(f"unknown basis strategy: {strategy}")
+    return idx, torch.index_select(alphas, -1, idx.long())
+
+
 def reconstruct(kept: torch.Tensor, idx: torch.Tensor, d: int,
                 L: Optional[int] = None) -> torch.Tensor:
     """Rebuild (..., d) weight vectors from (..., n_keep) kept coefficients:
@@ -87,6 +153,15 @@ def reconstruct(kept: torch.Tensor, idx: torch.Tensor, d: int,
                        device=kept.device)
     full[..., idx.long()] = kept
     return fwht(full, dim=-1)[..., :d]
+
+
+def reconstruct_matmul(kept: torch.Tensor, idx: torch.Tensor, d: int,
+                       L: Optional[int] = None) -> torch.Tensor:
+    """``reconstruct`` as one product with the explicit basis rows,
+    kept @ H_L[idx, :d]."""
+    L = L or next_pow2(d)
+    S = hadamard_matrix(L, kept.dtype, kept.device)[idx.long(), :d]
+    return kept @ S
 
 
 def extract_kxk(w4: torch.Tensor, k: int, method: str = "crop"
@@ -242,6 +317,57 @@ class OVSFSpec:
     @property
     def j_total(self) -> int:
         return self.n_seg * self.n_keep
+
+
+def compress_matrix(w: torch.Tensor, spec: OVSFSpec) -> dict:
+    """Dense (d_in, d_out) weight -> OVSF params, the paper's Converter.
+
+    Monolithic: {alphas (n_keep, d_out), idx (n_keep,)} from each column's
+    coefficients over codes of length L = next_pow2(d_in) (zero-padded).
+    Segmented: {alphas (n_seg * n_keep, d_out), idx (n_seg, n_keep)}, each
+    length-L0 segment of the columns transformed and its codes selected on
+    its own (Alg. 1's per-layer alpha layout). Alphas in w's type; with
+    ``spec.alpha_dtype`` set, the quantised storage form
+    (``quantize_params``)."""
+    if tuple(w.shape) != (spec.d_in, spec.d_out):
+        raise ValueError(f"compress_matrix: w {tuple(w.shape)} does not "
+                         f"match {spec}")
+    if not spec.seg:
+        al = regress_alphas(w.t(), L=spec.L)            # (d_out, L)
+        idx, kept = select_basis(al, spec.rho, spec.strategy)
+        # rho rounding guard, as the reference's
+        idx, kept = idx[:spec.n_keep], kept[..., :spec.n_keep]
+        out = {"alphas": kept.t().contiguous().to(w.dtype), "idx": idx}
+        return quantize_params(out, spec.alpha_dtype)
+    L0, ns, nk = spec.seg, spec.n_seg, spec.n_keep
+    ws = w.t().reshape(spec.d_out, ns, L0)
+    al = fwht(ws, dim=-1) / L0                          # (d_out, ns, L0)
+    idxs, kepts = [], []
+    for s in range(ns):
+        idx, kept = select_basis(al[:, s, :], spec.rho, spec.strategy)
+        idxs.append(idx[:nk])
+        kepts.append(kept[..., :nk])                    # (d_out, nk)
+    alphas = torch.stack(kepts, dim=1).reshape(spec.d_out, ns * nk)
+    out = {"alphas": alphas.t().contiguous().to(w.dtype),
+           "idx": torch.stack(idxs)}
+    return quantize_params(out, spec.alpha_dtype)
+
+
+def decompress_matrix(params: dict, spec: OVSFSpec) -> torch.Tensor:
+    """OVSF params -> dense (d_in, d_out) weight (plain tensor code):
+    quantised alphas dequantised to fp32 first; monolithic codes through
+    ``reconstruct``, segmented ones each segment's spectrum transformed."""
+    al, scale, adt = alpha_params(params)
+    if adt:
+        al = dequantize_alphas(al, scale, adt)
+    idx = params["idx"]
+    if not spec.seg:
+        return reconstruct(al.t(), idx, spec.d_in, L=spec.L).t()
+    L0, ns, nk = spec.seg, spec.n_seg, spec.n_keep
+    a = al.t().reshape(spec.d_out, ns, nk)
+    full = torch.zeros((spec.d_out, ns, L0), dtype=a.dtype, device=a.device)
+    full.scatter_(-1, idx.long()[None].expand(spec.d_out, ns, nk), a)
+    return fwht(full, dim=-1).reshape(spec.d_out, spec.d_in).t()
 
 
 def init_ovsf(gen: torch.Generator, spec: OVSFSpec,

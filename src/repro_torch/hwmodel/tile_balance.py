@@ -1,9 +1,10 @@
-"""Static tile balancer (port of ``repro.hwmodel.tile_balance``, trimmed to
-``balance_blocks``): pick the GEMM block shape that wastes the least of each
+"""Static tile balancer (port of ``repro.hwmodel.tile_balance``):
+``balance_blocks`` picks the GEMM block shape that wastes the least of each
 dimension to ceil-padding, utilisation(dim, block) = dim / (ceil(dim/block)
 * block), under an on-chip footprint limit. The mapper records the chosen
 blocks in its plans; the CUDA ``ovsf_gemm`` tiles by its own kernels' plans
-(``kernels.ovsf_gemm.tc_plan`` and ``tiling``).
+(``kernels.ovsf_gemm.tc_plan`` and ``tiling``). ``input_selective_speedup``
+is the paper's Eq. (7), the modelled gain of its input-selective PEs.
 """
 from __future__ import annotations
 
@@ -51,3 +52,16 @@ def balance_blocks(M: int, K: int, N: int, *,
                 if u > best[3] + 1e-12:
                     best = (bm, bk, bn, u)
     return BalanceChoice(best[0], best[1], best[2], naive, best[3])
+
+
+def input_selective_speedup(T_R: int, T_C: int, C: int, P: int, T_P: int
+                            ) -> float:
+    """Paper Eq. (7) against the naive engine's runtime: the modelled gain of
+    dynamic work-stealing for a layer with C output columns on a T_C-wide
+    engine (1.0 where C >= T_C: no PE idles)."""
+    if C >= T_C:
+        return 1.0
+    t_naive = T_R * math.ceil(P / T_P)
+    rows_stolen = max(T_R * C - (T_C - C) * (C + 1), 0)
+    t_sel = ((T_C - C) + math.ceil(rows_stolen / T_C)) * math.ceil(P / T_P)
+    return t_naive / max(t_sel, 1)

@@ -2,10 +2,14 @@
 ``repro.kernels.ops``).
 
 ``materialize``  regenerate dense W, then one GEMM (``torch.matmul``, as the
-                 reference leaves it to XLA). Monolithic codes with fp32/bf16
-                 alphas generate W through the hand-written
+                 reference leaves it to XLA). Monolithic codes generate W
+                 through the hand-written
                  ``kernels.ovsf_gemm.ovsf_decompress`` on CUDA (its plain
-                 version on the CPU): the CNNs' im2col GEMMs in matrix mode.
+                 version on the CPU): the CNNs' im2col GEMMs in matrix mode
+                 (fp32 alphas), and a dense LM converted to monolithic codes
+                 (``models.layers.linear_convert_to_ovsf(seg=0)``) and
+                 served unplanned, its int8 / int4 alphas dequantised inside
+                 the kernel (W fp32, as the Pallas kernel's).
 ``fused``        generation fused into the GEMM tiles: the hand-written
                  ``kernels.ovsf_gemm`` kernels on CUDA (monolithic codes with
                  fp32 x: each W stripe generated once on chip, the product
@@ -20,11 +24,12 @@
                  the reference too.
 
 What has no hand-written kernel yet runs on the CPU only and raises on any
-other device: ``materialize`` of segmented codes or quantised alphas (plain
-per-segment WHT or dequantisation, as the reference computes them in jnp;
-nothing sends them to ``ovsf_decompress``). So on the card the single-model
-engine plans its LM layers, all segmented, with ``fused`` alone
-(``serving.engine._PLAN_TARGETS``). ``spectral`` of segmented codes runs
+other device: ``materialize`` of segmented codes (the plain per-segment WHT,
+as the reference computes it in jnp; no path of the reference sends
+segmented ids to ``ovsf_decompress``: ROADMAP B.3). So on the card the
+single-model engine plans its LM layers, segmented as every LM config
+builds them, with ``fused`` alone (``serving.engine._PLAN_TARGETS``).
+``spectral`` of segmented codes runs
 on any device as plain tensor code (a per-segment butterfly, ``gather``,
 ``torch.matmul``), as the reference's per-segment WHT is plain jnp and not
 ``fwht_pallas``: the multi-model path (``ovsf_matmul_multi``) and the
@@ -83,8 +88,9 @@ wrapper itself and not its Function: the fork is kept for host overhead,
 since a Function call costs more host time than the wrapper (measured by
 ``chip_smoke.py`` phase 13, PERF.md §6), paid 110 times in an eager
 TinyLlama-1.1B decode step.
-``fused`` refuses quantised alphas while autograd records x (training
-with them is ROADMAP A.8.3; the train step refuses them up front). The
+``fused`` refuses quantised alphas while autograd records x, and
+``materialize`` while it records their scales (training with them is
+ROADMAP A.8.3; the train step refuses them up front). The
 decompress cache is bypassed while the alphas require grad (a cached W
 would carry a finished step's graph).
 """
@@ -198,20 +204,28 @@ def fwht_fn(x: torch.Tensor) -> torch.Tensor:
     return FwhtFn.apply(x) if _records(x) else fwht(x)
 
 
-def ovsf_decompress_fn(alphas: torch.Tensor, idx: torch.Tensor,
-                       d_in: int) -> torch.Tensor:
-    """``ovsf_decompress``, differentiable (``OvsfDecompressFn``) where
-    autograd records the alphas."""
-    if _records(alphas):
-        return OvsfDecompressFn.apply(alphas, idx, d_in)
-    return ovsf_decompress(alphas, idx, d_in)
-
-
 def _no_quantised_training(alpha_dtype: str) -> None:
     if alpha_dtype:
         raise NotImplementedError(
             f"training with {alpha_dtype} alphas is not ported (ROADMAP "
             "A.8.3): train fp32/bf16 alphas and quantise after")
+
+
+def ovsf_decompress_fn(alphas: torch.Tensor, idx: torch.Tensor, d_in: int,
+                       *, alpha_scale=None, alpha_dtype: str = ""
+                       ) -> torch.Tensor:
+    """``ovsf_decompress``, differentiable (``OvsfDecompressFn``) where
+    autograd records fp32/bf16 alphas; quantised alphas (integers, only
+    their scales could carry a gradient) are refused where autograd records
+    the scales."""
+    if alpha_dtype:
+        if alpha_scale is not None and _records(alpha_scale):
+            _no_quantised_training(alpha_dtype)
+        return ovsf_decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
+                               alpha_dtype=alpha_dtype)
+    if _records(alphas):
+        return OvsfDecompressFn.apply(alphas, idx, d_in)
+    return ovsf_decompress(alphas, idx, d_in)
 
 
 def ovsf_gemm_fn(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
@@ -246,24 +260,23 @@ def _plain_only(t: torch.Tensor, what: str) -> None:
     """No plain-version fallback off the CPU: ``what`` has no kernel."""
     if t.device.type != "cpu":
         raise NotImplementedError(
-            f"the {what} has no hand-written kernel, so it runs on the "
-            f"CPU only; on {t.device.type} plan OVSF layers with the fused "
-            "path")
+            f"the {what} has no hand-written kernel (ROADMAP B.3), so it "
+            f"runs on the CPU only; on {t.device.type} plan OVSF layers "
+            "with the fused path")
 
 
 def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
-    """Dense (d_in, d_out) W from OVSF params. Monolithic codes with
-    fp32/bf16 alphas go to ``ovsf_decompress`` (the kernel on CUDA);
-    segmented codes and quantised alphas (dequantised to fp32 first) run
-    plain tensor code on the CPU only."""
-    if idx.dim() == 2 or alpha_dtype:
-        _plain_only(alphas, "materialize path for segmented codes or "
-                    "quantised alphas")
+    """Dense (d_in, d_out) W from OVSF params. Monolithic codes go to
+    ``ovsf_decompress`` (the kernel on CUDA; int8 / int4 alphas dequantised
+    inside it, W then fp32); segmented codes (quantised alphas dequantised
+    to fp32 first) run plain tensor code on the CPU only."""
+    if idx.dim() == 2:
+        _plain_only(alphas, "materialize path for segmented codes")
         alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
-        if idx.dim() == 2:
-            return _segmented_decompress(alphas, idx, d_in)
-    return ovsf_decompress_fn(alphas, idx, d_in)
+        return _segmented_decompress(alphas, idx, d_in)
+    return ovsf_decompress_fn(alphas, idx, d_in, alpha_scale=alpha_scale,
+                              alpha_dtype=alpha_dtype)
 
 
 def decompress_bank(alphas: torch.Tensor, idx: torch.Tensor,

@@ -19,11 +19,12 @@ launches, ``ovsf_gemm.launches_by_alpha`` splits them by alpha storage
 ("fp", "int8", "int4") and ``ovsf_gemm.launches_by_kernel`` by kernel.
 
 ``ovsf_decompress(alphas, idx, d_in)`` materialises the dense W (d_in,
-d_out) from fp32/bf16 alphas over monolithic codes: ``csrc/ovsf_decompress.cu``
-(the port of the Pallas ``ovsf_decompress``) on a CUDA tensor, its plain
-version on a CPU tensor; ``ovsf_decompress.launches`` counts launches. Its
-int8/int4 epilogue and the segmented layout are not ported: no path sends
-them to it.
+d_out) over monolithic codes from fp32/bf16 alphas, or from int8 / packed
+int4 alphas with per-segment fp32 scales (the Pallas kernel's dequant
+epilogue; W is then fp32): ``csrc/ovsf_decompress.cu`` (the port of the
+Pallas ``ovsf_decompress``) on a CUDA tensor, its plain version on a CPU
+tensor; ``ovsf_decompress.launches`` counts launches. The segmented layout
+is not ported: no path of the reference sends it to the kernel.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import ctypes
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from repro_torch.core.ovsf import fwht, next_pow2
+from repro_torch.core.ovsf import dequantize_alphas, fwht, next_pow2
 from repro_torch.kernels import build
 from repro_torch.kernels.fwht import plan_args, wht_plan
 from repro_torch.kernels.ref import ovsf_matmul_ref
@@ -65,7 +66,7 @@ _TC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
 _TICKETS: dict = {}           # device -> every ticket buffer, newest last
 
 
-_DEC_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+_DEC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
                  + [ctypes.c_void_p])
 _DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
 # adjacent columns a block takes at least: one 16-byte fp32 (8-byte bf16)
@@ -246,21 +247,22 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_scale(alpha_scale, J: int, device) -> torch.Tensor:
-    """The per-segment scales as the kernel reads them: float32, contiguous,
-    on the card beside x, one per J // n_seg alpha rows."""
+def _check_scale(alpha_scale, J: int, device, who: str = "ovsf_gemm"
+                 ) -> torch.Tensor:
+    """The per-segment scales as the kernels read them: float32, contiguous,
+    on the card beside the other operands, one per J // n_seg alpha rows."""
     if not isinstance(alpha_scale, torch.Tensor):
-        raise ValueError("ovsf_gemm: quantised alphas need an alpha_scale "
+        raise ValueError(f"{who}: quantised alphas need an alpha_scale "
                          "tensor")
     if alpha_scale.dtype != torch.float32 or not alpha_scale.is_contiguous():
-        raise ValueError(f"ovsf_gemm: alpha_scale must be contiguous float32, "
+        raise ValueError(f"{who}: alpha_scale must be contiguous float32, "
                          f"got {alpha_scale.dtype}")
     if alpha_scale.device != device:
-        raise ValueError(f"ovsf_gemm: alpha_scale on {alpha_scale.device}, x "
-                         f"on {device}")
+        raise ValueError(f"{who}: alpha_scale on {alpha_scale.device}, the "
+                         f"other operands on {device}")
     n_seg = alpha_scale.numel()
     if n_seg <= 0 or J % n_seg:
-        raise ValueError(f"ovsf_gemm: J={J} alpha rows not divisible into "
+        raise ValueError(f"{who}: J={J} alpha rows not divisible into "
                          f"{n_seg} scale segments")
     return alpha_scale
 
@@ -365,11 +367,20 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
 
 
 def ovsf_decompress_plain(alphas: torch.Tensor, idx: torch.Tensor,
-                          d_in: int) -> torch.Tensor:
-    """The plain version of ``ovsf_decompress``: scatter-add each column's
-    alphas into its length-L spectrum (repeated ids sum, as the Pallas
-    kernel's sum over j does), WHT, crop; fp32 arithmetic, output in the
-    alphas' type, as the (d_in, d_out) view of a (d_out, d_in) array."""
+                          d_in: int, *, alpha_scale=None,
+                          alpha_dtype: str = "") -> torch.Tensor:
+    """The plain version of ``ovsf_decompress``: int8 / packed int4 alphas
+    dequantised first (``core.ovsf.dequantize_alphas``: one fp32 multiply
+    by the row's segment scale); then scatter-add each column's alphas into
+    its length-L spectrum (repeated ids sum, as the Pallas kernel's sum over
+    j does), WHT, crop; fp32 arithmetic, output in the alphas' type (fp32
+    for quantised alphas, as the Pallas kernel's), as the (d_in, d_out) view
+    of a (d_out, d_in) array."""
+    if alpha_dtype:
+        if not isinstance(alpha_scale, torch.Tensor):
+            raise ValueError("ovsf_decompress: quantised alphas need an "
+                             "alpha_scale tensor")
+        alphas = dequantize_alphas(alphas, alpha_scale, alpha_dtype)
     L = next_pow2(d_in)
     spec = torch.zeros((alphas.shape[1], L), dtype=torch.float32,
                        device=alphas.device)
@@ -430,22 +441,34 @@ def check_ids(idx: torch.Tensor, L: int, who: str = "ovsf_decompress"
     return repeats == 0
 
 
-def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
-                    d_in: int) -> torch.Tensor:
-    """Dense W (d_in, d_out) = S^T @ alphas, S = H_L[idx, :d_in], from
-    (J, d_out) float32 or bfloat16 alphas and (J,) monolithic code ids in
-    [0, next_pow2(d_in)); returned in the alphas' type as the transposed
-    view of a contiguous (d_out, d_in) array."""
+def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
+                    alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
+    """Dense W (d_in, d_out) = S^T @ alphas, S = H_L[idx, :d_in], from (J,)
+    monolithic code ids in [0, next_pow2(d_in)) and (J, d_out) float32 or
+    bfloat16 alphas (W in their type), or int8 (J, d_out) alphas with
+    ``alpha_dtype="int8"`` / packed int8 (J, d_out // 2) with ``"int4"``
+    and their (n_seg, 1) float32 ``alpha_scale``, J % n_seg == 0 (W fp32);
+    returned as the transposed view of a contiguous (d_out, d_in) array."""
     if alphas.device.type == "cpu":
-        return ovsf_decompress_plain(alphas, idx, d_in)
+        return ovsf_decompress_plain(alphas, idx, d_in,
+                                     alpha_scale=alpha_scale,
+                                     alpha_dtype=alpha_dtype)
     if alphas.device.type != "cuda":
         raise ValueError(f"ovsf_decompress: unsupported device "
                          f"{alphas.device}")
-    if alphas.dim() != 2 or alphas.dtype not in (torch.float32,
-                                                 torch.bfloat16):
+    if alpha_dtype not in _QUANT:
+        raise ValueError(f"ovsf_decompress: unknown alpha_dtype "
+                         f"{alpha_dtype!r}")
+    want = ((torch.int8,) if alpha_dtype
+            else (torch.float32, torch.bfloat16))
+    if alphas.dim() != 2 or alphas.dtype not in want:
         raise ValueError(f"ovsf_decompress: alphas {tuple(alphas.shape)} "
-                         f"{alphas.dtype} must be 2-D float32 or bfloat16")
+                         f"{alphas.dtype} must be 2-D "
+                         + ("int8" if alpha_dtype else "float32 or bfloat16")
+                         + f" for alpha_dtype {alpha_dtype!r}")
     J, N = alphas.shape
+    if alpha_dtype == "int4":
+        N *= 2                          # two nibbles per stored byte
     if (idx.dim() != 1 or idx.shape[0] != J or idx.dtype.is_floating_point
             or idx.device != alphas.device):
         raise ValueError(f"ovsf_decompress: idx {tuple(idx.shape)} "
@@ -456,14 +479,20 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor,
     if d_in < 1 or L > _DEC_MAX_L:
         raise ValueError(f"ovsf_decompress: d_in={d_in} outside "
                          f"1..{_DEC_MAX_L}")
+    scale = alphas                      # unread for float alphas
+    if alpha_dtype:
+        scale = _check_scale(alpha_scale, J, alphas.device, "ovsf_decompress")
     distinct = _distinct_ids(idx, L, "ovsf_decompress")
     alphas = _aligned(alphas.contiguous())
     idx = idx.to(torch.int32).contiguous()
-    wt = torch.empty((N, d_in), dtype=alphas.dtype, device=alphas.device)
-    plan = wht_plan(L, alphas.element_size(), tile=DEC_TILE)
+    out_dtype = torch.float32 if alpha_dtype else alphas.dtype
+    wt = torch.empty((N, d_in), dtype=out_dtype, device=alphas.device)
+    plan = wht_plan(L, wt.element_size(), tile=DEC_TILE)
     err = build.launcher("ovsf_decompress", _DEC_ARGTYPES)(
-        alphas.data_ptr(), idx.data_ptr(), wt.data_ptr(), J, N, d_in, L,
-        int(alphas.dtype == torch.bfloat16), *plan_args(plan), int(distinct),
+        alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(), wt.data_ptr(),
+        J, N, d_in, L, int(alphas.dtype == torch.bfloat16),
+        _QUANT[alpha_dtype], J // scale.numel() if alpha_dtype else J,
+        *plan_args(plan), int(distinct),
         torch.cuda.current_stream(alphas.device).cuda_stream)
     if err:
         raise RuntimeError(f"ovsf_decompress: CUDA launch failed (cudaError "

@@ -81,6 +81,27 @@ def linear_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return y
 
 
+def linear_convert_to_ovsf(p: dict, rho: float, strategy: str = "iterative",
+                           seg: int = 16, alpha_dtype: str = "") -> dict:
+    """A dense linear's params {"w", "b"?} -> OVSF params (the paper's
+    Converter): ``core.ovsf.compress_matrix`` of w in fp32 over codes of
+    length ``seg``, or monolithic codes (seg 0) where ``seg`` is 0 or does
+    not divide d_in; fp32/bf16 alphas in w's type, or with ``alpha_dtype``
+    "int8"/"int4" the quantised storage form (alphas_q8/alphas_q4 and the
+    fp32 per-segment alpha_scale); the bias passes through."""
+    w = p["w"]
+    if seg and w.shape[0] % seg:
+        seg = 0
+    spec = ovsf.OVSFSpec(w.shape[0], w.shape[1], rho=rho, strategy=strategy,
+                         seg=seg, alpha_dtype=alpha_dtype)
+    out = ovsf.compress_matrix(w.to(torch.float32), spec)
+    if "alphas" in out:
+        out = {"alphas": out["alphas"].to(w.dtype), "idx": out["idx"]}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
 def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -32,7 +32,7 @@ from repro_torch.serving.scheduler import (ChunkTask, FCFSScheduler,
                                            PrefillGroup, SchedulerOutput,
                                            bucket_for, bucket_lengths,
                                            legacy_schedule, pack_bucket,
-                                           pack_step)
+                                           pack_step, unpack_step)
 
 __all__ = [
     "SamplingParams", "Request", "RequestOutput",
@@ -40,7 +40,7 @@ __all__ = [
     "FINISH_TIMEOUT", "FINISH_SHED", "FINISH_ERROR", "FINISH_PREEMPTED",
     "FINISH_EVICTED", "FINISH_CANCELLED",
     "FCFSScheduler", "ChunkTask", "SchedulerOutput", "StepOutput",
-    "PackedStep", "pack_bucket", "pack_step", "PrefillGroup",
+    "PackedStep", "pack_bucket", "pack_step", "unpack_step", "PrefillGroup",
     "PrefillAssignment", "bucket_lengths", "bucket_for", "legacy_schedule",
     "EngineCore", "LLMEngine", "EngineStats", "plan_cfg",
     "ServingGateway", "GatewayStats", "GatewayHTTPServer",

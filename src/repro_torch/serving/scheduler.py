@@ -182,6 +182,24 @@ def pack_step(so: SchedulerOutput, last_tokens, slot_pos, B: int,
                       n_valid=n)
 
 
+def unpack_step(ps: PackedStep) -> tuple[tuple, tuple]:
+    """The inverse of ``pack_step``'s layout: ``(decode_slots, ((slot,
+    start, length), ...))`` recovered from the segment boundaries."""
+    decode: list = []
+    chunks: list = []
+    for s in range(len(ps.cu_seqlens) - 1):
+        a, b = int(ps.cu_seqlens[s]), int(ps.cu_seqlens[s + 1])
+        slot = ps.seg_slots[s]
+        if ps.seg_kinds[s] == "decode":
+            if b - a != 1:
+                raise ValueError(f"unpack_step: decode segment {s} holds "
+                                 f"{b - a} tokens")
+            decode.append(slot)
+        else:
+            chunks.append((slot, int(ps.positions[a]), b - a))
+    return tuple(decode), tuple(chunks)
+
+
 class FCFSScheduler:
     """Priority-FCFS admission and step scheduling, chunked or (with
     ``chunk_size=None``) legacy phase-based with length buckets

@@ -180,9 +180,9 @@ def test_decompress_plain_sums_repeated_ids():
 
 
 def test_decompress_on_card_reaches_the_kernel_wrapper():
-    """Off the CPU (``meta`` standing in for the card), monolithic fp codes
-    reach ``ovsf_decompress``'s wrapper, whose device check refuses meta;
-    segmented codes and quantised alphas still have no kernel and raise
+    """Off the CPU (``meta`` standing in for the card), monolithic codes,
+    fp32 or quantised, reach ``ovsf_decompress``'s wrapper, whose device
+    check refuses meta; segmented codes still have no kernel and raise
     ``NotImplementedError``."""
     al, idx = _mono_case(72, 16)
     m_al = torch.from_numpy(al).to("meta")
@@ -196,7 +196,7 @@ def test_decompress_on_card_reaches_the_kernel_wrapper():
     with pytest.raises(NotImplementedError, match="no hand-written kernel"):
         tops.decompress(torch.zeros((32, 16), device="meta"), seg_idx, 64)
     q, s = tovsf.quantize_alphas(torch.from_numpy(al), 1, "int8")
-    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.decompress(q.to("meta"), m_idx, 72, alpha_scale=s.to("meta"),
                         alpha_dtype="int8")
 

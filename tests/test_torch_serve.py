@@ -275,7 +275,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.data.synthetic, repro_torch.train.optim, "
             "repro_torch.train.compress, repro_torch.train.steps, "
             "repro_torch.runtime.supervisor, repro_torch.launch.train, "
-            "repro_torch.checkpoint.ckpt; "
+            "repro_torch.checkpoint.ckpt, repro_torch.core.ovsf, "
+            "repro_torch.models.layers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -300,7 +301,9 @@ def test_port_sources_import_no_jax_or_reference():
         assert ROOT / "src" / "repro_torch" / "configs" / name in files
     for name in ("data/synthetic.py", "train/optim.py", "train/compress.py",
                  "train/steps.py", "runtime/supervisor.py", "launch/train.py",
-                 "checkpoint/ckpt.py"):
+                 "checkpoint/ckpt.py", "core/ovsf.py", "models/layers.py",
+                 "hwmodel/tile_balance.py", "serving/scheduler.py",
+                 "kernels/ovsf_gemm.py", "kernels/ops.py"):
         assert ROOT / "src" / "repro_torch" / name in files
     for f in files:
         hits = pat.findall(f.read_text())
