@@ -454,6 +454,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ours; streams, chunk-free logits, launches and profiled
              kernels equal between the runs; the step's wall, device busy
              and idle share printed.
+  15. family train: the MoE, SSM, hybrid, encoder-decoder and VLM
+             families' training on the card, bf16, B 8, S 128, remat,
+             planned ``fused`` (TF32 off). (1) ``ovsf_gemm`` forward +
+             backward at each family's projections (``FAMILY_TRAIN_GEMMS``,
+             M 1024): dx and dA against autograd through the plain version,
+             device ms beside matmul on a dense W and the bound, a summary
+             a family. (2) One fp32 step of OLMoE-1B-7B, Falcon-Mamba-7B,
+             Zamba2-1.2B, Whisper-tiny and LLaVA-NeXT-34B at full width and
+             ``FAMILY_PARITY_LAYERS``, card vs CPU (``spectral`` on the
+             CPU): MoE routing first (a
+             flip passes only at a near-tie, ``FAMILY_FLIP_GAP``, and
+             waives that step's gradient gate, its loss held to 1e-4);
+             loss within 1e-5, gradients and updated params within 1e-3
+             relative L2. (3) ``runtime.supervisor.run`` of OLMoE-1B-7B at
+             1 layer with a ``fail`` between checkpoints, under
+             ``torch.use_deterministic_algorithms``: the replay bit for
+             bit (the ops that warn printed). (4) ``python -m
+             repro_torch.launch.train --arch zamba2_1_2b`` at full width
+             and depth (``launcher_run``): 8 steps at ``FAMILY_LR``, one
+             checkpoint, finite losses, the first batch's loss lower
+             under the trained params (the last and a held-out one
+             printed), 194 ``ovsf_gemm`` launches a step (38 Mamba-2
+             blocks x 2 projections x 2 under remat, and the shared
+             block's 7 x 6 applications, which remat does not recompute),
+             all tensor-core; a profiled step's wall, device busy, idle
+             share, peak memory and the save's seconds. (5) OLMoE-1B-7B,
+             Falcon-Mamba-7B, LLaVA-NeXT-34B at ``FAMILY_LAYERS`` and
+             Whisper-tiny uncut (1500 zero frames, no OVSF layer: every
+             side is 384) through ``make_train_step``: the first batch's
+             loss lower after the steps, the launches a step as the
+             params give them, peak memory.
 Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
@@ -6076,7 +6107,8 @@ CNN_WELL_CONDITIONED = 1e-4     # the CPU's gradient move under a 1e-6 image
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
-    g, w = got.detach().double(), want.detach().double().to(got.device)
+    # moved in its own type, widened where the sums run
+    g, w = got.detach().double(), want.detach().to(got.device).double()
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
@@ -6177,6 +6209,48 @@ def forward_ms(fn, inputs: list, iters: int = 6) -> float:
         return queued_ms(lambda: fn(*inputs), iters)
 
 
+def train_gemm_row(rng, dev, M: int, K: int, N: int, tag: str) -> dict:
+    """One segmented OVSF projection's forward + backward at (M, K -> N),
+    bf16: the ``ovsf_gemm`` forward on the tensor-core kernel, dx and dA
+    within ``TOL`` of autograd through the plain version; device ms of the
+    forward + backward (``fwd_bwd_ms``) and of the forward alone, the plain
+    version's, ``torch.matmul`` forward + backward on a dense W, and the
+    bound (``ovsf_train_bound``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ovsf_gemm import ovsf_gemm, ovsf_gemm_plain
+    x, al, idx, nk = gemm_case(rng, 16, M, K, N, torch.bfloat16, dev)
+    g = torch.randn((M, N), device=dev, dtype=torch.bfloat16)
+    before = ovsf_gemm.launches_by_kernel["tensor_core"]
+    err = grad_check(tag, lambda a, b: ops.ovsf_gemm_fn(a, b, idx),
+                     lambda a, b: ovsf_gemm_plain(a, b, idx), [x, al],
+                     g, torch.bfloat16)
+    if ovsf_gemm.launches_by_kernel["tensor_core"] != before + 1:
+        raise RuntimeError(f"{tag}: not on the tensor-core kernel")
+    J = al.shape[0]
+    ms = fwd_bwd_ms(lambda a, b: ops.ovsf_gemm_fn(a, b, idx), [x, al], g)
+    plain_ms = fwd_bwd_ms(lambda a, b: ovsf_gemm_plain(a, b, idx),
+                          [x, al], g, 2)
+    fwd = forward_ms(lambda a, b: ops.ovsf_gemm_fn(a, b, idx), [x, al])
+    W = torch.randn((K, N), device=dev, dtype=torch.bfloat16)
+    lib_ms = fwd_bwd_ms(torch.matmul, [x, W], g)
+    bd = ovsf_train_bound(M, K, N, J, K * 4,     # log2 16 = 4 stages
+                          torch.bfloat16, idx.numel() * 4)
+    t_ops, t_mem = bd["train"]
+    row = dict(case=tag, M=M, K=K, N=N, J=J, max_abs_err=err, ms=ms,
+               forward_ms=fwd, backward_ms=ms - fwd, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=max(t_ops, t_mem),
+               bound_by="operations" if t_ops >= t_mem else "bytes",
+               forward_bound_ms=max(bd["forward"]))
+    print(f"{tag}: dx, dA within {TOL[torch.bfloat16]} relative L2 of "
+          f"autograd through the plain version (max abs err {err:.3e});"
+          f" forward + backward {ms:.4f} ms (the kernel's forward "
+          f"{fwd:.4f} ms, bound {row['forward_bound_ms']:.4f}; the "
+          f"backward's plain code and matmuls {ms - fwd:.4f}), plain "
+          f"{plain_ms:.4f} ms, matmul on a dense W {lib_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return row
+
+
 def run_train_kernel_checks(rng, dev) -> dict:
     """Phase 13 (1): each autograd wrapper's dx and dA against autograd
     through its kernel's plain version on the card. TinyLlama's five
@@ -6198,38 +6272,9 @@ def run_train_kernel_checks(rng, dev) -> dict:
     res = {"lm": [], "cnn": {}}
     M = TRAIN_BATCH * TRAIN_SEQ
     for name, (K, N) in TRAIN_LAYER.items():
-        x, al, idx, nk = gemm_case(rng, 16, M, K, N, torch.bfloat16, dev)
-        g = torch.randn((M, N), device=dev, dtype=torch.bfloat16)
-        tag = f"[train kernel] ovsf_gemm {name} M={M} {K}->{N} bf16"
-        before = ovsf_gemm.launches_by_kernel["tensor_core"]
-        err = grad_check(tag, lambda a, b: ops.ovsf_gemm_fn(a, b, idx),
-                         lambda a, b: ovsf_gemm_plain(a, b, idx), [x, al],
-                         g, torch.bfloat16)
-        if ovsf_gemm.launches_by_kernel["tensor_core"] != before + 1:
-            raise RuntimeError(f"{tag}: not on the tensor-core kernel")
-        J = al.shape[0]
-        ms = fwd_bwd_ms(lambda a, b: ops.ovsf_gemm_fn(a, b, idx), [x, al], g)
-        plain_ms = fwd_bwd_ms(lambda a, b: ovsf_gemm_plain(a, b, idx),
-                              [x, al], g, 2)
-        fwd = forward_ms(lambda a, b: ops.ovsf_gemm_fn(a, b, idx), [x, al])
-        W = torch.randn((K, N), device=dev, dtype=torch.bfloat16)
-        lib_ms = fwd_bwd_ms(torch.matmul, [x, W], g)
-        bd = ovsf_train_bound(M, K, N, J, K * 4,     # log2 16 = 4 stages
-                              torch.bfloat16, idx.numel() * 4)
-        t_ops, t_mem = bd["train"]
-        row = dict(case=tag, M=M, K=K, N=N, J=J, max_abs_err=err, ms=ms,
-                   forward_ms=fwd, backward_ms=ms - fwd, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=max(t_ops, t_mem),
-                   bound_by="operations" if t_ops >= t_mem else "bytes",
-                   forward_bound_ms=max(bd["forward"]))
-        res["lm"].append(row)
-        print(f"{tag}: dx, dA within {TOL[torch.bfloat16]} relative L2 of "
-              f"autograd through the plain version (max abs err {err:.3e});"
-              f" forward + backward {ms:.4f} ms (the kernel's forward "
-              f"{fwd:.4f} ms, bound {row['forward_bound_ms']:.4f}; the "
-              f"backward's plain code and matmuls {ms - fwd:.4f}), plain "
-              f"{plain_ms:.4f} ms, matmul on a dense W {lib_ms:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        res["lm"].append(train_gemm_row(
+            rng, dev, M, K, N,
+            f"[train kernel] ovsf_gemm {name} M={M} {K}->{N} bf16"))
     # what the serving path saves by calling the wrapper, and not the
     # Function, where autograd records nothing (``ops.ovsf_gemm_fn``)
     x, al, idx, _nk = gemm_case(rng, 16, 4, 2048, 2048, torch.bfloat16, dev)
@@ -6539,17 +6584,21 @@ def train_parity(seed: int, dev) -> dict:
     return dict(loss_err=loss_err, grad_err=g_err, param_err=p_err)
 
 
-def train_supervised(seed: int, dev, tmp: str) -> dict:
-    """Phase 13 (3): ``supervisor.run`` at full width,
-    ``TRAIN_FAULT_LAYERS`` layers, bf16, B 8, S 128, without and with a
-    ``FaultPlan`` ``fail`` between two checkpoints, both under
-    ``torch.use_deterministic_algorithms(True, warn_only=True)``: one
-    failure, a restore, and the replayed steps' losses equal the
-    uninterrupted run's bit for bit (within 1e-3 relative where an op of
-    the step warned that it has no deterministic implementation; the op is
-    printed). The final checkpoint restores with CRC verification bit for
-    bit equal to the state in memory, and a flipped byte in one leaf makes
-    ``restore`` raise naming that leaf."""
+def train_supervised(seed: int, dev, tmp: str, arch: str = TRAIN_ARCH,
+                     n_layers: int = TRAIN_FAULT_LAYERS,
+                     tag: str = "[train supervisor]",
+                     exact: bool = False) -> dict:
+    """Phase 13 (3): ``supervisor.run`` of ``arch`` at full width,
+    ``n_layers`` layers, bf16, B 8, S 128, without and with a
+    ``FaultPlan`` ``fail`` between two
+    checkpoints, both under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: one failure, a restore, and the replayed steps'
+    losses equal the uninterrupted run's bit for bit (unless ``exact``,
+    within 1e-3 relative where an op of the step warned that it has no
+    deterministic implementation; the op is printed). The final
+    checkpoint restores with CRC verification bit for bit equal to the
+    state in memory, and a flipped byte in one leaf makes ``restore``
+    raise naming that leaf."""
     import warnings
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config
@@ -6557,7 +6606,7 @@ def train_supervised(seed: int, dev, tmp: str) -> dict:
     from repro_torch.runtime import supervisor
     from repro_torch.runtime.faults import FaultPlan
     from repro_torch.train import optim, steps
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_FAULT_LAYERS)
+    cfg = get_config(arch).replace(n_layers=n_layers)
     ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=2,
                            total_steps=TRAIN_FAULT_STEPS)
     stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
@@ -6586,13 +6635,12 @@ def train_supervised(seed: int, dev, tmp: str) -> dict:
     (cs, crep), (fs, frep) = runs["clean"], runs["fault"]
     start = TRAIN_FAULT_AT // TRAIN_FAULT_SAVE_EVERY * TRAIN_FAULT_SAVE_EVERY
     want = crep.losses[:TRAIN_FAULT_AT] + crep.losses[start:]
-    tag = "[train supervisor]"
     if frep.failures != 1 or frep.restores < 1 or len(frep.losses) != len(
             want) or not all(math.isfinite(v) for v in frep.losses):
         raise RuntimeError(f"{tag} failures {frep.failures} restores "
                            f"{frep.restores} losses {frep.losses}: {logs}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(frep.losses, want))
-    if (rel != 0.0 if not nondet else rel > 1e-3):
+    if (rel != 0.0 if exact or not nondet else rel > 1e-3):
         raise RuntimeError(f"{tag} replayed losses {frep.losses} vs the "
                            f"uninterrupted run's {want} (max rel {rel}; ops "
                            f"without a deterministic implementation: "
@@ -6635,28 +6683,57 @@ def train_supervised(seed: int, dev, tmp: str) -> dict:
                 flipped_leaf=leaf["path"])
 
 
-def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
-    """Phase 13 (2): ``python -m repro_torch.launch.train`` in this process
-    at full width and depth (``main``'s argv): exit without an error, finite
-    losses, the last below the first, ``ovsf_gemm`` 2 x 110 launches a step
-    (the forward's 5 projections x 22 layers, again in the backward's
-    recompute; the segmented backward launches no kernel), all on the
-    tensor-core kernel, both checkpoints written; then two more steps of the
-    trained state, the second profiled: step wall, device busy ms, idle
-    share. Returns (result, trained params)."""
+def ovsf_linears(tree) -> int:
+    """OVSF linears in a param tree: dicts with ``idx`` and 2-d alphas (an
+    expert bank's (E, J, d_out) alphas regenerate W as plain tensor code
+    and launch no ``ovsf_gemm``)."""
+    if isinstance(tree, list):
+        return sum(ovsf_linears(t) for t in tree)
+    if not isinstance(tree, dict):
+        return 0
+    al = tree.get("alphas")
+    own = int("idx" in tree and al is not None and al.dim() == 2)
+    return own + sum(ovsf_linears(v) for v in tree.values())
+
+
+def train_gemms_per_step(cfg, params) -> int:
+    """``ovsf_gemm`` launches of one train step under remat: each stacked
+    block's linears twice (the forward, then its recompute in the
+    backward), the encoder's too; the hybrid's shared block once an
+    application (applied outside the checkpoints, as the reference
+    applies it); the segmented backward launches none."""
+    from repro_torch.models.transformer import n_attn_apps
+    n = 2 * ovsf_linears(params["blocks"])
+    n += 2 * ovsf_linears(params.get("encoder", {}).get("blocks", []))
+    if cfg.family == "hybrid":
+        n += n_attn_apps(cfg) * ovsf_linears(params["shared_attn"])
+    return n
+
+
+def launcher_run(seed: int, card: str, dev, ck: str, arch: str,
+                 n_steps: int, save_every: int, tag: str,
+                 lr: float = TRAIN_LR, refit_first: bool = False) -> tuple:
+    """``python -m repro_torch.launch.train --arch <arch>`` in this process
+    at full width and depth (``main``'s argv; B ``TRAIN_BATCH``, S
+    ``TRAIN_SEQ``, learning rate ``lr``): exit without an error, finite
+    losses, the last below the first (with ``refit_first``: the first
+    batch's loss under the trained params below its loss at step 0, and
+    a held-out batch's printed), ``train_gemms_per_step`` ``ovsf_gemm``
+    launches a step, all on the tensor-core kernel, the checkpoints every
+    ``save_every`` steps written; then two more steps of the trained state
+    (with the launcher's family inputs), the second profiled: step wall,
+    device busy ms, idle share. Returns (result, trained params)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import ovsf_gemm as G
     from repro_torch.launch import train as launch_train
     from repro_torch.train import optim, steps
-    cfg = get_config(TRAIN_ARCH)
-    ck = os.path.join(tmp, "launcher")
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--steps", str(n_steps), "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--save-every",
-            str(TRAIN_SAVE_EVERY), "--lr", str(TRAIN_LR), "--seed",
-            str(seed), "--ckpt", ck]
-    tag = "[train launcher]"
+            str(save_every), "--lr", str(lr), "--seed", str(seed),
+            "--ckpt", ck]
     print(f"{tag} python -m repro_torch.launch.train {' '.join(argv)}",
           flush=True)
     torch.cuda.empty_cache()
@@ -6669,17 +6746,33 @@ def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
     launches = wrapper_counts()
     by_kernel = dict(G.ovsf_gemm.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated(dev)
-    per_step = 2 * len(TRAIN_LAYER) * cfg.n_layers
+    per_step = train_gemms_per_step(cfg, state["params"])
     want = dict.fromkeys(launches, 0)
     want["ovsf_gemm"] = per_step * rep.steps_run
     saved = sorted(os.listdir(ck))
-    if (rep.steps_run != TRAIN_STEPS or rep.failures
+    print(f"{tag} {rep.steps_run} steps in {wall:.1f}s, step walls "
+          f"{[round(v, 3) for v in rep.step_times]} s, losses "
+          f"{[round(v, 4) for v in rep.losses]}", flush=True)
+    stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    extra = launch_train.family_inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    refit = {}
+    if refit_first:
+        ev = steps.make_eval_step(cfg)
+        for name, s in (("first", 0), ("held_out", FAMILY_HELD_OUT)):
+            refit[name] = float(ev(state["params"], {
+                **stream.batch_at(s), **extra})["total_loss"])
+        print(f"{tag} the first batch's loss {rep.losses[0]:.4f} at step 0,"
+              f" {refit['first']:.4f} under the trained params; a held-out"
+              f" batch (step {FAMILY_HELD_OUT}) {refit['held_out']:.4f}",
+              flush=True)
+    falls = (refit["first"] < rep.losses[0] if refit_first
+             else rep.losses[-1] < rep.losses[0])
+    if (rep.steps_run != n_steps or rep.failures
             or not all(math.isfinite(v) for v in rep.losses)
-            or not rep.losses[-1] < rep.losses[0] or launches != want
+            or not falls or launches != want
             or by_kernel["tensor_core"] != launches["ovsf_gemm"]
             or saved != [f"step_{s:08d}" for s in
-                         range(TRAIN_SAVE_EVERY, TRAIN_STEPS + 1,
-                               TRAIN_SAVE_EVERY)]):
+                         range(save_every, n_steps + 1, save_every)]):
         raise RuntimeError(f"{tag} steps {rep.steps_run} failures "
                            f"{rep.failures} losses {rep.losses} launches "
                            f"{launches} (want {want}, by kernel "
@@ -6688,21 +6781,19 @@ def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
                       for t in optim.tree_leaves(state))
     # two more steps of the trained state, as the train step runs them,
     # the gradients and the update timed apart; the first unrecorded
-    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=5,
-                           total_steps=TRAIN_STEPS + 2)
-    stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    ocfg = optim.OptConfig(lr=lr, warmup_steps=5, total_steps=n_steps + 2)
     run_cfg = steps.planned_cfg(cfg, dev, (TRAIN_BATCH, TRAIN_SEQ))
     params, opt = state["params"], state["opt"]
     del state
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=warm_schedule()) as prof:
         for s in range(2):
-            toks = torch.from_numpy(stream.batch_at(TRAIN_STEPS + s)
+            toks = torch.from_numpy(stream.batch_at(n_steps + s)
                                     ["tokens"]).to(dev)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             _l, _a, grads = steps.loss_and_grads(run_cfg, params,
-                                                 {"tokens": toks})
+                                                 {"tokens": toks, **extra})
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             params, opt, _m = optim.adamw_update(ocfg, grads, opt, params)
@@ -6718,15 +6809,19 @@ def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
     idle = 1.0 - busy / step_ms if busy > 0 else None
     top = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:60])
                   for e in events), reverse=True)[:6]
-    n_kernels = sum(kernel_counts(events).values())
-    res = dict(wall_s=wall, losses=rep.losses, step_s=rep.step_times,
+    counts = kernel_counts(events)
+    n_kernels = sum(counts.values())
+    own = {k: v for k, v in own_counts(counts).items() if v}
+    res = dict(wall_s=wall, losses=rep.losses, refit=refit,
+               step_s=rep.step_times,
                launches=launches, ovsf_gemm_per_step=per_step,
                by_kernel=by_kernel, peak_allocated_gib=peak / 2**30,
                state_gib=state_bytes / 2**30,
                save_snapshot_s=rep.save_snapshot_s,
                save_write_s=rep.save_write_s, step_ms=step_ms,
                grad_ms=grad_ms, update_ms=update_ms, busy_ms=busy or None,
-               idle_share=idle, kernels=n_kernels, top=top)
+               idle_share=idle, kernels=n_kernels, own_kernels=own,
+               top=top)
     print(f"{tag} {cfg.name} bf16, {cfg.n_layers} layers, B {TRAIN_BATCH} "
           f"S {TRAIN_SEQ}: {rep.steps_run} steps in {wall:.1f}s, loss "
           f"{rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}; ovsf_gemm "
@@ -6736,13 +6831,26 @@ def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
           f"supervisor's clock); a profiled step: wall {step_ms:.1f} ms "
           f"(loss and gradients {grad_ms:.1f}, AdamW {update_ms:.1f}), "
           f"device busy {busy:.1f} ms, idle share {idle}, {n_kernels} "
-          f"kernels; top {[(round(a, 2), b, c) for a, b, c in top]}; peak "
+          f"kernels (the profiler's of ours: {own}); top "
+          f"{[(round(a, 2), b, c) for a, b, c in top]}; peak "
           f"memory_allocated {peak / 2**30:.2f} GiB; state "
           f"{state_bytes / 2**30:.2f} GiB; saves: host copy "
           f"{[round(v, 2) for v in rep.save_snapshot_s]} s + write "
           f"{[round(v, 2) for v in rep.save_write_s]} s ({card})",
           flush=True)
     return res, params
+
+
+def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
+    """Phase 13 (2): ``launcher_run`` of TinyLlama-1.1B at full width and
+    depth, ``TRAIN_STEPS`` steps, checkpoints every ``TRAIN_SAVE_EVERY``:
+    ``ovsf_gemm`` 2 x 110 launches a step (the forward's 5 projections x
+    22 layers, again in the backward's recompute; the segmented backward
+    launches no kernel), all on the tensor-core kernel. Returns (result,
+    trained params)."""
+    return launcher_run(seed, card, dev, os.path.join(tmp, "launcher"),
+                        TRAIN_ARCH, TRAIN_STEPS, TRAIN_SAVE_EVERY,
+                        "[train launcher]")
 
 
 def train_serve(params, seed: int, dev) -> dict:
@@ -7107,6 +7215,316 @@ def convert_phase(seed: int, card: str, dev, kernels: dict) -> dict:
     return res
 
 
+# -- phase 15: family training ------------------------------------------------
+
+FAMILY_LAUNCH_ARCH = "zamba2_1_2b"  # launch.train at full width and depth
+FAMILY_LAUNCH_STEPS = 8             # its steps; one checkpoint, at the end
+# phase 15's learning rate: the launcher's default. The loss is gated on
+# the first batch, refitted: at initialisation Zamba2-1.2B's batches'
+# losses spread by 0.1, more than 8-12 steps move a held-out one at any
+# rate from 1e-4 to 3e-3 (PERF.md, section 6: family training)
+FAMILY_LR = 3e-4
+FAMILY_HELD_OUT = 1000              # the held-out batch's step
+# the other families' train steps on the card: full width, depth cut for
+# the script's time (0: uncut), ``FAMILY_CUT_STEPS`` steps each
+FAMILY_LAYERS = {"olmoe_1b_7b": 4, "falcon_mamba_7b": 4,
+                 "llava_next_34b": 2, "whisper_tiny": 0}
+FAMILY_CUT_STEPS = 4
+FAMILY_REPLAY_ARCH = "olmoe_1b_7b"  # the supervisor's replay at full width
+FAMILY_REPLAY_LAYERS = 1            # 2 took 55.8 s, its 6 GB saves the most
+# card vs CPU: one fp32 step, B 2, S 64, full width at these depths (the
+# hybrid at one full group of 6, so that its shared block runs; LLaVA at
+# 1 for the CPU's time)
+FAMILY_PARITY_LAYERS = {"olmoe_1b_7b": 2, "falcon_mamba_7b": 2,
+                        "zamba2_1_2b": 6, "whisper_tiny": 0,
+                        "llava_next_34b": 1}
+FAMILY_PARITY_BATCH, FAMILY_PARITY_SEQ = 2, 64
+FAMILY_FLIP_GAP = 1e-5              # a routing flip needs a near-tie
+# each family's OVSF projections in a train step: (name, d_in, d_out, the
+# count of that shape in a layer); the hybrid's are one Mamba-2 block's and
+# the shared block's. Whisper-tiny has none: every matrix has a side of
+# 384, below ``min_dim`` 512
+FAMILY_TRAIN_GEMMS = {
+    "olmoe_1b_7b": (("q k v o", 2048, 2048, 4),),
+    "falcon_mamba_7b": (("in_proj", 4096, 16384, 1),
+                        ("out_proj", 8192, 4096, 1)),
+    "zamba2_1_2b": (("in_proj", 2048, 8384, 1), ("out_proj", 4096, 2048, 1),
+                    ("shared q k v o", 2048, 2048, 4),
+                    ("shared gate up", 2048, 8192, 2),
+                    ("shared down", 8192, 2048, 1)),
+    "llava_next_34b": (("q o", 7168, 7168, 2), ("k v", 7168, 1024, 2),
+                       ("gate up", 7168, 20480, 2), ("down", 20480, 7168, 1)),
+}
+
+
+def run_family_train_kernel_checks(rng, dev) -> dict:
+    """Phase 15 (1): ``ovsf_gemm`` forward + backward (``OvsfGemmFn``) at
+    each family's training projections, M = B S = 1024, bf16
+    (``train_gemm_row``, as phase 13's TinyLlama rows), each distinct
+    (d_in, d_out) once. A family's summary sums its projections, each
+    shape times its count in a layer."""
+    M = TRAIN_BATCH * TRAIN_SEQ
+    rows: dict = {}
+    for fam, projs in FAMILY_TRAIN_GEMMS.items():
+        for name, K, N, _n in projs:
+            if (K, N) not in rows:
+                rows[(K, N)] = train_gemm_row(
+                    rng, dev, M, K, N, f"[family train kernel] ovsf_gemm "
+                    f"{fam} {name} M={M} {K}->{N} bf16")
+    summary = {}
+    for fam, projs in FAMILY_TRAIN_GEMMS.items():
+        mine = [(n, rows[(K, N)]) for _nm, K, N, n in projs]
+        tot = {k: sum(n * r[k] for n, r in mine) for k in
+               ("ms", "forward_ms", "forward_bound_ms", "plain_ms",
+                "library_ms", "bound_ms")}
+        tot["max_abs_err"] = max(r["max_abs_err"] for _n, r in mine)
+        tot["bound_by"] = max(mine, key=lambda nr: nr[1]["bound_ms"])[1][
+            "bound_by"]
+        summary[fam] = tot
+        print(f"[family train kernel] {fam}: a layer's projections, forward"
+              f" + backward {tot['ms']:.4f} ms (the kernel's forward "
+              f"{tot['forward_ms']:.4f}, bound {tot['forward_bound_ms']:.4f})"
+              f", plain {tot['plain_ms']:.4f}, matmul on dense W "
+              f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} ms "
+              f"({tot['bound_by']}; {tot['ms'] / tot['bound_ms']:.1f}x)",
+              flush=True)
+    return dict(rows=list(rows.values()), summary=summary)
+
+
+def routing_flips(card: list, cpu: list, k: int) -> tuple:
+    """Card vs CPU routing of one train step's MoE blocks (``card``,
+    ``cpu``: one ``routing_recorder`` record a block, in order): the first
+    block whose ordered top-k or kept mask differs, and each token there
+    whose ordered choices differ, with the smallest gap between adjacent
+    sorted probabilities from the first differing rank to rank k + 1 on
+    each side (a swap needs a near-tie among them). Later blocks read what
+    the difference changed and are not compared. Returns (flips, the
+    block or None); a block that differs only in its kept masks raises."""
+    for layer, (a, b) in enumerate(zip(card, cpu)):
+        if torch.equal(a["gate_idx"], b["gate_idx"]):
+            if not torch.equal(a["keep"], b["keep"]):
+                raise RuntimeError(f"[family parity] block {layer}: the "
+                                   "kept masks differ with equal routing")
+            continue
+        flips = []
+        diff = (a["gate_idx"] != b["gate_idx"]).any(-1)
+        for grp, t in diff.nonzero().tolist():
+            first = int((a["gate_idx"][grp, t] != b["gate_idx"][grp, t])
+                        .nonzero()[0])
+            gap = []
+            for p in (a["probs"], b["probs"]):
+                v = p[grp, t].sort(descending=True).values
+                gap.append(float((v[first:k] - v[first + 1:k + 1]).min()))
+            flips.append(dict(layer=layer, group=grp, token=t, rank=first,
+                              gap_card=gap[0], gap_cpu=gap[1]))
+        return flips, layer
+    return [], None
+
+
+def family_parity(seed: int, dev) -> dict:
+    """Phase 15 (2): one fp32 train step of each family at full width and
+    ``FAMILY_PARITY_LAYERS`` layers (remat off; B 2, S 64; random frames
+    and image embeddings from the seed), on the card (planned ``fused``:
+    the CUDA-core ``ovsf_gemm``; expert banks regenerated) and on the CPU
+    from the same state, under ``spectral`` there (the exact
+    activation-transform identity as plain tensor code: at these widths
+    ``materialize``'s dense W and its gradient took 23-45 s a family on
+    the CPU): the loss within 1e-5 relative,
+    every gradient leaf and updated param within 1e-3 relative L2. The
+    MoE's routing is compared first (``routing_flips``): a flip whose gap
+    exceeds ``FAMILY_FLIP_GAP`` on either side fails; a permitted flip is
+    printed, the step's gradient gate waived and its loss held to 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import moe
+    from repro_torch.train import optim, steps
+    cpu_dev = torch.device("cpu")
+    B, S = FAMILY_PARITY_BATCH, FAMILY_PARITY_SEQ
+    res = {}
+    for arch, n in FAMILY_PARITY_LAYERS.items():
+        cfg = get_config(arch).replace(dtype="float32", remat=False)
+        if n:
+            cfg = cfg.replace(n_layers=n)
+        card = steps.train_state_init(cfg, seed, dev)
+        cpu = optim.tree_map(lambda _p, t: t.to(cpu_dev), card)
+        rng = np.random.default_rng(seed + 15)
+        batch = {"tokens": TokenStream(cfg.vocab, S, B, seed=seed)
+                 .batch_at(0)["tokens"]}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (B, cfg.encoder_seq, cfg.d_model), np.float32)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = 0.1 * rng.standard_normal(
+                (B, min(cfg.vlm_image_tokens, S // 2), cfg.d_model),
+                np.float32)
+        ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+        out, secs = {}, {}
+        spectral = cfg.replace(ovsf=dataclasses.replace(
+            cfg.ovsf, exec_path="spectral"))
+        for name, st, d in (("card", card, dev), ("cpu", cpu, cpu_dev)):
+            records, recording = routing_recorder()
+            route, moe.route = moe.route, recording
+            try:
+                c = steps.planned_cfg(spectral, d, (B, S))
+                b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+                t0 = time.perf_counter()
+                loss, m, g = steps.loss_and_grads(c, st["params"], b)
+                new_p, _o, _m = optim.adamw_update(ocfg, g, st["opt"],
+                                                   st["params"])
+                loss = float(loss)
+                secs[name] = time.perf_counter() - t0
+            finally:
+                moe.route = route
+            out[name] = (loss, float(m["aux"]), optim.tree_leaves(g),
+                         optim.tree_leaves(new_p), records)
+            del st, g, new_p, b
+        del card, cpu
+        (lc, ac, gc_, pc, rc), (lh, ah, gh, ph, rh) = out["card"], out["cpu"]
+        flips, block = routing_flips(rc, rh, cfg.top_k) if rc else ([], None)
+        loss_err = abs(lc - lh) / abs(lh)
+        aux_err = abs(ac - ah) / abs(ah) if ah else abs(ac)
+        g_err = max(rel_l2(a, b) for a, b in zip(gc_, gh) if a is not None)
+        p_err = max(rel_l2(a.float(), b.float()) for a, b in zip(pc, ph)
+                    if a.is_floating_point())
+        big = [f for f in flips if max(f["gap_card"], f["gap_cpu"])
+               > FAMILY_FLIP_GAP]
+        loss_limit = 1e-4 if flips else 1e-5
+        print(f"[family parity] {arch} fp32, {cfg.n_layers} layers, B {B} S "
+              f"{S}: loss {lc:.6f} vs CPU {lh:.6f} ({loss_err:.2e}, limit "
+              f"{loss_limit:.0e}), aux {ac:.6f} vs {ah:.6f} ({aux_err:.2e}),"
+              f" gradients {g_err:.2e}, updated params {p_err:.2e} (limit "
+              f"1e-3{', waived: a near-tie flip' if flips else ''}); "
+              f"routing flips {flips} (first differing block {block}); card"
+              f" {secs['card']:.1f}s, CPU {secs['cpu']:.1f}s", flush=True)
+        if big or not (loss_err <= loss_limit and (
+                flips or (g_err <= 1e-3 and p_err <= 1e-3))):
+            raise RuntimeError(f"[family parity] {arch}: loss {loss_err}, "
+                               f"gradients {g_err}, params {p_err}, flips "
+                               f"{flips} (gap limit {FAMILY_FLIP_GAP})")
+        res[arch] = dict(layers=cfg.n_layers, loss_err=loss_err,
+                         aux_err=aux_err, grad_err=g_err, param_err=p_err,
+                         flips=flips, card_s=secs["card"], cpu_s=secs["cpu"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def family_train_cut(seed: int, card: str, dev) -> dict:
+    """Phase 15 (5): OLMoE-1B-7B, Falcon-Mamba-7B, LLaVA-NeXT-34B (full
+    width, ``FAMILY_LAYERS`` deep) and Whisper-tiny (uncut) through
+    ``steps.make_train_step``, bf16, B 8, S 128, remat, planned ``fused``,
+    ``FAMILY_CUT_STEPS`` steps at ``FAMILY_LR`` with the launcher's family
+    inputs: finite losses, the loss of the first batch after the steps
+    (``make_eval_step``) below its loss at the first step (see
+    ``FAMILY_LR``; a held-out batch's printed), ``train_gemms_per_step``
+    launches a step, all on the
+    tensor-core kernel (Whisper none); step wall and peak
+    ``memory_allocated`` printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.launch.train import family_inputs
+    from repro_torch.train import optim, steps
+    res = {}
+    for arch, n in FAMILY_LAYERS.items():
+        cfg = get_config(arch)
+        if n:
+            cfg = cfg.replace(n_layers=n)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = steps.train_state_init(cfg, seed, dev)
+        per_step = train_gemms_per_step(cfg, state["params"])
+        state_gib = sum(t.numel() * t.element_size() for t in
+                        optim.tree_leaves(state)) / 2**30
+        # the cosine's end well past the run: the rate stays near its peak
+        fn = steps.make_train_step(cfg, optim.OptConfig(
+            lr=FAMILY_LR, warmup_steps=1, total_steps=4 * FAMILY_CUT_STEPS))
+        stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+        extra = family_inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+        losses, walls = [], []
+        reset_wrapper_counts()
+        for s in range(FAMILY_CUT_STEPS):
+            t0 = time.perf_counter()
+            state, m = fn(state, {**stream.batch_at(s), **extra})
+            losses.append(float(m["total_loss"]))
+            walls.append(time.perf_counter() - t0)
+        launches = wrapper_counts()
+        on_tc = G.ovsf_gemm.launches_by_kernel["tensor_core"]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ev = steps.make_eval_step(cfg)
+        after, held = (float(ev(state["params"], {
+            **stream.batch_at(s), **extra})["total_loss"])
+            for s in (0, FAMILY_HELD_OUT))
+        want = dict.fromkeys(launches, 0)
+        want["ovsf_gemm"] = per_step * FAMILY_CUT_STEPS
+        tag = f"[family train] {arch}"
+        print(f"{tag} bf16, {cfg.n_layers} layers, B {TRAIN_BATCH} S "
+              f"{TRAIN_SEQ}: loss {' '.join(f'{v:.4f}' for v in losses)}; "
+              f"the first batch's {losses[0]:.4f} -> {after:.4f}, a "
+              f"held-out batch's {held:.4f}; "
+              f"ovsf_gemm {per_step} a step ({launches['ovsf_gemm']} in "
+              f"{FAMILY_CUT_STEPS}, {on_tc} on the tensor-core kernel); "
+              f"step wall median {statistics.median(walls[1:]) * 1e3:.1f} "
+              f"ms (first {walls[0] * 1e3:.1f}); state {state_gib:.2f} GiB,"
+              f" peak memory_allocated {peak:.2f} GiB ({card})", flush=True)
+        if (not all(math.isfinite(v) for v in losses + [after])
+                or not after < losses[0] or launches != want
+                or on_tc != launches["ovsf_gemm"]):
+            raise RuntimeError(f"{tag}: losses {losses}, launches "
+                               f"{launches} (want {want}, tensor-core "
+                               f"{on_tc})")
+        res[arch] = dict(layers=cfg.n_layers, losses=losses,
+                         first_batch_after=after, held_out=held,
+                         step_s=walls,
+                         launches=launches, ovsf_gemm_per_step=per_step,
+                         state_gib=state_gib, peak_allocated_gib=peak)
+        del state, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def family_train_phase(seed: int, card: str, dev) -> dict:
+    """Phase 15 (module docstring): the MoE, SSM, hybrid, encoder-decoder
+    and VLM families' training on the card."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    rng = np.random.default_rng(seed + 47)
+    res = dict(kernels=timed("kernels", run_family_train_kernel_checks, rng,
+                             dev))
+    res["parity"] = timed("parity", family_parity, seed, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_train_")
+    try:
+        res["supervisor"] = timed(
+            "supervisor", train_supervised, seed, dev, tmp,
+            FAMILY_REPLAY_ARCH, FAMILY_REPLAY_LAYERS, "[family supervisor]",
+            True)
+        res["launcher"], params = timed(
+            "launcher", launcher_run, seed, card, dev,
+            os.path.join(tmp, "launcher"), FAMILY_LAUNCH_ARCH,
+            FAMILY_LAUNCH_STEPS, FAMILY_LAUNCH_STEPS, "[family launcher]",
+            FAMILY_LR, True)
+        del params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["cut"] = timed("cut", family_train_cut, seed, card, dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["seconds"] = secs
+    print(f"[family train] phase passed in {res['wall_s']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7252,6 +7670,9 @@ def main(argv=None) -> int:
     mark("train")
     conv = convert_phase(args.seed, card, dev, conv_kernels)
     mark("convert")
+    fam = family_train_phase(args.seed, card, dev)
+    mark("family_train")
+    fk = fam["kernels"]["summary"]
     tk = train["kernels"]
     lm_train = {k: sum(r[k] for r in tk["lm"]) for k in
                 ("ms", "forward_ms", "forward_bound_ms", "plain_ms",
@@ -7396,7 +7817,19 @@ def main(argv=None) -> int:
              "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
              "src/repro/kernels/ovsf_gemm.py:256",
              conv["kernels"]["summary"]["int4"],
-             conv["int4"]["launch_totals"]["ovsf_decompress"])):
+             conv["int4"]["launch_totals"]["ovsf_decompress"]),
+            ("ovsf_gemm_train_olmoe", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", fk["olmoe_1b_7b"],
+             fam["cut"]["olmoe_1b_7b"]["launches"]["ovsf_gemm"]),
+            ("ovsf_gemm_train_falcon_mamba", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", fk["falcon_mamba_7b"],
+             fam["cut"]["falcon_mamba_7b"]["launches"]["ovsf_gemm"]),
+            ("ovsf_gemm_train_zamba2", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", fk["zamba2_1_2b"],
+             fam["launcher"]["launches"]["ovsf_gemm"]),
+            ("ovsf_gemm_train_llava", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", fk["llava_next_34b"],
+             fam["cut"]["llava_next_34b"]["launches"]["ovsf_gemm"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -7586,7 +8019,19 @@ def main(argv=None) -> int:
                                                "layers (phase 14)",
                        "ovsf_decompress_int4": "the same, packed int4; "
                                                "launches: the int4 run at "
-                                               "6 layers (phase 14)"},
+                                               "6 layers (phase 14)",
+                       "ovsf_gemm_train_*": "a family's OVSF projections "
+                                            "of one layer at M=1024 bf16, "
+                                            "forward + backward, summed "
+                                            "(FAMILY_TRAIN_GEMMS: OLMoE's "
+                                            "q, k, v, o; Falcon-Mamba's "
+                                            "in / out; a Zamba2 Mamba-2 "
+                                            "block's in / out and its "
+                                            "shared block's seven; "
+                                            "LLaVA's seven); launches: "
+                                            "phase 15's train runs (Zamba2:"
+                                            " launch.train at 38 layers; "
+                                            "the others at FAMILY_LAYERS)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
@@ -7594,7 +8039,7 @@ def main(argv=None) -> int:
                    "cnn": cnns, "calibration": calib, "chaos": chaos,
                    "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
                    "encdec_vlm": ev_res, "train": train,
-                   "convert": conv,
+                   "convert": conv, "family_train": fam,
                    "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)

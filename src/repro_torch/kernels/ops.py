@@ -287,12 +287,13 @@ def decompress_bank(alphas: torch.Tensor, idx: torch.Tensor,
     on any device (the reference's is plain jnp; the expert path is the
     one caller that runs it off the CPU); monolithic codes decompress the
     experts side by side as the columns of one (J, E * d_out) matrix
-    through ``ovsf_decompress`` (each column's transform is its own)."""
+    through ``ovsf_decompress`` (each column's transform is its own;
+    differentiable where autograd records the alphas)."""
     E, J, d_out = alphas.shape
     if idx.dim() == 2:
         return _segmented_decompress(alphas, idx, d_in)
     cols = alphas.permute(1, 0, 2).reshape(J, E * d_out)
-    W = ovsf_decompress(cols, idx, d_in)                  # (d_in, E*d_out)
+    W = ovsf_decompress_fn(cols, idx, d_in)               # (d_in, E*d_out)
     return W.reshape(d_in, E, d_out).permute(1, 0, 2)
 
 

@@ -12,10 +12,14 @@ come from ``data.synthetic.TokenStream`` (a pure function of seed and
 step, so a replayed step sees its batch again), checkpoints go to
 ``--ckpt`` every ``--save-every`` steps and at the end (a run pointed at a
 directory with checkpoints resumes from the latest), each verified by CRC
-on restore unless ``--no-verify-ckpt``. The dense family trains; the
-others, and quantised alphas, are refused (ROADMAP A.8.1, A.8.3). Prints
-the reference's lines (``[train] params``, ``[train] done: ... first loss
-... last loss``) and each save's seconds.
+on restore unless ``--no-verify-ckpt``. Every family trains; an
+encoder-decoder's batches carry zero ``frames`` (B, ``encoder_seq``, d)
+and a VLM's zero ``image_embeds`` (B, min(``vlm_image_tokens``, S // 2),
+d), in the model dtype on the device, as the reference's launcher builds
+them, in every batch the supervisor draws (a replayed step too).
+Quantised alphas are refused (ROADMAP A.8.3). Prints the reference's lines
+(``[train] params``, ``[train] done: ... first loss ... last loss``) and
+each save's seconds.
 """
 from __future__ import annotations
 
@@ -23,12 +27,29 @@ import argparse
 import os
 import tempfile
 
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.models import registry as R
 from repro_torch.runtime import supervisor
 from repro_torch.train import optim, steps
+
+
+def family_inputs(cfg, batch: int, seq: int, device) -> dict:
+    """The reference launcher's extra batch keys, zeros in the model dtype:
+    an encoder-decoder's ``frames`` (batch, ``encoder_seq``, d), a VLM's
+    ``image_embeds`` (batch, min(``vlm_image_tokens``, seq // 2), d)."""
+    shape = None
+    if cfg.family == "encdec":
+        name, shape = "frames", (batch, cfg.encoder_seq, cfg.d_model)
+    elif cfg.family == "vlm":
+        name = "image_embeds"
+        shape = (batch, min(cfg.vlm_image_tokens, seq // 2), cfg.d_model)
+    if shape is None:
+        return {}
+    return {name: torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
 
 
 def main(argv=None):
@@ -69,11 +90,15 @@ def main(argv=None):
                            total_steps=args.steps)
     fn = steps.make_train_step(cfg, ocfg)
     stream = TokenStream(cfg.vocab, args.seq, args.batch, seed=args.seed)
+    extra = family_inputs(cfg, args.batch, args.seq, dev)
+
+    def batch_at(step: int) -> dict:
+        return {**stream.batch_at(step), **extra}
+
     scfg = supervisor.SupervisorConfig(ckpt_dir=args.ckpt,
                                        save_every=args.save_every,
                                        verify_ckpt=not args.no_verify_ckpt)
-    state, report = supervisor.run(fn, state, stream.batch_at, args.steps,
-                                   scfg)
+    state, report = supervisor.run(fn, state, batch_at, args.steps, scfg)
     print(f"[train] done: steps={report.steps_run} failures="
           f"{report.failures} first loss={report.losses[0]:.4f} last loss="
           f"{report.losses[-1]:.4f}", flush=True)

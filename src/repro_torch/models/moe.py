@@ -19,8 +19,14 @@ the reference's dataflow: ``spectral`` transforms the dispatched
 activations once and contracts each expert's alphas; every other plan
 (``fused`` included: the reference has no per-expert generate-and-multiply
 kernel) regenerates the bank's dense W (``kernels.ops.decompress_bank``,
-through the decompress cache when the plan caches), then one batched
-product.
+through the decompress cache when the plan caches and autograd records
+no alphas), then one batched product.
+
+Under autograd (the train step) the gradients reach the router through
+the renormalised top-k gates (the sorted probabilities, as ``lax.top_k``'s
+values carry them) and the aux loss's mean probabilities; the one-hot
+dispatch, the queue positions and the aux's choice counts carry none, as
+in the reference.
 
 ``per_row=True`` routes each batch row as its own set of groups: the
 reference's contiguous decode and window steps vmap ``moe_apply`` over the
@@ -93,7 +99,9 @@ def _expert_matmul(p: dict, x: torch.Tensor, cfg: ModelConfig,
         xk = kops.spectral_transform(x, idx)                 # (G, E, C, J)
         return torch.einsum("gecj,ejn->gecn", xk, al.to(xk.dtype))
     d_in = x.shape[-1]
-    if plan is not None and plan.cache_weights:
+    # a cached W would carry a finished step's graph
+    records = torch.is_grad_enabled() and al.requires_grad
+    if plan is not None and plan.cache_weights and not records:
         W = kops.cached_decompress(al, idx, d_in,
                                    cache_key=plan.cache_key or name)
     else:

@@ -51,9 +51,17 @@ them out.
 
 ``model_apply`` and ``lm_loss`` are the training forward and loss over a
 whole (B, S) sequence with no cache (causal attention at positions
-``arange(S)``); each block runs under ``torch.utils.checkpoint`` when
-``cfg.remat`` and ``train``, as the reference's ``jax.checkpoint``. They
-take the dense family; the others refuse (ROADMAP A.8.1).
+``arange(S)``, nothing written in place), for every family: a MoE block
+returns its load-balance aux, summed over the stack in fp32; the Mamba
+blocks run their chunked scans from a zero state; the hybrid applies its
+shared block after each full group; an encoder-decoder batch's
+``frames`` run the encoder, and each decoder layer's cross attention
+reads ``make_cross_cache`` of its output; a VLM batch's
+``image_embeds`` take the first positions. When ``cfg.remat`` and
+``train``, each stacked block (the encoder's included) runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` wraps
+its scan bodies; the hybrid's shared block is applied outside it, as the
+reference applies it.
 
 The steps return ``pos`` as a new tensor, as the reference does; a caller
 that replays a step as a CUDA graph copies it into its own (the engine).
@@ -116,15 +124,16 @@ def _layer(cache: dict, li: int) -> dict:
 
 
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, *,
-           per_row: bool = False, cross=None, **kw) -> torch.Tensor:
-    """Pre-norm attention + MLP (or MoE) block; ``attn`` is one of the
-    attention functions of ``models.attention`` over the layer's cache,
-    called with ``kw``. A ``mids`` entry of ``kw`` ((T,) variant ids of a
-    packed stream) reaches the attention's and the MLP's linears.
-    ``per_row`` routes a MoE block's rows alone (module docstring). A
-    decoder layer of the encoder-decoder runs its cross sub-block after
-    the self-attention: ``cross(p["cross"], h)`` over its normed
-    features."""
+           per_row: bool = False, cross=None, **kw
+           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-norm attention + MLP (or MoE) block: (x, the MoE block's fp32
+    aux loss, or None). ``attn`` is one of the attention functions of
+    ``models.attention`` over the layer's cache (or none), called with
+    ``kw``. A ``mids`` entry of ``kw`` ((T,) variant ids of a packed
+    stream) reaches the attention's and the MLP's linears. ``per_row``
+    routes a MoE block's rows alone (module docstring). A decoder layer of
+    the encoder-decoder runs its cross sub-block after the self-attention:
+    ``cross(p["cross"], h)`` over its normed features."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     y, _ = attn(p["attn"], cfg, h, **kw)
     x = x + y
@@ -133,12 +142,12 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, attn, *,
         x = x + cross(p["cross"], h)
     h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        y, _aux = M.moe_apply(p["moe"], cfg, h, per_row=per_row)
-        return x + y
+        y, aux = M.moe_apply(p["moe"], cfg, h, per_row=per_row)
+        return x + y, aux
     mids = kw.get("mids")
     # mids is (T,); the MLP's activations are (1, T, d)
     return x + _mlp_apply(p["mlp"], cfg, h,
-                          None if mids is None else mids[None, :])
+                          None if mids is None else mids[None, :]), None
 
 
 def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -230,18 +239,25 @@ def init_cache(cfg: ModelConfig, B: int, T: int, device
     return out
 
 
-def _mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                 li: int) -> torch.Tensor:
-    """Pre-norm Mamba block of layer ``li`` (Mamba-1 for the SSM family,
-    Mamba-2 for the hybrid); its new ``conv`` / ``ssm`` state copied into
-    layer ``li`` of the cache in place."""
+def _mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: Optional[dict] = None) -> torch.Tensor:
+    """Pre-norm Mamba block (Mamba-1 for the SSM family, Mamba-2 for the
+    hybrid). With ``state`` (one layer's ``conv`` / ``ssm`` of a serving
+    cache) the scan starts from it and the new state is copied into it in
+    place; without, the block is cache-free (the training forward: a zero
+    state, nothing written)."""
     h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     fn = SSM.mamba1_apply if cfg.family == "ssm" else SSM.mamba2_apply
-    state = {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
     y, new = fn(p["mamba"], cfg, h, cache=state)
-    for name in ("conv", "ssm"):
-        state[name].copy_(new[name])
+    if state is not None:
+        for name in ("conv", "ssm"):
+            state[name].copy_(new[name])
     return x + y
+
+
+def _state_at(cache: dict, li: int) -> dict:
+    """Layer ``li``'s recurrent state (views into the cache)."""
+    return {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
 
 
 def _kv_layer(cache: dict, i: int) -> dict:
@@ -263,16 +279,31 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor
-            ) -> torch.Tensor:
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant: its
+    activations recomputed in the backward) when ``on``."""
+    if on:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _encoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    return _block(p, cfg, x, A.attn_apply, positions=positions,
+                  mode="bidir")[0]
+
+
+def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
     """The encoder over (B, Tf, d) stub audio frames, cast to the model
-    dtype: bidirectional attention + MLP blocks at positions ``arange(Tf)``,
-    then the encoder's norm."""
+    dtype: bidirectional attention + MLP blocks at positions ``arange(Tf)``
+    (each under ``torch.utils.checkpoint`` with ``remat``), then the
+    encoder's norm."""
     x = frames.to(cfg.act_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for p in params["encoder"]["blocks"]:
-        x = _block(p, cfg, x, A.attn_apply, positions=positions,
-                   mode="bidir")
+        x = _remat(remat, _encoder_block, p, cfg, x, positions)
     return L.rmsnorm_apply(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
@@ -302,23 +333,24 @@ def _trunk(params: dict, cfg: ModelConfig, cache: dict,
     x = _embed_inputs(params, cfg, tokens, image_embeds)        # (B, S, d)
     if cfg.family == "ssm":
         for li, p in enumerate(params["blocks"]):
-            x = _mamba_block(p, cfg, x, cache, li)
+            x = _mamba_block(p, cfg, x, _state_at(cache, li))
         return x
     if cfg.family == "hybrid":
         app = 0
         for i, j, attn_after in _hybrid_groups(cfg):
             for li in range(i, j):
-                x = _mamba_block(params["blocks"][li], cfg, x, cache, li)
+                x = _mamba_block(params["blocks"][li], cfg, x,
+                                 _state_at(cache, li))
             if attn_after:
-                x = _block(params["shared_attn"], cfg, x, A.attn_apply,
-                           positions=positions, cache=_kv_layer(cache, app),
-                           cache_pos=pos0)
+                x, _ = _block(params["shared_attn"], cfg, x, A.attn_apply,
+                              positions=positions,
+                              cache=_kv_layer(cache, app), cache_pos=pos0)
                 app += 1
         return x
     for li, p in enumerate(params["blocks"]):
-        x = _block(p, cfg, x, A.attn_apply, per_row=per_row,
-                   cross=_cross_at(cfg, cache, li), positions=positions,
-                   cache=_layer(cache, li), cache_pos=pos0)
+        x, _ = _block(p, cfg, x, A.attn_apply, per_row=per_row,
+                      cross=_cross_at(cfg, cache, li), positions=positions,
+                      cache=_layer(cache, li), cache_pos=pos0)
     return x
 
 
@@ -432,9 +464,9 @@ def _packed_trunk(params: dict, cfg: ModelConfig, cache: dict,
     ``emit_idx`` only."""
     x = L.embed_apply(params["embed"], tokens[None])           # (1, T, d)
     for li, p in enumerate(params["blocks"]):
-        x = _block(p, cfg, x, attn, cross=_packed_cross_at(cfg, cache, li,
-                                                           kw),
-                   cache=_layer(cache, li), **kw)
+        x, _ = _block(p, cfg, x, attn,
+                      cross=_packed_cross_at(cfg, cache, li, kw),
+                      cache=_layer(cache, li), **kw)
     feats = x[0][emit_idx.long()]                               # (B, d)
     logits = _unembed(params, cfg, feats[None])[0]              # (B, vocab)
     new_cache = dict(cache)
@@ -596,19 +628,52 @@ LOSS_CHUNK = 1024   # sequence positions per unembed + CE chunk
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The families this port trains: dense only."""
+    """The families this port trains: all six."""
     _check_family(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (ROADMAP "
-            "A.8.1: MoE aux, SSM and hybrid scans, encoder frames and the "
-            "VLM prefix come with it); the dense family trains")
 
 
 def _train_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    return _block(p, cfg, x, A.attn_apply, positions=positions,
-                  mode="causal")
+                 positions: torch.Tensor, enc_out: Optional[torch.Tensor]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One attention block of the training forward: (x, its fp32 aux, 0
+    but for a MoE block). An encoder-decoder layer's cross attention reads
+    ``make_cross_cache`` of ``enc_out`` (recomputed with the block under
+    remat, so its gradient reaches the encoder); without frames it reads
+    the block's own normed features, as the reference's ``kv_src=None``
+    does (copied; ROADMAP C)."""
+    def cross(pc, h):
+        kv = A.make_cross_cache(pc, cfg, h if enc_out is None else enc_out)
+        return A.cross_attend(pc, cfg, h, kv["k"], kv["v"])
+    x, aux = _block(p, cfg, x, A.attn_apply, cross=cross,
+                    positions=positions, mode="causal")
+    return x, (x.new_zeros((), dtype=torch.float32) if aux is None
+               else aux)
+
+
+def _train_trunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, enc_out: Optional[torch.Tensor],
+                 remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cache-free stack over (B, S, d) ``x``: (features, the aux
+    summed over the blocks in fp32, in layer order)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    if cfg.family in _RECURRENT:
+        blocks = params["blocks"]
+        groups = (_hybrid_groups(cfg) if cfg.family == "hybrid"
+                  else [(0, len(blocks), False)])
+        for i, j, attn_after in groups:
+            for li in range(i, j):
+                x = _remat(remat, _mamba_block, blocks[li], cfg, x)
+            if attn_after:
+                # applied as it is, never rematerialised: its gradient
+                # sums over its applications
+                x, a = _train_block(params["shared_attn"], cfg, x,
+                                    positions, None)
+                aux = aux + a
+        return x, aux
+    for p in params["blocks"]:
+        x, a = _remat(remat, _train_block, p, cfg, x, positions, enc_out)
+        aux = aux + a
+    return x, aux
 
 
 def model_apply(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -616,21 +681,22 @@ def model_apply(params: dict, cfg: ModelConfig, batch: dict, *,
                 ) -> tuple[torch.Tensor, None, torch.Tensor]:
     """Forward pass of (B, S) ``batch["tokens"]`` with no cache: (logits,
     or the final features with ``return_features``, None for the cache the
-    reference would return, the fp32 aux loss: 0 for the dense family).
-    Under ``cfg.remat and train`` each block's activations are recomputed
-    in the backward (``torch.utils.checkpoint``, non-reentrant)."""
+    reference would return, the fp32 aux loss: the MoE blocks' summed, 0
+    for the other families). The reference's batch keys: an
+    encoder-decoder's ``frames`` (B, Tf, d) run the encoder, a VLM's
+    ``image_embeds`` (B, n_img, d) take the first n_img positions. Under
+    ``cfg.remat and train`` each stacked block's activations are
+    recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant)."""
     check_trainable(cfg)
     tokens = batch["tokens"]
-    x = _embed_inputs(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_inputs(params, cfg, tokens, batch.get("image_embeds"))
     remat = cfg.remat and train
-    for p in params["blocks"]:
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _train_block, p, cfg, x, positions, use_reentrant=False)
-        else:
-            x = _train_block(p, cfg, x, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = None
+    if cfg.family == "encdec" and "frames" in batch:
+        enc_out = _encode(params, cfg, batch["frames"], remat)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, aux = _train_trunk(params, cfg, x, positions, enc_out, remat)
     out = x if return_features else _unembed(params, cfg, x)
     return out, None, aux
 

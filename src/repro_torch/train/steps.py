@@ -10,9 +10,12 @@ reference's ``allow_int``. On the card the step plans every OVSF layer
 ``fused`` through the mapper (``mapper.plan_model`` with target ``h100``
 and that one candidate), as the serving engine plans its layers: the CUDA
 ``ovsf_gemm`` is the kernel the LM's segmented codes have; on the CPU it
-dispatches by ``cfg.ovsf.exec_path``, as the reference does. Training with
-quantised alphas is refused (ROADMAP A.8.3), and so are the families
-other than dense (A.8.1).
+dispatches by ``cfg.ovsf.exec_path``, as the reference does. Every family
+trains (the MoE aux, the SSM and hybrid scans, the encoder over
+``frames``, the VLM's ``image_embeds``: ``models.transformer``); MoE's
+expert banks regenerate their W as plain tensor code under every plan, as
+the reference's do. Training with quantised alphas is refused (ROADMAP
+A.8.3).
 
 The reference's ``jit_train_step`` / ``jit_decode_step`` / ``jit_prefill``
 wrap these functions with explicit shardings over a device mesh; a single
@@ -34,8 +37,7 @@ from repro_torch.train import optim
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse what this port does not train: families other than dense,
-    and quantised alphas."""
+    """Refuse what this port does not train: quantised alphas."""
     T.check_trainable(cfg)
     if cfg.ovsf.enable and cfg.ovsf.alpha_dtype:
         raise NotImplementedError(
@@ -54,9 +56,11 @@ def train_state_init(cfg: ModelConfig, seed: int = 0, device="cuda"
 
 def planned_cfg(cfg: ModelConfig, device, tokens_shape: tuple
                 ) -> ModelConfig:
-    """``cfg`` as a step on ``device`` runs it: on CUDA every OVSF layer
-    planned ``fused`` by the mapper for a (B, S) train step; elsewhere (or
-    with a plan already, or no OVSF layer) as it is."""
+    """``cfg`` as a step on ``device`` runs it: on CUDA every OVSF weight
+    type planned ``fused`` by the mapper for a (B, S) train step (a MoE's
+    three expert types under its one collapsed entry ``e``, copied from
+    the reference; ROADMAP C); elsewhere (or with a plan already, or no
+    OVSF layer) as it is."""
     if (torch.device(device).type != "cuda" or not cfg.ovsf.enable
             or cfg.exec_plan is not None):
         return cfg
@@ -67,7 +71,8 @@ def planned_cfg(cfg: ModelConfig, device, tokens_shape: tuple
 
 
 def _on(batch: dict, device) -> dict:
-    """The batch's arrays as tensors on ``device``."""
+    """The batch's arrays (``tokens``, and an encoder-decoder's ``frames``
+    or a VLM's ``image_embeds``) as tensors on ``device``."""
     return {k: (v if isinstance(v, torch.Tensor)
                 else torch.from_numpy(np.asarray(v))).to(device)
             for k, v in batch.items()}
