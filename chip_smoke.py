@@ -242,7 +242,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              preempted, with the recompute's extra prompt tokens. (6) bf16:
              ``max_waiting=2`` sheds, a deadline expires a running request,
              ``cancel()`` frees a slot and its pages; each request finishes
-             once, with its reason. (7) the CI kill-9 line in a subprocess
+             once, with its reason. (7) the CI kill-9 line in a subprocess,
+             started after (4)'s timed steps and run beside the rest but (8)
              (``python -m repro_torch.launch.serve ... --journal DIR
              --supervise --inject die:step=3``), bf16 and ``--dtype
              float32``: exit 0, one terminal record a request in the
@@ -276,8 +277,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              prints wall, device busy and idle share beside phase 4's
              contiguous packed step, its profiled hand-written launches
              equal to the wrappers' counters. bf16 streams vs dedicated
-             spectral engines: agreement printed; in fp32 (2 replicas,
-             packed; reserved KV and graph MiB printed per replica) equal.
+             spectral engines: agreement printed; in fp32 (the pair at
+             ``GATEWAY_FP32_LAYERS``, 2 replicas, packed; reserved KV and
+             graph MiB printed per replica) equal.
              ``flip`` + scrub repair 4 times under traffic (fp32 pair,
              packed): after each, ``memory_reserved`` split by pool (the
              allocator's default pool and each graph's: segments, reserved
@@ -293,7 +295,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   10. moe:   the MoE family: ``olmoe_1b_7b`` at its published widths
              (d 2048, 16/16 heads of 128, vocab 50304, 64 experts top-8 of
              d_ff 1024, OVSF rho 0.5 on attention and experts, 16-long
-             segments), its depth cut to ``MOE_LAYERS`` (4 of 16), bf16,
+             segments), its depth cut to ``MOE_LAYERS`` (2 of 16), bf16,
              random weights from --seed.
              (1) ``paged_flash_decode`` (T 4 and 128, page 16) and
              ``flash_decode_attn`` (window decode B 4, T 128) at its heads
@@ -325,7 +327,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the dense bf16 banks'. No host clock, idle share or reserved
              memory is gated here.
   11. ssm:   the recurrent families at their published widths:
-             ``falcon_mamba_7b`` (``SSM_LAYERS``: 16 of its 64 Mamba-1
+             ``falcon_mamba_7b`` (``SSM_LAYERS``: 8 of its 64 Mamba-1
              layers, d 4096, d_inner 8192,
              N 16, vocab 65024) and ``zamba2_1_2b`` (12 of its 38 Mamba-2
              layers, d
@@ -427,7 +429,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bit for bit and a flipped byte is refused, naming its leaf. (5)
              ``python -m repro_torch.launch.train --arch tinyllama_1_1b``
              at full width and depth (``main`` in this process): 12 steps
-             of B 8, S 128, checkpoints every 6; finite losses, the last
+             of B 8, S 128, one checkpoint, at the end; finite losses, the last
              below the first, 220 ``ovsf_gemm`` launches a step (remat
              recomputes each block's forward), all on the tensor-core
              kernel; step wall, device busy, idle share, peak
@@ -472,7 +474,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ``torch.use_deterministic_algorithms``: the replay bit for
              bit (the ops that warn printed). (4) ``python -m
              repro_torch.launch.train --arch zamba2_1_2b`` at full width
-             and depth (``launcher_run``): 8 steps at ``FAMILY_LR``, one
+             and depth (``launcher_run``): 4 steps at ``FAMILY_LR``, one
              checkpoint, finite losses, the first batch's loss lower
              under the trained params (the last and a held-out one
              printed), 194 ``ovsf_gemm`` launches a step (38 Mamba-2
@@ -485,6 +487,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
              side is 384) through ``make_train_step``: the first batch's
              loss lower after the steps, the launches a step as the
              params give them, peak memory.
+  16. quant train: training with int8 / int4 alphas, and stacked
+             encoder-decoder variants (TF32 off). (1) ``OvsfGemmFn`` over
+             int8 and int4 alphas at TinyLlama-1.1B's five projections, M
+             1024: y, dx and the scales' gradient against autograd through
+             the plain version, fp32 (CUDA-core kernel, 2e-3) and bf16
+             (the tensor-core kernel's ``QUANT`` epilogue, 2e-2), bf16
+             timed beside matmul on the dequantised dense W and the bound;
+             ``OvsfDecompressFn`` over them at the converted layer's
+             shapes (monolithic codes, L up to 8192). (2) Full-width,
+             full-depth TinyLlama-1.1B with int8 alphas, bf16, B 8, S 128,
+             remat, through ``make_train_step`` under
+             ``supervisor.run`` for 12 steps, deterministic: a ``fail``
+             after the checkpoint at 10 restores it, the replayed step's
+             loss bit for bit the first pass's; 220 ``ovsf_gemm`` a step,
+             all int8 on the tensor-core kernel; the integers unchanged;
+             the first batch's loss lower under the trained params (last
+             and held-out printed); each step's wall, device busy and idle
+             share, peak memory and saves printed. (3) The int4 step at 4
+             layers. (4) A converted (monolithic int8 / int4) TinyLlama at
+             2 layers trained under ``materialize``: per OVSF linear 2
+             ``ovsf_decompress`` (epilogue) and 1 ``fwht`` a step. (5) One
+             fp32 step card vs CPU: TinyLlama at 2 layers, int8 and int4,
+             and Zamba2-1.2B at 6, int8: loss 1e-5, gradients and updated
+             params 1e-3, integers unchanged. (6) Uncut Whisper-tiny (its
+             projections made OVSF, ``WHISPER_STACK_MIN_DIM``) as two
+             variants in the gateway's stacked engine (contiguous packed,
+             chunk 64), phase 4's 8 requests split between them: fp32
+             streams equal dedicated spectral engines'; the bf16 streams,
+             step time and ``flash_decode_attn`` launches a step (self
+             and cross reads) printed.
 Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
@@ -2227,7 +2259,8 @@ def agreed_windows(calls: dict, n: int, tag: str, least: int = 2,
     more of it than it launches. Only the device is traced: host events are
     not read, and parsing them took most of a window's time."""
     from torch.profiler import ProfilerActivity, profile
-    got = {r: dict(first=None, counts={}, wrappers=None) for r in calls}
+    got = {r: dict(first=None, counts={}, wrappers=None, each=[])
+           for r in calls}
     for w in range(1, most + 1):
         for route, call in calls.items():
             with profile(activities=[ProfilerActivity.CUDA],
@@ -2249,7 +2282,8 @@ def agreed_windows(calls: dict, n: int, tag: str, least: int = 2,
             g["wrappers"] = wrappers
             kern = device_events(prof)
             g["first"] = kern if g["first"] is None else g["first"]
-            for k, c in kernel_counts(kern).items():
+            g["each"].append(kernel_counts(kern))
+            for k, c in g["each"][-1].items():
                 g["counts"][k] = max(g["counts"].get(k, 0), c)
         counts = [g["counts"] for g in got.values()]
         if w >= least and all(c == counts[0] for c in counts) and all(
@@ -3247,9 +3281,13 @@ def cnn_graph_phase(tag: str, params, state, cfg, x, logits, want: dict,
     diff = ("not measured" if got["by_name"] is None
             else count_diff(got["by_name"], eager["by_name"]))
     if got["kernels"] != eager["kernels"]:
+        names = [k for k in set(got["by_name"]) | set(eager["by_name"])
+                 if got["by_name"].get(k) != eager["by_name"].get(k)]
+        each = {k: {r: [c.get(k, 0) for c in windows[r]["each"]]
+                    for r in windows} for k in names}
         raise RuntimeError(f"{tag} profiler kernels per forward: graph "
                            f"{got['kernels']}, eager {eager['kernels']}; "
-                           f"differing: {diff}")
+                           f"differing: {diff}; by window: {each}")
     big = fwd(x)
     one = x[:1].clone()
     fwd(one)                            # captures the second batch
@@ -3946,20 +3984,15 @@ def journal_records(path: str) -> dict:
     return count
 
 
-def chaos_kill9(seed: int, dev, cfg, params, x_name: str, out_dir: str
-                ) -> dict:
-    """``ci.yml``'s kill-9 line at full width on the card, in a subprocess:
+def chaos_kill9_start(seed: int, x_name: str, out_dir: str) -> dict:
+    """``ci.yml``'s kill-9 line at full width on the card, started as a
+    subprocess in a session of its own (``--supervise`` starts a child):
     ``python -m repro_torch.launch.serve --arch tinyllama_1_1b --requests 6
     --max-new 8 --chunk-size 8 --temperature 0.8 --top-k 20 --journal DIR
     --supervise --inject die:step=3`` (``--dtype float32`` for the fp32
-    run). It must exit 0 with each request finished exactly once in its
-    journal; its streams are held against the same requests in this
-    process without the kill: equal in fp32, the count that agree printed
-    in bf16 (the recomputed context rounds otherwise than the first pass
-    did)."""
+    run); its output to a log under ``out_dir``. ``chaos_kill9_finish``
+    waits for it."""
     import shutil
-    from repro_torch.serving import RequestJournal
-    tag = f"[chaos {x_name} kill-9]"
     jdir = os.path.join(out_dir, f"chaos_journal_{x_name}")
     shutil.rmtree(jdir, ignore_errors=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
@@ -3970,26 +4003,61 @@ def chaos_kill9(seed: int, dev, cfg, params, x_name: str, out_dir: str
     if x_name == "fp32":
         cmd += ["--dtype", "float32"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0 or "restart #1" not in log:
-        raise RuntimeError(f"{tag} exit {res.returncode}:\n{log[-4000:]}")
+    path = os.path.join(out_dir, f"chaos_kill9_{x_name}.log")
+    log = open(path, "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    return dict(x_name=x_name, proc=proc, t0=time.perf_counter(),
+                jdir=jdir, path=path, log=log)
+
+
+def chaos_kill9_stop(runs) -> None:
+    """Stop every process the kill-9 lines started (each line's
+    session)."""
+    import signal
+    for run in runs:
+        if run["proc"].poll() is None:
+            try:
+                os.killpg(run["proc"].pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        run["proc"].wait()
+        run["log"].close()
+
+
+def chaos_kill9_finish(run: dict, clean: dict) -> dict:
+    """Wait for a kill-9 line (``chaos_kill9_start``): it must exit 0 with
+    each request finished exactly once in its journal; its streams are
+    held against ``clean``, the same requests in this process without the
+    kill (``chaos_drain`` of the sampled specs): equal in fp32, the count
+    that agree printed in bf16 (the recomputed context rounds otherwise
+    than the first pass did)."""
+    import shutil
+    from repro_torch.serving import RequestJournal
+    x_name, proc, jdir = run["x_name"], run["proc"], run["jdir"]
+    tag = f"[chaos {x_name} kill-9]"
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        chaos_kill9_stop([run])
+        raise RuntimeError(f"{tag} still running after 600 s")
+    wall = time.perf_counter() - run["t0"]
+    run["log"].close()
+    with open(run["path"]) as f:
+        log = f.read()
+    if rc != 0 or "restart #1" not in log:
+        raise RuntimeError(f"{tag} exit {rc}:\n{log[-4000:]}")
     fins = journal_records(jdir)
     entries = {rid: (e.finish_reason, list(e.tokens)) for rid, e in
                RequestJournal(jdir).entries.items()}
     shutil.rmtree(jdir, ignore_errors=True)
-    eng = chaos_engine(params, cfg, dev)
-    clean = chaos_drain(eng, chaos_specs(cfg, seed, sampled=True),
-                        f"{tag} fault-free")
-    eng.core.close()
     same = agree(entries, clean)
     recovered = [ln for ln in log.splitlines() if "[serve] journal:" in ln]
-    print(f"{tag} exit 0 in {wall:.1f}s; {recovered}; terminal records per "
-          f"request {fins}; {len(same)} of {len(entries)} streams equal the "
-          "run without the kill", flush=True)
+    print(f"{tag} exit 0 in {wall:.1f}s (started beside the phase); "
+          f"{recovered}; terminal records per request {fins}; {len(same)} "
+          f"of {len(entries)} streams equal the run without the kill",
+          flush=True)
     if (sorted(entries) != list(range(6)) or fins != {r: 1 for r in range(6)}
             or any(e[0] != "length" or len(e[1]) != 8
                    for e in entries.values())):
@@ -4002,6 +4070,16 @@ def chaos_kill9(seed: int, dev, cfg, params, x_name: str, out_dir: str
                 recovered=recovered, tokens={r: e[1] for r, e in
                                              entries.items()},
                 fault_free_tokens={r: o[1] for r, o in clean.items()})
+
+
+def chaos_kill9_clean(seed: int, dev, cfg, params, x_name: str) -> dict:
+    """The kill-9 line's requests served in this process without a kill:
+    {rid: (finish reason, tokens)}."""
+    eng = chaos_engine(params, cfg, dev)
+    clean = chaos_drain(eng, chaos_specs(cfg, seed, sampled=True),
+                        f"[chaos {x_name} kill-9] fault-free")
+    eng.core.close()
+    return clean
 
 
 def chaos_journal_cost(seed: int, dev, cfg, params, out_dir: str,
@@ -4067,16 +4145,27 @@ def chaos_phase(seed: int, card: str, dev, out_dir: str) -> dict:
     res["capture_failure"] = chaos_capture_failure(seed, dev, cfg, params,
                                                    clean)
     res["stall"] = chaos_stall(seed, dev, cfg, params, card)
-    res["preempt"] = chaos_preempt(seed, dev, cfg, params)
-    res["kill9_fp32"] = chaos_kill9(seed, dev, cfg, params, "fp32", out_dir)
-    del params
-    torch.cuda.empty_cache()
-    cfg, params = chaos_params(seed, dev, "bfloat16")
-    res["ci_bf16"] = chaos_ci_lines(seed, dev, cfg, params, "bf16")
-    res["nan_only"] = chaos_nan_only(seed, dev, cfg, params)
-    res["recoveries"] = chaos_recoveries(seed, dev, cfg, params, card)
-    res["lifetimes"] = chaos_lifetimes(seed, dev, cfg, params)
-    res["kill9_bf16"] = chaos_kill9(seed, dev, cfg, params, "bf16", out_dir)
+    # the kill-9 lines run beside the rest of the phase (the stall
+    # watchdog's timed steps are done; the journal's cost is timed after
+    # they end)
+    kills = [chaos_kill9_start(seed, x, out_dir) for x in ("fp32", "bf16")]
+    try:
+        res["preempt"] = chaos_preempt(seed, dev, cfg, params)
+        clean = {"fp32": chaos_kill9_clean(seed, dev, cfg, params, "fp32")}
+        del params
+        torch.cuda.empty_cache()
+        cfg, params = chaos_params(seed, dev, "bfloat16")
+        res["ci_bf16"] = chaos_ci_lines(seed, dev, cfg, params, "bf16")
+        res["nan_only"] = chaos_nan_only(seed, dev, cfg, params)
+        res["recoveries"] = chaos_recoveries(seed, dev, cfg, params, card)
+        res["lifetimes"] = chaos_lifetimes(seed, dev, cfg, params)
+        clean["bf16"] = chaos_kill9_clean(seed, dev, cfg, params, "bf16")
+        for run in kills:
+            res[f"kill9_{run['x_name']}"] = chaos_kill9_finish(
+                run, clean[run["x_name"]])
+    except BaseException:
+        chaos_kill9_stop(kills)
+        raise
     res["journal_cost"] = chaos_journal_cost(seed, dev, cfg, params,
                                              out_dir, card)
     del params
@@ -4096,6 +4185,10 @@ QWEN_LAYER = {"q": (5120, 5120), "k": (5120, 1024), "v": (5120, 1024),
 QWEN_FLASH_CASES = (("qwen window decode", 4, 40, 8, 128, 128,
                      (1, 33, 100, 128)),
                     ("qwen packed", 64, 40, 8, 128, 128, None))
+# the depth of the fp32 TinyLlama pair (over 2 replicas, then the flip +
+# scrub repairs, each reloading the pair), cut for the script's time; the
+# bf16 pair runs all 22
+GATEWAY_FP32_LAYERS = SERVE_CUT_LAYERS
 QWEN_LAYERS = 6             # the depth phase 9 serves qwen2_5_14b at
                             # (48 before its run shared the time limit with
                             # phase 11, 12 before phase 13; full width
@@ -4251,11 +4344,12 @@ def run_cache_check(dev) -> dict:
     return dict(launches=[l1, l2, l3], counters=got)
 
 
-def gateway_registry(seed: int, dev, dtype: str, models, qwen_layers: int):
+def gateway_registry(seed: int, dev, dtype: str, models, qwen_layers: int,
+                     tl_layers: int = 0):
     """A ``ModelRegistry`` of ``models`` ((arch, alias, occurrence)) at full
     width in ``dtype``, loaded by the launcher's seeded loaders on the card
     (occurrence k > 0: ``make_alpha_variant`` of the base); qwen2_5_14b at
-    ``qwen_layers`` layers."""
+    ``qwen_layers`` layers, TinyLlama at ``tl_layers`` (0: all 22)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.gateway import make_loader
     from repro_torch.serving import ModelRegistry
@@ -4264,6 +4358,8 @@ def gateway_registry(seed: int, dev, dtype: str, models, qwen_layers: int):
         cfg = get_config(arch).replace(dtype=dtype)
         if arch == "qwen2_5_14b":
             cfg = cfg.replace(n_layers=qwen_layers)
+        elif tl_layers:
+            cfg = cfg.replace(n_layers=tl_layers)
         reg.register(alias, cfg, make_loader(cfg, seed, k, dev),
                      tags=(arch, f"variant-{k}"))
     return reg
@@ -4303,14 +4399,15 @@ def gateway_outputs(fins: list, specs, tag: str) -> dict:
 
 
 def gateway_drive(reg, dev, specs, tag: str, count: bool = True,
-                  **kw) -> tuple:
-    """A ``ServingGateway`` over ``reg`` (4 slots, buffer 128, chunk 8; every
-    step replayed from CUDA graphs) serving ``specs``: (gateway, streams,
-    wall s, per-engine counts). With ``count`` each engine's core step is
-    wrapped to count its steps, its chunk-free steps and its kernels'
-    launches (the wrappers' counters, zeroed just before the run)."""
+                  engine_kw: dict = GATEWAY_KW, **kw) -> tuple:
+    """A ``ServingGateway`` over ``reg`` (``engine_kw``: 4 slots, buffer
+    128, chunk 8; every step replayed from CUDA graphs) serving ``specs``:
+    (gateway, streams, wall s, per-engine counts). With ``count`` each
+    engine's core step is wrapped to count its steps, its chunk-free steps
+    and its kernels' launches (the wrappers' counters, zeroed just before
+    the run)."""
     from repro_torch.serving import ServingGateway
-    gw = ServingGateway(reg, device=dev, **GATEWAY_KW, **kw)
+    gw = ServingGateway(reg, device=dev, **engine_kw, **kw)
     fins: list = []
     reqs = gateway_requests(specs, fins)
     t0 = time.perf_counter()
@@ -4349,9 +4446,10 @@ def gateway_drive(reg, dev, specs, tag: str, count: bool = True,
     return gw, gateway_outputs(fins, specs, tag), wall, per
 
 
-def dedicated_streams(reg, names, dev, specs, tag: str, **kw) -> dict:
+def dedicated_streams(reg, names, dev, specs, tag: str,
+                      engine_kw: dict = GATEWAY_KW, **kw) -> dict:
     """Each of ``names`` alone in a dedicated ``LLMEngine`` on its resident
-    params, the spectral path pinned (``use_mapper=False``,
+    params (``engine_kw``), the spectral path pinned (``use_mapper=False``,
     ``exec_path="spectral"``), serving its share of ``specs``."""
     from repro_torch.serving import LLMEngine
     out = {}
@@ -4360,7 +4458,7 @@ def dedicated_streams(reg, names, dev, specs, tag: str, **kw) -> dict:
         cfg = e.cfg.replace(ovsf=dataclasses.replace(e.cfg.ovsf,
                                                      exec_path="spectral"))
         eng = LLMEngine(e.params, cfg, device=dev, use_mapper=False,
-                        **GATEWAY_KW, **kw)
+                        **engine_kw, **kw)
         mine = [s for s in specs if s[1] == name]
         fins: list = []
         for r in gateway_requests(mine, fins):
@@ -4729,7 +4827,7 @@ def gateway_phase(seed: int, card: str, dev, out_dir: str,
         # fp32: the pair over 2 replicas, streams held equal
         tag32 = "[gateway fp32]"
         reg32 = gateway_registry(seed, dev, "float32", GATEWAY_MODELS[:2],
-                                 QWEN_LAYERS)
+                                 QWEN_LAYERS, GATEWAY_FP32_LAYERS)
         specs32 = [(rid, tl[rid % 2], p, n, sp) for rid, _m, p, n, sp
                    in specs]
         gw32, s32, wall32, per32 = gateway_drive(reg32, dev, specs32,
@@ -4747,7 +4845,8 @@ def gateway_phase(seed: int, card: str, dev, out_dir: str,
         close_gateway(gw32)
         ded32 = dedicated_streams(reg32, tl, dev, specs32, tag32,
                                   packed=True)
-        print(f"{tag32} 12 requests over 2 replicas of the stacked pair in "
+        print(f"{tag32} 12 requests over 2 replicas of the stacked pair "
+              f"({reg32.entries['tl-a'].cfg.n_layers} layers) in "
               f"{wall32:.2f}s; per replica: "
               + "; ".join(f"{r['label']} {r['steps']} steps, KV "
                           f"{r['kv_mib']:.1f} MiB, graphs {r['graphs']} "
@@ -4776,8 +4875,8 @@ def gateway_phase(seed: int, card: str, dev, out_dir: str,
 
 MOE_ARCH = "olmoe_1b_7b"    # 16 layers, d 2048, 16 x 128 heads (a GQA group
                             # of 1), 64 experts top-8, expert d_ff 1024
-MOE_LAYERS = 4              # the depth phase 10 serves it at (16 before
-                            # phase 11 shared the time limit; full width)
+MOE_LAYERS = 2              # the depth phase 10 serves it at (full width;
+                            # cut for the script's time)
 # the window decode at OLMoE-1B-7B's heads: (label, B, H, Hkv, hd, T, pos)
 MOE_FLASH = ("olmoe window decode", 4, 16, 16, 128, 128, (1, 37, 100, 128))
 MOE_PARITY_LAYERS = 2       # the card-vs-CPU steps' depth (full width)
@@ -5117,10 +5216,10 @@ SSM_ARCHS = ("falcon_mamba_7b", "zamba2_1_2b")
 # the card-vs-CPU steps' depth (full width): Zamba2's first shared-attention
 # application follows its 6th Mamba-2 block
 SSM_PARITY_LAYERS = {"falcon_mamba_7b": 2, "zamba2_1_2b": 6}
-# the depth phase 11 serves each at (full width; 0 = uncut), cut when phase
-# 13 came: Falcon-Mamba-7B from 64, Zamba2-1.2B from 38 (two applications
-# of its shared block)
-SSM_LAYERS = {"falcon_mamba_7b": 16, "zamba2_1_2b": 12}
+# the depth phase 11 serves each at (full width; 0 = uncut), cut for the
+# script's time: Falcon-Mamba-7B from 64, Zamba2-1.2B from 38 (two
+# applications of its shared block)
+SSM_LAYERS = {"falcon_mamba_7b": 8, "zamba2_1_2b": 12}
 # the main path's launcher flags; the recurrent families fall back from them
 # to the legacy engine with exact per-request prefill
 SSM_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True)
@@ -5529,7 +5628,7 @@ WHISPER_ARCH = "whisper_tiny"
 LLAVA_ARCH = "llava_next_34b"
 # the depth phase 12 serves LLaVA-NeXT-34B at (of 60, full width): all 60
 # took the whole script to 893 s of its 1200 s limit on a slow host
-LLAVA_LAYERS = 8            # of 60 (30 before phase 13); full width
+LLAVA_LAYERS = 4            # of 60, for the script's time; full width
 LLAVA_PARITY_LAYERS = 2     # the card-vs-CPU steps' depth (full width)
 LLAVA_PARITY_IMAGE = 8      # image positions of the card-vs-CPU prefill
 ENTRY_STEPS = 16            # greedy decode steps after each family's prefill
@@ -6085,7 +6184,9 @@ TRAIN_LAYER = {"q": (2048, 2048), "o": (2048, 2048), "gate": (2048, 5632),
                "up": (2048, 5632), "down": (5632, 2048)}
 TRAIN_BATCH, TRAIN_SEQ = 8, 128     # the launcher's step: M = B * S = 1024
 TRAIN_STEPS = 12                    # the launcher's steps ...
-TRAIN_SAVE_EVERY = 6                # ... and its checkpoint interval
+# ... and its checkpoint interval: one save, at the end (for the script's
+# time: a save's write slows the steps after it)
+TRAIN_SAVE_EVERY = 12
 TRAIN_LR = 1e-3
 TRAIN_FAULT_LAYERS = 2              # the supervisor run's depth (full width)
 TRAIN_FAULT_STEPS = 6               # its steps, saving every 3: checkpoints
@@ -6120,15 +6221,17 @@ def grads_of(fn, inputs: list, g: torch.Tensor) -> tuple:
     return y.detach(), torch.autograd.grad(y, leaves, g)
 
 
-def grad_check(tag: str, kernel_fn, plain_fn, inputs: list, g, dt) -> float:
-    """y, dx and dA through the kernel path against autograd through the
-    plain version on the same inputs: relative L2 within ``TOL[dt]``;
-    returns the largest absolute error of the gradients."""
+def grad_check(tag: str, kernel_fn, plain_fn, inputs: list, g, dt,
+               names: tuple = ("y", "dx", "dA")) -> float:
+    """y and the gradients of ``inputs`` (``names``: y's, then each
+    input's) through the kernel path against autograd through the plain
+    version on the same inputs: relative L2 within ``TOL[dt]``; returns
+    the largest absolute error of the gradients."""
     yk, gk = grads_of(kernel_fn, inputs, g)
     yp, gp = grads_of(plain_fn, inputs, g)
     torch.cuda.synchronize()
     errs = {n: rel_l2(a, b) for n, a, b in
-            zip(("y", "dx", "dA"), (yk,) + tuple(gk), (yp,) + tuple(gp))}
+            zip(names, (yk,) + tuple(gk), (yp,) + tuple(gp))}
     bad = {n: e for n, e in errs.items() if not e <= TOL[dt]}
     finite = all(torch.isfinite(t).all() for t in (yk,) + tuple(gk))
     if bad or not finite:
@@ -6170,22 +6273,26 @@ def fwd_bwd_ms(fn, inputs: list, g, iters: int = 6) -> float:
 
 
 def ovsf_train_bound(M: int, K: int, N: int, J: int, wht_row: int,
-                     dtype, idx_bytes: int) -> dict:
+                     dtype, idx_bytes: int, alpha_bytes: int = 0) -> dict:
     """Least device ms of y = x S^T A, forward alone and forward +
     backward, whatever the path: every input (x, alphas, ids; dy) read and
     every output (y; dx, dA) written once, or the function's operations.
     Those are the products with the J kept codes, 2 M J N forward and 4 M J
     N backward (dA = (x S^T)^T dy, dy A^T), at the operands' peak (bf16:
     the tensor cores), and ``wht_row`` WHT adds a row of x forward and of
-    dy A^T backward, at the fp32 rate outside the tensor cores."""
+    dy A^T backward, at the fp32 rate outside the tensor cores. Quantised
+    alphas (``alpha_bytes``: the stored integers and scales) are read once,
+    and their gradient is the scales' (a few bytes), in place of a float A
+    and dA."""
     item = torch.tensor([], dtype=dtype).element_size()
     out = {}
-    for key, prods, whts, elems in (
-            ("forward", 2, 1, M * K + J * N + M * N),
-            ("train", 6, 2, 2 * (M * K + J * N + M * N))):
+    for key, prods, whts, elems, a_elems in (
+            ("forward", 2, 1, M * K + M * N, J * N),
+            ("train", 6, 2, 2 * (M * K + M * N), 2 * J * N)):
         t_ops = (prods * M * J * N / PEAK_FLOPS[dtype]
                  + whts * M * wht_row / FP32_CUDA_CORE_FLOPS) * 1e3
-        t_mem = (item * elems + idx_bytes) / HBM_BYTES_PER_S * 1e3
+        t_mem = (item * elems + (alpha_bytes or item * a_elems)
+                 + idx_bytes) / HBM_BYTES_PER_S * 1e3
         out[key] = (t_ops, t_mem)
     return out
 
@@ -6684,14 +6791,15 @@ def train_supervised(seed: int, dev, tmp: str, arch: str = TRAIN_ARCH,
 
 
 def ovsf_linears(tree) -> int:
-    """OVSF linears in a param tree: dicts with ``idx`` and 2-d alphas (an
-    expert bank's (E, J, d_out) alphas regenerate W as plain tensor code
-    and launch no ``ovsf_gemm``)."""
+    """OVSF linears in a param tree: dicts with ``idx`` and 2-d alphas,
+    float or quantised (an expert bank's (E, J, d_out) alphas regenerate W
+    as plain tensor code and launch no ``ovsf_gemm``)."""
     if isinstance(tree, list):
         return sum(ovsf_linears(t) for t in tree)
     if not isinstance(tree, dict):
         return 0
-    al = tree.get("alphas")
+    al = next((tree[k] for k in ("alphas", "alphas_q8", "alphas_q4")
+               if k in tree), None)
     own = int("idx" in tree and al is not None and al.dim() == 2)
     return own + sum(ovsf_linears(v) for v in tree.values())
 
@@ -7218,7 +7326,7 @@ def convert_phase(seed: int, card: str, dev, kernels: dict) -> dict:
 # -- phase 15: family training ------------------------------------------------
 
 FAMILY_LAUNCH_ARCH = "zamba2_1_2b"  # launch.train at full width and depth
-FAMILY_LAUNCH_STEPS = 8             # its steps; one checkpoint, at the end
+FAMILY_LAUNCH_STEPS = 4             # its steps; one checkpoint, at the end
 # phase 15's learning rate: the launcher's default. The loss is gated on
 # the first batch, refitted: at initialisation Zamba2-1.2B's batches'
 # losses spread by 0.1, more than 8-12 steps move a held-out one at any
@@ -7525,6 +7633,724 @@ def family_train_phase(seed: int, card: str, dev) -> dict:
     return res
 
 
+# -- phase 16: training with quantised alphas; stacked Whisper-tiny ----------
+
+QUANT_ARCH = "tinyllama_1_1b"
+QUANT_STEPS = 12                    # the full-width int8 run's steps ...
+QUANT_SAVE_EVERY = 10               # ... checkpoints at 10 and 12 (the end)
+QUANT_FAIL_AT = 11                  # a fail at 11 restores 10 and replays it
+QUANT_INT4_LAYERS = 4               # the int4 run's depth (full width)
+QUANT_INT4_STEPS = 3
+# card vs CPU: one fp32 step, B 2, S 64, full width: (arch, layers, alpha
+# storage); Zamba2 at one full hybrid group of 6, its shared block in it
+QUANT_PARITY = (("tinyllama_1_1b", 2, "int8"), ("tinyllama_1_1b", 2, "int4"),
+                ("zamba2_1_2b", 6, "int8"))
+QUANT_CONVERT_LAYERS = 2            # a converted model trained under
+QUANT_CONVERT_STEPS = 2             # materialize: ovsf_decompress's epilogue
+# the stacked Whisper-tiny engine: the contiguous packed step, chunk 64, 4
+# slots, phase 4's 8 requests (prompts of 8-149 tokens, 16 new each)
+WHISPER_STACK_KW = dict(batch_slots=4, buffer_len=256, chunk_size=64,
+                        packed=True)
+# Whisper-tiny's published OVSF settings compress none of its matrices
+# (every one has a side of 384, below ``min_dim`` 512), so two variants
+# from ``make_alpha_variant`` would be the same model: the stacked run
+# lowers ``min_dim`` to 384, making each attention and MLP projection of
+# the encoder and the decoder OVSF (rho 0.5, 16-long segments; the cross
+# projections stay dense, outside ``targets``), at the published widths
+WHISPER_STACK_MIN_DIM = 384
+WHISPER_STACK_NAMES = ("w-a", "w-b")
+
+
+def quant_gemm_row(rng, dev, M: int, K: int, N: int, adt: str,
+                   tag: str) -> dict:
+    """``OvsfGemmFn`` over int8 / int4 alphas (16-long segments, a scale a
+    segment, as the model stores them) at (M, K -> N): y, dx and d scale
+    against autograd through the plain version (dequantise, dense W, fp32
+    product), in fp32 (the CUDA-core kernel) and bf16 (the tensor-core
+    kernel's ``QUANT`` epilogue), each launch on its kernel and alpha
+    storage; bf16 timed as ``train_gemm_row``, the library call matmul
+    forward + backward on the dequantised dense W."""
+    from repro_torch.core.ovsf import dequantize_alphas, quantize_alphas
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ovsf_gemm import ovsf_gemm, ovsf_gemm_plain
+    from repro_torch.kernels.ref import ovsf_decompress_ref
+    errs = {}
+    for dt, kernel in ((torch.float32, "cuda_core"),
+                       (torch.bfloat16, "tensor_core")):
+        x, al, idx, _nk = gemm_case(rng, 16, M, K, N, dt, dev)
+        q, s = quantize_alphas(al.float(), idx.shape[0], adt)
+        g = torch.randn((M, N), device=dev, dtype=dt)
+
+        def kern(a, b, q=q, idx=idx):
+            return ops.ovsf_gemm_fn(a, q, idx, alpha_scale=b,
+                                    alpha_dtype=adt)
+
+        def plain(a, b, q=q, idx=idx):
+            return ovsf_gemm_plain(a, q, idx, alpha_scale=b, alpha_dtype=adt)
+        n_k = ovsf_gemm.launches_by_kernel[kernel]
+        n_a = ovsf_gemm.launches_by_alpha[adt]
+        errs[dt] = grad_check(f"{tag} {str(dt).split('.')[-1]}", kern, plain,
+                              [x, s], g, dt, ("y", "dx", "d scale"))
+        if (ovsf_gemm.launches_by_kernel[kernel] != n_k + 1
+                or ovsf_gemm.launches_by_alpha[adt] != n_a + 1):
+            raise RuntimeError(f"{tag} {dt}: not one {adt} launch of the "
+                               f"{kernel} kernel")
+    J = q.shape[0]
+    ms = fwd_bwd_ms(kern, [x, s], g)
+    plain_ms = fwd_bwd_ms(plain, [x, s], g, 2)
+    fwd = forward_ms(kern, [x, s])
+    W = ovsf_decompress_ref(dequantize_alphas(q, s, adt), idx, K).to(x.dtype)
+    lib_ms = fwd_bwd_ms(torch.matmul, [x, W], g)
+    bd = ovsf_train_bound(M, K, N, J, K * 4, torch.bfloat16,
+                          idx.numel() * 4, q.numel() + s.numel() * 4)
+    t_ops, t_mem = bd["train"]
+    row = dict(case=tag, alpha_dtype=adt, M=M, K=K, N=N, J=J,
+               max_abs_err=errs[torch.bfloat16],
+               max_abs_err_fp32=errs[torch.float32], ms=ms, forward_ms=fwd,
+               backward_ms=ms - fwd, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_ops, t_mem),
+               bound_by="operations" if t_ops >= t_mem else "bytes",
+               forward_bound_ms=max(bd["forward"]))
+    print(f"{tag}: y, dx, d scale within {TOL[torch.float32]} (fp32, "
+          f"CUDA-core kernel; max abs err {errs[torch.float32]:.3e}) and "
+          f"{TOL[torch.bfloat16]} (bf16, tensor-core kernel; "
+          f"{errs[torch.bfloat16]:.3e}) relative L2 of autograd through the "
+          f"plain version; bf16 forward + backward {ms:.4f} ms (the "
+          f"kernel's forward {fwd:.4f} ms, bound "
+          f"{row['forward_bound_ms']:.4f}; the backward {ms - fwd:.4f}), "
+          f"plain {plain_ms:.4f} ms, matmul on the dequantised dense W "
+          f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    return row
+
+
+def quant_decompress_row(rng, dev, d_in: int, N: int, adt: str,
+                         tag: str) -> dict:
+    """``OvsfDecompressFn`` over int8 / int4 alphas (monolithic codes, J =
+    L / 2, one scale, row 4q's shapes): W (the kernel's epilogue) and the
+    scale's gradient (dA = S dW through the ``fwht`` kernel, reduced over
+    the stored integers) against autograd through the plain version, fp32;
+    forward + backward device ms beside the plain version's and matmul
+    S^T A forward + backward (S prebuilt, A dequantised); bound: q, ids, W
+    written, dW read once, or the transform's 2 N L log2 L adds and the
+    2 J N multiplies at the fp32 rate."""
+    from repro_torch.core.ovsf import (dequantize_alphas, hadamard_matrix,
+                                       quantize_alphas)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fwht import fwht
+    from repro_torch.kernels.ovsf_gemm import (ovsf_decompress,
+                                               ovsf_decompress_plain)
+    al, idx, L = decompress_case(rng, d_in, N, torch.float32, dev)
+    q, s = quantize_alphas(al, 1, adt)
+    J = L // 2
+    G = torch.randn((d_in, N), device=dev)
+
+    def kern(b):
+        return ops.ovsf_decompress_fn(q, idx, d_in, alpha_scale=b,
+                                      alpha_dtype=adt)
+
+    def plain(b):
+        return ovsf_decompress_plain(q, idx, d_in, alpha_scale=b,
+                                     alpha_dtype=adt)
+    n_d, n_f = ovsf_decompress.launches, fwht.launches
+    err = grad_check(tag, kern, plain, [s], G, torch.float32,
+                     ("W", "d scale"))
+    if (ovsf_decompress.launches, fwht.launches) != (n_d + 1, n_f + 1):
+        raise RuntimeError(f"{tag}: not one ovsf_decompress and one fwht "
+                           "launch")
+    ms = fwd_bwd_ms(kern, [s], G)
+    plain_ms = fwd_bwd_ms(plain, [s], G, 2)
+    fwd = forward_ms(kern, [s])
+    St = hadamard_matrix(L, torch.float32, dev)[idx.long(), :d_in].t() \
+        .contiguous()
+    A = dequantize_alphas(q, s, adt)
+    lib_ms = fwd_bwd_ms(lambda a: St @ a, [A], G)
+    bytes_ = q.numel() + idx.numel() * 4 + 8 + 2 * d_in * N * 4
+    ops_ = 2 * N * L * math.log2(L) + 2 * J * N
+    t_bound, by = bound(bytes_, ops_, torch.float32)
+    row = dict(case=tag, alpha_dtype=adt, d_in=d_in, L=L, J=J, N=N,
+               max_abs_err=err, ms=ms, forward_ms=fwd, backward_ms=ms - fwd,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=t_bound,
+               bound_by=by)
+    print(f"{tag}: W and d scale within {TOL[torch.float32]} relative L2 of "
+          f"autograd through the plain version (max abs err {err:.3e}); "
+          f"forward + backward {ms:.4f} ms (forward {fwd:.4f}), plain "
+          f"{plain_ms:.4f} ms, matmul S^T A forward + backward "
+          f"{lib_ms:.4f} ms, bound {t_bound:.4f} ms ({by})", flush=True)
+    return row
+
+
+def layer_summary(rows: list, keys: tuple) -> dict:
+    """A layer's rows summed (``keys``); the largest error; the bound's
+    kind of the largest bound."""
+    out = {k: sum(r[k] for r in rows) for k in keys}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    return out
+
+
+def run_quant_train_kernel_checks(rng, dev) -> dict:
+    """Phase 16 (1): ``OvsfGemmFn`` over int8 and int4 alphas at
+    TinyLlama-1.1B's five projections, M = B S = 1024 (``quant_gemm_row``),
+    and ``OvsfDecompressFn`` over them at the converted layer's shapes
+    (``quant_decompress_row``); a layer's summary per storage."""
+    M = TRAIN_BATCH * TRAIN_SEQ
+    res = dict(gemm={}, decompress={})
+    for adt in ("int8", "int4"):
+        rows = [quant_gemm_row(rng, dev, M, K, N, adt,
+                               f"[quant train kernel] ovsf_gemm {adt} {name} "
+                               f"M={M} {K}->{N}")
+                for name, (K, N) in TRAIN_LAYER.items()]
+        sm = layer_summary(rows, ("ms", "forward_ms", "forward_bound_ms",
+                                  "plain_ms", "library_ms", "bound_ms"))
+        res["gemm"][adt] = dict(sm, rows=rows)
+        drows = [quant_decompress_row(rng, dev, d_in, N, adt,
+                                      f"[quant train kernel] ovsf_decompress"
+                                      f" {adt} {name} {d_in}->{N}")
+                 for name, (d_in, N) in CONVERT_LAYER.items()]
+        dm = layer_summary(drows, ("ms", "forward_ms", "plain_ms",
+                                   "library_ms", "bound_ms"))
+        res["decompress"][adt] = dict(dm, rows=drows)
+        print(f"[quant train kernel] {adt}, a layer (q, o, gate, up, down): "
+              f"OvsfGemmFn forward + backward {sm['ms']:.4f} ms (the "
+              f"kernel's forward {sm['forward_ms']:.4f}), bound "
+              f"{sm['bound_ms']:.4f} ms ({sm['bound_by']}; "
+              f"{sm['ms'] / sm['bound_ms']:.1f}x), plain "
+              f"{sm['plain_ms']:.4f}, matmul on the dense W "
+              f"{sm['library_ms']:.4f}; OvsfDecompressFn (converted shapes) "
+              f"{dm['ms']:.4f} ms (forward {dm['forward_ms']:.4f}), bound "
+              f"{dm['bound_ms']:.4f} ({dm['bound_by']}), plain "
+              f"{dm['plain_ms']:.4f}, matmul S^T A {dm['library_ms']:.4f}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def int_leaves(tree) -> list:
+    """The integer leaves of a param tree (quantised alphas, code ids)."""
+    from repro_torch.train import optim
+    return [t for t in optim.tree_leaves(tree)
+            if t is not None and not t.is_floating_point()]
+
+
+def quant_cfg(arch: str, adt: str, **kw):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(ovsf=dataclasses.replace(cfg.ovsf, alpha_dtype=adt),
+                       **kw)
+
+
+def profiled_step(fn, rows: list):
+    """``fn`` (a train step) with each call profiled on the device alone:
+    its wall (synchronised at both ends), device busy ms, idle share,
+    kernels, and the wrappers' counts and ``ovsf_gemm``'s launches by
+    alpha storage and kernel, one row a call in ``rows``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ovsf_gemm as G
+
+    def step(state, batch):
+        reset_wrapper_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, kernels = kineto_device(prof)
+        rows.append(dict(wall_ms=wall, busy_ms=busy,
+                         idle_share=1.0 - busy / wall, kernels=kernels,
+                         launches=wrapper_counts(),
+                         by_alpha=dict(G.ovsf_gemm.launches_by_alpha),
+                         by_kernel=dict(G.ovsf_gemm.launches_by_kernel)))
+        return out
+    return step
+
+
+def kineto_device(prof) -> tuple:
+    """(device busy ms, kernels) of a stopped profile, read straight from
+    its kineto records: every device record's duration but the schedule's
+    ``ProfilerStep`` range, and the kernels among them (copies and memsets
+    left out, as ``kernel_counts``), without ``key_averages``' parse (about
+    5 s for a train step's ~21000 kernels; the same sums)."""
+    busy = kernels = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name.startswith("ProfilerStep"):
+            continue
+        busy += e.duration_ns()
+        kernels += not name.lower().startswith(("memcpy", "memset"))
+    return busy / 1e6, kernels
+
+
+def check_quant_steps(tag: str, rows: list, per_step: int, adt: str) -> None:
+    """Every profiled step launched ``per_step`` ``ovsf_gemm``, all with
+    ``adt`` alphas on the tensor-core kernel, and no other kernel of ours."""
+    want = dict.fromkeys(rows[0]["launches"], 0)
+    want["ovsf_gemm"] = per_step
+    bad = [r for r in rows if r["launches"] != want
+           or r["by_alpha"][adt] != per_step
+           or r["by_kernel"]["tensor_core"] != per_step]
+    if bad:
+        raise RuntimeError(f"{tag} launches a step {bad[0]['launches']}, "
+                           f"{bad[0]['by_alpha']}, {bad[0]['by_kernel']}; "
+                           f"expected {per_step} {adt} tensor-core "
+                           "ovsf_gemm and nothing else")
+
+
+def quant_train_full(seed: int, card: str, dev, tmp: str) -> dict:
+    """Phase 16 (2): TinyLlama-1.1B at full width and depth with int8
+    alphas (bf16, B 8, S 128, remat, planned ``fused``) through
+    ``steps.make_train_step`` under ``runtime.supervisor.run``, as
+    ``launch.train`` builds its loop: ``QUANT_STEPS`` steps, checkpoints at
+    ``QUANT_SAVE_EVERY`` and the end, a ``fail`` at ``QUANT_FAIL_AT`` that
+    restores the first and replays, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``. Gates: one
+    failure and one restore, the replayed step's loss bit for bit the
+    first pass's, finite losses, 220 ``ovsf_gemm`` a step all int8 on the
+    tensor-core kernel (``check_quant_steps``), the int8 alphas and ids
+    bit for bit as initialised, the first batch's loss lower under the
+    trained params (phase 15's rule; the last loss and a held-out batch's
+    printed). Each step's wall, device busy and idle share, the peak
+    memory and the saves' seconds printed."""
+    import warnings
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.runtime import supervisor
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.train import optim, steps
+    tag = "[quant train]"
+    cfg = quant_cfg(QUANT_ARCH, "int8")
+    ocfg = optim.OptConfig(lr=FAMILY_LR, warmup_steps=2,
+                           total_steps=QUANT_STEPS)
+    stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = steps.train_state_init(cfg, seed, dev)
+    per_step = train_gemms_per_step(cfg, state["params"])
+    ints0 = [t.clone() for t in int_leaves(state["params"])]
+    state_gib = sum(t.numel() * t.element_size()
+                    for t in optim.tree_leaves(state)) / 2**30
+    rows, logs = [], []
+    fn = profiled_step(steps.make_train_step(cfg, ocfg), rows)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            state, rep = supervisor.run(
+                fn, state, stream.batch_at, QUANT_STEPS,
+                supervisor.SupervisorConfig(
+                    ckpt_dir=os.path.join(tmp, "quant"),
+                    save_every=QUANT_SAVE_EVERY, log_every=1000),
+                faults=FaultPlan.parse([f"fail:step={QUANT_FAIL_AT}"]),
+                log=logs.append)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    nondet = sorted({str(w.message).split(" does not have")[0][:120]
+                     for w in caught if "deterministic" in str(w.message)})
+    # steps 0 .. QUANT_FAIL_AT - 1, then QUANT_SAVE_EVERY again onwards
+    first, again = rep.losses[QUANT_SAVE_EVERY], rep.losses[QUANT_FAIL_AT]
+    ints_equal = all(torch.equal(a, b) for a, b in
+                     zip(ints0, int_leaves(state["params"])))
+    ev = steps.make_eval_step(cfg)
+    refit, held = (float(ev(state["params"], stream.batch_at(s))
+                         ["total_loss"]) for s in (0, FAMILY_HELD_OUT))
+    walls = [r["wall_ms"] for r in rows]
+    print(f"{tag} {cfg.name} int8 alphas, bf16, {cfg.n_layers} layers, B "
+          f"{TRAIN_BATCH} S {TRAIN_SEQ}: {rep.steps_run} steps run in "
+          f"{wall:.1f}s under the supervisor (failures {rep.failures}, "
+          f"restores {rep.restores}); losses "
+          f"{[round(v, 4) for v in rep.losses]}; step {QUANT_SAVE_EVERY} "
+          f"first {first!r}, replayed {again!r} (ops without a deterministic"
+          f" implementation: {nondet or 'none'}); the first batch's loss "
+          f"{rep.losses[0]:.4f} -> {refit:.4f} under the trained params, the"
+          f" last {rep.losses[-1]:.4f}, a held-out batch (step "
+          f"{FAMILY_HELD_OUT}) {held:.4f}; int8 alphas and ids bit for bit "
+          f"as initialised: {ints_equal}", flush=True)
+    for i, r in enumerate(rows):
+        print(f"{tag} step {i}: wall {r['wall_ms']:.1f} ms (profiled), "
+              f"device busy {r['busy_ms']:.1f} ms, idle share "
+              f"{r['idle_share']:.3f}, {r['kernels']} kernels, ovsf_gemm "
+              f"{r['launches']['ovsf_gemm']} ({r['by_alpha']['int8']} int8, "
+              f"{r['by_kernel']['tensor_core']} tensor-core)", flush=True)
+    print(f"{tag} ovsf_gemm {per_step} a step; step wall median "
+          f"{statistics.median(walls):.1f} ms, device busy median "
+          f"{statistics.median(r['busy_ms'] for r in rows):.1f} ms; peak "
+          f"memory_allocated {peak:.2f} GiB; state {state_gib:.2f} GiB; "
+          f"saves: host copy {[round(v, 2) for v in rep.save_snapshot_s]} s"
+          f" + write {[round(v, 2) for v in rep.save_write_s]} s ({card})",
+          flush=True)
+    check_quant_steps(tag, rows, per_step, "int8")
+    if (rep.failures != 1 or rep.restores != 1
+            or len(rep.losses) != QUANT_STEPS + QUANT_FAIL_AT
+            - QUANT_SAVE_EVERY or first != again
+            or not all(math.isfinite(v) for v in rep.losses)
+            or not ints_equal or not refit < rep.losses[0]):
+        raise RuntimeError(f"{tag} failures {rep.failures} restores "
+                           f"{rep.restores} losses {rep.losses} (replayed "
+                           f"{again!r} vs {first!r}), integers equal "
+                           f"{ints_equal}, refit {refit}: {logs}")
+    total = sum(r["launches"]["ovsf_gemm"] for r in rows)
+    return dict(layers=cfg.n_layers, losses=rep.losses, steps=rows,
+                wall_s=wall, failures=rep.failures, restores=rep.restores,
+                replayed=[first, again], nondeterministic=nondet,
+                refit_first=refit, held_out=held, ovsf_gemm_per_step=per_step,
+                ovsf_gemm=total, peak_allocated_gib=peak,
+                state_gib=state_gib, save_snapshot_s=rep.save_snapshot_s,
+                save_write_s=rep.save_write_s)
+
+
+def quant_train_int4(seed: int, card: str, dev) -> dict:
+    """Phase 16 (3): the same step with int4 alphas at full width and
+    ``QUANT_INT4_LAYERS`` layers, ``QUANT_INT4_STEPS`` steps through
+    ``make_train_step``: finite losses, the launches a step (all int4,
+    tensor-core), the integers unchanged; each step profiled."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import optim, steps
+    tag = "[quant train int4]"
+    cfg = quant_cfg(QUANT_ARCH, "int4", n_layers=QUANT_INT4_LAYERS)
+    state = steps.train_state_init(cfg, seed, dev)
+    per_step = train_gemms_per_step(cfg, state["params"])
+    ints0 = [t.clone() for t in int_leaves(state["params"])]
+    rows = []
+    fn = profiled_step(steps.make_train_step(cfg, optim.OptConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=QUANT_INT4_STEPS)), rows)
+    stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    losses = []
+    for s in range(QUANT_INT4_STEPS):
+        state, m = fn(state, stream.batch_at(s))
+        losses.append(float(m["total_loss"]))
+    ints_equal = all(torch.equal(a, b) for a, b in
+                     zip(ints0, int_leaves(state["params"])))
+    print(f"{tag} {cfg.name} int4 alphas, bf16, {cfg.n_layers} layers: "
+          f"losses {[round(v, 4) for v in losses]}; ovsf_gemm {per_step} a "
+          f"step; walls {[round(r['wall_ms'], 1) for r in rows]} ms, device "
+          f"busy {[round(r['busy_ms'], 1) for r in rows]} ms, idle "
+          f"{[round(r['idle_share'], 3) for r in rows]}; int4 alphas and ids"
+          f" bit for bit as initialised: {ints_equal} ({card})", flush=True)
+    check_quant_steps(tag, rows, per_step, "int4")
+    if not (all(math.isfinite(v) for v in losses) and ints_equal):
+        raise RuntimeError(f"{tag} losses {losses}, integers equal "
+                           f"{ints_equal}")
+    return dict(layers=cfg.n_layers, losses=losses, steps=rows,
+                ovsf_gemm_per_step=per_step,
+                ovsf_gemm=sum(r["launches"]["ovsf_gemm"] for r in rows))
+
+
+def quant_converted_train(seed: int, card: str, dev) -> dict:
+    """Phase 16 (4): TinyLlama-1.1B built dense at full width and
+    ``QUANT_CONVERT_LAYERS`` layers, converted (phase 14's converter) to
+    monolithic int8 and int4 alphas, trained ``QUANT_CONVERT_STEPS`` steps
+    (bf16, B 8, S 128, remat) with every OVSF layer planned
+    ``materialize``: ``OvsfDecompressFn`` over the quantised storage, its
+    forward the decompress kernel's epilogue and its backward the ``fwht``
+    kernel. Gates: finite losses, the integers unchanged, per step 2
+    ``ovsf_decompress`` and 1 ``fwht`` an OVSF linear (remat generates W
+    again in the backward) and nothing else of ours."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import mapper
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import optim, steps
+    res = {}
+    dense_cfg = convert_cfg("", "float32", QUANT_CONVERT_LAYERS)
+    dense_cfg = dense_cfg.replace(ovsf=dataclasses.replace(dense_cfg.ovsf,
+                                                           enable=False))
+    dense = R.model_init(dense_cfg, seed, dev)
+    for adt in ("int8", "int4"):
+        tag = f"[quant converted {adt}]"
+        cfg = convert_cfg(adt, "bfloat16", QUANT_CONVERT_LAYERS)
+        params, _secs = convert_model(dense, cfg)
+        plan = mapper.plan_model(cfg, ShapeConfig(
+            "train_step", TRAIN_SEQ, TRAIN_BATCH, "train"), hw="h100",
+            paths=("materialize",))
+        cfg = mapper.apply_plan(cfg, plan)
+        state = {"params": params, "opt": optim.adamw_init(params)}
+        n_lin = ovsf_linears(params["blocks"])
+        ints0 = [t.clone() for t in int_leaves(params)]
+        fn = steps.make_train_step(cfg, optim.OptConfig(
+            lr=TRAIN_LR, warmup_steps=1, total_steps=QUANT_CONVERT_STEPS))
+        stream = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+        losses, per = [], []
+        for s in range(QUANT_CONVERT_STEPS):
+            reset_wrapper_counts()
+            state, m = fn(state, stream.batch_at(s))
+            losses.append(float(m["total_loss"]))
+            per.append(wrapper_counts())
+        ints_equal = all(torch.equal(a, b) for a, b in
+                         zip(ints0, int_leaves(state["params"])))
+        want = dict.fromkeys(per[0], 0)
+        want.update(ovsf_decompress=2 * n_lin, fwht=n_lin)
+        paths = sorted({p.path for _n, p in plan.entries})
+        print(f"{tag} {cfg.name} converted (monolithic codes), bf16, "
+              f"{cfg.n_layers} layers, plan {paths}: losses "
+              f"{[round(v, 4) for v in losses]}; launches a step {per[0]}; "
+              f"integers bit for bit as converted: {ints_equal} ({card})",
+              flush=True)
+        if (paths != ["materialize"] or any(p != want for p in per)
+                or not all(math.isfinite(v) for v in losses)
+                or not ints_equal):
+            raise RuntimeError(f"{tag} plan {paths}, launches {per} (want "
+                               f"{want}), losses {losses}, integers equal "
+                               f"{ints_equal}")
+        res[adt] = dict(losses=losses, launches=per,
+                        ovsf_decompress=sum(p["ovsf_decompress"]
+                                            for p in per))
+        del state, params, fn
+    del dense
+    return res
+
+
+def quant_parity(seed: int, dev) -> dict:
+    """Phase 16 (5): one fp32 train step (remat off, B 2, S 64) of each of
+    ``QUANT_PARITY`` at full width, on the card (planned ``fused``: the
+    CUDA-core ``ovsf_gemm`` over the quantised storage) and on the CPU
+    (``spectral``, as phase 15) from the same state, TF32 off: the loss
+    within 1e-5 relative, every gradient leaf (the scales' included) and
+    every updated float param within 1e-3 relative L2, and every integer
+    leaf after the update bit for bit as before it, on both sides."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import optim, steps
+    cpu_dev = torch.device("cpu")
+    B, S = FAMILY_PARITY_BATCH, FAMILY_PARITY_SEQ
+    res = {}
+    for arch, n, adt in QUANT_PARITY:
+        cfg = quant_cfg(arch, adt, n_layers=n, dtype="float32", remat=False)
+        card = steps.train_state_init(cfg, seed, dev)
+        cpu = optim.tree_map(lambda _p, t: t.to(cpu_dev), card)
+        toks = torch.from_numpy(TokenStream(cfg.vocab, S, B, seed=seed)
+                                .batch_at(0)["tokens"])
+        ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+        spectral = cfg.replace(ovsf=dataclasses.replace(
+            cfg.ovsf, exec_path="spectral"))
+        out, secs = {}, {}
+        for name, st, d in (("card", card, dev), ("cpu", cpu, cpu_dev)):
+            c = steps.planned_cfg(spectral, d, (B, S))
+            t0 = time.perf_counter()
+            loss, _m, g = steps.loss_and_grads(c, st["params"],
+                                               {"tokens": toks.to(d)})
+            new_p, _o, _mm = optim.adamw_update(ocfg, g, st["opt"],
+                                                st["params"])
+            loss = float(loss)
+            secs[name] = time.perf_counter() - t0
+            same = all(torch.equal(a, b) for a, b in
+                       zip(int_leaves(st["params"]), int_leaves(new_p)))
+            out[name] = (loss, optim.tree_leaves(g),
+                         optim.tree_leaves(new_p), same)
+            del st, g
+        del card, cpu
+        (lc, gc_, pc, sc), (lh, gh, ph, sh) = out["card"], out["cpu"]
+        loss_err = abs(lc - lh) / abs(lh)
+        g_err = max(rel_l2(a, b) for a, b in zip(gc_, gh) if a is not None)
+        p_err = max(rel_l2(a.float(), b.float()) for a, b in zip(pc, ph)
+                    if a.is_floating_point())
+        ints = all(torch.equal(a.cpu(), b) for a, b in zip(pc, ph)
+                   if not a.is_floating_point())
+        n_scale = sum(1 for a in gc_ if a is not None and a.dim() == 2
+                      and a.shape[-1] == 1)
+        print(f"[quant parity] {arch} {adt} alphas, fp32, {cfg.n_layers} "
+              f"layers, B {B} S {S}: loss {lc:.6f} vs CPU {lh:.6f} "
+              f"({loss_err:.2e}, limit 1e-5), gradients {g_err:.2e} (the "
+              f"scales' among {n_scale} (n_seg, 1) leaves), updated params "
+              f"{p_err:.2e} (limit 1e-3 relative L2); integer leaves "
+              f"unchanged by the update: card {sc}, CPU {sh}, card = CPU "
+              f"{ints}; card {secs['card']:.1f}s, CPU {secs['cpu']:.1f}s",
+              flush=True)
+        if not (loss_err <= 1e-5 and g_err <= 1e-3 and p_err <= 1e-3
+                and sc and sh and ints):
+            raise RuntimeError(f"[quant parity] {arch} {adt}: loss "
+                               f"{loss_err}, gradients {g_err}, params "
+                               f"{p_err}, integers {sc} {sh} {ints}")
+        res[f"{arch} {adt}"] = dict(layers=cfg.n_layers, loss_err=loss_err,
+                                    grad_err=g_err, param_err=p_err,
+                                    card_s=secs["card"], cpu_s=secs["cpu"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def whisper_stack_flash(rng, dev) -> dict:
+    """Row 5m's shapes: a chunk-free contiguous packed step of the stacked
+    Whisper-tiny engine (4 tokens, one a slot) reads each token's slot
+    rows (self: T = the 256-row buffer, per-row positions) and its slot's
+    1500 cross rows (pos 1500, every row); ``flash_row`` for each, bf16 and
+    fp32."""
+    cases = {"self": ("whisper stacked self read", 4, 6, 6, 64, 256, None),
+             "cross": ("whisper stacked cross read", 4, 6, 6, 64, 1500,
+                       (1500,) * 4)}
+    out = {}
+    for key, (label0, B, H, Hkv, hd, T, pos) in cases.items():
+        rows = [flash_row(rng, dev, label0, B, H, Hkv, hd, T, pos, dt)
+                for dt in (torch.bfloat16, torch.float32)]
+        out[key] = dict(rows[0], max_abs_err=max(r["max_abs_err"]
+                                                 for r in rows), cases=rows)
+    sm = {k: out["self"][k] + out["cross"][k] for k in
+          ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+    sm["max_abs_err"] = max(out[k]["max_abs_err"] for k in out)
+    sm["bound_by"] = max(out.values(), key=lambda r: r["bound_ms"])[
+        "bound_by"]
+    return dict(out, summary=sm)
+
+
+def whisper_stack_cfg(dtype: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER_ARCH)
+    return cfg.replace(dtype=dtype, ovsf=dataclasses.replace(
+        cfg.ovsf, min_dim=WHISPER_STACK_MIN_DIM))
+
+
+def whisper_stack_run(seed: int, card: str, dev, dtype: str) -> dict:
+    """Two Whisper-tiny variants (the launcher's seeded loader and its
+    ``make_alpha_variant``) registered under one architecture signature,
+    served by the gateway's one stacked engine (``WHISPER_STACK_KW``, every
+    step replayed from CUDA graphs) with phase 4's 8 requests alternating
+    between them: every request finishes once; per engine step one
+    ``flash_decode_attn`` a layer for the self reads and one for the packed
+    cross reads (every row unmasked) and no other kernel of ours. Then four
+    requests (two a variant) decode: ``DECODE_STEPS`` chunk-free steps
+    timed, and their launches counted."""
+    from repro_torch.kernels.decode_attn import flash_decode_attn
+    from repro_torch.launch.gateway import make_loader
+    from repro_torch.serving import ModelRegistry, Request
+    from repro_torch.serving.model_registry import alpha_bank_bytes
+    tag = f"[whisper stacked {'fp32' if dtype == 'float32' else 'bf16'}]"
+    cfg = whisper_stack_cfg(dtype)
+    reg = ModelRegistry()
+    for k, alias in enumerate(WHISPER_STACK_NAMES):
+        reg.register(alias, cfg, make_loader(cfg, seed, k, dev),
+                     tags=(WHISPER_ARCH, f"variant-{k}"))
+    specs = [(rid, WHISPER_STACK_NAMES[rid % 2], prompt, 16, sp)
+             for rid, prompt, sp in serve_specs(cfg, seed)]
+    gw, streams, wall, per = gateway_drive(reg, dev, specs, tag,
+                                           engine_kw=WHISPER_STACK_KW)
+    # gateway_drive zeroed the counters just before the run
+    unmasked = flash_decode_attn.launches_unmasked
+    eng = gw.engine_for(WHISPER_STACK_NAMES[0])
+    c = per[eng.model_label]
+    banks = alpha_bank_bytes(reg.entries[WHISPER_STACK_NAMES[0]].params)
+    want = dict.fromkeys(c["launches"], 0)
+    want["flash_decode_attn"] = 2 * cfg.n_layers * c["steps"]
+    keys = sorted(eng.core.graphs.keys())
+    if (eng is not gw.engine_for(WHISPER_STACK_NAMES[1])
+            or eng.variants != 2 or not banks or c["launches"] != want
+            or unmasked != cfg.n_layers * c["steps"]
+            or keys != sorted(eng.core.step_shapes)):
+        raise RuntimeError(f"{tag} engine {eng.model_label} variants "
+                           f"{eng.variants}, alpha banks {banks} B, launches "
+                           f"{c} (want {want}; unmasked {unmasked}), graphs "
+                           f"{keys}, step shapes {eng.core.step_shapes}")
+    rng = np.random.default_rng(seed + 53)
+    for j in range(4):
+        eng.submit(Request(300 + j, rng.integers(0, cfg.vocab, 24,
+                                                 dtype=np.int32),
+                           max_new_tokens=4 * DECODE_STEPS,
+                           model=WHISPER_STACK_NAMES[j % 2]))
+    for _ in range(12):
+        eng.step()
+        if all(s is not None and s.out_tokens for s in eng.slots):
+            break
+    else:
+        raise RuntimeError(f"{tag} the four requests never all decoded")
+    torch.cuda.synchronize()
+    reset_wrapper_counts()
+    u0 = flash_decode_attn.launches_unmasked
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    per_step = {w: n / DECODE_STEPS for w, n in wrapper_counts().items()}
+    cross = (flash_decode_attn.launches_unmasked - u0) / DECODE_STEPS
+    print(f"{tag} {cfg.name} uncut ({cfg.n_layers} + {cfg.encoder_layers} "
+          f"layers, d {cfg.d_model}), OVSF min_dim {cfg.ovsf.min_dim}: "
+          f"variants {WHISPER_STACK_NAMES} in one stacked engine "
+          f"({eng.model_label}; alpha banks {banks / 2**20:.2f} MiB a "
+          f"variant); 8 requests finished once in {wall:.2f}s, {c['steps']}"
+          f" steps ({c['chunk_free']} chunk-free), launches {c['launches']}"
+          f" ({unmasked} unmasked: the cross reads); graphs {keys}; "
+          f"chunk-free step {step_ms:.3f} ms, flash_decode_attn a step "
+          f"{per_step['flash_decode_attn']:.1f} ({cross:.1f} cross), "
+          f"ovsf_gemm {per_step['ovsf_gemm']:.1f} ({card})", flush=True)
+    close_gateway(gw)
+    return dict(reg=reg, specs=specs, streams=streams, wall_s=wall,
+                counts=c, unmasked=unmasked, graphs=keys, step_ms=step_ms,
+                per_step=per_step, cross_per_step=cross,
+                alpha_bank_bytes=banks)
+
+
+def whisper_stack_phase(seed: int, card: str, dev) -> dict:
+    """Phase 16 (6): the stacked Whisper-tiny pair in fp32 (TF32 off), every
+    stream equal to a dedicated single-model engine's on its variant with
+    every layer ``spectral`` (``dedicated_streams``; hazard H1), then in
+    bf16, its streams printed."""
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        run = whisper_stack_run(seed, card, dev, dtype)
+        reg, specs = run.pop("reg"), run.pop("specs")
+        if dtype == "float32":
+            ded = dedicated_streams(reg, WHISPER_STACK_NAMES, dev, specs,
+                                    "[whisper stacked fp32]",
+                                    engine_kw=WHISPER_STACK_KW)
+            same = sum(run["streams"][r] == ded[r] for r in ded)
+            print(f"[whisper stacked fp32] {same} of {len(ded)} streams "
+                  "equal dedicated spectral engines", flush=True)
+            if run["streams"] != ded:
+                raise RuntimeError(f"[whisper stacked fp32] streams "
+                                   f"{run['streams']} differ from the "
+                                   f"dedicated engines' {ded}")
+            run["equal_dedicated"] = True
+        else:
+            print("[whisper stacked bf16] streams "
+                  + "; ".join(f"{rid} ({specs[rid][1]}) {toks}"
+                              for rid, toks in sorted(run["streams"]
+                                                      .items())), flush=True)
+        del reg
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[dtype] = run
+    return res
+
+
+def quant_train_phase(seed: int, card: str, dev) -> dict:
+    """Phase 16 (module docstring): training with quantised alphas, and the
+    stacked Whisper-tiny pair."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    rng = np.random.default_rng(seed + 61)
+    res = dict(kernels=timed("kernels", run_quant_train_kernel_checks, rng,
+                             dev))
+    res["flash"] = timed("flash", whisper_stack_flash, rng, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quant_train_")
+    try:
+        res["full"] = timed("full", quant_train_full, seed, card, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["int4"] = timed("int4", quant_train_int4, seed, card, dev)
+    res["converted"] = timed("converted", quant_converted_train, seed, card,
+                             dev)
+    res["parity"] = timed("parity", quant_parity, seed, dev)
+    res["whisper"] = timed("whisper", whisper_stack_phase, seed, card, dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["seconds"] = secs
+    print(f"[quant train] phase passed in {res['wall_s']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7672,7 +8498,10 @@ def main(argv=None) -> int:
     mark("convert")
     fam = family_train_phase(args.seed, card, dev)
     mark("family_train")
+    quant = quant_train_phase(args.seed, card, dev)
+    mark("quant_train")
     fk = fam["kernels"]["summary"]
+    qt = quant["kernels"]
     tk = train["kernels"]
     lm_train = {k: sum(r[k] for r in tk["lm"]) for k in
                 ("ms", "forward_ms", "forward_bound_ms", "plain_ms",
@@ -7829,7 +8658,27 @@ def main(argv=None) -> int:
              fam["launcher"]["launches"]["ovsf_gemm"]),
             ("ovsf_gemm_train_llava", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", fk["llava_next_34b"],
-             fam["cut"]["llava_next_34b"]["launches"]["ovsf_gemm"])):
+             fam["cut"]["llava_next_34b"]["launches"]["ovsf_gemm"]),
+            ("ovsf_gemm_train_int8", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:64", qt["gemm"]["int8"],
+             quant["full"]["ovsf_gemm"]),
+            ("ovsf_gemm_train_int4", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:110", qt["gemm"]["int4"],
+             quant["int4"]["ovsf_gemm"]),
+            ("ovsf_decompress_train_int8",
+             "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
+             "src/repro/kernels/ovsf_gemm.py:256", qt["decompress"]["int8"],
+             quant["converted"]["int8"]["ovsf_decompress"]),
+            ("ovsf_decompress_train_int4",
+             "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
+             "src/repro/kernels/ovsf_gemm.py:256", qt["decompress"]["int4"],
+             quant["converted"]["int4"]["ovsf_decompress"]),
+            ("flash_decode_attn_whisper_stacked",
+             "src/repro_torch/kernels/csrc/flash_decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:64",
+             quant["flash"]["summary"],
+             quant["whisper"]["bfloat16"]["counts"]["launches"]
+             ["flash_decode_attn"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -8031,7 +8880,44 @@ def main(argv=None) -> int:
                                             "LLaVA's seven); launches: "
                                             "phase 15's train runs (Zamba2:"
                                             " launch.train at 38 layers; "
-                                            "the others at FAMILY_LAYERS)"},
+                                            "the others at FAMILY_LAYERS)",
+                       "ovsf_gemm_train_int8": "OvsfGemmFn over int8 alphas "
+                                               "(the tensor-core kernel's "
+                                               "QUANT 1 epilogue forward, "
+                                               "d scale and dx as plain "
+                                               "code and fp32 products) at "
+                                               "TinyLlama-1.1B's five "
+                                               "projections, M=1024 bf16, "
+                                               "forward + backward summed; "
+                                               "library: matmul forward + "
+                                               "backward on the dequantised "
+                                               "dense W; launches: the "
+                                               "full-width int8 run under "
+                                               "the supervisor (phase 16)",
+                       "ovsf_gemm_train_int4": "the same over packed int4 "
+                                               "(QUANT 2); launches: the "
+                                               "int4 run at 4 layers",
+                       "ovsf_decompress_train_int*": "OvsfDecompressFn over "
+                                                     "int8 / int4 alphas "
+                                                     "(monolithic codes, a "
+                                                     "converted TinyLlama "
+                                                     "layer's five W), "
+                                                     "forward + backward "
+                                                     "(the fwht kernel for "
+                                                     "dA, reduced to d "
+                                                     "scale), summed; "
+                                                     "library: matmul S^T A"
+                                                     " forward + backward; "
+                                                     "launches: the "
+                                                     "converted model's "
+                                                     "train steps under "
+                                                     "materialize",
+                       "flash_decode_attn_whisper_stacked":
+                           "a chunk-free packed step of the stacked "
+                           "Whisper-tiny pair: the self read (B=4, T=256) "
+                           "and the cross read (B=4, T=1500, every row) "
+                           "summed, bf16; launches: the bf16 stacked "
+                           "gateway run (phase 16)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
@@ -8040,7 +8926,7 @@ def main(argv=None) -> int:
                    "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
                    "encdec_vlm": ev_res, "train": train,
                    "convert": conv, "family_train": fam,
-                   "phase_s": phase_s}, f, indent=1)
+                   "quant_train": quant, "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -88,11 +88,16 @@ wrapper itself and not its Function: the fork is kept for host overhead,
 since a Function call costs more host time than the wrapper (measured by
 ``chip_smoke.py`` phase 13, PERF.md §6), paid 110 times in an eager
 TinyLlama-1.1B decode step.
-``fused`` refuses quantised alphas while autograd records x, and
-``materialize`` while it records their scales (training with them is
-ROADMAP A.8.3; the train step refuses them up front). The
-decompress cache is bypassed while the alphas require grad (a cached W
-would carry a finished step's graph).
+Quantised alphas (int8 / packed int4 q with per-segment fp32 scales s, A
+= q̂ s as ``kref.dequant_ref``) train their scales: the integers get no
+gradient, and d s[seg] is the sum of q̂ ⊙ dA over the segment's rows and
+every column (q̂ the stored integer, an int4 byte's two nibbles
+unpacked), dA as above. ``fused``'s forward is the kernel's quantised
+epilogue, ``materialize``'s (monolithic codes) the decompress kernel's;
+dx for monolithic codes takes W from the decompress kernel's epilogue.
+The decompress cache is bypassed while autograd records the alphas or
+their scales (a cached W would carry a finished step's graph and, once
+the scale trains, a stale scale).
 """
 from __future__ import annotations
 
@@ -110,8 +115,9 @@ EXEC_PATHS = ("materialize", "fused", "spectral")
 
 
 def _records(*ts) -> bool:
-    """Whether autograd records any of ``ts``."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    """Whether autograd records any of ``ts`` (``None`` entries skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 class FwhtFn(torch.autograd.Function):
@@ -130,50 +136,83 @@ class FwhtFn(torch.autograd.Function):
 class OvsfDecompressFn(torch.autograd.Function):
     """``kernels.ovsf_gemm.ovsf_decompress`` (monolithic codes) with its
     gradient dA = S dW: the rows of dW^T padded to L, transformed by the
-    ``fwht`` kernel in fp32, the kept columns taken and transposed."""
+    ``fwht`` kernel in fp32, the kept columns taken and transposed. Over
+    int8 / int4 alphas (the kernel's epilogue) dA reduces to the scales'
+    gradient (``_scale_grad``)."""
 
     @staticmethod
-    def forward(ctx, alphas, idx, d_in):
-        ctx.save_for_backward(idx)
-        ctx.dtype = alphas.dtype
-        return ovsf_decompress(alphas, idx, d_in)
+    def forward(ctx, alphas, idx, d_in, alpha_scale=None, alpha_dtype=""):
+        ctx.dtype, ctx.alpha_dtype = alphas.dtype, alpha_dtype
+        ctx.save_for_backward(idx, alphas if alpha_dtype else None,
+                              alpha_scale)
+        return ovsf_decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
+                               alpha_dtype=alpha_dtype)
 
     @staticmethod
     def backward(ctx, dW):
-        (idx,) = ctx.saved_tensors
+        idx, q, scale = ctx.saved_tensors
         dA = _coefficients(dW.t().to(torch.float32), idx).t()
-        return dA.to(ctx.dtype), None, None
+        if ctx.alpha_dtype:
+            return (None, None, None,
+                    _scale_grad(q, scale, dA, ctx.alpha_dtype), None)
+        return dA.to(ctx.dtype), None, None, None, None
 
 
 class OvsfGemmFn(torch.autograd.Function):
-    """``kernels.ovsf_gemm.ovsf_gemm`` over fp32/bf16 alphas with its
-    gradients (module docstring): dA = spectral_transform(x)^T dy, and
-    dx = dy W^T, W from the ``ovsf_decompress`` kernel for monolithic codes
-    and (dy A^T) S as a scatter and a plain per-segment WHT for segmented
-    ones. fp32 arithmetic; each gradient in its input's type."""
+    """``kernels.ovsf_gemm.ovsf_gemm`` with its gradients (module
+    docstring): dA = spectral_transform(x)^T dy (over int8 / int4 alphas
+    reduced to the scales' gradient, ``_scale_grad``), and dx = dy W^T, W
+    from the ``ovsf_decompress`` kernel (its int8 / int4 epilogue for
+    quantised alphas) for monolithic codes and (dy A^T) S as a scatter and
+    a plain per-segment WHT for segmented ones, A dequantised by
+    ``kref.dequant_ref``. fp32 arithmetic; each gradient in its input's
+    type."""
 
     @staticmethod
-    def forward(ctx, x, alphas, idx):
-        ctx.save_for_backward(x, alphas, idx)
-        return ovsf_gemm(x, alphas, idx)
+    def forward(ctx, x, alphas, idx, alpha_scale=None, alpha_dtype=""):
+        ctx.alpha_dtype = alpha_dtype
+        ctx.save_for_backward(x, alphas, idx, alpha_scale)
+        return ovsf_gemm(x, alphas, idx, alpha_scale=alpha_scale,
+                         alpha_dtype=alpha_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, alphas, idx = ctx.saved_tensors
+        x, alphas, idx, scale = ctx.saved_tensors
+        adt = ctx.alpha_dtype
         d_in = x.shape[-1]
         dyf = dy.to(torch.float32)
-        dx = dA = None
+        dx = dA = ds = None
         if ctx.needs_input_grad[0]:
-            af = alphas.to(torch.float32)
             if idx.dim() == 2:
+                af = kref.dequant_ref(alphas, scale, adt).to(torch.float32)
                 dx = _segment_adjoint(dyf @ af.t(), idx, d_in)
+            elif adt:
+                dx = dyf @ ovsf_decompress(alphas, idx, d_in,
+                                           alpha_scale=scale,
+                                           alpha_dtype=adt).t()
             else:
-                dx = dyf @ ovsf_decompress(af, idx, d_in).t()
+                dx = dyf @ ovsf_decompress(alphas.to(torch.float32), idx,
+                                           d_in).t()
             dx = dx.to(x.dtype)
-        if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[3 if adt else 1]:
             xk = spectral_transform(x.to(torch.float32), idx)
-            dA = (xk.t() @ dyf).to(alphas.dtype)
-        return dx, dA, None
+            g = xk.t() @ dyf
+            if adt:
+                ds = _scale_grad(alphas, scale, g, adt)
+            else:
+                dA = g.to(alphas.dtype)
+        return dx, dA, None, ds, None
+
+
+def _scale_grad(q: torch.Tensor, scale: torch.Tensor, dA: torch.Tensor,
+                alpha_dtype: str) -> torch.Tensor:
+    """The gradient of the per-segment scales of A = q̂ s from dA (J, d_out)
+    fp32: the sum of q̂ ⊙ dA over each segment's J / n_seg rows and every
+    column, q̂ the stored integer (an int4 byte's nibbles unpacked, the low
+    one the even column), in the scales' (n_seg, 1) shape."""
+    qh = ovsf.unpack_int4(q) if alpha_dtype == "int4" else q
+    return (qh.to(torch.float32) * dA).reshape(scale.numel(), -1).sum(
+        -1).reshape(scale.shape)
 
 
 def _coefficients(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -204,39 +243,26 @@ def fwht_fn(x: torch.Tensor) -> torch.Tensor:
     return FwhtFn.apply(x) if _records(x) else fwht(x)
 
 
-def _no_quantised_training(alpha_dtype: str) -> None:
-    if alpha_dtype:
-        raise NotImplementedError(
-            f"training with {alpha_dtype} alphas is not ported (ROADMAP "
-            "A.8.3): train fp32/bf16 alphas and quantise after")
-
-
 def ovsf_decompress_fn(alphas: torch.Tensor, idx: torch.Tensor, d_in: int,
                        *, alpha_scale=None, alpha_dtype: str = ""
                        ) -> torch.Tensor:
     """``ovsf_decompress``, differentiable (``OvsfDecompressFn``) where
-    autograd records fp32/bf16 alphas; quantised alphas (integers, only
-    their scales could carry a gradient) are refused where autograd records
-    the scales."""
-    if alpha_dtype:
-        if alpha_scale is not None and _records(alpha_scale):
-            _no_quantised_training(alpha_dtype)
-        return ovsf_decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
-                               alpha_dtype=alpha_dtype)
-    if _records(alphas):
-        return OvsfDecompressFn.apply(alphas, idx, d_in)
-    return ovsf_decompress(alphas, idx, d_in)
+    autograd records fp32/bf16 alphas or the scales of quantised ones."""
+    if _records(alphas, alpha_scale):
+        return OvsfDecompressFn.apply(alphas, idx, d_in, alpha_scale,
+                                      alpha_dtype)
+    return ovsf_decompress(alphas, idx, d_in, alpha_scale=alpha_scale,
+                           alpha_dtype=alpha_dtype)
 
 
 def ovsf_gemm_fn(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
                  *, alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
     """``ovsf_gemm``, differentiable (``OvsfGemmFn``) where autograd
-    records x or the alphas; quantised alphas are refused there."""
-    if not _records(x, alphas):
-        return ovsf_gemm(x, alphas, idx, alpha_scale=alpha_scale,
-                         alpha_dtype=alpha_dtype)
-    _no_quantised_training(alpha_dtype)
-    return OvsfGemmFn.apply(x, alphas, idx)
+    records x, fp32/bf16 alphas or the scales of quantised ones."""
+    if _records(x, alphas, alpha_scale):
+        return OvsfGemmFn.apply(x, alphas, idx, alpha_scale, alpha_dtype)
+    return ovsf_gemm(x, alphas, idx, alpha_scale=alpha_scale,
+                     alpha_dtype=alpha_dtype)
 
 
 def _segmented_decompress(alphas: torch.Tensor, idx: torch.Tensor,
@@ -442,7 +468,7 @@ def ovsf_matmul(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
         path = plan.path
         if plan.cache_weights:
             cache_key = plan.cache_key or f"ovsf:{id(alphas)}"
-    if _records(alphas):
+    if _records(alphas, alpha_scale):
         cache_key = ""          # a cached W would carry a finished graph
     if cache_key:
         # an alpha-dtype switch re-keys the slot instead of serving a

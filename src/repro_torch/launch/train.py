@@ -16,10 +16,10 @@ on restore unless ``--no-verify-ckpt``. Every family trains; an
 encoder-decoder's batches carry zero ``frames`` (B, ``encoder_seq``, d)
 and a VLM's zero ``image_embeds`` (B, min(``vlm_image_tokens``, S // 2),
 d), in the model dtype on the device, as the reference's launcher builds
-them, in every batch the supervisor draws (a replayed step too).
-Quantised alphas are refused (ROADMAP A.8.3). Prints the reference's lines
-(``[train] params``, ``[train] done: ... first loss ... last loss``) and
-each save's seconds.
+them, in every batch the supervisor draws (a replayed step too). A
+config with int8 / int4 alphas trains their scales through the same loop.
+Prints the reference's lines (``[train] params``, ``[train] done: ...
+first loss ... last loss``) and each save's seconds.
 """
 from __future__ import annotations
 

@@ -570,17 +570,14 @@ def serve_step_packed_multi(params: dict, cfg: ModelConfig, cache: dict,
     stack_variants``); ``model_ids`` (B,) maps each slot to its variant,
     and each packed token contracts against its slot's alpha bank
     (``kernels.ops.ovsf_matmul_multi``), so a step mixes models at the
-    single-model step shapes."""
+    single-model step shapes. An encoder-decoder's cross sub-block reads
+    each token's slot caches with its variant's projections
+    (``attention.cross_attn_packed``); the encoder does not run here."""
     _check_padded(cfg, "multi-model step")
     if cfg.family == "moe":
         raise NotImplementedError(
             "multi-model batching over MoE expert banks is not supported "
             "yet (per-expert alpha stacking)")
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "multi-model batching of the encoder-decoder family is not "
-            "supported yet (serving.model_registry.stack_variants cannot "
-            "stack the encoder's layer list)")
     return serve_step_packed(params, cfg, cache, tokens, slot_ids, positions,
                              new_pos, emit_idx, model_ids=model_ids)
 

@@ -25,16 +25,21 @@ which is what makes serving several OVSF models at once cheap.
   reload bitwise against it.
 
 Leaf indexing. The reference's params are a pytree whose ``blocks`` leaves
-are stacked over layers; the port's ``blocks`` is a list of per-layer
-dicts. A *leaf* here keeps the reference's meaning: one leaf of the
-reference's flatten order (dict keys sorted, ``blocks`` first), spanning
-all layers. Its bytes are the per-layer tensors' bytes concatenated in
-layer order (the C-order bytes of the reference's ``(n_layers, ...)``
-array), its CRC ``zlib.crc32`` carried across them, so the port's ledger
-of bridged params equals the reference's, path strings included. The
-variant axis of a stacked ``blocks`` leaf sits after the layer axis in the
-reference (``(n_layers, M, ...)``), so each per-layer tensor of the port
-is ``(M, ...)``: what ``kernels.ops.ovsf_matmul_multi`` takes.
+(and an encoder-decoder's ``encoder.blocks`` leaves) are stacked over
+layers; the port's are lists of per-layer dicts. A *leaf* here keeps the
+reference's meaning: one leaf of the reference's flatten order (dict keys
+sorted at every level), spanning all layers. Its bytes are the per-layer
+tensors' bytes concatenated in layer order (the C-order bytes of the
+reference's ``(n_layers, ...)`` array), its CRC ``zlib.crc32`` carried
+across them, so the port's ledger of bridged params equals the
+reference's, path strings included, the encoder's alpha banks among them.
+The variant axis of a stacked ``blocks`` leaf sits after the layer axis in
+the reference (``(n_layers, M, ...)``), so each per-layer tensor of the
+port is ``(M, ...)``: what ``kernels.ops.ovsf_matmul_multi`` takes. The
+reference puts it first on ``encoder.blocks`` leaves (``(M, n_layers,
+...)``); the port keeps ``(M, ...)`` per layer there too (the multi-model
+steps never run the encoder), so only a stacked tree's encoder leaves are
+laid out otherwise than the reference's.
 
 Torch tensors are mutable and engines hold the registry's tensors (a
 one-member group's engine holds the entry's params; its CUDA graphs hold
@@ -77,21 +82,22 @@ def _flat(tree: dict, prefix: tuple = ()) -> list:
     return out
 
 
-def _leaves(params: dict) -> list:
+def _leaves(tree: dict, prefix: tuple = ()) -> list:
     """``(path, [tensor per layer])`` for every leaf of the reference's
-    flatten order: a ``blocks`` leaf lists its per-layer tensors, any other
-    leaf is a list of one."""
+    flatten order: a leaf under a layer list (``blocks``, an
+    encoder-decoder's ``encoder.blocks``) lists its per-layer tensors, any
+    other leaf is a list of one."""
     out = []
-    for k in sorted(params):
-        v = params[k]
-        if k == "blocks":
+    for k in sorted(tree):
+        v, path = tree[k], prefix + (k,)
+        if isinstance(v, list):
             per = [dict(_flat(layer)) for layer in v]
-            out.extend((("blocks",) + p, [d[p] for d in per])
+            out.extend((path + p, [d[p] for d in per])
                        for p, _t in _flat(v[0]))
         elif isinstance(v, dict):
-            out.extend((p, [t]) for p, t in _flat(v, (k,)))
+            out.extend(_leaves(v, path))
         else:
-            out.append(((k,), [v]))
+            out.append((path, [v]))
     return out
 
 
@@ -158,17 +164,16 @@ def arch_signature(cfg: ModelConfig) -> str:
 def _with_leaf(params: dict, path: tuple, layer: int,
                t: torch.Tensor) -> dict:
     """A new tree equal to ``params`` but for the tensor at ``path`` (of
-    layer ``layer`` under ``blocks``): the dicts and the list along the
-    path are copied, every other tensor is shared."""
-    def put(d: dict, keys: tuple) -> dict:
-        d = dict(d)
-        d[keys[0]] = t if len(keys) == 1 else put(d[keys[0]], keys[1:])
-        return d
-
-    if path[0] == "blocks":
-        blocks = list(params["blocks"])
-        blocks[layer] = put(blocks[layer], path[1:])
-        return {**params, "blocks": blocks}
+    layer ``layer`` where the path crosses a layer list): the dicts and the
+    lists along the path are copied, every other tensor is shared."""
+    def put(node, keys: tuple):
+        if isinstance(node, list):
+            node = list(node)
+            node[layer] = put(node[layer], keys)
+            return node
+        node = dict(node)
+        node[keys[0]] = t if len(keys) == 1 else put(node[keys[0]], keys[1:])
+        return node
     return put(params, path)
 
 
@@ -215,19 +220,15 @@ class VariantSet:
 def stack_variants(named_params: list, cfg: ModelConfig) -> VariantSet:
     """Stack ``[(name, params), ...]`` into a :class:`VariantSet`.
 
-    Alpha leaves gain a variant axis: axis 0 of each per-layer ``blocks``
-    tensor (the reference's axis 1, after its layer axis) and of any leaf
-    outside ``blocks``. Every other leaf must be bit-equal across members
-    (the code ids included: the multi path applies ONE transform and
-    contracts each token against its variant's coefficients) and is
-    stored once."""
+    Alpha leaves gain a variant axis: axis 0 of each per-layer tensor of a
+    layer list (``blocks``: the reference's axis 1, after its layer axis;
+    an encoder-decoder's ``encoder.blocks``: the reference's axis 0) and of
+    any other leaf. Every other leaf must be bit-equal across members (the
+    code ids included: the multi path applies ONE transform and contracts
+    each token against its variant's coefficients) and is stored once."""
     if len(named_params) < 2:
         raise ValueError("stack_variants needs >= 2 members; a single model "
                          "serves from a plain LLMEngine")
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "stacking encoder-decoder variants is not supported yet (the "
-            "encoder's layer list has no variant layout here)")
     names = tuple(n for n, _p in named_params)
     flats = []
     for n, p in named_params:

@@ -14,8 +14,10 @@ dispatches by ``cfg.ovsf.exec_path``, as the reference does. Every family
 trains (the MoE aux, the SSM and hybrid scans, the encoder over
 ``frames``, the VLM's ``image_embeds``: ``models.transformer``); MoE's
 expert banks regenerate their W as plain tensor code under every plan, as
-the reference's do. Training with quantised alphas is refused (ROADMAP
-A.8.3).
+the reference's do. Int8 / int4 alphas train their fp32 per-segment scales
+(``alpha_scale``) through the kernels' quantised paths (``kernels.ops``);
+the integer alphas, like the code ids, get no gradient and stay as they
+are. Quantised expert banks are refused, as the reference refuses them.
 
 The reference's ``jit_train_step`` / ``jit_decode_step`` / ``jit_prefill``
 wrap these functions with explicit shardings over a device mesh; a single
@@ -36,20 +38,11 @@ from repro_torch.runtime import mapper
 from repro_torch.train import optim
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse what this port does not train: quantised alphas."""
-    T.check_trainable(cfg)
-    if cfg.ovsf.enable and cfg.ovsf.alpha_dtype:
-        raise NotImplementedError(
-            f"training with {cfg.ovsf.alpha_dtype} alphas is not ported "
-            "(ROADMAP A.8.3): train fp32/bf16 alphas and quantise after")
-
-
 def train_state_init(cfg: ModelConfig, seed: int = 0, device="cuda"
                      ) -> dict:
     """``{"params", "opt"}``: ``models.registry.model_init`` and AdamW's
     zero state on ``device``."""
-    check_trainable(cfg)
+    T.check_trainable(cfg)
     params = R.model_init(cfg, seed, resolve_device(device))
     return {"params": params, "opt": optim.adamw_init(params)}
 
@@ -107,7 +100,7 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
 def make_train_step(cfg: ModelConfig, ocfg: optim.OptConfig):
     """``(state, batch) -> (state, metrics)``; metrics are 0-d tensors:
     ``total_loss``, ``loss``, ``aux``, ``lr``, ``grad_norm``, ``step``."""
-    check_trainable(cfg)
+    T.check_trainable(cfg)
     plans: dict = {}
 
     def step(state: dict, batch: dict):

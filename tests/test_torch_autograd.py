@@ -182,18 +182,28 @@ def test_segment_adjoint_is_the_transpose():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_quantised_alphas_refuse_training():
-    q = torch.zeros((8, 16), dtype=torch.int8)
-    scale = torch.ones((1, 1))
+def test_quantised_alphas_train_their_scales():
+    """``fused`` over int8 alphas while autograd records x and the scale:
+    ``OvsfGemmFn`` gives dx = dy W^T and d scale = sum(q ⊙ S x^T dy), the
+    integers none; the same call without a record serves."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.integers(-127, 128, (8, 16)).astype(np.int8))
+    scale = torch.full((1, 1), 0.01, requires_grad=True)
     x = torch.randn(2, 16, requires_grad=True)
     idx = torch.arange(8, dtype=torch.int32).reshape(1, 8)
-    with pytest.raises(NotImplementedError, match="A.8.3"):
-        tops.ovsf_matmul(x, q, idx, path="fused", alpha_scale=scale,
+    y = tops.ovsf_matmul(x, q, idx, path="fused", alpha_scale=scale,
                          alpha_dtype="int8")
-    # the same call without autograd recording serves
+    assert y.grad_fn is not None and not q.requires_grad
+    dy = torch.randn(2, 16)
+    dx, ds = torch.autograd.grad((y * dy).sum(), (x, scale))
+    S = tref.ovsf_decompress_ref(torch.eye(8), idx, 16)       # (d_in, J)
+    W = S @ (q.float() * 0.01)
+    torch.testing.assert_close(dx, dy @ W.t(), rtol=1e-5, atol=1e-5)
+    want = (q.float() * ((x.detach() @ S).t() @ dy)).sum()
+    torch.testing.assert_close(ds.reshape(()), want, rtol=1e-5, atol=1e-5)
     assert tops.ovsf_matmul(x.detach(), q, idx, path="fused",
-                            alpha_scale=scale, alpha_dtype="int8").shape \
-        == (2, 16)
+                            alpha_scale=scale.detach(),
+                            alpha_dtype="int8").shape == (2, 16)
 
 
 def test_decompress_cache_is_bypassed_while_alphas_train():

@@ -386,7 +386,7 @@ def test_logits_match_reference(name, wm, mode, monkeypatch):
     calls = []
     real = tops.ovsf_decompress
     monkeypatch.setattr(tops, "ovsf_decompress",
-                        lambda *a: calls.append(a[2]) or real(*a))
+                        lambda *a, **kw: calls.append(a[2]) or real(*a, **kw))
     got, new_state = tcnn.cnn_apply(tp, ts, tcfg, torch.from_numpy(x))
     assert got.shape == (2, 10) and torch.isfinite(got).all()
     assert _rel(_np(got), want) <= LOGITS_REL

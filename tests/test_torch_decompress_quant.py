@@ -261,24 +261,39 @@ def test_off_the_cpu_monolithic_reaches_wrapper_segmented_refuses(
 
 
 @pytest.mark.parametrize("alpha_dtype", ADTS)
-def test_quantised_autograd_refuses(alpha_dtype):
-    """Training with quantised alphas is ROADMAP A.8.3: a scale that
-    requires grad under ``materialize``, and x under ``fused``."""
+def test_quantised_autograd_trains_the_scales(alpha_dtype):
+    """Training with quantised alphas: a scale that requires grad under
+    ``materialize`` (``OvsfDecompressFn`` over the epilogue) and x under
+    ``fused`` (``OvsfGemmFn``) record a graph; the gradients of x and the
+    scales match ``jax.grad`` of the reference's plain paths within 1e-4
+    relative, and the integers get none. Without a record the wrappers
+    serve as before."""
     q, s, idx, _al = _case(64, 16, 1, alpha_dtype, seed=5)
-    with pytest.raises(NotImplementedError, match="A.8.3"):
-        tops.ovsf_decompress_fn(q, idx, 64, alpha_scale=s.requires_grad_(),
+    G = np.random.default_rng(6).standard_normal((64, 16)).astype(np.float32)
+    ts = s.clone().requires_grad_()
+    W = tops.ovsf_decompress_fn(q, idx, 64, alpha_scale=ts,
                                 alpha_dtype=alpha_dtype)
+    (ds,) = torch.autograd.grad((W * torch.from_numpy(G)).sum(), ts)
+    jds = jax.grad(lambda ss: jnp.sum(jops.decompress(
+        jnp.asarray(_np(q)), jnp.asarray(_np(idx)), 64, alpha_scale=ss,
+        alpha_dtype=alpha_dtype, use_pallas=False) * G))(jnp.asarray(_np(s)))
+    np.testing.assert_allclose(_np(ds), np.asarray(jds), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(jds).max()))
     x = torch.randn((2, 64), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A.8.3"):
-        tops.ovsf_gemm_fn(x, q, idx, alpha_scale=s.detach(),
-                          alpha_dtype=alpha_dtype)
-    with torch.no_grad():               # served: no record, no refusal
-        W = tops.ovsf_decompress_fn(q, idx, 64, alpha_scale=s,
+    g = torch.randn((2, 16))
+    (dx,) = torch.autograd.grad((tops.ovsf_gemm_fn(
+        x, q, idx, alpha_scale=s, alpha_dtype=alpha_dtype) * g).sum(), x)
+    jdx = jax.grad(lambda xx: jnp.sum(jops.ovsf_matmul(
+        xx, jnp.asarray(_np(q)), jnp.asarray(_np(idx)), path="fused",
+        alpha_scale=jnp.asarray(_np(s)), alpha_dtype=alpha_dtype,
+        use_pallas=False) * _np(g)))(jnp.asarray(_np(x)))
+    np.testing.assert_allclose(_np(dx), np.asarray(jdx), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(jdx).max()))
+    with torch.no_grad():               # served: no record
+        W = tops.ovsf_decompress_fn(q, idx, 64, alpha_scale=ts,
                                     alpha_dtype=alpha_dtype)
-    assert W.dtype == torch.float32
+    assert W.dtype == torch.float32 and W.grad_fn is None
 
-
-# -- the engine: 5 decompressions a layer a step ------------------------------
 
 @pytest.mark.parametrize("alpha_dtype", ADTS)
 def test_converted_engine_decompresses_five_a_layer_a_step(alpha_dtype,

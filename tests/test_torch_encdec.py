@@ -580,21 +580,30 @@ def test_arch_registry_matches_reference():
             (j.encoder_layers, j.encoder_seq, j.vlm_image_tokens)
 
 
-def test_multi_model_paths_refuse_the_family():
-    """The reference stacks encoder-decoder variants; the port's
-    ``stack_variants`` has no layout for the encoder's layer list, so it
-    and the multi-model steps refuse the family by name (ROADMAP A)."""
+def test_multi_model_paths_serve_the_family():
+    """``stack_variants`` stacks encoder-decoder variants (the encoder's
+    layer list included) and the multi-model steps run the family (they
+    refused it before the encoder's layout was ported); each slot's logits
+    are its own variant's. ``tests/test_torch_multi_encdec.py`` holds them
+    against the reference."""
     _j, tcfg, _jp, tparams = _smoke()
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        treg.stack_variants([("a", tparams), ("b", tparams)], tcfg)
+    vset = treg.stack_variants([("a", tparams), ("b", tparams)], tcfg)
+    assert vset.params["encoder"]["blocks"][0]["attn"]["q"]["alphas"] \
+        .shape[0] == 2
     cache = tR.init_cache(tcfg, 2, 8, "cpu")
     z = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="encoder-decoder family"):
-        tR.serve_step_packed_multi(tparams, tcfg, cache, z, z, z, z, z, z)
-    with pytest.raises(NotImplementedError, match="encoder-decoder family"):
-        tR.serve_step_window_multi(tparams, tcfg, cache,
-                                   torch.zeros((2, 1), dtype=torch.int32),
-                                   torch.ones(2, dtype=torch.int32), z)
+    tl, _c = tR.serve_step_packed_multi(vset.params, tcfg, cache, z,
+                                        torch.arange(2, dtype=torch.int32),
+                                        z, torch.ones(2, dtype=torch.int32),
+                                        torch.arange(2, dtype=torch.int32),
+                                        torch.tensor([0, 1]))
+    assert tl.shape == (2, tcfg.vocab) and torch.isfinite(tl).all()
+    assert torch.equal(tl[0], tl[1])        # equal variants, equal rows
+    wl, _c = tR.serve_step_window_multi(
+        vset.params, tcfg, tR.init_cache(tcfg, 2, 8, "cpu"),
+        torch.zeros((2, 1), dtype=torch.int32),
+        torch.ones(2, dtype=torch.int32), torch.tensor([1, 0]))
+    torch.testing.assert_close(wl, tl, rtol=1e-5, atol=1e-5)
 
 
 def test_launcher_matches_reference_launcher(monkeypatch, capsys):

@@ -149,7 +149,7 @@ def _stub_kernels(monkeypatch):
         n = alphas.shape[1] * (2 if alpha_dtype == "int4" else 1)
         return x[:, :1].expand(x.shape[0], n) * 0.01
 
-    def decompress(alphas, idx, d_in):
+    def decompress(alphas, idx, d_in, *, alpha_scale=None, alpha_dtype=""):
         return alphas.new_zeros((alphas.shape[1], d_in)).t()
 
     monkeypatch.setattr(ops, "ovsf_gemm", gemm)

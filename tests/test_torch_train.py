@@ -84,11 +84,12 @@ def _rel(got, want) -> float:
                  / (den if den else 1.0))
 
 
-def _cfgs(path="materialize", arch=ARCH):
+def _cfgs(path="materialize", arch=ARCH, alpha_dtype=""):
     jc, tc = j_smoke(arch), t_smoke(arch)
     if jc.ovsf.enable:
-        jc = jc.replace(ovsf=dataclasses.replace(jc.ovsf, exec_path=path))
-        tc = tc.replace(ovsf=dataclasses.replace(tc.ovsf, exec_path=path))
+        kw = dict(exec_path=path, alpha_dtype=alpha_dtype)
+        jc = jc.replace(ovsf=dataclasses.replace(jc.ovsf, **kw))
+        tc = tc.replace(ovsf=dataclasses.replace(tc.ovsf, **kw))
     return jc, tc
 
 
@@ -352,17 +353,24 @@ def test_remat_recomputes_each_block_with_the_same_gradients(monkeypatch):
 
 
 def test_train_refuses_what_is_not_ported():
-    """Quantised alphas (A.8.3) and a missing card are refused; every
-    family builds its train step and state (the MoE and hybrid cases were
-    refusals before the other families trained)."""
+    """A missing card is refused; every family builds its train step and
+    state (the MoE and hybrid cases were refusals before the other
+    families trained), and so do int8 alphas (a refusal before training
+    with quantised alphas was ported): their scales are float leaves with
+    AdamW moments, the integers stay integers."""
     assert callable(tsteps.make_train_step(t_smoke("olmoe_1b_7b"),
                                            toptim.OptConfig()))
     st = tsteps.train_state_init(t_smoke("zamba2_1_2b"), 0, "cpu")
     assert "shared_attn" in st["params"] and "shared_attn" in st["opt"]["m"]
     q = t_smoke(ARCH)
     q = q.replace(ovsf=dataclasses.replace(q.ovsf, alpha_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="A.8.3"):
-        tsteps.make_train_step(q, toptim.OptConfig())
+    assert callable(tsteps.make_train_step(q, toptim.OptConfig()))
+    qs = tsteps.train_state_init(q, 0, "cpu")
+    lin = qs["params"]["blocks"][0]["attn"]["q"]
+    assert lin["alphas_q8"].dtype == torch.int8
+    assert lin["alpha_scale"].dtype == torch.float32
+    assert qs["opt"]["m"]["blocks"][0]["attn"]["q"]["alpha_scale"].shape \
+        == lin["alpha_scale"].shape
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if not torch.cuda.is_available():
             tsteps.train_state_init(t_smoke(ARCH))

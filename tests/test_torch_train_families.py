@@ -59,10 +59,11 @@ def family_batch(cfg, B: int, S: int, seed: int) -> dict:
     return b
 
 
-def states(arch: str, path: str = "materialize"):
+def states(arch: str, path: str = "materialize", alpha_dtype: str = ""):
     """(reference cfg, port cfg, the reference's train state, the same
-    state in the port's layout on the CPU)."""
-    jc, tc = _cfgs(path, arch)
+    state in the port's layout on the CPU), alphas stored as
+    ``alpha_dtype``."""
+    jc, tc = _cfgs(path, arch, alpha_dtype)
     jstate = jsteps.train_state_init(jax.random.PRNGKey(0), jc)
     tree = jax.tree_util.tree_map(np.asarray, jstate)
     return jc, tc, jstate, bridge.state_from_numpy(tree, tc, "cpu")
