@@ -34,7 +34,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ragged shape, repeated code ids; and its int8 / int4 epilogue
              at TinyLlama-1.1B's converted shapes, phase 14's model: 2048
              -> 2048, 2048 -> 5632, 5632 -> 2048 at L 8192, J = L / 2, the
-             ragged 1000 -> 40 and repeated ids, W fp32) and ``fwht``
+             ragged 1000 -> 40 and repeated ids, W fp32; and its segmented
+             layout, phase 17's: TinyLlama-1.1B's five W, L0 16, 8 kept,
+             and ragged cases (L0 8 and 32, n_keep 5 and 32, repeated ids,
+             d_out off the tile) with fp32, bf16, int8 and int4 alphas,
+             within 2e-3 (fp32 W) or 2e-2 relative L2 (bf16 W, which also
+             equals the plain version's fp32 sums rounded once), the
+             library call ``torch.bmm`` of prebuilt signs by the alphas;
+             ``OvsfDecompressFn``'s dA and d scale over segmented ids
+             against autograd through the plain version) and ``fwht``
              (the (M, L) of the planned ResNet-50 and SqueezeNet-1.1
              forwards at batch 8,
              ragged (37, 1024), (5, 2) and the limit (3, 32768)) against
@@ -55,10 +63,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              must refuse
              what it does not take (bf16 or CPU scales, CPU alphas, float
              alphas, scales that do not tile J), and ``ovsf_matmul`` must
-             refuse ``materialize`` of segmented codes, float or quantised,
-             on the card (no kernel; no plain fallback runs there), run
-             ``materialize`` of monolithic int8 / int4 alphas through one
-             ``ovsf_decompress`` launch equal to the plain version, and run
+             run ``materialize`` of segmented codes, bf16 or int4, through
+             one segmented ``ovsf_decompress`` launch (y the product with
+             its W), ``materialize`` of monolithic int8 / int4 alphas
+             through one ``ovsf_decompress`` launch equal to the plain
+             version, and run
              ``spectral`` of segmented codes (plain tensor code, as the
              reference's jnp) there, equal to the CPU's.
              Last, one ResNet-50 s2 conv's GEMM (M
@@ -70,8 +79,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              weights from --seed) through ``LLMEngine(paged=True,
              packed=True, chunk_size=64, batch_slots=4, buffer_len=256)``,
              once with bf16 alphas and once each with int8 and int4 alphas:
-             the engine's mapper plan (target ``h100``, candidates the
-             paths with a kernel on the card) must be ``fused`` for every
+             the engine's mapper plan (target ``h100``, the reference's
+             candidates ``materialize`` and ``fused``) must be ``fused`` for every
              OVSF weight type, 8 requests (6 greedy, 2 sampled)
              must all finish, and the kernel launch counters, zeroed just
              before, must read 5 * 22 ``ovsf_gemm`` launches of that alpha
@@ -420,35 +429,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
              port: the loss, each BN layer's new statistics, ResNet-50's
              eval-mode and ResNet-18's train-mode gradients (ResNet-50's
              train-mode ones are ill-conditioned: ``cnn_train_phase``). (3) One fp32 train step of TinyLlama at full
-             width, ``TRAIN_PARITY_LAYERS`` layers, card vs CPU: loss within
+             width, ``TRAIN_PARITY_LAYERS`` layers, card vs CPU, both under
+             the config's ``materialize`` and the card again under an
+             explicit ``fused`` plan: loss within
              1e-5, gradients and updated params within 1e-3 relative L2. (4)
              ``runtime.supervisor.run`` at full width, ``TRAIN_FAULT_LAYERS``
-             layers, with a ``FaultPlan`` ``fail`` between checkpoints: one
+             layers, ``materialize``, with a ``FaultPlan`` ``fail`` between checkpoints: one
              failure, a restore, the replayed losses equal the
              uninterrupted run's bit for bit; the final checkpoint restores
              bit for bit and a flipped byte is refused, naming its leaf. (5)
              ``python -m repro_torch.launch.train --arch tinyllama_1_1b``
-             at full width and depth (``main`` in this process): 12 steps
+             at full width and depth (``main`` in this process), so under
+             the config's ``materialize``: 12 steps
              of B 8, S 128, one checkpoint, at the end; finite losses, the last
-             below the first, 220 ``ovsf_gemm`` launches a step (remat
-             recomputes each block's forward), all on the tensor-core
-             kernel; step wall, device busy, idle share, peak
-             ``memory_allocated`` and each save's seconds printed. (6) The
+             below the first, 220 segmented ``ovsf_decompress`` launches a
+             step (remat recomputes each block's forward) and no
+             ``ovsf_gemm``; step wall, device busy, idle share, peak
+             ``memory_allocated`` and each save's seconds printed; then one
+             step of the trained state under an explicit ``fused`` plan,
+             profiled: 220 ``ovsf_gemm``, all tensor-core. (6) The
              trained params served by ``LLMEngine`` paged packed, eager and
              replayed: streams equal, logits finite.
   14. convert: the paper's Converter on the card (its kernel rows in phase
              3). (1) Full-width TinyLlama-1.1B built dense in fp32
              from --seed and converted by ``layers.linear_convert_to_ovsf``
              (monolithic codes, rho 0.5, iterative) on its q, o, gate, up
-             and down: to int8 at all 22 layers, to int4 at
+             and down: to int8 and int4 at
              ``SERVE_CUT_LAYERS``; the conversion's wall and each weight
              type's relative error of W printed. (2) The first 2 layers
              converted on the card and on the CPU: equal kept code ids (a
              flip only at a cut gap within 1e-5 relative), alphas within
              1e-6 (fp32) or one quantum (int8); the converted int8 and int4
              models' fp32 packed paged step, card vs CPU, within 1e-3
-             relative L2. (3) The dense model freed, the int8 (22 layers)
-             and int4 models, bf16, through ``LLMEngine(chunk_size=64,
+             relative L2. (3) The dense model freed, the int8 and int4
+             models, bf16, through ``LLMEngine(chunk_size=64,
              paged=True, packed=True, use_mapper=False)``, so every OVSF
              layer runs ``materialize``: eager and replayed, every request
              finishes, every step launches 5 ``ovsf_decompress`` a layer
@@ -458,14 +472,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and idle share printed.
   15. family train: the MoE, SSM, hybrid, encoder-decoder and VLM
              families' training on the card, bf16, B 8, S 128, remat,
-             planned ``fused`` (TF32 off). (1) ``ovsf_gemm`` forward +
+             under each config's ``materialize`` unless a ``fused`` plan is
+             named (TF32 off). (1) ``ovsf_gemm`` forward +
              backward at each family's projections (``FAMILY_TRAIN_GEMMS``,
              M 1024): dx and dA against autograd through the plain version,
              device ms beside matmul on a dense W and the bound, a summary
              a family. (2) One fp32 step of OLMoE-1B-7B, Falcon-Mamba-7B,
              Zamba2-1.2B, Whisper-tiny and LLaVA-NeXT-34B at full width and
-             ``FAMILY_PARITY_LAYERS``, card vs CPU (``spectral`` on the
-             CPU): MoE routing first (a
+             ``FAMILY_PARITY_LAYERS``, card (an explicit ``fused`` plan) vs
+             CPU (``spectral`` on the CPU): MoE routing first (a
              flip passes only at a near-tie, ``FAMILY_FLIP_GAP``, and
              waives that step's gradient gate, its loss held to 1e-4);
              loss within 1e-5, gradients and updated params within 1e-3
@@ -477,16 +492,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and depth (``launcher_run``): 4 steps at ``FAMILY_LR``, one
              checkpoint, finite losses, the first batch's loss lower
              under the trained params (the last and a held-out one
-             printed), 194 ``ovsf_gemm`` launches a step (38 Mamba-2
-             blocks x 2 projections x 2 under remat, and the shared
-             block's 7 x 6 applications, which remat does not recompute),
-             all tensor-core; a profiled step's wall, device busy, idle
-             share, peak memory and the save's seconds. (5) OLMoE-1B-7B,
+             printed), 194 segmented ``ovsf_decompress`` launches a step
+             (38 Mamba-2 blocks x 2 projections x 2 under remat, and the
+             shared block's 7 x 6 applications, which remat does not
+             recompute), then as many ``ovsf_gemm`` a step, all
+             tensor-core, under an explicit ``fused`` plan; a profiled
+             step's wall, device busy, idle share under each, peak memory
+             and the save's seconds. (5) OLMoE-1B-7B,
              Falcon-Mamba-7B, LLaVA-NeXT-34B at ``FAMILY_LAYERS`` and
              Whisper-tiny uncut (1500 zero frames, no OVSF layer: every
              side is 384) through ``make_train_step``: the first batch's
-             loss lower after the steps, the launches a step as the
-             params give them, peak memory.
+             loss lower after the steps, the segmented ``ovsf_decompress``
+             launches a step as the params give them, then one step under
+             an explicit ``fused`` plan (as many ``ovsf_gemm``, all
+             tensor-core), peak memory.
   16. quant train: training with int8 / int4 alphas, and stacked
              encoder-decoder variants (TF32 off). (1) ``OvsfGemmFn`` over
              int8 and int4 alphas at TinyLlama-1.1B's five projections, M
@@ -497,18 +516,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ``OvsfDecompressFn`` over them at the converted layer's
              shapes (monolithic codes, L up to 8192). (2) Full-width,
              full-depth TinyLlama-1.1B with int8 alphas, bf16, B 8, S 128,
-             remat, through ``make_train_step`` under
+             remat, ``materialize``, through ``make_train_step`` under
              ``supervisor.run`` for 12 steps, deterministic: a ``fail``
              after the checkpoint at 10 restores it, the replayed step's
-             loss bit for bit the first pass's; 220 ``ovsf_gemm`` a step,
-             all int8 on the tensor-core kernel; the integers unchanged;
+             loss bit for bit the first pass's; 220 segmented
+             ``ovsf_decompress`` a step (the int8 epilogue), then one step
+             under an explicit ``fused`` plan: 220 ``ovsf_gemm``, all int8
+             on the tensor-core kernel; the integers unchanged;
              the first batch's loss lower under the trained params (last
              and held-out printed); each step's wall, device busy and idle
-             share, peak memory and saves printed. (3) The int4 step at 4
-             layers. (4) A converted (monolithic int8 / int4) TinyLlama at
-             2 layers trained under ``materialize``: per OVSF linear 2
+             share, peak memory and saves printed. (3) The int4 steps at 4
+             layers, the same way. (4) A converted (monolithic int8 / int4) TinyLlama at
+             2 layers trained under a ``materialize`` plan: per OVSF linear 2
              ``ovsf_decompress`` (epilogue) and 1 ``fwht`` a step. (5) One
-             fp32 step card vs CPU: TinyLlama at 2 layers, int8 and int4,
+             fp32 step card (an explicit ``fused`` plan) vs CPU
+             (``spectral``): TinyLlama at 2 layers, int8 and int4,
              and Zamba2-1.2B at 6, int8: loss 1e-5, gradients and updated
              params 1e-3, integers unchanged. (6) Uncut Whisper-tiny (its
              projections made OVSF, ``WHISPER_STACK_MIN_DIM``) as two
@@ -517,6 +539,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
              streams equal dedicated spectral engines'; the bf16 streams,
              step time and ``flash_decode_attn`` launches a step (self
              and cross reads) printed.
+  17. materialize: the reference's own ``materialize`` path for the LMs,
+             every OVSF layer through the segmented ``ovsf_decompress``
+             kernel then one product (its kernel rows in phase 3). (1)
+             Full-width TinyLlama-1.1B, bf16, unplanned
+             (``LLMEngine(..., use_mapper=False)``: the config's own
+             ``exec_path``) in the main path's style (paged, packed, chunk
+             64, 4 slots, buffer 256, phase 4's 8 requests), eager and
+             replayed: 110 segmented ``ovsf_decompress`` and 22
+             ``paged_flash_decode`` a step at 22 layers, no ``ovsf_gemm``;
+             streams, chunk-free logits bit for bit, launches and profiled
+             kernels equal between the runs; the replayed step's wall,
+             busy and idle share beside phase 4's fused step. The same with
+             int8 alphas at 22 layers and int4 at ``SERVE_CUT_LAYERS``. (2)
+             fp32 at ``MAT_FP32_LAYERS`` layers, replayed: the greedy
+             streams equal the planned (``fused``) engine's. (3) One fp32
+             packed paged step at ``MAT_PARITY_LAYERS`` layers, card vs CPU
+             (the plain version): logits within 1e-3 relative L2.
 Before the kernels line it prints each phase's seconds (``[timing]``).
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
@@ -763,9 +802,11 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
 
 def check_quant_contract(dev) -> list:
     """The quantised wrapper refuses, before any launch, what the kernel does
-    not take; a refusal must not count as a launch. What has no kernel
-    refuses to run on the card: ``materialize`` of segmented codes, float
-    or quantised (ROADMAP B.3). ``materialize`` of monolithic codes with
+    not take; a refusal must not count as a launch. ``materialize`` of
+    segmented codes, bf16 or int4 alphas, runs through the segmented
+    ``ovsf_decompress`` kernel: one launch, y the product with the W a
+    second launch gives, W within tolerance of the plain version's.
+    ``materialize`` of monolithic codes with
     int8 / int4 alphas runs through ``ovsf_decompress``'s epilogue: one
     launch, W equal to the plain version's. ``spectral`` of segmented
     codes is plain tensor code on every device (the multi-model path's
@@ -795,25 +836,31 @@ def check_quant_contract(dev) -> list:
             refused.append(f"{what}: {e}")
             continue
         raise RuntimeError(f"ovsf_gemm took {what} without raising")
-    fp_alphas = torch.randn((64, 64), device=dev, dtype=torch.bfloat16)
-    for what, kw in (("materialize of int4 alphas over segmented codes",
-                      dict(alphas=q, alpha_scale=s, alpha_dtype="int4")),
-                     ("materialize of segmented codes",
-                      dict(alphas=fp_alphas))):
-        try:
-            ovsf_matmul(x, idx=idx, path="materialize", **kw)
-        except NotImplementedError as e:
-            refused.append(f"{what} on the card: {e}")
-            continue
-        raise RuntimeError(f"ovsf_matmul ran {what} on the card")
     if ovsf_gemm.launches != before:
         raise RuntimeError("a refused ovsf_gemm call counted a launch")
+    ran = []
+    fp_alphas = (torch.randn((64, 64), device=dev) / math.sqrt(8)).bfloat16()
+    for what, a, kw in (("int4 alphas over segmented codes", q,
+                         dict(alpha_scale=s, alpha_dtype="int4")),
+                        ("bf16 alphas over segmented codes", fp_alphas, {})):
+        n0 = ovsf_decompress.launches_by_layout["seg"]
+        y = ovsf_matmul(x, a, idx, path="materialize", **kw)
+        W = ovsf_decompress(a, idx, 128, **kw)
+        rel = rel_l2(W, ovsf_decompress_plain(a, idx, 128, **kw))
+        torch.cuda.synchronize()
+        if (ovsf_decompress.launches_by_layout["seg"] != n0 + 2
+                or not torch.equal(y, x @ W.to(x.dtype))
+                or not rel <= TOL[W.dtype]):
+            raise RuntimeError(f"materialize of {what} on the card: not one "
+                               "segmented launch, y not the product with "
+                               f"its W, or W {rel:.2e} from the plain "
+                               "version")
+        ran.append(f"materialize of {what}")
     # monolithic codes with quantised alphas have the decompress kernel's
     # epilogue: they run, W equal to the plain version's, y to the product
     # with it
     mono = torch.from_numpy(np.sort(np.random.default_rng(0).choice(
         128, 64, replace=False)).astype(np.int32)).to(dev)
-    ran = []
     for adt in ("int8", "int4"):
         qm, sm = quantize_alphas(torch.randn((64, 64), device=dev), 1, adt)
         n0 = ovsf_decompress.launches
@@ -836,10 +883,9 @@ def check_quant_contract(dev) -> list:
                        alpha_scale=s.cpu(), alpha_dtype="int4")
     err = check("spectral of segmented codes on the card", got.cpu(), want,
                 torch.bfloat16)
-    print(f"[kernel] ovsf_gemm int4 wrapper and ovsf_matmul refuse: "
+    print(f"[kernel] ovsf_gemm's int4 wrapper refuses: "
           + "; ".join(r.split(":")[0] for r in refused)
-          + "; run on the card through ovsf_decompress, equal to its plain "
-          "version: " + ", ".join(ran)
+          + "; run on the card through ovsf_decompress: " + ", ".join(ran)
           + f"; spectral of segmented codes runs on the card (plain tensor "
           f"code), max_abs_err vs the CPU {err:.3e}", flush=True)
     return refused
@@ -2207,16 +2253,17 @@ def serve_calibration(eng, cfg, chunk_free: int, tag: str) -> dict:
 
 
 # the hand-written kernels by their names in kernels/csrc: ovsf_gemm's
-# three kernels and its split-K sum, the two WHT kernels, the two attention
-# kernels; each wrapper launch is one of them (``ovsf_gemm``'s split-K
-# calls add one ``sum_splits_kernel``)
+# three kernels and its split-K sum, ovsf_decompress's two layouts, fwht,
+# the two attention kernels; each wrapper launch is one of them
+# (``ovsf_gemm``'s split-K calls add one ``sum_splits_kernel``)
 OWN_KERNELS = ("ovsf_gemm_kernel", "ovsf_gemm_tc_kernel",
                "ovsf_gemm_mono_kernel", "sum_splits_kernel",
-               "ovsf_decompress_kernel", "fwht_kernel", "paged_decode_kernel",
-               "flash_decode_kernel")
+               "ovsf_decompress_kernel", "ovsf_decompress_seg_kernel",
+               "fwht_kernel", "paged_decode_kernel", "flash_decode_kernel")
 OWN_OF_WRAPPER = {"ovsf_gemm": ("ovsf_gemm_kernel", "ovsf_gemm_tc_kernel",
                                 "ovsf_gemm_mono_kernel"),
-                  "ovsf_decompress": ("ovsf_decompress_kernel",),
+                  "ovsf_decompress": ("ovsf_decompress_kernel",
+                                      "ovsf_decompress_seg_kernel"),
                   "fwht": ("fwht_kernel",),
                   "paged_flash_decode": ("paged_decode_kernel",),
                   "flash_decode_attn": ("flash_decode_kernel",)}
@@ -6651,11 +6698,13 @@ def cnn_train_phase(seed: int, card: str, dev) -> dict:
 
 def train_parity(seed: int, dev) -> dict:
     """Phase 13 (4): one train step of TinyLlama at full width,
-    ``TRAIN_PARITY_LAYERS`` layers, fp32, B 2, S 64, on the card (planned
-    ``fused``: the CUDA-core ``ovsf_gemm``) and on the CPU (``materialize``,
-    as the config says) from the same state: the loss within 1e-5
-    relative, every gradient leaf and every updated param within 1e-3
-    relative L2."""
+    ``TRAIN_PARITY_LAYERS`` layers, fp32, B 2, S 64, on the card and on the
+    CPU from the same state, both under the config's ``materialize`` (the
+    segmented ``ovsf_decompress`` kernel on the card, its plain version on
+    the CPU), and on the card again under an explicit ``fused`` plan (the
+    CUDA-core ``ovsf_gemm``): the loss within 1e-5 relative, every
+    gradient leaf and every updated param within 1e-3 relative L2 of the
+    CPU's, for each card path."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.train import optim, steps
@@ -6666,29 +6715,37 @@ def train_parity(seed: int, dev) -> dict:
     toks = torch.from_numpy(TokenStream(cfg.vocab, 64, 2, seed=seed)
                             .batch_at(0)["tokens"])
     ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
-    out = {}
-    for name, st, d in (("card", card, dev), ("cpu", cpu, "cpu")):
-        c = steps.planned_cfg(cfg, d, tuple(toks.shape))
+    out, launched = {}, {}
+    for name, st, d, c in (
+            ("cpu", cpu, "cpu", cfg), ("materialize", card, dev, cfg),
+            ("fused", card, dev, fused_cfg(cfg, tuple(toks.shape)))):
+        reset_wrapper_counts()
         loss, _m, g = steps.loss_and_grads(c, st["params"],
                                            {"tokens": toks.to(d)})
         new_p, _o, _mm = optim.adamw_update(ocfg, g, st["opt"], st["params"])
         out[name] = (loss, optim.tree_leaves(g), optim.tree_leaves(new_p))
-    plan = steps.planned_cfg(cfg, dev, tuple(toks.shape)).exec_plan
-    paths = sorted({p.path for _n, p in plan.entries}) if plan else None
-    (lc, gc_, pc), (lh, gh, ph) = out["card"], out["cpu"]
-    loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
-    g_err = max(rel_l2(a, b) for a, b in zip(gc_, gh) if a is not None)
-    p_err = max(rel_l2(a.float(), b.float()) for a, b in zip(pc, ph)
-                if a.is_floating_point())
-    print(f"[train parity] {cfg.name} fp32, {cfg.n_layers} layers, B 2 S 64:"
-          f" card plan {paths}; loss "
-          f"{float(lc):.6f} vs CPU {float(lh):.6f} ({loss_err:.2e}, limit "
-          f"1e-5), gradients {g_err:.2e}, updated params {p_err:.2e} "
-          "(limit 1e-3 relative L2)", flush=True)
-    if not (loss_err <= 1e-5 and g_err <= 1e-3 and p_err <= 1e-3):
-        raise RuntimeError(f"[train parity] loss {loss_err}, gradients "
-                           f"{g_err}, params {p_err}")
-    return dict(loss_err=loss_err, grad_err=g_err, param_err=p_err)
+        launched[name] = {k: v for k, v in wrapper_counts().items() if v}
+    lh, gh, ph = out.pop("cpu")
+    res = {}
+    for path, (lc, gc_, pc) in out.items():
+        loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+        g_err = max(rel_l2(a, b) for a, b in zip(gc_, gh) if a is not None)
+        p_err = max(rel_l2(a.float(), b.float()) for a, b in zip(pc, ph)
+                    if a.is_floating_point())
+        print(f"[train parity] {cfg.name} fp32, {cfg.n_layers} layers, B 2 "
+              f"S 64: card under {path} (launched {launched[path]}) vs the "
+              f"CPU under materialize: loss {float(lc):.6f} vs "
+              f"{float(lh):.6f} ({loss_err:.2e}, limit 1e-5), gradients "
+              f"{g_err:.2e}, updated params {p_err:.2e} (limit 1e-3 "
+              "relative L2)", flush=True)
+        if not (loss_err <= 1e-5 and g_err <= 1e-3 and p_err <= 1e-3
+                and set(launched[path]) == {PATH_KERNEL[path]}):
+            raise RuntimeError(f"[train parity] {path}: loss {loss_err}, "
+                               f"gradients {g_err}, params {p_err}, "
+                               f"launched {launched[path]}")
+        res[path] = dict(loss_err=loss_err, grad_err=g_err,
+                         param_err=p_err, launched=launched[path])
+    return res
 
 
 def train_supervised(seed: int, dev, tmp: str, arch: str = TRAIN_ARCH,
@@ -6696,8 +6753,9 @@ def train_supervised(seed: int, dev, tmp: str, arch: str = TRAIN_ARCH,
                      tag: str = "[train supervisor]",
                      exact: bool = False) -> dict:
     """Phase 13 (3): ``supervisor.run`` of ``arch`` at full width,
-    ``n_layers`` layers, bf16, B 8, S 128, without and with a
-    ``FaultPlan`` ``fail`` between two
+    ``n_layers`` layers, bf16, B 8, S 128, under the config's own path
+    (``materialize``: the segmented ``ovsf_decompress`` kernel), without
+    and with a ``FaultPlan`` ``fail`` between two
     checkpoints, both under ``torch.use_deterministic_algorithms(True,
     warn_only=True)``: one failure, a restore, and the replayed steps'
     losses equal the uninterrupted run's bit for bit (unless ``exact``,
@@ -6790,6 +6848,52 @@ def train_supervised(seed: int, dev, tmp: str, arch: str = TRAIN_ARCH,
                 flipped_leaf=leaf["path"])
 
 
+def fused_cfg(cfg, tokens_shape: tuple):
+    """``cfg`` with every OVSF weight type planned ``fused`` by the mapper
+    for a (B, S) train step (a MoE's three expert types under its one
+    collapsed entry ``e``, copied from the reference; ROADMAP C) and the
+    plan applied explicitly (``mapper.apply_plan``): the path of the
+    ``OvsfGemmFn`` rows. The steps themselves run a config as given, the
+    reference's ``materialize`` unless a plan says otherwise."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import mapper
+    B, S = tokens_shape
+    plan = mapper.plan_model(cfg, ShapeConfig("train_step", S, B, "train"),
+                             hw="h100", paths=("fused",))
+    return mapper.apply_plan(cfg, plan)
+
+
+def ovsf_wrapper(cfg) -> str:
+    """The kernel wrapper every OVSF linear of ``cfg`` launches: the
+    segmented ``ovsf_decompress`` under ``materialize`` (the config's own
+    path, unplanned, or a plan without entries: a model with no OVSF
+    layer), ``ovsf_gemm`` under a plan of ``fused`` alone."""
+    paths = ({p.path for _n, p in cfg.exec_plan.entries}
+             if cfg.exec_plan else set()) or {cfg.ovsf.exec_path}
+    wrapper = {"materialize": "ovsf_decompress", "fused": "ovsf_gemm"}
+    if len(paths) != 1 or next(iter(paths)) not in wrapper:
+        raise RuntimeError(f"{cfg.name}: paths {paths}, not one of "
+                           f"{sorted(wrapper)}")
+    return wrapper[paths.pop()]
+
+
+def check_ovsf_launches(tag: str, cfg, launches: dict, layouts: dict,
+                        by_kernel: dict, per_step: int, n_steps: int
+                        ) -> None:
+    """The wrappers' counters over ``n_steps`` train steps of ``cfg``:
+    ``per_step`` a step of ``ovsf_wrapper(cfg)``, every one segmented
+    (``ovsf_decompress``) or on the tensor-core kernel (``ovsf_gemm``), and
+    nothing else of ours."""
+    w = ovsf_wrapper(cfg)
+    want = dict.fromkeys(launches, 0)
+    want[w] = per_step * n_steps
+    kind = (layouts["seg"] if w == "ovsf_decompress"
+            else by_kernel["tensor_core"])
+    if launches != want or kind != want[w]:
+        raise RuntimeError(f"{tag} launched {launches} ({w}: {kind} "
+                           f"segmented / tensor-core), expected {want}")
+
+
 def ovsf_linears(tree) -> int:
     """OVSF linears in a param tree: dicts with ``idx`` and 2-d alphas,
     float or quantised (an expert bank's (E, J, d_out) alphas regenerate W
@@ -6805,11 +6909,13 @@ def ovsf_linears(tree) -> int:
 
 
 def train_gemms_per_step(cfg, params) -> int:
-    """``ovsf_gemm`` launches of one train step under remat: each stacked
-    block's linears twice (the forward, then its recompute in the
-    backward), the encoder's too; the hybrid's shared block once an
-    application (applied outside the checkpoints, as the reference
-    applies it); the segmented backward launches none."""
+    """OVSF kernel launches of one train step under remat, ``ovsf_gemm``
+    (``fused``) or the segmented ``ovsf_decompress`` (``materialize``), one
+    an OVSF linear's forward: each stacked block's linears twice (the
+    forward, then its recompute in the backward), the encoder's too; the
+    hybrid's shared block once an application (applied outside the
+    checkpoints, as the reference applies it); the segmented backward
+    launches none under either path."""
     from repro_torch.models.transformer import n_attn_apps
     n = 2 * ovsf_linears(params["blocks"])
     n += 2 * ovsf_linears(params.get("encoder", {}).get("blocks", []))
@@ -6823,14 +6929,18 @@ def launcher_run(seed: int, card: str, dev, ck: str, arch: str,
                  lr: float = TRAIN_LR, refit_first: bool = False) -> tuple:
     """``python -m repro_torch.launch.train --arch <arch>`` in this process
     at full width and depth (``main``'s argv; B ``TRAIN_BATCH``, S
-    ``TRAIN_SEQ``, learning rate ``lr``): exit without an error, finite
-    losses, the last below the first (with ``refit_first``: the first
-    batch's loss under the trained params below its loss at step 0, and
-    a held-out batch's printed), ``train_gemms_per_step`` ``ovsf_gemm``
-    launches a step, all on the tensor-core kernel, the checkpoints every
-    ``save_every`` steps written; then two more steps of the trained state
-    (with the launcher's family inputs), the second profiled: step wall,
-    device busy ms, idle share. Returns (result, trained params)."""
+    ``TRAIN_SEQ``, learning rate ``lr``), so under the config's own
+    ``materialize``: exit without an error, finite losses, the last below
+    the first (with ``refit_first``: the first batch's loss under the
+    trained params below its loss at step 0, and a held-out batch's
+    printed), ``train_gemms_per_step`` segmented ``ovsf_decompress``
+    launches a step and nothing else of ours (``check_ovsf_launches``),
+    the checkpoints every ``save_every`` steps written; then two more
+    steps of the trained state (with the launcher's family inputs), the
+    second profiled: step wall, device busy ms, idle share; then one under
+    an explicitly applied ``fused`` plan (``fused_cfg``), profiled
+    (``profiled_step``): as many ``ovsf_gemm``, all tensor-core. Returns
+    (result, trained params)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
@@ -6853,10 +6963,9 @@ def launcher_run(seed: int, card: str, dev, ck: str, arch: str,
     wall = time.perf_counter() - t0
     launches = wrapper_counts()
     by_kernel = dict(G.ovsf_gemm.launches_by_kernel)
+    layouts = dict(G.ovsf_decompress.launches_by_layout)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = train_gemms_per_step(cfg, state["params"])
-    want = dict.fromkeys(launches, 0)
-    want["ovsf_gemm"] = per_step * rep.steps_run
     saved = sorted(os.listdir(ck))
     print(f"{tag} {rep.steps_run} steps in {wall:.1f}s, step walls "
           f"{[round(v, 3) for v in rep.step_times]} s, losses "
@@ -6876,23 +6985,22 @@ def launcher_run(seed: int, card: str, dev, ck: str, arch: str,
     falls = (refit["first"] < rep.losses[0] if refit_first
              else rep.losses[-1] < rep.losses[0])
     if (rep.steps_run != n_steps or rep.failures
-            or not all(math.isfinite(v) for v in rep.losses)
-            or not falls or launches != want
-            or by_kernel["tensor_core"] != launches["ovsf_gemm"]
+            or not all(math.isfinite(v) for v in rep.losses) or not falls
             or saved != [f"step_{s:08d}" for s in
                          range(save_every, n_steps + 1, save_every)]):
         raise RuntimeError(f"{tag} steps {rep.steps_run} failures "
-                           f"{rep.failures} losses {rep.losses} launches "
-                           f"{launches} (want {want}, by kernel "
-                           f"{by_kernel}) checkpoints {saved}")
+                           f"{rep.failures} losses {rep.losses} "
+                           f"checkpoints {saved}")
+    check_ovsf_launches(tag, cfg, launches, layouts, by_kernel, per_step,
+                        rep.steps_run)
     state_bytes = sum(t.numel() * t.element_size()
                       for t in optim.tree_leaves(state))
     # two more steps of the trained state, as the train step runs them,
-    # the gradients and the update timed apart; the first unrecorded
-    ocfg = optim.OptConfig(lr=lr, warmup_steps=5, total_steps=n_steps + 2)
-    run_cfg = steps.planned_cfg(cfg, dev, (TRAIN_BATCH, TRAIN_SEQ))
+    # the gradients and the update timed apart, the first unrecorded
+    ocfg = optim.OptConfig(lr=lr, warmup_steps=5, total_steps=n_steps + 3)
     params, opt = state["params"], state["opt"]
     del state
+    reset_wrapper_counts()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=warm_schedule()) as prof:
         for s in range(2):
@@ -6900,7 +7008,7 @@ def launcher_run(seed: int, card: str, dev, ck: str, arch: str,
                                     ["tokens"]).to(dev)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            _l, _a, grads = steps.loss_and_grads(run_cfg, params,
+            _l, _a, grads = steps.loss_and_grads(cfg, params,
                                                  {"tokens": toks, **extra})
             torch.cuda.synchronize()
             t2 = time.perf_counter()
@@ -6908,54 +7016,74 @@ def launcher_run(seed: int, card: str, dev, ck: str, arch: str,
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             del grads
-            step_ms, grad_ms = (t3 - t1) * 1e3, (t2 - t1) * 1e3
-            update_ms = (t3 - t2) * 1e3
             prof.step()
-    del opt
+    check_ovsf_launches(tag, cfg, wrapper_counts(),
+                        G.ovsf_decompress.launches_by_layout,
+                        G.ovsf_gemm.launches_by_kernel, per_step, 2)
     events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    idle = 1.0 - busy / step_ms if busy > 0 else None
-    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:60])
-                  for e in events), reverse=True)[:6]
+    step_ms = (t3 - t1) * 1e3
     counts = kernel_counts(events)
-    n_kernels = sum(counts.values())
-    own = {k: v for k, v in own_counts(counts).items() if v}
+    mat = dict(step_ms=step_ms, grad_ms=(t2 - t1) * 1e3,
+               update_ms=(t3 - t2) * 1e3, busy_ms=busy or None,
+               idle_share=1.0 - busy / step_ms if busy > 0 else None,
+               kernels=sum(counts.values()),
+               own_kernels={k: v for k, v in own_counts(counts).items()
+                            if v},
+               top=sorted(((e.self_device_time_total / 1e3, e.count,
+                            e.key[:60]) for e in events), reverse=True)[:6])
+    # one more under an explicit fused plan: the OvsfGemmFn rows' path
+    fused = fused_cfg(cfg, (TRAIN_BATCH, TRAIN_SEQ))
+    rows = []
+    state, _m = profiled_step(steps.make_train_step(fused, ocfg), rows)(
+        {"params": params, "opt": opt},
+        {**stream.batch_at(n_steps + 2), **extra})
+    params = state["params"]
+    del state, opt
+    fr = rows[0]
+    check_ovsf_launches(f"{tag} fused", fused, fr["launches"],
+                        fr["layouts"], fr["by_kernel"], per_step, 1)
     res = dict(wall_s=wall, losses=rep.losses, refit=refit,
-               step_s=rep.step_times,
-               launches=launches, ovsf_gemm_per_step=per_step,
-               by_kernel=by_kernel, peak_allocated_gib=peak / 2**30,
+               step_s=rep.step_times, launches=launches,
+               ovsf_per_step=per_step, layouts=layouts,
+               peak_allocated_gib=peak / 2**30,
                state_gib=state_bytes / 2**30,
                save_snapshot_s=rep.save_snapshot_s,
-               save_write_s=rep.save_write_s, step_ms=step_ms,
-               grad_ms=grad_ms, update_ms=update_ms, busy_ms=busy or None,
-               idle_share=idle, kernels=n_kernels, own_kernels=own,
-               top=top)
+               save_write_s=rep.save_write_s, fused=fr,
+               fused_launches=fr["launches"]["ovsf_gemm"], **mat)
     print(f"{tag} {cfg.name} bf16, {cfg.n_layers} layers, B {TRAIN_BATCH} "
-          f"S {TRAIN_SEQ}: {rep.steps_run} steps in {wall:.1f}s, loss "
-          f"{rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}; ovsf_gemm "
-          f"{per_step} a step, all {by_kernel['tensor_core']} on the "
-          f"tensor-core kernel; step wall median "
+          f"S {TRAIN_SEQ}, {cfg.ovsf.exec_path}: {rep.steps_run} steps in "
+          f"{wall:.1f}s, loss {rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}; "
+          f"segmented ovsf_decompress {per_step} a step, no ovsf_gemm "
+          f"({launches}); step wall median "
           f"{statistics.median(rep.step_times) * 1e3:.1f} ms (the "
-          f"supervisor's clock); a profiled step: wall {step_ms:.1f} ms "
-          f"(loss and gradients {grad_ms:.1f}, AdamW {update_ms:.1f}), "
-          f"device busy {busy:.1f} ms, idle share {idle}, {n_kernels} "
-          f"kernels (the profiler's of ours: {own}); top "
-          f"{[(round(a, 2), b, c) for a, b, c in top]}; peak "
-          f"memory_allocated {peak / 2**30:.2f} GiB; state "
-          f"{state_bytes / 2**30:.2f} GiB; saves: host copy "
+          f"supervisor's clock); peak memory_allocated {peak / 2**30:.2f} "
+          f"GiB; state {state_bytes / 2**30:.2f} GiB; saves: host copy "
           f"{[round(v, 2) for v in rep.save_snapshot_s]} s + write "
           f"{[round(v, 2) for v in rep.save_write_s]} s ({card})",
           flush=True)
+    print(f"{tag} a profiled step of the trained state ({per_step} "
+          f"segmented ovsf_decompress): wall {mat['step_ms']:.1f} ms (loss "
+          f"and gradients {mat['grad_ms']:.1f}, AdamW "
+          f"{mat['update_ms']:.1f}), device busy {mat['busy_ms']} ms, idle "
+          f"share {mat['idle_share']}, {mat['kernels']} kernels (the "
+          f"profiler's of ours: {mat['own_kernels']}); top "
+          f"{[(round(a, 2), b, c) for a, b, c in mat['top']]}; a step under"
+          f" a fused plan ({fr['launches']['ovsf_gemm']} ovsf_gemm, all "
+          f"tensor-core): wall {fr['wall_ms']:.1f} ms, device busy "
+          f"{fr['busy_ms']:.1f} ms, idle share {fr['idle_share']:.3f}, "
+          f"{fr['kernels']} kernels ({card})", flush=True)
     return res, params
 
 
 def train_launcher(seed: int, card: str, dev, tmp: str) -> tuple:
     """Phase 13 (2): ``launcher_run`` of TinyLlama-1.1B at full width and
-    depth, ``TRAIN_STEPS`` steps, checkpoints every ``TRAIN_SAVE_EVERY``:
-    ``ovsf_gemm`` 2 x 110 launches a step (the forward's 5 projections x
-    22 layers, again in the backward's recompute; the segmented backward
-    launches no kernel), all on the tensor-core kernel. Returns (result,
-    trained params)."""
+    depth, ``TRAIN_STEPS`` steps, checkpoints every ``TRAIN_SAVE_EVERY``,
+    under the config's ``materialize``: 2 x 110 segmented
+    ``ovsf_decompress`` launches a step (the forward's 5 projections x 22
+    layers, again in the backward's recompute; the segmented backward
+    launches no kernel), then as many ``ovsf_gemm`` a step under an
+    explicit ``fused`` plan. Returns (result, trained params)."""
     return launcher_run(seed, card, dev, os.path.join(tmp, "launcher"),
                         TRAIN_ARCH, TRAIN_STEPS, TRAIN_SAVE_EVERY,
                         "[train launcher]")
@@ -7030,8 +7158,9 @@ CONVERT_ARCH = "tinyllama_1_1b"
 # (k and v, 256 wide, stay dense); down pads d_in 5632 to L 8192
 CONVERT_LAYER = {"q": (2048, 2048), "o": (2048, 2048), "gate": (2048, 5632),
                  "up": (2048, 5632), "down": (5632, 2048)}
-# the depth each alpha storage is served at (0: all 22 layers)
-CONVERT_LAYERS = {"int8": 0, "int4": SERVE_CUT_LAYERS}
+# the depth each alpha storage is served at (int8 at all 22 layers until
+# phase 17 came, whose int8 model is served at 22)
+CONVERT_LAYERS = {"int8": SERVE_CUT_LAYERS, "int4": SERVE_CUT_LAYERS}
 CONVERT_PARITY_LAYERS = 2           # card vs CPU: conversion and logits
 CONVERT_FLIP_GAP = 1e-5             # a kept-code flip needs a near-tie
 CONVERT_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True,
@@ -7341,11 +7470,13 @@ FAMILY_CUT_STEPS = 4
 FAMILY_REPLAY_ARCH = "olmoe_1b_7b"  # the supervisor's replay at full width
 FAMILY_REPLAY_LAYERS = 1            # 2 took 55.8 s, its 6 GB saves the most
 # card vs CPU: one fp32 step, B 2, S 64, full width at these depths (the
-# hybrid at one full group of 6, so that its shared block runs; LLaVA at
-# 1 for the CPU's time)
+# hybrid at one full group of 6, so that its shared block runs). LLaVA's
+# step left the list when phase 17 came, for the script's time: its CPU
+# side took 32-34 s at 1 layer (the 64000 x 7168 embedding and head, not
+# the depth); its trunk is the dense one phase 13 holds, its image prefix
+# is held card vs CPU by phase 12
 FAMILY_PARITY_LAYERS = {"olmoe_1b_7b": 2, "falcon_mamba_7b": 2,
-                        "zamba2_1_2b": 6, "whisper_tiny": 0,
-                        "llava_next_34b": 1}
+                        "zamba2_1_2b": 6, "whisper_tiny": 0}
 FAMILY_PARITY_BATCH, FAMILY_PARITY_SEQ = 2, 64
 FAMILY_FLIP_GAP = 1e-5              # a routing flip needs a near-tie
 # each family's OVSF projections in a train step: (name, d_in, d_out, the
@@ -7432,8 +7563,9 @@ def routing_flips(card: list, cpu: list, k: int) -> tuple:
 def family_parity(seed: int, dev) -> dict:
     """Phase 15 (2): one fp32 train step of each family at full width and
     ``FAMILY_PARITY_LAYERS`` layers (remat off; B 2, S 64; random frames
-    and image embeddings from the seed), on the card (planned ``fused``:
-    the CUDA-core ``ovsf_gemm``; expert banks regenerated) and on the CPU
+    and image embeddings from the seed), on the card (an explicit
+    ``fused`` plan, ``fused_cfg``: the CUDA-core ``ovsf_gemm``; expert
+    banks regenerated) and on the CPU
     from the same state, under ``spectral`` there (the exact
     activation-transform identity as plain tensor code: at these widths
     ``materialize``'s dense W and its gradient took 23-45 s a family on
@@ -7473,7 +7605,8 @@ def family_parity(seed: int, dev) -> dict:
             records, recording = routing_recorder()
             route, moe.route = moe.route, recording
             try:
-                c = steps.planned_cfg(spectral, d, (B, S))
+                c = fused_cfg(spectral, (B, S)) if name == "card" \
+                    else spectral
                 b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
                 t0 = time.perf_counter()
                 loss, m, g = steps.loss_and_grads(c, st["params"], b)
@@ -7520,14 +7653,15 @@ def family_parity(seed: int, dev) -> dict:
 def family_train_cut(seed: int, card: str, dev) -> dict:
     """Phase 15 (5): OLMoE-1B-7B, Falcon-Mamba-7B, LLaVA-NeXT-34B (full
     width, ``FAMILY_LAYERS`` deep) and Whisper-tiny (uncut) through
-    ``steps.make_train_step``, bf16, B 8, S 128, remat, planned ``fused``,
-    ``FAMILY_CUT_STEPS`` steps at ``FAMILY_LR`` with the launcher's family
-    inputs: finite losses, the loss of the first batch after the steps
-    (``make_eval_step``) below its loss at the first step (see
-    ``FAMILY_LR``; a held-out batch's printed), ``train_gemms_per_step``
-    launches a step, all on the
-    tensor-core kernel (Whisper none); step wall and peak
-    ``memory_allocated`` printed."""
+    ``steps.make_train_step``, bf16, B 8, S 128, remat, under the config's
+    ``materialize``, ``FAMILY_CUT_STEPS`` steps at ``FAMILY_LR`` with the
+    launcher's family inputs: finite losses, the loss of the first batch
+    after the steps (``make_eval_step``) below its loss at the first step
+    (see ``FAMILY_LR``; a held-out batch's printed),
+    ``train_gemms_per_step`` segmented ``ovsf_decompress`` launches a step
+    and nothing else of ours (Whisper none); then one more step under an
+    explicit ``fused`` plan (``fused_cfg``): as many ``ovsf_gemm``, all
+    tensor-core. Step wall and peak ``memory_allocated`` printed."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import ovsf_gemm as G
@@ -7557,35 +7691,51 @@ def family_train_cut(seed: int, card: str, dev) -> dict:
             losses.append(float(m["total_loss"]))
             walls.append(time.perf_counter() - t0)
         launches = wrapper_counts()
-        on_tc = G.ovsf_gemm.launches_by_kernel["tensor_core"]
+        tag = f"[family train] {arch}"
+        check_ovsf_launches(tag, cfg, launches,
+                            G.ovsf_decompress.launches_by_layout,
+                            G.ovsf_gemm.launches_by_kernel, per_step,
+                            FAMILY_CUT_STEPS)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         ev = steps.make_eval_step(cfg)
         after, held = (float(ev(state["params"], {
             **stream.batch_at(s), **extra})["total_loss"])
             for s in (0, FAMILY_HELD_OUT))
-        want = dict.fromkeys(launches, 0)
-        want["ovsf_gemm"] = per_step * FAMILY_CUT_STEPS
-        tag = f"[family train] {arch}"
+        # one step under an explicit fused plan: the OvsfGemmFn rows' path
+        fused = fused_cfg(cfg, (TRAIN_BATCH, TRAIN_SEQ))
+        reset_wrapper_counts()
+        t0 = time.perf_counter()
+        state, _m = steps.make_train_step(fused, optim.OptConfig(
+            lr=FAMILY_LR, warmup_steps=1, total_steps=4 * FAMILY_CUT_STEPS))(
+            state, {**stream.batch_at(FAMILY_CUT_STEPS), **extra})
+        torch.cuda.synchronize()
+        fused_wall = time.perf_counter() - t0
+        fused_launches = wrapper_counts()
+        check_ovsf_launches(f"{tag} fused", fused, fused_launches,
+                            G.ovsf_decompress.launches_by_layout,
+                            G.ovsf_gemm.launches_by_kernel, per_step, 1)
         print(f"{tag} bf16, {cfg.n_layers} layers, B {TRAIN_BATCH} S "
-              f"{TRAIN_SEQ}: loss {' '.join(f'{v:.4f}' for v in losses)}; "
-              f"the first batch's {losses[0]:.4f} -> {after:.4f}, a "
-              f"held-out batch's {held:.4f}; "
-              f"ovsf_gemm {per_step} a step ({launches['ovsf_gemm']} in "
-              f"{FAMILY_CUT_STEPS}, {on_tc} on the tensor-core kernel); "
-              f"step wall median {statistics.median(walls[1:]) * 1e3:.1f} "
-              f"ms (first {walls[0] * 1e3:.1f}); state {state_gib:.2f} GiB,"
-              f" peak memory_allocated {peak:.2f} GiB ({card})", flush=True)
+              f"{TRAIN_SEQ}, {cfg.ovsf.exec_path}: loss "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; the first batch's "
+              f"{losses[0]:.4f} -> {after:.4f}, a held-out batch's "
+              f"{held:.4f}; segmented ovsf_decompress {per_step} a step "
+              f"({launches}); step wall median "
+              f"{statistics.median(walls[1:]) * 1e3:.1f} ms (first "
+              f"{walls[0] * 1e3:.1f}); a step under a fused plan "
+              f"{fused_wall * 1e3:.1f} ms, {per_step} ovsf_gemm, all "
+              f"tensor-core; state {state_gib:.2f} GiB, peak "
+              f"memory_allocated {peak:.2f} GiB ({card})", flush=True)
         if (not all(math.isfinite(v) for v in losses + [after])
-                or not after < losses[0] or launches != want
-                or on_tc != launches["ovsf_gemm"]):
-            raise RuntimeError(f"{tag}: losses {losses}, launches "
-                               f"{launches} (want {want}, tensor-core "
-                               f"{on_tc})")
+                or not after < losses[0]):
+            raise RuntimeError(f"{tag}: losses {losses}, the first batch's "
+                               f"after {after}")
         res[arch] = dict(layers=cfg.n_layers, losses=losses,
                          first_batch_after=after, held_out=held,
-                         step_s=walls,
-                         launches=launches, ovsf_gemm_per_step=per_step,
-                         state_gib=state_gib, peak_allocated_gib=peak)
+                         step_s=walls, launches=launches,
+                         ovsf_per_step=per_step,
+                         fused_launches=fused_launches["ovsf_gemm"],
+                         fused_step_s=fused_wall, state_gib=state_gib,
+                         peak_allocated_gib=peak)
         del state, fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -7843,8 +7993,9 @@ def quant_cfg(arch: str, adt: str, **kw):
 def profiled_step(fn, rows: list):
     """``fn`` (a train step) with each call profiled on the device alone:
     its wall (synchronised at both ends), device busy ms, idle share,
-    kernels, and the wrappers' counts and ``ovsf_gemm``'s launches by
-    alpha storage and kernel, one row a call in ``rows``."""
+    kernels, and the wrappers' counts, ``ovsf_gemm``'s launches by alpha
+    storage and kernel and ``ovsf_decompress``'s by layout, one row a call
+    in ``rows``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ovsf_gemm as G
 
@@ -7861,7 +8012,8 @@ def profiled_step(fn, rows: list):
                          idle_share=1.0 - busy / wall, kernels=kernels,
                          launches=wrapper_counts(),
                          by_alpha=dict(G.ovsf_gemm.launches_by_alpha),
-                         by_kernel=dict(G.ovsf_gemm.launches_by_kernel)))
+                         by_kernel=dict(G.ovsf_gemm.launches_by_kernel),
+                         layouts=dict(G.ovsf_decompress.launches_by_layout)))
         return out
     return step
 
@@ -7884,36 +8036,56 @@ def kineto_device(prof) -> tuple:
     return busy / 1e6, kernels
 
 
-def check_quant_steps(tag: str, rows: list, per_step: int, adt: str) -> None:
-    """Every profiled step launched ``per_step`` ``ovsf_gemm``, all with
-    ``adt`` alphas on the tensor-core kernel, and no other kernel of ours."""
-    want = dict.fromkeys(rows[0]["launches"], 0)
-    want["ovsf_gemm"] = per_step
-    bad = [r for r in rows if r["launches"] != want
-           or r["by_alpha"][adt] != per_step
-           or r["by_kernel"]["tensor_core"] != per_step]
-    if bad:
-        raise RuntimeError(f"{tag} launches a step {bad[0]['launches']}, "
-                           f"{bad[0]['by_alpha']}, {bad[0]['by_kernel']}; "
-                           f"expected {per_step} {adt} tensor-core "
-                           "ovsf_gemm and nothing else")
+def check_quant_steps(tag: str, cfg, rows: list, per_step: int) -> None:
+    """Every profiled step of ``cfg`` launched ``per_step`` of its OVSF
+    wrapper (``check_ovsf_launches``) and nothing else of ours; under
+    ``fused`` every ``ovsf_gemm`` over the config's alpha storage."""
+    adt = cfg.ovsf.alpha_dtype
+    for r in rows:
+        check_ovsf_launches(tag, cfg, r["launches"], r["layouts"],
+                            r["by_kernel"], per_step, 1)
+        if r["by_alpha"][adt] != r["launches"]["ovsf_gemm"]:
+            raise RuntimeError(f"{tag} ovsf_gemm by alpha storage "
+                               f"{r['by_alpha']}, expected all {adt}")
+
+
+def quant_fused_step(tag: str, cfg, state: dict, batch: dict,
+                     per_step: int) -> tuple:
+    """One more train step of ``state`` under an explicit ``fused`` plan
+    (``fused_cfg``: the ``OvsfGemmFn`` rows' path, the tensor-core
+    kernel's ``QUANT`` epilogue), profiled: (its row, the new state)."""
+    from repro_torch.train import optim, steps
+    fused = fused_cfg(cfg, (TRAIN_BATCH, TRAIN_SEQ))
+    rows = []
+    state, _m = profiled_step(steps.make_train_step(fused, optim.OptConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=10)), rows)(state, batch)
+    check_quant_steps(f"{tag} fused", fused, rows, per_step)
+    r = rows[0]
+    print(f"{tag} a step under a fused plan: wall {r['wall_ms']:.1f} ms, "
+          f"device busy {r['busy_ms']:.1f} ms, idle share "
+          f"{r['idle_share']:.3f}, {r['kernels']} kernels, ovsf_gemm "
+          f"{r['launches']['ovsf_gemm']} (all {cfg.ovsf.alpha_dtype}, "
+          "tensor-core)", flush=True)
+    return r, state
 
 
 def quant_train_full(seed: int, card: str, dev, tmp: str) -> dict:
     """Phase 16 (2): TinyLlama-1.1B at full width and depth with int8
-    alphas (bf16, B 8, S 128, remat, planned ``fused``) through
+    alphas (bf16, B 8, S 128, remat, the config's ``materialize``) through
     ``steps.make_train_step`` under ``runtime.supervisor.run``, as
     ``launch.train`` builds its loop: ``QUANT_STEPS`` steps, checkpoints at
     ``QUANT_SAVE_EVERY`` and the end, a ``fail`` at ``QUANT_FAIL_AT`` that
     restores the first and replays, under
     ``torch.use_deterministic_algorithms(True, warn_only=True)``. Gates: one
     failure and one restore, the replayed step's loss bit for bit the
-    first pass's, finite losses, 220 ``ovsf_gemm`` a step all int8 on the
-    tensor-core kernel (``check_quant_steps``), the int8 alphas and ids
-    bit for bit as initialised, the first batch's loss lower under the
-    trained params (phase 15's rule; the last loss and a held-out batch's
-    printed). Each step's wall, device busy and idle share, the peak
-    memory and the saves' seconds printed."""
+    first pass's, finite losses, 220 segmented ``ovsf_decompress`` a step
+    (its int8 epilogue) and nothing else of ours (``check_quant_steps``),
+    the int8 alphas and ids bit for bit as initialised, the first batch's
+    loss lower under the trained params (phase 15's rule; the last loss
+    and a held-out batch's printed). Each step's wall, device busy and
+    idle share, the peak memory and the saves' seconds printed. Then one
+    step under an explicit ``fused`` plan (``quant_fused_step``): 220
+    int8 ``ovsf_gemm``, all tensor-core."""
     import warnings
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.runtime import supervisor
@@ -7974,17 +8146,21 @@ def quant_train_full(seed: int, card: str, dev, tmp: str) -> dict:
     for i, r in enumerate(rows):
         print(f"{tag} step {i}: wall {r['wall_ms']:.1f} ms (profiled), "
               f"device busy {r['busy_ms']:.1f} ms, idle share "
-              f"{r['idle_share']:.3f}, {r['kernels']} kernels, ovsf_gemm "
-              f"{r['launches']['ovsf_gemm']} ({r['by_alpha']['int8']} int8, "
-              f"{r['by_kernel']['tensor_core']} tensor-core)", flush=True)
-    print(f"{tag} ovsf_gemm {per_step} a step; step wall median "
+              f"{r['idle_share']:.3f}, {r['kernels']} kernels, "
+              f"ovsf_decompress {r['launches']['ovsf_decompress']} "
+              f"({r['layouts']['seg']} segmented)", flush=True)
+    print(f"{tag} segmented ovsf_decompress {per_step} a step; step wall "
+          f"median "
           f"{statistics.median(walls):.1f} ms, device busy median "
           f"{statistics.median(r['busy_ms'] for r in rows):.1f} ms; peak "
           f"memory_allocated {peak:.2f} GiB; state {state_gib:.2f} GiB; "
           f"saves: host copy {[round(v, 2) for v in rep.save_snapshot_s]} s"
           f" + write {[round(v, 2) for v in rep.save_write_s]} s ({card})",
           flush=True)
-    check_quant_steps(tag, rows, per_step, "int8")
+    check_quant_steps(tag, cfg, rows, per_step)
+    fused_row, state = quant_fused_step(tag, cfg, state,
+                                        stream.batch_at(QUANT_STEPS),
+                                        per_step)
     if (rep.failures != 1 or rep.restores != 1
             or len(rep.losses) != QUANT_STEPS + QUANT_FAIL_AT
             - QUANT_SAVE_EVERY or first != again
@@ -7994,12 +8170,14 @@ def quant_train_full(seed: int, card: str, dev, tmp: str) -> dict:
                            f"{rep.restores} losses {rep.losses} (replayed "
                            f"{again!r} vs {first!r}), integers equal "
                            f"{ints_equal}, refit {refit}: {logs}")
-    total = sum(r["launches"]["ovsf_gemm"] for r in rows)
+    total = sum(r["launches"]["ovsf_decompress"] for r in rows)
     return dict(layers=cfg.n_layers, losses=rep.losses, steps=rows,
                 wall_s=wall, failures=rep.failures, restores=rep.restores,
                 replayed=[first, again], nondeterministic=nondet,
-                refit_first=refit, held_out=held, ovsf_gemm_per_step=per_step,
-                ovsf_gemm=total, peak_allocated_gib=peak,
+                refit_first=refit, held_out=held, ovsf_per_step=per_step,
+                ovsf_decompress=total, fused=fused_row,
+                ovsf_gemm=fused_row["launches"]["ovsf_gemm"],
+                peak_allocated_gib=peak,
                 state_gib=state_gib, save_snapshot_s=rep.save_snapshot_s,
                 save_write_s=rep.save_write_s)
 
@@ -8007,8 +8185,10 @@ def quant_train_full(seed: int, card: str, dev, tmp: str) -> dict:
 def quant_train_int4(seed: int, card: str, dev) -> dict:
     """Phase 16 (3): the same step with int4 alphas at full width and
     ``QUANT_INT4_LAYERS`` layers, ``QUANT_INT4_STEPS`` steps through
-    ``make_train_step``: finite losses, the launches a step (all int4,
-    tensor-core), the integers unchanged; each step profiled."""
+    ``make_train_step`` (``materialize``): finite losses, the launches a
+    step (segmented ``ovsf_decompress``, its int4 epilogue), the integers
+    unchanged; each step profiled; then one step under an explicit
+    ``fused`` plan (all int4, tensor-core)."""
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.train import optim, steps
     tag = "[quant train int4]"
@@ -8027,18 +8207,22 @@ def quant_train_int4(seed: int, card: str, dev) -> dict:
     ints_equal = all(torch.equal(a, b) for a, b in
                      zip(ints0, int_leaves(state["params"])))
     print(f"{tag} {cfg.name} int4 alphas, bf16, {cfg.n_layers} layers: "
-          f"losses {[round(v, 4) for v in losses]}; ovsf_gemm {per_step} a "
-          f"step; walls {[round(r['wall_ms'], 1) for r in rows]} ms, device "
+          f"losses {[round(v, 4) for v in losses]}; segmented "
+          f"ovsf_decompress {per_step} a step; walls {[round(r['wall_ms'], 1) for r in rows]} ms, device "
           f"busy {[round(r['busy_ms'], 1) for r in rows]} ms, idle "
           f"{[round(r['idle_share'], 3) for r in rows]}; int4 alphas and ids"
           f" bit for bit as initialised: {ints_equal} ({card})", flush=True)
-    check_quant_steps(tag, rows, per_step, "int4")
+    check_quant_steps(tag, cfg, rows, per_step)
     if not (all(math.isfinite(v) for v in losses) and ints_equal):
         raise RuntimeError(f"{tag} losses {losses}, integers equal "
                            f"{ints_equal}")
+    fused_row, state = quant_fused_step(
+        tag, cfg, state, stream.batch_at(QUANT_INT4_STEPS), per_step)
     return dict(layers=cfg.n_layers, losses=losses, steps=rows,
-                ovsf_gemm_per_step=per_step,
-                ovsf_gemm=sum(r["launches"]["ovsf_gemm"] for r in rows))
+                ovsf_per_step=per_step,
+                ovsf_decompress=sum(r["launches"]["ovsf_decompress"]
+                                    for r in rows),
+                fused=fused_row, ovsf_gemm=fused_row["launches"]["ovsf_gemm"])
 
 
 def quant_converted_train(seed: int, card: str, dev) -> dict:
@@ -8107,8 +8291,9 @@ def quant_converted_train(seed: int, card: str, dev) -> dict:
 
 def quant_parity(seed: int, dev) -> dict:
     """Phase 16 (5): one fp32 train step (remat off, B 2, S 64) of each of
-    ``QUANT_PARITY`` at full width, on the card (planned ``fused``: the
-    CUDA-core ``ovsf_gemm`` over the quantised storage) and on the CPU
+    ``QUANT_PARITY`` at full width, on the card (an explicit ``fused``
+    plan, ``fused_cfg``: the CUDA-core ``ovsf_gemm`` over the quantised
+    storage) and on the CPU
     (``spectral``, as phase 15) from the same state, TF32 off: the loss
     within 1e-5 relative, every gradient leaf (the scales' included) and
     every updated float param within 1e-3 relative L2, and every integer
@@ -8129,7 +8314,7 @@ def quant_parity(seed: int, dev) -> dict:
             cfg.ovsf, exec_path="spectral"))
         out, secs = {}, {}
         for name, st, d in (("card", card, dev), ("cpu", cpu, cpu_dev)):
-            c = steps.planned_cfg(spectral, d, (B, S))
+            c = fused_cfg(spectral, (B, S)) if name == "card" else spectral
             t0 = time.perf_counter()
             loss, _m, g = steps.loss_and_grads(c, st["params"],
                                                {"tokens": toks.to(d)})
@@ -8351,6 +8536,367 @@ def quant_train_phase(seed: int, card: str, dev) -> dict:
     return res
 
 
+# -- phase 17: the reference's materialize path for the LMs -------------------
+
+# TinyLlama-1.1B's five OVSF projections (d_in, d_out), segmented codes of 16
+# with 8 kept a segment: the segmented ovsf_decompress kernel's layer
+SEG_LAYER = TRAIN_LAYER
+SEG_L0, SEG_KEEP = 16, 8
+# its ragged cases: (d_in, d_out, L0, n_keep, repeated ids): L0 8 and 32,
+# n_keep 5 and L0, d_out off the 32-column tile, ids that repeat
+SEG_RAGGED = ((1000, 77, 8, 5, False), (2048, 100, 32, 5, False),
+              (512, 40, 16, 8, True), (256, 34, 32, 32, True))
+SEG_STORAGES = ("fp32", "bf16", "int8", "int4")
+# the unplanned engine: the main path's paged packed step, the mapper off,
+# so every OVSF layer runs the config's materialize
+MAT_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True,
+                     use_mapper=False)
+MAT_LAYERS = {"": 0, "int8": 0, "int4": SERVE_CUT_LAYERS}   # 0: all 22
+MAT_FP32_LAYERS = SERVE_FP32_LAYERS      # fp32 streams against fused
+MAT_PARITY_LAYERS = 2                    # card vs CPU logits, fp32
+
+
+def seg_case(rng, d_in: int, N: int, L0: int, nk: int, storage: str, dev,
+             repeat: bool = False):
+    """Inputs of one segmented ``ovsf_decompress`` call: (stored alphas,
+    kwargs with the scales, ids, fp32 alphas). Each segment's ids drawn
+    on their own (with replacement and one forced repeat when
+    ``repeat``); unit-scale W; int8 / int4 with a scale a segment, as the
+    LM configs store them."""
+    from repro_torch.core.ovsf import quantize_alphas
+    ns = d_in // L0
+    idx = np.stack([np.sort(rng.choice(L0, nk, replace=repeat))
+                    for _ in range(ns)]).astype(np.int32)
+    if repeat:
+        idx[0, :2] = idx[0, 0]
+    al = torch.from_numpy(rng.standard_normal((ns * nk, N), np.float32)
+                          / math.sqrt(nk)).to(dev)
+    kw = {}
+    stored = al.bfloat16() if storage == "bf16" else al
+    if storage in ("int8", "int4"):
+        stored, sc = quantize_alphas(al, ns, storage)
+        kw = dict(alpha_scale=sc, alpha_dtype=storage)
+    return stored, kw, torch.from_numpy(idx).to(dev), al
+
+
+def seg_decompress_row(rng, dev, d_in: int, N: int, L0: int, nk: int,
+                       storage: str, repeat: bool = False,
+                       tag: str = "[kernel]") -> dict:
+    """One segmented ``ovsf_decompress`` call (``seg_case``) against its
+    plain version: fp32 W (fp32 and quantised alphas) within rtol = atol =
+    2e-3; bf16 W within 2e-2 relative L2 of the plain version (which rounds
+    each butterfly stage in bf16, as the reference's jnp) and, on distinct
+    ids, bit for bit the plain version over the fp32 alphas rounded once
+    (the kernel's fp32 sums); a second launch equal to the first; one
+    segmented launch each. Device ms by graph replay (inputs rotated past
+    L2), the plain version's, and one ``torch.bmm`` of a prebuilt (n_seg,
+    L0, n_keep) sign tensor by the (n_seg, n_keep, d_out) alphas (the
+    library call; dequantised beforehand). Bound: the stored alphas, ids
+    and scales read and W written once, or the d_in d_out log2 L0
+    transform adds (and J d_out dequantising multiplies) at the fp32
+    rate."""
+    from repro_torch.core.ovsf import dequantize_alphas, hadamard_matrix
+    from repro_torch.kernels.ovsf_gemm import (ovsf_decompress,
+                                               ovsf_decompress_plain)
+    a, kw, idx, _al = seg_case(rng, d_in, N, L0, nk, storage, dev, repeat)
+    ns = d_in // L0
+    w_dt = torch.bfloat16 if storage == "bf16" else torch.float32
+    label = (f"ovsf_decompress seg {storage} d_in={d_in} N={N} L0={L0} "
+             f"n_keep={nk}{' repeated ids' if repeat else ''}")
+    before = ovsf_decompress.launches_by_layout["seg"]
+    got = ovsf_decompress(a, idx, d_in, **kw)
+    again = ovsf_decompress(a, idx, d_in, **kw)
+    want = ovsf_decompress_plain(a, idx, d_in, **kw)
+    torch.cuda.synchronize()
+    if (ovsf_decompress.launches_by_layout["seg"] != before + 2
+            or got.dtype != w_dt or tuple(got.shape) != (d_in, N)
+            or not got.t().is_contiguous()):
+        raise RuntimeError(f"{label}: W {got.dtype} {tuple(got.shape)}, "
+                           "not two segmented launches into W^T's view")
+    if storage == "bf16":
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"{label}: W not finite")
+        err = float((got.float() - want.float()).abs().max())
+        rel = rel_l2(got, want)
+        once = ovsf_decompress_plain(a.float(), idx, d_in).to(w_dt)
+        if not rel <= TOL[w_dt] or not (repeat or torch.equal(got, once)):
+            raise RuntimeError(f"{label}: relative L2 {rel:.2e} vs the plain"
+                               f" version (limit {TOL[w_dt]}); equal to the "
+                               "fp32 sums rounded once: "
+                               f"{torch.equal(got, once)}")
+    else:
+        err = check(label, got, want, w_dt)
+        rel = rel_l2(got, want)
+    exact = torch.equal(got, want)
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{label}: a second launch differs from the "
+                           "first")
+    bytes_ = (a.numel() * a.element_size() + idx.numel() * 4
+              + (ns * 4 if kw else 0) + d_in * N * got.element_size())
+    ops = d_in * N * math.log2(L0) + (a.shape[0] * N if kw else 0)
+    t_bound, by = bound(bytes_, ops, torch.float32)
+    copies = [a.clone() for _ in range(n_copies(bytes_))]
+    ms, call_ms = timings([lambda c=c: ovsf_decompress(c, idx, d_in, **kw)
+                           for c in copies], 40)
+    plain_ms, _ = timings([lambda c=c: ovsf_decompress_plain(
+        c, idx, d_in, **kw) for c in copies[:2]], 4)
+    St = hadamard_matrix(L0, w_dt, dev)[idx.long()].transpose(1, 2) \
+        .contiguous()                              # (n_seg, L0, n_keep)
+    lib_in = [(dequantize_alphas(c, kw["alpha_scale"], storage) if kw
+               else c).reshape(ns, nk, N) for c in copies]
+    lib_err = float((torch.bmm(St, lib_in[0]).reshape(d_in, N).float()
+                     - want.float()).abs().max())
+    lib_ms, _ = timings([lambda b=b: torch.bmm(St, b) for b in lib_in], 40)
+    del copies, lib_in, St
+    print(f"{tag} {label}: max_abs_err={err:.3e} rel_l2={rel:.2e} (tol "
+          f"{TOL[w_dt]}; equal bit for bit: {exact}) kernel={ms:.4f}ms (per "
+          f"Python call {call_ms:.4f}ms) bound={t_bound:.5f}ms ({by}; "
+          f"{t_bound / ms:.0%} of it) plain={plain_ms:.4f}ms library(bmm "
+          f"signs x alphas)={lib_ms:.4f}ms (kernel/library "
+          f"{ms / lib_ms:.2f}; its err {lib_err:.1e})", flush=True)
+    return dict(case=label, d_in=d_in, N=N, L0=L0, n_keep=nk,
+                repeated_ids=repeat, storage=storage, max_abs_err=err,
+                rel_l2=rel, exact=exact, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                bound_ms=t_bound, bound_by=by, bound_share=t_bound / ms)
+
+
+def seg_grad_row(rng, dev, d_in: int, N: int, storage: str) -> dict:
+    """``OvsfDecompressFn`` over segmented ids (``seg_case``, L0 16, 8
+    kept): W and dA (fp32, bf16) or d scale (int8 / int4) against autograd
+    through the plain version, relative L2 within 2e-3 (fp32 gradients) /
+    2e-2 (bf16); one segmented launch, no other kernel of ours."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ovsf_gemm import ovsf_decompress_plain
+    a, kw, idx, _al = seg_case(rng, d_in, N, SEG_L0, SEG_KEEP, storage, dev)
+    dt = torch.bfloat16 if storage == "bf16" else torch.float32
+    G = torch.randn((d_in, N), device=dev, dtype=dt)
+    tag = f"[kernel] OvsfDecompressFn seg {storage} {d_in}->{N}"
+    reset_wrapper_counts()
+    if kw:
+        adt = kw["alpha_dtype"]
+        err = grad_check(tag, lambda b: ops.ovsf_decompress_fn(
+            a, idx, d_in, alpha_scale=b, alpha_dtype=adt),
+            lambda b: ovsf_decompress_plain(a, idx, d_in, alpha_scale=b,
+                                            alpha_dtype=adt),
+            [kw["alpha_scale"]], G, dt, ("W", "d scale"))
+    else:
+        err = grad_check(tag, lambda b: ops.ovsf_decompress_fn(b, idx, d_in),
+                         lambda b: ovsf_decompress_plain(b, idx, d_in), [a],
+                         G, dt, ("W", "dA"))
+    launched = {k: v for k, v in wrapper_counts().items() if v}
+    if launched != {"ovsf_decompress": 1}:
+        raise RuntimeError(f"{tag}: launched {launched}")
+    print(f"{tag}: W and {'d scale' if kw else 'dA'} within {TOL[dt]} "
+          f"relative L2 of autograd through the plain version (max abs err "
+          f"{err:.3e})", flush=True)
+    return dict(case=tag, storage=storage, max_abs_err=err)
+
+
+def run_seg_decompress_checks(rng, dev) -> dict:
+    """Phase 3, for phase 17: the segmented ``ovsf_decompress`` kernel
+    (``seg_decompress_row``) at TinyLlama-1.1B's five shapes and the
+    ragged ``SEG_RAGGED`` cases, in every alpha storage, and its
+    gradients (``seg_grad_row``) at gate's shape. Returns the rows and,
+    per storage, one layer's five calls summed."""
+    rows = []
+    for d_in, N in sorted(set(SEG_LAYER.values())):
+        rows += [seg_decompress_row(rng, dev, d_in, N, SEG_L0, SEG_KEEP, st)
+                 for st in SEG_STORAGES]
+    for d_in, N, L0, nk, repeat in SEG_RAGGED:
+        rows += [seg_decompress_row(rng, dev, d_in, N, L0, nk, st, repeat)
+                 for st in SEG_STORAGES if not (st == "int4" and N % 2)]
+    grads = [seg_grad_row(rng, dev, *SEG_LAYER["gate"], st)
+             for st in SEG_STORAGES]
+    summary = {}
+    for st in SEG_STORAGES:
+        pick = {(r["d_in"], r["N"]): r for r in rows
+                if r["storage"] == st and r["L0"] == SEG_L0
+                and r["n_keep"] == SEG_KEEP and not r["repeated_ids"]}
+        layer = [pick[kn] for kn in SEG_LAYER.values()]
+        sm = {k: sum(r[k] for r in layer) for k in
+              ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+        sm["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                         for r in layer) else "operations")
+        sm["max_abs_err"] = max(r["max_abs_err"] for r in rows
+                                if r["storage"] == st)
+        summary[st] = sm
+        print(f"[kernel] ovsf_decompress seg {st}, TinyLlama-1.1B's layer "
+              f"(q, o, gate, up, down): {sm['ms']:.4f} ms, bound "
+              f"{sm['bound_ms']:.4f} ms ({sm['bound_by']}; "
+              f"{sm['ms'] / sm['bound_ms']:.1f}x), plain "
+              f"{sm['plain_ms']:.4f} ms, bmm {sm['library_ms']:.4f} ms",
+              flush=True)
+    return dict(rows=rows, grads=grads, summary=summary)
+
+
+def mat_cfg(alpha_dtype: str = "", dtype: str = "bfloat16",
+            n_layers: int = 0):
+    """TinyLlama-1.1B as registered (segmented codes of 16, rho 0.5, its
+    own ``exec_path``, ``materialize``), alphas stored as
+    ``alpha_dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("tinyllama_1_1b")
+    if cfg.ovsf.exec_path != "materialize" or cfg.ovsf.seg_len != SEG_L0:
+        raise RuntimeError(f"tinyllama_1_1b: exec_path "
+                           f"{cfg.ovsf.exec_path}, seg_len "
+                           f"{cfg.ovsf.seg_len}")
+    return cfg.replace(dtype=dtype, n_layers=n_layers or cfg.n_layers,
+                       ovsf=dataclasses.replace(cfg.ovsf,
+                                                alpha_dtype=alpha_dtype))
+
+
+def mat_serve(seed: int, card: str, dev, alpha_dtype: str,
+              fused_profile: dict) -> dict:
+    """Phase 17 (2): TinyLlama-1.1B, bf16, alphas ``alpha_dtype``, at
+    ``MAT_LAYERS`` depth through ``family_serve`` with the main path's
+    engine unplanned (``MAT_ENGINE_KW``): every step that runs tokens
+    launches 5 segmented ``ovsf_decompress`` a layer and one
+    ``paged_flash_decode`` a layer, no ``ovsf_gemm``; eager and replayed
+    equal (streams, chunk-free logits bit for bit, launches, profiled
+    kernels). The replayed step's wall, busy and idle printed beside the
+    fused engine's (phase 4, ``fused_profile``; bf16 alphas at 22
+    layers)."""
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.models import registry as R
+    cfg = mat_cfg(alpha_dtype, n_layers=MAT_LAYERS[alpha_dtype])
+    tag = f"[materialize {alpha_dtype or 'bf16'} paged packed]"
+    params = R.model_init(cfg, seed, dev)
+    n_ovsf = ovsf_per_layer(params)
+
+    def unplanned(eng, _key):
+        if eng.cfg.exec_plan is not None or eng.cfg.ovsf.exec_path != \
+                "materialize":
+            raise RuntimeError(f"{tag} the engine planned {eng.cfg.exec_plan}"
+                               f" / {eng.cfg.ovsf.exec_path}")
+        return {}
+    run = family_serve(params, cfg, seed, card, dev, tag,
+                       {"ovsf_decompress": n_ovsf * cfg.n_layers,
+                        "paged_flash_decode": cfg.n_layers}, unplanned,
+                       engine_kw=MAT_ENGINE_KW)
+    layouts = dict(G.ovsf_decompress.launches_by_layout)
+    if n_ovsf != len(SEG_LAYER) or layouts["mono"] or not layouts["seg"]:
+        raise RuntimeError(f"{tag} {n_ovsf} OVSF linears a block, "
+                           f"ovsf_decompress by layout {layouts}")
+    pm, pf = run["decode_profile"], fused_profile
+    print(f"{tag} {cfg.n_layers} layers: the replayed chunk-free step under "
+          f"materialize: wall {pm['step_ms']:.3f} ms, busy {pm['busy_ms']} "
+          f"ms, idle share {pm['idle_share']}, ovsf_decompress "
+          f"{run['ovsf_decompress_ms']:.3f} ms of it; phase 4's fused step "
+          f"(bf16 alphas, 22 layers): wall {pf['step_ms']:.3f} ms, busy "
+          f"{pf['busy_ms']} ms, idle share {pf['idle_share']} ({card})",
+          flush=True)
+    del params
+    return dict(run, layers=cfg.n_layers, layouts=layouts)
+
+
+def mat_fp32_streams(seed: int, dev) -> dict:
+    """Phase 17 (3): fp32 TinyLlama-1.1B at ``MAT_FP32_LAYERS`` layers, the
+    same params and 8 requests through the unplanned paged packed engine
+    (``materialize``) and the planned one (``fused``, every weight type),
+    both replayed: the greedy streams equal (the sampled ones printed)."""
+    from repro_torch.models import registry as R
+    cfg = mat_cfg("", "float32", MAT_FP32_LAYERS)
+    params = R.model_init(cfg, seed, dev)
+    specs = serve_specs(cfg, seed)
+    runs, plans = {}, {}
+    for path, kw in (("materialize", MAT_ENGINE_KW),
+                     ("fused", dict(chunk_size=64, **STYLES["paged packed"]))):
+        eng, runs[path] = serve_run(params, cfg, dev, "paged packed",
+                                    serve_requests(specs),
+                                    f"[materialize fp32 {path}]", True,
+                                    False, engine_kw=kw)
+        plan = eng.cfg.exec_plan
+        plans[path] = (sorted({p.path for _n, p in plan.entries}) if plan
+                       else [eng.cfg.ovsf.exec_path])
+        eng.core.close()
+        del eng
+    greedy = [rid for rid, _p, sp in specs if not sp]
+    tm, tf = runs["materialize"]["tokens"], runs["fused"]["tokens"]
+    same = all(tm[r] == tf[r] for r in greedy)
+    sampled = {rid: tm[rid] == tf[rid] for rid, _p, sp in specs if sp}
+    totals = {path: {k: sum(d[k] for _c, _a, d in r["per_step"])
+                     for k in ("ovsf_decompress", "ovsf_gemm")}
+              for path, r in runs.items()}
+    print(f"[materialize fp32] {cfg.n_layers} layers, paged packed, "
+          f"replayed: greedy streams under {plans['materialize']} equal the "
+          f"engine's under {plans['fused']}: {same} ({len(greedy)} "
+          f"requests); sampled equal {sampled}; launches {totals}",
+          flush=True)
+    if (not same or plans != {"materialize": ["materialize"],
+                              "fused": ["fused"]}
+            or totals["materialize"]["ovsf_gemm"]
+            or not totals["materialize"]["ovsf_decompress"]
+            or totals["fused"]["ovsf_decompress"]
+            or not totals["fused"]["ovsf_gemm"]):
+        raise RuntimeError(f"[materialize fp32] plans {plans}, greedy "
+                           f"streams equal {same}, launches {totals}")
+    del params
+    return dict(layers=cfg.n_layers, greedy_equal=same,
+                sampled_equal=sampled, plans=plans)
+
+
+def mat_parity(seed: int, dev) -> dict:
+    """Phase 17 (4): one full-width fp32 packed paged step of TinyLlama at
+    ``MAT_PARITY_LAYERS`` layers, unplanned (``materialize``: the
+    segmented kernel on the card, its plain version on the CPU), card vs
+    CPU from the same params: logits within 1e-3 relative L2; the card's
+    step launched only segmented ``ovsf_decompress`` and
+    ``paged_flash_decode``."""
+    from repro_torch.kernels import ovsf_gemm as G
+    from repro_torch.models import registry as R
+    cfg = mat_cfg("", "float32", MAT_PARITY_LAYERS)
+    params = R.model_init(cfg, seed + 3, dev)
+    n_ovsf = ovsf_per_layer(params)
+    reset_wrapper_counts()
+    gpu = paged_step_logits(params, cfg, dev, seed)
+    launched = {k: v for k, v in wrapper_counts().items() if v}
+    seg = G.ovsf_decompress.launches_by_layout["seg"]
+    cpu = paged_step_logits(R.params_to(params, "cpu"), cfg,
+                            torch.device("cpu"), seed)
+    del params
+    if not torch.isfinite(gpu).all():
+        raise RuntimeError("[materialize parity] logits not finite")
+    rel = float((gpu - cpu).norm() / cpu.norm())
+    want = {"ovsf_decompress": n_ovsf * cfg.n_layers,
+            "paged_flash_decode": cfg.n_layers}
+    print(f"[materialize parity] {cfg.n_layers} full-width layers, fp32 "
+          f"packed paged step (61 tokens), materialize: card vs CPU logits "
+          f"rel L2 {rel:.3e} (limit 1e-3); the card launched {launched} "
+          f"({seg} segmented)", flush=True)
+    if not rel <= 1e-3 or launched != want or seg != want["ovsf_decompress"]:
+        raise RuntimeError(f"[materialize parity] {rel:.3e}, launched "
+                           f"{launched} (want {want}, {seg} segmented)")
+    return dict(layers=cfg.n_layers, rel_err=rel, launched=launched)
+
+
+def materialize_phase(seed: int, card: str, dev, fused_profile: dict
+                      ) -> dict:
+    """Phase 17 (module docstring): full-width TinyLlama-1.1B served
+    unplanned under the config's ``materialize`` through the segmented
+    ``ovsf_decompress`` kernel (its kernel rows in phase 3)."""
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    res = {adt or "bf16": timed(adt or "bf16", mat_serve, seed, card, dev,
+                                adt, fused_profile)
+           for adt in MAT_LAYERS}
+    res["fp32"] = timed("fp32", mat_fp32_streams, seed, dev)
+    res["parity"] = timed("parity", mat_parity, seed, dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["seconds"] = secs
+    print(f"[materialize] phase passed in {res['wall_s']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8405,6 +8951,8 @@ def main(argv=None) -> int:
     dec_rows, dec_sum = run_decompress_checks(rng, dev)
     conv_kernels = run_convert_kernel_checks(
         np.random.default_rng(args.seed + 41), dev)
+    seg_kernels = run_seg_decompress_checks(
+        np.random.default_rng(args.seed + 71), dev)
     fwht_rows, fwht_sum, fwht_refused = run_fwht_checks(rng, dev)
     mono_rows = run_mono_checks(rng, dev)
     refused = check_quant_contract(dev)
@@ -8417,7 +8965,9 @@ def main(argv=None) -> int:
           f"kernels at other shapes ({len(attn_shapes)} cases) and over int8"
           f" K/V ({len(int8_rows)} cases), "
           f"ovsf_decompress ({len(dec_rows)} cases; its int8 / int4 "
-          f"epilogue {len(conv_kernels['rows'])} cases), fwht "
+          f"epilogue {len(conv_kernels['rows'])} cases; the segmented "
+          f"layout {len(seg_kernels['rows'])} cases and "
+          f"{len(seg_kernels['grads'])} gradient cases), fwht "
           f"({len(fwht_rows)} cases), the monolithic tensor-core ovsf_gemm "
           f"({len(mono_rows)} cases here, the 19 CNN convs in the calibrate "
           "phase)", flush=True)
@@ -8500,6 +9050,9 @@ def main(argv=None) -> int:
     mark("family_train")
     quant = quant_train_phase(args.seed, card, dev)
     mark("quant_train")
+    mat = materialize_phase(args.seed, card, dev,
+                            serve["fp"]["decode_profile"])
+    mark("materialize")
     fk = fam["kernels"]["summary"]
     qt = quant["kernels"]
     tk = train["kernels"]
@@ -8519,6 +9072,7 @@ def main(argv=None) -> int:
     star = ssm_res[STARCODER_ARCH]
 
     gemm_src = "src/repro_torch/kernels/csrc/ovsf_gemm.cu"
+    dec_src = "src/repro_torch/kernels/csrc/ovsf_decompress.cu"
     kernels = []
     for name, source, replaces, s, n in (
             ("ovsf_gemm", gemm_src, "src/repro/kernels/ovsf_gemm.py:158",
@@ -8626,7 +9180,7 @@ def main(argv=None) -> int:
              wsp["serve"]["flash_unmasked"]),
             ("ovsf_gemm_train", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", lm_train,
-             train["launcher"]["launches"]["ovsf_gemm"]),
+             train["launcher"]["fused_launches"]),
             ("ovsf_decompress_train",
              "src/repro_torch/kernels/csrc/ovsf_decompress.cu",
              "src/repro/kernels/ovsf_gemm.py:256", tk["cnn"]["materialize"],
@@ -8649,16 +9203,16 @@ def main(argv=None) -> int:
              conv["int4"]["launch_totals"]["ovsf_decompress"]),
             ("ovsf_gemm_train_olmoe", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", fk["olmoe_1b_7b"],
-             fam["cut"]["olmoe_1b_7b"]["launches"]["ovsf_gemm"]),
+             fam["cut"]["olmoe_1b_7b"]["fused_launches"]),
             ("ovsf_gemm_train_falcon_mamba", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", fk["falcon_mamba_7b"],
-             fam["cut"]["falcon_mamba_7b"]["launches"]["ovsf_gemm"]),
+             fam["cut"]["falcon_mamba_7b"]["fused_launches"]),
             ("ovsf_gemm_train_zamba2", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", fk["zamba2_1_2b"],
-             fam["launcher"]["launches"]["ovsf_gemm"]),
+             fam["launcher"]["fused_launches"]),
             ("ovsf_gemm_train_llava", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:158", fk["llava_next_34b"],
-             fam["cut"]["llava_next_34b"]["launches"]["ovsf_gemm"]),
+             fam["cut"]["llava_next_34b"]["fused_launches"]),
             ("ovsf_gemm_train_int8", gemm_src,
              "src/repro/kernels/ovsf_gemm.py:64", qt["gemm"]["int8"],
              quant["full"]["ovsf_gemm"]),
@@ -8678,7 +9232,27 @@ def main(argv=None) -> int:
              "src/repro/kernels/decode_attn.py:64",
              quant["flash"]["summary"],
              quant["whisper"]["bfloat16"]["counts"]["launches"]
-             ["flash_decode_attn"])):
+             ["flash_decode_attn"]),
+            ("ovsf_decompress_seg", dec_src,
+             "src/repro/kernels/ovsf_gemm.py:256",
+             seg_kernels["summary"]["bf16"],
+             mat["bf16"]["launch_totals"]["ovsf_decompress"]),
+            ("ovsf_decompress_seg_int8", dec_src,
+             "src/repro/kernels/ovsf_gemm.py:256",
+             seg_kernels["summary"]["int8"],
+             mat["int8"]["launch_totals"]["ovsf_decompress"]),
+            ("ovsf_decompress_seg_int4", dec_src,
+             "src/repro/kernels/ovsf_gemm.py:256",
+             seg_kernels["summary"]["int4"],
+             mat["int4"]["launch_totals"]["ovsf_decompress"]),
+            ("ovsf_decompress_seg_train", dec_src,
+             "src/repro/kernels/ovsf_gemm.py:256",
+             seg_kernels["summary"]["bf16"],
+             train["launcher"]["launches"]["ovsf_decompress"]),
+            ("ovsf_decompress_seg_train_int8", dec_src,
+             "src/repro/kernels/ovsf_gemm.py:256",
+             seg_kernels["summary"]["int8"],
+             quant["full"]["ovsf_decompress"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -8835,8 +9409,9 @@ def main(argv=None) -> int:
                                           "forward_bound_ms its bound; "
                                           "library: "
                                           "matmul forward + backward on a "
-                                          "dense W; launches: the "
-                                          "launcher's 12 steps (phase 13)",
+                                          "dense W; launches: the step "
+                                          "under a fused plan after the "
+                                          "launcher's 12 (phase 13)",
                        "ovsf_decompress_train": "ResNet-50's 13 OVSF conv "
                                                 "GEMMs at batch 8 under "
                                                 "materialize, forward + "
@@ -8878,9 +9453,11 @@ def main(argv=None) -> int:
                                             "block's in / out and its "
                                             "shared block's seven; "
                                             "LLaVA's seven); launches: "
-                                            "phase 15's train runs (Zamba2:"
+                                            "phase 15's steps under a "
+                                            "fused plan (Zamba2: one after"
                                             " launch.train at 38 layers; "
-                                            "the others at FAMILY_LAYERS)",
+                                            "the others one after their "
+                                            "runs at FAMILY_LAYERS)",
                        "ovsf_gemm_train_int8": "OvsfGemmFn over int8 alphas "
                                                "(the tensor-core kernel's "
                                                "QUANT 1 epilogue forward, "
@@ -8891,12 +9468,14 @@ def main(argv=None) -> int:
                                                "forward + backward summed; "
                                                "library: matmul forward + "
                                                "backward on the dequantised "
-                                               "dense W; launches: the "
-                                               "full-width int8 run under "
-                                               "the supervisor (phase 16)",
+                                               "dense W; launches: a step "
+                                               "under a fused plan after "
+                                               "the full-width int8 run "
+                                               "(phase 16)",
                        "ovsf_gemm_train_int4": "the same over packed int4 "
-                                               "(QUANT 2); launches: the "
-                                               "int4 run at 4 layers",
+                                               "(QUANT 2); launches: a "
+                                               "fused step after the int4 "
+                                               "run at 4 layers",
                        "ovsf_decompress_train_int*": "OvsfDecompressFn over "
                                                      "int8 / int4 alphas "
                                                      "(monolithic codes, a "
@@ -8917,7 +9496,23 @@ def main(argv=None) -> int:
                            "Whisper-tiny pair: the self read (B=4, T=256) "
                            "and the cross read (B=4, T=1500, every row) "
                            "summed, bf16; launches: the bf16 stacked "
-                           "gateway run (phase 16)"},
+                           "gateway run (phase 16)",
+                       "ovsf_decompress_seg*": "the segmented kernel at "
+                                               "TinyLlama-1.1B's five W "
+                                               "(L0 16, 8 kept a segment), "
+                                               "bf16 / int8 / int4 alphas "
+                                               "(W bf16 / fp32 / fp32), "
+                                               "summed; library: bmm of "
+                                               "prebuilt signs by the "
+                                               "alphas; launches: phase "
+                                               "17's unplanned serve runs "
+                                               "(bf16 and int8 at 22 "
+                                               "layers, int4 at 6); _train:"
+                                               " the launcher's 12 steps "
+                                               "(phase 13), _train_int8: "
+                                               "the int8 supervisor run "
+                                               "(phase 16), both under "
+                                               "materialize"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
@@ -8926,7 +9521,8 @@ def main(argv=None) -> int:
                    "gateway": gateway, "moe": moe_res, "ssm": ssm_res,
                    "encdec_vlm": ev_res, "train": train,
                    "convert": conv, "family_train": fam,
-                   "quant_train": quant, "phase_s": phase_s}, f, indent=1)
+                   "quant_train": quant, "seg_decompress": seg_kernels,
+                   "materialize": mat, "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
 // OVSF weight generation for Hopper (sm_90a): dense W (d_in, d_out) from
 // (J, d_out) alphas and J monolithic code ids,
 //   W[k, n] = sum_j H_L[idx[j], k] * alphas[j, n],  k < d_in,
-// with H_L the Sylvester-Hadamard matrix, L = next_pow2(d_in).
+// with H_L the Sylvester-Hadamard matrix, L = next_pow2(d_in); and, in
+// its own kernel at the end of this file, from (n_seg, n_keep) segmented
+// code ids (ovsf_decompress_seg_kernel).
 //
 // Replaces the Pallas TPU kernel repro/kernels/ovsf_gemm.py:ovsf_decompress
 // (_decompress_kernel, _gen_w_tile) for monolithic codes and fp32/bf16
@@ -297,5 +299,236 @@ extern "C" int ovsf_decompress_launch(const void* alphas, const void* scale,
     return launch<float, 0, LOG_L>(alphas, sc, idx, wt, J, N, d_in, rows,
                                    threads, smem, rows_per_scale, distinct,
                                    s);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The segmented layout (the paper's Alg. 1): idx (n_seg, n_keep), each
+// segment's codes of length L0 = d_in / n_seg touching only its own L0 rows,
+//   W[s L0 + r, n] = sum_k (-1)^popc(idx[s, k] & r) * alphas[s n_keep + k, n].
+// Replaces the segmented branch of the same Pallas kernel (_gen_w_tile with
+// seg / n_keep, _sign_tile: repro/kernels/ovsf_gemm.py:77), and with it the
+// reference's jnp _segmented_decompress (repro/kernels/ops.py:76): every LM
+// config builds these codes (L0 16, n_keep 8), and its default exec_path,
+// materialize, generates W through this kernel before one torch.matmul.
+//
+// What bounds it on the H100: the bytes, alphas read once and W written once.
+// TinyLlama-1.1B's five W of a layer in bf16: 86.0 MB of W and 43.0 MB of
+// alphas, 0.0385 ms at 3.35 TB/s; the transform is L0 log2 L0 fp32 adds a
+// (segment, column), 4 an element of W at L0 16, about 2.6 us a layer at
+// 67 TFLOP/s.
+//
+// Design: one thread a (segment, column) pair; a block's 32 lanes take 32
+// neighbouring columns of one segment (a warp), its SEG_WARPS warps
+// neighbouring segments. A thread
+//   1. loads its column's n_keep alphas of the segment, all in flight at
+//      once: a warp's loads of one alpha row are neighbouring, coalesced
+//      along n; int8 / int4 alphas are widened and scaled in the load (the
+//      one fp32 multiply of core.ovsf.dequantize_alphas, as the monolithic
+//      epilogue); the segment's ids are the same address across the warp
+//      (one broadcast load each, no host read, no id check before the
+//      launch, so a step being captured needs none: an id outside [0, L0)
+//      traps);
+//   2. adds each alpha into its id's slot of an L0-long spectrum in
+//      registers: the id is warp-uniform, so a binary tree of uniform
+//      branches reaches a constant register index, without divergence;
+//      repeated ids sum in k order, as the reference's einsum sums them,
+//      with no atomics, so W is deterministic;
+//   3. runs the spectrum's log2 L0 radix-2 passes in registers in
+//      core.ovsf.fwht's order (wht::passes), fp32;
+//   4. puts its L0 values of W^T row n, (N, d_in), into the block's tile
+//      in shared memory; after one barrier the block writes the tile's 32
+//      rows, each SEG_WARPS * L0 contiguous values of a W^T row (256 bytes
+//      in bf16 at L0 16), 16 bytes a thread with neighbouring threads on
+//      neighbouring words. The wrapper returns W^T's transposed view, the
+//      monolithic kernel's layout, which torch.matmul takes as it is.
+// With fp32 alphas and distinct ids every spectrum slot is 0 + alpha and the
+// passes are the plain version's adds in its order: W equals it bit for bit.
+// bf16 alphas: W rounded to bf16 once, where the plain version (the
+// reference's jnp) rounds after each pass.
+namespace {
+
+constexpr int SEG_WARPS = 8;                 // segments a block: one a warp
+
+// v[id] += a for a warp-uniform id in [LO, HI): uniform branches halve the
+// range down to one constant index.
+template <int LO, int HI, int L0>
+__device__ __forceinline__ void add_at(float (&v)[L0], int id, float a) {
+  if constexpr (HI - LO == 1) {
+    v[LO] += a;
+  } else {
+    constexpr int MID = (LO + HI) / 2;
+    if (id < MID)
+      add_at<LO, MID>(v, id, a);
+    else
+      add_at<MID, HI>(v, id, a);
+  }
+}
+
+// One 16-byte word of W from v[0..): four fp32 values, or eight rounded to
+// bf16 (round to nearest even, as __float2bfloat16; the low half the first).
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                 bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+}
+
+// Alpha (j, n) in fp32: a stored float (Q = 0), or an int8 (Q = 1) / a
+// nibble of a packed byte (Q = 2) times its row's scale s.
+template <typename T, int Q>
+__device__ __forceinline__ float alpha_at(const void* alphas, int j, int n,
+                                          int N, float s) {
+  if constexpr (Q == 0) {
+    return to_f(static_cast<const T*>(alphas)[(size_t)j * N + n]);
+  } else {
+    const signed char* row = static_cast<const signed char*>(alphas) +
+                             (size_t)j * (Q == 1 ? N : N / 2);
+    return (float)quant_at<Q>(row, n) * s;
+  }
+}
+
+// alphas (J = n_seg * n_keep, N) as ovsf_decompress_kernel's; idx (n_seg,
+// n_keep) in [0, L0); wt (N, d_in), d_in = n_seg * L0. Block (x, y) takes
+// columns [32 x, 32 x + 32) of segments [SEG_WARPS y, SEG_WARPS y +
+// SEG_WARPS): thread (lane, warp) the pair (column 32 x + lane, segment
+// SEG_WARPS y + warp).
+template <typename T, int Q, int LOG_L0>
+__global__ void __launch_bounds__(32 * SEG_WARPS)
+ovsf_decompress_seg_kernel(const void* alphas, const float* scale,
+                           const int* idx, T* wt, int n_seg, int n_keep,
+                           int N, int d_in, int rows_per_scale) {
+  constexpr int L0 = 1 << LOG_L0;
+  constexpr int PER_WORD = 16 / (int)sizeof(T);
+  // the block's W^T tile, a row of SEG_WARPS * L0 values a column, padded
+  // by one 16-byte word: a quarter-warp's 8 lanes (8 rows) hit distinct
+  // bank groups
+  constexpr int PITCH = SEG_WARPS * L0 + PER_WORD;
+  __shared__ __align__(16) T tile[32 * PITCH];
+  const int n0 = blockIdx.x * 32, s0 = blockIdx.y * SEG_WARPS;
+  const int n = n0 + threadIdx.x, s = s0 + threadIdx.y;
+  if (n < N && s < n_seg) {
+    // quantised alphas: one scale for the segment's rows where a scale
+    // segment holds whole code segments (every LM config), else a row's
+    const int j0 = s * n_keep;
+    const bool one_scale = Q && rows_per_scale % max(n_keep, 1) == 0;
+    const float s0_scale = Q ? __ldg(scale + j0 / rows_per_scale) : 0.f;
+    int code[L0];
+    float a[L0];
+#pragma unroll
+    for (int k = 0; k < L0; ++k) {
+      if (k < n_keep) {
+        const int j = j0 + k;
+        code[k] = __ldg(idx + j);
+        a[k] = alpha_at<T, Q>(
+            alphas, j, n, N,
+            !Q || one_scale ? s0_scale : __ldg(scale + j / rows_per_scale));
+      }
+    }
+    float v[L0];
+#pragma unroll
+    for (int r = 0; r < L0; ++r) v[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < L0; ++k) {
+      if (k < n_keep) {
+        if ((unsigned)code[k] >= (unsigned)L0) __trap();  // no host check
+        add_at<0, L0>(v, code[k], a[k]);
+      }
+    }
+    wht::passes<LOG_L0, 0, LOG_L0>(v);
+    T* row = tile + threadIdx.x * PITCH + threadIdx.y * L0;
+    if constexpr (L0 % PER_WORD == 0) {
+#pragma unroll
+      for (int r = 0; r < L0; r += PER_WORD) store16(row + r, v + r);
+    } else {
+#pragma unroll
+      for (int r = 0; r < L0; ++r) from_f(v[r], row + r);
+    }
+  }
+  __syncthreads();
+  // the tile's rows to W^T: row c holds segs * L0 contiguous values of
+  // row n0 + c; 16-byte words where whole, neighbouring threads on
+  // neighbouring words
+  const int cols = min(32, N - n0);
+  const int elems = min(SEG_WARPS, n_seg - s0) * L0;
+  const int t = threadIdx.y * 32 + threadIdx.x;
+  T* out = wt + (size_t)n0 * d_in + (size_t)s0 * L0;
+  if (d_in % PER_WORD == 0 && elems % PER_WORD == 0) {
+    const int words = elems / PER_WORD;
+    for (int i = t; i < cols * words; i += 32 * SEG_WARPS) {
+      const int c = i / words, w = i - c * words;
+      *reinterpret_cast<uint4*>(out + (size_t)c * d_in + w * PER_WORD) =
+          *reinterpret_cast<const uint4*>(tile + c * PITCH + w * PER_WORD);
+    }
+  } else {
+    for (int i = t; i < cols * elems; i += 32 * SEG_WARPS) {
+      const int c = i / elems, e = i - c * elems;
+      out[(size_t)c * d_in + e] = tile[c * PITCH + e];
+    }
+  }
+}
+
+template <typename T, int Q, int LOG_L0>
+cudaError_t launch_seg(const void* alphas, const float* scale,
+                       const void* idx, void* wt, int n_seg, int n_keep,
+                       int N, int d_in, int rows_per_scale,
+                       cudaStream_t stream) {
+  const dim3 grid((N + 31) / 32, (n_seg + SEG_WARPS - 1) / SEG_WARPS);
+  ovsf_decompress_seg_kernel<T, Q, LOG_L0><<<grid, dim3(32, SEG_WARPS), 0,
+                                             stream>>>(
+      alphas, scale, static_cast<const int*>(idx), static_cast<T*>(wt),
+      n_seg, n_keep, N, d_in, rows_per_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The segmented layout: alphas (n_seg * n_keep, N) float32 or bfloat16
+// (bf16 != 0), or with quant = 1 int8 (J, N) and quant = 2 packed int4
+// (J, N / 2) with one fp32 scale a rows_per_scale rows; idx (n_seg, n_keep)
+// int32 in [0, L0), L0 = d_in / n_seg a power of two up to 32, n_keep <= L0;
+// writes W^T as wt (N, d_in), 16-byte aligned, in the alphas' type (fp32
+// for quantised alphas). Returns the cudaError_t of the launch.
+extern "C" int ovsf_decompress_seg_launch(const void* alphas,
+                                          const void* scale, const void* idx,
+                                          void* wt, int n_seg, int n_keep,
+                                          int N, int d_in, int bf16,
+                                          int quant, int rows_per_scale,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_seg <= 0 || N <= 0 || d_in <= 0 || d_in % n_seg)
+    return cudaErrorInvalidValue;
+  const int L0 = d_in / n_seg;
+  if ((L0 & (L0 - 1)) || L0 > 32 || n_keep < 0 || n_keep > L0 || quant < 0 ||
+      quant > 2 || (quant && (bf16 || rows_per_scale <= 0)) ||
+      (quant == 2 && N % 2))
+    return cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  const int log_l0 = __builtin_ctz(L0);
+  return wht::dispatch(log_l0, [&](auto nc) -> cudaError_t {
+    constexpr int LOG_L0 = decltype(nc)::value;
+    if constexpr (LOG_L0 > 5) {
+      return cudaErrorInvalidValue;
+    } else {
+      if (quant == 1)
+        return launch_seg<float, 1, LOG_L0>(alphas, sc, idx, wt, n_seg,
+                                            n_keep, N, d_in, rows_per_scale,
+                                            s);
+      if (quant == 2)
+        return launch_seg<float, 2, LOG_L0>(alphas, sc, idx, wt, n_seg,
+                                            n_keep, N, d_in, rows_per_scale,
+                                            s);
+      if (bf16)
+        return launch_seg<__nv_bfloat16, 0, LOG_L0>(
+            alphas, sc, idx, wt, n_seg, n_keep, N, d_in, rows_per_scale, s);
+      return launch_seg<float, 0, LOG_L0>(alphas, sc, idx, wt, n_seg, n_keep,
+                                          N, d_in, rows_per_scale, s);
+    }
   });
 }

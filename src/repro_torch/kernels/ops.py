@@ -2,14 +2,17 @@
 ``repro.kernels.ops``).
 
 ``materialize``  regenerate dense W, then one GEMM (``torch.matmul``, as the
-                 reference leaves it to XLA). Monolithic codes generate W
-                 through the hand-written
+                 reference leaves it to XLA). W comes from the hand-written
                  ``kernels.ovsf_gemm.ovsf_decompress`` on CUDA (its plain
-                 version on the CPU): the CNNs' im2col GEMMs in matrix mode
-                 (fp32 alphas), and a dense LM converted to monolithic codes
-                 (``models.layers.linear_convert_to_ovsf(seg=0)``) and
-                 served unplanned, its int8 / int4 alphas dequantised inside
-                 the kernel (W fp32, as the Pallas kernel's).
+                 version on the CPU), int8 / int4 alphas dequantised inside
+                 the kernel (W fp32, as the Pallas kernel's): monolithic
+                 codes for the CNNs' im2col GEMMs in matrix mode (fp32
+                 alphas) and a dense LM converted to monolithic codes
+                 (``models.layers.linear_convert_to_ovsf(seg=0)``);
+                 segmented codes (its segmented kernel) for every LM config,
+                 whose default ``exec_path`` this is: an unplanned engine
+                 (``use_mapper=False``), the train and eval steps, and a
+                 plan that names it.
 ``fused``        generation fused into the GEMM tiles: the hand-written
                  ``kernels.ovsf_gemm`` kernels on CUDA (monolithic codes with
                  fp32 x: each W stripe generated once on chip, the product
@@ -23,19 +26,13 @@
                  with the alphas is ``torch.matmul``, outside any kernel in
                  the reference too.
 
-What has no hand-written kernel yet runs on the CPU only and raises on any
-other device: ``materialize`` of segmented codes (the plain per-segment WHT,
-as the reference computes it in jnp; no path of the reference sends
-segmented ids to ``ovsf_decompress``: ROADMAP B.3). So on the card the
-single-model engine plans its LM layers, segmented as every LM config
-builds them, with ``fused`` alone (``serving.engine._PLAN_TARGETS``).
-``spectral`` of segmented codes runs
-on any device as plain tensor code (a per-segment butterfly, ``gather``,
-``torch.matmul``), as the reference's per-segment WHT is plain jnp and not
-``fwht_pallas``: the multi-model path (``ovsf_matmul_multi``) and the
-gateway's dedicated spectral baselines run it on the card. Quantised alphas
-under ``spectral`` are dequantised with plain tensor code on any device, as
-the reference does in jnp before its GEMM.
+``spectral`` of segmented codes runs on any device as plain tensor code (a
+per-segment butterfly, ``gather``, ``torch.matmul``), as the reference's
+per-segment WHT is plain jnp and not ``fwht_pallas``: the multi-model path
+(``ovsf_matmul_multi``) and the gateway's dedicated spectral baselines run
+it on the card. Quantised alphas under ``spectral`` are dequantised with
+plain tensor code on any device, as the reference does in jnp before its
+GEMM.
 
 ``ovsf_matmul(plan=...)`` takes the mapper's ``LayerPlan`` and runs its
 path. The plan's block sizes are recorded, not used: the CUDA
@@ -53,10 +50,10 @@ launched at capture.
 
 An MoE expert bank, (E, J, d_out) alphas sharing one ``idx``
 (``models.moe``), generates its dense (E, d_in, d_out) W through
-``decompress_bank``, plain tensor code for segmented codes on any device:
-the reference regenerates a bank with its plain jnp under every plan
-(``fused`` included; it has no expert kernel). Quantised banks are
-refused, as the reference refuses them.
+``decompress_bank``, plain tensor code for segmented codes on any device
+(``ovsf_gemm.segmented_decompress_plain``): the reference vmaps its plain
+jnp over a bank under every plan (``fused`` included; it has no expert
+kernel). Quantised banks are refused, as the reference refuses them.
 
 ``ovsf_matmul_multi`` runs M stacked alpha variants over one activation
 stream: one ``spectral_matmul`` per variant, then a per-token
@@ -73,15 +70,16 @@ wrappers run as ``torch.autograd.Function``s (``OvsfGemmFn``,
 on CUDA, the plain version on the CPU), the backward the exact transpose
 of its function, the same code on every device. With W = S^T A, S =
 H_L[idx, :d_in] and H symmetric: ``fwht`` is its own adjoint; W =
-decompress(A) gives dA = S dW = (fwht(pad(dW^T))[:, idx])^T, through the
-``fwht`` kernel; y = x W gives dA = spectral_transform(x)^T dy (the
+decompress(A) gives dA = S dW = spectral_transform(dW^T)^T (through the
+``fwht`` kernel for monolithic codes, each segment's plain WHT for
+segmented ones); y = x W gives dA = spectral_transform(x)^T dy (the
 ``fwht`` kernel for monolithic codes, the plain per-segment WHT for
 segmented ones) and dx = dy W^T: for monolithic codes W from the
 ``ovsf_decompress`` kernel, for segmented ones (dy A^T) S as a scatter of
 the J columns into each segment's spectrum and a plain per-segment WHT,
 so the segmented backward launches no kernel. The products are
 ``torch.matmul`` in fp32, as the reference's oracle computes in fp32. What
-runs as plain tensor code (segmented ``materialize`` and ``spectral``,
+runs as plain tensor code (segmented ``spectral``, an expert bank,
 ``index_select``, the products) is differentiated by autograd directly.
 Where autograd records nothing (every serving path), ``*_fn`` calls the
 wrapper itself and not its Function: the fork is kept for host overhead,
@@ -93,8 +91,8 @@ Quantised alphas (int8 / packed int4 q with per-segment fp32 scales s, A
 gradient, and d s[seg] is the sum of q̂ ⊙ dA over the segment's rows and
 every column (q̂ the stored integer, an int4 byte's two nibbles
 unpacked), dA as above. ``fused``'s forward is the kernel's quantised
-epilogue, ``materialize``'s (monolithic codes) the decompress kernel's;
-dx for monolithic codes takes W from the decompress kernel's epilogue.
+epilogue, ``materialize``'s the decompress kernel's (either layout); dx
+for monolithic codes takes W from the decompress kernel's epilogue.
 The decompress cache is bypassed while autograd records the alphas or
 their scales (a cached W would carry a finished step's graph and, once
 the scale trains, a stale scale).
@@ -109,7 +107,8 @@ import torch
 from repro_torch.core import ovsf
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.fwht import fwht
-from repro_torch.kernels.ovsf_gemm import ovsf_decompress, ovsf_gemm
+from repro_torch.kernels.ovsf_gemm import (ovsf_decompress, ovsf_gemm,
+                                           segmented_decompress_plain)
 
 EXEC_PATHS = ("materialize", "fused", "spectral")
 
@@ -134,9 +133,10 @@ class FwhtFn(torch.autograd.Function):
 
 
 class OvsfDecompressFn(torch.autograd.Function):
-    """``kernels.ovsf_gemm.ovsf_decompress`` (monolithic codes) with its
-    gradient dA = S dW: the rows of dW^T padded to L, transformed by the
-    ``fwht`` kernel in fp32, the kept columns taken and transposed. Over
+    """``kernels.ovsf_gemm.ovsf_decompress`` with its gradient dA = S dW =
+    ``spectral_transform(dW^T)^T`` in fp32: for monolithic codes the rows
+    of dW^T padded to L and transformed by the ``fwht`` kernel, for
+    segmented ones each segment's plain WHT, the kept codes taken. Over
     int8 / int4 alphas (the kernel's epilogue) dA reduces to the scales'
     gradient (``_scale_grad``)."""
 
@@ -151,7 +151,7 @@ class OvsfDecompressFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dW):
         idx, q, scale = ctx.saved_tensors
-        dA = _coefficients(dW.t().to(torch.float32), idx).t()
+        dA = spectral_transform(dW.t().to(torch.float32), idx).t()
         if ctx.alpha_dtype:
             return (None, None, None,
                     _scale_grad(q, scale, dA, ctx.alpha_dtype), None)
@@ -215,15 +215,6 @@ def _scale_grad(q: torch.Tensor, scale: torch.Tensor, dA: torch.Tensor,
         -1).reshape(scale.shape)
 
 
-def _coefficients(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(R, d) rows -> (R, J): pad to L, ``fwht``, keep the columns of the
-    (J,) monolithic ids (rows @ S^T)."""
-    L = ovsf.next_pow2(rows.shape[-1])
-    if L != rows.shape[-1]:
-        rows = torch.nn.functional.pad(rows, (0, L - rows.shape[-1]))
-    return torch.index_select(fwht(rows), -1, idx)
-
-
 def _segment_adjoint(z: torch.Tensor, idx: torch.Tensor, d_in: int
                      ) -> torch.Tensor:
     """(M, J) -> (M, d_in) = z @ S for (n_seg, n_keep) segmented ids: each
@@ -265,42 +256,12 @@ def ovsf_gemm_fn(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor,
                      alpha_dtype=alpha_dtype)
 
 
-def _segmented_decompress(alphas: torch.Tensor, idx: torch.Tensor,
-                          d_in: int) -> torch.Tensor:
-    """Scatter kept coefficients into each segment's spectrum, then a
-    per-segment WHT: (..., J, d_out) -> dense (..., d_in, d_out), any
-    leading axes (an expert bank's E) sharing ``idx``."""
-    ns, nk = idx.shape
-    L0 = d_in // ns
-    lead, d_out = alphas.shape[:-2], alphas.shape[-1]
-    full = torch.zeros(lead + (ns, L0, d_out), dtype=alphas.dtype,
-                       device=alphas.device)
-    full.scatter_(-2, idx.long()[:, :, None].expand(lead + (ns, nk, d_out)),
-                  alphas.reshape(lead + (ns, nk, d_out)))
-    # each segment's WHT along L0 in place: every stage's halves are whole
-    # (h, d_out) blocks, so the butterflies run on contiguous rows
-    return ovsf.fwht(full, dim=-2).reshape(lead + (d_in, d_out))
-
-
-def _plain_only(t: torch.Tensor, what: str) -> None:
-    """No plain-version fallback off the CPU: ``what`` has no kernel."""
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"the {what} has no hand-written kernel (ROADMAP B.3), so it "
-            f"runs on the CPU only; on {t.device.type} plan OVSF layers "
-            "with the fused path")
-
-
 def decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
-    """Dense (d_in, d_out) W from OVSF params. Monolithic codes go to
-    ``ovsf_decompress`` (the kernel on CUDA; int8 / int4 alphas dequantised
-    inside it, W then fp32); segmented codes (quantised alphas dequantised
-    to fp32 first) run plain tensor code on the CPU only."""
-    if idx.dim() == 2:
-        _plain_only(alphas, "materialize path for segmented codes")
-        alphas = kref.dequant_ref(alphas, alpha_scale, alpha_dtype)
-        return _segmented_decompress(alphas, idx, d_in)
+    """Dense (d_in, d_out) W from OVSF params, monolithic or segmented
+    codes, through ``ovsf_decompress`` (the kernel on CUDA; int8 / int4
+    alphas dequantised inside it, W then fp32); differentiable where
+    autograd records the alphas or the scales."""
     return ovsf_decompress_fn(alphas, idx, d_in, alpha_scale=alpha_scale,
                               alpha_dtype=alpha_dtype)
 
@@ -310,14 +271,14 @@ def decompress_bank(alphas: torch.Tensor, idx: torch.Tensor,
     """Dense (E, d_in, d_out) W of an MoE expert bank: (E, J, d_out) float
     alphas sharing ``idx``, as the reference vmaps ``decompress`` over the
     experts. Segmented codes run the per-segment WHT as plain tensor code
-    on any device (the reference's is plain jnp; the expert path is the
-    one caller that runs it off the CPU); monolithic codes decompress the
+    on any device (``segmented_decompress_plain``; the reference's is plain
+    jnp, and a bank has no kernel there either); monolithic codes decompress the
     experts side by side as the columns of one (J, E * d_out) matrix
     through ``ovsf_decompress`` (each column's transform is its own;
     differentiable where autograd records the alphas)."""
     E, J, d_out = alphas.shape
     if idx.dim() == 2:
-        return _segmented_decompress(alphas, idx, d_in)
+        return segmented_decompress_plain(alphas, idx, d_in)
     cols = alphas.permute(1, 0, 2).reshape(J, E * d_out)
     W = ovsf_decompress_fn(cols, idx, d_in)               # (d_in, E*d_out)
     return W.reshape(d_in, E, d_out).permute(1, 0, 2)

@@ -19,12 +19,16 @@ launches, ``ovsf_gemm.launches_by_alpha`` splits them by alpha storage
 ("fp", "int8", "int4") and ``ovsf_gemm.launches_by_kernel`` by kernel.
 
 ``ovsf_decompress(alphas, idx, d_in)`` materialises the dense W (d_in,
-d_out) over monolithic codes from fp32/bf16 alphas, or from int8 / packed
-int4 alphas with per-segment fp32 scales (the Pallas kernel's dequant
-epilogue; W is then fp32): ``csrc/ovsf_decompress.cu`` (the port of the
-Pallas ``ovsf_decompress``) on a CUDA tensor, its plain version on a CPU
-tensor; ``ovsf_decompress.launches`` counts launches. The segmented layout
-is not ported: no path of the reference sends it to the kernel.
+d_out) over (J,) monolithic or (n_seg, n_keep) segmented codes from
+fp32/bf16 alphas, or from int8 / packed int4 alphas with per-segment fp32
+scales (the Pallas kernel's dequant epilogue; W is then fp32):
+``csrc/ovsf_decompress.cu`` (the port of the Pallas ``ovsf_decompress``:
+``ovsf_decompress_kernel`` for monolithic codes, a WHT a column over
+L = next_pow2(d_in); ``ovsf_decompress_seg_kernel`` for segmented ones, a
+register WHT of length L0 = d_in / n_seg a (segment, column), the layout
+every LM config builds) on a CUDA tensor, its plain version on a CPU
+tensor. ``ovsf_decompress.launches`` counts launches,
+``ovsf_decompress.launches_by_layout`` splits them ("mono", "seg").
 """
 from __future__ import annotations
 
@@ -69,6 +73,9 @@ _TICKETS: dict = {}           # device -> every ticket buffer, newest last
 _DEC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
                  + [ctypes.c_void_p])
 _DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
+_SEG_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
+DEC_MAX_L0 = 32               # the segmented kernel's register spectrum
 # adjacent columns a block takes at least: one 16-byte fp32 (8-byte bf16)
 # alpha load per id (8 bf16 columns, 16 bytes, were slower at d_in 1152 and
 # 2304 on the H100: half the blocks)
@@ -366,21 +373,44 @@ def ovsf_gemm(x: torch.Tensor, alphas: torch.Tensor, idx: torch.Tensor, *,
     return out
 
 
+def segmented_decompress_plain(alphas: torch.Tensor, idx: torch.Tensor,
+                               d_in: int) -> torch.Tensor:
+    """Dense (..., d_in, d_out) W of (n_seg, n_keep) segmented codes: each
+    segment's kept alphas added into its length-L0 spectrum (repeated ids
+    sum, as the reference's einsum does), then a per-segment WHT in the
+    alphas' type, a rounding a butterfly stage as the reference's jnp;
+    (..., J, d_out) alphas, any leading axes (an expert bank's E) sharing
+    ``idx``."""
+    ns, nk = idx.shape
+    L0 = d_in // ns
+    lead, d_out = alphas.shape[:-2], alphas.shape[-1]
+    full = torch.zeros(lead + (ns, L0, d_out), dtype=alphas.dtype,
+                       device=alphas.device)
+    full.scatter_add_(-2, idx.long()[:, :, None].expand(
+        lead + (ns, nk, d_out)), alphas.reshape(lead + (ns, nk, d_out)))
+    # each segment's WHT along L0 in place: every stage's halves are whole
+    # (h, d_out) blocks, so the butterflies run on contiguous rows
+    return fwht(full, dim=-2).reshape(lead + (d_in, d_out))
+
+
 def ovsf_decompress_plain(alphas: torch.Tensor, idx: torch.Tensor,
                           d_in: int, *, alpha_scale=None,
                           alpha_dtype: str = "") -> torch.Tensor:
     """The plain version of ``ovsf_decompress``: int8 / packed int4 alphas
     dequantised first (``core.ovsf.dequantize_alphas``: one fp32 multiply
-    by the row's segment scale); then scatter-add each column's alphas into
-    its length-L spectrum (repeated ids sum, as the Pallas kernel's sum over
-    j does), WHT, crop; fp32 arithmetic, output in the alphas' type (fp32
-    for quantised alphas, as the Pallas kernel's), as the (d_in, d_out) view
-    of a (d_out, d_in) array."""
+    by the row's segment scale); segmented codes then run
+    ``segmented_decompress_plain``; monolithic ones scatter-add each
+    column's alphas into its length-L spectrum (repeated ids sum, as the
+    Pallas kernel's sum over j does), WHT, crop, fp32 arithmetic, output in
+    the alphas' type (fp32 for quantised alphas, as the Pallas kernel's),
+    as the (d_in, d_out) view of a (d_out, d_in) array."""
     if alpha_dtype:
         if not isinstance(alpha_scale, torch.Tensor):
             raise ValueError("ovsf_decompress: quantised alphas need an "
                              "alpha_scale tensor")
         alphas = dequantize_alphas(alphas, alpha_scale, alpha_dtype)
+    if idx.dim() == 2:
+        return segmented_decompress_plain(alphas, idx, d_in)
     L = next_pow2(d_in)
     spec = torch.zeros((alphas.shape[1], L), dtype=torch.float32,
                        device=alphas.device)
@@ -443,12 +473,15 @@ def check_ids(idx: torch.Tensor, L: int, who: str = "ovsf_decompress"
 
 def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                     alpha_scale=None, alpha_dtype: str = "") -> torch.Tensor:
-    """Dense W (d_in, d_out) = S^T @ alphas, S = H_L[idx, :d_in], from (J,)
-    monolithic code ids in [0, next_pow2(d_in)) and (J, d_out) float32 or
+    """Dense W (d_in, d_out) = S^T @ alphas from (J, d_out) float32 or
     bfloat16 alphas (W in their type), or int8 (J, d_out) alphas with
     ``alpha_dtype="int8"`` / packed int8 (J, d_out // 2) with ``"int4"``
-    and their (n_seg, 1) float32 ``alpha_scale``, J % n_seg == 0 (W fp32);
-    returned as the transposed view of a contiguous (d_out, d_in) array."""
+    and their (n_seg, 1) float32 ``alpha_scale``, J % n_seg == 0 (W fp32).
+    ``idx``: (J,) monolithic code ids in [0, next_pow2(d_in)), S =
+    H_L[idx, :d_in]; or (n_seg, n_keep) segmented ids in [0, L0), L0 =
+    d_in / n_seg a power of two up to ``DEC_MAX_L0``, n_keep <= L0, S
+    block-diagonal (each segment's codes on its own L0 rows). Returned as
+    the transposed view of a contiguous (d_out, d_in) array."""
     if alphas.device.type == "cpu":
         return ovsf_decompress_plain(alphas, idx, d_in,
                                      alpha_scale=alpha_scale,
@@ -469,45 +502,81 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
     J, N = alphas.shape
     if alpha_dtype == "int4":
         N *= 2                          # two nibbles per stored byte
-    if (idx.dim() != 1 or idx.shape[0] != J or idx.dtype.is_floating_point
-            or idx.device != alphas.device):
+    if (idx.dim() not in (1, 2) or idx.numel() != J
+            or idx.dtype.is_floating_point or idx.device != alphas.device):
         raise ValueError(f"ovsf_decompress: idx {tuple(idx.shape)} "
-                         f"{idx.dtype} on {idx.device} must be ({J},) "
-                         f"integer code ids beside the alphas (monolithic "
-                         "codes only)")
+                         f"{idx.dtype} on {idx.device} must be ({J},) or "
+                         f"(n_seg, n_keep) integer code ids, {J} in all, "
+                         "beside the alphas")
+    scale = alphas                      # unread for float alphas
+    if alpha_dtype:
+        scale = _check_scale(alpha_scale, J, alphas.device, "ovsf_decompress")
+    rows_per_scale = J // scale.numel() if alpha_dtype else J
+    out_dtype = torch.float32 if alpha_dtype else alphas.dtype
+    stream = torch.cuda.current_stream(alphas.device).cuda_stream
+    if idx.dim() == 2:
+        return _decompress_segmented(alphas, scale, idx, d_in, N,
+                                     alpha_dtype, rows_per_scale, out_dtype,
+                                     stream)
     L = next_pow2(d_in)
     if d_in < 1 or L > _DEC_MAX_L:
         raise ValueError(f"ovsf_decompress: d_in={d_in} outside "
                          f"1..{_DEC_MAX_L}")
-    scale = alphas                      # unread for float alphas
-    if alpha_dtype:
-        scale = _check_scale(alpha_scale, J, alphas.device, "ovsf_decompress")
     distinct = _distinct_ids(idx, L, "ovsf_decompress")
     alphas = _aligned(alphas.contiguous())
     idx = idx.to(torch.int32).contiguous()
-    out_dtype = torch.float32 if alpha_dtype else alphas.dtype
     wt = torch.empty((N, d_in), dtype=out_dtype, device=alphas.device)
     plan = wht_plan(L, wt.element_size(), tile=DEC_TILE)
     err = build.launcher("ovsf_decompress", _DEC_ARGTYPES)(
         alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(), wt.data_ptr(),
         J, N, d_in, L, int(alphas.dtype == torch.bfloat16),
-        _QUANT[alpha_dtype], J // scale.numel() if alpha_dtype else J,
-        *plan_args(plan), int(distinct),
-        torch.cuda.current_stream(alphas.device).cuda_stream)
+        _QUANT[alpha_dtype], rows_per_scale, *plan_args(plan), int(distinct),
+        stream)
+    return _launched(err, "mono", wt)
+
+
+def _decompress_segmented(alphas, scale, idx, d_in: int, N: int,
+                          alpha_dtype: str, rows_per_scale: int, out_dtype,
+                          stream) -> torch.Tensor:
+    """``ovsf_decompress`` over (n_seg, n_keep) ids: the segmented kernel,
+    no host read of the ids (the kernel traps on one outside [0, L0))."""
+    ns, nk = idx.shape
+    L0 = d_in // ns if ns else 0
+    if (ns < 1 or d_in % ns or not 1 <= L0 <= DEC_MAX_L0 or L0 & (L0 - 1)
+            or nk > L0):
+        raise ValueError(f"ovsf_decompress: segmented idx {tuple(idx.shape)}"
+                         f" over d_in={d_in}: L0 = d_in / n_seg must be a "
+                         f"power of two up to {DEC_MAX_L0} and n_keep <= L0")
+    alphas = alphas.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    wt = torch.empty((N, d_in), dtype=out_dtype, device=alphas.device)
+    err = build.launcher("ovsf_decompress", _SEG_ARGTYPES,
+                         "ovsf_decompress_seg")(
+        alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(), wt.data_ptr(),
+        ns, nk, N, d_in, int(alphas.dtype == torch.bfloat16),
+        _QUANT[alpha_dtype], rows_per_scale, stream)
+    return _launched(err, "seg", wt)
+
+
+def _launched(err: int, layout: str, wt: torch.Tensor) -> torch.Tensor:
+    """Raise on a refused launch; else count it and return W^T's
+    transposed view."""
     if err:
-        raise RuntimeError(f"ovsf_decompress: CUDA launch failed (cudaError "
-                           f"{err})")
+        raise RuntimeError(f"ovsf_decompress: CUDA launch of the {layout} "
+                           f"kernel failed (cudaError {err})")
     ovsf_decompress.launches += 1
+    ovsf_decompress.launches_by_layout[layout] += 1
     return wt.t()
 
 
 def reset_launches() -> None:
     """Zero the launch counters (``ovsf_gemm``: total, per alpha storage and
-    per kernel of ``KERNELS``; ``ovsf_decompress``)."""
+    per kernel of ``KERNELS``; ``ovsf_decompress``: total and per layout)."""
     ovsf_gemm.launches = 0
     ovsf_gemm.launches_by_alpha = dict.fromkeys(("fp", "int8", "int4"), 0)
     ovsf_gemm.launches_by_kernel = dict.fromkeys(KERNELS, 0)
     ovsf_decompress.launches = 0
+    ovsf_decompress.launches_by_layout = dict.fromkeys(("mono", "seg"), 0)
 
 
 reset_launches()

@@ -120,11 +120,12 @@ from repro_torch.serving.scheduler import (FCFSScheduler, SchedulerOutput,
 __all__ = ["LLMEngine", "EngineStats", "Request", "SamplingParams",
            "RequestOutput", "plan_cfg"]
 
-# device type -> (mapper target, candidate paths): on the card
-# ``materialize`` and ``spectral`` of the LM layers' segmented codes are
-# plain tensor code, so the mapper may pick only the path the CUDA
-# ``ovsf_gemm`` runs
-_PLAN_TARGETS = {"cuda": ("h100", ("fused",)),
+# device type -> (mapper target, candidate paths): the reference's
+# candidates on both, ``materialize`` (the segmented ``ovsf_decompress``
+# kernel on the card, then one product) and ``fused`` (``ovsf_gemm``); at
+# the engine's decode shape the h100 target plans every LM weight type
+# ``fused``
+_PLAN_TARGETS = {"cuda": ("h100", mapper.DEFAULT_PATHS),
                  "cpu": ("cpu", mapper.DEFAULT_PATHS)}
 
 

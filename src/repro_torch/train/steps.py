@@ -6,11 +6,11 @@ loss (``models.registry.loss_fn``), its gradients by autograd through the
 OVSF kernels' ``torch.autograd.Function``s (``kernels.ops``), and one AdamW
 update (``train.optim``). The state is ``{"params", "opt": {"m", "v",
 "step"}}``; integer leaves (the code ids) get no gradient, as the
-reference's ``allow_int``. On the card the step plans every OVSF layer
-``fused`` through the mapper (``mapper.plan_model`` with target ``h100``
-and that one candidate), as the serving engine plans its layers: the CUDA
-``ovsf_gemm`` is the kernel the LM's segmented codes have; on the CPU it
-dispatches by ``cfg.ovsf.exec_path``, as the reference does. Every family
+reference's ``allow_int``. Every step runs ``cfg`` as given on every
+device, as the reference's steps do (they plan nothing): each OVSF layer
+by ``cfg.ovsf.exec_path``, ``materialize`` for every LM config (W from the
+``ovsf_decompress`` kernel on the card, then one product), or by the plan
+a caller applied (``mapper.apply_plan``: ``cfg.exec_plan``). Every family
 trains (the MoE aux, the SSM and hybrid scans, the encoder over
 ``frames``, the VLM's ``image_embeds``: ``models.transformer``); MoE's
 expert banks regenerate their W as plain tensor code under every plan, as
@@ -31,10 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
-from repro_torch.runtime import mapper
 from repro_torch.train import optim
 
 
@@ -45,22 +44,6 @@ def train_state_init(cfg: ModelConfig, seed: int = 0, device="cuda"
     T.check_trainable(cfg)
     params = R.model_init(cfg, seed, resolve_device(device))
     return {"params": params, "opt": optim.adamw_init(params)}
-
-
-def planned_cfg(cfg: ModelConfig, device, tokens_shape: tuple
-                ) -> ModelConfig:
-    """``cfg`` as a step on ``device`` runs it: on CUDA every OVSF weight
-    type planned ``fused`` by the mapper for a (B, S) train step (a MoE's
-    three expert types under its one collapsed entry ``e``, copied from
-    the reference; ROADMAP C); elsewhere (or with a plan already, or no
-    OVSF layer) as it is."""
-    if (torch.device(device).type != "cuda" or not cfg.ovsf.enable
-            or cfg.exec_plan is not None):
-        return cfg
-    B, S = tokens_shape
-    plan = mapper.plan_model(cfg, ShapeConfig("train_step", S, B, "train"),
-                             hw="h100", paths=("fused",))
-    return mapper.apply_plan(cfg, plan)
 
 
 def _on(batch: dict, device) -> dict:
@@ -101,16 +84,11 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.OptConfig):
     """``(state, batch) -> (state, metrics)``; metrics are 0-d tensors:
     ``total_loss``, ``loss``, ``aux``, ``lr``, ``grad_norm``, ``step``."""
     T.check_trainable(cfg)
-    plans: dict = {}
 
     def step(state: dict, batch: dict):
         params = state["params"]
-        dev = _first_device(params)
-        b = _on(batch, dev)
-        key = (dev.type, tuple(b["tokens"].shape))
-        if key not in plans:
-            plans[key] = planned_cfg(cfg, dev, key[1])
-        total, aux_metrics, grads = loss_and_grads(plans[key], params, b)
+        b = _on(batch, _first_device(params))
+        total, aux_metrics, grads = loss_and_grads(cfg, params, b)
         new_params, new_opt, m = optim.adamw_update(ocfg, grads,
                                                     state["opt"], params)
         return ({"params": new_params, "opt": new_opt},
@@ -125,10 +103,8 @@ def make_eval_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def step(params: dict, batch: dict):
-        dev = _first_device(params)
-        b = _on(batch, dev)
-        loss, metrics = R.loss_fn(
-            params, planned_cfg(cfg, dev, tuple(b["tokens"].shape)), b)
+        loss, metrics = R.loss_fn(params, cfg,
+                                  _on(batch, _first_device(params)))
         return {"total_loss": loss, **metrics}
     return step
 
@@ -138,10 +114,8 @@ def make_prefill(cfg: ModelConfig, buffer_len: int):
     batch's ``tokens`` (and ``frames`` / ``image_embeds`` where present)."""
     @torch.no_grad()
     def prefill(params: dict, batch: dict):
-        dev = _first_device(params)
-        b = _on(batch, dev)
-        c = planned_cfg(cfg, dev, tuple(b["tokens"].shape))
-        return R.serve_prefill(params, c, b["tokens"], buffer_len,
+        b = _on(batch, _first_device(params))
+        return R.serve_prefill(params, cfg, b["tokens"], buffer_len,
                                frames=b.get("frames"),
                                image_embeds=b.get("image_embeds"))
     return prefill
@@ -151,8 +125,6 @@ def make_decode_step(cfg: ModelConfig):
     """``(params, cache, tokens) -> (logits, cache)``: one ``serve_step``."""
     @torch.no_grad()
     def step(params: dict, cache: dict, tokens: Any):
-        dev = _first_device(params)
-        tok = _on({"tokens": tokens}, dev)["tokens"]
-        c = planned_cfg(cfg, dev, tuple(tok.shape))
-        return R.serve_step(params, c, cache, tok)
+        tok = _on({"tokens": tokens}, _first_device(params))["tokens"]
+        return R.serve_step(params, cfg, cache, tok)
     return step

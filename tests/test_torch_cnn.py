@@ -181,9 +181,8 @@ def test_decompress_plain_sums_repeated_ids():
 
 def test_decompress_on_card_reaches_the_kernel_wrapper():
     """Off the CPU (``meta`` standing in for the card), monolithic codes,
-    fp32 or quantised, reach ``ovsf_decompress``'s wrapper, whose device
-    check refuses meta; segmented codes still have no kernel and raise
-    ``NotImplementedError``."""
+    fp32 or quantised, and segmented codes reach ``ovsf_decompress``'s
+    wrapper, whose device check refuses meta."""
     al, idx = _mono_case(72, 16)
     m_al = torch.from_numpy(al).to("meta")
     m_idx = torch.from_numpy(idx).to("meta")
@@ -193,7 +192,7 @@ def test_decompress_on_card_reaches_the_kernel_wrapper():
     with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.ovsf_matmul(x, m_al, m_idx, path="materialize")
     seg_idx = torch.zeros((4, 8), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.decompress(torch.zeros((32, 16), device="meta"), seg_idx, 64)
     q, s = tovsf.quantize_alphas(torch.from_numpy(al), 1, "int8")
     with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):

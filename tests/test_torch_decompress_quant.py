@@ -244,9 +244,10 @@ def test_decompress_routes_to_the_wrapper(alpha_dtype, monkeypatch):
 @pytest.mark.parametrize("alpha_dtype", ADTS)
 def test_off_the_cpu_monolithic_reaches_wrapper_segmented_refuses(
         alpha_dtype):
-    """``meta`` stands in for the card: monolithic quantised alphas reach
-    the kernel wrapper (whose device check refuses meta); segmented codes
-    still have no kernel and raise, naming ROADMAP B.3."""
+    """``meta`` stands in for the card: quantised alphas over monolithic
+    codes, and over segmented ones through ``ovsf_matmul``'s
+    ``materialize``, reach the kernel wrapper, whose device check refuses
+    meta (no plain-version fallback off the CPU)."""
     q, s, idx, _al = _case(64, 16, 1, alpha_dtype, seed=3)
     with pytest.raises(ValueError, match="ovsf_decompress: unsupported "
                                          "device"):
@@ -254,7 +255,8 @@ def test_off_the_cpu_monolithic_reaches_wrapper_segmented_refuses(
                         alpha_scale=s.to("meta"), alpha_dtype=alpha_dtype)
     seg = torch.arange(8, dtype=torch.int32).repeat(4, 1)
     qs, ss = tovsf.quantize_alphas(torch.randn(32, 16), 4, alpha_dtype)
-    with pytest.raises(NotImplementedError, match="B.3"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported "
+                                         "device"):
         tops.ovsf_matmul(torch.zeros((2, 64), device="meta"), qs.to("meta"),
                          seg.to("meta"), path="materialize",
                          alpha_scale=ss.to("meta"), alpha_dtype=alpha_dtype)

@@ -214,7 +214,7 @@ def test_moe_packed_step_body_reads_nothing_back(style, monkeypatch):
     _drain(eng, _requests(TRequest, n=4, max_new=3, sampled=True))
     assert len(eng.outputs()) == 4
     assert not mode.bad, sorted(set(mode.bad))
-    assert {"cumsum", "sort", "scatter_"} <= set(mode.ops)
+    assert {"cumsum", "sort", "scatter_add_"} <= set(mode.ops)
     assert {k for k, _n in eng.core.step_shapes} == {"packed"}
 
 
@@ -570,7 +570,8 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
         return (bufs["tokens"] + 1,)
 
     first = sg.run(("packed", 4), {"tokens": np.arange(4)}, body)
-    assert graphs.launch_counts() == [5, 0, 1, 3, 2, 0, 5, 0, 5, 0, 0, 3]
+    assert graphs.launch_counts() == [5, 0, 1, 3, 2, 0, 5, 0, 5, 0, 0, 0, 0,
+                                      3]
     for i in range(n):
         out = sg.run(("packed", 4), {"tokens": np.arange(4) + i}, body)
     assert fake.replays == n and sg.keys() == [("packed", 4)]
@@ -585,7 +586,7 @@ def test_launch_counters_under_simulated_replay(n, monkeypatch):
         (5 * (n + 1), 5 * (n + 1), 5 * (n + 1), 2 * (n + 1), n + 1,
          3 * (n + 1), 3 * (n + 1))
     assert sg._entries[("packed", 4)].launches == \
-        [5, 0, 1, 3, 2, 0, 5, 0, 5, 0, 0, 3]
+        [5, 0, 1, 3, 2, 0, 5, 0, 5, 0, 0, 0, 0, 3]
     G.reset_launches()
     D.paged_flash_decode.launches = F.fwht.launches = 0
     D.flash_decode_attn.launches = D.flash_decode_attn.launches_unmasked = 0
@@ -625,7 +626,8 @@ def test_keys_of_one_pool_label_capture_into_one_pool(monkeypatch):
 
 def test_launch_counters_name_every_wrapper_counter():
     """The kernels package owns the list of launch counters that a replay
-    adds to; the per-storage and per-kernel dicts are read anew."""
+    adds to; the per-storage, per-kernel and per-layout dicts are read
+    anew."""
     got = kernels.launch_counters()
     assert [(h, k) for h, k in got if not isinstance(h, dict)] == [
         (G.ovsf_gemm, "launches"), (G.ovsf_decompress, "launches"),
@@ -634,7 +636,8 @@ def test_launch_counters_name_every_wrapper_counter():
         (D.flash_decode_attn, "launches_unmasked")]
     assert [k for h, k in got if isinstance(h, dict)] == \
         list(G.ovsf_gemm.launches_by_alpha) + \
-        list(G.ovsf_gemm.launches_by_kernel)
+        list(G.ovsf_gemm.launches_by_kernel) + \
+        list(G.ovsf_decompress.launches_by_layout)
     G.reset_launches()
     assert kernels.launch_counters()[5][0] is G.ovsf_gemm.launches_by_alpha
     assert graphs.launch_counts() == [0, 0] + [

@@ -159,18 +159,24 @@ def test_engine_plan_matches_reference_engine(batch_slots, alpha_dtype):
 @pytest.mark.parametrize("alpha_dtype", ADTS)
 @pytest.mark.parametrize("batch_slots", [4, 1024])
 def test_card_plan_has_fused_only(batch_slots, alpha_dtype):
-    """On the card the engine's plan names only ``fused``, the one path
-    with a hand-written kernel there, even where the h100 model prefers
-    ``materialize`` (full-width TinyLlama decode at 1024 slots)."""
+    """On the card the engine plans with the reference's candidates
+    (``materialize`` and ``fused``, both with a hand-written kernel there):
+    its plan is the h100 model's own choice, every weight type ``fused`` at
+    the main path's 4 slots (full-width TinyLlama decode, every alpha
+    storage), and not all ``fused`` at 1024 slots, where the model prefers
+    ``materialize``."""
     cfg = _with_alphas(t_full("tinyllama_1_1b"), alpha_dtype)
     planned = plan_cfg(cfg, batch_slots, "cuda")
     plan = planned.exec_plan
     assert plan.hw_label == "h100"
-    assert {n: p.path for n, p in plan.entries} == dict.fromkeys(
-        ("attn_q", "attn_o", "mlp_gate", "mlp_up", "mlp_down"), "fused")
     free = tmapper.plan_model(cfg, TShape("d", 1, batch_slots, "decode"),
-                              hw="h100", weight_reuse=1)
-    assert ({p.path for _n, p in free.entries} == {"fused"}) == (
+                              hw="h100", paths=tmapper.DEFAULT_PATHS,
+                              weight_reuse=1)
+    assert {n: p.path for n, p in plan.entries} == {
+        n: p.path for n, p in free.entries}
+    assert sorted(n for n, _p in plan.entries) == sorted(
+        ("attn_q", "attn_o", "mlp_gate", "mlp_up", "mlp_down"))
+    assert ({p.path for _n, p in plan.entries} == {"fused"}) == (
         batch_slots == 4)
     assert plan_cfg(planned, batch_slots, "cpu") is planned  # a plan stays
     assert plan_cfg(cfg, batch_slots, "cpu").exec_plan.hw_label == "cpu"
@@ -179,11 +185,13 @@ def test_card_plan_has_fused_only(batch_slots, alpha_dtype):
 @pytest.mark.parametrize("alpha_dtype", ADTS)
 @pytest.mark.parametrize("path", ["materialize", "spectral"])
 def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
-    """``materialize`` of segmented codes has no kernel: on any device but
-    the CPU (here ``meta``, standing in for the card) a plan naming it
-    raises instead of running plain tensor code. ``spectral`` of segmented
-    codes is plain tensor code on every device, as the reference's jnp is
-    (the multi-model gateway's path): off the CPU it runs."""
+    """``materialize`` of segmented codes goes to the segmented
+    ``ovsf_decompress`` kernel: on any device but the CPU (here ``meta``,
+    standing in for the card) a plan naming it reaches the wrapper, whose
+    device check refuses meta, and never runs plain tensor code.
+    ``spectral`` of segmented codes is plain tensor code on every device, as
+    the reference's jnp is (the multi-model gateway's path): off the CPU it
+    runs."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))
     al = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
@@ -204,7 +212,7 @@ def test_plain_paths_refuse_off_the_cpu(path, alpha_dtype):
         out = tops.ovsf_matmul(*meta, **kw)
         assert out.device.type == "meta" and out.shape == want.shape
         return
-    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.ovsf_matmul(*meta, **kw)
 
 

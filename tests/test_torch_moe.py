@@ -466,11 +466,12 @@ def test_cached_decompress_refuses_a_quantised_bank(alpha_dtype):
 def test_bank_route_runs_off_the_cpu():
     """A segmented bank decompresses with plain tensor code on any device
     (``meta`` standing in for the card), as the reference's is plain jnp;
-    a single segmented matrix still refuses there."""
+    a single segmented matrix goes to the ``ovsf_decompress`` wrapper,
+    whose device check refuses meta."""
     al, idx, d_in = _bank(4)
     mal, midx = (torch.from_numpy(a).to("meta") for a in (al, idx))
     assert tops.decompress_bank(mal, midx, d_in).shape == (5, 64, 24)
-    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.decompress(mal[0], midx, d_in)
 
 

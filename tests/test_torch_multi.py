@@ -129,17 +129,18 @@ def test_ovsf_matmul_multi_matches_reference_and_spectral(seed):
 
 def test_segmented_spectral_runs_off_the_cpu():
     """Segmented ``spectral`` is plain tensor code on any device now (the
-    multi path's product); segmented and quantised ``materialize`` still
-    have no kernel and refuse."""
+    multi path's product); segmented ``materialize``, float and quantised,
+    goes to the ``ovsf_decompress`` wrapper, whose device check refuses
+    meta."""
     x, al, idx, mids = _multi_case(3)
     mx, mal, midx, mm = (torch.from_numpy(a).to("meta")
                          for a in (x, al, idx, mids))
     assert tops.ovsf_matmul_multi(mx, mal, midx, mm).shape == (11, 24)
     assert tops.spectral_matmul(mx, mal[0], midx).shape == (11, 24)
-    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.ovsf_matmul(mx, mal[0], midx, path="materialize")
     q, s = tovsf.quantize_alphas(torch.from_numpy(al[0]), 8, "int8")
-    with pytest.raises(NotImplementedError, match="no hand-written kernel"):
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.ovsf_matmul(mx, q.to("meta"), midx, path="materialize",
                          alpha_scale=s.to("meta"), alpha_dtype="int8")
 
@@ -436,11 +437,30 @@ def test_qwen2_5_14b_smoke_step_matches_reference():
 
 
 def test_single_model_engine_plans_fused_only_on_the_card():
-    """Segmented ``spectral`` now runs on the card, but the mapper's costs
-    are not calibrated there: the single-model engine keeps planning with
-    ``fused`` alone on ``cuda``, so no main-path layer leaves the kernel."""
-    assert tengine._PLAN_TARGETS["cuda"] == ("h100", ("fused",))
-    _jcfg, tcfg, *_rest = _pair()
-    plan = tengine._decode_plan(tcfg.replace(ovsf=dataclasses.replace(
-        tcfg.ovsf, exec_path="fused")), 4, "cuda")
-    assert {p.path for _n, p in plan.entries} == {"fused"}
+    """On ``cuda`` the single-model engine plans with the reference's
+    candidates (``materialize``, ``fused``; ``jmapper.DEFAULT_PATHS``), as
+    on the CPU: at the engine's decode shape (4 slots) the h100 target keeps
+    every weight type of every LM config ``fused`` (TinyLlama with bf16,
+    int8 and int4 alphas too), so no main-path layer leaves ``ovsf_gemm``;
+    at the train shape (B 8, S 128) it picks ``materialize`` for every
+    TinyLlama weight type."""
+    from repro_torch.configs import ARCHS, ShapeConfig, get_config
+    assert tengine._PLAN_TARGETS["cuda"] == ("h100", tmapper.DEFAULT_PATHS)
+    assert tmapper.DEFAULT_PATHS == tuple(jmapper.DEFAULT_PATHS)
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        adts = ("", "int8", "int4") if arch == "tinyllama_1_1b" else ("",)
+        for adt in adts:
+            plan = tengine._decode_plan(cfg.replace(ovsf=dataclasses.replace(
+                cfg.ovsf, alpha_dtype=adt)), 4, "cuda")
+            assert {p.path for _n, p in plan.entries} <= {"fused"}, (arch,
+                                                                     adt)
+    tl = get_config("tinyllama_1_1b")
+    for adt in ("", "int8", "int4"):
+        train = tmapper.plan_model(
+            tl.replace(ovsf=dataclasses.replace(tl.ovsf, alpha_dtype=adt)),
+            ShapeConfig("train_step", 128, 8, "train"), hw="h100",
+            paths=tmapper.DEFAULT_PATHS)
+        assert {n: p.path for n, p in train.entries} == dict.fromkeys(
+            ("attn_q", "attn_o", "mlp_gate", "mlp_up", "mlp_down"),
+            "materialize")
