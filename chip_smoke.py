@@ -10,8 +10,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. kernels: hold ``ovsf_gemm`` with bf16/fp32, int8 and nibble-packed
              int4 alphas (segmented at the TinyLlama-1.1B layer shapes for M
              in {4, 128} and, bf16 x, 256, plus monolithic and ragged cases;
-             each case prints the kernel it ran, tensor-core or CUDA-core,
-             and each M a layer summary against matmul on the dense W) and
+             fp32 x also at M 64, a layer summary of the CUDA-core kernel
+             at M 4 and 64; each case prints the kernel it ran,
+             tensor-core or CUDA-core, and each M a layer summary against
+             matmul on the dense W) and
              ``paged_flash_decode`` (T in {4, 128}, H 32, Hkv 4, hd 64,
              page 16, padding tokens and sentinel pages) and
              ``flash_decode_attn`` (B 4, H 32, Hkv 4, hd 64, T 320 with
@@ -38,9 +40,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              layout, phase 17's: TinyLlama-1.1B's five W, L0 16, 8 kept,
              and ragged cases (L0 8 and 32, n_keep 5 and 32, repeated ids,
              d_out off the tile) with fp32, bf16, int8 and int4 alphas,
-             within 2e-3 (fp32 W) or 2e-2 relative L2 (bf16 W, which also
-             equals the plain version's fp32 sums rounded once), the
-             library call ``torch.bmm`` of prebuilt signs by the alphas;
+             and phase 10's: OLMoE-1B-7B's three expert banks (64 experts,
+             one launch a bank), bf16 and fp32, W row-major; within 2e-3
+             (fp32 W, bit for bit on distinct ids) or 2e-2 relative L2
+             (bf16 W, which also equals the plain version's fp32 sums
+             rounded once), the library call ``torch.bmm`` of prebuilt
+             signs by the alphas (over a bank's batch);
              ``OvsfDecompressFn``'s dA and d scale over segmented ids
              against autograd through the plain version) and ``fwht``
              (the (M, L) of the planned ResNet-50 and SqueezeNet-1.1
@@ -315,18 +320,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              finishes; the plan is the reference's, ``fused`` for
              ``attn_q/k/v/o`` and ``e`` (the three expert weight types
              share that one entry, as the reference's mapper names it);
-             every step launches 4 ``ovsf_gemm`` a layer (all tensor-core)
-             and one ``paged_flash_decode`` a layer and nothing else of
-             ours; streams,
+             every step launches 4 ``ovsf_gemm`` a layer (all tensor-core),
+             3 segmented ``ovsf_decompress`` a layer (the expert banks,
+             regenerated under every plan but ``spectral`` as the
+             reference's vmap of ``decompress`` does, one launch of the
+             segmented kernel over a bank's 64 experts; the plain segmented
+             decompress never runs on the card) and one
+             ``paged_flash_decode`` a layer and nothing else of ours;
+             streams,
              every chunk-free step's logits, launches and profiled kernels
              equal between the runs; at most 3 packed graphs; the
              profiler's launches equal to the wrappers' counters. Printed
              only: wall, replay span, device busy, idle share, the MoE
-             blocks' device ms a step, each graph's MiB. (3) The same
-             through the legacy path, bucketed, eager and replayed:
-             streams and every step's logits equal, 4 ``ovsf_gemm`` a
-             layer a prefill call and a decode, one ``flash_decode_attn``
-             a layer a decode.
+             blocks' device ms a step and their share of the replay (also
+             recorded), the segmented kernel's ms a step, each graph's
+             MiB. (3) The same through the legacy path, bucketed, eager
+             and replayed: streams and every step's logits equal, 4
+             ``ovsf_gemm`` and 3 segmented ``ovsf_decompress`` a layer a
+             prefill call and a decode, one ``flash_decode_attn`` a layer
+             a decode.
              (4) Card vs CPU in fp32 at full width but 2 layers
              (``MOE_PARITY_LAYERS``), a paged packed step and a decode
              step: the routing first (a flip whose k-th/(k+1)-th
@@ -503,9 +515,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              Whisper-tiny uncut (1500 zero frames, no OVSF layer: every
              side is 384) through ``make_train_step``: the first batch's
              loss lower after the steps, the segmented ``ovsf_decompress``
-             launches a step as the params give them, then one step under
-             an explicit ``fused`` plan (as many ``ovsf_gemm``, all
-             tensor-core), peak memory.
+             launches a step as the params give them (OLMoE's expert banks:
+             3 a layer a forward, twice under remat, beside its linears'),
+             then one step under an explicit ``fused`` plan (as many
+             ``ovsf_gemm``, all tensor-core, and the banks' segmented
+             launches), peak memory. No plain segmented decompress runs
+             on the card in (2)-(5).
   16. quant train: training with int8 / int4 alphas, and stacked
              encoder-decoder variants (TF32 off). (1) ``OvsfGemmFn`` over
              int8 and int4 alphas at TinyLlama-1.1B's five projections, M
@@ -563,6 +578,7 @@ Then it prints the ``kernels`` JSON line, the card line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -770,6 +786,11 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
     cases += [(16, M, K, N, torch.bfloat16)
               for M in ((256,) if alpha_dtype else (256, 1024))
               for (K, N) in ((2048, 2048), (2048, 5632), (5632, 2048))]
+    # fp32 x and alphas (the CUDA-core kernel, the fp32 engines' path): also
+    # the M 64 of a chunk-free step's packed tokens
+    if not alpha_dtype:
+        cases += [(16, 64, K, N, torch.float32)
+                  for (K, N) in ((2048, 2048), (2048, 5632), (5632, 2048))]
     cases += [(16, 13, 128, 64, dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [(0, 5, 1000, 1000, dt) for dt in (torch.bfloat16, torch.float32)]
     name = "ovsf_gemm" + (f"_{alpha_dtype}" if alpha_dtype else "")
@@ -797,6 +818,27 @@ def run_gemm_checks(rng, dev, alpha_dtype: str = ""):
     summary = dict(summary[4], layer_M128=summary[128],
                    layer_M256=summary[256], layer_M1024=summary.get(1024))
     summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    if not alpha_dtype:
+        # the CUDA-core kernel: the layer in fp32 at M 4 and 64
+        for M in (4, 64):
+            pick = {(r["K"], r["N"]): r for r in rows if r["seg"]
+                    and r["M"] == M and r["dtype"] == "torch.float32"}
+            layer_rows = [pick[kn] for kn in layer.values()]
+            if {r["kernel"] for r in layer_rows} != {"cuda_core"}:
+                raise RuntimeError(f"{name} fp32 M={M}: kernels "
+                                   f"{[r['kernel'] for r in layer_rows]}")
+            s = {key: sum(r[key] for r in layer_rows)
+                 for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                             "bound_ms")}
+            s["bound_by"] = max(layer_rows, key=lambda r: r["bound_ms"])[
+                "bound_by"]
+            s["max_abs_err"] = max(r["max_abs_err"] for r in layer_rows)
+            summary[f"fp32_M{M}"] = s
+            print(f"[kernel] {name} layer (q, o, gate, up, down) M={M} fp32 "
+                  f"x (cuda_core): {s['ms']:.4f}ms, matmul on dense W "
+                  f"{s['library_ms']:.4f}ms (x{s['ms'] / s['library_ms']:.2f}"
+                  f"), bound {s['bound_ms']:.4f}ms ({s['bound_by']}; "
+                  f"{s['bound_ms'] / s['ms']:.0%} of it)", flush=True)
     return rows, summary
 
 
@@ -1574,24 +1616,42 @@ def ovsf_per_layer(params) -> int:
     """OVSF projections a block runs through ``ovsf_gemm``: its attention
     and MLP linears (TinyLlama-1.1B at full width: q, o, gate, up, down; k
     and v, 256 wide, are dense. OLMoE-1B-7B: q, k, v, o; its expert banks
-    are regenerated whole, not through ``ovsf_gemm``)."""
+    are regenerated whole, ``ovsf_banks``)."""
     block = params["blocks"][0]
     return sum("idx" in p for grp in ("attn", "mlp")
                for p in block.get(grp, {}).values())
 
 
+def ovsf_banks(tree) -> int:
+    """OVSF expert banks in a param tree: dicts with ``idx`` and 3-d
+    (E, J, d_out) alphas. Each regenerates its dense W once a forward
+    under every plan but ``spectral``: one segmented ``ovsf_decompress``
+    launch over its E experts (OLMoE-1B-7B: gate, up, down a block)."""
+    if isinstance(tree, list):
+        return sum(ovsf_banks(t) for t in tree)
+    if not isinstance(tree, dict):
+        return 0
+    al = tree.get("alphas")
+    own = int("idx" in tree and al is not None and al.dim() == 3)
+    return own + sum(ovsf_banks(v) for v in tree.values())
+
+
 def check_legacy_steps(tag: str, run: dict, n_layers: int,
-                       n_ovsf: int, flash_per_layer: int = 1) -> None:
+                       n_ovsf: int, flash_per_layer: int = 1,
+                       n_banks: int = 0) -> None:
     """Every step of a legacy run launched, by the wrappers' counters,
     ``n_ovsf`` x ``n_layers`` ``ovsf_gemm`` a prefill call and a decode
-    (TinyLlama-1.1B: 5 x 22 = 110; OLMoE-1B-7B: 4 x 16 = 64),
-    ``flash_per_layer`` ``flash_decode_attn`` a layer a decode (one; two
-    for an encoder-decoder: self and cross attention; the prefill's S > 1
-    attention is plain ``sdpa``, as in the reference), and nothing
-    else."""
+    (TinyLlama-1.1B: 5 x 22 = 110; OLMoE-1B-7B: 4 x 16 = 64), ``n_banks``
+    x ``n_layers`` segmented ``ovsf_decompress`` (expert banks: OLMoE's 3
+    a layer), ``flash_per_layer`` ``flash_decode_attn`` a layer a decode
+    (one; two for an encoder-decoder: self and cross attention; the
+    prefill's S > 1 attention is plain ``sdpa``, as in the reference), and
+    nothing else."""
     for calls, decoded, delta in run["per_step"]:
         want = {k: 0 for k in delta}
         want["ovsf_gemm"] = n_ovsf * n_layers * (len(calls) + decoded)
+        want["ovsf_decompress"] = n_banks * n_layers * (len(calls)
+                                                        + decoded)
         want["flash_decode_attn"] = flash_per_layer * n_layers * decoded
         if delta != want:
             raise RuntimeError(f"{tag} a step with prefill calls {calls} and "
@@ -1615,7 +1675,8 @@ def legacy_pair(params, cfg, dev, specs, label: str, tag: str,
                              f"{tag} {mode}", mode == "graph", False,
                              engine_kw=LEGACY_STYLES[label])
         check_legacy_steps(f"{tag} {mode}", run, cfg.n_layers,
-                           ovsf_per_layer(params), flash_per_layer)
+                           ovsf_per_layer(params), flash_per_layer,
+                           ovsf_banks(params["blocks"][0]))
         runs[mode], engines[mode] = run, eng
     eager, graph = runs["eager"], runs["graph"]
     if graph["tokens"] != eager["tokens"]:
@@ -5042,28 +5103,67 @@ def expert_step_ms(eng, params, T: int, dev) -> float:
     return ms * cfg.n_layers
 
 
+@contextlib.contextmanager
+def no_plain_banks(tag: str):
+    """Fail if, inside, the plain segmented decompress
+    (``ovsf_gemm.segmented_decompress_plain``, which the wrapper's plain
+    version runs) computes anything on the card: an expert bank there is
+    generated by the segmented kernel alone."""
+    from repro_torch.kernels import ovsf_gemm as G
+    real, on_card = G.segmented_decompress_plain, []
+
+    def guarded(alphas, idx, d_in):
+        if alphas.is_cuda:
+            on_card.append(tuple(alphas.shape))
+        return real(alphas, idx, d_in)
+    G.segmented_decompress_plain = guarded
+    try:
+        yield
+    finally:
+        G.segmented_decompress_plain = real
+    if on_card:
+        raise RuntimeError(f"{tag} the plain segmented decompress ran on "
+                           f"the card for alphas {on_card[:4]}")
+
+
 def moe_serve(params, cfg, seed: int, card: str, dev) -> dict:
     """Phase 10 (2): ``family_serve`` over OLMoE: every step launches 4 x
-    layers ``ovsf_gemm`` (q, k, v, o; all on the tensor-core kernel) and
-    one ``paged_flash_decode`` a layer, nothing else of ours; the plan
-    (``check_moe_plan``). Printed besides: the MoE blocks' device ms a
-    step."""
+    layers ``ovsf_gemm`` (q, k, v, o; all on the tensor-core kernel), 3 x
+    layers segmented ``ovsf_decompress`` (the expert banks, regenerated
+    under the ``fused`` plan as the reference's are, one launch a bank)
+    and one ``paged_flash_decode`` a layer, nothing else of ours; no plain
+    segmented decompress on the card (``no_plain_banks``); the plan
+    (``check_moe_plan``). Printed and recorded besides: the MoE blocks'
+    device ms a step and their share of the replayed step."""
+    from repro_torch.kernels import ovsf_gemm as G
     tag = f"[{MOE_ARCH} paged packed]"
     n_ovsf = ovsf_per_layer(params)
-    if n_ovsf != 4:
-        raise RuntimeError(f"{tag} {n_ovsf} OVSF linears a block, expected "
-                           "4 (q, k, v, o)")
-    res = family_serve(
-        params, cfg, seed, card, dev, tag,
-        {"ovsf_gemm": n_ovsf * cfg.n_layers,
-         "paged_flash_decode": cfg.n_layers},
-        lambda eng, key: dict(
-            per_weight_type=check_moe_plan(tag, eng.cfg.exec_plan),
-            moe_blocks_ms=expert_step_ms(eng, params, key[1], dev)))
+    n_banks = ovsf_banks(params["blocks"][0])
+    if n_ovsf != 4 or n_banks != 3:
+        raise RuntimeError(f"{tag} {n_ovsf} OVSF linears and {n_banks} "
+                           "OVSF expert banks a block, expected 4 (q, k, v,"
+                           " o) and 3 (gate, up, down)")
+    before = dict(G.ovsf_decompress.launches_by_layout)
+    with no_plain_banks(tag):
+        res = family_serve(
+            params, cfg, seed, card, dev, tag,
+            {"ovsf_gemm": n_ovsf * cfg.n_layers,
+             "ovsf_decompress": n_banks * cfg.n_layers,
+             "paged_flash_decode": cfg.n_layers},
+            lambda eng, key: dict(
+                per_weight_type=check_moe_plan(tag, eng.cfg.exec_plan),
+                moe_blocks_ms=expert_step_ms(eng, params, key[1], dev)))
+    layouts = {k: v - before[k]
+               for k, v in G.ovsf_decompress.launches_by_layout.items()}
+    if layouts["mono"] or not layouts["seg"]:
+        raise RuntimeError(f"{tag} ovsf_decompress by layout {layouts}: "
+                           "the banks' codes are segmented")
     moe_ms, span = res["moe_blocks_ms"], res["replay_ms"]
+    res["moe_blocks_share"] = moe_ms / span
     print(f"{tag} the MoE blocks {moe_ms:.3f} ms of the chunk-free step's "
           f"{span:.3f} ms replay ({moe_ms / span:.3f}; layer 0's block "
-          f"timed alone x {cfg.n_layers}) ({card})", flush=True)
+          f"timed alone x {cfg.n_layers}); the segmented ovsf_decompress "
+          f"{res['ovsf_decompress_ms']:.3f} ms a step ({card})", flush=True)
     return res
 
 
@@ -5247,8 +5347,9 @@ def moe_phase(seed: int, card: str, dev) -> dict:
           flush=True)
     res["resident"] = moe_resident(params, cfg, card)
     res["paged packed"] = moe_serve(params, cfg, seed, card, dev)
-    res["legacy"] = family_legacy(params, cfg, seed, card, dev,
-                                  f"[{MOE_ARCH} legacy bucketed]", 1)
+    tag = f"[{MOE_ARCH} legacy bucketed]"
+    with no_plain_banks(tag):
+        res["legacy"] = family_legacy(params, cfg, seed, card, dev, tag, 1)
     del params
     torch.cuda.empty_cache()
     res["parity"] = moe_parity(seed, dev)
@@ -6878,26 +6979,32 @@ def ovsf_wrapper(cfg) -> str:
 
 
 def check_ovsf_launches(tag: str, cfg, launches: dict, layouts: dict,
-                        by_kernel: dict, per_step: int, n_steps: int
-                        ) -> None:
+                        by_kernel: dict, per_step: int, n_steps: int,
+                        banks: int = 0) -> None:
     """The wrappers' counters over ``n_steps`` train steps of ``cfg``:
     ``per_step`` a step of ``ovsf_wrapper(cfg)``, every one segmented
-    (``ovsf_decompress``) or on the tensor-core kernel (``ovsf_gemm``), and
-    nothing else of ours."""
+    (``ovsf_decompress``) or on the tensor-core kernel (``ovsf_gemm``),
+    ``banks`` segmented ``ovsf_decompress`` a step besides under either
+    path (expert banks, ``train_banks_per_step``), and nothing else of
+    ours."""
     w = ovsf_wrapper(cfg)
     want = dict.fromkeys(launches, 0)
     want[w] = per_step * n_steps
+    want["ovsf_decompress"] += banks * n_steps
     kind = (layouts["seg"] if w == "ovsf_decompress"
             else by_kernel["tensor_core"])
-    if launches != want or kind != want[w]:
+    if (launches != want or kind != want[w]
+            or layouts["seg"] != want["ovsf_decompress"]):
         raise RuntimeError(f"{tag} launched {launches} ({w}: {kind} "
-                           f"segmented / tensor-core), expected {want}")
+                           f"segmented / tensor-core; ovsf_decompress by "
+                           f"layout {layouts}), expected {want}")
 
 
 def ovsf_linears(tree) -> int:
     """OVSF linears in a param tree: dicts with ``idx`` and 2-d alphas,
     float or quantised (an expert bank's (E, J, d_out) alphas regenerate W
-    as plain tensor code and launch no ``ovsf_gemm``)."""
+    through one segmented ``ovsf_decompress`` under every plan and launch
+    no ``ovsf_gemm``: ``ovsf_banks``)."""
     if isinstance(tree, list):
         return sum(ovsf_linears(t) for t in tree)
     if not isinstance(tree, dict):
@@ -6906,6 +7013,14 @@ def ovsf_linears(tree) -> int:
                if k in tree), None)
     own = int("idx" in tree and al is not None and al.dim() == 2)
     return own + sum(ovsf_linears(v) for v in tree.values())
+
+
+def train_banks_per_step(cfg, params) -> int:
+    """Segmented ``ovsf_decompress`` launches of one train step from expert
+    banks (``ovsf_banks``), under every plan but ``spectral``: each bank's
+    W once a forward, twice under remat (the forward, then its recompute
+    in the backward); its backward launches none."""
+    return (2 if cfg.remat else 1) * ovsf_banks(params["blocks"])
 
 
 def train_gemms_per_step(cfg, params) -> int:
@@ -7676,6 +7791,7 @@ def family_train_cut(seed: int, card: str, dev) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         state = steps.train_state_init(cfg, seed, dev)
         per_step = train_gemms_per_step(cfg, state["params"])
+        banks = train_banks_per_step(cfg, state["params"])
         state_gib = sum(t.numel() * t.element_size() for t in
                         optim.tree_leaves(state)) / 2**30
         # the cosine's end well past the run: the rate stays near its peak
@@ -7695,7 +7811,7 @@ def family_train_cut(seed: int, card: str, dev) -> dict:
         check_ovsf_launches(tag, cfg, launches,
                             G.ovsf_decompress.launches_by_layout,
                             G.ovsf_gemm.launches_by_kernel, per_step,
-                            FAMILY_CUT_STEPS)
+                            FAMILY_CUT_STEPS, banks)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         ev = steps.make_eval_step(cfg)
         after, held = (float(ev(state["params"], {
@@ -7713,17 +7829,21 @@ def family_train_cut(seed: int, card: str, dev) -> dict:
         fused_launches = wrapper_counts()
         check_ovsf_launches(f"{tag} fused", fused, fused_launches,
                             G.ovsf_decompress.launches_by_layout,
-                            G.ovsf_gemm.launches_by_kernel, per_step, 1)
+                            G.ovsf_gemm.launches_by_kernel, per_step, 1,
+                            banks)
         print(f"{tag} bf16, {cfg.n_layers} layers, B {TRAIN_BATCH} S "
               f"{TRAIN_SEQ}, {cfg.ovsf.exec_path}: loss "
               f"{' '.join(f'{v:.4f}' for v in losses)}; the first batch's "
               f"{losses[0]:.4f} -> {after:.4f}, a held-out batch's "
-              f"{held:.4f}; segmented ovsf_decompress {per_step} a step "
-              f"({launches}); step wall median "
+              f"{held:.4f}; segmented ovsf_decompress {per_step} a step"
+              + (f" and {banks} for the expert banks" if banks else "")
+              + f" ({launches}); step wall median "
               f"{statistics.median(walls[1:]) * 1e3:.1f} ms (first "
               f"{walls[0] * 1e3:.1f}); a step under a fused plan "
               f"{fused_wall * 1e3:.1f} ms, {per_step} ovsf_gemm, all "
-              f"tensor-core; state {state_gib:.2f} GiB, peak "
+              f"tensor-core"
+              + (f", {banks} segmented ovsf_decompress" if banks else "")
+              + f"; state {state_gib:.2f} GiB, peak "
               f"memory_allocated {peak:.2f} GiB ({card})", flush=True)
         if (not all(math.isfinite(v) for v in losses + [after])
                 or not after < losses[0]):
@@ -7732,7 +7852,7 @@ def family_train_cut(seed: int, card: str, dev) -> dict:
         res[arch] = dict(layers=cfg.n_layers, losses=losses,
                          first_batch_after=after, held_out=held,
                          step_s=walls, launches=launches,
-                         ovsf_per_step=per_step,
+                         ovsf_per_step=per_step, bank_launches=banks,
                          fused_launches=fused_launches["ovsf_gemm"],
                          fused_step_s=fused_wall, state_gib=state_gib,
                          peak_allocated_gib=peak)
@@ -7760,22 +7880,24 @@ def family_train_phase(seed: int, card: str, dev) -> dict:
     rng = np.random.default_rng(seed + 47)
     res = dict(kernels=timed("kernels", run_family_train_kernel_checks, rng,
                              dev))
-    res["parity"] = timed("parity", family_parity, seed, dev)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_train_")
-    try:
-        res["supervisor"] = timed(
-            "supervisor", train_supervised, seed, dev, tmp,
-            FAMILY_REPLAY_ARCH, FAMILY_REPLAY_LAYERS, "[family supervisor]",
-            True)
-        res["launcher"], params = timed(
-            "launcher", launcher_run, seed, card, dev,
-            os.path.join(tmp, "launcher"), FAMILY_LAUNCH_ARCH,
-            FAMILY_LAUNCH_STEPS, FAMILY_LAUNCH_STEPS, "[family launcher]",
-            FAMILY_LR, True)
-        del params
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    res["cut"] = timed("cut", family_train_cut, seed, card, dev)
+    # OLMoE's expert banks on the card: the segmented kernel alone
+    with no_plain_banks("[family train]"):
+        res["parity"] = timed("parity", family_parity, seed, dev)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_family_train_")
+        try:
+            res["supervisor"] = timed(
+                "supervisor", train_supervised, seed, dev, tmp,
+                FAMILY_REPLAY_ARCH, FAMILY_REPLAY_LAYERS,
+                "[family supervisor]", True)
+            res["launcher"], params = timed(
+                "launcher", launcher_run, seed, card, dev,
+                os.path.join(tmp, "launcher"), FAMILY_LAUNCH_ARCH,
+                FAMILY_LAUNCH_STEPS, FAMILY_LAUNCH_STEPS,
+                "[family launcher]", FAMILY_LR, True)
+            del params
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        res["cut"] = timed("cut", family_train_cut, seed, card, dev)
     res["wall_s"] = time.perf_counter() - t_phase
     res["seconds"] = secs
     print(f"[family train] phase passed in {res['wall_s']:.1f}s: "
@@ -8547,6 +8669,11 @@ SEG_L0, SEG_KEEP = 16, 8
 SEG_RAGGED = ((1000, 77, 8, 5, False), (2048, 100, 32, 5, False),
               (512, 40, 16, 8, True), (256, 34, 32, 32, True))
 SEG_STORAGES = ("fp32", "bf16", "int8", "int4")
+# OLMoE-1B-7B's three expert banks of a layer (E, d_in, d_out): gate, up
+# (2048 -> 1024) and down (1024 -> 2048), 64 experts sharing each bank's
+# ids, L0 16, 8 kept: one launch a bank (phase 10's path), float storage
+SEG_BANKS = ((64, 2048, 1024), (64, 2048, 1024), (64, 1024, 2048))
+SEG_BANK_STORAGES = ("bf16", "fp32")
 # the unplanned engine: the main path's paged packed step, the mapper off,
 # so every OVSF layer runs the config's materialize
 MAT_ENGINE_KW = dict(chunk_size=64, paged=True, packed=True,
@@ -8557,20 +8684,26 @@ MAT_PARITY_LAYERS = 2                    # card vs CPU logits, fp32
 
 
 def seg_case(rng, d_in: int, N: int, L0: int, nk: int, storage: str, dev,
-             repeat: bool = False):
+             repeat: bool = False, E: int = 0):
     """Inputs of one segmented ``ovsf_decompress`` call: (stored alphas,
     kwargs with the scales, ids, fp32 alphas). Each segment's ids drawn
     on their own (with replacement and one forced repeat when
     ``repeat``); unit-scale W; int8 / int4 with a scale a segment, as the
-    LM configs store them."""
+    LM configs store them; ``E`` > 0: a bank of E alpha sets (E, J, N)
+    sharing the ids, float storage."""
     from repro_torch.core.ovsf import quantize_alphas
     ns = d_in // L0
     idx = np.stack([np.sort(rng.choice(L0, nk, replace=repeat))
                     for _ in range(ns)]).astype(np.int32)
     if repeat:
         idx[0, :2] = idx[0, 0]
-    al = torch.from_numpy(rng.standard_normal((ns * nk, N), np.float32)
-                          / math.sqrt(nk)).to(dev)
+    if E:           # drawn on the card: a bank holds 10^7-10^8 alphas
+        al = torch.randn((E, ns * nk, N), device=dev,
+                         generator=torch.Generator(dev).manual_seed(
+                             int(rng.integers(2**31)))) / math.sqrt(nk)
+    else:
+        al = torch.from_numpy(rng.standard_normal((ns * nk, N), np.float32)
+                              / math.sqrt(nk)).to(dev)
     kw = {}
     stored = al.bfloat16() if storage == "bf16" else al
     if storage in ("int8", "int4"):
@@ -8581,27 +8714,32 @@ def seg_case(rng, d_in: int, N: int, L0: int, nk: int, storage: str, dev,
 
 def seg_decompress_row(rng, dev, d_in: int, N: int, L0: int, nk: int,
                        storage: str, repeat: bool = False,
-                       tag: str = "[kernel]") -> dict:
-    """One segmented ``ovsf_decompress`` call (``seg_case``) against its
-    plain version: fp32 W (fp32 and quantised alphas) within rtol = atol =
-    2e-3; bf16 W within 2e-2 relative L2 of the plain version (which rounds
-    each butterfly stage in bf16, as the reference's jnp) and, on distinct
-    ids, bit for bit the plain version over the fp32 alphas rounded once
-    (the kernel's fp32 sums); a second launch equal to the first; one
-    segmented launch each. Device ms by graph replay (inputs rotated past
-    L2), the plain version's, and one ``torch.bmm`` of a prebuilt (n_seg,
-    L0, n_keep) sign tensor by the (n_seg, n_keep, d_out) alphas (the
-    library call; dequantised beforehand). Bound: the stored alphas, ids
-    and scales read and W written once, or the d_in d_out log2 L0
-    transform adds (and J d_out dequantising multiplies) at the fp32
-    rate."""
+                       tag: str = "[kernel]", E: int = 0) -> dict:
+    """One segmented ``ovsf_decompress`` call (``seg_case``; ``E`` > 0: an
+    expert bank of E alpha sets, one launch) against its plain version:
+    fp32 W (fp32 and quantised alphas) within rtol = atol = 2e-3 and, on
+    distinct ids, bit for bit; bf16 W within 2e-2 relative L2 of the plain
+    version (which rounds each butterfly stage in bf16, as the reference's
+    jnp) and, on distinct ids, bit for bit the plain version over the fp32
+    alphas rounded once (the kernel's fp32 sums); a second launch equal to
+    the first; one segmented launch each, W row-major. Device ms by graph
+    replay (inputs rotated past L2), the plain version's, and one
+    ``torch.bmm`` of a prebuilt (n_seg, L0, n_keep) sign tensor (repeated
+    over a bank's E) by the (E n_seg, n_keep, d_out) alphas (the library
+    call; dequantised beforehand). Bound: the stored alphas, ids and
+    scales read and W written once, or the E d_in d_out log2 L0 transform
+    adds (and J d_out dequantising multiplies) at the fp32 rate."""
     from repro_torch.core.ovsf import dequantize_alphas, hadamard_matrix
     from repro_torch.kernels.ovsf_gemm import (ovsf_decompress,
                                                ovsf_decompress_plain)
-    a, kw, idx, _al = seg_case(rng, d_in, N, L0, nk, storage, dev, repeat)
+    a, kw, idx, _al = seg_case(rng, d_in, N, L0, nk, storage, dev, repeat, E)
+    del _al
     ns = d_in // L0
     w_dt = torch.bfloat16 if storage == "bf16" else torch.float32
-    label = (f"ovsf_decompress seg {storage} d_in={d_in} N={N} L0={L0} "
+    w_shape = ((E,) if E else ()) + (d_in, N)
+    label = (f"ovsf_decompress seg {storage} "
+             + (f"bank E={E} " if E else "")
+             + f"d_in={d_in} N={N} L0={L0} "
              f"n_keep={nk}{' repeated ids' if repeat else ''}")
     before = ovsf_decompress.launches_by_layout["seg"]
     got = ovsf_decompress(a, idx, d_in, **kw)
@@ -8609,10 +8747,10 @@ def seg_decompress_row(rng, dev, d_in: int, N: int, L0: int, nk: int,
     want = ovsf_decompress_plain(a, idx, d_in, **kw)
     torch.cuda.synchronize()
     if (ovsf_decompress.launches_by_layout["seg"] != before + 2
-            or got.dtype != w_dt or tuple(got.shape) != (d_in, N)
-            or not got.t().is_contiguous()):
+            or got.dtype != w_dt or tuple(got.shape) != w_shape
+            or not got.is_contiguous()):
         raise RuntimeError(f"{label}: W {got.dtype} {tuple(got.shape)}, "
-                           "not two segmented launches into W^T's view")
+                           "not two segmented launches into a row-major W")
     if storage == "bf16":
         if not torch.isfinite(got.float()).all():
             raise RuntimeError(f"{label}: W not finite")
@@ -8624,6 +8762,7 @@ def seg_decompress_row(rng, dev, d_in: int, N: int, L0: int, nk: int,
                                f" version (limit {TOL[w_dt]}); equal to the "
                                "fp32 sums rounded once: "
                                f"{torch.equal(got, once)}")
+        del once
     else:
         err = check(label, got, want, w_dt)
         rel = rel_l2(got, want)
@@ -8631,30 +8770,38 @@ def seg_decompress_row(rng, dev, d_in: int, N: int, L0: int, nk: int,
     if not torch.equal(got, again):
         raise RuntimeError(f"{label}: a second launch differs from the "
                            "first")
+    if storage != "bf16" and not (repeat or exact):
+        raise RuntimeError(f"{label}: fp32 W differs from the plain version"
+                           f" on distinct ids (max abs err {err:.3e})")
+    del got, again, want
     bytes_ = (a.numel() * a.element_size() + idx.numel() * 4
-              + (ns * 4 if kw else 0) + d_in * N * got.element_size())
-    ops = d_in * N * math.log2(L0) + (a.shape[0] * N if kw else 0)
+              + (ns * 4 if kw else 0)
+              + max(E, 1) * d_in * N * (2 if w_dt == torch.bfloat16 else 4))
+    ops = (max(E, 1) * d_in * N * math.log2(L0)
+           + (a.shape[-2] * N if kw else 0))
     t_bound, by = bound(bytes_, ops, torch.float32)
-    copies = [a.clone() for _ in range(n_copies(bytes_))]
+    copies = [a.clone() for _ in range(n_copies(bytes_) - 1)] + [a]
     ms, call_ms = timings([lambda c=c: ovsf_decompress(c, idx, d_in, **kw)
                            for c in copies], 40)
     plain_ms, _ = timings([lambda c=c: ovsf_decompress_plain(
         c, idx, d_in, **kw) for c in copies[:2]], 4)
     St = hadamard_matrix(L0, w_dt, dev)[idx.long()].transpose(1, 2) \
-        .contiguous()                              # (n_seg, L0, n_keep)
+        .repeat(max(E, 1), 1, 1).contiguous()   # (E n_seg, L0, n_keep)
     lib_in = [(dequantize_alphas(c, kw["alpha_scale"], storage) if kw
-               else c).reshape(ns, nk, N) for c in copies]
-    lib_err = float((torch.bmm(St, lib_in[0]).reshape(d_in, N).float()
-                     - want.float()).abs().max())
+               else c).reshape(-1, nk, N) for c in copies]
+    lib_err = float((torch.bmm(St, lib_in[0]).reshape(w_shape).float()
+                     - ovsf_decompress_plain(a, idx, d_in, **kw).float())
+                    .abs().max())
     lib_ms, _ = timings([lambda b=b: torch.bmm(St, b) for b in lib_in], 40)
     del copies, lib_in, St
+    torch.cuda.empty_cache()
     print(f"{tag} {label}: max_abs_err={err:.3e} rel_l2={rel:.2e} (tol "
           f"{TOL[w_dt]}; equal bit for bit: {exact}) kernel={ms:.4f}ms (per "
           f"Python call {call_ms:.4f}ms) bound={t_bound:.5f}ms ({by}; "
           f"{t_bound / ms:.0%} of it) plain={plain_ms:.4f}ms library(bmm "
           f"signs x alphas)={lib_ms:.4f}ms (kernel/library "
           f"{ms / lib_ms:.2f}; its err {lib_err:.1e})", flush=True)
-    return dict(case=label, d_in=d_in, N=N, L0=L0, n_keep=nk,
+    return dict(case=label, E=E, d_in=d_in, N=N, L0=L0, n_keep=nk,
                 repeated_ids=repeat, storage=storage, max_abs_err=err,
                 rel_l2=rel, exact=exact, ms=ms, call_ms=call_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
@@ -8694,11 +8841,13 @@ def seg_grad_row(rng, dev, d_in: int, N: int, storage: str) -> dict:
 
 
 def run_seg_decompress_checks(rng, dev) -> dict:
-    """Phase 3, for phase 17: the segmented ``ovsf_decompress`` kernel
-    (``seg_decompress_row``) at TinyLlama-1.1B's five shapes and the
-    ragged ``SEG_RAGGED`` cases, in every alpha storage, and its
-    gradients (``seg_grad_row``) at gate's shape. Returns the rows and,
-    per storage, one layer's five calls summed."""
+    """Phase 3, for phases 17 and 10: the segmented ``ovsf_decompress``
+    kernel (``seg_decompress_row``) at TinyLlama-1.1B's five shapes and the
+    ragged ``SEG_RAGGED`` cases, in every alpha storage, at OLMoE-1B-7B's
+    three expert banks (``SEG_BANKS``, bf16 and fp32), and its gradients
+    (``seg_grad_row``) at gate's shape. Returns the rows and, per storage,
+    one layer's five calls summed (``summary``) and one layer's three
+    banks summed (``bank_summary``)."""
     rows = []
     for d_in, N in sorted(set(SEG_LAYER.values())):
         rows += [seg_decompress_row(rng, dev, d_in, N, SEG_L0, SEG_KEEP, st)
@@ -8706,28 +8855,48 @@ def run_seg_decompress_checks(rng, dev) -> dict:
     for d_in, N, L0, nk, repeat in SEG_RAGGED:
         rows += [seg_decompress_row(rng, dev, d_in, N, L0, nk, st, repeat)
                  for st in SEG_STORAGES if not (st == "int4" and N % 2)]
+    banks = [seg_decompress_row(rng, dev, d_in, N, SEG_L0, SEG_KEEP, st,
+                                E=E)
+             for E, d_in, N in sorted(set(SEG_BANKS))
+             for st in SEG_BANK_STORAGES]
     grads = [seg_grad_row(rng, dev, *SEG_LAYER["gate"], st)
              for st in SEG_STORAGES]
-    summary = {}
+
+    def summed(picked: list, errs: list) -> dict:
+        sm = {k: sum(r[k] for r in picked) for k in
+              ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+        sm["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                         for r in picked) else "operations")
+        sm["max_abs_err"] = max(r["max_abs_err"] for r in errs)
+        return sm
+    summary, bank_summary = {}, {}
     for st in SEG_STORAGES:
         pick = {(r["d_in"], r["N"]): r for r in rows
                 if r["storage"] == st and r["L0"] == SEG_L0
                 and r["n_keep"] == SEG_KEEP and not r["repeated_ids"]}
-        layer = [pick[kn] for kn in SEG_LAYER.values()]
-        sm = {k: sum(r[k] for r in layer) for k in
-              ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
-        sm["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
-                                         for r in layer) else "operations")
-        sm["max_abs_err"] = max(r["max_abs_err"] for r in rows
-                                if r["storage"] == st)
-        summary[st] = sm
+        sm = summary[st] = summed([pick[kn] for kn in SEG_LAYER.values()],
+                                  [r for r in rows if r["storage"] == st])
         print(f"[kernel] ovsf_decompress seg {st}, TinyLlama-1.1B's layer "
               f"(q, o, gate, up, down): {sm['ms']:.4f} ms, bound "
               f"{sm['bound_ms']:.4f} ms ({sm['bound_by']}; "
-              f"{sm['ms'] / sm['bound_ms']:.1f}x), plain "
-              f"{sm['plain_ms']:.4f} ms, bmm {sm['library_ms']:.4f} ms",
-              flush=True)
-    return dict(rows=rows, grads=grads, summary=summary)
+              f"{sm['bound_ms'] / sm['ms']:.0%} of it), plain "
+              f"{sm['plain_ms']:.4f} ms, "
+              f"bmm {sm['library_ms']:.4f} ms (kernel/bmm "
+              f"{sm['ms'] / sm['library_ms']:.2f})", flush=True)
+    for st in SEG_BANK_STORAGES:
+        pick = {(r["E"], r["d_in"], r["N"]): r for r in banks
+                if r["storage"] == st}
+        sm = bank_summary[st] = summed([pick[b] for b in SEG_BANKS],
+                                       list(pick.values()))
+        print(f"[kernel] ovsf_decompress seg {st}, OLMoE-1B-7B's three "
+              f"expert banks of a layer (64 experts, one launch a bank): "
+              f"{sm['ms']:.4f} ms, bound {sm['bound_ms']:.4f} ms "
+              f"({sm['bound_by']}; {sm['bound_ms'] / sm['ms']:.0%} of it), "
+              f"plain {sm['plain_ms']:.4f} ms, bmm over the batch "
+              f"{sm['library_ms']:.4f} ms (kernel/bmm "
+              f"{sm['ms'] / sm['library_ms']:.2f})", flush=True)
+    return dict(rows=rows, banks=banks, grads=grads, summary=summary,
+                bank_summary=bank_summary)
 
 
 def mat_cfg(alpha_dtype: str = "", dtype: str = "bfloat16",
@@ -9252,7 +9421,14 @@ def main(argv=None) -> int:
             ("ovsf_decompress_seg_train_int8", dec_src,
              "src/repro/kernels/ovsf_gemm.py:256",
              seg_kernels["summary"]["int8"],
-             quant["full"]["ovsf_decompress"])):
+             quant["full"]["ovsf_decompress"]),
+            ("ovsf_decompress_seg_bank", dec_src,
+             "src/repro/kernels/ovsf_gemm.py:256",
+             seg_kernels["bank_summary"]["bf16"],
+             moe_res["paged packed"]["launch_totals"]["ovsf_decompress"]),
+            ("ovsf_gemm_fp32_cuda_core", gemm_src,
+             "src/repro/kernels/ovsf_gemm.py:158", gemm[""][1]["fp32_M4"],
+             serve_fp32["paged packed"]["launches"]["ovsf_gemm"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -9512,7 +9688,28 @@ def main(argv=None) -> int:
                                                "(phase 13), _train_int8: "
                                                "the int8 supervisor run "
                                                "(phase 16), both under "
-                                               "materialize"},
+                                               "materialize",
+                       "ovsf_decompress_seg_bank": "the segmented kernel over"
+                                                   " OLMoE-1B-7B's three "
+                                                   "expert banks of a layer "
+                                                   "(64 experts; gate, up "
+                                                   "2048 -> 1024, down 1024 "
+                                                   "-> 2048), bf16, one "
+                                                   "launch a bank, summed; "
+                                                   "library: bmm over the "
+                                                   "batch; launches: phase "
+                                                   "10's replayed paged "
+                                                   "packed run (3 a layer a "
+                                                   "step)",
+                       "ovsf_gemm_fp32_cuda_core": "the CUDA-core kernel "
+                                                   "(fp32 x over segmented "
+                                                   "codes) at TinyLlama-"
+                                                   "1.1B's five projections, "
+                                                   "M=4 fp32, summed; "
+                                                   "launches: the fp32 paged"
+                                                   " packed serve run "
+                                                   "(SERVE_FP32_LAYERS "
+                                                   "layers)"},
                    "quant_wrapper_refuses": refused,
                    "serve": serve, "serve_styles": styles,
                    "serve_fp32": serve_fp32, "legacy": legacy,
@@ -9522,6 +9719,8 @@ def main(argv=None) -> int:
                    "encdec_vlm": ev_res, "train": train,
                    "convert": conv, "family_train": fam,
                    "quant_train": quant, "seg_decompress": seg_kernels,
+                   "ovsf_gemm_fp32_cuda_core": {
+                       k: gemm[""][1][k] for k in ("fp32_M4", "fp32_M64")},
                    "materialize": mat, "phase_s": phase_s}, f, indent=1)
     print(f"[chip_smoke] every phase passed; the whole run took "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)

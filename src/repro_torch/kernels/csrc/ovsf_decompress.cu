@@ -305,57 +305,121 @@ extern "C" int ovsf_decompress_launch(const void* alphas, const void* scale,
 // ---------------------------------------------------------------------------
 // The segmented layout (the paper's Alg. 1): idx (n_seg, n_keep), each
 // segment's codes of length L0 = d_in / n_seg touching only its own L0 rows,
-//   W[s L0 + r, n] = sum_k (-1)^popc(idx[s, k] & r) * alphas[s n_keep + k, n].
-// Replaces the segmented branch of the same Pallas kernel (_gen_w_tile with
-// seg / n_keep, _sign_tile: repro/kernels/ovsf_gemm.py:77), and with it the
-// reference's jnp _segmented_decompress (repro/kernels/ops.py:76): every LM
-// config builds these codes (L0 16, n_keep 8), and its default exec_path,
-// materialize, generates W through this kernel before one torch.matmul.
+//   W[e, s L0 + r, n] = sum_k (-1)^popc(idx[s, k] & r) * alphas[e, s n_keep + k, n],
+// over a batch of E alpha sets sharing idx (an MoE expert bank; a dense
+// linear is the batch of 1). Replaces the segmented branch of the same
+// Pallas kernel (_gen_w_tile with seg / n_keep, _sign_tile:
+// repro/kernels/ovsf_gemm.py:77), and with it the reference's jnp
+// _segmented_decompress (repro/kernels/ops.py:76), which its LMs run for
+// every linear under materialize and vmap over the experts of a bank under
+// every plan (repro/models/moe.py:89-99): every LM config builds these codes
+// (L0 16, n_keep 8).
 //
 // What bounds it on the H100: the bytes, alphas read once and W written once.
 // TinyLlama-1.1B's five W of a layer in bf16: 86.0 MB of W and 43.0 MB of
-// alphas, 0.0385 ms at 3.35 TB/s; the transform is L0 log2 L0 fp32 adds a
-// (segment, column), 4 an element of W at L0 16, about 2.6 us a layer at
-// 67 TFLOP/s.
+// alphas, 0.0385 ms at 3.35 TB/s; OLMoE-1B-7B's three expert banks of a
+// layer (64 experts): 805 MB of bf16 W and 403 MB of alphas, 0.361 ms. The
+// transform is L0 log2 L0 fp32 adds a (segment, column), 4 an element of W
+// at L0 16, about 2.6 us a TinyLlama layer at 67 TFLOP/s.
 //
-// Design: one thread a (segment, column) pair; a block's 32 lanes take 32
-// neighbouring columns of one segment (a warp), its SEG_WARPS warps
-// neighbouring segments. A thread
-//   1. loads its column's n_keep alphas of the segment, all in flight at
-//      once: a warp's loads of one alpha row are neighbouring, coalesced
-//      along n; int8 / int4 alphas are widened and scaled in the load (the
-//      one fp32 multiply of core.ovsf.dequantize_alphas, as the monolithic
-//      epilogue); the segment's ids are the same address across the warp
-//      (one broadcast load each, no host read, no id check before the
-//      launch, so a step being captured needs none: an id outside [0, L0)
-//      traps);
-//   2. adds each alpha into its id's slot of an L0-long spectrum in
+// Design. W is written as it is laid out, (E, d_in, N) row-major, straight
+// from registers: the alphas and W are both contiguous along n, so a thread
+// that takes C adjacent columns (C = 4; 2 at L0 32, the spectra's registers)
+// reads C alphas of a row in one load (16 bytes fp32, 8 bf16, 4 int8, 2
+// int4) and writes C values of a W row in one store (16 bytes fp32, 8
+// bf16), and a warp's 32 lanes cover 32 C neighbouring columns: 256-512
+// contiguous bytes a row on both sides, no shared memory, no barrier. Work
+// item (e, s, column tile of 32 C) is one warp's; a persistent grid of
+// seg_plan's blocks (MIN_BLOCKS an SM, the grid's size from the wrapper,
+// which reads the SM count once) walks the items, column tiles fastest, a
+// warp every blocks * WARPS items. A lane
+//   1. loads the item's n_keep ids (the same address across the warp: one
+//      broadcast load each; no host read and no id check before the launch,
+//      so a step being captured needs none: an id outside [0, L0) traps)
+//      and its C alphas of each of the segment's n_keep rows, all in flight
+//      at once, as raw words (bytes in columns' order);
+//   2. widens them to fp32 (int8 / int4 times the row's scale: the one fp32
+//      multiply of core.ovsf.dequantize_alphas, as the monolithic epilogue)
+//      and adds each into its id's slot of its C columns' L0-long spectra in
 //      registers: the id is warp-uniform, so a binary tree of uniform
 //      branches reaches a constant register index, without divergence;
 //      repeated ids sum in k order, as the reference's einsum sums them,
 //      with no atomics, so W is deterministic;
-//   3. runs the spectrum's log2 L0 radix-2 passes in registers in
-//      core.ovsf.fwht's order (wht::passes), fp32;
-//   4. puts its L0 values of W^T row n, (N, d_in), into the block's tile
-//      in shared memory; after one barrier the block writes the tile's 32
-//      rows, each SEG_WARPS * L0 contiguous values of a W^T row (256 bytes
-//      in bf16 at L0 16), 16 bytes a thread with neighbouring threads on
-//      neighbouring words. The wrapper returns W^T's transposed view, the
-//      monolithic kernel's layout, which torch.matmul takes as it is.
-// With fp32 alphas and distinct ids every spectrum slot is 0 + alpha and the
-// passes are the plain version's adds in its order: W equals it bit for bit.
-// bf16 alphas: W rounded to bf16 once, where the plain version (the
-// reference's jnp) rounds after each pass.
+//   3. issues the loads of its next item (step 1), which stay in flight
+//      while this item's transform and stores run;
+//   4. runs each spectrum's log2 L0 radix-2 passes in core.ovsf.fwht's
+//      order (wht::passes), fp32, and stores its C columns of the L0 rows,
+//      one rounding to the output type.
+// Ragged N (N % C != 0) loads the alphas a byte at a time and stores W a
+// value at a time, masked past N, the same words and the same arithmetic.
+// With fp32 or quantised alphas and distinct ids every spectrum slot is 0 +
+// alpha and the passes are the plain version's adds in its order: W equals
+// it bit for bit. bf16 alphas: W rounded to bf16 once, where the plain
+// version (the reference's jnp) rounds after each pass.
 namespace {
+namespace seg {
 
-constexpr int SEG_WARPS = 8;                 // segments a block: one a warp
+constexpr int WARPS = 8;          // a block's warps (ovsf_gemm.py SEG_WARPS)
+constexpr int MIN_BLOCKS = 2;     // blocks an SM holds (SEG_BLOCKS_PER_SM)
 
-// v[id] += a for a warp-uniform id in [LO, HI): uniform branches halve the
-// range down to one constant index.
-template <int LO, int HI, int L0>
-__device__ __forceinline__ void add_at(float (&v)[L0], int id, float a) {
+// adjacent columns a lane takes (ovsf_gemm.py seg_cols): C x L0 fp32
+// spectra in registers
+template <int L0>
+constexpr int COLS = L0 >= 32 ? 2 : 4;
+
+// A lane's C stored alphas of one row: BYTES bytes in WORDS 32-bit words,
+// the first column's bytes lowest.
+template <typename T, int Q, int C>
+struct Raw {
+  static constexpr int BYTES =
+      Q == 0 ? C * (int)sizeof(T) : (Q == 1 ? C : C / 2);
+  static constexpr int WORDS = (BYTES + 3) / 4;
+};
+
+// BYTES bytes from p, aligned to their size, in one load.
+template <int BYTES, int WORDS>
+__device__ __forceinline__ void load_vec(const unsigned char* p,
+                                         unsigned (&w)[WORDS]) {
+  if constexpr (BYTES == 16) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+  } else if constexpr (BYTES == 8) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = q.x; w[1] = q.y;
+  } else if constexpr (BYTES == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else if constexpr (BYTES == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    w[0] = __ldg(p);
+  }
+}
+
+// Column c of a lane's raw words in fp32: a float, a bf16 (exact), or an
+// int8 / a nibble of a packed byte (the low one the even column) times s.
+template <typename T, int Q, int WORDS>
+__device__ __forceinline__ float widen(const unsigned (&w)[WORDS], int c,
+                                       float s) {
+  if constexpr (Q == 0 && sizeof(T) == 4) {
+    return __uint_as_float(w[c]);
+  } else if constexpr (Q == 0) {
+    return __uint_as_float(((w[c >> 1] >> (16 * (c & 1))) & 0xFFFFu) << 16);
+  } else if constexpr (Q == 1) {
+    return (float)(signed char)(w[c >> 2] >> (8 * (c & 3))) * s;
+  } else {
+    const int b = (signed char)(w[c >> 3] >> (8 * ((c >> 1) & 3)));
+    return (float)nibble(b, c & 1) * s;
+  }
+}
+
+// v[c][id] += a[c] for every column c, id warp-uniform in [LO, HI): uniform
+// branches halve the range down to one constant index.
+template <int LO, int HI, int C, int L0>
+__device__ __forceinline__ void add_at(float (&v)[C][L0], int id,
+                                       const float (&a)[C]) {
   if constexpr (HI - LO == 1) {
-    v[LO] += a;
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c][LO] += a[c];
   } else {
     constexpr int MID = (LO + HI) / 2;
     if (id < MID)
@@ -365,149 +429,195 @@ __device__ __forceinline__ void add_at(float (&v)[L0], int id, float a) {
   }
 }
 
-// One 16-byte word of W from v[0..): four fp32 values, or eight rounded to
-// bf16 (round to nearest even, as __float2bfloat16; the low half the first).
-__device__ __forceinline__ void store16(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
 __device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
 }
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
-                 bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+
+// Row r of a lane's C columns to p (aligned to the C values) in one store:
+// fp32, or bf16 rounded to nearest even (as __float2bfloat16).
+template <int C, int L0>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[C][L0],
+                                          int r) {
+  if constexpr (C == 4)
+    *reinterpret_cast<float4*>(p) =
+        make_float4(v[0][r], v[1][r], v[2][r], v[3][r]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0][r], v[1][r]);
+}
+template <int C, int L0>
+__device__ __forceinline__ void store_row(__nv_bfloat16* p,
+                                          const float (&v)[C][L0], int r) {
+  if constexpr (C == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v[0][r], v[1][r]),
+                                              bf16_pair(v[2][r], v[3][r]));
+  else
+    *reinterpret_cast<unsigned*>(p) = bf16_pair(v[0][r], v[1][r]);
 }
 
-// Alpha (j, n) in fp32: a stored float (Q = 0), or an int8 (Q = 1) / a
-// nibble of a packed byte (Q = 2) times its row's scale s.
-template <typename T, int Q>
-__device__ __forceinline__ float alpha_at(const void* alphas, int j, int n,
-                                          int N, float s) {
-  if constexpr (Q == 0) {
-    return to_f(static_cast<const T*>(alphas)[(size_t)j * N + n]);
-  } else {
-    const signed char* row = static_cast<const signed char*>(alphas) +
-                             (size_t)j * (Q == 1 ? N : N / 2);
-    return (float)quant_at<Q>(row, n) * s;
-  }
-}
-
-// alphas (J = n_seg * n_keep, N) as ovsf_decompress_kernel's; idx (n_seg,
-// n_keep) in [0, L0); wt (N, d_in), d_in = n_seg * L0. Block (x, y) takes
-// columns [32 x, 32 x + 32) of segments [SEG_WARPS y, SEG_WARPS y +
-// SEG_WARPS): thread (lane, warp) the pair (column 32 x + lane, segment
-// SEG_WARPS y + warp).
-template <typename T, int Q, int LOG_L0>
-__global__ void __launch_bounds__(32 * SEG_WARPS)
+// alphas (E, J = n_seg n_keep, N) of T (Q = 0), or quantised (Q = 1: int8
+// (E, J, N); Q = 2: packed (E, J, N / 2)) with scale[j / rows_per_scale];
+// idx (n_seg, n_keep) in [0, L0), n_keep <= KMAX; w (E, n_seg L0, N). The
+// grid walks items = E n_seg tiles, tiles = ceil(N / (32 C)): item i is
+// (e, s, t) = (i / (n_seg tiles), i / tiles % n_seg, i % tiles), warp g of
+// the grid takes items g, g + gridDim.x WARPS, ...; lane l of item (e, s, t)
+// takes columns [n0, n0 + C), n0 = 32 C t + C l (none past N).
+template <typename T, int Q, int LOG_L0, int KMAX>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
 ovsf_decompress_seg_kernel(const void* alphas, const float* scale,
-                           const int* idx, T* wt, int n_seg, int n_keep,
-                           int N, int d_in, int rows_per_scale) {
-  constexpr int L0 = 1 << LOG_L0;
-  constexpr int PER_WORD = 16 / (int)sizeof(T);
-  // the block's W^T tile, a row of SEG_WARPS * L0 values a column, padded
-  // by one 16-byte word: a quarter-warp's 8 lanes (8 rows) hit distinct
-  // bank groups
-  constexpr int PITCH = SEG_WARPS * L0 + PER_WORD;
-  __shared__ __align__(16) T tile[32 * PITCH];
-  const int n0 = blockIdx.x * 32, s0 = blockIdx.y * SEG_WARPS;
-  const int n = n0 + threadIdx.x, s = s0 + threadIdx.y;
-  if (n < N && s < n_seg) {
-    // quantised alphas: one scale for the segment's rows where a scale
-    // segment holds whole code segments (every LM config), else a row's
-    const int j0 = s * n_keep;
-    const bool one_scale = Q && rows_per_scale % max(n_keep, 1) == 0;
-    const float s0_scale = Q ? __ldg(scale + j0 / rows_per_scale) : 0.f;
-    int code[L0];
-    float a[L0];
+                           const int* idx, T* w, int E, int n_seg,
+                           int n_keep, int N, int rows_per_scale) {
+  constexpr int L0 = 1 << LOG_L0, C = COLS<L0>, TILE = 32 * C;
+  using R = Raw<T, Q, C>;
+  const int lane = threadIdx.x & 31;
+  const int tiles = (N + TILE - 1) / TILE;
+  const int items = E * n_seg * tiles;          // < 2^31: the launcher
+  const int stride = gridDim.x * WARPS;
+  const bool vec = N % C == 0;                  // rows on C-column words
+  const size_t row_bytes =
+      Q == 0 ? (size_t)N * sizeof(T) : (Q == 1 ? (size_t)N : (size_t)N / 2);
+  // quantised alphas: one scale for the segment's rows where a scale
+  // segment holds whole code segments (every LM config), else a row's
+  const bool one_scale = Q && rows_per_scale % max(n_keep, 1) == 0;
+  const unsigned char* base = static_cast<const unsigned char*>(alphas);
+
+  unsigned raw[KMAX][R::WORDS];
+  int code[KMAX];
+  float sc = 0.f;
+  // step 1 for item i: its ids, its scale, this lane's raw alphas
+  auto fetch = [&](int i) {
+    const int t = i % tiles, es = i / tiles;
+    const int s = es % n_seg, e = es / n_seg;
+    const int n0 = t * TILE + lane * C, j0 = s * n_keep;
+    if constexpr (Q != 0)
+      if (one_scale) sc = __ldg(scale + j0 / rows_per_scale);
+    const unsigned char* p =
+        base + ((size_t)e * n_seg * n_keep + j0) * row_bytes +
+        (size_t)n0 * R::BYTES / C;
 #pragma unroll
-    for (int k = 0; k < L0; ++k) {
-      if (k < n_keep) {
-        const int j = j0 + k;
-        code[k] = __ldg(idx + j);
-        a[k] = alpha_at<T, Q>(
-            alphas, j, n, N,
-            !Q || one_scale ? s0_scale : __ldg(scale + j / rows_per_scale));
+    for (int k = 0; k < KMAX; ++k) {
+      if (k >= n_keep) break;
+      code[k] = __ldg(idx + j0 + k);
+#pragma unroll
+      for (int q = 0; q < R::WORDS; ++q) raw[k][q] = 0u;
+      if (n0 >= N) continue;
+      const unsigned char* row = p + k * row_bytes;
+      if (vec) {
+        load_vec<R::BYTES>(row, raw[k]);
+      } else {
+        // ragged N: byte b holds (part of) column n0 + b C / BYTES
+#pragma unroll
+        for (int b = 0; b < R::BYTES; ++b)
+          if (n0 + b * C / R::BYTES < N)
+            raw[k][b >> 2] |= (unsigned)__ldg(row + b) << (8 * (b & 3));
       }
     }
-    float v[L0];
+  };
+
+  int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (i < items) fetch(i);
+  for (; i < items; i += stride) {
+    const int t = i % tiles, es = i / tiles;
+    const int s = es % n_seg, e = es / n_seg;
+    const int n0 = t * TILE + lane * C, j0 = s * n_keep;
+    float v[C][L0];
 #pragma unroll
-    for (int r = 0; r < L0; ++r) v[r] = 0.f;
+    for (int c = 0; c < C; ++c)
 #pragma unroll
-    for (int k = 0; k < L0; ++k) {
-      if (k < n_keep) {
-        if ((unsigned)code[k] >= (unsigned)L0) __trap();  // no host check
-        add_at<0, L0>(v, code[k], a[k]);
+      for (int r = 0; r < L0; ++r) v[c][r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k >= n_keep) break;
+      if ((unsigned)code[k] >= (unsigned)L0) __trap();  // no host check
+      const float s_k =
+          Q == 0 ? 0.f
+                 : (one_scale ? sc
+                              : __ldg(scale + (j0 + k) / rows_per_scale));
+      float a[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) a[c] = widen<T, Q>(raw[k], c, s_k);
+      add_at<0, L0>(v, code[k], a);
+    }
+    // the next item's loads fly while this one's transform and stores run
+    if (i + stride < items) fetch(i + stride);
+#pragma unroll
+    for (int c = 0; c < C; ++c) wht::passes<LOG_L0, 0, LOG_L0>(v[c]);
+    if (n0 < N) {
+      T* out = w + ((size_t)e * n_seg + s) * L0 * (size_t)N + n0;
+#pragma unroll
+      for (int r = 0; r < L0; ++r) {
+        T* row = out + (size_t)r * N;
+        if (vec) {
+          store_row<C, L0>(row, v, r);
+        } else {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            if (n0 + c < N) from_f(v[c][r], row + c);
+        }
       }
-    }
-    wht::passes<LOG_L0, 0, LOG_L0>(v);
-    T* row = tile + threadIdx.x * PITCH + threadIdx.y * L0;
-    if constexpr (L0 % PER_WORD == 0) {
-#pragma unroll
-      for (int r = 0; r < L0; r += PER_WORD) store16(row + r, v + r);
-    } else {
-#pragma unroll
-      for (int r = 0; r < L0; ++r) from_f(v[r], row + r);
-    }
-  }
-  __syncthreads();
-  // the tile's rows to W^T: row c holds segs * L0 contiguous values of
-  // row n0 + c; 16-byte words where whole, neighbouring threads on
-  // neighbouring words
-  const int cols = min(32, N - n0);
-  const int elems = min(SEG_WARPS, n_seg - s0) * L0;
-  const int t = threadIdx.y * 32 + threadIdx.x;
-  T* out = wt + (size_t)n0 * d_in + (size_t)s0 * L0;
-  if (d_in % PER_WORD == 0 && elems % PER_WORD == 0) {
-    const int words = elems / PER_WORD;
-    for (int i = t; i < cols * words; i += 32 * SEG_WARPS) {
-      const int c = i / words, w = i - c * words;
-      *reinterpret_cast<uint4*>(out + (size_t)c * d_in + w * PER_WORD) =
-          *reinterpret_cast<const uint4*>(tile + c * PITCH + w * PER_WORD);
-    }
-  } else {
-    for (int i = t; i < cols * elems; i += 32 * SEG_WARPS) {
-      const int c = i / elems, e = i - c * elems;
-      out[(size_t)c * d_in + e] = tile[c * PITCH + e];
     }
   }
 }
 
-template <typename T, int Q, int LOG_L0>
-cudaError_t launch_seg(const void* alphas, const float* scale,
-                       const void* idx, void* wt, int n_seg, int n_keep,
-                       int N, int d_in, int rows_per_scale,
-                       cudaStream_t stream) {
-  const dim3 grid((N + 31) / 32, (n_seg + SEG_WARPS - 1) / SEG_WARPS);
-  ovsf_decompress_seg_kernel<T, Q, LOG_L0><<<grid, dim3(32, SEG_WARPS), 0,
-                                             stream>>>(
-      alphas, scale, static_cast<const int*>(idx), static_cast<T*>(wt),
-      n_seg, n_keep, N, d_in, rows_per_scale);
+template <typename T, int Q, int LOG_L0, int KMAX>
+cudaError_t launch(const void* alphas, const float* scale, const void* idx,
+                   void* w, int E, int n_seg, int n_keep, int N,
+                   int rows_per_scale, int blocks, cudaStream_t stream) {
+  ovsf_decompress_seg_kernel<T, Q, LOG_L0, KMAX><<<blocks, 32 * WARPS, 0,
+                                                   stream>>>(
+      alphas, scale, static_cast<const int*>(idx), static_cast<T*>(w), E,
+      n_seg, n_keep, N, rows_per_scale);
   return cudaGetLastError();
 }
 
+// n_keep <= L0 / 2 (every LM config: 8 of 16) holds half the ids and raw
+// words in registers
+template <typename T, int Q, int LOG_L0>
+cudaError_t launch_keep(const void* alphas, const float* scale,
+                        const void* idx, void* w, int E, int n_seg,
+                        int n_keep, int N, int rows_per_scale, int blocks,
+                        cudaStream_t stream) {
+  constexpr int L0 = 1 << LOG_L0;
+  if constexpr (L0 > 1) {
+    if (2 * n_keep <= L0)
+      return launch<T, Q, LOG_L0, L0 / 2>(alphas, scale, idx, w, E, n_seg,
+                                          n_keep, N, rows_per_scale, blocks,
+                                          stream);
+  }
+  return launch<T, Q, LOG_L0, L0>(alphas, scale, idx, w, E, n_seg, n_keep,
+                                  N, rows_per_scale, blocks, stream);
+}
+
+}  // namespace seg
 }  // namespace
 
-// The segmented layout: alphas (n_seg * n_keep, N) float32 or bfloat16
-// (bf16 != 0), or with quant = 1 int8 (J, N) and quant = 2 packed int4
-// (J, N / 2) with one fp32 scale a rows_per_scale rows; idx (n_seg, n_keep)
-// int32 in [0, L0), L0 = d_in / n_seg a power of two up to 32, n_keep <= L0;
-// writes W^T as wt (N, d_in), 16-byte aligned, in the alphas' type (fp32
-// for quantised alphas). Returns the cudaError_t of the launch.
+// The segmented layout over a batch of E alpha sets sharing idx: alphas
+// (E, n_seg * n_keep, N) float32 or bfloat16 (bf16 != 0), or with quant = 1
+// int8 (E, J, N) and quant = 2 packed int4 (E, J, N / 2) with one fp32
+// scale a rows_per_scale rows (the same for every batch entry), 16-byte
+// aligned; idx (n_seg, n_keep) int32 in [0, L0), L0 = d_in / n_seg a power
+// of two up to 32, n_keep <= L0; writes W as w (E, d_in, N), 16-byte
+// aligned, in the alphas' type (fp32 for quantised alphas), over a grid of
+// `blocks` blocks (kernels/ovsf_gemm.py:seg_plan). Returns the cudaError_t
+// of the launch.
 extern "C" int ovsf_decompress_seg_launch(const void* alphas,
                                           const void* scale, const void* idx,
-                                          void* wt, int n_seg, int n_keep,
-                                          int N, int d_in, int bf16,
-                                          int quant, int rows_per_scale,
+                                          void* w, int E, int n_seg,
+                                          int n_keep, int N, int d_in,
+                                          int bf16, int quant,
+                                          int rows_per_scale, int blocks,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_seg <= 0 || N <= 0 || d_in <= 0 || d_in % n_seg)
+  if (E <= 0 || n_seg <= 0 || N <= 0 || d_in <= 0 || d_in % n_seg ||
+      blocks <= 0)
     return cudaErrorInvalidValue;
   const int L0 = d_in / n_seg;
   if ((L0 & (L0 - 1)) || L0 > 32 || n_keep < 0 || n_keep > L0 || quant < 0 ||
       quant > 2 || (quant && (bf16 || rows_per_scale <= 0)) ||
       (quant == 2 && N % 2))
+    return cudaErrorInvalidValue;
+  const long long tile = 32LL * (L0 >= 32 ? 2 : 4);   // 32 COLS<L0>
+  if ((long long)E * n_seg * ((N + tile - 1) / tile) >= (1LL << 31))
     return cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);
   const int log_l0 = __builtin_ctz(L0);
@@ -517,18 +627,20 @@ extern "C" int ovsf_decompress_seg_launch(const void* alphas,
       return cudaErrorInvalidValue;
     } else {
       if (quant == 1)
-        return launch_seg<float, 1, LOG_L0>(alphas, sc, idx, wt, n_seg,
-                                            n_keep, N, d_in, rows_per_scale,
-                                            s);
+        return seg::launch_keep<float, 1, LOG_L0>(
+            alphas, sc, idx, w, E, n_seg, n_keep, N, rows_per_scale, blocks,
+            s);
       if (quant == 2)
-        return launch_seg<float, 2, LOG_L0>(alphas, sc, idx, wt, n_seg,
-                                            n_keep, N, d_in, rows_per_scale,
-                                            s);
+        return seg::launch_keep<float, 2, LOG_L0>(
+            alphas, sc, idx, w, E, n_seg, n_keep, N, rows_per_scale, blocks,
+            s);
       if (bf16)
-        return launch_seg<__nv_bfloat16, 0, LOG_L0>(
-            alphas, sc, idx, wt, n_seg, n_keep, N, d_in, rows_per_scale, s);
-      return launch_seg<float, 0, LOG_L0>(alphas, sc, idx, wt, n_seg, n_keep,
-                                          N, d_in, rows_per_scale, s);
+        return seg::launch_keep<__nv_bfloat16, 0, LOG_L0>(
+            alphas, sc, idx, w, E, n_seg, n_keep, N, rows_per_scale, blocks,
+            s);
+      return seg::launch_keep<float, 0, LOG_L0>(
+          alphas, sc, idx, w, E, n_seg, n_keep, N, rows_per_scale, blocks,
+          s);
     }
   });
 }

@@ -50,10 +50,13 @@ launched at capture.
 
 An MoE expert bank, (E, J, d_out) alphas sharing one ``idx``
 (``models.moe``), generates its dense (E, d_in, d_out) W through
-``decompress_bank``, plain tensor code for segmented codes on any device
-(``ovsf_gemm.segmented_decompress_plain``): the reference vmaps its plain
-jnp over a bank under every plan (``fused`` included; it has no expert
-kernel). Quantised banks are refused, as the reference refuses them.
+``decompress_bank`` under every plan but ``spectral`` (``fused`` included),
+as the reference vmaps ``decompress`` over the experts: segmented codes in
+one launch of the segmented ``ovsf_decompress`` kernel over the batch of E
+(the reference's vmap of its jnp ``_segmented_decompress``, whose
+counterpart the kernel is; its plain version on the CPU), monolithic codes
+as the columns of one (J, E * d_out) matrix. Quantised banks are refused,
+as the reference refuses them.
 
 ``ovsf_matmul_multi`` runs M stacked alpha variants over one activation
 stream: one ``spectral_matmul`` per variant, then a per-token
@@ -79,8 +82,9 @@ segmented ones) and dx = dy W^T: for monolithic codes W from the
 the J columns into each segment's spectrum and a plain per-segment WHT,
 so the segmented backward launches no kernel. The products are
 ``torch.matmul`` in fp32, as the reference's oracle computes in fp32. What
-runs as plain tensor code (segmented ``spectral``, an expert bank,
-``index_select``, the products) is differentiated by autograd directly.
+runs as plain tensor code (segmented ``spectral``, ``index_select``, the
+products) is differentiated by autograd directly; an expert bank's
+segmented W through ``OvsfDecompressFn`` over its batch.
 Where autograd records nothing (every serving path), ``*_fn`` calls the
 wrapper itself and not its Function: the fork is kept for host overhead,
 since a Function call costs more host time than the wrapper (measured by
@@ -107,8 +111,7 @@ import torch
 from repro_torch.core import ovsf
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.fwht import fwht
-from repro_torch.kernels.ovsf_gemm import (ovsf_decompress, ovsf_gemm,
-                                           segmented_decompress_plain)
+from repro_torch.kernels.ovsf_gemm import ovsf_decompress, ovsf_gemm
 
 EXEC_PATHS = ("materialize", "fused", "spectral")
 
@@ -134,9 +137,10 @@ class FwhtFn(torch.autograd.Function):
 
 class OvsfDecompressFn(torch.autograd.Function):
     """``kernels.ovsf_gemm.ovsf_decompress`` with its gradient dA = S dW =
-    ``spectral_transform(dW^T)^T`` in fp32: for monolithic codes the rows
-    of dW^T padded to L and transformed by the ``fwht`` kernel, for
-    segmented ones each segment's plain WHT, the kept codes taken. Over
+    ``spectral_transform(dW^T)^T`` in fp32 (a bank's (E, d_in, d_out) dW
+    entry by entry): for monolithic codes the rows of dW^T padded to L and
+    transformed by the ``fwht`` kernel, for segmented ones each segment's
+    plain WHT, the kept codes taken. Over
     int8 / int4 alphas (the kernel's epilogue) dA reduces to the scales'
     gradient (``_scale_grad``)."""
 
@@ -151,7 +155,8 @@ class OvsfDecompressFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dW):
         idx, q, scale = ctx.saved_tensors
-        dA = spectral_transform(dW.t().to(torch.float32), idx).t()
+        dA = spectral_transform(dW.transpose(-1, -2).to(torch.float32),
+                                idx).transpose(-1, -2)
         if ctx.alpha_dtype:
             return (None, None, None,
                     _scale_grad(q, scale, dA, ctx.alpha_dtype), None)
@@ -270,15 +275,14 @@ def decompress_bank(alphas: torch.Tensor, idx: torch.Tensor,
                     d_in: int) -> torch.Tensor:
     """Dense (E, d_in, d_out) W of an MoE expert bank: (E, J, d_out) float
     alphas sharing ``idx``, as the reference vmaps ``decompress`` over the
-    experts. Segmented codes run the per-segment WHT as plain tensor code
-    on any device (``segmented_decompress_plain``; the reference's is plain
-    jnp, and a bank has no kernel there either); monolithic codes decompress the
+    experts. Segmented codes: one ``ovsf_decompress`` over the batch (the
+    kernel on CUDA, its plain version on the CPU); monolithic codes: the
     experts side by side as the columns of one (J, E * d_out) matrix
-    through ``ovsf_decompress`` (each column's transform is its own;
-    differentiable where autograd records the alphas)."""
+    through ``ovsf_decompress`` (each column's transform is its own).
+    Differentiable where autograd records the alphas."""
     E, J, d_out = alphas.shape
     if idx.dim() == 2:
-        return segmented_decompress_plain(alphas, idx, d_in)
+        return ovsf_decompress_fn(alphas, idx, d_in)     # (E, d_in, d_out)
     cols = alphas.permute(1, 0, 2).reshape(J, E * d_out)
     W = ovsf_decompress_fn(cols, idx, d_in)               # (d_in, E*d_out)
     return W.reshape(d_in, E, d_out).permute(1, 0, 2)

@@ -24,10 +24,13 @@ fp32/bf16 alphas, or from int8 / packed int4 alphas with per-segment fp32
 scales (the Pallas kernel's dequant epilogue; W is then fp32):
 ``csrc/ovsf_decompress.cu`` (the port of the Pallas ``ovsf_decompress``:
 ``ovsf_decompress_kernel`` for monolithic codes, a WHT a column over
-L = next_pow2(d_in); ``ovsf_decompress_seg_kernel`` for segmented ones, a
-register WHT of length L0 = d_in / n_seg a (segment, column), the layout
-every LM config builds) on a CUDA tensor, its plain version on a CPU
-tensor. ``ovsf_decompress.launches`` counts launches,
+L = next_pow2(d_in), W returned as the transposed view of W^T;
+``ovsf_decompress_seg_kernel`` for segmented ones, a register WHT of length
+L0 = d_in / n_seg over a lane's adjacent columns, W written row-major, the
+layout every LM config builds; segmented float alphas may carry a leading
+batch, an MoE expert bank's (E, J, d_out), one launch for the bank, as the
+reference vmaps ``decompress`` over it) on a CUDA tensor, its plain version
+on a CPU tensor. ``ovsf_decompress.launches`` counts launches,
 ``ovsf_decompress.launches_by_layout`` splits them ("mono", "seg").
 """
 from __future__ import annotations
@@ -73,9 +76,13 @@ _TICKETS: dict = {}           # device -> every ticket buffer, newest last
 _DEC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
                  + [ctypes.c_void_p])
 _DEC_MAX_L = 1 << 15          # the spectrum, L fp32, fits one block's 227 KB
-_SEG_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_SEG_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
 DEC_MAX_L0 = 32               # the segmented kernel's register spectrum
+# the segmented kernel, as in the CUDA source (namespace seg): a block's
+# warps, and the blocks an SM holds (its persistent grid's, seg_plan)
+SEG_WARPS = 8
+SEG_BLOCKS_PER_SM = 2
 # adjacent columns a block takes at least: one 16-byte fp32 (8-byte bf16)
 # alpha load per id (8 bf16 columns, 16 bytes, were slower at d_in 1152 and
 # 2304 on the H100: half the blocks)
@@ -224,6 +231,27 @@ def mono_block_rows(plan: dict, M: int, b: int) -> tuple[int, int, int]:
     groups = -(-M // MONO_GROUP)
     lo, hi = chunk * groups // mine, (chunk + 1) * groups // mine
     return sid, min(M, lo * MONO_GROUP), min(M, hi * MONO_GROUP)
+
+
+def seg_cols(L0: int) -> int:
+    """Adjacent columns a lane of the segmented kernel takes (its C x L0
+    fp32 spectra live in registers): 4, or 2 at L0 = 32."""
+    return 2 if L0 >= 32 else 4
+
+
+def seg_plan(E: int, n_seg: int, N: int, L0: int, n_sms: int) -> dict:
+    """The segmented kernel's work split: ``cols`` (C) columns a lane,
+    ``tiles`` column tiles of 32 C a row, ``items`` = E n_seg tiles warp
+    items (batch entry, segment, column tile), and the persistent grid's
+    ``blocks``: ``SEG_BLOCKS_PER_SM`` an SM, fewer where the items fill
+    fewer. Warp g of the grid takes items g, g + blocks SEG_WARPS, ...;
+    item i is (batch entry, segment, column tile) = (i // (n_seg tiles),
+    i // tiles % n_seg, i % tiles)."""
+    C = seg_cols(L0)
+    tiles = -(-N // (32 * C))
+    items = E * n_seg * tiles
+    blocks = max(1, min(-(-items // SEG_WARPS), SEG_BLOCKS_PER_SM * n_sms))
+    return dict(cols=C, tiles=tiles, items=items, blocks=blocks)
 
 
 def ticket_buffer(device, n: int) -> torch.Tensor:
@@ -402,8 +430,9 @@ def ovsf_decompress_plain(alphas: torch.Tensor, idx: torch.Tensor,
     ``segmented_decompress_plain``; monolithic ones scatter-add each
     column's alphas into its length-L spectrum (repeated ids sum, as the
     Pallas kernel's sum over j does), WHT, crop, fp32 arithmetic, output in
-    the alphas' type (fp32 for quantised alphas, as the Pallas kernel's),
-    as the (d_in, d_out) view of a (d_out, d_in) array."""
+    the alphas' type (fp32 for quantised alphas, as the Pallas kernel's);
+    monolithic W as the (d_in, d_out) view of a (d_out, d_in) array,
+    segmented W contiguous: the kernels' layouts."""
     if alpha_dtype:
         if not isinstance(alpha_scale, torch.Tensor):
             raise ValueError("ovsf_decompress: quantised alphas need an "
@@ -478,10 +507,16 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
     ``alpha_dtype="int8"`` / packed int8 (J, d_out // 2) with ``"int4"``
     and their (n_seg, 1) float32 ``alpha_scale``, J % n_seg == 0 (W fp32).
     ``idx``: (J,) monolithic code ids in [0, next_pow2(d_in)), S =
-    H_L[idx, :d_in]; or (n_seg, n_keep) segmented ids in [0, L0), L0 =
+    H_L[idx, :d_in], W returned as the transposed view of a contiguous
+    (d_out, d_in) array; or (n_seg, n_keep) segmented ids in [0, L0), L0 =
     d_in / n_seg a power of two up to ``DEC_MAX_L0``, n_keep <= L0, S
-    block-diagonal (each segment's codes on its own L0 rows). Returned as
-    the transposed view of a contiguous (d_out, d_in) array."""
+    block-diagonal (each segment's codes on its own L0 rows), W contiguous.
+    Segmented float alphas may be a batch (E, J, d_out) sharing ``idx`` (an
+    MoE expert bank): W (E, d_in, d_out), one launch."""
+    if alphas.dim() == 3 and (idx.dim() != 2 or alpha_dtype):
+        raise ValueError(f"ovsf_decompress: a batch of alphas "
+                         f"{tuple(alphas.shape)} takes segmented ids and "
+                         "float alphas (idx (n_seg, n_keep), no alpha_dtype)")
     if alphas.device.type == "cpu":
         return ovsf_decompress_plain(alphas, idx, d_in,
                                      alpha_scale=alpha_scale,
@@ -494,12 +529,12 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
                          f"{alpha_dtype!r}")
     want = ((torch.int8,) if alpha_dtype
             else (torch.float32, torch.bfloat16))
-    if alphas.dim() != 2 or alphas.dtype not in want:
+    if alphas.dim() not in (2, 3) or alphas.dtype not in want:
         raise ValueError(f"ovsf_decompress: alphas {tuple(alphas.shape)} "
-                         f"{alphas.dtype} must be 2-D "
+                         f"{alphas.dtype} must be 2-D (3-D: a batch) "
                          + ("int8" if alpha_dtype else "float32 or bfloat16")
                          + f" for alpha_dtype {alpha_dtype!r}")
-    J, N = alphas.shape
+    J, N = alphas.shape[-2:]
     if alpha_dtype == "int4":
         N *= 2                          # two nibbles per stored byte
     if (idx.dim() not in (1, 2) or idx.numel() != J
@@ -532,14 +567,16 @@ def ovsf_decompress(alphas: torch.Tensor, idx: torch.Tensor, d_in: int, *,
         J, N, d_in, L, int(alphas.dtype == torch.bfloat16),
         _QUANT[alpha_dtype], rows_per_scale, *plan_args(plan), int(distinct),
         stream)
-    return _launched(err, "mono", wt)
+    return _launched(err, "mono", wt).t()
 
 
 def _decompress_segmented(alphas, scale, idx, d_in: int, N: int,
                           alpha_dtype: str, rows_per_scale: int, out_dtype,
                           stream) -> torch.Tensor:
-    """``ovsf_decompress`` over (n_seg, n_keep) ids: the segmented kernel,
-    no host read of the ids (the kernel traps on one outside [0, L0))."""
+    """``ovsf_decompress`` over (n_seg, n_keep) ids: the segmented kernel
+    over (J, N) alphas or a batch (E, J, N) of them, W (d_in, N) or (E,
+    d_in, N) row-major; no host read of the ids (the kernel traps on one
+    outside [0, L0))."""
     ns, nk = idx.shape
     L0 = d_in // ns if ns else 0
     if (ns < 1 or d_in % ns or not 1 <= L0 <= DEC_MAX_L0 or L0 & (L0 - 1)
@@ -547,26 +584,30 @@ def _decompress_segmented(alphas, scale, idx, d_in: int, N: int,
         raise ValueError(f"ovsf_decompress: segmented idx {tuple(idx.shape)}"
                          f" over d_in={d_in}: L0 = d_in / n_seg must be a "
                          f"power of two up to {DEC_MAX_L0} and n_keep <= L0")
-    alphas = alphas.contiguous()
+    E = alphas.shape[0] if alphas.dim() == 3 else 1
+    alphas = _aligned(alphas.contiguous())
     idx = idx.to(torch.int32).contiguous()
-    wt = torch.empty((N, d_in), dtype=out_dtype, device=alphas.device)
+    w = torch.empty(alphas.shape[:-2] + (d_in, N), dtype=out_dtype,
+                    device=alphas.device)
+    plan = seg_plan(E, ns, N, L0, torch.cuda.get_device_properties(
+        alphas.device).multi_processor_count)
     err = build.launcher("ovsf_decompress", _SEG_ARGTYPES,
                          "ovsf_decompress_seg")(
-        alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(), wt.data_ptr(),
-        ns, nk, N, d_in, int(alphas.dtype == torch.bfloat16),
-        _QUANT[alpha_dtype], rows_per_scale, stream)
-    return _launched(err, "seg", wt)
+        alphas.data_ptr(), scale.data_ptr(), idx.data_ptr(), w.data_ptr(),
+        E, ns, nk, N, d_in, int(alphas.dtype == torch.bfloat16),
+        _QUANT[alpha_dtype], rows_per_scale, plan["blocks"], stream)
+    return _launched(err, "seg", w)
 
 
-def _launched(err: int, layout: str, wt: torch.Tensor) -> torch.Tensor:
-    """Raise on a refused launch; else count it and return W^T's
-    transposed view."""
+def _launched(err: int, layout: str, w: torch.Tensor) -> torch.Tensor:
+    """Raise on a refused launch; else count it and return what the kernel
+    wrote."""
     if err:
         raise RuntimeError(f"ovsf_decompress: CUDA launch of the {layout} "
                            f"kernel failed (cudaError {err})")
     ovsf_decompress.launches += 1
     ovsf_decompress.launches_by_layout[layout] += 1
-    return wt.t()
+    return w
 
 
 def reset_launches() -> None:

@@ -18,7 +18,9 @@ whatever ``alpha_dtype`` says, as the reference builds them). A bank runs
 the reference's dataflow: ``spectral`` transforms the dispatched
 activations once and contracts each expert's alphas; every other plan
 (``fused`` included: the reference has no per-expert generate-and-multiply
-kernel) regenerates the bank's dense W (``kernels.ops.decompress_bank``,
+kernel) regenerates the bank's dense W (``kernels.ops.decompress_bank``:
+segmented codes in one launch of the segmented ``ovsf_decompress`` kernel
+over the E experts on the card, the reference's vmap of ``decompress``;
 through the decompress cache when the plan caches and autograd records
 no alphas), then one batched product.
 

@@ -6,9 +6,12 @@ The oracles are ``repro.kernels.ref.ovsf_decompress_ref`` (its einsum sums
 repeated ids, as the kernel does) and the reference's ``decompress`` (jnp,
 the path its LMs run; it sets a repeated id's slot, so it is compared on
 distinct ids only). The CUDA kernel runs only on the card (``chip_smoke.py``
-phase 17); here an emulation of its arithmetic (the spectrum's adds in k
-order, the register butterflies, one rounding at the end) is held against
-the plain version, and the wrapper's shape refusals are checked.
+phases 3 and 17); here an emulation of its order of work and arithmetic
+(the persistent grid's warp items, the spectrum's adds in k order, the
+register butterflies, one rounding at the end, W row-major) is held
+against the plain version, its work split (``seg_plan``) is checked to
+cover every element once at the LM, expert-bank and ragged shapes, and the
+wrapper's shape and batch refusals are checked.
 """
 import functools
 
@@ -121,43 +124,71 @@ def test_quantised_cpu_route_matches_reference(ns, L0, nk, N, repeat,
                                    **TOL["float32"])
 
 
+def _warp_items(plan: dict, n_seg: int, warp: int):
+    """The (batch entry, segment, column tile) items warp ``warp`` of the
+    segmented kernel's grid takes, in its order: the kernel's index
+    arithmetic over ``seg_plan``'s grid."""
+    tiles = plan["tiles"]
+    for i in range(warp, plan["items"], plan["blocks"] * tgemm.SEG_WARPS):
+        es, t = divmod(i, tiles)
+        e, s = divmod(es, n_seg)
+        yield e, s, t
+
+
 def _emulate_kernel(al: np.ndarray, idx: np.ndarray, d_in: int,
-                    out_dtype) -> torch.Tensor:
-    """``ovsf_decompress_seg_kernel``'s arithmetic for fp32 alphas (Q = 0
-    or already dequantised): per (segment, column) an fp32 spectrum of L0
-    zeros, each kept alpha added at its id in k order, the radix-2 passes
-    in ``wht::passes``' order (bit m ascending), one rounding to the output
-    type; W^T's transposed view."""
+                    out_dtype, n_sms: int = 3) -> torch.Tensor:
+    """``ovsf_decompress_seg_kernel``'s order of work and arithmetic for
+    fp32 alphas (Q = 0, bf16 values widened exactly, or already
+    dequantised), (J, N) or a batch (E, J, N): every warp of
+    ``seg_plan``'s grid walks its (e, s, column tile) items in
+    ``_warp_items``' order; per item its lanes' columns (C each) get an fp32
+    spectrum of L0 zeros, each kept alpha added at its id in k order, the
+    radix-2 passes in ``wht::passes``' order (bit m ascending), and one
+    rounding to the output type as W's rows are stored, W row-major. Every
+    element is written once (NaN marks the unwritten)."""
     ns, nk = idx.shape
     L0 = d_in // ns
-    N = al.shape[1]
-    v = np.zeros((ns, L0, N), np.float32)
-    for s in range(ns):
-        for k in range(nk):
-            v[s, idx[s, k]] += al[s * nk + k]
-    for m in range(L0.bit_length() - 1):
-        h = 1 << m
-        for j in range(L0):
-            if j & h:
-                continue
-            a, b = v[:, j].copy(), v[:, j | h].copy()
-            v[:, j], v[:, j | h] = a + b, a - b
-    w = torch.from_numpy(v.reshape(d_in, N)).t().contiguous()
-    return w.to(out_dtype).t()
+    lead, N = al.shape[:-2], al.shape[-1]
+    A = al.reshape(-1, ns * nk, N)
+    E = A.shape[0]
+    plan = tgemm.seg_plan(E, ns, N, L0, n_sms)
+    tile = 32 * plan["cols"]
+    W = np.full((E, d_in, N), np.nan, np.float32)
+    for warp in range(plan["blocks"] * tgemm.SEG_WARPS):
+        for e, s, t in _warp_items(plan, ns, warp):
+            cols = slice(t * tile, min(t * tile + tile, N))
+            v = np.zeros((L0, cols.stop - cols.start), np.float32)
+            for k in range(nk):
+                v[idx[s, k]] += A[e, s * nk + k, cols]
+            for m in range(L0.bit_length() - 1):
+                h = 1 << m
+                for j in range(L0):
+                    if j & h:
+                        continue
+                    a, b = v[j].copy(), v[j | h].copy()
+                    v[j], v[j | h] = a + b, a - b
+            assert np.isnan(W[e, s * L0:(s + 1) * L0, cols]).all()
+            W[e, s * L0:(s + 1) * L0, cols] = v
+    assert not np.isnan(W).any()
+    return torch.from_numpy(W.reshape(lead + (d_in, N))).to(out_dtype)
 
 
 @pytest.mark.parametrize("ns,L0,nk,N,repeat", _SHAPES)
 def test_emulated_kernel_equals_plain(ns, L0, nk, N, repeat):
     """fp32 alphas: the kernel's adds are the plain version's, in its order
     (repeated ids too: the CPU's scatter-add runs in k order), so the
-    emulation equals it bit for bit; int8 alphas after the one dequantising
-    multiply likewise; bf16 alphas round once where the plain version
-    rounds each pass, within 2e-2."""
+    emulation equals it bit for bit, a bank of three alpha sets too; int8
+    alphas after the one dequantising multiply likewise; bf16 alphas round
+    once where the plain version rounds each pass, within 2e-2."""
     al, idx = _case(ns, L0, nk, N, seed=7 * ns + N, repeat=repeat)
     d_in = ns * L0
     ti = torch.from_numpy(idx)
     plain = tgemm.ovsf_decompress_plain(torch.from_numpy(al), ti, d_in)
     assert torch.equal(_emulate_kernel(al, idx, d_in, torch.float32), plain)
+    bank = np.stack([al, 2 * al[::-1].copy(), -al])
+    assert torch.equal(
+        _emulate_kernel(bank, idx, d_in, torch.float32),
+        tgemm.ovsf_decompress_plain(torch.from_numpy(bank), ti, d_in))
     q, s = tovsf.quantize_alphas(torch.from_numpy(al), ns, "int8")
     deq = _np(tovsf.dequantize_alphas(q, s, "int8"))
     assert torch.equal(
@@ -168,6 +199,87 @@ def test_emulated_kernel_equals_plain(ns, L0, nk, N, repeat):
     emu = _emulate_kernel(_np(bf), idx, d_in, torch.bfloat16)
     torch.testing.assert_close(emu.float(), tgemm.ovsf_decompress_plain(
         bf, ti, d_in).float(), **TOL["bfloat16"])
+    if not repeat:      # one rounding of the plain version's fp32 sums
+        assert torch.equal(emu, tgemm.ovsf_decompress_plain(
+            bf.float(), ti, d_in).bfloat16())
+
+
+# (E, d_in, N, L0): TinyLlama-1.1B's five W (q, o, gate, up, down), OLMoE-
+# 1B-7B's three expert banks (gate, up, down; 64 experts), the ragged cases
+# chip_smoke.py checks on the card (SEG_RAGGED)
+_SPLITS = [(1, 2048, 2048, 16), (1, 2048, 2048, 16), (1, 2048, 5632, 16),
+           (1, 2048, 5632, 16), (1, 5632, 2048, 16), (64, 2048, 1024, 16),
+           (64, 2048, 1024, 16), (64, 1024, 2048, 16), (1, 1000, 77, 8),
+           (1, 2048, 100, 32), (1, 512, 40, 16), (1, 256, 34, 32)]
+
+
+@pytest.mark.parametrize("n_sms", [132, 7])
+@pytest.mark.parametrize("E,d_in,N,L0", _SPLITS)
+def test_seg_plan_covers_every_element_once(E, d_in, N, L0, n_sms):
+    """``seg_plan``'s persistent grid and the kernel's index arithmetic
+    (``_warp_items``, lanes of C adjacent columns, none past N) give every
+    (batch entry, segment, column) to exactly one lane once; the grid is
+    SEG_BLOCKS_PER_SM blocks an SM, or fewer where the items fill fewer;
+    every warp has work when the items outnumber the warps."""
+    ns = d_in // L0
+    plan = tgemm.seg_plan(E, ns, N, L0, n_sms)
+    C = plan["cols"]
+    assert C == (2 if L0 == 32 else 4)
+    assert plan["tiles"] * 32 * C >= N > (plan["tiles"] - 1) * 32 * C
+    assert plan["blocks"] == min(-(-plan["items"] // tgemm.SEG_WARPS),
+                                 tgemm.SEG_BLOCKS_PER_SM * n_sms)
+    warps = plan["blocks"] * tgemm.SEG_WARPS
+    seen = np.zeros(E * ns * plan["tiles"], np.int64)
+    idle = 0
+    for warp in range(warps):
+        got = np.array([(e * ns + s) * plan["tiles"] + t for e, s, t in
+                        _warp_items(plan, ns, warp)], np.int64)
+        idle += not len(got)
+        np.add.at(seen, got, 1)
+    assert (seen == 1).all()
+    assert idle == max(0, warps - plan["items"])
+    # a tile's 32 lanes x C columns, those below N, cover the row once
+    n0 = (np.arange(plan["tiles"])[:, None, None] * 32 * C
+          + np.arange(32)[None, :, None] * C + np.arange(C)[None, None, :])
+    cols = n0[n0 < N]
+    assert np.array_equal(np.sort(cols), np.arange(N))
+
+
+def test_wrapper_refuses_batches_off_its_kernel():
+    """A batch of alphas (an expert bank's (E, J, d_out)) is taken over
+    segmented ids with float alphas only, on every device: monolithic ids
+    or quantised storage are refused before any launch."""
+    al, idx = _case(4, 16, 8, 12, seed=3)
+    bank = torch.from_numpy(np.stack([al, al]))
+    with pytest.raises(ValueError, match="a batch of alphas"):
+        tgemm.ovsf_decompress(bank, torch.arange(32, dtype=torch.int32), 64)
+    q, s = tovsf.quantize_alphas(torch.from_numpy(al), 4, "int8")
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="a batch of alphas"):
+            tgemm.ovsf_decompress(torch.stack([q, q]).to(dev),
+                                  torch.from_numpy(idx).to(dev), 64,
+                                  alpha_scale=s.to(dev), alpha_dtype="int8")
+    got = tgemm.ovsf_decompress(bank, torch.from_numpy(idx), 64)
+    assert tuple(got.shape) == (2, 64, 12) and got.is_contiguous()
+
+
+@pytest.mark.parametrize("fn,argtypes", [
+    ("ovsf_decompress_launch", "_DEC_ARGTYPES"),
+    ("ovsf_decompress_seg_launch", "_SEG_ARGTYPES")])
+def test_launch_argtypes_match_the_source(fn, argtypes):
+    """The ctypes argument types the wrappers declare follow the C
+    launchers' parameters in ``csrc/ovsf_decompress.cu`` one for one (a
+    pointer as ``c_void_p``, an int as ``c_int``): ctypes would pass a
+    short list on and cut a pointer given as an int."""
+    import ctypes
+    import pathlib
+    import re
+    src = (pathlib.Path(tgemm.__file__).parent / "csrc"
+           / "ovsf_decompress.cu").read_text()
+    params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src).group(1)
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+             for p in params.split(",")]
+    assert kinds == getattr(tgemm, argtypes)
 
 
 def test_wrapper_refuses_segmented_shapes_off_its_kernel():

@@ -144,13 +144,19 @@ class _HostReads(TorchDispatchMode):
 
 def _stub_kernels(monkeypatch):
     """The wrappers as the body calls them, without their plain versions
-    (which run on the CPU only): outputs of the right shape and type."""
+    (which run on the CPU only): outputs of the right shape and type.
+    Returns the alpha shapes ``ovsf_decompress`` was called with."""
     def gemm(x, alphas, idx, *, alpha_scale=None, alpha_dtype=""):
         n = alphas.shape[1] * (2 if alpha_dtype == "int4" else 1)
         return x[:, :1].expand(x.shape[0], n) * 0.01
 
+    decompressed = []
+
     def decompress(alphas, idx, d_in, *, alpha_scale=None, alpha_dtype=""):
-        return alphas.new_zeros((alphas.shape[1], d_in)).t()
+        # (J, d_out) alphas, or an expert bank's (E, J, d_out) batch
+        decompressed.append(tuple(alphas.shape))
+        return alphas.new_zeros(alphas.shape[:-2] + (alphas.shape[-1],
+                                                      d_in)).transpose(-1, -2)
 
     monkeypatch.setattr(ops, "ovsf_gemm", gemm)
     monkeypatch.setattr(ops, "ovsf_decompress", decompress)
@@ -159,6 +165,7 @@ def _stub_kernels(monkeypatch):
                         lambda q, k, v, pos: q * 1.0)
     monkeypatch.setattr(tattn, "paged_flash_decode",
                         lambda q, kp, vp, table, sid, pos: q * 1.0)
+    return decompressed
 
 
 def _recording(sg, mode):
@@ -202,9 +209,10 @@ _MOE_FUSED = ExecutionPlan((("attn", LayerPlan("fused")),
 def test_moe_packed_step_body_reads_nothing_back(style, monkeypatch):
     """The MoE packed step body (router, stable top-k sort, the capacity
     cumsum, one-hot dispatch and combine, the expert banks regenerated
-    whole) on the ``olmoe_1b_7b`` smoke config, as the engine captures it
-    on the card."""
-    _stub_kernels(monkeypatch)
+    whole, each through one batched ``ovsf_decompress``) on the
+    ``olmoe_1b_7b`` smoke config, as the engine captures it on the
+    card."""
+    decompressed = _stub_kernels(monkeypatch)
     cfg = t_smoke("olmoe_1b_7b").replace(exec_plan=_MOE_FUSED)
     params = tR.model_init(cfg, 0, "cpu")
     eng = TEngine(params, cfg, batch_slots=4, buffer_len=64, chunk_size=8,
@@ -214,7 +222,11 @@ def test_moe_packed_step_body_reads_nothing_back(style, monkeypatch):
     _drain(eng, _requests(TRequest, n=4, max_new=3, sampled=True))
     assert len(eng.outputs()) == 4
     assert not mode.bad, sorted(set(mode.bad))
-    assert {"cumsum", "sort", "scatter_add_"} <= set(mode.ops)
+    assert {"cumsum", "sort"} <= set(mode.ops)
+    E = cfg.n_experts
+    banks = [s for s in decompressed if len(s) == 3]
+    assert banks and {s[0] for s in banks} == {E}
+    assert len(banks) % (3 * cfg.n_layers) == 0
     assert {k for k, _n in eng.core.step_shapes} == {"packed"}
 
 

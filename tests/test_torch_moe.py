@@ -16,8 +16,10 @@ configs with the same numpy inputs:
   the expert weight types collapsed into the reference's one entry ``e``;
 * ``cached_decompress`` / ``decompress_bank`` of an (E, J, d_out) bank
   against the reference's, the cache counters, the refusal of a quantised
-  bank, and the bank route running off the CPU where a single segmented
-  matrix still refuses;
+  bank; a segmented bank reaching the ``ovsf_decompress`` wrapper as one
+  batch off the CPU (refused on ``meta``, as a single segmented matrix
+  is), and a smoke config's banks through the batched wrapper against the
+  reference's ``jax.vmap`` of ``decompress``, gradients too;
 * the native init's tree against ``jax.eval_shape`` of the reference's, and
   the bridge's round trip of a MoE tree;
 * served, on the smoke configs (8 experts, top-2; kimi with its shared
@@ -463,16 +465,60 @@ def test_cached_decompress_refuses_a_quantised_bank(alpha_dtype):
                                alpha_dtype=alpha_dtype)
 
 
-def test_bank_route_runs_off_the_cpu():
-    """A segmented bank decompresses with plain tensor code on any device
-    (``meta`` standing in for the card), as the reference's is plain jnp;
-    a single segmented matrix goes to the ``ovsf_decompress`` wrapper,
-    whose device check refuses meta."""
+def test_bank_route_runs_off_the_cpu(monkeypatch):
+    """Off the CPU a segmented bank goes to the ``ovsf_decompress`` wrapper
+    as one batch, the reference's vmap of ``decompress`` (on the card: one
+    launch of the segmented kernel), and the wrapper's device check
+    refuses ``meta`` (standing in for a device without a kernel) as it
+    refuses a single segmented matrix there; nothing computes the bank as
+    plain tensor code first."""
     al, idx, d_in = _bank(4)
     mal, midx = (torch.from_numpy(a).to("meta") for a in (al, idx))
-    assert tops.decompress_bank(mal, midx, d_in).shape == (5, 64, 24)
+    seen = []
+    real = tops.ovsf_decompress
+
+    def spy(alphas, i, d, **kw):
+        seen.append((tuple(alphas.shape), alphas.device.type))
+        return real(alphas, i, d, **kw)
+    monkeypatch.setattr(tops, "ovsf_decompress", spy)
+    with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
+        tops.decompress_bank(mal, midx, d_in)
+    assert seen == [((5, 32, 24), "meta")]
     with pytest.raises(ValueError, match="ovsf_decompress: unsupported device"):
         tops.decompress(mal[0], midx, d_in)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bank_through_the_batched_wrapper_matches_vmap(arch):
+    """A smoke config's expert bank (its three shapes, segmented codes)
+    through ``decompress_bank`` (one batched ``ovsf_decompress``; its plain
+    version here) against the reference's ``jax.vmap`` of ``decompress``,
+    W within 1e-5, and the alphas' gradient of <W, G> (``OvsfDecompressFn``
+    over the batch) against ``jax.grad`` through the vmap, within 1e-5."""
+    cfg = t_smoke(arch)
+    d, f, E, seg = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.ovsf.seg_len
+    assert seg and d % seg == 0 and f % seg == 0
+    rng = np.random.default_rng(5)
+    for d_in, d_out in ((d, f), (d, f), (f, d)):
+        ns = d_in // seg
+        nk = seg // 2
+        idx = np.stack([np.sort(rng.choice(seg, nk, replace=False))
+                        for _ in range(ns)]).astype(np.int32)
+        al = rng.standard_normal((E, ns * nk, d_out)).astype(np.float32)
+        g = rng.standard_normal((E, d_in, d_out)).astype(np.float32)
+        vm = jax.vmap(lambda a: jops.decompress(a, jnp.asarray(idx), d_in,
+                                                use_pallas=False))
+        want = np.asarray(vm(jnp.asarray(al)))
+        want_g = np.asarray(jax.grad(lambda a: jnp.sum(vm(a) * g))(
+            jnp.asarray(al)))
+        ta = torch.from_numpy(al).requires_grad_()
+        W = tops.decompress_bank(ta, torch.from_numpy(idx), d_in)
+        assert tuple(W.shape) == (E, d_in, d_out)
+        np.testing.assert_allclose(W.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+        (W * torch.from_numpy(g)).sum().backward()
+        np.testing.assert_allclose(ta.grad.numpy(), want_g, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_expert_banks_store_float_alphas_whatever_alpha_dtype():
